@@ -1,0 +1,154 @@
+"""Core math utilities on torch tensors.
+
+Port of ``mitsuba_nlvrl_tpu/core/math.py``. Vectors carry a trailing
+dimension of 3. Every expression keeps the reference's operation order so
+that float32 rounding matches it step by step.
+
+The reference's ``safe_sqrt``, ``safe_rsqrt``, ``safe_acos`` and
+``safe_asin`` are ``jax.custom_jvp`` primitives whose derivatives are
+clamped to zero at the singular points. Here they are forward functions:
+the renderer runs under ``torch.no_grad()`` until the autodiff slice
+turns them into ``torch.autograd.Function``s with the same clamping.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+# --- constants (match the reference package) ---------------------------------
+Pi = 3.14159265358979323846
+InvPi = 1.0 / Pi
+InvTwoPi = 1.0 / (2.0 * Pi)
+InvFourPi = 1.0 / (4.0 * Pi)
+SqrtPi = 1.7724538509055160273
+Epsilon = 1.1920929e-7 / 2  # float32 machine epsilon / 2
+RayEpsilon = Epsilon * 1500.0
+ShadowEpsilon = RayEpsilon * 10.0
+Infinity = math.inf
+OneMinusEpsilon = float(torch.tensor(1.0 - 1.1920929e-7, dtype=torch.float32))
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def safe_sqrt(x):
+    """sqrt clamped to zero for negative inputs."""
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def safe_rsqrt(x):
+    return torch.rsqrt(torch.clamp(x, min=_F32_TINY))
+
+
+def safe_acos(x):
+    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_asin(x):
+    return torch.arcsin(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_div(a, b, eps=1e-20):
+    """a/b with 0 where |b| is (near-)zero."""
+    denom_ok = torch.abs(b) > eps
+    return torch.where(denom_ok, a / torch.where(denom_ok, b, 1.0), 0.0)
+
+
+def rcp(x):
+    return 1.0 / x
+
+
+def safe_rcp(x, eps=1e-20):
+    return safe_div(torch.ones_like(x), x, eps)
+
+
+def sqr(x):
+    return x * x
+
+
+def lerp(a, b, t):
+    return a * (1.0 - t) + b * t
+
+
+def sign(x):
+    return torch.where(x >= 0.0, 1.0, -1.0)
+
+
+def mulsign(x, s):
+    return torch.where(s >= 0.0, x, -x)
+
+
+# --- vector ops (trailing axis = xyz) ---------------------------------------
+# Sums over the last axis are written out left to right, ((x0 + x1) + x2),
+# the order in which the reference's reduction adds them.
+
+def _sum_last(v, keepdims: bool):
+    s = v[..., 0]
+    for i in range(1, v.shape[-1]):
+        s = s + v[..., i]
+    return s[..., None] if keepdims else s
+
+
+def dot(a, b, keepdims: bool = False):
+    return _sum_last(a * b, keepdims)
+
+
+def abs_dot(a, b, keepdims: bool = False):
+    return torch.abs(dot(a, b, keepdims))
+
+
+def cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def norm(v, keepdims: bool = False):
+    return safe_sqrt(dot(v, v, keepdims))
+
+
+def squared_norm(v, keepdims: bool = False):
+    return dot(v, v, keepdims)
+
+
+def normalize(v):
+    return v * safe_rsqrt(squared_norm(v, keepdims=True))
+
+
+def normalize_with_norm(v):
+    n = norm(v, keepdims=True)
+    return v * safe_rcp(n), n[..., 0]
+
+
+def reflect(w, n):
+    """Reflect direction ``w`` (pointing away from surface) about normal."""
+    return 2.0 * dot(w, n, keepdims=True) * n - w
+
+
+def coordinate_system(n):
+    """Orthonormal basis (s, t) around unit normal n (Duff et al.)."""
+    s = torch.where(n[..., 2:3] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    t0 = torch.cat(
+        [mulsign(sqr(n[..., 0:1]) * a, s) + 1.0, mulsign(b, s),
+         mulsign(-n[..., 0:1], s)], dim=-1)
+    t1 = torch.cat([b, sqr(n[..., 1:2]) * a + s, -n[..., 1:2]], dim=-1)
+    return t0, t1
+
+
+def spherical_direction(theta, phi):
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([st * cp, st * sp, ct], dim=-1)
+
+
+def linear_to_srgb(x):
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x):
+    return torch.where(x <= 0.04045, x / 12.92,
+                       torch.pow((x + 0.055) / 1.055, 2.4))

@@ -1,0 +1,234 @@
+"""Emitter evaluation and sampling with masked type dispatch.
+
+Port of ``mitsuba_nlvrl_tpu/emitter/__init__.py`` for ``area``, ``point``
+and ``constant``: uniform emitter pick plus per-type direction sampling
+toward a reference point, and emission for rays that hit emissive geometry
+or escape to the environment. The reference's one-hot-matmul gathers
+(``ops/gather.py``, a TPU workaround) are plain indexing here.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from ..core import math as m
+from ..core import warp
+from ..core.records import DirectionSample
+from ..scene.types import (EMITTER_TYPES, EMITTER_NPARAM, SLICE_EMITTERS,
+                           not_in_slice)
+
+E_AREA = EMITTER_TYPES['area']
+E_POINT = EMITTER_TYPES['point']
+E_CONSTANT = EMITTER_TYPES['constant']
+
+
+def pack_params(props: dict) -> Tuple[int, list]:
+    """Pack an emitter to (type_code, params[EMITTER_NPARAM])."""
+    t = props['type']
+    if t not in SLICE_EMITTERS:
+        raise not_in_slice(f"emitter type '{t}'", "item 7 (lights)")
+    p = [0.0] * EMITTER_NPARAM
+
+    def rgb(key, default):
+        v = props.get(key, default)
+        if isinstance(v, dict):
+            raise not_in_slice("spectrum emitters", "item 10 (variants)")
+        if isinstance(v, (int, float)):
+            return [float(v)] * 3
+        return [float(x) for x in v]
+
+    if t == 'area':
+        p[0:3] = rgb('radiance', 1.0)
+        return E_AREA, p
+    if t == 'point':
+        p[0:3] = [float(x) for x in props.get('position', (0, 0, 0))]
+        p[3:6] = rgb('intensity', 1.0)
+        return E_POINT, p
+    p[0:3] = rgb('radiance', 1.0)
+    return E_CONSTANT, p
+
+
+def _segment_searchsorted(cdf, offset, count, u):
+    """Per-lane binary search of u in cdf[offset:offset+count] with a
+    fixed number of steps."""
+    n_total = cdf.shape[0]
+    lo = offset
+    hi = offset + count  # exclusive
+    steps = max(2, n_total.bit_length() + 1)
+    for _ in range(steps):
+        cont = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode='floor')
+        go_right = cdf[torch.clamp(mid, 0, n_total - 1).long()] < u
+        lo = torch.where(cont & go_right, mid + 1, lo)
+        hi = torch.where(cont & ~go_right, mid, hi)
+    return torch.minimum(torch.maximum(lo, offset), offset + count - 1)
+
+
+def eval_hit(scene, meta, si, active):
+    """Radiance emitted toward -ray.d at a surface hit (area emitters,
+    front side only)."""
+    if scene.emitters.type.shape[0] == 0:
+        return torch.zeros(si.p.shape[:-1] + (3,), device=si.p.device)
+    has = active & (si.emitter_idx >= 0)
+    e = torch.clamp(si.emitter_idx, min=0).long()
+    rad = scene.emitters.params[e][:, 0:3]
+    front = si.wi[:, 2] > 0  # local frame: emitter normal side
+    return torch.where((has & front)[:, None], rad, 0.0)
+
+
+def eval_env(scene, meta, ray_d, active):
+    """Environment radiance for escaped rays (constant emitters)."""
+    out = torch.zeros(ray_d.shape[:-1] + (3,), device=ray_d.device)
+    if E_CONSTANT in meta.emitter_types:
+        is_const = scene.emitters.type == E_CONSTANT
+        rad = torch.where(is_const[:, None], scene.emitters.params[:, 0:3],
+                          0.0)
+        # rows summed left to right, as the reference's reduction adds them
+        rad = functools.reduce(torch.add, rad.unbind(0))
+        out = out + torch.where(active[:, None], rad[None, :], 0.0)
+    return out
+
+
+def sample_direction(scene, meta, ref_p, u_sel, u2, active
+                     ) -> Tuple[DirectionSample, torch.Tensor]:
+    """Uniformly pick an emitter, sample a direction toward it.
+
+    Returns (DirectionSample with pdf including the 1/E selection factor,
+    weight = radiance / pdf). Occlusion is the integrator's shadow ray."""
+    E = scene.emitters.type.shape[0]
+    N = ref_p.shape[0]
+    dev = ref_p.device
+    if E == 0:
+        zeros3 = torch.zeros((N, 3), device=dev)
+        ds = DirectionSample(
+            p=zeros3, n=zeros3, uv=torch.zeros((N, 2), device=dev),
+            d=zeros3, dist=torch.zeros((N,), device=dev),
+            pdf=torch.zeros((N,), device=dev),
+            delta=torch.zeros((N,), dtype=torch.bool, device=dev),
+            emitter_idx=torch.full((N,), -1, dtype=torch.int32, device=dev))
+        return ds, zeros3
+
+    e_idx = torch.clamp((u_sel * E).to(torch.int32), max=E - 1)
+    el = e_idx.long()
+    etype = scene.emitters.type[el]
+    P = scene.emitters.params[el]
+
+    p = torch.zeros((N, 3), device=dev)
+    n = torch.zeros((N, 3), device=dev)
+    pdf = torch.zeros((N,), device=dev)
+    delta = torch.zeros((N,), dtype=torch.bool, device=dev)
+    spec = torch.zeros((N, 3), device=dev)
+
+    if E_AREA in meta.emitter_types:
+        em = scene.emitters
+        off = em.tri_offset[el]
+        cnt = torch.clamp(em.tri_count[el], min=1)
+        n_cdf = em.em_tri_cdf.shape[0]
+        if E == 1:
+            pos = torch.clamp(
+                torch.searchsorted(em.em_tri_cdf, u2[:, 0].contiguous(),
+                                   right=True),
+                0, n_cdf - 1).to(torch.int32)
+        else:
+            pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u2[:, 0])
+        pl = pos.long()
+        tri = em.em_tri_idx[pl].long()
+        # remap u within the cdf cell for the barycentric sample
+        cdf_hi = em.em_tri_cdf[pl]
+        cdf_lo = torch.where(pos > off,
+                             em.em_tri_cdf[torch.clamp(pl - 1, min=0)], 0.0)
+        u0 = torch.clamp(m.safe_div(u2[:, 0] - cdf_lo, cdf_hi - cdf_lo),
+                         0.0, m.OneMinusEpsilon)
+        bary = warp.square_to_uniform_triangle(
+            torch.stack([u0, u2[:, 1]], dim=-1))
+        v0 = scene.geo.v0[tri]
+        e1 = scene.geo.e1[tri]
+        e2 = scene.geo.e2[tri]
+        p_a = v0 + bary[:, 0:1] * e1 + bary[:, 1:2] * e2
+        n_a = m.normalize(m.cross(e1, e2))
+        d_a = p_a - ref_p
+        dist2 = m.squared_norm(d_a)
+        dist_a = m.safe_sqrt(dist2)
+        d_a = d_a * m.safe_rcp(dist_a)[:, None]
+        cos_l = -m.dot(d_a, n_a)
+        area = torch.clamp(em.em_area[el], min=1e-20)
+        pdf_a = m.safe_div(dist2, cos_l * area)
+        ok = cos_l > 0
+        pdf_a = torch.where(ok, pdf_a, 0.0)
+        rad_a = torch.where(ok[:, None], P[:, 0:3], 0.0)
+        sel = etype == E_AREA
+        p = torch.where(sel[:, None], p_a, p)
+        n = torch.where(sel[:, None], n_a, n)
+        pdf = torch.where(sel, pdf_a, pdf)
+        spec = torch.where(sel[:, None], rad_a, spec)
+
+    if E_POINT in meta.emitter_types:
+        pos_p = P[:, 0:3]
+        d_p = pos_p - ref_p
+        dist2 = m.squared_norm(d_p)
+        inten = P[:, 3:6] * m.safe_rcp(dist2)[:, None]
+        sel = etype == E_POINT
+        p = torch.where(sel[:, None], pos_p, p)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        spec = torch.where(sel[:, None], inten, spec)
+
+    if E_CONSTANT in meta.emitter_types:
+        d_c = warp.square_to_uniform_sphere(u2)
+        r_world = 2.0 * scene.bsphere_r
+        p_c = ref_p + d_c * r_world
+        sel = etype == E_CONSTANT
+        p = torch.where(sel[:, None], p_c, p)
+        n = torch.where(sel[:, None], -d_c, n)
+        pdf = torch.where(sel, warp.square_to_uniform_sphere_pdf(d_c), pdf)
+        spec = torch.where(sel[:, None], P[:, 0:3], spec)
+
+    d = p - ref_p
+    dist = m.norm(d)
+    d = d * m.safe_rcp(dist)[:, None]
+    sel_pdf = pdf / E
+    weight = torch.where((sel_pdf > 0)[:, None],
+                         spec * m.safe_rcp(sel_pdf)[:, None], 0.0)
+    weight = torch.where(active[:, None], weight, 0.0)
+    ds = DirectionSample(p=p, n=n, uv=torch.zeros((N, 2), device=dev),
+                         d=d, dist=dist,
+                         pdf=torch.where(active, sel_pdf, 0.0), delta=delta,
+                         emitter_idx=torch.where(active, e_idx, -1))
+    return ds, weight
+
+
+def pdf_direction(scene, meta, ref_p, si, active):
+    """Solid-angle pdf of having sampled the hit point ``si`` on its
+    emitter via sample_direction (for MIS), with the 1/E factor."""
+    if scene.emitters.type.shape[0] == 0:
+        return torch.zeros(ref_p.shape[:-1], device=ref_p.device)
+    E = max(scene.emitters.type.shape[0], 1)
+    has = active & (si.emitter_idx >= 0)
+    e = torch.clamp(si.emitter_idx, min=0).long()
+    etype = scene.emitters.type[e]
+    area_e = scene.emitters.em_area[e]
+    pdf = torch.zeros(ref_p.shape[:-1], device=ref_p.device)
+
+    if E_AREA in meta.emitter_types:
+        d = si.p - ref_p
+        dist2 = m.squared_norm(d)
+        dist = m.safe_sqrt(dist2)
+        cos_l = torch.abs(m.dot(d * m.safe_rcp(dist)[..., None], si.n))
+        area = torch.clamp(area_e, min=1e-20)
+        pdf_a = m.safe_div(dist2, cos_l * area)
+        pdf = torch.where(etype == E_AREA, pdf_a, pdf)
+
+    if E_CONSTANT in meta.emitter_types:
+        pdf = torch.where(etype == E_CONSTANT, m.InvFourPi, pdf)
+
+    return torch.where(has, pdf / E, 0.0)
+
+
+def pdf_env_direction(scene, meta, active, ray_d=None):
+    """Solid-angle pdf for escaped rays hitting the constant emitter."""
+    E = max(scene.emitters.type.shape[0], 1)
+    if E_CONSTANT in meta.emitter_types:
+        return torch.where(active, m.InvFourPi / E, 0.0)
+    return torch.zeros(active.shape, device=active.device)

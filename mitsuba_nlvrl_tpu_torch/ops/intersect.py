@@ -1,0 +1,168 @@
+"""Wavefront ray-scene intersection.
+
+Port of ``mitsuba_nlvrl_tpu/ops/intersect.py``. Triangles go through the
+dense sweep of ``ops/cuda/intersect_cuda.py`` (the hand-written kernel on
+the card, its plain version on the CPU); analytic spheres are a small
+dense test written in torch.
+
+Contract:
+  intersect_preliminary -> (t, prim_idx, prim_kind, u, v) nearest hit
+  ray_test              -> bool any-hit (shadow rays)
+  compute_si            -> full SurfaceInteraction from a preliminary hit
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import math as m
+from ..core.frame import Frame
+from ..core.ray import Ray
+from ..core.records import SurfaceInteraction
+from .cuda.intersect_cuda import intersect_tris
+
+KIND_TRI = 0
+KIND_SPHERE = 1
+
+
+class PreliminaryHit(NamedTuple):
+    valid: torch.Tensor     # (N,) bool
+    t: torch.Tensor         # (N,)
+    prim_idx: torch.Tensor  # (N,) int32 index within its kind's array
+    kind: torch.Tensor      # (N,) int32 KIND_*
+    u: torch.Tensor         # (N,) barycentric / param coords
+    v: torch.Tensor
+
+
+def _sphere_hits(o, d, center, radius):
+    """o,d (N,1,3); center (1,S,3); radius (1,S). Returns (t_near, t_far,
+    hit)."""
+    oc = o - center
+    b = m.dot(oc, d)
+    c = m.dot(oc, oc) - radius * radius
+    disc = b * b - c
+    hit = disc >= 0
+    sq = m.safe_sqrt(disc)
+    return -b - sq, -b + sq, hit
+
+
+def _tris(scene, ray: Ray, maxt, any_hit: bool):
+    g = scene.geo
+    return intersect_tris(g.v0, g.e1, g.e2, ray.o.contiguous(),
+                          ray.d.contiguous(), ray.mint.contiguous(),
+                          maxt.contiguous(), any_hit=any_hit)
+
+
+def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:
+    """Nearest hit over all primitives. ``maxt`` overrides ray.maxt."""
+    geo = scene.geo
+    N = ray.o.shape[0]
+    dev = ray.o.device
+    maxt = ray.maxt if maxt is None else maxt
+    best_t = torch.full((N,), m.Infinity, device=dev)
+    best_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((N,), device=dev)
+    best_v = torch.zeros((N,), device=dev)
+    kind = torch.zeros((N,), dtype=torch.int32, device=dev)
+
+    if geo.v0.shape[0] > 0:
+        best_t, best_i, best_u, best_v = _tris(scene, ray, maxt, False)
+
+    if geo.sph_center.shape[0] > 0:
+        tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],
+                                   geo.sph_center[None], geo.sph_radius[None])
+        tn_ok = hit & (tn >= ray.mint[:, None]) & (tn <= maxt[:, None])
+        tf_ok = hit & (tf >= ray.mint[:, None]) & (tf <= maxt[:, None])
+        ts = torch.where(tn_ok, tn, torch.where(tf_ok, tf, m.Infinity))
+        tj, j = ts.min(dim=1)
+        better = tj < best_t
+        best_t = torch.where(better, tj, best_t)
+        best_i = torch.where(better, j.to(torch.int32), best_i)
+        kind = torch.where(better, KIND_SPHERE, kind)
+
+    valid = torch.isfinite(best_t)
+    return PreliminaryHit(valid=valid, t=best_t, prim_idx=best_i, kind=kind,
+                          u=best_u, v=best_v)
+
+
+def ray_test(scene, ray: Ray, maxt=None) -> torch.Tensor:
+    """Shadow-ray any-hit."""
+    geo = scene.geo
+    maxt = ray.maxt if maxt is None else maxt
+    occluded = torch.zeros((ray.o.shape[0],), dtype=torch.bool,
+                           device=ray.o.device)
+    if geo.v0.shape[0] > 0:
+        t, _, _, _ = _tris(scene, ray, maxt, True)
+        occluded = occluded | torch.isfinite(t)
+    if geo.sph_center.shape[0] > 0:
+        tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],
+                                   geo.sph_center[None], geo.sph_radius[None])
+        ok = hit & (((tn >= ray.mint[:, None]) & (tn <= maxt[:, None]))
+                    | ((tf >= ray.mint[:, None]) & (tf <= maxt[:, None])))
+        occluded = occluded | ok.any(dim=1)
+    return occluded
+
+
+def compute_si(scene, ray: Ray, pi: PreliminaryHit) -> SurfaceInteraction:
+    """Fill a full SurfaceInteraction from a preliminary hit."""
+    geo = scene.geo
+    N = ray.o.shape[0]
+    dev = ray.o.device
+    idx = torch.clamp(pi.prim_idx, min=0).long()
+    is_tri = (pi.kind == KIND_TRI) & pi.valid
+
+    if geo.v0.shape[0] > 0:
+        te1, te2 = geo.e1[idx], geo.e2[idx]
+        n0, n1, n2 = geo.n0[idx], geo.n1[idx], geo.n2[idx]
+        uv0, uv1, uv2 = geo.uv0[idx], geo.uv1[idx], geo.uv2[idx]
+        shape_tri = geo.shape_idx[idx]
+        gn_tri = m.normalize(m.cross(te1, te2))
+        w = 1.0 - pi.u - pi.v
+        ns_tri = m.normalize(w[:, None] * n0 + pi.u[:, None] * n1
+                             + pi.v[:, None] * n2)
+        uv_tri = (w[:, None] * uv0 + pi.u[:, None] * uv1
+                  + pi.v[:, None] * uv2)
+    else:
+        gn_tri = ns_tri = torch.zeros((N, 3), device=dev)
+        uv_tri = torch.zeros((N, 2), device=dev)
+        shape_tri = torch.zeros((N,), dtype=torch.int32, device=dev)
+
+    # clamp miss-t to 0 before evaluating positions (inf * 0 is NaN)
+    t_safe = torch.where(pi.valid, pi.t, 0.0)
+    p = ray.at(t_safe)
+
+    if geo.sph_center.shape[0] > 0:
+        sidx = torch.clamp(idx, 0, geo.sph_center.shape[0] - 1)
+        gn_sph = m.normalize(p - geo.sph_center[sidx])
+        shape_sph = geo.sph_shape_idx[sidx]
+        theta = m.safe_acos(gn_sph[:, 2])
+        phi = torch.atan2(gn_sph[:, 1], gn_sph[:, 0])
+        uv_sph = torch.stack([phi * m.InvTwoPi + 0.5, theta * m.InvPi], -1)
+        gn = torch.where(is_tri[:, None], gn_tri, gn_sph)
+        ns = torch.where(is_tri[:, None], ns_tri, gn_sph)
+        uv = torch.where(is_tri[:, None], uv_tri, uv_sph)
+        shape_idx = torch.where(is_tri, shape_tri, shape_sph)
+    else:
+        gn, ns, uv, shape_idx = gn_tri, ns_tri, uv_tri, shape_tri
+
+    sh_frame = Frame.from_normal(ns)
+    wi_local = sh_frame.to_local(-ray.d)
+
+    shape_idx = torch.where(pi.valid, shape_idx, -1)
+    safe_shape = torch.clamp(shape_idx, min=0).long()
+    bsdf_i = scene.shapes.bsdf_idx[safe_shape]
+    emitter_i = scene.shapes.emitter_idx[safe_shape]
+    return SurfaceInteraction(
+        valid=pi.valid,
+        t=torch.where(pi.valid, pi.t, m.Infinity),
+        p=p, n=gn, sh_frame=sh_frame, uv=uv, wi=wi_local,
+        prim_index=pi.prim_idx, shape_idx=shape_idx,
+        bsdf_idx=torch.where(pi.valid, bsdf_i, 0),
+        emitter_idx=torch.where(pi.valid, emitter_i, -1))
+
+
+def ray_intersect(scene, ray: Ray, maxt=None) -> SurfaceInteraction:
+    """Closest-hit intersection (the reference detaches it from autodiff;
+    this slice renders without gradients)."""
+    return compute_si(scene, ray, intersect_preliminary(scene, ray, maxt))

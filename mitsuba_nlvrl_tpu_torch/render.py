@@ -1,0 +1,69 @@
+"""Top-level render orchestration.
+
+Port of ``mitsuba_nlvrl_tpu/render.py`` without bands and without the
+regeneration scheduler: one *pass* renders a full-film wavefront at 1 spp
+and splats it, and passes loop on the host up to the target spp. The pass
+keys are those of the reference (``fold_in(PRNGKey(seed), p)`` for pass
+p), so both packages trace the same paths for the same seed. The render
+runs where the scene's tensors lie, under ``torch.no_grad()``; gradients
+come with the autodiff slice.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from .core import rng
+from .core.rng import Sampler
+from . import film as film_mod
+from . import sensor as sensor_mod
+from .integrators import get_integrator
+from .integrators.common import film_sample_positions
+
+
+def render_pass(scene, meta, key, pass_idx: int = 0):
+    """One 1-spp pass over the full film; returns ((H, W, 4) premultiplied
+    [rgb * weight, weight] accumulation, measured ray count)."""
+    integ = get_integrator(meta.integrator)
+    dev = scene.device
+    with torch.no_grad():
+        pos_key, samp_key = rng.split(key)
+        pos, pos01 = film_sample_positions(meta, pos_key, pass_idx, dev)
+        N = pos.shape[0]
+        ray, sensor_weight = sensor_mod.sample_ray(
+            scene, meta, pos01, rng.uniform(rng.fold_in(pos_key, 1), (N, 2),
+                                            dev))
+        sampler = Sampler.make(samp_key, N, dev)
+        L, valid, sampler = integ(scene, meta, sampler, ray)
+        L = torch.where(torch.isfinite(L), L, 0.0) * sensor_weight
+        image = film_mod.new_image(meta.film, device=dev)
+        # the camera wavefront is pixel-ordered: dense shifted-add splat
+        jitter = pos - torch.floor(pos)
+        image = film_mod.splat_pixel_ordered(meta.film, jitter, L, image)
+    return image, sampler.rays
+
+
+def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
+           ray_stats: Optional[list] = None, info: Optional[dict] = None):
+    """Full render: ``spp`` passes -> (H, W, 3) image on the scene's device.
+
+    If ``ray_stats`` is a list, each pass appends its measured ray count
+    (a device scalar: read it after the render). ``info`` receives
+    ``passes_done`` and ``wall_s``."""
+    spp = spp or meta.spp
+    key = rng.PRNGKey(seed)
+    acc = None
+    t0 = time.time()
+    for p in range(spp):
+        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p)
+        acc = img if acc is None else acc + img
+        if ray_stats is not None:
+            ray_stats.append(nrays)
+    if scene.device.type == 'cuda':
+        torch.cuda.synchronize(scene.device)
+    if info is not None:
+        info['passes_done'] = spp
+        info['wall_s'] = time.time() - t0
+    return film_mod.develop(acc)

@@ -1,0 +1,1 @@
+"""Procedural scenes for tests and the chip smoke run."""

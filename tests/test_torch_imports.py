@@ -1,0 +1,97 @@
+"""The port stands alone: it never imports JAX or the JAX package, and its
+entry points never drop to the CPU on their own."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, 'mitsuba_nlvrl_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu')
+
+
+def _forbidden(module: str) -> bool:
+    """Whole dotted names only: 'mitsuba_nlvrl_tpu_torch' is allowed."""
+    return any(module == f or module.startswith(f + '.') for f in FORBIDDEN)
+
+
+def test_name_guard_matches_whole_module_names():
+    assert _forbidden('jax') and _forbidden('jax.numpy')
+    assert _forbidden('mitsuba_nlvrl_tpu')
+    assert _forbidden('mitsuba_nlvrl_tpu.ops.intersect')
+    assert not _forbidden('mitsuba_nlvrl_tpu_torch')
+    assert not _forbidden('mitsuba_nlvrl_tpu_torch.core.rng')
+    assert not _forbidden('jaxtyping_like')
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith('.py'):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, 'chip_smoke.py')
+
+
+def test_no_forbidden_import_in_sources():
+    bad = []
+    n = 0
+    for path in _sources():
+        n += 1
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or '']
+            elif isinstance(node, ast.Call) and \
+                    getattr(node.func, 'id', None) == '__import__':
+                names = [a.value for a in node.args[:1]
+                         if isinstance(a, ast.Constant)]
+            bad += [(path, m) for m in names if _forbidden(m)]
+    assert n > 20, n
+    assert not bad, bad
+
+
+def test_cpu_render_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box\n"
+        "s, m = P.build_scene(cornell_box(spp=1, res=8), device='cpu')\n"
+        "img = P.render(s, m, seed=0, spp=1)\n"
+        "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert 'mitsuba_nlvrl_tpu_torch.ops.cuda.intersect_cuda' in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_build_scene_without_cuda_raises(monkeypatch):
+    import mitsuba_nlvrl_tpu_torch as P
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.build_scene(cornell_box())
+    scene, _ = P.build_scene(cornell_box(), device='cpu')
+    assert scene.device.type == 'cpu'
+
+
+def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
+    """On a non-CPU tensor the wrapper launches the kernel or raises."""
+    from mitsuba_nlvrl_tpu_torch.ops.cuda import intersect_cuda as kern
+    calls = []
+    monkeypatch.setattr(kern, 'intersect_tris_plain',
+                        lambda *a, **k: calls.append(1))
+    meta = [torch.empty((4, 3), device='meta') for _ in range(5)] + \
+        [torch.empty((4,), device='meta') for _ in range(2)]
+    with pytest.raises(ValueError, match='no kernel'):
+        kern.intersect_tris(*meta)
+    assert not calls
