@@ -22,12 +22,16 @@ class Ray(NamedTuple):
     def make(o, d, mint=None, maxt=None) -> "Ray":
         batch = torch.broadcast_shapes(o.shape[:-1], d.shape[:-1])
         kw = dict(dtype=o.dtype, device=o.device)
-        if mint is None:
-            mint = torch.full(batch, m.RayEpsilon, **kw)
+        # a scalar bound becomes a full tensor, not a stride-0 view: the
+        # intersection kernel takes contiguous rays only
+        mint = m.RayEpsilon if mint is None else mint
+        maxt = m.Infinity if maxt is None else maxt
+        if isinstance(mint, (int, float)):
+            mint = torch.full(batch, mint, **kw)
         else:
             mint = torch.broadcast_to(torch.as_tensor(mint, **kw), batch)
-        if maxt is None:
-            maxt = torch.full(batch, m.Infinity, **kw)
+        if isinstance(maxt, (int, float)):
+            maxt = torch.full(batch, maxt, **kw)
         else:
             maxt = torch.broadcast_to(torch.as_tensor(maxt, **kw), batch)
         return Ray(o=torch.broadcast_to(o, batch + (3,)),

@@ -20,8 +20,10 @@ import math
 import os
 import shutil
 import subprocess
+import struct
 import sys
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -32,12 +34,39 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
+# argument types of the C entry points, in the order of their extern "C"
+# declarations; the fields of the LaunchArgs struct that mnt_intersect_tris
+# takes (one int64 each) and of the Geometry struct that
+# mnt_intersect_geometry fills (one int32 each). CPU tests hold all three
+# to csrc/intersect.cu.
+ARGTYPES = {
+    'mnt_intersect_geometry': [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    'mnt_intersect_tris': [ctypes.c_void_p],
+}
+LAUNCH_FIELDS = ('v0', 'e1', 'e2', 'n_tris', 'o', 'd', 'mint', 'maxt',
+                 'n_rays', 'any_hit', 't_out', 'i_out', 'u_out', 'v_out',
+                 'stream')
+_PACK = struct.Struct(f'<{len(LAUNCH_FIELDS)}q')
+GEOMETRY_FIELDS = ('grid', 'smem_bytes', 'ring', 'ray_tile')
+_GEOMETRY = struct.Struct(f'<{len(GEOMETRY_FIELDS)}i')
+
 # number of kernel launches since the last reset (read by chip_smoke.py to
 # show that a render went through the kernel)
 launches = 0
 
+_fn = None                # the bound mnt_intersect_tris
 _lib = None
 _lock = threading.Lock()
+_F32 = torch.float32
+_local = threading.local()   # a thread's LaunchArgs buffer and its address
+_MAX_ROWS = (2**31 - 1) // 3   # 3 * N and 3 * T must fit the kernel's ints
+
+
+class Geometry(NamedTuple):
+    grid: int             # blocks
+    smem_bytes: int       # dynamic shared memory a block
+    ring: bool            # triangles stream through a ring of tiles
+    ray_tile: int         # rays a block takes at a time
 
 
 def _nvcc() -> str:
@@ -78,18 +107,44 @@ def build(verbose: bool = False) -> str:
 
 
 def _load():
-    global _lib
+    global _lib, _fn
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.mnt_intersect_tris
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                           + [ctypes.c_void_p] * 4
-                           + [ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 5)
-            fn.restype = ctypes.c_int
-            _lib = lib
+            for name, argtypes in ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib, _fn = lib, lib.mnt_intersect_tris
     return _lib
+
+
+def geometry(n_rays: int, n_tris: int, any_hit: bool = False,
+             device=None) -> Geometry:
+    """The launch the kernel makes for ``n_rays`` rays against ``n_tris``
+    triangles on a CUDA device (the current one by default), as the
+    library works it out at each launch."""
+    lib = _load()
+    buf = ctypes.create_string_buffer(_GEOMETRY.size)
+    with torch.cuda.device(device):
+        err = lib.mnt_intersect_geometry(n_rays, n_tris, int(any_hit), buf)
+    if err != 0:
+        raise RuntimeError(f"intersect kernel geometry failed: CUDA error "
+                           f"{err}")
+    grid, smem, ring, tile = _GEOMETRY.unpack(buf.raw)
+    return Geometry(grid, smem, bool(ring), tile)
+
+
+def _public_raw_stream(dev_index: int) -> int:
+    return torch.cuda.current_stream(dev_index).cuda_stream
+
+
+# the current stream's handle and the current device, by PyTorch's own
+# C bindings where this build has them (a CPU build has neither)
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream',
+                      _public_raw_stream)
+_current_device = getattr(torch._C, '_cuda_getDevice',
+                          torch.cuda.current_device)
 
 
 def _check(name, x, shape, device):
@@ -104,39 +159,83 @@ def _check(name, x, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _explain(v0, e1, e2, o, d, mint, maxt):
+    """Raise the error that names the first argument the kernel refuses."""
+    T, N, dev = v0.shape[0], o.shape[0], o.device
+    for name, x, shape in (('v0', v0, (T, 3)), ('e1', e1, (T, 3)),
+                           ('e2', e2, (T, 3)), ('o', o, (N, 3)),
+                           ('d', d, (N, 3)), ('mint', mint, (N,)),
+                           ('maxt', maxt, (N,))):
+        _check(name, x, shape, dev)
+    raise ValueError(f"{N} rays, {T} triangles: the kernel takes at most "
+                     f"{_MAX_ROWS} of each")
+
+
+def _args_ok(v0, e1, e2, o, d, mint, maxt, T, N, dev) -> bool:
+    """Whether the kernel takes these arguments (one pass, no tuples of
+    tensors; _explain says what is wrong)."""
+    tri_shape, ray_shape = (T, 3), (N, 3)
+    return (v0.shape == tri_shape and e1.shape == tri_shape
+            and e2.shape == tri_shape and o.shape == ray_shape
+            and d.shape == ray_shape and mint.shape == (N,)
+            and maxt.shape == (N,) and N <= _MAX_ROWS and T <= _MAX_ROWS
+            and v0.dtype is _F32 and e1.dtype is _F32 and e2.dtype is _F32
+            and o.dtype is _F32 and d.dtype is _F32 and mint.dtype is _F32
+            and maxt.dtype is _F32 and v0.device == dev and e1.device == dev
+            and e2.device == dev and d.device == dev and mint.device == dev
+            and maxt.device == dev and v0.is_contiguous()
+            and e1.is_contiguous() and e2.is_contiguous()
+            and o.is_contiguous() and d.is_contiguous()
+            and mint.is_contiguous() and maxt.is_contiguous())
+
+
 def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     """Nearest (or any) hit of N rays against T triangles.
 
     v0, e1, e2: (T, 3) float32; o, d: (N, 3); mint, maxt: (N,).
     Returns (t, idx, u, v), each (N,): t float32 (inf on a miss), idx
     int32 (-1 on a miss), u, v float32 barycentrics. With ``any_hit`` only
-    t is meaningful: finite exactly when the ray is occluded."""
+    t is computed: finite exactly when the ray is occluded; idx, u and v
+    are None."""
     global launches
-    if o.device.type == 'cpu':
-        return intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit)
-    if o.device.type != 'cuda':
-        raise ValueError(f"no kernel for device {o.device}")
-    T, N = v0.shape[0], o.shape[0]
     dev = o.device
-    for name, x, shape in (('v0', v0, (T, 3)), ('e1', e1, (T, 3)),
-                           ('e2', e2, (T, 3)), ('o', o, (N, 3)),
-                           ('d', d, (N, 3)), ('mint', mint, (N,)),
-                           ('maxt', maxt, (N,))):
-        _check(name, x, shape, dev)
-    t = torch.empty((N,), dtype=torch.float32, device=dev)
-    idx = torch.empty((N,), dtype=torch.int32, device=dev)
-    u = torch.empty((N,), dtype=torch.float32, device=dev)
-    v = torch.empty((N,), dtype=torch.float32, device=dev)
+    if dev.type == 'cpu':
+        return intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit)
+    if dev.type != 'cuda':
+        raise ValueError(f"no kernel for device {dev}")
+    T, N = v0.shape[0], o.shape[0]
+    if not _args_ok(v0, e1, e2, o, d, mint, maxt, T, N, dev):
+        _explain(v0, e1, e2, o, d, mint, maxt)
+    # four allocations like mint (N,) cost the host less than one buffer
+    # and four views (scripts/port_kernel_compare.py, host_pieces)
+    t = torch.empty_like(mint)
+    if any_hit:
+        idx = u = v = None
+    else:
+        idx = torch.empty_like(mint, dtype=torch.int32)
+        u = torch.empty_like(mint)
+        v = torch.empty_like(mint)
     if N == 0:
         return t, idx, u, v
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mnt_intersect_tris(
-            v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), T, o.data_ptr(),
-            d.data_ptr(), mint.data_ptr(), maxt.data_ptr(), N,
-            int(bool(any_hit)), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stream)
+    if _fn is None:
+        _load()
+    di = dev.index
+    packed = getattr(_local, 'packed', None)
+    if packed is None:
+        buf = ctypes.create_string_buffer(_PACK.size)
+        packed = _local.packed = (buf, ctypes.addressof(buf))
+    _PACK.pack_into(packed[0], 0, v0.data_ptr(), e1.data_ptr(),
+                    e2.data_ptr(), T, o.data_ptr(), d.data_ptr(),
+                    mint.data_ptr(), maxt.data_ptr(), N, int(any_hit),
+                    t.data_ptr(),
+                    0 if any_hit else idx.data_ptr(),
+                    0 if any_hit else u.data_ptr(),
+                    0 if any_hit else v.data_ptr(), _raw_stream(di))
+    if di == _current_device():
+        err = _fn(packed[1])
+    else:
+        with torch.cuda.device(di):
+            err = _fn(packed[1])
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
                            f"{err}")
@@ -177,8 +276,8 @@ def _moller_trumbore(o, d, v0, e1, e2):
 
 def intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     """Plain PyTorch version of the kernel: the chunked sweep of the
-    reference's ``_scan_tris``, with the Pallas kernel's outputs (any-hit
-    returns the smallest hit t). Runs on any device."""
+    reference's ``_scan_tris``, with the kernel's outputs (any hit returns
+    the smallest hit t and None for idx, u and v). Runs on any device."""
     T, N = v0.shape[0], o.shape[0]
     dev = o.device
     best_t = torch.full((N,), math.inf, device=dev)
@@ -211,4 +310,6 @@ def intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
             bu = torch.where(better, u.gather(1, j)[:, 0], bu)
             bv = torch.where(better, v.gather(1, j)[:, 0], bv)
         best_t[rs], best_i[rs], best_u[rs], best_v[rs] = bt, bi, bu, bv
+    if any_hit:
+        return best_t, None, None, None
     return best_t, best_i, best_u, best_v

@@ -48,10 +48,12 @@ def _sphere_hits(o, d, center, radius):
 
 
 def _tris(scene, ray: Ray, maxt, any_hit: bool):
+    # the integrators' rays are contiguous by construction (Ray.make fills
+    # scalar bounds; tests/test_torch_kernel_abi.py checks a render); the
+    # kernel's wrapper raises on any that is not
     g = scene.geo
-    return intersect_tris(g.v0, g.e1, g.e2, ray.o.contiguous(),
-                          ray.d.contiguous(), ray.mint.contiguous(),
-                          maxt.contiguous(), any_hit=any_hit)
+    return intersect_tris(g.v0, g.e1, g.e2, ray.o, ray.d, ray.mint, maxt,
+                          any_hit=any_hit)
 
 
 def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:

@@ -109,6 +109,9 @@ CASES = ['random', 'icosphere', 'duplicates', 'empty', 'degenerate',
 def _port(tris, rays, any_hit):
     out = kern.intersect_tris(*[torch.as_tensor(x) for x in tris + rays],
                               any_hit=any_hit)
+    if any_hit:   # any hit computes t alone
+        assert out[1:] == (None, None, None)
+        return [out[0].numpy(), None, None, None]
     return [x.numpy() for x in out]
 
 
