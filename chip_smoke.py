@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about a minute on an H100
+    python3 chip_smoke.py            # about four minutes on an H100
 
 Builds the port's CUDA kernel from the sources in this checkout, checks
 the launch geometry the kernel works out for itself, holds the kernel
@@ -12,7 +12,14 @@ triangles) and at 1,023 random triangles, checks and times it on the rays
 of every intersection call of one pass of the render, drives the port's
 main path (``build_scene`` -> ``render`` of the 512x512 Cornell box, 16
 spp, ``path`` with max_depth 8) through it, and checks the render against
-the same scene rendered on the CPU. Each phase prints one JSON line; the last
+the same scene rendered on the CPU. The volumetric slice follows: every
+intersection call of one pass of the heterogeneous-medium box
+(``hetvol_box``: 768x576, a 128^3 density grid, sigma_t x100, HG phase,
+``volpath`` with max_depth 8) checked against the plain version and
+timed, the 2 spp render itself (wall time, rays, kernel launches, host
+syncs, the share of the time spent in the medium's collision walk), and a
+64x64 heterogeneous ``volpath`` and homogeneous ``volpathmis`` render on
+the card against the CPU. Each phase prints one JSON line; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero. Without a CUDA device it exits non-zero at once and
 prints no result. It imports neither JAX nor the JAX package.
@@ -264,16 +271,16 @@ def kernel_check(torch, kern, dev, scene, meta):
     return out, worst, box, cam_rays
 
 
-def render_calls(mnt, scene, meta) -> list:
-    """One pass (spp 1) of the main path's render, keeping a copy of the
-    rays of every intersection call it makes: [(o, d, mint, maxt), any_hit]
-    in the order of the calls."""
+def record_calls(mnt, scene, meta) -> list:
+    """One pass (spp 1) of a render, keeping a copy of the triangles and
+    rays of every intersection call it makes: [(tris, rays, any_hit)] in
+    the order of the calls."""
     from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
     real, calls = pisect.intersect_tris, []
 
     def record(v0, e1, e2, o, d, mint, maxt, any_hit=False):
-        calls.append(((o.clone(), d.clone(), mint.clone(), maxt.clone()),
-                      any_hit))
+        calls.append(((v0, e1, e2), (o.clone(), d.clone(), mint.clone(),
+                                     maxt.clone()), any_hit))
         return real(v0, e1, e2, o, d, mint, maxt, any_hit=any_hit)
     pisect.intersect_tris = record
     try:
@@ -283,39 +290,51 @@ def render_calls(mnt, scene, meta) -> list:
     return calls
 
 
-def render_rays(torch, kern, box, calls, bw, fl) -> dict:
-    """The kernel on the render's own rays: every call of one pass against
+def render_rays(torch, kern, calls, bw, fl) -> dict:
+    """The kernel on a render's own rays: every call of one pass against
     the plain version and timed alone, then the pass's calls timed
     together (device time of the pass's kernel work) and its plain
     version."""
     recs, worst, bounds = [], 0.0, []
-    T = box[0].shape[0]
-    for k, (rays, any_hit) in enumerate(calls):
-        rec = against_plain(torch, kern, box, rays, any_hit)
+    for k, (tris, rays, any_hit) in enumerate(calls):
+        rec = against_plain(torch, kern, tris, rays, any_hit)
         rec.pop('idx', None)
         worst = max(worst, rec.get('max_abs_err', 0.0))
-        N = rays[0].shape[0]
+        N, T = rays[0].shape[0], tris[0].shape[0]
         _, _, b_bytes, b_ops = bound(N, T, any_hit, bw, fl)
-        ms = time_ms(lambda: kern.intersect_tris(*box, *rays,
+        ms = time_ms(lambda: kern.intersect_tris(*tris, *rays,
                                                  any_hit=any_hit), 7, 50)
         bounds.append((b_bytes, b_ops))
-        recs.append({'call': k, 'any_hit': any_hit, 'rays': N, 'ms': ms,
-                     'bound_ms': max(b_bytes, b_ops),
+        recs.append({'call': k, 'any_hit': any_hit, 'rays': N, 'tris': T,
+                     'ms': ms, 'bound_ms': max(b_bytes, b_ops),
                      'roofline_share': max(b_bytes, b_ops) / ms, **rec})
-    pass_ms = time_ms(lambda: [kern.intersect_tris(*box, *r, any_hit=a)
-                               for r, a in calls], 7, 5)
+    pass_ms = time_ms(lambda: [kern.intersect_tris(*t, *r, any_hit=a)
+                               for t, r, a in calls], 7, 5)
     plain_pass_ms = time_ms(
-        lambda: [kern.intersect_tris_plain(*box, *r, any_hit=a)
-                 for r, a in calls], 3, 1)
+        lambda: [kern.intersect_tris_plain(*t, *r, any_hit=a)
+                 for t, r, a in calls], 3, 1)
     n = len(calls)
     bound_ms = sum(max(b) for b in bounds) / n
-    return {'launches_per_pass': n, 'pass_ms': pass_ms,
-            'ms_per_launch': pass_ms / n, 'plain_ms_per_launch':
-            plain_pass_ms / n, 'bound_ms_per_launch': bound_ms,
+    return {'launches_per_pass': n,
+            'nearest_calls': sum(1 for *_, a in calls if not a),
+            'any_hit_calls': sum(1 for *_, a in calls if a),
+            'pass_ms': pass_ms, 'ms_per_launch': pass_ms / n,
+            'plain_ms_per_launch': plain_pass_ms / n,
+            'bound_ms_per_launch': bound_ms,
             'bound_by': ('bytes' if all(b >= o for b, o in bounds)
                          else 'operations'),
             'roofline_share': bound_ms / (pass_ms / n),
             'max_abs_err': worst, 'calls': recs}
+
+
+def card_vs_cpu(mnt, compare, desc, spp) -> dict:
+    """One scene rendered on the card and on the CPU from one seed: the
+    numbers of ``compare.agreement``."""
+    sg, mg = mnt.build_scene(desc)
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
+    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp)
+    return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c)
 
 
 def main() -> int:
@@ -326,7 +345,10 @@ def main() -> int:
     import mitsuba_nlvrl_tpu_torch as mnt
     from mitsuba_nlvrl_tpu_torch.ops.cuda import intersect_cuda as kern
     from mitsuba_nlvrl_tpu_torch.testing import compare
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    from mitsuba_nlvrl_tpu_torch.core import sync
+    from mitsuba_nlvrl_tpu_torch.testing.walk_probe import record_walks
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cornell_box,
+                                                        hetvol_box)
 
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -374,10 +396,10 @@ def main() -> int:
               'rays': rays[0].shape[0], 'tris': tris[0].shape[0], **rec})
 
     # --- the render's own rays: one pass, every call (also the warm-up) -
-    calls = render_calls(mnt, scene, meta)
+    calls = record_calls(mnt, scene, meta)
     # a pass traces 8 bounces, each a nearest-hit and a shadow-ray call
-    assert [a for _, a in calls] == [False, True] * 8, len(calls)
-    own = render_rays(torch, kern, box, calls, bw, fl)
+    assert [c[2] for c in calls] == [False, True] * 8, len(calls)
+    own = render_rays(torch, kern, calls, bw, fl)
     emit({'phase': 'render_rays', **own})
     del calls
     worst = max(worst, own['max_abs_err'])
@@ -408,26 +430,88 @@ def main() -> int:
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
 
     # --- the card path against the CPU path, 64x64 at 4 spp -----------
-    small = cornell_box(spp=4, res=64,
-                        integrator={'type': 'path', 'max_depth': 8})
-    sg, mg = mnt.build_scene(small)
-    sc, mc = mnt.build_scene(small, device='cpu')
-    img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, 4)
-    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, 4)
-    agree = compare.agreement(img_g, img_c, passes_c, rays_g, rays_c)
+    agree = card_vs_cpu(mnt, compare, cornell_box(
+        spp=4, res=64, integrator={'type': 'path', 'max_depth': 8}), 4)
     emit({'phase': 'card_vs_cpu', **agree})
     compare.check(agree)
+
+    # --- the volumetric slice: hetvol_box at full width ----------------
+    t0 = time.time()
+    vdesc = hetvol_box(768, 576, spp=2, grid_res=128, seed=0, scale=100.0)
+    vscene, vmeta = mnt.build_scene(vdesc)
+    emit({'phase': 'vol_build', 'seconds': time.time() - t0,
+          'n_tris': vmeta.n_tris,
+          'occluder_tris': vscene.occluders.v0.shape[0],
+          'grid': list(vscene.media.grid_sigma_t.shape),
+          'packed_rows': list(vscene.media.grid_sigma_p8.shape)})
+    # one pass's calls (also the warm-up): nearest hit on the scene's 24
+    # triangles, any hit on its 12 occluders
+    vcalls = record_calls(mnt, vscene, vmeta)
+    assert {(c[0][0].shape[0], c[2]) for c in vcalls} == {(24, False),
+                                                         (12, True)}
+    vown = render_rays(torch, kern, vcalls, bw, fl)
+    emit({'phase': 'vol_render_rays', **vown})
+    del vcalls
+    worst = max(worst, vown['max_abs_err'])
+
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    vstats, t0 = [], time.time()
+    with record_walks(timed=True) as wlog:
+        vimg = mnt.render(vscene, vmeta, seed=0, spp=2, ray_stats=vstats)
+        torch.cuda.synchronize()
+    vwall = time.time() - t0
+    vlaunches, vsyncs = kern.launches, sync.host_syncs
+    vrays = float(sum(float(r) for r in vstats))
+    walk_s = wlog.device_s()
+    walk_rec = {'walks': len(wlog.walks), 'trips': wlog.trips(),
+                'host_s': wlog.host_s()}
+    vimg_np = vimg.cpu().numpy()
+    vfinite = bool(vimg.isfinite().all())
+    emit({'phase': 'vol_render', 'res': [768, 576], 'spp': 2,
+          'grid_res': 128, 'sigma_t_scale': 100.0, 'max_depth': 8,
+          'wall_s': vwall, 'rays': vrays, 'mrays_per_s': vrays / vwall / 1e6,
+          'launches': vlaunches, 'host_syncs': vsyncs,
+          'walk_share': walk_s / vwall,
+          'walk_share_host': walk_rec['host_s'] / vwall,
+          'walk_s': walk_s, **walk_rec,
+          'kernel_share_est': vlaunches * vown['ms_per_launch'] / 1e3 / vwall,
+          'finite': vfinite, 'mean': float(vimg_np.mean()),
+          'shape': list(vimg_np.shape)})
+    assert vlaunches > 0 and walk_rec['walks'] > 0, (vlaunches, walk_rec)
+    assert vfinite and vimg_np.shape == (576, 768, 3), vimg_np.shape
+    assert 0.01 < float(vimg_np.mean()) < 10.0, vimg_np.mean()
+
+    # --- the volumetric card path against the CPU path, 64x64 at 4 spp -
+    for scene_name, desc in (
+            ('hetvol_volpath', hetvol_box(64, 64, spp=4, grid_res=32,
+                                          seed=0, scale=100.0)),
+            ('homogeneous_volpathmis', cornell_box(
+                spp=4, res=64,
+                integrator={'type': 'volpathmis', 'max_depth': 8},
+                medium={'type': 'homogeneous', 'sigma_t': 0.5,
+                        'albedo': 0.8}))):
+        agree = card_vs_cpu(mnt, compare, desc, 4)
+        emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, **agree})
+        compare.check(agree)
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect.cu',
         'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',
-        'launches': launches, 'max_abs_err': worst,
+        'launches': launches + vlaunches, 'max_abs_err': worst,
         'ms': own['ms_per_launch'], 'plain_ms': own['plain_ms_per_launch'],
         'bound_ms': own['bound_ms_per_launch'], 'bound_by': own['bound_by'],
-        'library_ms': None}]})
+        'library_ms': None,
+        'launches_surface': launches, 'launches_volume': vlaunches,
+        'volume_ms': vown['ms_per_launch'],
+        'volume_plain_ms': vown['plain_ms_per_launch'],
+        'volume_bound_ms': vown['bound_ms_per_launch'],
+        'volume_bound_by': vown['bound_by']}]})
     print(smi, flush=True)
-    emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+    emit({'ok': True, 'device': {'platform': 'gpu',
+                                 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
     return 0
 

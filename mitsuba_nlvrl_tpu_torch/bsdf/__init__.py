@@ -1,7 +1,8 @@
 """BSDF evaluation and sampling with masked type dispatch.
 
 Port of ``mitsuba_nlvrl_tpu/bsdf/__init__.py`` for ``diffuse``,
-``conductor`` and ``dielectric``. Parameters live in a packed
+``conductor``, ``dielectric`` and ``null`` (the pass-through boundary of
+a medium). Parameters live in a packed
 (B, BSDF_NPARAM) table with the reference's layout; each lane gathers its
 row, and every type present in the scene (``SceneMeta.bsdf_types``) is
 evaluated masked over the whole wavefront, then selected.
@@ -20,8 +21,8 @@ from ..core import frame as fr
 from ..core import warp
 from ..core.fresnel import (fresnel_dielectric, fresnel_conductor,
                             reflect_local, refract_local)
-from ..scene.types import (BSDF_TYPES, F_DELTA, F_TRANSMISSION, F_SMOOTH,
-                           BSDF_NPARAM, SLICE_BSDFS, not_in_slice)
+from ..scene.types import (BSDF_TYPES, F_DELTA, F_NULL, F_TRANSMISSION,
+                           F_SMOOTH, BSDF_NPARAM, SLICE_BSDFS, not_in_slice)
 
 RADIANCE = 0
 IMPORTANCE = 1
@@ -32,6 +33,7 @@ class BSDFSample(NamedTuple):
     pdf: torch.Tensor     # (N,)
     eta: torch.Tensor     # (N,) relative IOR of the sampled event
     delta: torch.Tensor   # (N,) bool — sampled a Dirac lobe
+    null: torch.Tensor    # (N,) bool — sampled the null pass-through lobe
 
 
 # --- parameter packing (host side, used by the scene builder) ---------------
@@ -66,6 +68,8 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
         p[0:3], p[3:6] = rgb('eta', 0.0), rgb('k', 1.0)
         p[6:9] = rgb('specular_reflectance', 1.0)
         return BSDF_TYPES[t], F_DELTA, p
+    if t == 'null':
+        return BSDF_TYPES[t], F_DELTA | F_NULL | F_TRANSMISSION, p
     # dielectric
     p[0] = float(value(props.get('int_ior', 1.5046)))    # bk7
     p[1] = float(value(props.get('ext_ior', 1.000277)))  # air
@@ -94,7 +98,8 @@ def _diffuse_sample(P, wi, u1, u2, mode):
     act = fr.cos_theta(wi) > 0
     weight = torch.where(act[:, None], P[:, 0:3], 0.0)
     bs = BSDFSample(wo=wo, pdf=torch.where(act, pdf, 0.0),
-                    eta=torch.ones_like(pdf), delta=torch.zeros_like(act))
+                    eta=torch.ones_like(pdf), delta=torch.zeros_like(act),
+                    null=torch.zeros_like(act))
     return bs, weight
 
 
@@ -105,7 +110,8 @@ def _conductor_sample(P, wi, u1, u2, mode):
     F = fresnel_conductor(cos_i, P[:, 0:3], P[:, 3:6])
     weight = torch.where(act[:, None], P[:, 6:9] * F, 0.0)
     bs = BSDFSample(wo=wo, pdf=torch.where(act, 1.0, 0.0),
-                    eta=torch.ones_like(cos_i), delta=act)
+                    eta=torch.ones_like(cos_i), delta=act,
+                    null=torch.zeros_like(act))
     return bs, weight
 
 
@@ -122,17 +128,27 @@ def _dielectric_sample(P, wi, u1, u2, mode):
     w_t = P[:, 5:8] * m.sqr(factor)[:, None]
     weight = torch.where(sel_r[:, None], w_r, w_t)
     bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.where(sel_r, 1.0, eta_it),
-                    delta=torch.ones_like(sel_r))
+                    delta=torch.ones_like(sel_r),
+                    null=torch.zeros_like(sel_r))
     return bs, weight
 
 
-# conductor and dielectric are pure Dirac lobes: eval and pdf are zero
+def _null_sample(P, wi, u1, u2, mode):
+    N = wi.shape[0]
+    one = torch.ones((N,), dtype=wi.dtype, device=wi.device)
+    tru = torch.ones((N,), dtype=torch.bool, device=wi.device)
+    bs = BSDFSample(wo=-wi, pdf=one, eta=one, delta=tru, null=tru)
+    return bs, torch.ones((N, 3), dtype=wi.dtype, device=wi.device)
+
+
+# conductor, dielectric and null are pure Dirac lobes: eval and pdf are zero
 _EVAL = {BSDF_TYPES['diffuse']: _diffuse_eval}
 _PDF = {BSDF_TYPES['diffuse']: _diffuse_pdf}
 _SAMPLE = {
     BSDF_TYPES['diffuse']: _diffuse_sample,
     BSDF_TYPES['conductor']: _conductor_sample,
     BSDF_TYPES['dielectric']: _dielectric_sample,
+    BSDF_TYPES['null']: _null_sample,
 }
 
 
@@ -170,7 +186,8 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE):
     bs = BSDFSample(wo=torch.zeros((N, 3), device=dev),
                     pdf=torch.zeros((N,), device=dev),
                     eta=torch.ones((N,), device=dev),
-                    delta=torch.zeros((N,), dtype=torch.bool, device=dev))
+                    delta=torch.zeros((N,), dtype=torch.bool, device=dev),
+                    null=torch.zeros((N,), dtype=torch.bool, device=dev))
     weight = torch.zeros((N, 3), device=dev)
     for code in meta.bsdf_types:
         bs_c, w_c = _SAMPLE[code](P, wi, u1, u2, mode)
@@ -179,6 +196,20 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE):
             wo=torch.where(sel[:, None], bs_c.wo, bs.wo),
             pdf=torch.where(sel, bs_c.pdf, bs.pdf),
             eta=torch.where(sel, bs_c.eta, bs.eta),
-            delta=torch.where(sel, bs_c.delta, bs.delta))
+            delta=torch.where(sel, bs_c.delta, bs.delta),
+            null=torch.where(sel, bs_c.null, bs.null))
         weight = torch.where(sel[:, None], w_c, weight)
     return bs, weight
+
+
+def flags_of(scene, si):
+    return scene.bsdfs.flags[si.bsdf_idx.long()]
+
+
+def eval_null_transmission(scene, meta, si):
+    """Transmittance of straight-through rays: 1 for null BSDFs, 0 for
+    the other types of this slice (``mask`` and the polarizing elements
+    come with items 7 and 10)."""
+    is_null = (flags_of(scene, si) & F_NULL) > 0
+    return torch.where(is_null[:, None], 1.0,
+                       torch.zeros((si.wi.shape[0], 3), device=si.wi.device))

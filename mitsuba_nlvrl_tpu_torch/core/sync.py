@@ -1,0 +1,20 @@
+"""Device-to-host reads that end the wavefront loops.
+
+The reference's ``lax.while_loop`` conditions (``any(active)``) become host
+loops in the port, each trip reading one boolean back from the device.
+``any_on_host`` is that read; ``host_syncs`` counts them, so a run can show
+how many times the host waited for the card.
+"""
+from __future__ import annotations
+
+import torch
+
+# reads since the last reset (chip_smoke.py sets it to 0 and reads it)
+host_syncs = 0
+
+
+def any_on_host(mask: torch.Tensor) -> bool:
+    """``bool(mask.any())``, counted."""
+    global host_syncs
+    host_syncs += 1
+    return bool(mask.any())

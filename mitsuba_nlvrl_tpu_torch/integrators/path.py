@@ -14,6 +14,7 @@ import torch
 from ..core import math as m
 from ..core.ray import Ray, spawn_ray
 from ..core.rng import Sampler
+from ..core.sync import any_on_host
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..ops import intersect as isect
@@ -135,7 +136,7 @@ def sample(scene, meta, sampler: Sampler, ray: Ray):
     body = make_body(scene, meta, N)
     # The reference's lax.while_loop becomes a host loop. Its condition
     # reads `active.any()` back from the device: one host sync per bounce.
-    while bool(st.active.any()):
+    while any_on_host(st.active):
         st = body(st)
     return st.result, torch.ones((N,), dtype=torch.bool, device=dev), \
         st.sampler

@@ -8,6 +8,7 @@ dense test written in torch.
 Contract:
   intersect_preliminary -> (t, prim_idx, prim_kind, u, v) nearest hit
   ray_test              -> bool any-hit (shadow rays)
+  ray_test_occluders    -> bool any-hit against non-null-BSDF primitives
   compute_si            -> full SurfaceInteraction from a preliminary hit
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..core import math as m
 from ..core.frame import Frame
 from ..core.ray import Ray
 from ..core.records import SurfaceInteraction
+from ..scene.types import BSDF_TYPES
 from .cuda.intersect_cuda import intersect_tris
 
 KIND_TRI = 0
@@ -47,13 +49,12 @@ def _sphere_hits(o, d, center, radius):
     return -b - sq, -b + sq, hit
 
 
-def _tris(scene, ray: Ray, maxt, any_hit: bool):
+def _tris(tris, ray: Ray, maxt, any_hit: bool):
     # the integrators' rays are contiguous by construction (Ray.make fills
     # scalar bounds; tests/test_torch_kernel_abi.py checks a render); the
     # kernel's wrapper raises on any that is not
-    g = scene.geo
-    return intersect_tris(g.v0, g.e1, g.e2, ray.o, ray.d, ray.mint, maxt,
-                          any_hit=any_hit)
+    return intersect_tris(tris.v0, tris.e1, tris.e2, ray.o, ray.d, ray.mint,
+                          maxt, any_hit=any_hit)
 
 
 def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:
@@ -69,7 +70,7 @@ def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:
     kind = torch.zeros((N,), dtype=torch.int32, device=dev)
 
     if geo.v0.shape[0] > 0:
-        best_t, best_i, best_u, best_v = _tris(scene, ray, maxt, False)
+        best_t, best_i, best_u, best_v = _tris(geo, ray, maxt, False)
 
     if geo.sph_center.shape[0] > 0:
         tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],
@@ -88,22 +89,43 @@ def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:
                           u=best_u, v=best_v)
 
 
-def ray_test(scene, ray: Ray, maxt=None) -> torch.Tensor:
-    """Shadow-ray any-hit."""
+def _any_hit(scene, ray: Ray, maxt, occluders_only: bool) -> torch.Tensor:
+    """Any hit over the scene's primitives, or over those whose BSDF is
+    not ``null`` (``occluders_only``): triangles through the kernel on
+    the scene's occluder subset (built once in ``scene_from_numpy``), which
+    gives exactly the answer of the reference's per-triangle mask; spheres
+    keep a mask here."""
     geo = scene.geo
+    tris = scene.occluders if occluders_only else geo
     maxt = ray.maxt if maxt is None else maxt
     occluded = torch.zeros((ray.o.shape[0],), dtype=torch.bool,
                            device=ray.o.device)
-    if geo.v0.shape[0] > 0:
-        t, _, _, _ = _tris(scene, ray, maxt, True)
+    if tris.v0.shape[0] > 0:
+        t, _, _, _ = _tris(tris, ray, maxt, True)
         occluded = occluded | torch.isfinite(t)
     if geo.sph_center.shape[0] > 0:
         tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],
                                    geo.sph_center[None], geo.sph_radius[None])
         ok = hit & (((tn >= ray.mint[:, None]) & (tn <= maxt[:, None]))
                     | ((tf >= ray.mint[:, None]) & (tf <= maxt[:, None])))
+        if occluders_only:
+            sph_b = scene.shapes.bsdf_idx[geo.sph_shape_idx.long()]
+            ok = ok & (scene.bsdfs.type[sph_b.long()]
+                       != BSDF_TYPES['null'])[None, :]
         occluded = occluded | ok.any(dim=1)
     return occluded
+
+
+def ray_test(scene, ray: Ray, maxt=None) -> torch.Tensor:
+    """Shadow-ray any-hit."""
+    return _any_hit(scene, ray, maxt, False)
+
+
+def ray_test_occluders(scene, ray: Ray, maxt=None) -> torch.Tensor:
+    """Any hit against primitives whose BSDF is not ``null``: the shadow
+    query of the single-segment NEE path (integrators/volpath.py), which
+    passes through pure-null medium boundaries without a surface walk."""
+    return _any_hit(scene, ray, maxt, True)
 
 
 def compute_si(scene, ray: Ray, pi: PreliminaryHit) -> SurfaceInteraction:
@@ -153,15 +175,20 @@ def compute_si(scene, ray: Ray, pi: PreliminaryHit) -> SurfaceInteraction:
 
     shape_idx = torch.where(pi.valid, shape_idx, -1)
     safe_shape = torch.clamp(shape_idx, min=0).long()
-    bsdf_i = scene.shapes.bsdf_idx[safe_shape]
-    emitter_i = scene.shapes.emitter_idx[safe_shape]
+    st = scene.shapes
+    bsdf_i = st.bsdf_idx[safe_shape]
+    emitter_i = st.emitter_idx[safe_shape]
+    int_m = st.int_medium[safe_shape]
+    ext_m = st.ext_medium[safe_shape]
     return SurfaceInteraction(
         valid=pi.valid,
         t=torch.where(pi.valid, pi.t, m.Infinity),
         p=p, n=gn, sh_frame=sh_frame, uv=uv, wi=wi_local,
         prim_index=pi.prim_idx, shape_idx=shape_idx,
         bsdf_idx=torch.where(pi.valid, bsdf_i, 0),
-        emitter_idx=torch.where(pi.valid, emitter_i, -1))
+        emitter_idx=torch.where(pi.valid, emitter_i, -1),
+        int_medium=torch.where(pi.valid, int_m, -1),
+        ext_medium=torch.where(pi.valid, ext_m, -1))
 
 
 def ray_intersect(scene, ray: Ray, maxt=None) -> SurfaceInteraction:

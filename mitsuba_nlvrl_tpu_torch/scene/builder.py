@@ -15,6 +15,11 @@ emitters sample triangles, so an emissive sphere tessellates). Unlike the
 reference, the builder keeps the input triangle order at every size and
 builds no BVH: the dense intersection kernel is correct at any size, and
 the BVH with its Morton order is a later slice (ROADMAP.md, B.2).
+
+Shapes may bound participating media (``interior``/``exterior``); a
+medium-only shape gets a ``null`` BSDF. Homogeneous and heterogeneous
+(one density grid a scene) media are packed as the reference packs them,
+with the grid's supervoxel bounds and corner-packed rows derived here.
 """
 from __future__ import annotations
 
@@ -26,9 +31,13 @@ import torch
 
 from ..core.transform import Transform
 from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
-                    BSDFTable, EmitterTable, SensorData, BSDF_NPARAM,
-                    EMITTER_NPARAM, EMITTER_TYPES, SLICE_SHAPES,
-                    check_meta, not_in_slice)
+                    BSDFTable, EmitterTable, MediumTable, Occluders,
+                    SensorData, BSDF_NPARAM, BSDF_TYPES, EMITTER_NPARAM,
+                    EMITTER_TYPES, MEDIUM_NPARAM, MEDIUM_TYPES, PHASE_TYPES,
+                    M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
+                    M_BBOX_MAX, M_MAJORANT, SLICE_MEDIA, SLICE_PHASES,
+                    SLICE_SHAPES, check_meta, not_in_slice)
+from .vol_io import load_vol
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..sensor import build_sensor
@@ -126,10 +135,257 @@ def _load_shape_mesh(sh: dict) -> Optional[MeshData]:
     return mesh
 
 
+_NULL_BSDF = {'type': 'null'}
+
+# duplicate the density grid 8x only up to this size (4M voxels -> 160 MB)
+_PACK_MAX_VOXELS = 1 << 22
+
+# supervoxel block edge (voxels), the reference's shipped default
+_SUP_K = 8
+
+
+def _corner_pack(grid: np.ndarray) -> np.ndarray:
+    """Corner-packed grid: row (z*Dy+y)*Dx+x holds the 8 trilinear corners
+    of voxel (z,y,x), order dz*4+dy*2+dx, edge-clamped, plus (slot 8) the
+    dilated supervoxel block max and (slot 9) the eroded block min of the
+    voxel's block, so one row gather fetches a whole trilinear footprint
+    and the local majorant and control of the point's block.
+
+    The walk addresses a row by the probe's trilinear base voxel
+    v = floor(rel*D - 0.5), and the probe is the midpoint of a DDA
+    interval inside one block. For v interior to its block the
+    1-voxel-dilated block window bounds every footprint of the interval;
+    when v is the last voxel of its block on some axis the interval lies
+    in the next block there, so those rows take a [lo-1, hi+2] window.
+
+    For rows whose slot-8 bound is zero (vacuum), slot 9 holds -D instead:
+    D is the Chebyshev distance in blocks from the voxel's block (or the
+    block of v+1 on any axis) to the nearest block whose widest-window max
+    is nonzero. Every block nearer than D is empty, so a crossing walk
+    leaps over them in one event (decoded in ``medium._majorant_walk``)."""
+    sup_k = _SUP_K
+    Dz, Dy, Dx = grid.shape
+    zi = np.minimum(np.arange(Dz) + 1, Dz - 1)
+    yi = np.minimum(np.arange(Dy) + 1, Dy - 1)
+    xi = np.minimum(np.arange(Dx) + 1, Dx - 1)
+    out = np.empty((Dz, Dy, Dx, 10), np.float32)
+    for k in range(8):
+        dz, dy, dx = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        g = grid
+        if dz:
+            g = g[zi]
+        if dy:
+            g = g[:, yi]
+        if dx:
+            g = g[:, :, xi]
+        out[..., k] = g
+    supA = _supervoxel_max(grid)
+    supA_min = _supervoxel_min(grid)
+    supB = _supervoxel_max(grid, dilate_hi=2)
+    supB_min = _supervoxel_min(grid, dilate_hi=2)
+    bz = np.arange(Dz) // sup_k
+    by = np.arange(Dy) // sup_k
+    bx = np.arange(Dx) // sup_k
+
+    def last_of_block(D):
+        v = np.arange(D)
+        return ((v % sup_k) == sup_k - 1) | (v == D - 1)
+
+    bnd = (last_of_block(Dz)[:, None, None]
+           | last_of_block(Dy)[None, :, None]
+           | last_of_block(Dx)[None, None, :])
+    out[..., 8] = np.where(bnd, supB[bz][:, by][:, :, bx],
+                           supA[bz][:, by][:, :, bx])
+    out[..., 9] = np.where(bnd, supB_min[bz][:, by][:, :, bx],
+                           supA_min[bz][:, by][:, :, bx])
+    # leap distances: a distance field over the occupied blocks
+    occ = supB > 0.0
+    Sz, Sy, Sx = occ.shape
+
+    def _dilate1(mask):
+        p = np.pad(mask, 1, mode='constant')
+        acc = np.zeros_like(mask)
+        for dz in range(3):
+            for dy in range(3):
+                for dx in range(3):
+                    acc |= p[dz:dz + Sz, dy:dy + Sy, dx:dx + Sx]
+        return acc
+
+    Dfield = np.zeros(occ.shape, np.float32)
+    cur = occ.copy()
+    dist = 0
+    while not cur.all() and dist < 126:
+        dist += 1
+        nxt = _dilate1(cur)
+        Dfield[nxt & ~cur] = dist
+        cur = nxt
+    if not cur.all():
+        Dfield[~cur] = 127.0
+    vac = out[..., 8] <= 0.0
+    bzh = np.minimum(np.arange(Dz) + 1, Dz - 1) // sup_k
+    byh = np.minimum(np.arange(Dy) + 1, Dy - 1) // sup_k
+    bxh = np.minimum(np.arange(Dx) + 1, Dx - 1) // sup_k
+    Dsafe = np.full(grid.shape, np.inf, np.float32)
+    for az in (bz, bzh):
+        for ay in (by, byh):
+            for ax in (bx, bxh):
+                Dsafe = np.minimum(Dsafe, Dfield[az][:, ay][:, :, ax])
+    out[..., 9] = np.where(vac, -Dsafe, out[..., 9])
+    return out.reshape(-1, 10)
+
+
+def _supervoxel_min(grid: np.ndarray, dilate: int = 1,
+                    dilate_hi: Optional[int] = None) -> np.ndarray:
+    """Block-min density over _SUP_K^3 supervoxels, eroded by ``dilate``
+    voxels on the low side and ``dilate_hi`` (default: the same) on the
+    high side of every axis: the residual-ratio-tracking control."""
+    return _supervoxel_reduce(grid, dilate, dilate_hi, np.min)
+
+
+def _supervoxel_max(grid: np.ndarray, dilate: int = 1,
+                    dilate_hi: Optional[int] = None) -> np.ndarray:
+    """Block-max density over _SUP_K^3 supervoxels, dilated by ``dilate``
+    voxels on the low side and ``dilate_hi`` (default: the same) on the
+    high side of every axis, so a trilinear tap whose footprint straddles
+    a block border is still bounded by its block's majorant."""
+    return _supervoxel_reduce(grid, dilate, dilate_hi, np.max)
+
+
+def _supervoxel_reduce(grid, dilate, dilate_hi, op):
+    k = _SUP_K
+    if dilate_hi is None:
+        dilate_hi = dilate
+    Dz, Dy, Dx = grid.shape
+    Sz, Sy, Sx = (max(1, -(-Dz // k)), max(1, -(-Dy // k)),
+                  max(1, -(-Dx // k)))
+    pad = max(dilate, dilate_hi)
+    gp = np.pad(grid, pad, mode='edge')
+    sup = np.zeros((Sz, Sy, Sx), np.float32)
+    a0 = pad - dilate                   # window start offset into gp
+    w = dilate + k + dilate_hi          # window width per axis
+    for bz in range(Sz):
+        for by in range(Sy):
+            for bx in range(Sx):
+                blk = gp[bz * k + a0:bz * k + a0 + w,
+                         by * k + a0:by * k + a0 + w,
+                         bx * k + a0:bx * k + a0 + w]
+                sup[bz, by, bx] = op(blk)
+    return sup
+
+
+def _rgb_of(props: dict, key: str, default):
+    """An RGB medium parameter as (3,) float32; None for a texture dict."""
+    v = props.get(key, default)
+    if isinstance(v, dict):
+        return None
+    if isinstance(v, (int, float)):
+        return np.full(3, float(v), np.float32)
+    return np.asarray([float(x) for x in v], np.float32)
+
+
+def _pack_media(media_rows: List[dict], med_bbox: dict):
+    """(type, phase_type, params, density grid) of the scene's media, as
+    the reference's builder packs them (one grid a scene)."""
+    M_rows = max(len(media_rows), 1)
+    med_type = np.zeros(M_rows, np.int32)
+    med_phase = np.zeros(M_rows, np.int32)
+    med_params = np.zeros((M_rows, MEDIUM_NPARAM), np.float32)
+    grid_sigma = np.zeros((1, 1, 1), np.float32)
+    for mi, props in enumerate(media_rows):
+        mt = props['type']
+        if mt not in SLICE_MEDIA:
+            raise not_in_slice(f"medium type '{mt}'",
+                               "item 9 (NLVRL and the photon mapper)")
+        med_type[mi] = MEDIUM_TYPES[mt]
+        ph = props.get('phase', {'type': 'isotropic'})
+        ph_type = ph.get('type', 'isotropic')
+        if ph_type not in SLICE_PHASES:
+            raise not_in_slice(f"phase function '{ph_type}'",
+                               "item 8 (volumetrics)")
+        med_phase[mi] = PHASE_TYPES[ph_type]
+        # HG's default asymmetry is g = 0.8, as in the reference
+        med_params[mi, M_PHASE_G] = float(ph.get('g', 0.8))             if ph_type == 'hg' else float(ph.get('g', 0.0))
+        scale_v = float(props.get('scale', 1.0))
+        med_params[mi, M_SCALE] = scale_v
+        lo_, hi_ = med_bbox.get(mi, (np.zeros(3), np.ones(3)))
+        med_params[mi, M_BBOX_MIN:M_BBOX_MIN + 3] = lo_
+        med_params[mi, M_BBOX_MAX:M_BBOX_MAX + 3] = hi_
+        if mt == 'homogeneous':
+            if 'sigma_s' in props or 'sigma_a' in props:
+                ss = _rgb_of(props, 'sigma_s', 0.0)
+                sa = _rgb_of(props, 'sigma_a', 0.0)
+                st = ss + sa
+                al = np.where(st > 0, ss / np.maximum(st, 1e-30), 0.0)
+            else:
+                st = _rgb_of(props, 'sigma_t', 1.0)
+                al = _rgb_of(props, 'albedo', 0.75)
+            if st is None or al is None:
+                raise not_in_slice("textured homogeneous medium",
+                                   "item 8 (volumetrics)")
+            med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = st
+            med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
+            med_params[mi, M_MAJORANT:M_MAJORANT + 3] = st * scale_v
+            continue
+        # heterogeneous
+        stv = props.get('sigma_t')
+        if isinstance(stv, dict) and stv.get('type') == 'gridvolume':
+            vg = stv.get('_grid') or load_vol(stv['filename'])
+            grid_sigma = np.asarray(vg.data, np.float32)[..., 0]
+            # the grid's bbox maps lookups
+            med_params[mi, M_BBOX_MIN:M_BBOX_MIN + 3] = vg.bbox_min
+            med_params[mi, M_BBOX_MAX:M_BBOX_MAX + 3] = vg.bbox_max
+            med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = 1.0
+            med_params[mi, M_MAJORANT:M_MAJORANT + 3] = \
+                vg.max_value * scale_v
+        else:
+            st = _rgb_of(props, 'sigma_t', 1.0)
+            if st is None:
+                raise not_in_slice(f"sigma_t texture {stv!r}",
+                                   "item 8 (volumetrics)")
+            med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = st
+            med_params[mi, M_MAJORANT:M_MAJORANT + 3] = st * scale_v
+        al = _rgb_of(props, 'albedo', 0.75)
+        if al is None:
+            av = props['albedo']
+            if av.get('type') != 'constvolume':
+                raise not_in_slice("albedo grids", "item 8 (volumetrics)")
+            cv = av.get('value', av.get('color', 0.75))
+            al = np.full(3, float(cv), np.float32) \
+                if isinstance(cv, (int, float)) else \
+                np.asarray(cv, np.float32)
+        med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
+    return med_type, med_phase, med_params, grid_sigma
+
+
+def _medium_bboxes(shapes: List[dict], shape_rows: list) -> dict:
+    """World bbox of each medium over the shapes that hold it inside."""
+    med_bbox = {}
+    for srow, sh in zip(shape_rows, shapes):
+        if srow[2] < 0:
+            continue
+        mesh = _load_shape_mesh(sh)
+        if mesh is None:
+            c = np.asarray(sh.get('center', (0, 0, 0)), np.float64)
+            r = float(sh.get('radius', 1.0))
+            lo_, hi_ = c - r, c + r
+        else:
+            M = np.asarray(sh.get('to_world', Transform.identity()).m,
+                           np.float64)
+            v = mesh.vertices @ M[:3, :3].T + M[:3, 3]
+            lo_, hi_ = v.min(0), v.max(0)
+        prev = med_bbox.get(srow[2])
+        if prev is not None:
+            lo_, hi_ = np.minimum(lo_, prev[0]), np.maximum(hi_, prev[1])
+        med_bbox[srow[2]] = (lo_, hi_)
+    return med_bbox
+
+
 class SceneBuilder:
     def __init__(self, desc: dict):
         self.desc = desc
         self.bsdf_rows: List[Tuple[int, int, list]] = []
+        self.media_cache: Dict[int, int] = {}
+        self.media_rows: List[dict] = []
 
     def _bsdf_index(self, props: Optional[dict]) -> int:
         # One row per shape, shared dicts included: the reference's table
@@ -138,6 +394,15 @@ class SceneBuilder:
         self.bsdf_rows.append(bsdf_mod.pack_params(props or
                                                    {'type': 'diffuse'}))
         return len(self.bsdf_rows) - 1
+
+    def _medium_index(self, props: Optional[dict]) -> int:
+        if props is None:
+            return -1
+        key = id(props)
+        if key not in self.media_cache:
+            self.media_cache[key] = len(self.media_rows)
+            self.media_rows.append(props)
+        return self.media_cache[key]
 
     def build(self) -> Tuple[Dict[str, np.ndarray], dict]:
         """Returns (arrays, meta) in the form ``scene_from_numpy`` takes."""
@@ -162,21 +427,25 @@ class SceneBuilder:
         # --- shapes --------------------------------------------------------
         tri_v, tri_n, tri_uv, tri_shape = [], [], [], []
         sph_c, sph_r, sph_shape = [], [], []
-        shape_rows = []     # (bsdf, emitter)
+        shape_rows = []     # (bsdf, emitter, interior, exterior medium)
         area_emitters = []  # (props, shape_idx)
         shape_tri_ranges = []
-        for sh in desc.get('shapes', []):
+        shapes = desc.get('shapes', [])
+        for sh in shapes:
             if sh.get('type') in ('instance', 'shapegroup'):
                 raise not_in_slice("shape instancing",
                                    "item 4 (scene front-end)")
-            if sh.get('interior') is not None \
-                    or sh.get('exterior') is not None:
-                raise not_in_slice("participating media",
-                                   "item 8 (volumetrics)")
             to_world = sh.get('to_world', Transform.identity())
             shape_idx = len(shape_rows)
             mesh = _load_shape_mesh(sh)
-            bsdf_idx = self._bsdf_index(sh.get('bsdf'))
+            bsdf_props = sh.get('bsdf')
+            if bsdf_props is None and (sh.get('interior') is not None
+                                       or sh.get('exterior') is not None):
+                # a medium-only shape is a null boundary
+                bsdf_props = _NULL_BSDF
+            bsdf_idx = self._bsdf_index(bsdf_props)
+            int_med = self._medium_index(sh.get('interior'))
+            ext_med = self._medium_index(sh.get('exterior'))
             emitter_idx = -1
             if sh.get('emitter') is not None:
                 emitter_idx = len(area_emitters)
@@ -214,7 +483,7 @@ class SceneBuilder:
                 tri_uv.append(uv[faces].astype(np.float32))
                 tri_shape.append(np.full(len(faces), shape_idx, np.int32))
                 shape_tri_ranges.append((tri_start, len(faces)))
-            shape_rows.append([bsdf_idx, emitter_idx])
+            shape_rows.append([bsdf_idx, emitter_idx, int_med, ext_med])
 
         if tri_v:
             V = np.concatenate(tri_v)      # (T, 3, 3)
@@ -259,6 +528,11 @@ class SceneBuilder:
             em_area.append(0.0)
         E = len(emitter_rows)
 
+        # --- media ---------------------------------------------------------
+        med_type, med_phase, med_params, grid_sigma = _pack_media(
+            self.media_rows, _medium_bboxes(shapes, shape_rows))
+        n_media = len(self.media_rows)
+
         # --- assemble ------------------------------------------------------
         if T:
             v0 = V[:, 0]
@@ -278,7 +552,7 @@ class SceneBuilder:
         center = 0.5 * (lo + hi)
         radius = float(np.linalg.norm(hi - center)) + 1e-4
 
-        sr = np.asarray(shape_rows, np.int32).reshape(-1, 2)
+        sr = np.asarray(shape_rows, np.int32).reshape(-1, 4)
         if self.bsdf_rows:
             btype = np.asarray([r[0] for r in self.bsdf_rows], np.int32)
             bflags = np.asarray([r[1] for r in self.bsdf_rows], np.int32)
@@ -298,6 +572,7 @@ class SceneBuilder:
             'geo.sph_radius': np.asarray(sph_r, f32),
             'geo.sph_shape_idx': np.asarray(sph_shape, np.int32),
             'shapes.bsdf_idx': sr[:, 0], 'shapes.emitter_idx': sr[:, 1],
+            'shapes.int_medium': sr[:, 2], 'shapes.ext_medium': sr[:, 3],
             'bsdfs.type': btype, 'bsdfs.flags': bflags,
             'bsdfs.params': bparams,
             'emitters.type': np.asarray([r[0] for r in emitter_rows],
@@ -318,14 +593,28 @@ class SceneBuilder:
             'bsphere_r': np.asarray(radius, f32),
         }
         arrays.update({f'sensor.{k}': v for k, v in sensor.items()})
+        dense = grid_sigma.size > 1
+        arrays.update({
+            'media.type': med_type, 'media.phase_type': med_phase,
+            'media.params': med_params, 'media.grid_sigma_t': grid_sigma,
+            'media.grid_sup': (_supervoxel_max(grid_sigma) if dense
+                               else np.ones((1, 1, 1), f32)),
+            'media.grid_sup_min': (_supervoxel_min(grid_sigma) if dense
+                                   else np.zeros((1, 1, 1), f32))})
+        if dense and grid_sigma.size <= _PACK_MAX_VOXELS:
+            arrays['media.grid_sigma_p8'] = _corner_pack(grid_sigma)
 
         integ = desc.get('integrator', {'type': 'path'})
         meta = dict(
             n_tris=T, n_spheres=len(sph_c), n_shapes=len(shape_rows),
-            n_bsdfs=len(btype), n_emitters=E,
+            n_bsdfs=len(btype), n_emitters=E, n_media=n_media,
             bsdf_types=tuple(sorted(set(int(x) for x in btype))),
             emitter_types=tuple(sorted(set(int(r[0])
                                            for r in emitter_rows))),
+            medium_types=tuple(int(x) for x in med_type[:n_media]),
+            phase_types=tuple(sorted(set(int(x)
+                                         for x in med_phase[:n_media]))),
+            has_media=n_media > 0,
             sensor_type=sensor_type, film=film,
             sampler=sampler_desc.get('type', 'independent'), spp=spp,
             integrator=integ.get('type', 'path'),
@@ -350,7 +639,6 @@ def resolve_device(device=None) -> torch.device:
 # Scene flags of the reference's SceneMeta that name features outside this
 # slice, with the ROADMAP item that ports each.
 _OUT_OF_SLICE_FLAGS = {
-    'n_media': "item 8 (volumetrics)", 'has_media': "item 8 (volumetrics)",
     'has_textures': "item 7 (textures)",
     'has_param_textures': "item 7 (textures)",
     'spectral': "item 10 (variants)",
@@ -377,7 +665,7 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
     kw = {k: v for k, v in meta.items() if k in known}
     kw['film'] = FilmMeta(**{k: v for k, v in dict(meta['film']).items()
                              if k in ('width', 'height', 'rfilter')})
-    for k in ('bsdf_types', 'emitter_types'):
+    for k in ('bsdf_types', 'emitter_types', 'medium_types', 'phase_types'):
         kw[k] = tuple(int(x) for x in kw.get(k, ()))
     kw['integrator_props'] = tuple(
         tuple(p) for p in kw.get('integrator_props', ()))
@@ -394,19 +682,37 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
 
     i32 = np.int32
     geo = table(Geometry, 'geo', {'shape_idx': i32, 'sph_shape_idx': i32})
-    shapes = table(ShapeTable, 'shapes', {'bsdf_idx': i32,
-                                          'emitter_idx': i32})
+    shapes = table(ShapeTable, 'shapes', {
+        'bsdf_idx': i32, 'emitter_idx': i32, 'int_medium': i32,
+        'ext_medium': i32})
     bsdfs = table(BSDFTable, 'bsdfs', {'type': i32, 'flags': i32})
     emitters = table(EmitterTable, 'emitters', {
         'type': i32, 'shape_idx': i32, 'tri_offset': i32, 'tri_count': i32,
         'em_tri_idx': i32})
+    media = MediumTable(
+        type=get('media.type', i32), phase_type=get('media.phase_type', i32),
+        **{f: get(f'media.{f}', np.float32)
+           for f in ('params', 'grid_sigma_t', 'grid_sup', 'grid_sup_min')},
+        grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
+                       if arrays.get('media.grid_sigma_p8') is not None
+                       else None))
+    # the occluder subset, once per scene: triangles whose BSDF is not null
+    tri_bsdf = np.asarray(arrays['shapes.bsdf_idx'])[
+        np.asarray(arrays['geo.shape_idx'], np.int64)]
+    occ = np.asarray(arrays['bsdfs.type'])[tri_bsdf] != BSDF_TYPES['null']
+    if occ.all():
+        occluders = Occluders(geo.v0, geo.e1, geo.e2)
+    else:
+        sel = torch.as_tensor(np.flatnonzero(occ), device=device)
+        occluders = Occluders(*(x[sel].contiguous()
+                                for x in (geo.v0, geo.e1, geo.e2)))
     to_world = Transform(get('sensor.to_world.m', np.float32),
                          get('sensor.to_world.inv', np.float32))
     sensor = SensorData(to_world=to_world, **{
         f: get(f'sensor.{f}', np.float32)
         for f in SensorData._fields if f != 'to_world'})
     scene = SceneData(geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
-                      sensor=sensor,
+                      media=media, occluders=occluders, sensor=sensor,
                       **{k: get(k, np.float32) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
     return scene, meta_t

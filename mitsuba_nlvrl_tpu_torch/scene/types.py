@@ -5,12 +5,13 @@ build time into structure-of-arrays tensors indexed by integer type codes,
 and per-lane virtual dispatch becomes masked evaluation over the few types
 a scene uses (``SceneMeta`` records which). The type tables keep the
 reference's codes, so packed parameter rows mean the same in both
-packages. This slice holds the tables the ``path`` integrator reads.
+packages. This slice holds the tables the ``path``, ``volpath`` and
+``volpathmis`` integrators read.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,10 @@ EMITTER_TYPES = {
     'envmap': 5, 'projector': 6,
 }
 
+MEDIUM_TYPES = {'homogeneous': 0, 'heterogeneous': 1, 'nonlinear': 2}
+
+PHASE_TYPES = {'isotropic': 0, 'hg': 1}
+
 SENSOR_TYPES = {'perspective': 0, 'thinlens': 1, 'radiancemeter': 2,
                 'irradiancemeter': 3}
 
@@ -48,15 +53,28 @@ F_MASK = 32
 
 BSDF_NPARAM = 20
 EMITTER_NPARAM = 28
+MEDIUM_NPARAM = 28
+
+# medium param layout offsets (slots 17-22 hold the nonlinear medium's
+# parameters, ROADMAP.md queue A item 9)
+M_SIGMA_T = 0       # [0:3]
+M_ALBEDO = 3        # [3:6]
+M_SCALE = 6
+M_PHASE_G = 7
+M_BBOX_MIN = 8      # [8:11]
+M_BBOX_MAX = 11     # [11:14]
+M_MAJORANT = 14     # [14:17]
 
 # What this slice of the port renders; anything else raises
 # NotImplementedError naming the ROADMAP item that brings it.
 SLICE_SHAPES = ('rectangle', 'cube', 'sphere')
-SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric')
+SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'null')
 SLICE_EMITTERS = ('area', 'point', 'constant')
 SLICE_SENSORS = ('perspective',)
 SLICE_SAMPLERS = ('independent',)
-SLICE_INTEGRATORS = ('path',)
+SLICE_INTEGRATORS = ('path', 'volpath', 'volpathmis')
+SLICE_MEDIA = ('homogeneous', 'heterogeneous')
+SLICE_PHASES = ('isotropic', 'hg')
 
 
 def not_in_slice(what: str, roadmap: str) -> NotImplementedError:
@@ -85,6 +103,8 @@ class Geometry(NamedTuple):
 class ShapeTable(NamedTuple):
     bsdf_idx: torch.Tensor        # (Sh,) int32
     emitter_idx: torch.Tensor     # (Sh,) int32, -1 = not emissive
+    int_medium: torch.Tensor      # (Sh,) int32, -1 = none
+    ext_medium: torch.Tensor      # (Sh,) int32, -1 = none
 
 
 class BSDFTable(NamedTuple):
@@ -105,6 +125,33 @@ class EmitterTable(NamedTuple):
     em_area: torch.Tensor     # (E,) float32 total emitter area
 
 
+class MediumTable(NamedTuple):
+    """Participating media: one packed parameter row per medium (at least
+    one row, so per-lane gathers stay well-formed in medium-free scenes)
+    and the scene's one density grid with its derived copies."""
+    type: torch.Tensor           # (M,) int32 MEDIUM_TYPES code
+    phase_type: torch.Tensor     # (M,) int32 PHASE_TYPES code
+    params: torch.Tensor         # (M, MEDIUM_NPARAM) float32
+    grid_sigma_t: torch.Tensor   # (Dz, Dy, Dx) float32; (1, 1, 1) unused
+    # supervoxel block max (dilated) and min (eroded) of grid_sigma_t:
+    # the local majorants and controls of the tracking walks
+    grid_sup: torch.Tensor       # (Sz, Sy, Sx); (1, 1, 1) ones unused
+    grid_sup_min: torch.Tensor   # (Sz, Sy, Sx); (1, 1, 1) zeros unused
+    # corner-packed rows (Dz*Dy*Dx, 10): the 8 trilinear corners of each
+    # voxel, its block's bound (slot 8) and control or leap distance
+    # (slot 9); None when the grid is absent or too large to copy
+    grid_sigma_p8: Optional[torch.Tensor] = None
+
+
+class Occluders(NamedTuple):
+    """The triangles whose BSDF is not ``null``: the any-hit set of the
+    single-segment NEE shadow query. The same tensors as ``Geometry``'s
+    when no triangle has a null BSDF."""
+    v0: torch.Tensor        # (To, 3)
+    e1: torch.Tensor
+    e2: torch.Tensor
+
+
 class SensorData(NamedTuple):
     to_world: Transform
     tan_fov_x: torch.Tensor   # () tan(fov_x / 2)
@@ -120,6 +167,8 @@ class SceneData(NamedTuple):
     shapes: ShapeTable
     bsdfs: BSDFTable
     emitters: EmitterTable
+    media: MediumTable
+    occluders: Occluders
     sensor: SensorData
     bbox_lo: torch.Tensor     # (3,)
     bbox_hi: torch.Tensor     # (3,)
@@ -146,14 +195,19 @@ class SceneMeta:
     n_shapes: int = 0
     n_bsdfs: int = 0
     n_emitters: int = 0
+    n_media: int = 0
     bsdf_types: Tuple[int, ...] = ()          # distinct codes present
     emitter_types: Tuple[int, ...] = ()
+    medium_types: Tuple[int, ...] = ()        # per-medium-slot type codes
+    phase_types: Tuple[int, ...] = ()         # distinct phase codes present
     sensor_type: int = 0
     film: FilmMeta = field(default_factory=FilmMeta)
     sampler: str = 'independent'
     spp: int = 16
     integrator: str = 'path'
     integrator_props: Tuple[Tuple[str, object], ...] = ()
+    has_media: bool = False
+    camera_medium: int = -1    # medium the camera starts in (-1 vacuum)
 
     def iprop(self, name, default=None):
         for k, v in self.integrator_props:
@@ -180,6 +234,16 @@ def check_meta(meta: SceneMeta) -> None:
                            "item 5 (camera and film)")
     if meta.sampler not in SLICE_SAMPLERS:
         raise not_in_slice(f"sampler '{meta.sampler}'", "item 3 (sampling)")
+    med_names = {v: k for k, v in MEDIUM_TYPES.items()}
+    for code in meta.medium_types:
+        if med_names.get(code) not in SLICE_MEDIA:
+            raise not_in_slice(f"medium type '{med_names.get(code)}'",
+                               "item 9 (NLVRL and the photon mapper)")
+    ph_names = {v: k for k, v in PHASE_TYPES.items()}
+    for code in meta.phase_types:
+        if ph_names.get(code) not in SLICE_PHASES:
+            raise not_in_slice(f"phase function '{ph_names.get(code)}'",
+                               "item 8 (volumetrics)")
     if meta.integrator not in SLICE_INTEGRATORS:
         raise not_in_slice(f"integrator '{meta.integrator}'",
                            "items 7-11 (integrators)")

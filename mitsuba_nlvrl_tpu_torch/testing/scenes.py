@@ -1,13 +1,24 @@
 """Procedural scene descriptions: the port's copy of the reference's test
 scenes (``tests/scenes.py``), built with the port's own transforms so a
-program that must not import JAX (``chip_smoke.py``) can describe them."""
+program that must not import JAX (``chip_smoke.py``) can describe them,
+and ``hetvol_box``, the Cornell box around a heterogeneous medium whose
+density grid is made from a seed."""
 from __future__ import annotations
 
+import numpy as np
+
 from ..core import transform as tr
+from ..scene.vol_io import VolumeGrid
+
+# the null cube that bounds a medium in the box, and its grid's bbox
+MEDIUM_CUBE_SCALE = 0.95
+# Gaussian blobs summed into hetvol_box's density
+HETVOL_BLOBS = 8
 
 
-def cornell_box(spp=4, res=32, integrator=None, light='area'):
-    """An axis-aligned Cornell box built from rectangles, camera on -z."""
+def cornell_box(spp=4, res=32, integrator=None, light='area', medium=None):
+    """An axis-aligned Cornell box built from rectangles, camera on -z;
+    with ``medium``, a null cube (scale 0.95) holds it inside."""
     integrator = integrator or {'type': 'path', 'max_depth': 4}
     white = {'type': 'diffuse', 'reflectance': (0.7, 0.7, 0.7)}
     red = {'type': 'diffuse', 'reflectance': (0.6, 0.05, 0.05)}
@@ -43,6 +54,12 @@ def cornell_box(spp=4, res=32, integrator=None, light='area'):
     elif light == 'constant':
         emitters.append({'type': 'constant', 'radiance': (1.0, 1.0, 1.0)})
 
+    if medium is not None:
+        shapes.append({
+            'type': 'cube', 'bsdf': {'type': 'null'},
+            'interior': medium,
+            'to_world': tr.scale(MEDIUM_CUBE_SCALE)})
+
     return {
         'integrator': integrator,
         'sensor': {
@@ -77,3 +94,49 @@ def sphere_scene(spp=4, res=32, bsdf=None):
         ],
         'emitters': [{'type': 'constant', 'radiance': (1.0, 1.0, 1.0)}],
     }
+
+
+def hetvol_density(grid_res: int, seed: int = 0) -> np.ndarray:
+    """A (grid_res,)*3 float32 density in (z, y, x) order from
+    ``numpy.random.default_rng(seed)``: a sum of ``HETVOL_BLOBS`` Gaussian
+    blobs sampled at voxel centres, scaled into [0, 1], with voxels below
+    1e-3 set to 0 so that the grid's corners hold whole vacuum blocks."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0.25, 0.75, size=(HETVOL_BLOBS, 3))
+    sigmas = rng.uniform(0.04, 0.1, size=HETVOL_BLOBS)
+    amps = rng.uniform(0.5, 1.0, size=HETVOL_BLOBS)
+    x = (np.arange(grid_res) + 0.5) / grid_res
+    dens = np.zeros((grid_res,) * 3)
+    for (cx, cy, cz), sg, a in zip(centres, sigmas, amps):
+        ex, ey, ez = (np.exp(-(x - c) ** 2 / (2.0 * sg * sg))
+                      for c in (cx, cy, cz))
+        dens += a * ez[:, None, None] * ey[None, :, None] * ex[None, None, :]
+    dens /= dens.max()
+    dens[dens < 1e-3] = 0.0
+    return dens.astype(np.float32)
+
+
+def hetvol_medium(grid_res: int = 32, seed: int = 0, scale: float = 100.0):
+    """A heterogeneous medium whose sigma_t is ``hetvol_density`` times
+    ``scale`` over the medium cube, with HG phase (the builder's defaults:
+    albedo 0.75, g = 0.8)."""
+    half = MEDIUM_CUBE_SCALE
+    grid = VolumeGrid(hetvol_density(grid_res, seed)[..., None],
+                      np.full(3, -half, np.float32),
+                      np.full(3, half, np.float32))
+    return {'type': 'heterogeneous', 'scale': float(scale),
+            'sigma_t': {'type': 'gridvolume', '_grid': grid},
+            'phase': {'type': 'hg'}}
+
+
+def hetvol_box(res_w=768, res_h=576, spp=2, grid_res=128, seed=0,
+               scale=100.0):
+    """The Cornell box around a heterogeneous medium in its null cube:
+    the film, sigma_t scale and HG phase of the reference's hetvol scene,
+    with a density grid made from ``seed`` (``hetvol_density``), rendered
+    by ``volpath`` with max_depth 8."""
+    desc = cornell_box(spp=spp, res=res_w,
+                       integrator={'type': 'volpath', 'max_depth': 8},
+                       medium=hetvol_medium(grid_res, seed, scale))
+    desc['sensor']['film']['height'] = res_h
+    return desc

@@ -161,8 +161,11 @@ def main():
         mnt.render_pass(scene, meta, key0, 1)
         torch.cuda.synchronize()
         pass_ms = (time.time() - t0) * 1e3
+    # kernels alone: the CPU-side operators also carry the device time of
+    # the kernels they launched, which would count it twice
     kernels = [e for e in prof.key_averages()
-               if getattr(e, 'self_device_time_total', 0) > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     mt = sum(e.self_device_time_total for e in kernels
              if 'mt_kernel' in e.key) / 1e3

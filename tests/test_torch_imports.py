@@ -74,12 +74,39 @@ def test_cpu_render_loads_no_jax():
     assert not [m for m in loaded if _forbidden(m)]
 
 
+def test_cpu_volumetric_render_loads_no_jax():
+    """The volumetric slice (phase, medium, volpath, the .vol reader)
+    renders on the CPU without JAX or the reference package loaded."""
+    code = (
+        "import sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.scene import vol_io\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import hetvol_box\n"
+        "d = hetvol_box(8, 6, spp=1, grid_res=16, seed=0, scale=20.0)\n"
+        "s, m = P.build_scene(d, device='cpu')\n"
+        "img = P.render(s, m, seed=0, spp=1)\n"
+        "assert img.shape == (6, 8, 3) and bool(img.isfinite().all())\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('phase', 'medium', 'integrators.volpath', 'scene.vol_io'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
 def test_build_scene_without_cuda_raises(monkeypatch):
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.build_scene(cornell_box())
+    vol = cornell_box(integrator={'type': 'volpath'},
+                      medium={'type': 'homogeneous'})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.build_scene(vol)
     scene, _ = P.build_scene(cornell_box(), device='cpu')
     assert scene.device.type == 'cpu'
 

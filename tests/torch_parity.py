@@ -18,11 +18,13 @@ import mitsuba_nlvrl_tpu_torch as P
 
 def scene_arrays(scene) -> dict:
     """Flatten a SceneData of either package into {dotted field path:
-    ndarray}, the form ``scene_from_numpy`` takes."""
+    ndarray}, the form ``scene_from_numpy`` takes. The port's occluder
+    subset is left out: ``scene_from_numpy`` derives it from the other
+    arrays (tests/test_torch_medium.py checks it)."""
     out = {}
 
     def walk(prefix, node):
-        if node is None:
+        if node is None or prefix == 'occluders':
             return
         if hasattr(node, '_fields'):
             for f in node._fields:
