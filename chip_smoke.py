@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about four minutes on an H100
+    python3 chip_smoke.py            # about seven minutes on an H100
 
 Builds the port's CUDA kernel from the sources in this checkout, checks
 the launch geometry the kernel works out for itself, holds the kernel
@@ -19,10 +19,21 @@ intersection call of one pass of the heterogeneous-medium box
 timed, the 2 spp render itself (wall time, rays, kernel launches, host
 syncs, the share of the time spent in the medium's collision walk), and a
 64x64 heterogeneous ``volpath`` and homogeneous ``volpathmis`` render on
-the card against the CPU. Each phase prints one JSON line; the last
-line is ``{"ok": true, "device": {...}}``. Any failed check raises and the
-script exits non-zero. Without a CUDA device it exits non-zero at once and
-prints no result. It imports neither JAX nor the JAX package.
+the card against the CPU. The NLVRL slice follows: ``cbox_nlvrl``
+(512x256, the Cornell box around a nonlinear medium with a 640-cell IOR
+grid, lit by a laser; ``vrl`` with 8,000 VRLs and cluster selection) is
+built, its preprocess (the light pass, the photon maps and the VRL
+clusters) is run and reported, every intersection call of one render
+(preprocess and one camera pass) is checked against the plain version
+and timed (every k-th call alone), the 2 spp render itself is timed by
+parts (bend march, volume gather, VRL query, surface gathers), and a
+64x32 ``vrl`` and ``photonmapper`` render of the box on the card is held
+against the CPU on the CPU's own maps (strictly) and on each device's
+own maps (map counts, image means within 5%). Each phase prints one JSON
+line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+check raises and the script exits non-zero. Without a CUDA device it
+exits non-zero at once and prints no result. It imports neither JAX nor
+the JAX package.
 """
 from __future__ import annotations
 
@@ -290,11 +301,11 @@ def record_calls(mnt, scene, meta) -> list:
     return calls
 
 
-def render_rays(torch, kern, calls, bw, fl) -> dict:
+def render_rays(torch, kern, calls, bw, fl, stride: int = 1) -> dict:
     """The kernel on a render's own rays: every call of one pass against
-    the plain version and timed alone, then the pass's calls timed
-    together (device time of the pass's kernel work) and its plain
-    version."""
+    the plain version, every ``stride``-th call timed alone, then the
+    pass's calls timed together (device time of the pass's kernel work)
+    and its plain version."""
     recs, worst, bounds = [], 0.0, []
     for k, (tris, rays, any_hit) in enumerate(calls):
         rec = against_plain(torch, kern, tris, rays, any_hit)
@@ -302,9 +313,11 @@ def render_rays(torch, kern, calls, bw, fl) -> dict:
         worst = max(worst, rec.get('max_abs_err', 0.0))
         N, T = rays[0].shape[0], tris[0].shape[0]
         _, _, b_bytes, b_ops = bound(N, T, any_hit, bw, fl)
+        bounds.append((b_bytes, b_ops))
+        if k % stride:
+            continue
         ms = time_ms(lambda: kern.intersect_tris(*tris, *rays,
                                                  any_hit=any_hit), 7, 50)
-        bounds.append((b_bytes, b_ops))
         recs.append({'call': k, 'any_hit': any_hit, 'rays': N, 'tris': T,
                      'ms': ms, 'bound_ms': max(b_bytes, b_ops),
                      'roofline_share': max(b_bytes, b_ops) / ms, **rec})
@@ -324,7 +337,7 @@ def render_rays(torch, kern, calls, bw, fl) -> dict:
             'bound_by': ('bytes' if all(b >= o for b, o in bounds)
                          else 'operations'),
             'roofline_share': bound_ms / (pass_ms / n),
-            'max_abs_err': worst, 'calls': recs}
+            'max_abs_err': worst, 'timed_every': stride, 'calls': recs}
 
 
 def card_vs_cpu(mnt, compare, desc, spp) -> dict:
@@ -337,6 +350,31 @@ def card_vs_cpu(mnt, compare, desc, spp) -> dict:
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c)
 
 
+def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
+    """A two-pass scene on the card and on the CPU from one seed: the
+    camera passes on the CPU's maps carried to the card (the numbers of
+    ``compare.agreement``), and each device on its own maps (their map
+    counts and image means)."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
+    sg, mg = mnt.build_scene(desc)
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    maps_c = mnt.preprocess(sc, mc, 0)
+    maps_g = mnt.preprocess(sg, mg, 0)
+    carried = mnt.maps_from_numpy(mnt.maps_to_numpy(maps_c), device='cuda')
+    img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp, carried)
+    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp,
+                                                         maps_c)
+    own_g, _, _ = compare.render_with_passes(sg, mg, 0, spp, maps_g)
+    own = {'card_maps': lighttrace.map_stats(maps_g),
+           'cpu_maps': lighttrace.map_stats(maps_c),
+           'card_mean': float(own_g.mean()), 'cpu_mean': float(img_c.mean()),
+           'card_finite': bool(np.isfinite(own_g).all())}
+    own['mean_rel'] = abs(own['card_mean'] - own['cpu_mean']) \
+        / max(abs(own['cpu_mean']), 1e-12)
+    return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c), own
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -347,7 +385,11 @@ def main() -> int:
     from mitsuba_nlvrl_tpu_torch.testing import compare
     from mitsuba_nlvrl_tpu_torch.core import sync
     from mitsuba_nlvrl_tpu_torch.testing.walk_probe import record_walks
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cornell_box,
+    from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
+    from mitsuba_nlvrl_tpu_torch.testing.nlvrl_probe import (CAMERA_PARTS,
+                                                             record_parts)
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_nlvrl,
+                                                        cornell_box,
                                                         hetvol_box)
 
     smi = subprocess.run(
@@ -496,11 +538,92 @@ def main() -> int:
         emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, **agree})
         compare.check(agree)
 
+    # --- the NLVRL slice: cbox_nlvrl at full width ---------------------
+    t0 = time.time()
+    nscene, nmeta = mnt.build_scene(cbox_nlvrl(512, 256, spp=2,
+                                               target_vrls=8000))
+    emit({'phase': 'nlvrl_build', 'seconds': time.time() - t0,
+          'n_tris': nmeta.n_tris,
+          'occluder_tris': nscene.occluders.v0.shape[0],
+          'ior_cells': nscene.media.nl_ior.shape[0],
+          'integrator': nmeta.integrator})
+    assert nscene.media.nl_ior.shape[0] == 640, nscene.media.nl_ior.shape
+
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    t0 = time.time()
+    nmaps = mnt.preprocess(nscene, nmeta, 0)
+    torch.cuda.synchronize()
+    pre_s = time.time() - t0
+    pre_launches, pre_syncs = kern.launches, sync.host_syncs
+    mstats = lighttrace.map_stats(nmaps)
+    cl = nmaps.clusters
+    emit({'phase': 'nlvrl_preprocess', 'wall_s': pre_s,
+          'launches': pre_launches, 'host_syncs': pre_syncs, **mstats,
+          'clusters': {'K1': cl.c_lum.shape[0], 'K2': cl.s_lum.shape[1],
+                       'M': cl.rows.shape[1] // 5}})
+    assert pre_launches > 0 and mstats['vrl_count'] > 0, mstats
+    assert mstats['surface_photons'] > 0 and mstats['volume_photons'] > 0
+
+    # one render's calls (also the warm-up): the light pass's nearest and
+    # any hits on 8,192 rays, the camera pass's on 131,072
+    ncalls = record_calls(mnt, nscene, nmeta)
+    nstride = max(1, len(ncalls) // 64)
+    nown = render_rays(torch, kern, ncalls, bw, fl, stride=nstride)
+    nown['ray_counts'] = sorted({c[1][0].shape[0] for c in ncalls})
+    emit({'phase': 'nlvrl_render_rays', **nown})
+    del ncalls
+    worst = max(worst, nown['max_abs_err'])
+
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    nstats, ninfo = [], {}
+    with record_parts(timed=True) as plog:
+        nimg = mnt.render(nscene, nmeta, seed=0, spp=2, ray_stats=nstats,
+                          info=ninfo)
+        torch.cuda.synchronize()
+    nlaunches, nsyncs = kern.launches, sync.host_syncs
+    nrays = float(sum(float(r) for r in nstats))
+    cam_s = ninfo['wall_s'] - ninfo['preprocess_s']
+    parts = {p: {'calls': plog.calls(p), 'device_s': plog.device_s(p),
+                 'share_of_camera': plog.device_s(p) / cam_s}
+             for p in CAMERA_PARTS}
+    nimg_np = nimg.cpu().numpy()
+    nfinite = bool(nimg.isfinite().all())
+    emit({'phase': 'nlvrl_render', 'res': [512, 256], 'spp': 2,
+          'integrator': 'vrl', 'target_vrls': 8000,
+          'wall_s': ninfo['wall_s'], 'preprocess_s': ninfo['preprocess_s'],
+          'camera_s': cam_s, 'rays': nrays,
+          'mrays_per_s': nrays / ninfo['wall_s'] / 1e6,
+          'launches': nlaunches, 'host_syncs': nsyncs, 'parts': parts,
+          'shoot_device_s': plog.device_s('shoot'),
+          'kernel_share_est': nlaunches * nown['ms_per_launch'] / 1e3
+          / ninfo['wall_s'],
+          'finite': nfinite, 'mean': float(nimg_np.mean()),
+          'shape': list(nimg_np.shape)})
+    assert nlaunches > 0 and plog.calls('bend') > 0, nlaunches
+    assert plog.calls('vrl_query') > 0 and plog.calls('volume_gather') > 0
+    assert nfinite and nimg_np.shape == (256, 512, 3), nimg_np.shape
+    assert 0.0 < float(nimg_np.mean()) < 10.0, nimg_np.mean()
+
+    # --- the NLVRL card path against the CPU path, 64x32 at 2 spp -------
+    for integ, tv in (('vrl', 1000), ('photonmapper', 1000)):
+        agree, own_maps = nlvrl_card_vs_cpu(
+            mnt, compare, cbox_nlvrl(64, 32, spp=2, target_vrls=tv,
+                                     integrator=integ), 2)
+        emit({'phase': 'nlvrl_card_vs_cpu', 'integrator': integ, **agree,
+              'own_maps': own_maps})
+        compare.check(agree)
+        assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
+            own_maps
+
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect.cu',
         'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',
-        'launches': launches + vlaunches, 'max_abs_err': worst,
+        'launches': launches + vlaunches + nlaunches, 'max_abs_err': worst,
         'ms': own['ms_per_launch'], 'plain_ms': own['plain_ms_per_launch'],
         'bound_ms': own['bound_ms_per_launch'], 'bound_by': own['bound_by'],
         'library_ms': None,
@@ -508,7 +631,11 @@ def main() -> int:
         'volume_ms': vown['ms_per_launch'],
         'volume_plain_ms': vown['plain_ms_per_launch'],
         'volume_bound_ms': vown['bound_ms_per_launch'],
-        'volume_bound_by': vown['bound_by']}]})
+        'volume_bound_by': vown['bound_by'],
+        'launches_nlvrl': nlaunches, 'nlvrl_ms': nown['ms_per_launch'],
+        'nlvrl_plain_ms': nown['plain_ms_per_launch'],
+        'nlvrl_bound_ms': nown['bound_ms_per_launch'],
+        'nlvrl_bound_by': nown['bound_by']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

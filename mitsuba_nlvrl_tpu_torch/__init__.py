@@ -7,6 +7,7 @@ the caller passes ``device='cpu'``. This package never imports JAX or the
 reference package.
 """
 from .scene.builder import build_scene, scene_from_numpy  # noqa: F401
-from .render import render, render_pass  # noqa: F401
+from .render import preprocess, render, render_pass  # noqa: F401
+from .integrators.vrl import maps_from_numpy, maps_to_numpy  # noqa: F401
 
 __version__ = "0.1.0"

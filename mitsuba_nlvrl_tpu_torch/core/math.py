@@ -36,7 +36,11 @@ def safe_sqrt(x):
 
 
 def safe_rsqrt(x):
-    return torch.rsqrt(torch.clamp(x, min=_F32_TINY))
+    """1 / sqrt(x), both correctly rounded, so the card and the CPU agree
+    to the bit (``torch.rsqrt`` is an approximation whose last bit
+    differs between them, and a bend in a nonlinear medium at a total
+    internal reflection turns on that bit)."""
+    return 1.0 / torch.sqrt(torch.clamp(x, min=_F32_TINY))
 
 
 def safe_acos(x):
@@ -123,6 +127,19 @@ def normalize_with_norm(v):
 def reflect(w, n):
     """Reflect direction ``w`` (pointing away from surface) about normal."""
     return 2.0 * dot(w, n, keepdims=True) * n - w
+
+
+def refract_snell(wi, n, eta_rel):
+    """Snell refraction of the propagation direction ``wi`` at a boundary
+    whose normal ``n`` faces against it, with relative IOR
+    ``eta_rel = n1 / n2`` (N,); returns (wo, tir_mask). The geometry of
+    the nonlinear medium's cell-boundary bend."""
+    eta = eta_rel[..., None]
+    cos_i = torch.clamp(dot(n, wi, keepdims=True), -1.0, 1.0)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k[..., 0] < 0.0
+    wo = eta * wi - (eta * cos_i + safe_sqrt(k)) * n
+    return normalize(wo), tir
 
 
 def coordinate_system(n):

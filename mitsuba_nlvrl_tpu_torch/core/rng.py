@@ -4,7 +4,7 @@ Port of ``mitsuba_nlvrl_tpu/core/rng.py``. The reference draws its random
 numbers from ``jax.random`` (threefry2x32 with
 ``jax_threefry_partitionable=True``); this module reproduces that stream
 bit for bit for the calls the renderer makes: ``PRNGKey``, ``fold_in``,
-``split`` into two keys and float32 ``uniform``. With the same seed both
+``split`` and float32 ``uniform``. With the same seed both
 packages therefore trace the same light paths.
 
 Torch has no ``+``, ``<<`` or ``>>`` for ``uint32`` on the CPU, so the
@@ -67,12 +67,13 @@ def fold_in(key, data: int) -> torch.Tensor:
     return _key(a[0], b[0])
 
 
-def split(key) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.random.split(key)`` into two keys (fold-like split)."""
+def split(key, n: int = 2) -> Tuple[torch.Tensor, ...]:
+    """``jax.random.split(key, n)``: the fold-like split of the
+    partitionable threefry, key i hashing the counter pair (0, i)."""
     k1, k2 = _key_ints(key)
-    a, b = threefry2x32(k1, k2, torch.zeros(2, dtype=torch.int64),
-                        torch.arange(2, dtype=torch.int64))
-    return _key(a[0], b[0]), _key(a[1], b[1])
+    a, b = threefry2x32(k1, k2, torch.zeros(n, dtype=torch.int64),
+                        torch.arange(n, dtype=torch.int64))
+    return tuple(_key(a[i], b[i]) for i in range(n))
 
 
 def random_bits(key, shape, device=None) -> torch.Tensor:

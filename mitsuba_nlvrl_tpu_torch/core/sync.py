@@ -2,8 +2,9 @@
 
 The reference's ``lax.while_loop`` conditions (``any(active)``) become host
 loops in the port, each trip reading one boolean back from the device.
-``any_on_host`` is that read; ``host_syncs`` counts them, so a run can show
-how many times the host waited for the card.
+``any_on_host`` is that read, ``int_on_host`` the read of a loop's trip
+count; ``host_syncs`` counts both, so a run can show how many times the
+host waited for the card.
 """
 from __future__ import annotations
 
@@ -18,3 +19,10 @@ def any_on_host(mask: torch.Tensor) -> bool:
     global host_syncs
     host_syncs += 1
     return bool(mask.any())
+
+
+def int_on_host(x: torch.Tensor) -> int:
+    """``int(x)`` of a 0-d tensor, counted."""
+    global host_syncs
+    host_syncs += 1
+    return int(x)

@@ -2,8 +2,9 @@
 
 Port of ``mitsuba_nlvrl_tpu/emitter/__init__.py`` for ``area``, ``point``
 and ``constant``: uniform emitter pick plus per-type direction sampling
-toward a reference point, and emission for rays that hit emissive geometry
-or escape to the environment. The reference's one-hot-matmul gathers
+toward a reference point, emission for rays that hit emissive geometry
+or escape to the environment, and emission rays for light tracing
+(``sample_ray``). The reference's one-hot-matmul gathers
 (``ops/gather.py``, a TPU workaround) are plain indexing here.
 """
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..core.frame import Frame
+from ..core.ray import Ray
 from ..core.records import DirectionSample
 from ..scene.types import (EMITTER_TYPES, EMITTER_NPARAM, SLICE_EMITTERS,
                            not_in_slice)
@@ -232,3 +235,81 @@ def pdf_env_direction(scene, meta, active, ray_d=None):
     if E_CONSTANT in meta.emitter_types:
         return torch.where(active, m.InvFourPi / E, 0.0)
     return torch.zeros(active.shape, device=active.device)
+
+
+def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
+               ) -> Tuple[Ray, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An emission ray for light tracing (photon and VRL shooting).
+
+    Returns (ray, power weight, emitter_idx, normal at the origin). The
+    weight is flux / pdf, so that the deposited energy sums to the
+    emitters' power; it includes the 1/E emitter pick."""
+    E = scene.emitters.type.shape[0]
+    N = u_sel.shape[0]
+    dev = u_sel.device
+    e_idx = torch.clamp((u_sel * E).to(torch.int32), max=max(E - 1, 0))
+    el = e_idx.long()
+    etype = scene.emitters.type[el]
+    P = scene.emitters.params[el]
+    o = torch.zeros((N, 3), device=dev)
+    d = torch.zeros((N, 3), device=dev)
+    w = torch.zeros((N, 3), device=dev)
+    n_o = torch.zeros((N, 3), device=dev)
+
+    if E_AREA in meta.emitter_types:
+        em = scene.emitters
+        off = em.tri_offset[el]
+        cnt = torch.clamp(em.tri_count[el], min=1)
+        pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u_pos[:, 0])
+        pl = pos.long()
+        tri = em.em_tri_idx[pl].long()
+        cdf_hi = em.em_tri_cdf[pl]
+        cdf_lo = torch.where(pos > off,
+                             em.em_tri_cdf[torch.clamp(pl - 1, min=0)], 0.0)
+        u0 = torch.clamp(m.safe_div(u_pos[:, 0] - cdf_lo, cdf_hi - cdf_lo),
+                         0.0, m.OneMinusEpsilon)
+        bary = warp.square_to_uniform_triangle(
+            torch.stack([u0, u_pos[:, 1]], dim=-1))
+        e1 = scene.geo.e1[tri]
+        e2 = scene.geo.e2[tri]
+        p_a = scene.geo.v0[tri] + bary[:, 0:1] * e1 + bary[:, 1:2] * e2
+        n_a = m.normalize(m.cross(e1, e2))
+        d_a = Frame.from_normal(n_a).to_world(
+            warp.square_to_cosine_hemisphere(u_dir))
+        area = torch.clamp(em.em_area[el], min=1e-20)
+        # L * pi * area: the cosine-sampled direction cancels cos / pdf
+        w_a = P[:, 0:3] * (m.Pi * area)[:, None]
+        sel = (etype == E_AREA)[:, None]
+        o = torch.where(sel, p_a, o)
+        d = torch.where(sel, d_a, d)
+        w = torch.where(sel, w_a, w)
+        n_o = torch.where(sel, n_a, n_o)
+
+    if E_POINT in meta.emitter_types:
+        d_p = warp.square_to_uniform_sphere(u_dir)
+        sel = (etype == E_POINT)[:, None]
+        o = torch.where(sel, P[:, 0:3], o)
+        d = torch.where(sel, d_p, d)
+        w = torch.where(sel, P[:, 3:6] * (4.0 * m.Pi), w)
+        n_o = torch.where(sel, d_p, n_o)
+
+    if E_CONSTANT in meta.emitter_types:
+        # origin uniform on the scene's bounding sphere, direction
+        # cosine-sampled about the inward normal: L * 4 pi^2 R^2
+        R = scene.bsphere_r
+        v0 = warp.square_to_uniform_sphere(u_pos)
+        v1 = warp.square_to_cosine_hemisphere(u_dir)
+        o_c = scene.bsphere_c[None, :] + v0 * R
+        d_c = Frame.from_normal(-v0).to_world(v1)
+        w_c = P[:, 0:3] * (4.0 * m.sqr(m.Pi * R))
+        sel = (etype == E_CONSTANT)[:, None]
+        o = torch.where(sel, o_c, o)
+        d = torch.where(sel, d_c, d)
+        w = torch.where(sel, w_c, w)
+        n_o = torch.where(sel, -v0, n_o)
+
+    w = w * E
+    z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    d = m.normalize(torch.where(m.squared_norm(d, True) > 0, d, z_axis))
+    ray = Ray.make(o, d)
+    return ray, torch.where(active[:, None], w, 0.0), e_idx, n_o

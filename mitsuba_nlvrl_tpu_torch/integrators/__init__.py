@@ -1,19 +1,27 @@
 """Integrator registry.
 
 Port of ``mitsuba_nlvrl_tpu/integrators/__init__.py``: each integrator
-exposes ``sample(scene, meta, sampler, ray)`` over a ray wavefront. This
-slice has ``path``, ``volpath`` and ``volpathmis`` (one estimator; the
-latter adds MIS at medium vertices); the others raise, naming the ROADMAP
-item that brings them.
+exposes ``sample(scene, meta, sampler, ray, aux=None)`` over a ray
+wavefront; the two-pass integrators (``vrl``, ``photonmapper`` and its
+older name ``photonmap``) also expose ``preprocess(scene, meta, key) ->
+aux``, their photon and VRL maps, which every pass reads. This slice has
+``path``, ``volpath``, ``volpathmis`` (one estimator; the latter adds MIS
+at medium vertices), ``vrl`` and ``photonmapper``; the others raise,
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 from . import path as _path
+from . import photonmapper as _pm
 from . import volpath as _volpath
+from . import vrl as _vrl
 from ..scene.types import not_in_slice
 
 _REGISTRY = {'path': _path.sample, 'volpath': _volpath.sample,
-             'volpathmis': _volpath.sample}
+             'volpathmis': _volpath.sample, 'vrl': _vrl.sample,
+             'photonmapper': _pm.sample, 'photonmap': _pm.sample}
+_PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
+               'photonmap': _pm.preprocess}
 
 
 def get_integrator(name: str):
@@ -21,3 +29,9 @@ def get_integrator(name: str):
         raise not_in_slice(f"integrator '{name}'",
                            "items 7-11 (integrators)")
     return _REGISTRY[name]
+
+
+def get_preprocess(name: str):
+    """The integrator's preprocess, or None."""
+    get_integrator(name)
+    return _PREPROCESS.get(name)

@@ -118,7 +118,7 @@ def make_body(scene, meta, N: int):
     return body
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray):
+def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
     """Estimate incident radiance along each camera ray. Returns (L, valid,
     sampler)."""
     N = ray.o.shape[0]

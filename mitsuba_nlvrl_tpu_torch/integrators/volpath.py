@@ -331,7 +331,7 @@ def make_body(scene, meta, N: int):
     return body
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray):
+def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
     """Volumetric path tracing of each camera ray. Returns (L, valid,
     sampler)."""
     N = ray.o.shape[0]

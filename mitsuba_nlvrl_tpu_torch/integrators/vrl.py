@@ -1,0 +1,695 @@
+"""VRL integrator: Non-Linear Virtual Ray Lights.
+
+Port of ``mitsuba_nlvrl_tpu/integrators/vrl.py``:
+
+  * preprocess: wavefront photon and VRL shooting (``lighttrace.py``),
+    thinning to the map budgets, hash grids and the VRL clusters;
+  * camera pass: a bounce loop; inside (optically homogeneous or
+    nonlinear) media the camera ray bends into a piecewise-linear
+    ``BentRay``, volume photons are gathered at points spaced 2 * radius
+    along it for direct light, and VRLs are queried per segment for
+    indirect light;
+  * VRL evaluation: Kulla and Fajardo inverse-CDF sampling in asinh space
+    on the VRL and atan space on the camera segment, both phase functions
+    and sigma_s, three transmittances with an occlusion walk;
+  * VRL selection: a two-level Morton cluster hierarchy (coarse cluster,
+    subcluster, member), the wavefront form of the reference's lightcut
+    (``VRLClusters``), or uniform selection.
+
+The reference's ``lax`` loops become host loops: the camera bounces and
+the VRL query over the live segment count read the device once a trip
+(``core/sync.py``); the volume gather runs the trips some lane needs (one
+read), and in a scene with a heterogeneous medium advances the sampler
+past the skipped trips' draws, so every later draw keeps its dimension.
+Options that a later slice ports (``vrl_ris``, ``rr_vrl``,
+``vrl_aniso_cdf``, ``dice_vrl``, ``long_vrl``, ``use_bre``,
+``map_psum_axis``) raise at scene build (``scene.types.check_meta``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import math as m
+from ..core import rng
+from ..core.ray import Ray
+from ..core.rng import Sampler
+from ..core.sync import any_on_host, int_on_host
+from .. import bsdf as bsdf_mod
+from .. import emitter as emitter_mod
+from .. import medium as medium_mod
+from .. import phase as phase_mod
+from ..medium import nonlinear as nl_mod
+from ..ops import intersect as isect
+from ..scene.types import F_SMOOTH, MEDIUM_TYPES
+from . import lighttrace
+from . import photon_est
+from .volpath import _where_tree, transmittance_to_point
+
+# luminance weights of the cluster flux
+_LUM = (0.2126, 0.7152, 0.0722)
+
+
+def scene_radius_of(scene):
+    """The reference's radius convention: |bbox centre - bbox max|, a
+    0-d tensor on the scene's device."""
+    return m.norm(scene.bbox_hi - 0.5 * (scene.bbox_lo + scene.bbox_hi))
+
+
+def _radii(scene, meta):
+    sr = scene_radius_of(scene)
+    return (meta.iprop('global_lookup_radius_relative', 0.05) * sr,
+            meta.iprop('caustic_lookup_radius_relative', 0.0125) * sr,
+            meta.iprop('volume_lookup_radius_relative', 0.005) * sr)
+
+
+def preprocess(scene, meta, key, vp_all_scatters: bool = False):
+    """Shoot light paths and build the photon and VRL maps."""
+    target_vrls = int(meta.iprop('target_vrls', 1000))
+    target_vp = int(meta.iprop('volume_photons', 1000))
+    # the wavefront is sized from the map the scene uses (at most 64k
+    # paths a shot: the scale factors keep the estimates unbiased)
+    want = max(target_vrls, target_vp // 8 if vp_all_scatters else 0, 1024)
+    n_paths = min(1 << (max(want - 1, 1)).bit_length(), 65536)
+    # light-path depth: paths alive at the cap are counted
+    # (maps.trunc_paths), not dropped silently
+    max_depth = min(int(meta.iprop('max_depth', 512)),
+                    int(meta.iprop('light_depth_cap', 64)))
+    rr_depth = int(meta.iprop('rr_depth', 5))
+    min_vrl = float(meta.iprop('min_vrl_length', 5.0))
+    has_nl = MEDIUM_TYPES['nonlinear'] in meta.medium_types \
+        and bool(meta.iprop('use_non_linear', True))
+    max_bends = int(meta.iprop('max_nl_bends', 32)) if has_nl else 0
+
+    photon_cap = max(int(meta.iprop('global_photons', 250000)), target_vp)
+    vrl_budget = max(target_vrls, 8)
+
+    # headroom-sized reservoirs, thinned to the budgets afterwards
+    def head(cap):
+        return min(4 * cap, max(cap, n_paths * (max_depth + 2)))
+    raw = lighttrace.shoot(
+        scene, meta, key, n_paths=n_paths, max_depth=max_depth,
+        rr_depth=rr_depth, max_bends=max_bends, min_vrl_len=min_vrl,
+        vp_all_scatters=vp_all_scatters, sp_cap=head(photon_cap),
+        vp_cap=head(photon_cap), vrl_cap=head(vrl_budget))
+    raw = lighttrace.thin_raw(rng.fold_in(key, 0x7411), raw,
+                              sp_cap=photon_cap, vp_cap=photon_cap,
+                              vrl_cap=vrl_budget)
+    r_global, r_caustic, r_volume = _radii(scene, meta)
+    # the volume grid's cell covers the jittered query radius (1.25 r)
+    maps = lighttrace.build_maps(scene, meta, raw, r_global, r_caustic,
+                                 1.25 * r_volume)
+    if bool(meta.iprop('use_light_cut', True)):
+        n_cl = int(meta.iprop('vrl_clusters', 1024))
+        maps = maps._replace(clusters=build_vrl_clusters(scene, maps, n_cl))
+    return maps
+
+
+def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
+                vi, u1, u2, channel, sampler, active):
+    """One VRL's contribution to each camera segment. Returns (spectrum,
+    sampler)."""
+    N = seg_o.shape[0]
+    dev = seg_o.device
+    row = maps.vrl_packed[vi.long()]
+    o_v, d_v = row[:, 0:3], row[:, 3:6]
+    len_v, flux = row[:, 6], row[:, 7:10]
+    med_v = row[:, 10].to(torch.int32)
+    act = active & (row[:, 11] > 0.5) & (len_v > 0) & (seg_len > 0)
+
+    # --- the closest points of the two segments ---------------------------
+    w0 = seg_o - o_v
+    b = m.dot(seg_d, d_v)
+    d_ = m.dot(seg_d, w0)
+    e = m.dot(d_v, w0)
+    denom = 1.0 - b * b
+    s_c = torch.where(torch.abs(denom) > 1e-9, m.safe_div(b * e - d_, denom),
+                      0.0)
+    s_c = torch.minimum(torch.clamp(s_c, min=0.0), seg_len)
+    t_v = torch.minimum(torch.clamp(e + b * s_c, min=0.0), len_v)
+    s_c = torch.minimum(torch.clamp(-d_ + b * t_v, min=0.0), seg_len)
+
+    h = m.norm((seg_o + seg_d * s_c[:, None]) - (o_v + d_v * t_v[:, None]))
+    sin_theta = m.norm(m.cross(d_v, seg_d))
+    degenerate = (h < 1e-7) | (sin_theta < 1e-6)
+
+    # --- Kulla inverse CDF on the VRL (asinh space) -----------------------
+    v0_hat = -t_v
+    v1_hat = len_v + v0_hat
+    s_safe = torch.clamp(sin_theta, min=1e-6)
+    h_safe = torch.clamp(h, min=1e-7)
+
+    def asinh(x):
+        return torch.log(x + m.safe_sqrt(x * x + 1.0))
+
+    a0 = asinh(v0_hat / h_safe * s_safe)
+    a1 = asinh(v1_hat / h_safe * s_safe)
+    v = h_safe * torch.sinh(m.lerp(a0, a1, u1)) / s_safe
+    inv_pdf_v = (a1 - a0) * m.safe_sqrt(h_safe * h_safe
+                                        + v * v * s_safe * s_safe) / s_safe
+    t_vrl = torch.minimum(torch.clamp(v + t_v, min=0.0), len_v)
+    p_vrl = o_v + d_v * t_vrl[:, None]
+
+    # --- the camera segment (atan space) ----------------------------------
+    u_hat = m.dot(seg_d, p_vrl - seg_o)
+    u0_hat = -u_hat
+    u1_hat = seg_len + u0_hat
+    h_pt = torch.clamp(m.norm(seg_o + seg_d * u_hat[:, None] - p_vrl),
+                       min=1e-7)
+    th_a = torch.atan(u0_hat / h_pt)
+    th_b = torch.atan(u1_hat / h_pt)
+    uu = h_pt * torch.tan(m.lerp(th_a, th_b, u2))
+    inv_pdf_c = (th_b - th_a) * (h_pt * h_pt + uu * uu) / h_pt
+    t_cam = torch.minimum(torch.clamp(uu - u0_hat, min=0.0), seg_len)
+
+    # degenerate pairs (and use_uniform_sampling): uniform sampling of
+    # both segments
+    if bool(meta.iprop('use_uniform_sampling',
+                       meta.iprop('use_nl_atomic_query', False))):
+        degenerate = torch.ones_like(degenerate)
+    t_cam = torch.where(degenerate, u1 * seg_len, t_cam)
+    t_vrl = torch.where(degenerate, u2 * len_v, t_vrl)
+    p_cam = seg_o + seg_d * t_cam[:, None]
+    p_vrl = o_v + d_v * t_vrl[:, None]
+    inv_pdf = torch.where(degenerate, seg_len * len_v, inv_pdf_v * inv_pdf_c)
+    act = act & torch.isfinite(inv_pdf) & (inv_pdf > 0)
+
+    # --- both phase functions x sigma_s x three transmittances ------------
+    dirv = p_vrl - p_cam
+    dist = m.norm(dirv)
+    act = act & (dist > 1e-6)
+    dirn = dirv * m.safe_rcp(dist)[:, None]
+
+    ray_pf = phase_mod.eval(scene, meta, cam_medium, -seg_d, dirn, act)
+    vrl_pf = phase_mod.eval(scene, meta, med_v, -d_v, -dirn, act)
+    sig_s_cam, _, _ = medium_mod.get_scattering_coefficients(
+        scene, meta, cam_medium, p_cam, act)
+    sig_s_vrl, _, _ = medium_mod.get_scattering_coefficients(
+        scene, meta, med_v, p_vrl, act)
+
+    tr_cam, sampler = medium_mod.segment_tr(scene, meta, sampler, seg_o,
+                                            seg_d, t_cam, cam_medium,
+                                            channel, act)
+    tr_vrl, sampler = medium_mod.segment_tr(scene, meta, sampler, o_v, d_v,
+                                            t_vrl, med_v, channel, act)
+    act_tr = act & (ray_pf > 0) & (vrl_pf > 0)
+    tr_link, sampler = transmittance_to_point(
+        scene, meta, sampler, p_cam, dirn, dist, cam_medium, channel,
+        act_tr, torch.ones((N,), dtype=torch.bool, device=dev))
+
+    falloff = m.safe_rcp(dist * dist)
+    contrib = flux * (falloff * vrl_pf * ray_pf * inv_pdf)[:, None] \
+        * tr_vrl * tr_cam * tr_link * sig_s_cam * sig_s_vrl
+    contrib = torch.where(torch.isfinite(contrib), contrib, 0.0)
+    return torch.where(act_tr[:, None], contrib, 0.0), sampler
+
+
+class VRLClusters(NamedTuple):
+    """The VRL lightcut as a two-level Morton hierarchy: VRLs sorted by
+    midpoint and chunked into K1 coarse clusters of K2 subclusters of M
+    members. A query importance-samples coarse, sub and member with the
+    lightcut's upper-bound terms (flux x Tr bound / distance), exact
+    member weights at the last stage; dividing by the product pdf keeps
+    the estimator unbiased."""
+    c_centroid: torch.Tensor  # (K1, 3) flux-weighted centroid
+    c_radius2: torch.Tensor   # (K1,) squared radius
+    c_lum: torch.Tensor       # (K1,) total flux luminance
+    s_centroid: torch.Tensor  # (K1, K2 * 3)
+    s_radius2: torch.Tensor   # (K1, K2)
+    s_lum: torch.Tensor       # (K1, K2)
+    # one row a fine cluster: [midpoint xyz * M | luminance * M |
+    # member VRL id * M], ids as float32 (exact below 2^24)
+    rows: torch.Tensor        # (K1 * K2, 5 * M)
+
+
+def _morton3(q):
+    """Interleave 10-bit coordinates into a 30-bit Morton code."""
+    def spread(x):
+        x = x & 0x3ff
+        x = (x | (x << 16)) & 0x30000ff
+        x = (x | (x << 8)) & 0x300f00f
+        x = (x | (x << 4)) & 0x30c30c3
+        x = (x | (x << 2)) & 0x9249249
+        return x
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def build_vrl_clusters(scene, maps, n_clusters: int) -> VRLClusters:
+    """Morton-sort the VRL midpoints, chunk them into F = K1 * K2
+    equal-count fine clusters of M members, and aggregate fine to coarse:
+    the lightcut's tree as a sort and two reductions."""
+    V = maps.vrl_o.shape[0]
+    dev = maps.vrl_o.device
+    # member ids ride the float32 rows table: exact only below 2^24
+    assert V < (1 << 24), (
+        f"VRL map capacity {V} >= 2^24: member ids no longer round-trip "
+        "through the float32 cluster rows table")
+    F = int(max(1, min(n_clusters, max(V // 4, 1))))
+    K2 = int(min(16, F))
+    K1 = -(-F // K2)
+    F = K1 * K2
+    M = -(-V // F)
+    mid = maps.vrl_o + maps.vrl_d * (0.5 * maps.vrl_len)[:, None]
+    ext = torch.clamp(scene.bbox_hi - scene.bbox_lo, min=1e-9)
+    qm = torch.clamp(((mid - scene.bbox_lo) / ext * 1023.0).to(torch.int32),
+                     0, 1023)
+    code = torch.where(maps.vrl_valid, _morton3(qm), 0x7fffffff)
+    order = torch.argsort(code, stable=True).to(torch.int32)
+    member = torch.cat([order, torch.full((F * M - V,), V, dtype=torch.int32,
+                                          device=dev)]).reshape(F, M)
+    mi = torch.clamp(member, max=V - 1).long()
+    mvalid = (member < V) & maps.vrl_valid[mi]
+
+    lum = torch.tensor(_LUM, device=dev)
+    lum_m = torch.where(mvalid, m.dot(maps.vrl_flux[mi], lum)
+                        * torch.clamp(maps.vrl_len[mi], min=1e-6), 0.0)
+    f_lum = lum_m.sum(dim=1)                                   # (F,)
+
+    mid_m = maps.vrl_o[mi] + maps.vrl_d[mi] \
+        * (0.5 * maps.vrl_len[mi])[..., None]                  # (F, M, 3)
+    mid_m = torch.where(mvalid[..., None], mid_m, 0.0)
+    f_cent = (mid_m * lum_m[..., None]).sum(dim=1) \
+        * m.safe_rcp(f_lum)[:, None]                           # (F, 3)
+    f_r2 = torch.where(mvalid, m.squared_norm(mid_m - f_cent[:, None, :])
+                       * lum_m, 0.0).sum(dim=1) * m.safe_rcp(f_lum)
+
+    # coarse aggregation over each run of K2 fine clusters
+    s_lum = f_lum.reshape(K1, K2)
+    s_cent = f_cent.reshape(K1, K2, 3)
+    s_r2 = f_r2.reshape(K1, K2)
+    c_lum = s_lum.sum(dim=1)
+    c_cent = (s_cent * s_lum[..., None]).sum(dim=1) \
+        * m.safe_rcp(c_lum)[:, None]
+    c_r2 = ((m.squared_norm(s_cent - c_cent[:, None, :]) + s_r2)
+            * s_lum).sum(dim=1) * m.safe_rcp(c_lum)
+
+    rows = torch.cat([mid_m.reshape(F, M * 3), lum_m,
+                      member.to(torch.float32)], dim=1)        # (F, 5M)
+    return VRLClusters(c_centroid=c_cent, c_radius2=c_r2, c_lum=c_lum,
+                       s_centroid=s_cent.reshape(K1, K2 * 3),
+                       s_radius2=s_r2, s_lum=s_lum, rows=rows)
+
+
+def _seg_point_dist2(seg_o, seg_d, seg_len, p):
+    """Squared distance from the camera segments (N, 3) + (N,) to points
+    (N, K, 3) -> (N, K)."""
+    rel = p - seg_o[:, None, :]
+    t = torch.minimum(torch.clamp(m.dot(rel, seg_d[:, None, :]), min=0.0),
+                      seg_len[:, None])
+    return m.squared_norm(rel - t[..., None] * seg_d[:, None, :])
+
+
+def _sigma_min_bound(scene, meta, medium_idx):
+    """A lower bound on the extinction along links into the camera
+    medium a lane (the Tr term of the lightcut's cluster bound, Tr <=
+    exp(-sigma_min d)): the smallest channel, times the grid's minimum
+    for heterogeneous media."""
+    sigma_unit, _, _, _, is_het = medium_mod._medium_facts(scene,
+                                                           medium_idx)
+    sig = sigma_unit.amin(dim=-1)
+    if medium_mod._has_supervoxels(scene, meta):
+        sig = torch.where(is_het, sig * scene.media.grid_sup_min.amin(), sig)
+    return torch.where(medium_idx >= 0, sig, 0.0)
+
+
+def _lc_stage_weights(lum, cent, r2, seg_o, seg_d, seg_len, sig_min):
+    """One stage's selection weights: flux luminance over the softened
+    segment-to-centroid distance (falloff exponent 1, the Kulla
+    line-integral scaling and the reference's default), times the Tr
+    bound to the cluster's face. ``lum``/``r2`` (..., K) and ``cent``
+    (..., K, 3) broadcast against the (N,) lanes."""
+    d2 = _seg_point_dist2(seg_o, seg_d, seg_len, cent)
+    w = lum * m.safe_rcp(m.safe_sqrt(d2 + r2 + 1e-4))
+    d_near = torch.clamp(m.safe_sqrt(d2) - m.safe_sqrt(r2), min=0.0)
+    return w * torch.exp(-sig_min[:, None] * d_near)
+
+
+def _pick(cdf, u):
+    """Inverse-CDF index of u in [0, 1) along axis 1 of (N, K) running
+    sums."""
+    i = (cdf < u[:, None] * cdf[:, -1:]).sum(dim=1)
+    return torch.clamp(i, max=cdf.shape[1] - 1)
+
+
+def _sample_discrete(w, u):
+    """Inverse-CDF draw along axis 1 of (N, K) weights. Returns (index,
+    prob, total)."""
+    cdf = torch.cumsum(w, dim=1)
+    tot = cdf[:, -1]
+    i = _pick(cdf, u)
+    p = w.gather(1, i[:, None])[:, 0] * m.safe_rcp(tot)
+    return i, p, tot
+
+
+def _cluster_weights(clusters: VRLClusters, seg_o, seg_d, seg_len,
+                     sig_min):
+    """(N, K1) coarse selection weights (the first stage)."""
+    return _lc_stage_weights(
+        clusters.c_lum[None, :], clusters.c_centroid[None, :, :],
+        clusters.c_radius2[None, :], seg_o, seg_d, seg_len, sig_min)
+
+
+def sample_cluster_vrl(clusters: VRLClusters, w, w_cdf, seg_o, seg_d,
+                       seg_len, u_c, u_s, u_m, V: int, sig_min):
+    """Draw (coarse, sub, member) a lane: coarse from the precomputed
+    (N, K1) weights, subcluster from the chosen coarse row's fine-cluster
+    bounds, member with exact flux / distance weights over the chosen fine
+    cluster's M members. Returns (vrl_index, inv_pdf, ok)."""
+    K2 = clusters.s_lum.shape[1]
+    M_ = clusters.rows.shape[1] // 5
+    # coarse
+    c1 = _pick(w_cdf, u_c)
+    w_tot = w_cdf[:, -1]
+    p_c = w.gather(1, c1[:, None])[:, 0] * m.safe_rcp(w_tot)
+    # subcluster
+    c1l = c1.long()
+    ws = _lc_stage_weights(clusters.s_lum[c1l],
+                           clusters.s_centroid[c1l].reshape(-1, K2, 3),
+                           clusters.s_radius2[c1l], seg_o, seg_d, seg_len,
+                           sig_min)
+    c2, p_s, ws_tot = _sample_discrete(ws, u_s)
+    # member: the chosen fine cluster's packed row
+    row = clusters.rows[(c1 * K2 + c2).long()]                 # (N, 5M)
+    mid = row[:, :M_ * 3].reshape(-1, M_, 3)
+    mlum = row[:, M_ * 3:M_ * 4]
+    mid_f = row[:, M_ * 4:]
+    d2 = _seg_point_dist2(seg_o, seg_d, seg_len, mid)
+    r2_f = clusters.s_radius2[c1l].gather(1, c2[:, None])      # (N, 1)
+    wm = mlum * m.safe_rcp(m.safe_sqrt(d2 + 1e-2 * r2_f + 1e-6))
+    wm = wm * torch.exp(-sig_min[:, None] * m.safe_sqrt(d2))
+    j, p_m, wm_tot = _sample_discrete(wm, u_m)
+    vi = torch.round(mid_f.gather(1, j[:, None])[:, 0]).to(torch.int32)
+    ok = (vi < V) & (p_c > 0) & (p_s > 0) & (p_m > 0) \
+        & (w_tot > 0) & (ws_tot > 0) & (wm_tot > 0)
+    inv_pdf = m.safe_rcp(p_c * p_s * p_m)
+    return torch.clamp(vi, max=V - 1), inv_pdf, ok
+
+
+def query_vrls(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium, channel,
+               sampler, active, samples_per_query: int,
+               strategy: str = 'cluster'):
+    """The VRL query of each camera segment: ``samples_per_query`` draws,
+    each evaluated by ``vrl_contrib``. ``cluster`` selects through the
+    VRL clusters (the reference's lightcut analog, the thesis's
+    configurations), ``uniform`` uniformly (the reference's
+    no-acceleration default)."""
+    N = seg_o.shape[0]
+    dev = seg_o.device
+    V = maps.vrl_o.shape[0]
+    if V == 0:
+        return torch.zeros((N, 3), device=dev), sampler
+    acc = torch.zeros((N, 3), device=dev)
+
+    if strategy == 'cluster' and maps.clusters is not None and V >= 64:
+        clusters = maps.clusters
+        sig_min = _sigma_min_bound(scene, meta, cam_medium)
+        w = _cluster_weights(clusters, seg_o, seg_d, seg_len, sig_min)
+        w_cdf = torch.cumsum(w, dim=1)
+        for _ in range(samples_per_query):
+            u_c, sampler = sampler.next_1d()
+            u_s, sampler = sampler.next_1d()
+            u_m, sampler = sampler.next_1d()
+            u1, sampler = sampler.next_1d()
+            u2, sampler = sampler.next_1d()
+            vi, inv_pdf, ok = sample_cluster_vrl(clusters, w, w_cdf, seg_o,
+                                                 seg_d, seg_len, u_c, u_s,
+                                                 u_m, V, sig_min)
+            c, sampler = vrl_contrib(scene, meta, maps, seg_o, seg_d,
+                                     seg_len, cam_medium, vi, u1, u2,
+                                     channel, sampler, active & ok)
+            acc = acc + c * torch.where(ok, inv_pdf, 0.0)[:, None]
+        return acc * (maps.vrl_scale / samples_per_query), sampler
+
+    count = torch.clamp(maps.vrl_count, min=1)
+    for _ in range(samples_per_query):
+        u_sel, sampler = sampler.next_1d()
+        u1, sampler = sampler.next_1d()
+        u2, sampler = sampler.next_1d()
+        vi = torch.minimum((u_sel * count).to(torch.int32), count - 1)
+        c, sampler = vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len,
+                                 cam_medium, vi, u1, u2, channel, sampler,
+                                 active)
+        acc = acc + c
+    scale = count.to(torch.float32) / samples_per_query * maps.vrl_scale
+    return acc * scale, sampler
+
+
+class VRLCamState(NamedTuple):
+    sampler: Sampler
+    ray: Ray
+    throughput: torch.Tensor
+    result: torch.Tensor
+    depth: torch.Tensor
+    active: torch.Tensor
+    medium_idx: torch.Tensor
+    specular_chain: torch.Tensor
+
+
+def maps_to_numpy(maps: lighttrace.PhotonMaps) -> dict:
+    """The maps as numpy arrays keyed by dotted field path, the form
+    ``maps_from_numpy`` takes."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, torch.Tensor):
+            out[prefix] = node.cpu().numpy()
+        elif node is not None:
+            for f in node._fields:
+                walk(f'{prefix}.{f}' if prefix else f, getattr(node, f))
+    walk('', maps)
+    return out
+
+
+def maps_from_numpy(arrays: dict, device=None) -> lighttrace.PhotonMaps:
+    """The port's ``PhotonMaps`` from numpy arrays keyed by dotted field
+    path ("sp_pos", "vp_grid.order", "clusters.rows", ...), the form a
+    reference map set flattens to: the state the camera pass carries
+    across from another package or device. Without "clusters.*" keys the
+    maps have no clusters."""
+    from ..scene.builder import resolve_device
+    from ..ops.hashgrid import HashGrid
+    device = resolve_device(device)
+
+    def get(key):
+        return torch.as_tensor(np.array(arrays[key]), device=device)
+
+    def table(cls, prefix):
+        return cls(*(get(f'{prefix}.{f}') for f in cls._fields))
+    kw = {}
+    for f in lighttrace.PhotonMaps._fields:
+        if f.endswith('_grid'):
+            kw[f] = table(HashGrid, f)
+        elif f == 'clusters':
+            kw[f] = (table(VRLClusters, f) if 'clusters.rows' in arrays
+                     else None)
+        else:
+            kw[f] = get(f)
+    return lighttrace.PhotonMaps(**kw)
+
+
+def _skip_segment_tr(meta, sampler, n: int) -> Sampler:
+    """The sampler after ``n`` skipped ``medium.segment_tr`` calls: each
+    draws one dimension in a scene with a heterogeneous medium, none
+    otherwise."""
+    if MEDIUM_TYPES['heterogeneous'] in meta.medium_types:
+        return sampler._replace(dim=sampler.dim + n)
+    return sampler
+
+
+def make_sample(use_vrls: bool):
+    """The camera pass of ``vrl`` (use_vrls) or ``photonmapper``."""
+
+    def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+        maps: lighttrace.PhotonMaps = aux
+        N = ray.o.shape[0]
+        dev = ray.o.device
+        max_depth = int(meta.iprop('max_depth', 512))
+        # null-BSDF pass-throughs do not advance the depth: +16 slack
+        max_iters = int(meta.iprop('max_cam_iters', min(max_depth + 16, 64)))
+        spq = int(meta.iprop('samples_per_query', 2))
+        use_direct = bool(meta.iprop('use_direct_illum', True)) \
+            or not use_vrls
+        strategy = 'cluster' if bool(meta.iprop('use_light_cut', True)) \
+            else 'uniform'
+        nl_cam = bool(meta.iprop('use_non_linear_camera', True)) \
+            and bool(meta.iprop('use_non_linear', True)) \
+            and MEDIUM_TYPES['nonlinear'] in meta.medium_types
+        max_bends = int(meta.iprop('max_nl_bends', 32))
+        g_cap = int(meta.iprop('gather_points_cap', 64))
+        r_global, r_caustic, r_volume = _radii(scene, meta)
+        inf = torch.full((N,), m.Infinity, device=dev)
+        zeros3 = torch.zeros((N, 3), device=dev)
+
+        u_ch, sampler = sampler.next_1d()
+        channel = torch.clamp((u_ch * 3).to(torch.int32), max=2)
+        st = VRLCamState(
+            sampler=sampler, ray=ray, throughput=torch.ones((N, 3),
+                                                            device=dev),
+            result=zeros3, depth=torch.ones((N,), dtype=torch.int32,
+                                            device=dev),
+            active=torch.ones((N,), dtype=torch.bool, device=dev),
+            medium_idx=torch.full((N,), meta.camera_medium,
+                                  dtype=torch.int32, device=dev),
+            specular_chain=torch.ones((N,), dtype=torch.bool, device=dev))
+
+        it = 0
+        while it < max_iters and any_on_host(st.active):
+            it += 1
+            smp = st.sampler
+            result = st.result
+            throughput = st.throughput
+            active = st.active & (st.depth < max_depth)
+
+            si = isect.ray_intersect(scene, st.ray)
+            smp = smp.count_rays(active)
+            in_medium = active & (st.medium_idx >= 0) & si.valid
+
+            # ---- medium leg: bend, gather photons, query VRLs ---------
+            if nl_cam:
+                bent, si_b = nl_mod.bend_ray(
+                    scene, meta, Ray(st.ray.o, st.ray.d, st.ray.mint, inf),
+                    st.medium_idx, in_medium, max_bends, stop_at_scene=True)
+                # each bent segment cost one scene intersection
+                smp = smp.count_rays(torch.where(in_medium, bent.count, 0))
+                si = _where_tree(in_medium & si_b.valid, si_b, si)
+            else:
+                slen = torch.where(in_medium, torch.where(
+                    torch.isfinite(si.t), si.t, 0.0), 0.0)
+                bent = nl_mod.BentRay(
+                    seg_o=st.ray.o[:, None, :], seg_d=st.ray.d[:, None, :],
+                    seg_len=slen[:, None],
+                    count=in_medium.to(torch.int32), total=slen)
+
+            # direct: volume photons gathered along the bent ray
+            u_r, smp = smp.next_1d()
+            radius = r_volume * m.lerp(0.75, 1.25, u_r)
+            if use_direct:
+                direct_v, smp = _gather_volume(
+                    scene, meta, maps, bent, st, in_medium, radius, g_cap,
+                    smp, channel)
+                result = result + throughput * direct_v * maps.vp_scale
+
+            # indirect: the VRL query of each bent segment, over the live
+            # segment count
+            if use_vrls:
+                vrl_acc, smp = _query_segments(
+                    scene, meta, maps, bent, st, in_medium, spq, strategy,
+                    smp, channel)
+                result = result + throughput * vrl_acc
+
+            # camera attenuation through the medium
+            thr_med, smp = medium_mod.segment_tr(
+                scene, meta, smp, st.ray.o, st.ray.d, bent.total,
+                st.medium_idx, channel, in_medium)
+            throughput = throughput * thr_med
+
+            # ---- surface leg ------------------------------------------
+            active_surface = active & si.valid
+            hit_em = active_surface & st.specular_chain \
+                & (si.emitter_idx >= 0)
+            le = emitter_mod.eval_hit(scene, meta, si, hit_em)
+            result = result + torch.where(hit_em[:, None], throughput * le,
+                                          0.0)
+            esc = active & ~si.valid & st.specular_chain
+            result = result + torch.where(
+                esc[:, None], throughput * emitter_mod.eval_env(
+                    scene, meta, st.ray.d, esc), 0.0)
+            # emitter surfaces end the path
+            active_surface = active_surface & (si.emitter_idx < 0)
+
+            flags = bsdf_mod.flags_of(scene, si)
+            gather_here = active_surface & ((flags & F_SMOOTH) > 0)
+            est_c = photon_est.estimate_surface(scene, meta, maps, si,
+                                                gather_here, r_caustic, True)
+            est_g = photon_est.estimate_surface(scene, meta, maps, si,
+                                                gather_here, r_global, False)
+            result = result + torch.where(gather_here[:, None],
+                                          throughput * (est_c + est_g), 0.0)
+            # smooth surfaces end the path
+            cont = active_surface & ~gather_here
+
+            u1b, smp = smp.next_1d()
+            u2b, smp = smp.next_2d()
+            bs, b_weight = bsdf_mod.sample(scene, meta, si, u1b, u2b)
+            throughput = torch.where(cont[:, None], throughput * b_weight,
+                                     throughput)
+            wo_world = si.to_world(bs.wo)
+            non_null = cont & ~bs.null
+            depth = torch.where(non_null, st.depth + 1, st.depth)
+            specular_chain = st.specular_chain | (non_null & bs.delta)
+            specular_chain = specular_chain & ~(cont & ~bs.delta & ~bs.null)
+            new_medium = torch.where(cont & si.is_medium_transition(),
+                                     si.target_medium(wo_world),
+                                     st.medium_idx)
+            new_ray = Ray(o=torch.where(cont[:, None], si.p, st.ray.o),
+                          d=torch.where(cont[:, None], wo_world, st.ray.d),
+                          mint=torch.full((N,), m.RayEpsilon, device=dev),
+                          maxt=inf)
+            alive = cont & (bs.pdf > 0) & (throughput != 0).any(dim=-1)
+            st = VRLCamState(
+                sampler=smp, ray=new_ray, throughput=throughput,
+                result=result, depth=depth, active=alive,
+                medium_idx=new_medium, specular_chain=specular_chain)
+        return st.result, torch.ones((N,), dtype=torch.bool, device=dev), \
+            st.sampler
+
+    return sample
+
+
+def _gather_volume(scene, meta, maps, bent, st, in_medium, radius, g_cap,
+                   smp, channel):
+    """Volume photons gathered at t = radius + 2 radius g (g < g_cap)
+    along the bent ray, each attenuated from the previous gather point.
+    Runs the trips some lane needs (t_g within its curve): one host
+    read."""
+    N = in_medium.shape[0]
+    dev = in_medium.device
+    g_all = torch.arange(g_cap, device=dev, dtype=torch.float32)
+    t_all = radius[:, None] + 2.0 * radius[:, None] * g_all[None, :]
+    need = in_medium[:, None] & (t_all <= bent.total[:, None])
+    n_g = int_on_host(need.sum(dim=1).amax())
+    acc = torch.zeros((N, 3), device=dev)
+    tr_run = torch.ones((N, 3), device=dev)
+    last_t = torch.zeros((N,), device=dev)
+    for g in range(n_g):
+        t_g = radius + 2.0 * radius * g
+        ok = in_medium & (t_g <= bent.total)
+        p_g = bent.at(t_g)
+        # transmittance from the previous gather point
+        step_tr, smp = medium_mod.segment_tr(
+            scene, meta, smp, bent.at(last_t), st.ray.d, t_g - last_t,
+            st.medium_idx, channel, ok)
+        tr_run = torch.where(ok[:, None], tr_run * step_tr, tr_run)
+        est = photon_est.estimate_volume(scene, meta, maps, p_g, -st.ray.d,
+                                         st.medium_idx, ok, radius)
+        acc = acc + torch.where(ok[:, None], tr_run * est, 0.0)
+        last_t = torch.where(ok, t_g, last_t)
+    return acc, _skip_segment_tr(meta, smp, g_cap - n_g)
+
+
+def _query_segments(scene, meta, maps, bent, st, in_medium, spq, strategy,
+                    smp, channel):
+    """The VRL query of every bent segment, attenuated by the segments
+    before it, over the live segment count (one host read)."""
+    N = in_medium.shape[0]
+    dev = in_medium.device
+    n_seg = int_on_host(torch.where(in_medium, bent.count, 0).amax())
+    vrl_acc = torch.zeros((N, 3), device=dev)
+    seg_tr = torch.ones((N, 3), device=dev)
+    for s_i in range(n_seg):
+        so = bent.seg_o[:, s_i].contiguous()
+        sd = bent.seg_d[:, s_i].contiguous()
+        sl = bent.seg_len[:, s_i].contiguous()
+        seg_ok = in_medium & (s_i < bent.count) & (sl > 0)
+        q, smp = query_vrls(scene, meta, maps, so, sd, sl, st.medium_idx,
+                            channel, smp, seg_ok, spq, strategy=strategy)
+        vrl_acc = vrl_acc + torch.where(seg_ok[:, None], seg_tr * q, 0.0)
+        tr_s, smp = medium_mod.segment_tr(scene, meta, smp, so, sd, sl,
+                                          st.medium_idx, channel, seg_ok)
+        seg_tr = seg_tr * tr_s
+    return vrl_acc, smp
+
+
+sample = make_sample(use_vrls=True)

@@ -1,10 +1,13 @@
-"""Participating media: homogeneous and heterogeneous (grid).
+"""Participating media: homogeneous, heterogeneous (grid) and nonlinear.
 
 Port of ``mitsuba_nlvrl_tpu/medium/__init__.py`` for the primal render
-(gradients and ``with_sigma_grid`` come with the autodiff slice, the
-nonlinear medium with ROADMAP.md queue A item 9). Every function takes a
-per-lane ``medium_idx`` (-1 = vacuum) and dispatches masked over the few
-medium types a scene holds (``SceneMeta.medium_types``).
+(gradients and ``with_sigma_grid`` come with the autodiff slice). Every
+function takes a per-lane ``medium_idx`` (-1 = vacuum) and dispatches
+masked over the few medium types a scene holds (``SceneMeta.medium_types``).
+A nonlinear medium is optically homogeneous (its IOR grid bends rays,
+``medium/nonlinear.py``; its extinction is constant), so everything here
+that is not the heterogeneous walk treats it in closed form, as it treats
+a homogeneous one.
 
 The collision walk ``_majorant_walk`` is the reference's: delta tracking
 (to the next real collision) or ratio tracking (transmittance) against

@@ -4,9 +4,11 @@ Port of ``mitsuba_nlvrl_tpu/render.py`` without bands and without the
 regeneration scheduler: one *pass* renders a full-film wavefront at 1 spp
 and splats it, and passes loop on the host up to the target spp. The pass
 keys are those of the reference (``fold_in(PRNGKey(seed), p)`` for pass
-p), so both packages trace the same paths for the same seed. The render
-runs where the scene's tensors lie, under ``torch.no_grad()``; gradients
-come with the autodiff slice.
+p), so both packages trace the same paths for the same seed. Two-pass
+integrators (``vrl``, ``photonmapper``) run their photon and VRL shooting
+(``preprocess``) once, with the reference's key, and hand the maps
+(``aux``) to every pass. The render runs where the scene's tensors lie,
+under ``torch.no_grad()``; gradients come with the autodiff slice.
 """
 from __future__ import annotations
 
@@ -19,13 +21,25 @@ from .core import rng
 from .core.rng import Sampler
 from . import film as film_mod
 from . import sensor as sensor_mod
-from .integrators import get_integrator
+from .integrators import get_integrator, get_preprocess
 from .integrators.common import film_sample_positions
 
 
-def render_pass(scene, meta, key, pass_idx: int = 0):
+def preprocess(scene, meta, seed: int = 0):
+    """The integrator's preprocess (photon and VRL shooting), or None for
+    a one-pass integrator; its key is the reference's,
+    ``fold_in(PRNGKey(seed), 0x9e37)``."""
+    pre = get_preprocess(meta.integrator)
+    if pre is None:
+        return None
+    with torch.no_grad():
+        return pre(scene, meta, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
+
+
+def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
     """One 1-spp pass over the full film; returns ((H, W, 4) premultiplied
-    [rgb * weight, weight] accumulation, measured ray count)."""
+    [rgb * weight, weight] accumulation, measured ray count). ``aux``: the
+    maps of a two-pass integrator."""
     integ = get_integrator(meta.integrator)
     dev = scene.device
     with torch.no_grad():
@@ -36,7 +50,7 @@ def render_pass(scene, meta, key, pass_idx: int = 0):
             scene, meta, pos01, rng.uniform(rng.fold_in(pos_key, 1), (N, 2),
                                             dev))
         sampler = Sampler.make(samp_key, N, dev)
-        L, valid, sampler = integ(scene, meta, sampler, ray)
+        L, valid, sampler = integ(scene, meta, sampler, ray, aux=aux)
         L = torch.where(torch.isfinite(L), L, 0.0) * sensor_weight
         image = film_mod.new_image(meta.film, device=dev)
         # the camera wavefront is pixel-ordered: dense shifted-add splat
@@ -46,18 +60,27 @@ def render_pass(scene, meta, key, pass_idx: int = 0):
 
 
 def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
-           ray_stats: Optional[list] = None, info: Optional[dict] = None):
-    """Full render: ``spp`` passes -> (H, W, 3) image on the scene's device.
+           ray_stats: Optional[list] = None, info: Optional[dict] = None,
+           aux=None):
+    """Full render: the preprocess where the integrator has one (unless
+    ``aux`` brings its maps), then ``spp`` passes -> (H, W, 3) image on the
+    scene's device.
 
     If ``ray_stats`` is a list, each pass appends its measured ray count
     (a device scalar: read it after the render). ``info`` receives
-    ``passes_done`` and ``wall_s``."""
+    ``passes_done``, ``wall_s`` and ``preprocess_s`` (the preprocess's
+    share of ``wall_s``)."""
     spp = spp or meta.spp
     key = rng.PRNGKey(seed)
     acc = None
     t0 = time.time()
+    if aux is None:
+        aux = preprocess(scene, meta, seed)
+    if scene.device.type == 'cuda':
+        torch.cuda.synchronize(scene.device)
+    t_pre = time.time() - t0
     for p in range(spp):
-        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p)
+        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p, aux)
         acc = img if acc is None else acc + img
         if ray_stats is not None:
             ray_stats.append(nrays)
@@ -66,4 +89,5 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     if info is not None:
         info['passes_done'] = spp
         info['wall_s'] = time.time() - t0
+        info['preprocess_s'] = t_pre
     return film_mod.develop(acc)

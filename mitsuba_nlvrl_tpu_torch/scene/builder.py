@@ -17,9 +17,10 @@ builds no BVH: the dense intersection kernel is correct at any size, and
 the BVH with its Morton order is a later slice (ROADMAP.md, B.2).
 
 Shapes may bound participating media (``interior``/``exterior``); a
-medium-only shape gets a ``null`` BSDF. Homogeneous and heterogeneous
-(one density grid a scene) media are packed as the reference packs them,
-with the grid's supervoxel bounds and corner-packed rows derived here.
+medium-only shape gets a ``null`` BSDF. Homogeneous, heterogeneous (one
+density grid a scene) and nonlinear (one IOR grid a scene) media are
+packed as the reference packs them, with the density grid's supervoxel
+bounds and corner-packed rows and the voxelised IOR grid derived here.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     SensorData, BSDF_NPARAM, BSDF_TYPES, EMITTER_NPARAM,
                     EMITTER_TYPES, MEDIUM_NPARAM, MEDIUM_TYPES, PHASE_TYPES,
                     M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
-                    M_BBOX_MAX, M_MAJORANT, SLICE_MEDIA, SLICE_PHASES,
+                    M_BBOX_MAX, M_MAJORANT, M_NL_TOP_IOR, M_NL_BOT_IOR,
+                    M_NL_RES, M_NL_FROM_BOTTOM, SLICE_MEDIA, SLICE_PHASES,
                     SLICE_SHAPES, check_meta, not_in_slice)
 from .vol_io import load_vol
 from .. import bsdf as bsdf_mod
@@ -283,19 +285,43 @@ def _rgb_of(props: dict, key: str, default):
     return np.asarray([float(x) for x in v], np.float32)
 
 
+def _nl_ior_grid(props: dict, lo_, hi_, med_params_row) -> np.ndarray:
+    """Writes the nonlinear medium's IOR profile and grid resolution into
+    its parameter row and returns its IOR voxel grid, flat in
+    (x * ry + y) * rz + z order: bottom_ior to top_ior lerped over the
+    cell centres' relative height, as the reference voxelises it."""
+    res = (int(props.get('res_x', 4)), int(props.get('res_y', 4)),
+           int(props.get('res_z', 4)))
+    med_params_row[M_NL_TOP_IOR] = float(props.get('top_ior', 0.7))
+    med_params_row[M_NL_BOT_IOR] = float(props.get('bottom_ior', 1.0))
+    med_params_row[M_NL_RES:M_NL_RES + 3] = res
+    med_params_row[M_NL_FROM_BOTTOM] = \
+        1.0 if props.get('from_bottom', True) else 0.0
+    rx, ry, rz = res
+    cell = (hi_ - lo_) / np.asarray(res, np.float64)
+    ys = lo_[1] + (np.arange(ry) + 0.5) * cell[1]
+    t = (ys - lo_[1]) / max(hi_[1] - lo_[1], 1e-30)
+    ior_y = (1 - t) * med_params_row[M_NL_BOT_IOR] + \
+        t * med_params_row[M_NL_TOP_IOR]
+    grid = np.broadcast_to(ior_y[None, :, None], (rx, ry, rz))
+    return np.ascontiguousarray(grid, np.float32).reshape(-1)
+
+
 def _pack_media(media_rows: List[dict], med_bbox: dict):
-    """(type, phase_type, params, density grid) of the scene's media, as
-    the reference's builder packs them (one grid a scene)."""
+    """(type, phase_type, params, density grid, nonlinear IOR grid,
+    nonlinear medium index) of the scene's media, as the reference's
+    builder packs them (one density grid and one IOR grid a scene)."""
     M_rows = max(len(media_rows), 1)
     med_type = np.zeros(M_rows, np.int32)
     med_phase = np.zeros(M_rows, np.int32)
     med_params = np.zeros((M_rows, MEDIUM_NPARAM), np.float32)
     grid_sigma = np.zeros((1, 1, 1), np.float32)
+    nl_ior = np.ones((1,), np.float32)
+    nl_medium = -1
     for mi, props in enumerate(media_rows):
         mt = props['type']
         if mt not in SLICE_MEDIA:
-            raise not_in_slice(f"medium type '{mt}'",
-                               "item 9 (NLVRL and the photon mapper)")
+            raise not_in_slice(f"medium type '{mt}'", "item 8 (volumetrics)")
         med_type[mi] = MEDIUM_TYPES[mt]
         ph = props.get('phase', {'type': 'isotropic'})
         ph_type = ph.get('type', 'isotropic')
@@ -310,7 +336,7 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
         lo_, hi_ = med_bbox.get(mi, (np.zeros(3), np.ones(3)))
         med_params[mi, M_BBOX_MIN:M_BBOX_MIN + 3] = lo_
         med_params[mi, M_BBOX_MAX:M_BBOX_MAX + 3] = hi_
-        if mt == 'homogeneous':
+        if mt in ('homogeneous', 'nonlinear'):
             if 'sigma_s' in props or 'sigma_a' in props:
                 ss = _rgb_of(props, 'sigma_s', 0.0)
                 sa = _rgb_of(props, 'sigma_a', 0.0)
@@ -325,6 +351,9 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
             med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = st
             med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
             med_params[mi, M_MAJORANT:M_MAJORANT + 3] = st * scale_v
+            if mt == 'nonlinear':
+                nl_ior = _nl_ior_grid(props, lo_, hi_, med_params[mi])
+                nl_medium = mi
             continue
         # heterogeneous
         stv = props.get('sigma_t')
@@ -354,7 +383,7 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
                 if isinstance(cv, (int, float)) else \
                 np.asarray(cv, np.float32)
         med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
-    return med_type, med_phase, med_params, grid_sigma
+    return med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium
 
 
 def _medium_bboxes(shapes: List[dict], shape_rows: list) -> dict:
@@ -529,7 +558,8 @@ class SceneBuilder:
         E = len(emitter_rows)
 
         # --- media ---------------------------------------------------------
-        med_type, med_phase, med_params, grid_sigma = _pack_media(
+        med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium = \
+            _pack_media(
             self.media_rows, _medium_bboxes(shapes, shape_rows))
         n_media = len(self.media_rows)
 
@@ -600,7 +630,9 @@ class SceneBuilder:
             'media.grid_sup': (_supervoxel_max(grid_sigma) if dense
                                else np.ones((1, 1, 1), f32)),
             'media.grid_sup_min': (_supervoxel_min(grid_sigma) if dense
-                                   else np.zeros((1, 1, 1), f32))})
+                                   else np.zeros((1, 1, 1), f32)),
+            'media.nl_ior': nl_ior,
+            'media.nl_medium': np.asarray(nl_medium, np.int32)})
         if dense and grid_sigma.size <= _PACK_MAX_VOXELS:
             arrays['media.grid_sigma_p8'] = _corner_pack(grid_sigma)
 
@@ -692,7 +724,9 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
     media = MediumTable(
         type=get('media.type', i32), phase_type=get('media.phase_type', i32),
         **{f: get(f'media.{f}', np.float32)
-           for f in ('params', 'grid_sigma_t', 'grid_sup', 'grid_sup_min')},
+           for f in ('params', 'grid_sigma_t', 'grid_sup', 'grid_sup_min',
+                     'nl_ior')},
+        nl_medium=get('media.nl_medium', i32),
         grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
                        if arrays.get('media.grid_sigma_p8') is not None
                        else None))

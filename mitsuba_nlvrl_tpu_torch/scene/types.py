@@ -5,8 +5,8 @@ build time into structure-of-arrays tensors indexed by integer type codes,
 and per-lane virtual dispatch becomes masked evaluation over the few types
 a scene uses (``SceneMeta`` records which). The type tables keep the
 reference's codes, so packed parameter rows mean the same in both
-packages. This slice holds the tables the ``path``, ``volpath`` and
-``volpathmis`` integrators read.
+packages. This slice holds the tables the ``path``, ``volpath``,
+``volpathmis``, ``vrl`` and ``photonmapper`` integrators read.
 """
 from __future__ import annotations
 
@@ -55,8 +55,7 @@ BSDF_NPARAM = 20
 EMITTER_NPARAM = 28
 MEDIUM_NPARAM = 28
 
-# medium param layout offsets (slots 17-22 hold the nonlinear medium's
-# parameters, ROADMAP.md queue A item 9)
+# medium param layout offsets
 M_SIGMA_T = 0       # [0:3]
 M_ALBEDO = 3        # [3:6]
 M_SCALE = 6
@@ -64,6 +63,11 @@ M_PHASE_G = 7
 M_BBOX_MIN = 8      # [8:11]
 M_BBOX_MAX = 11     # [11:14]
 M_MAJORANT = 14     # [14:17]
+# nonlinear medium: IOR profile and voxel resolution of its IOR grid
+M_NL_TOP_IOR = 17
+M_NL_BOT_IOR = 18
+M_NL_RES = 19       # [19:22] voxel resolution (as float)
+M_NL_FROM_BOTTOM = 22
 
 # What this slice of the port renders; anything else raises
 # NotImplementedError naming the ROADMAP item that brings it.
@@ -72,8 +76,13 @@ SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'null')
 SLICE_EMITTERS = ('area', 'point', 'constant')
 SLICE_SENSORS = ('perspective',)
 SLICE_SAMPLERS = ('independent',)
-SLICE_INTEGRATORS = ('path', 'volpath', 'volpathmis')
-SLICE_MEDIA = ('homogeneous', 'heterogeneous')
+SLICE_INTEGRATORS = ('path', 'volpath', 'volpathmis', 'vrl', 'photonmapper',
+                     'photonmap')
+SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
+# options of the two-pass integrators that a later slice ports: each
+# raises when a scene turns it on (dice_vrl: a count above 1)
+DEFERRED_PROPS = ('vrl_ris', 'rr_vrl', 'vrl_aniso_cdf', 'dice_vrl',
+                  'long_vrl', 'use_bre', 'map_psum_axis')
 SLICE_PHASES = ('isotropic', 'hg')
 
 
@@ -137,6 +146,10 @@ class MediumTable(NamedTuple):
     # the local majorants and controls of the tracking walks
     grid_sup: torch.Tensor       # (Sz, Sy, Sx); (1, 1, 1) ones unused
     grid_sup_min: torch.Tensor   # (Sz, Sy, Sx); (1, 1, 1) zeros unused
+    # the nonlinear medium's IOR voxel grid (one a scene), flat in the
+    # reference's (x * ry + y) * rz + z order; (1,) ones unused
+    nl_ior: torch.Tensor
+    nl_medium: torch.Tensor      # () int32 the nonlinear medium (-1 none)
     # corner-packed rows (Dz*Dy*Dx, 10): the 8 trilinear corners of each
     # voxel, its block's bound (slot 8) and control or leap distance
     # (slot 9); None when the grid is absent or too large to copy
@@ -238,7 +251,7 @@ def check_meta(meta: SceneMeta) -> None:
     for code in meta.medium_types:
         if med_names.get(code) not in SLICE_MEDIA:
             raise not_in_slice(f"medium type '{med_names.get(code)}'",
-                               "item 9 (NLVRL and the photon mapper)")
+                               "item 8 (volumetrics)")
     ph_names = {v: k for k, v in PHASE_TYPES.items()}
     for code in meta.phase_types:
         if ph_names.get(code) not in SLICE_PHASES:
@@ -247,6 +260,14 @@ def check_meta(meta: SceneMeta) -> None:
     if meta.integrator not in SLICE_INTEGRATORS:
         raise not_in_slice(f"integrator '{meta.integrator}'",
                            "items 7-11 (integrators)")
+    if meta.integrator in ('vrl', 'photonmapper', 'photonmap'):
+        for name in DEFERRED_PROPS:
+            value = meta.iprop(name)
+            on = int(value) > 1 if name == 'dice_vrl' and value is not None \
+                else bool(value)
+            if on:
+                raise not_in_slice(f"integrator property {name}={value!r}",
+                                   "item 9 (NLVRL and the photon mapper)")
     if meta.film.rfilter not in RFILTER_TYPES:
         raise ValueError(f"unknown reconstruction filter "
                          f"'{meta.film.rfilter}'")

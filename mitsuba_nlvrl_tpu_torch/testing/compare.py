@@ -28,7 +28,7 @@ import torch
 
 from ..core import rng
 from .. import film as film_mod
-from ..render import render_pass
+from ..render import preprocess, render_pass
 
 PIXEL_RTOL = 1e-3
 PIXEL_FRACTION = 0.99
@@ -38,13 +38,16 @@ Z_ALPHA = 0.01
 Z_FRACTION = 0.99
 
 
-def render_with_passes(scene, meta, seed: int, spp: int):
+def render_with_passes(scene, meta, seed: int, spp: int, aux=None):
     """(image (H, W, 3), per-pass images (spp, H, W, 3), measured rays), all
-    numpy, with the pass keys of ``render``."""
+    numpy, with the pass keys of ``render``; a two-pass integrator renders
+    with the maps ``aux``, or with its own preprocess's."""
     key = rng.PRNGKey(seed)
+    if aux is None:
+        aux = preprocess(scene, meta, seed)
     acc, passes, rays = None, [], 0.0
     for p in range(spp):
-        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p)
+        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p, aux)
         acc = img if acc is None else acc + img
         passes.append(film_mod.develop(img).cpu().numpy())
         rays += float(nrays)

@@ -1,8 +1,9 @@
 """Procedural scene descriptions: the port's copy of the reference's test
 scenes (``tests/scenes.py``), built with the port's own transforms so a
-program that must not import JAX (``chip_smoke.py``) can describe them,
-and ``hetvol_box``, the Cornell box around a heterogeneous medium whose
-density grid is made from a seed."""
+program that must not import JAX (``chip_smoke.py``) can describe them;
+``hetvol_box``, the Cornell box around a heterogeneous medium whose
+density grid is made from a seed; and ``cbox_nlvrl``, a stand-in for the
+thesis's headline configuration (cbox-nonlinear-homo-vrl)."""
 from __future__ import annotations
 
 import numpy as np
@@ -138,5 +139,43 @@ def hetvol_box(res_w=768, res_h=576, spp=2, grid_res=128, seed=0,
     desc = cornell_box(spp=spp, res=res_w,
                        integrator={'type': 'volpath', 'max_depth': 8},
                        medium=hetvol_medium(grid_res, seed, scale))
+    desc['sensor']['film']['height'] = res_h
+    return desc
+
+
+# cbox_nlvrl: the medium and laser values the headline configuration's
+# scene file would give, chosen here (the file is not in the repository)
+NLVRL_MEDIUM = {'type': 'nonlinear', 'sigma_t': 0.5, 'albedo': 0.8,
+                'res_x': 1, 'res_y': 640, 'res_z': 1, 'bottom_ior': 1.0,
+                'top_ior': 0.95, 'phase': {'type': 'isotropic'}}
+# light paths start outside any medium, so the laser starts in front of
+# the box and enters the medium cube through its open front (y ~ -0.52),
+# rising across the IOR cells
+LASER_ORIGIN = (0.0, -0.6, -1.5)
+LASER_DIRECTION = (0.0, 0.15, 1.0)
+# every bend segment is a VRL (a bend of the laser crosses about 0.02 of
+# the box between IOR cells; the reference's default minimum is 5)
+NLVRL_MIN_VRL_LENGTH = 0.0
+
+
+def cbox_nlvrl(res_w=512, res_h=256, spp=2, target_vrls=8000,
+               integrator='vrl', **props):
+    """The Cornell box around a nonlinear medium (an IOR grid of 1 x 640 x
+    1 cells from 1.0 at the bottom to 0.95 at the top) lit by a laser:
+    ``vrl`` with ``target_vrls`` VRLs, cluster VRL selection, bent light
+    and camera rays, 2 samples a VRL query and the reference's depth
+    defaults (camera max_depth 512, 64 camera iterations and 64 light
+    bounces at most, 32 bends), every bend segment a VRL.
+    ``integrator='photonmapper'`` renders the
+    same box with the photon mapper; ``props`` override integrator
+    properties (the tests shrink the caps)."""
+    integ = {'type': integrator, 'target_vrls': target_vrls,
+             'use_light_cut': True, 'use_non_linear': True,
+             'use_non_linear_camera': True, 'samples_per_query': 2,
+             'use_laser': True, 'laser_origin': LASER_ORIGIN,
+             'laser_direction': LASER_DIRECTION, 'max_nl_bends': 32,
+             'min_vrl_length': NLVRL_MIN_VRL_LENGTH, **props}
+    desc = cornell_box(spp=spp, res=res_w, integrator=integ,
+                       medium=dict(NLVRL_MEDIUM))
     desc['sensor']['film']['height'] = res_h
     return desc

@@ -33,6 +33,10 @@ def _sources():
             if f.endswith('.py'):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
+    scripts = os.path.join(ROOT, 'scripts')
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith('port_') and f.endswith('.py'):
+            yield os.path.join(scripts, f)
 
 
 def test_no_forbidden_import_in_sources():
@@ -52,7 +56,12 @@ def test_no_forbidden_import_in_sources():
                 names = [a.value for a in node.args[:1]
                          if isinstance(a, ast.Constant)]
             bad += [(path, m) for m in names if _forbidden(m)]
-    assert n > 20, n
+    assert n > 30, n
+    names = {os.path.basename(p) for p in _sources()}
+    for f in ('nonlinear.py', 'hashgrid.py', 'lighttrace.py', 'vrl.py',
+              'photon_est.py', 'photonmapper.py', 'nlvrl_probe.py',
+              'port_profile_nlvrl.py'):
+        assert f in names, f
     assert not bad, bad
 
 
@@ -97,6 +106,35 @@ def test_cpu_volumetric_render_loads_no_jax():
     assert not [m for m in loaded if _forbidden(m)]
 
 
+def test_cpu_nlvrl_render_loads_no_jax():
+    """The NLVRL slice (nonlinear medium, light tracing, hash grids, the
+    vrl and photonmapper integrators) renders on the CPU without JAX or
+    the reference package loaded."""
+    code = (
+        "import sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_nlvrl\n"
+        "for integ in ('vrl', 'photonmapper'):\n"
+        "    d = cbox_nlvrl(8, 4, spp=1, target_vrls=64, integrator=integ,\n"
+        "                   light_depth_cap=4, max_nl_bends=4,\n"
+        "                   gather_points_cap=4, max_cam_iters=3,\n"
+        "                   global_photons=1024)\n"
+        "    s, m = P.build_scene(d, device='cpu')\n"
+        "    img = P.render(s, m, seed=0, spp=1)\n"
+        "    assert img.shape == (4, 8, 3) and bool(img.isfinite().all())\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('medium.nonlinear', 'ops.hashgrid', 'integrators.lighttrace',
+                'integrators.photon_est', 'integrators.vrl',
+                'integrators.photonmapper'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
 def test_build_scene_without_cuda_raises(monkeypatch):
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
@@ -107,6 +145,11 @@ def test_build_scene_without_cuda_raises(monkeypatch):
                       medium={'type': 'homogeneous'})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.build_scene(vol)
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_nlvrl
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.build_scene(cbox_nlvrl())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.maps_from_numpy({})
     scene, _ = P.build_scene(cornell_box(), device='cpu')
     assert scene.device.type == 'cpu'
 

@@ -79,8 +79,8 @@ def test_scene_from_numpy_carries_reference_arrays(name):
     ('emitter', {'type': 'spot'}),
     ('sensor', 'thinlens'),
     ('sampler', 'stratified'),
-    ('integrator', 'vrl'),
-    ('medium', {'type': 'nonlinear'}),
+    ('integrator', 'direct'),
+    ('medium', {'type': 'homogeneous', 'sigma_t': {'type': 'checkerboard'}}),
 ])
 def test_types_outside_the_slice_raise(change):
     what, value = change

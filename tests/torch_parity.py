@@ -6,8 +6,13 @@ with the golden suite's per-pixel z-test.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from test_golden_suite import _z_test
@@ -54,3 +59,139 @@ def z_test_pass_fraction(mean, spp, ref, ref_var, ref_spp, alpha=0.01):
     p = _z_test(mean, spp, ref, ref_var, ref_spp)
     alpha_c = 1.0 - (1.0 - alpha) ** (1.0 / p.size)
     return float((p >= alpha_c).mean())
+
+
+# XLA's CPU backend at its default optimisation fuses a multiply and an
+# add into one rounding, and rewrites 1/sqrt into an approximate rsqrt;
+# torch rounds every operation and the port's normalisation divides by a
+# correctly rounded sqrt. A ray bent by the nonlinear medium turns on the
+# last bit at every total internal reflection (the reflected ray starts
+# RayEpsilon past the cell face and its next exit lies RayEpsilon away),
+# so the nonlinear tests evaluate the reference with IEEE rounding:
+# compiled at optimisation level 0 (no contraction) with 1/sqrt kept
+# apart by an optimisation barrier.
+_IEEE_OPTIONS = {'xla_backend_optimization_level': 0}
+_JIT = jax.jit
+
+
+def ieee_jit(fn, **kw):
+    """``jax.jit(fn)`` compiled with IEEE rounding (loops outside a jit
+    compile with XLA's default rounding)."""
+    return _JIT(fn, compiler_options=_IEEE_OPTIONS, **kw)
+
+
+@contextlib.contextmanager
+def ieee_reference():
+    """Inside the block the reference's jitted functions, those it makes
+    at call time and its render pass, compile with IEEE rounding."""
+    import mitsuba_nlvrl_tpu.core.math as jm
+    jrender = sys.modules['mitsuba_nlvrl_tpu.render']
+    real = (jm.safe_rsqrt, jrender.render_pass)
+    tiny = jnp.finfo(jnp.float32).tiny
+
+    def jit(fn=None, **kw):
+        if fn is None:
+            return lambda f: jit(f, **kw)
+        return ieee_jit(fn, **kw)
+
+    jm.safe_rsqrt = lambda x: 1.0 / jax.lax.optimization_barrier(
+        jnp.sqrt(jnp.maximum(x, tiny)))
+    jax.jit = jit
+    jrender.render_pass = jit(jrender._pass_body,
+                              static_argnames=('meta', 'integrator'))
+    try:
+        yield
+    finally:
+        jm.safe_rsqrt, jrender.render_pass = real
+        jax.jit = _JIT
+
+
+# the two-pass integrators' test boxes: the reference's static knobs cut
+# to test size (target_vrls <= 256, light_depth_cap <= 8, max_nl_bends <=
+# 8, gather_points_cap <= 8, max_cam_iters <= 4, global_photons <= 4096),
+# every light segment a VRL
+TWO_PASS_KNOBS = dict(target_vrls=256, light_depth_cap=8, max_nl_bends=8,
+                      gather_points_cap=8, max_cam_iters=4,
+                      global_photons=4096, min_vrl_length=0.0,
+                      samples_per_query=2)
+TWO_PASS_RES = (16, 8)
+# a homogeneous box with an anisotropic phase (the estimates' per-photon
+# phase path)
+HOMOGENEOUS_HG = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.8,
+                  'phase': {'type': 'hg', 'g': 0.5}}
+
+
+def two_pass_desc(pkg, integrator: str, medium: str):
+    """The 16x8 box of a two-pass test, from either package's scene
+    module: ``medium`` 'homogeneous' (area light) or 'nonlinear' (the
+    medium and laser of ``cbox_nlvrl``)."""
+    from mitsuba_nlvrl_tpu_torch.testing import scenes as pscenes
+    integ = {'type': integrator, 'use_light_cut': True, **TWO_PASS_KNOBS}
+    if medium == 'nonlinear':
+        med = dict(pscenes.NLVRL_MEDIUM)
+        integ.update(use_laser=True, laser_origin=pscenes.LASER_ORIGIN,
+                     laser_direction=pscenes.LASER_DIRECTION)
+    else:
+        med = dict(HOMOGENEOUS_HG)
+    desc = pkg.cornell_box(spp=2, res=TWO_PASS_RES[0], integrator=integ,
+                           medium=med)
+    desc['sensor']['film']['height'] = TWO_PASS_RES[1]
+    return desc
+
+
+@functools.lru_cache(maxsize=None)
+def two_pass_case(integrator: str, medium: str):
+    """(reference scene, meta, maps; port scene, meta, the reference's
+    maps carried over) of ``two_pass_desc``, the maps from the
+    reference's preprocess with IEEE rounding."""
+    import scenes
+    from mitsuba_nlvrl_tpu.render import preprocess
+    sj, mj, sp, mp = build_both(two_pass_desc(scenes, integrator, medium))
+    with ieee_reference():
+        maps_j = preprocess(sj, mj, 0)
+    maps_p = P.maps_from_numpy(scene_arrays(maps_j), device='cpu')
+    return sj, mj, maps_j, sp, mp, maps_p
+
+
+@functools.lru_cache(maxsize=None)
+def two_pass_reference_image(integrator: str, medium: str, spp: int):
+    """(image, rays) of the reference's camera passes on its own maps,
+    with IEEE rounding."""
+    sj, mj, maps_j, _, _, _ = two_pass_case(integrator, medium)
+    stats = []
+    with ieee_reference():
+        img = np.asarray(J.render(sj, mj, seed=0, spp=spp, aux=maps_j,
+                                  ray_stats=stats, spp_per_dispatch=1))
+    return img, sum(float(r) for r in stats)
+
+
+def check_render_on_reference_maps(integrator: str, medium: str, spp: int):
+    """The port's camera passes on the reference's maps: every pixel
+    within 1e-3 relative of the reference's, the ray counts equal."""
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    _, _, _, sp, mp, maps_p = two_pass_case(integrator, medium)
+    img_j, rays_j = two_pass_reference_image(integrator, medium, spp)
+    img_p, _, rays_p = compare.render_with_passes(sp, mp, 0, spp, maps_p)
+    assert img_p.shape == img_j.shape == TWO_PASS_RES[::-1] + (3,)
+    close = np.abs(img_p - img_j) <= 1e-3 * np.abs(img_j) + 1e-6
+    assert close.all(), float(np.abs(img_p - img_j).max())
+    assert rays_p == rays_j
+    assert img_p.mean() > 0.005
+    return img_p
+
+
+def check_render_own_light_pass(integrator: str, medium: str, spp: int):
+    """The port's whole render (its own preprocess and camera passes)
+    against the reference's camera passes on the reference's maps: the
+    golden suite's z-test on 99% of pixels, the means within 1e-3
+    relative."""
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    _, _, _, sp, mp, _ = two_pass_case(integrator, medium)
+    img_j, _ = two_pass_reference_image(integrator, medium, spp)
+    img_p, passes, _ = compare.render_with_passes(sp, mp, 0, spp)
+    assert np.isfinite(img_p).all()
+    z = z_test_pass_fraction(img_p, spp, img_j, passes.var(axis=0, ddof=1),
+                             spp)
+    assert z >= compare.Z_FRACTION, z
+    assert abs(img_p.mean() - img_j.mean()) \
+        <= compare.MEAN_RTOL * img_j.mean(), (img_p.mean(), img_j.mean())
