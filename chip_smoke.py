@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about seven minutes on an H100
+    python3 chip_smoke.py            # about nine minutes on an H100
 
 Builds the port's CUDA kernel from the sources in this checkout, checks
 the launch geometry the kernel works out for itself, holds the kernel
@@ -11,9 +11,21 @@ resident blocks), times it at the main path's shape (262,144 rays x 12
 triangles) and at 1,023 random triangles, checks and times it on the rays
 of every intersection call of one pass of the render, drives the port's
 main path (``build_scene`` -> ``render`` of the 512x512 Cornell box, 16
-spp, ``path`` with max_depth 8) through it, and checks the render against
-the same scene rendered on the CPU. The volumetric slice follows: every
-intersection call of one pass of the heterogeneous-medium box
+spp, ``path`` with max_depth 8, its light the reference cbox.xml's SPD)
+through it, and checks the render against the same scene rendered on the
+CPU. The scene-file path follows: the CLI (``python -m
+mitsuba_nlvrl_tpu_torch``, in a subprocess) renders ``cbox_xml``, the
+same box written as Mitsuba XML over OBJ meshes, whose arrays must equal
+the dict's and whose EXR must agree with the in-process render (equal
+rays, ``testing/compare.py``'s gates); ``cbox_mesh`` (the box with a
+20,480-triangle displaced icosphere in a binary PLY) is loaded and its
+BVH built and described, rendered at 512x512, 16 spp through
+``ops/bvh.traverse`` (wall time, rays, host syncs, the traversal's share
+of the time, steps a call, lanes cut at the step cap), rendered at 64x64
+on the card against the CPU, and one pass's camera rays go through the
+BVH and through the kernel's dense nearest hit on the same triangles.
+The volumetric slice follows: every intersection call of one pass of
+the heterogeneous-medium box
 (``hetvol_box``: 768x576, a 128^3 density grid, sigma_t x100, HG phase,
 ``volpath`` with max_depth 8) checked against the plain version and
 timed, the 2 spp render itself (wall time, rays, kernel launches, host
@@ -39,9 +51,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -375,6 +390,223 @@ def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c), own
 
 
+def run_cli(args, timeout: float):
+    """``python -m mitsuba_nlvrl_tpu_torch`` in a subprocess from this
+    checkout; (wall s, stdout). Fails on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env['PYTHONPATH'] = root + os.pathsep + env.get('PYTHONPATH', '')
+    t0 = time.time()
+    res = subprocess.run([sys.executable, '-m', 'mitsuba_nlvrl_tpu_torch',
+                          *args], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.time() - t0
+    assert res.returncode == 0, (res.returncode, res.stdout[-2000:],
+                                 res.stderr[-4000:])
+    return wall, res.stdout
+
+
+def bvh_shape(bvh) -> dict:
+    """Node count, depth, leaves and leaf fill of a BVH (numpy arrays)."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.ops.bvh import LEAF_SIZE
+    a, b = np.asarray(bvh.node_a), np.asarray(bvh.node_b)
+    leaf = np.asarray(bvh.node_leaf)
+    depth = np.zeros(len(leaf), np.int64)
+    for k in range(len(leaf)):      # preorder: a parent precedes its children
+        if not leaf[k]:
+            depth[a[k]] = depth[b[k]] = depth[k] + 1
+    fill = b[leaf]
+    return {'nodes': int(len(leaf)), 'leaves': int(leaf.sum()),
+            'depth': int(depth.max()), 'mean_leaf_depth':
+            float(depth[leaf].mean()), 'leaf_fill': float(fill.mean()
+                                                          / LEAF_SIZE),
+            'tris_in_leaves': int(fill.sum())}
+
+
+def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
+                      rays, workdir, bw, fl):
+    """The scene-file path on the card: ``scene_file`` (the CLI renders
+    cbox_xml, the render phase's scene), ``mesh_build``, ``mesh_render``,
+    ``mesh_card_vs_cpu`` and ``bvh_vs_dense`` on cbox_mesh. Returns the
+    CLI render's kernel launches and the mesh render's."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import native
+    from mitsuba_nlvrl_tpu_torch import sensor as sensor_mod
+    from mitsuba_nlvrl_tpu_torch.core import counters, rng
+    from mitsuba_nlvrl_tpu_torch.integrators.common import \
+        film_sample_positions
+    from mitsuba_nlvrl_tpu_torch.ops import bvh as bvh_mod
+    from mitsuba_nlvrl_tpu_torch.scene.builder import (SceneBuilder,
+                                                       scene_from_numpy)
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_light_spd,
+                                                        cbox_mesh, cbox_xml,
+                                                        cornell_box)
+    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
+
+    def rgb(path):
+        im, names = read_exr(path)
+        return im[..., [names.index(c) for c in 'RGB']]
+
+    # --- scene_file: cbox_xml through the CLI, 512x512, 16 spp ----------
+    path = cbox_xml(os.path.join(workdir, 'cbox'), spp=16, res=512,
+                    max_depth=8)
+    a_x, m_x = SceneBuilder(load_file(path)).build()
+    a_d, m_d = SceneBuilder(cornell_box(
+        spp=16, res=512, integrator={'type': 'path', 'max_depth': 8},
+        radiance=cbox_light_spd())).build()
+    same = m_x == m_d and set(a_x) == set(a_d) and all(
+        np.array_equal(np.asarray(a_x[k]), np.asarray(a_d[k])) for k in a_d)
+    exr = os.path.join(workdir, 'cbox.exr')
+    wall, out = run_cli([path, '-o', exr, '-v'], timeout=300)
+    stats = json.loads([x for x in out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    cli_img = rgb(exr)
+    # the render phase's scene again, pass by pass, for the z-test
+    ref, ref_passes, ref_rays = compare.render_with_passes(scene, meta, 0, 16)
+    agree = compare.agreement(cli_img, ref, ref_passes, stats['rays'],
+                              ref_rays)
+    emit({'phase': 'scene_file', 'scene': 'cbox_xml', 'res': 512, 'spp': 16,
+          'max_depth': 8, 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'], 'bvh_calls': stats['bvh_calls'],
+          'arrays_equal_dict_route': same,
+          'bit_equal_render_phase': cli_img.tobytes() == img_np.tobytes(),
+          'render_phase_rays': rays, **agree})
+    assert same, "cbox_xml built other arrays than the dict route"
+    assert stats['rays'] == ref_rays == rays, (stats['rays'], ref_rays, rays)
+    assert stats['kernel_launches'] == 16 * 8 * 2 and not stats['bvh_calls']
+    assert cli_img.shape == (512, 512, 3)
+    compare.check(agree)
+    cli_launches = stats['kernel_launches']
+
+    # --- mesh_build: cbox_mesh at subdivision 5 ------------------------
+    mpath = cbox_mesh(os.path.join(workdir, 'mesh'), subdiv=5, spp=16,
+                      res=512, max_depth=8)
+    t0 = time.time()
+    native.build()          # g++ at first use; the build below is timed
+    t_cxx = time.time() - t0
+    real_build, built = bvh_mod.build, {}
+
+    def timed_build(*args):
+        t = time.time()
+        out_ = real_build(*args)
+        built['s'], built['bvh'] = time.time() - t, out_
+        return out_
+    t0 = time.time()
+    desc = load_file(mpath)
+    t_load = time.time() - t0
+    bvh_mod.build = timed_build
+    try:
+        t0 = time.time()
+        arrays, mmeta = SceneBuilder(desc).build()
+        t_host = time.time() - t0
+    finally:
+        bvh_mod.build = real_build
+    t0 = time.time()
+    mscene, mmeta = scene_from_numpy(arrays, mmeta, 'cuda')
+    torch.cuda.synchronize()
+    t_up = time.time() - t0
+    emit({'phase': 'mesh_build', 'n_tris': mmeta.n_tris,
+          'load_s': t_load, 'build_s': t_host, 'bvh_build_s': built['s'],
+          'bvh_compile_s': t_cxx,
+          'upload_s': t_up, **bvh_shape(built['bvh'])})
+    assert mmeta.has_bvh and mmeta.n_tris == 20480 + 12
+
+    # --- mesh_render: 512x512, 16 spp, path max_depth 8, through the BVH
+    in_trav = {'s': 0.0}
+    real_trav = bvh_mod.traverse
+
+    def timed_trav(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        res_ = real_trav(*args, **kw)
+        torch.cuda.synchronize()
+        in_trav['s'] += time.time() - t
+        return res_
+    mnt.render(mscene, mmeta, seed=0, spp=1)      # warm-up
+    torch.cuda.synchronize()
+    counters.reset()
+    bvh_mod.traverse = timed_trav
+    mstats = []
+    try:
+        t0 = time.time()
+        mimg = mnt.render(mscene, mmeta, seed=0, spp=16, ray_stats=mstats)
+        torch.cuda.synchronize()
+        mwall = time.time() - t0
+    finally:
+        bvh_mod.traverse = real_trav
+    c = counters.read()
+    mrays = float(sum(float(r) for r in mstats))
+    mimg_np = mimg.cpu().numpy()
+    emit({'phase': 'mesh_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'n_tris': mmeta.n_tris, 'wall_s': mwall, 'rays': mrays,
+          'mrays_per_s': mrays / mwall / 1e6, 'launches': c['kernel_launches'],
+          'host_syncs': c['host_syncs'], 'traverse_calls': c['bvh_calls'],
+          'traverse_share': in_trav['s'] / mwall, 'traverse_s': in_trav['s'],
+          'steps_per_call_mean': c['bvh_steps'] / max(c['bvh_calls'], 1),
+          'steps_per_call_max': c['bvh_max_steps'],
+          'lanes_cut': c['bvh_lanes_cut'],
+          'finite': bool(np.isfinite(mimg_np).all()),
+          'mean': float(mimg_np.mean()), 'shape': list(mimg_np.shape)})
+    assert c['bvh_lanes_cut'] == 0, c
+    assert c['bvh_calls'] > 0 and np.isfinite(mimg_np).all()
+    assert mimg_np.shape == (512, 512, 3) and 0.01 < mimg_np.mean() < 10.0
+
+    # --- mesh_card_vs_cpu: cbox_mesh at 64x64, 2 spp -------------------
+    sdesc = load_file(mpath)
+    sdesc['sensor']['film'].update(width=64, height=64)
+    sdesc['sensor']['sampler']['sample_count'] = 2
+    agree = card_vs_cpu(mnt, compare, sdesc, 2)
+    emit({'phase': 'mesh_card_vs_cpu', 'res': 64, 'spp': 2, **agree})
+    compare.check(agree)
+
+    # --- bvh_vs_dense: one pass's camera rays, BVH against the kernel --
+    pos_key, _ = rng.split(rng.fold_in(rng.PRNGKey(0), 0))
+    _, pos01 = film_sample_positions(mmeta, pos_key, 0, torch.device('cuda'))
+    cam, _ = sensor_mod.sample_ray(mscene, mmeta, pos01, None)
+    g = mscene.geo
+    crays = (cam.o.contiguous(), cam.d.contiguous(), cam.mint.contiguous(),
+             cam.maxt.contiguous())
+    bvh_mod.traverse(mscene.bvh, g.v0, g.e1, g.e2, *crays)   # warm-up
+    torch.cuda.synchronize()
+    bvh_mod.reset_stats()
+    t0 = time.time()
+    tb, ib, _, _ = bvh_mod.traverse(mscene.bvh, g.v0, g.e1, g.e2, *crays)
+    torch.cuda.synchronize()
+    bvh_ms = (time.time() - t0) * 1e3
+    kern.launches = 0
+    a0, a1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a0.record()
+    td, idd, _, _ = kern.intersect_tris(g.v0, g.e1, g.e2, *crays)
+    a1.record()
+    a1.synchronize()
+    dense_ms = a0.elapsed_time(a1)
+    assert kern.launches == 1
+    hb, hd = torch.isfinite(tb), torch.isfinite(td)
+    both = hb & hd
+    rel = ((tb - td).abs() / td.abs().clamp(min=1e-30))[both]
+    same_t = both & (tb == td)
+    _, _, b_bytes, b_ops = bound(crays[0].shape[0], g.v0.shape[0], False,
+                                 bw, fl)
+    rec = {'phase': 'bvh_vs_dense', 'rays': crays[0].shape[0],
+           'tris': g.v0.shape[0], 'hits': int(hb.sum()),
+           'hit_or_miss_differ': int((hb != hd).sum()),
+           'prim_differ_at_equal_t': int((same_t & (ib != idd)).sum()),
+           'prim_differ': int((both & (ib != idd)).sum()),
+           'max_rel_t_diff': float(rel.max()) if rel.numel() else 0.0,
+           'bvh_ms': bvh_ms, 'dense_kernel_ms': dense_ms,
+           'dense_bound_ms': max(b_bytes, b_ops),
+           'bvh_steps': bvh_mod.stats['max_steps']}
+    emit(rec)
+    assert rec['hit_or_miss_differ'] == 0, rec
+    return cli_launches, c['kernel_launches']
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -388,7 +620,8 @@ def main() -> int:
     from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
     from mitsuba_nlvrl_tpu_torch.testing.nlvrl_probe import (CAMERA_PARTS,
                                                              record_parts)
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_nlvrl,
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_light_spd,
+                                                        cbox_nlvrl,
                                                         cornell_box,
                                                         hetvol_box)
 
@@ -411,8 +644,11 @@ def main() -> int:
 
     # --- the launch geometry and the kernel against its plain version ---
     emit({'phase': 'geometry_check', **geometry_check(torch, kern)})
+    # the Cornell box with the reference cbox.xml's light SPD: the scene
+    # that cbox_xml writes, so the scene_file phase renders the same
     desc = cornell_box(spp=16, res=512,
-                       integrator={'type': 'path', 'max_depth': 8})
+                       integrator={'type': 'path', 'max_depth': 8},
+                       radiance=cbox_light_spd())
     scene, meta = mnt.build_scene(desc)
     checks, worst, box, cam_rays = kernel_check(torch, kern, dev, scene,
                                                 meta)
@@ -476,6 +712,15 @@ def main() -> int:
         spp=4, res=64, integrator={'type': 'path', 'max_depth': 8}), 4)
     emit({'phase': 'card_vs_cpu', **agree})
     compare.check(agree)
+
+    # --- the scene-file path: the CLI on cbox_xml, then the mesh scene --
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_scenes_')
+    try:
+        cli_launches, mesh_launches = scene_file_phases(
+            torch, mnt, kern, compare, sync, scene, meta, img_np, rays,
+            workdir, bw, fl)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # --- the volumetric slice: hetvol_box at full width ----------------
     t0 = time.time()
@@ -623,7 +868,8 @@ def main() -> int:
         'name': 'intersect_tris', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect.cu',
         'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',
-        'launches': launches + vlaunches + nlaunches, 'max_abs_err': worst,
+        'launches': launches + vlaunches + nlaunches + cli_launches,
+        'max_abs_err': worst,
         'ms': own['ms_per_launch'], 'plain_ms': own['plain_ms_per_launch'],
         'bound_ms': own['bound_ms_per_launch'], 'bound_by': own['bound_by'],
         'library_ms': None,
@@ -635,7 +881,9 @@ def main() -> int:
         'launches_nlvrl': nlaunches, 'nlvrl_ms': nown['ms_per_launch'],
         'nlvrl_plain_ms': nown['plain_ms_per_launch'],
         'nlvrl_bound_ms': nown['bound_ms_per_launch'],
-        'nlvrl_bound_by': nown['bound_by']}]})
+        'nlvrl_bound_by': nown['bound_by'],
+        'launches_scene_file': cli_launches,
+        'launches_mesh_render': mesh_launches}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from ..core import frame as fr
 from ..core import warp
 from ..core.fresnel import (fresnel_dielectric, fresnel_conductor,
                             reflect_local, refract_local)
+from ..scene.ior_data import conductor_rgb, lookup_ior
 from ..scene.types import (BSDF_TYPES, F_DELTA, F_NULL, F_TRANSMISSION,
                            F_SMOOTH, BSDF_NPARAM, SLICE_BSDFS, not_in_slice)
 
@@ -46,7 +47,7 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
     p = [0.0] * BSDF_NPARAM
 
     def value(v):
-        if isinstance(v, (dict, str)):
+        if isinstance(v, dict) or (isinstance(v, str) and t != 'dielectric'):
             raise not_in_slice(f"textured, spectral or named parameter "
                                f"{v!r}", "item 7 (textures)")
         return v
@@ -62,17 +63,23 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
         p[15] = -1.0     # no reflectance texture
         return BSDF_TYPES[t], F_SMOOTH, p
     if t == 'conductor':
-        if props.get('material') is not None:
-            raise not_in_slice("named conductor materials",
-                               "item 10 (variants)")
         p[0:3], p[3:6] = rgb('eta', 0.0), rgb('k', 1.0)
+        mat = props.get('material')
+        if isinstance(mat, str):
+            # a named material's tabulated eta/k, integrated to RGB
+            pair = conductor_rgb(mat)
+            if pair is None:
+                print(f"warning: conductor material {mat!r} has no "
+                      f".spd data; keeping eta/k defaults")
+            else:
+                p[0:3], p[3:6] = list(pair[0]), list(pair[1])
         p[6:9] = rgb('specular_reflectance', 1.0)
         return BSDF_TYPES[t], F_DELTA, p
     if t == 'null':
         return BSDF_TYPES[t], F_DELTA | F_NULL | F_TRANSMISSION, p
     # dielectric
-    p[0] = float(value(props.get('int_ior', 1.5046)))    # bk7
-    p[1] = float(value(props.get('ext_ior', 1.000277)))  # air
+    p[0] = lookup_ior(value(props.get('int_ior', 1.5046)))    # bk7
+    p[1] = lookup_ior(value(props.get('ext_ior', 1.000277)))  # air
     p[2:5] = rgb('specular_reflectance', 1.0)
     p[5:8] = rgb('specular_transmittance', 1.0)
     return BSDF_TYPES[t], F_DELTA | F_TRANSMISSION, p

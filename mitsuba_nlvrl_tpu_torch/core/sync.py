@@ -26,3 +26,11 @@ def int_on_host(x: torch.Tensor) -> int:
     global host_syncs
     host_syncs += 1
     return int(x)
+
+
+def nonzero_on_host(mask: torch.Tensor) -> torch.Tensor:
+    """``mask.nonzero()[:, 0]`` of a 1-d mask (its size is a host read),
+    counted."""
+    global host_syncs
+    host_syncs += 1
+    return mask.nonzero()[:, 0]

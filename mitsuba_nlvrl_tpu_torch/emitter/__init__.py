@@ -27,6 +27,33 @@ E_POINT = EMITTER_TYPES['point']
 E_CONSTANT = EMITTER_TYPES['constant']
 
 
+def spectrum_rgb(v: dict) -> list:
+    """The RGB radiance of a spectrum-valued emitter parameter (a
+    blackbody, ``d65`` or a regular or irregular SPD), integrated at pack
+    time as the reference's RGB variant does. Spectral transport, which
+    would sample the SPD itself, is ROADMAP item 10."""
+    import numpy as np
+    from ..core.spectrum import blackbody_rgb, spectrum_to_rgb
+    st = v.get('type', 'spectrum')
+    scale = float(v.get('scale', 1.0))
+    if st == 'blackbody':
+        T = float(v.get('temperature', 6500.0))
+        return [float(x) * scale for x in blackbody_rgb(T)]
+    if st == 'd65':
+        return [scale] * 3
+    if st == 'regular':
+        wav = np.linspace(float(v.get('lambda_min', 360.0)),
+                          float(v.get('lambda_max', 830.0)),
+                          len(v['values']))
+        vals = np.asarray(v['values'], np.float64)
+    else:
+        pairs = v.get('value', v.get('values'))
+        wav = np.asarray([q[0] for q in pairs], np.float64)
+        vals = np.asarray([q[1] for q in pairs], np.float64)
+    return [float(x) * scale
+            for x in spectrum_to_rgb(wav, vals, bounded=False)]
+
+
 def pack_params(props: dict) -> Tuple[int, list]:
     """Pack an emitter to (type_code, params[EMITTER_NPARAM])."""
     t = props['type']
@@ -37,7 +64,7 @@ def pack_params(props: dict) -> Tuple[int, list]:
     def rgb(key, default):
         v = props.get(key, default)
         if isinstance(v, dict):
-            raise not_in_slice("spectrum emitters", "item 10 (variants)")
+            return spectrum_rgb(v)
         if isinstance(v, (int, float)):
             return [float(v)] * 3
         return [float(x) for x in v]

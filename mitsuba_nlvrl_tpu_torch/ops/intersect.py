@@ -2,8 +2,11 @@
 
 Port of ``mitsuba_nlvrl_tpu/ops/intersect.py``. Triangles go through the
 dense sweep of ``ops/cuda/intersect_cuda.py`` (the hand-written kernel on
-the card, its plain version on the CPU); analytic spheres are a small
-dense test written in torch.
+the card, its plain version on the CPU), or, in a scene with a BVH (from
+``types.BVH_MIN_TRIS`` triangles), through ``ops/bvh.traverse`` on the
+card and the CPU alike, as the reference does off TPU; the any hit
+against the occluder subset stays dense at every size, as in the
+reference. Analytic spheres are a small dense test written in torch.
 
 Contract:
   intersect_preliminary -> (t, prim_idx, prim_kind, u, v) nearest hit
@@ -22,6 +25,7 @@ from ..core.frame import Frame
 from ..core.ray import Ray
 from ..core.records import SurfaceInteraction
 from ..scene.types import BSDF_TYPES
+from . import bvh as bvh_mod
 from .cuda.intersect_cuda import intersect_tris
 
 KIND_TRI = 0
@@ -49,7 +53,12 @@ def _sphere_hits(o, d, center, radius):
     return -b - sq, -b + sq, hit
 
 
-def _tris(tris, ray: Ray, maxt, any_hit: bool):
+def _tris(tris, ray: Ray, maxt, any_hit: bool, bvh=None):
+    """(t, idx, u, v) of the triangles ``tris``: through the BVH when one
+    is given, else the dense sweep."""
+    if bvh is not None:
+        return bvh_mod.traverse(bvh, tris.v0, tris.e1, tris.e2, ray.o, ray.d,
+                                ray.mint, maxt, any_hit=any_hit)
     # the integrators' rays are contiguous by construction (Ray.make fills
     # scalar bounds; tests/test_torch_kernel_abi.py checks a render); the
     # kernel's wrapper raises on any that is not
@@ -70,7 +79,8 @@ def intersect_preliminary(scene, ray: Ray, maxt=None) -> PreliminaryHit:
     kind = torch.zeros((N,), dtype=torch.int32, device=dev)
 
     if geo.v0.shape[0] > 0:
-        best_t, best_i, best_u, best_v = _tris(geo, ray, maxt, False)
+        best_t, best_i, best_u, best_v = _tris(geo, ray, maxt, False,
+                                               scene.bvh)
 
     if geo.sph_center.shape[0] > 0:
         tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],
@@ -94,14 +104,16 @@ def _any_hit(scene, ray: Ray, maxt, occluders_only: bool) -> torch.Tensor:
     not ``null`` (``occluders_only``): triangles through the kernel on
     the scene's occluder subset (built once in ``scene_from_numpy``), which
     gives exactly the answer of the reference's per-triangle mask; spheres
-    keep a mask here."""
+    keep a mask here. The whole set goes through the scene's BVH where it
+    has one; the occluder subset is swept densely at every size."""
     geo = scene.geo
     tris = scene.occluders if occluders_only else geo
     maxt = ray.maxt if maxt is None else maxt
     occluded = torch.zeros((ray.o.shape[0],), dtype=torch.bool,
                            device=ray.o.device)
     if tris.v0.shape[0] > 0:
-        t, _, _, _ = _tris(tris, ray, maxt, True)
+        t, _, _, _ = _tris(tris, ray, maxt, True,
+                           None if occluders_only else scene.bvh)
         occluded = occluded | torch.isfinite(t)
     if geo.sph_center.shape[0] > 0:
         tn, tf, hit = _sphere_hits(ray.o[:, None], ray.d[:, None],

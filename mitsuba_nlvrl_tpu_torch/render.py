@@ -61,15 +61,24 @@ def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
 
 def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
            ray_stats: Optional[list] = None, info: Optional[dict] = None,
-           aux=None):
+           aux=None, verbose: bool = False,
+           timeout: Optional[float] = None, should_stop=None, on_pass=None):
     """Full render: the preprocess where the integrator has one (unless
     ``aux`` brings its maps), then ``spp`` passes -> (H, W, 3) image on the
     scene's device.
 
     If ``ray_stats`` is a list, each pass appends its measured ray count
     (a device scalar: read it after the render). ``info`` receives
-    ``passes_done``, ``wall_s`` and ``preprocess_s`` (the preprocess's
-    share of ``wall_s``)."""
+    ``passes_done``, ``stopped_early``, ``wall_s`` and ``preprocess_s``
+    (the preprocess's share of ``wall_s``).
+
+    Cooperative cancellation, as the reference's: ``timeout`` seconds
+    (of passes, the preprocess not counted) and a ``should_stop()``
+    callable are checked after each pass; when either fires the render
+    stops and develops the passes done so far (the weight channel
+    normalises any pass count). ``on_pass(p, develop)``
+    runs after pass ``p`` with a function that develops the film so far
+    (the CLI writes it on SIGHUP). ``verbose`` prints a line a pass."""
     spp = spp or meta.spp
     key = rng.PRNGKey(seed)
     acc = None
@@ -79,15 +88,31 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     if scene.device.type == 'cuda':
         torch.cuda.synchronize(scene.device)
     t_pre = time.time() - t0
-    for p in range(spp):
+    t_loop = time.time()    # the timeout counts the passes alone
+    done = 0
+    while done < spp:
+        p = done
         img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p, aux)
         acc = img if acc is None else acc + img
         if ray_stats is not None:
             ray_stats.append(nrays)
+        done = p + 1
+        if verbose:
+            print(f"  pass {done}/{spp}  ({time.time() - t0:.2f}s)")
+        if on_pass is not None:
+            on_pass(p, lambda acc=acc: film_mod.develop(acc))
+        if (should_stop is not None and should_stop()) \
+                or (timeout is not None and time.time() - t_loop > timeout):
+            if verbose:
+                print(f"  [stop] after pass {done}/{spp} "
+                      f"({time.time() - t0:.2f}s): developing the partial "
+                      f"film")
+            break
     if scene.device.type == 'cuda':
         torch.cuda.synchronize(scene.device)
     if info is not None:
-        info['passes_done'] = spp
+        info['passes_done'] = done
+        info['stopped_early'] = done < spp
         info['wall_s'] = time.time() - t0
         info['preprocess_s'] = t_pre
     return film_mod.develop(acc)

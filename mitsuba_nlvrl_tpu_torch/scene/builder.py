@@ -10,11 +10,14 @@ through the same function, which is how the tests render the very same
 arrays in both packages.
 
 All geometry is pre-transformed to world space; rectangles and cubes
-become exact triangle pairs; spheres stay analytic unless emissive (area
-emitters sample triangles, so an emissive sphere tessellates). Unlike the
-reference, the builder keeps the input triangle order at every size and
-builds no BVH: the dense intersection kernel is correct at any size, and
-the BVH with its Morton order is a later slice (ROADMAP.md, B.2).
+become exact triangle pairs, disks and cylinders tessellate, OBJ, PLY,
+Mitsuba .serialized and Blender meshes load through ``mesh_io``; spheres
+stay analytic unless emissive (area emitters sample triangles, so an
+emissive sphere tessellates). From ``BVH_MIN_TRIS`` triangles the builder
+makes the reference's BVH (``ops/bvh.build``), reorders the triangle
+tables by it and remaps the emitters' triangle ids, as the reference does;
+below it the triangles keep their input order and the dense kernel
+intersects them. The reference's TPU cluster arrays are not built.
 
 Shapes may bound participating media (``interior``/``exterior``); a
 medium-only shape gets a ``null`` BSDF. Homogeneous, heterogeneous (one
@@ -25,7 +28,7 @@ bounds and corner-packed rows and the voxelised IOR grid derived here.
 from __future__ import annotations
 
 from dataclasses import fields
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,18 +41,15 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
                     M_BBOX_MAX, M_MAJORANT, M_NL_TOP_IOR, M_NL_BOT_IOR,
                     M_NL_RES, M_NL_FROM_BOTTOM, SLICE_MEDIA, SLICE_PHASES,
+                    BVH_MIN_TRIS,
                     SLICE_SHAPES, check_meta, not_in_slice)
+from .mesh_io import (MeshData, compute_vertex_normals, load_blender,
+                      load_obj, load_ply, load_serialized)
 from .vol_io import load_vol
+from ..ops import bvh as bvh_mod
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..sensor import build_sensor
-
-
-class MeshData(NamedTuple):
-    vertices: np.ndarray            # (V, 3) float32
-    faces: np.ndarray               # (F, 3) int32
-    normals: Optional[np.ndarray]   # (V, 3) float32 per-vertex or None
-    uvs: Optional[np.ndarray]       # (V, 2) float32 or None
 
 
 def _rectangle_mesh() -> MeshData:
@@ -108,22 +108,44 @@ def icosphere_mesh(subdiv: int = 3) -> MeshData:
     return MeshData(vf, f.astype(np.int32), vf.copy(), None)
 
 
-def compute_vertex_normals(mesh: MeshData) -> np.ndarray:
-    """Area-weighted smooth vertex normals."""
-    v, f = mesh.vertices.astype(np.float64), mesh.faces
-    n = np.zeros_like(v)
-    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
-    for k in range(3):
-        np.add.at(n, f[:, k], fn)
-    ln = np.linalg.norm(n, axis=1, keepdims=True)
-    ln[ln == 0] = 1.0
-    return (n / ln).astype(np.float32)
+def _disk_mesh(segments: int = 64) -> MeshData:
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(segments)], -1)
+    v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+    f = np.asarray([[0, 1 + i, 1 + (i + 1) % segments]
+                    for i in range(segments)], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (segments + 1, 1))
+    return MeshData(v, f, n, None)
+
+
+def _cylinder_mesh(radius: float, p0, p1, segments: int = 64) -> MeshData:
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    axis = p1 - p0
+    axis = axis / np.linalg.norm(axis)
+    a = np.array([1.0, 0, 0]) if abs(axis[0]) < 0.9 else np.array([0, 1.0, 0])
+    u = np.cross(axis, a)
+    u /= np.linalg.norm(u)
+    w = np.cross(axis, u)
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    ring = np.outer(np.cos(ang), u) + np.outer(np.sin(ang), w)
+    v = np.concatenate([p0 + radius * ring, p1 + radius * ring]
+                       ).astype(np.float32)
+    n = np.concatenate([ring, ring]).astype(np.float32)
+    f = []
+    for i in range(segments):
+        j = (i + 1) % segments
+        f += [[i, j, segments + i], [j, segments + j, segments + i]]
+    return MeshData(v, np.asarray(f, np.int32), n, None)
 
 
 def _load_shape_mesh(sh: dict) -> Optional[MeshData]:
+    """The shape's mesh in object space, or None for an analytic sphere."""
     t = sh['type']
     if t not in SLICE_SHAPES:
         raise not_in_slice(f"shape type '{t}'", "item 4 (scene front-end)")
+    if t == 'mesh':
+        return sh['mesh']
     if t == 'sphere':
         if sh.get('emitter') is None:
             return None   # analytic
@@ -131,7 +153,23 @@ def _load_shape_mesh(sh: dict) -> Optional[MeshData]:
         c = np.asarray(sh.get('center', (0, 0, 0)), np.float32)
         r = float(sh.get('radius', 1.0))
         return MeshData(mesh.vertices * r + c, mesh.faces, mesh.normals, None)
-    mesh = _rectangle_mesh() if t == 'rectangle' else _cube_mesh()
+    if t == 'obj':
+        mesh = load_obj(sh['filename'])
+    elif t == 'ply':
+        mesh = load_ply(sh['filename'])
+    elif t == 'serialized':
+        mesh = load_serialized(sh['filename'], int(sh.get('shape_index', 0)))
+    elif t == 'blender':
+        mesh = load_blender(sh)
+    elif t == 'rectangle':
+        mesh = _rectangle_mesh()
+    elif t == 'cube':
+        mesh = _cube_mesh()
+    elif t == 'disk':
+        mesh = _disk_mesh()
+    else:
+        mesh = _cylinder_mesh(float(sh.get('radius', 1.0)),
+                              sh.get('p0', (0, 0, 0)), sh.get('p1', (0, 0, 1)))
     if sh.get('face_normals', False):
         mesh = mesh._replace(normals=None)
     return mesh
@@ -386,13 +424,13 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
     return med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium
 
 
-def _medium_bboxes(shapes: List[dict], shape_rows: list) -> dict:
+def _medium_bboxes(shapes: List[dict], shape_rows: list,
+                   meshes: list) -> dict:
     """World bbox of each medium over the shapes that hold it inside."""
     med_bbox = {}
-    for srow, sh in zip(shape_rows, shapes):
+    for srow, sh, mesh in zip(shape_rows, shapes, meshes):
         if srow[2] < 0:
             continue
-        mesh = _load_shape_mesh(sh)
         if mesh is None:
             c = np.asarray(sh.get('center', (0, 0, 0)), np.float64)
             r = float(sh.get('radius', 1.0))
@@ -460,6 +498,7 @@ class SceneBuilder:
         area_emitters = []  # (props, shape_idx)
         shape_tri_ranges = []
         shapes = desc.get('shapes', [])
+        meshes = []
         for sh in shapes:
             if sh.get('type') in ('instance', 'shapegroup'):
                 raise not_in_slice("shape instancing",
@@ -467,6 +506,7 @@ class SceneBuilder:
             to_world = sh.get('to_world', Transform.identity())
             shape_idx = len(shape_rows)
             mesh = _load_shape_mesh(sh)
+            meshes.append(mesh)
             bsdf_props = sh.get('bsdf')
             if bsdf_props is None and (sh.get('interior') is not None
                                        or sh.get('exterior') is not None):
@@ -526,6 +566,17 @@ class SceneBuilder:
             TS = np.zeros((0,), np.int32)
         T = len(V)
 
+        # --- the BVH from BVH_MIN_TRIS triangles: reorder the triangles by
+        # it; the emitters' triangle ids are remapped below
+        bvh_np, tri_perm_inv = None, None
+        if T >= BVH_MIN_TRIS:
+            bvh_np = bvh_mod.build(V[:, 0], V[:, 1] - V[:, 0],
+                                   V[:, 2] - V[:, 0])
+            perm = bvh_np.order
+            tri_perm_inv = np.empty(T, np.int64)
+            tri_perm_inv[perm] = np.arange(T)
+            V, Nrm, UV, TS = V[perm], Nrm[perm], UV[perm], TS[perm]
+
         # --- emitters: area emitters first (their index is list position) --
         emitter_rows = []       # (type, params, shape_idx)
         em_tri_idx, em_tri_cdf, em_area = [], [], []
@@ -534,6 +585,8 @@ class SceneBuilder:
             code, params = emitter_mod.pack_params(props)
             start, count = shape_tri_ranges[shape_idx]
             idxs = np.arange(start, start + count, dtype=np.int32)
+            if tri_perm_inv is not None:
+                idxs = tri_perm_inv[idxs].astype(np.int32)
             e1 = V[idxs, 1] - V[idxs, 0]
             e2 = V[idxs, 2] - V[idxs, 0]
             areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
@@ -560,7 +613,7 @@ class SceneBuilder:
         # --- media ---------------------------------------------------------
         med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium = \
             _pack_media(
-            self.media_rows, _medium_bboxes(shapes, shape_rows))
+            self.media_rows, _medium_bboxes(shapes, shape_rows, meshes))
         n_media = len(self.media_rows)
 
         # --- assemble ------------------------------------------------------
@@ -623,6 +676,9 @@ class SceneBuilder:
             'bsphere_r': np.asarray(radius, f32),
         }
         arrays.update({f'sensor.{k}': v for k, v in sensor.items()})
+        if bvh_np is not None:
+            arrays.update({f'bvh.{k}': v
+                           for k, v in bvh_np._asdict().items()})
         dense = grid_sigma.size > 1
         arrays.update({
             'media.type': med_type, 'media.phase_type': med_phase,
@@ -646,7 +702,7 @@ class SceneBuilder:
             medium_types=tuple(int(x) for x in med_type[:n_media]),
             phase_types=tuple(sorted(set(int(x)
                                          for x in med_phase[:n_media]))),
-            has_media=n_media > 0,
+            has_media=n_media > 0, has_bvh=bvh_np is not None,
             sensor_type=sensor_type, film=film,
             sampler=sampler_desc.get('type', 'independent'), spp=spp,
             integrator=integ.get('type', 'path'),
@@ -745,8 +801,16 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
     sensor = SensorData(to_world=to_world, **{
         f: get(f'sensor.{f}', np.float32)
         for f in SensorData._fields if f != 'to_world'})
+    bvh = None
+    if arrays.get('bvh.node_lo') is not None:
+        bvh = bvh_mod.BVHArrays(**{
+            f: get(f'bvh.{f}', dt) for f, dt in (
+                ('node_lo', np.float32), ('node_hi', np.float32),
+                ('node_a', i32), ('node_b', i32), ('node_leaf', bool),
+                ('order', i32))})
     scene = SceneData(geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
                       media=media, occluders=occluders, sensor=sensor,
+                      bvh=bvh,
                       **{k: get(k, np.float32) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
     return scene, meta_t

@@ -51,6 +51,10 @@ F_SMOOTH = 8          # has a non-delta lobe
 F_TWOSIDED = 16
 F_MASK = 32
 
+# scenes with at least this many triangles get a BVH, their triangles
+# reordered by it (the reference's threshold)
+BVH_MIN_TRIS = 1024
+
 BSDF_NPARAM = 20
 EMITTER_NPARAM = 28
 MEDIUM_NPARAM = 28
@@ -71,7 +75,8 @@ M_NL_FROM_BOTTOM = 22
 
 # What this slice of the port renders; anything else raises
 # NotImplementedError naming the ROADMAP item that brings it.
-SLICE_SHAPES = ('rectangle', 'cube', 'sphere')
+SLICE_SHAPES = ('rectangle', 'cube', 'sphere', 'disk', 'cylinder', 'obj',
+                'ply', 'serialized', 'blender', 'mesh')
 SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'null')
 SLICE_EMITTERS = ('area', 'point', 'constant')
 SLICE_SENSORS = ('perspective',)
@@ -187,6 +192,9 @@ class SceneData(NamedTuple):
     bbox_hi: torch.Tensor     # (3,)
     bsphere_c: torch.Tensor   # (3,)
     bsphere_r: torch.Tensor   # ()
+    # the BVH over the (reordered) triangles of a scene of BVH_MIN_TRIS or
+    # more (ops/bvh.BVHArrays); None below
+    bvh: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -220,6 +228,7 @@ class SceneMeta:
     integrator: str = 'path'
     integrator_props: Tuple[Tuple[str, object], ...] = ()
     has_media: bool = False
+    has_bvh: bool = False
     camera_medium: int = -1    # medium the camera starts in (-1 vacuum)
 
     def iprop(self, name, default=None):

@@ -2,9 +2,14 @@
 scenes (``tests/scenes.py``), built with the port's own transforms so a
 program that must not import JAX (``chip_smoke.py``) can describe them;
 ``hetvol_box``, the Cornell box around a heterogeneous medium whose
-density grid is made from a seed; and ``cbox_nlvrl``, a stand-in for the
-thesis's headline configuration (cbox-nonlinear-homo-vrl)."""
+density grid is made from a seed; ``cbox_nlvrl``, a stand-in for the
+thesis's headline configuration (cbox-nonlinear-homo-vrl); and the
+writers of two scene files, ``cbox_xml`` (the Cornell box as Mitsuba XML
+over OBJ meshes) and ``cbox_mesh`` (the same box with a displaced
+icosphere in a binary PLY, a stand-in for a real mesh)."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -17,9 +22,12 @@ MEDIUM_CUBE_SCALE = 0.95
 HETVOL_BLOBS = 8
 
 
-def cornell_box(spp=4, res=32, integrator=None, light='area', medium=None):
+def cornell_box(spp=4, res=32, integrator=None, light='area', medium=None,
+                radiance=(10.0, 10.0, 10.0)):
     """An axis-aligned Cornell box built from rectangles, camera on -z;
-    with ``medium``, a null cube (scale 0.95) holds it inside."""
+    with ``medium``, a null cube (scale 0.95) holds it inside. ``radiance``
+    is the area light's (an RGB triple or a spectrum dict such as
+    ``cbox_light_spd()``)."""
     integrator = integrator or {'type': 'path', 'max_depth': 4}
     white = {'type': 'diffuse', 'reflectance': (0.7, 0.7, 0.7)}
     red = {'type': 'diffuse', 'reflectance': (0.6, 0.05, 0.05)}
@@ -46,7 +54,7 @@ def cornell_box(spp=4, res=32, integrator=None, light='area', medium=None):
     if light == 'area':
         shapes.append({
             'type': 'rectangle', 'bsdf': white,
-            'emitter': {'type': 'area', 'radiance': (10.0, 10.0, 10.0)},
+            'emitter': {'type': 'area', 'radiance': radiance},
             'to_world': tr.translate((0, 0.99, 0)) @ tr.rotate((1, 0, 0), 90)
             @ tr.scale(0.3)})
     elif light == 'point':
@@ -179,3 +187,175 @@ def cbox_nlvrl(res_w=512, res_h=256, spp=2, target_vrls=8000,
                        medium=dict(NLVRL_MEDIUM))
     desc['sensor']['film']['height'] = res_h
     return desc
+
+
+# --- scene files -----------------------------------------------------------
+
+# the area light's SPD in the reference's cbox.xml (wavelength nm: value)
+CBOX_LIGHT_SPD = ((400.0, 0.0), (500.0, 8.0), (600.0, 15.6), (700.0, 18.4))
+
+
+def cbox_light_spd() -> dict:
+    """``CBOX_LIGHT_SPD`` as the XML loader gives an emitter's spectrum."""
+    return {'type': 'irregular', 'value': list(CBOX_LIGHT_SPD)}
+
+
+def _world_mesh(sh: dict):
+    """A rectangle shape's triangles in world space as the builder makes
+    them: float32 vertices, normals, uvs and (winding-corrected) faces."""
+    from ..scene.builder import _rectangle_mesh
+    mesh = _rectangle_mesh()
+    M = np.asarray(sh['to_world'].m, np.float64)
+    Minv = np.asarray(sh['to_world'].inv, np.float64)
+    v = (mesh.vertices @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
+    n = mesh.normals @ Minv[:3, :3]
+    n = (n / np.linalg.norm(n, axis=1, keepdims=True)).astype(np.float32)
+    faces = mesh.faces
+    if np.linalg.det(M[:3, :3]) < 0:
+        faces = faces[:, [0, 2, 1]]
+    return v, n, mesh.uvs, faces
+
+
+def _num(x) -> str:
+    """A float32 written so that reading it back gives the same float32."""
+    return repr(float(np.float32(x)))
+
+
+def _write_obj(path: str, v, n, uv, faces) -> None:
+    with open(path, 'w') as f:
+        for rows, tag in ((v, 'v'), (uv, 'vt'), (n, 'vn')):
+            for r in rows:
+                f.write(tag + ' ' + ' '.join(_num(x) for x in r) + '\n')
+        for tri in faces:
+            f.write('f ' + ' '.join(f'{i + 1}/{i + 1}/{i + 1}' for i in tri)
+                    + '\n')
+
+
+def _write_ply(path: str, v, faces) -> None:
+    """Binary little-endian PLY: float x, y, z and uchar/int face lists."""
+    header = (f"ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(v)}\nproperty float x\n"
+              f"property float y\nproperty float z\n"
+              f"element face {len(faces)}\n"
+              f"property list uchar int vertex_indices\nend_header\n")
+    rec = np.zeros(len(faces), np.dtype([('n', 'u1'), ('i', '<i4', (3,))]))
+    rec['n'] = 3
+    rec['i'] = faces
+    with open(path, 'wb') as f:
+        f.write(header.encode('ascii'))
+        f.write(np.ascontiguousarray(v, '<f4').tobytes())
+        f.write(rec.tobytes())
+
+
+def _rgb(c) -> str:
+    return ', '.join(_num(x) for x in c)
+
+
+def _xml(spp: int, res_w: int, res_h: int, max_depth: int,
+         shapes: list) -> str:
+    """A Mitsuba 2 scene: the camera, film and integrator of
+    ``cornell_box`` and ``shapes`` as (filename, type, rgb reflectance,
+    emitter or not)."""
+    spd = ', '.join(f'{w:g}:{v:g}' for w, v in CBOX_LIGHT_SPD)
+    out = ['<?xml version="1.0" encoding="utf-8"?>',
+           '<scene version="2.0.0">',
+           f'    <integrator type="path">',
+           f'        <integer name="max_depth" value="{max_depth}"/>',
+           '    </integrator>',
+           '    <sensor type="perspective">',
+           '        <float name="fov" value="70"/>',
+           '        <string name="fov_axis" value="x"/>',
+           '        <float name="near_clip" value="0.01"/>',
+           '        <float name="far_clip" value="100"/>',
+           '        <transform name="to_world">',
+           '            <lookat origin="0, 0, -3.2" target="0, 0, 0" '
+           'up="0, 1, 0"/>',
+           '        </transform>',
+           '        <sampler type="independent">',
+           f'            <integer name="sample_count" value="{spp}"/>',
+           '        </sampler>',
+           '        <film type="hdrfilm">',
+           f'            <integer name="width" value="{res_w}"/>',
+           f'            <integer name="height" value="{res_h}"/>',
+           '            <rfilter type="box"/>',
+           '        </film>',
+           '    </sensor>']
+    for fname, kind, rgb, emits in shapes:
+        out += [f'    <shape type="{kind}">',
+                f'        <string name="filename" value="{fname}"/>',
+                '        <bsdf type="diffuse">',
+                f'            <rgb name="reflectance" value="{_rgb(rgb)}"/>',
+                '        </bsdf>']
+        if emits:
+            out += ['        <emitter type="area">',
+                    f'            <spectrum name="radiance" value="{spd}"/>',
+                    '        </emitter>']
+        out.append('    </shape>')
+    out.append('</scene>')
+    return '\n'.join(out) + '\n'
+
+
+_CBOX_NAMES = ('floor', 'ceiling', 'back', 'left', 'right', 'light')
+
+
+def _cbox_shapes(directory: str) -> list:
+    """Writes the walls and the light of ``cornell_box`` as OBJ files in
+    world space; returns their (filename, type, reflectance, emits)."""
+    out = []
+    for name, sh in zip(_CBOX_NAMES, cornell_box(light='area')['shapes']):
+        _write_obj(os.path.join(directory, f'{name}.obj'), *_world_mesh(sh))
+        out.append((f'{name}.obj', 'obj', sh['bsdf']['reflectance'],
+                    'emitter' in sh))
+    return out
+
+
+def cbox_xml(directory: str, spp: int = 16, res: int = 512,
+             max_depth: int = 8) -> str:
+    """Writes ``cbox.xml`` and its OBJ meshes into ``directory`` and
+    returns the scene file's path: the scene of ``cornell_box(spp, res,
+    {'type': 'path', 'max_depth': max_depth}, radiance=cbox_light_spd())``
+    (walls and light in world space, the light's radiance the reference
+    cbox.xml's SPD), so both routes build the same arrays."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, 'cbox.xml')
+    with open(path, 'w') as f:
+        f.write(_xml(spp, res, res, max_depth, _cbox_shapes(directory)))
+    return path
+
+
+# the displaced icosphere of cbox_mesh: centre, radius, relative amplitude
+# of the displacement along the normals, reflectance
+MESH_CENTER = (0.0, -0.45, 0.2)
+MESH_RADIUS = 0.5
+MESH_DISPLACEMENT = 0.06
+MESH_REFLECTANCE = (0.75, 0.65, 0.4)
+
+
+def displaced_icosphere(subdiv: int = 5, seed: int = 0):
+    """(vertices, faces) of an icosphere of ``subdiv`` subdivisions (20 *
+    4**subdiv triangles) whose vertices are pushed along their normals by
+    ``numpy.random.default_rng(seed)`` noise, placed in the box."""
+    from ..scene.builder import icosphere_mesh
+    mesh = icosphere_mesh(subdiv)
+    rng = np.random.default_rng(seed)
+    r = MESH_RADIUS * (1.0 + MESH_DISPLACEMENT
+                       * rng.uniform(-1.0, 1.0, len(mesh.vertices)))
+    v = mesh.vertices.astype(np.float64) * r[:, None] + MESH_CENTER
+    return v.astype(np.float32), mesh.faces
+
+
+def cbox_mesh(directory: str, subdiv: int = 5, seed: int = 0,
+              spp: int = 16, res: int = 512, max_depth: int = 8) -> str:
+    """Writes ``cbox_mesh.xml``: the scene of ``cbox_xml`` with the
+    ``displaced_icosphere`` in a binary little-endian PLY
+    (``sphere.ply``); returns the scene file's path. At subdivision 5 the
+    scene has 20,492 triangles, at 3 1,292: both get a BVH."""
+    os.makedirs(directory, exist_ok=True)
+    _write_ply(os.path.join(directory, 'sphere.ply'),
+               *displaced_icosphere(subdiv, seed))
+    shapes = _cbox_shapes(directory) + [
+        ('sphere.ply', 'ply', MESH_REFLECTANCE, False)]
+    path = os.path.join(directory, 'cbox_mesh.xml')
+    with open(path, 'w') as f:
+        f.write(_xml(spp, res, res, max_depth, shapes))
+    return path

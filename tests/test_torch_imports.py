@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,7 +61,9 @@ def test_no_forbidden_import_in_sources():
     names = {os.path.basename(p) for p in _sources()}
     for f in ('nonlinear.py', 'hashgrid.py', 'lighttrace.py', 'vrl.py',
               'photon_est.py', 'photonmapper.py', 'nlvrl_probe.py',
-              'port_profile_nlvrl.py'):
+              'port_profile_nlvrl.py', '__main__.py', 'xml.py', 'mesh_io.py',
+              'bvh.py', 'io.py', 'exr_piz.py', 'ior_data.py',
+              'spectrum.py', 'cie_data.py'):
         assert f in names, f
     assert not bad, bad
 
@@ -135,6 +138,56 @@ def test_cpu_nlvrl_render_loads_no_jax():
     assert not [m for m in loaded if _forbidden(m)]
 
 
+def test_cpu_scene_file_render_loads_no_jax(tmp_path):
+    """The scene-file slice (the XML and mesh loaders, the native BVH
+    builder through ctypes, the traversal, the EXR writer and the CLI's
+    module) renders a mesh scene on the CPU without JAX or the reference
+    package loaded."""
+    code = (
+        "import sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "import mitsuba_nlvrl_tpu_torch.__main__\n"
+        "from mitsuba_nlvrl_tpu_torch.scene.xml import load_file\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_mesh\n"
+        "from mitsuba_nlvrl_tpu_torch.utils.io import write_exr\n"
+        f"path = cbox_mesh({str(tmp_path)!r}, subdiv=3, spp=1, res=4)\n"
+        "s, m = P.build_scene(load_file(path), device='cpu')\n"
+        "assert m.has_bvh and s.bvh is not None\n"
+        "img = P.render(s, m, seed=0)\n"
+        f"write_exr({str(tmp_path / 'a.exr')!r}, img)\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('scene.xml', 'scene.mesh_io', 'native', 'ops.bvh',
+                'utils.io', '__main__'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_bvh_builder_raises_with_the_compilers_message(monkeypatch,
+                                                       tmp_path):
+    """The BVH builder has no fallback: a failed compile raises with the
+    compiler's message, so a tree never depends on a missing toolchain."""
+    from mitsuba_nlvrl_tpu_torch import native
+    from mitsuba_nlvrl_tpu_torch.ops import bvh
+    fake = tmp_path / 'fake-cxx'
+    fake.write_text('#!/bin/sh\necho "fake-cxx: cannot compile" >&2\n'
+                    'exit 3\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv('CXX', str(fake))
+    monkeypatch.setattr(native, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(native, '_fn', None)
+    v = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match='fake-cxx: cannot compile'):
+        bvh.build(v, v, v)
+    monkeypatch.setenv('CXX', str(tmp_path / 'absent-compiler'))
+    with pytest.raises(RuntimeError, match='BVH builder'):
+        bvh.build(v, v, v)
+
+
 def test_build_scene_without_cuda_raises(monkeypatch):
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
@@ -150,6 +203,9 @@ def test_build_scene_without_cuda_raises(monkeypatch):
         P.build_scene(cbox_nlvrl())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.maps_from_numpy({})
+    # the CLI: no card and no --device is an error, not a CPU render
+    from mitsuba_nlvrl_tpu_torch import __main__ as cli
+    assert cli.main([os.path.join(ROOT, 'absent.xml')]) != 0
     scene, _ = P.build_scene(cornell_box(), device='cpu')
     assert scene.device.type == 'cpu'
 

@@ -19,6 +19,15 @@ DESCS = {
               'k': (3.9, 2.4, 2.2)}),
     'sphere-dielectric': lambda s: s.sphere_scene(
         bsdf={'type': 'dielectric', 'int_ior': 1.5}),
+    # tessellated shapes (the transforms are each package's own)
+    'disk': lambda s: dict(s.sphere_scene(), shapes=[{
+        'type': 'disk', 'bsdf': {'type': 'diffuse'},
+        'to_world': s.tr.translate((0.2, 0.5, 0.1)) @ s.tr.scale(0.7),
+        'emitter': {'type': 'area', 'radiance': (2.0, 3.0, 4.0)}}]),
+    'cylinder': lambda s: dict(s.sphere_scene(), shapes=[{
+        'type': 'cylinder', 'radius': 0.3, 'p0': (0, -0.5, 0.1),
+        'p1': (0.2, 0.6, -0.1), 'bsdf': {'type': 'diffuse'},
+        'face_normals': True}]),
 }
 
 META_FIELDS = ('n_tris', 'n_spheres', 'n_shapes', 'n_bsdfs', 'n_emitters',
@@ -72,7 +81,7 @@ def test_scene_from_numpy_carries_reference_arrays(name):
 
 
 @pytest.mark.parametrize('change', [
-    ('shape', {'type': 'disk'}),
+    ('shape', {'type': 'instance'}),
     ('bsdf', {'type': 'roughconductor'}),
     ('bsdf', {'type': 'diffuse',
               'reflectance': {'type': 'checkerboard'}}),
