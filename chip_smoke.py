@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about nine minutes on an H100
+    python3 chip_smoke.py            # PERF.md gives its time on an H100
 
 Builds the port's CUDA kernel from the sources in this checkout, checks
 the launch geometry the kernel works out for itself, holds the kernel
@@ -19,7 +19,7 @@ same box written as Mitsuba XML over OBJ meshes, whose arrays must equal
 the dict's and whose EXR must agree with the in-process render (equal
 rays, ``testing/compare.py``'s gates); ``cbox_mesh`` (the box with a
 20,480-triangle displaced icosphere in a binary PLY) is loaded and its
-BVH built and described, rendered at 512x512, 16 spp through
+BVH built and described, rendered at 512x512, 4 spp through
 ``ops/bvh.traverse`` (wall time, rays, host syncs, the traversal's share
 of the time, steps a call, lanes cut at the step cap), rendered at 64x64
 on the card against the CPU, and one pass's camera rays go through the
@@ -41,8 +41,19 @@ and timed (every k-th call alone), the 2 spp render itself is timed by
 parts (bend march, volume gather, VRL query, surface gathers), and a
 64x32 ``vrl`` and ``photonmapper`` render of the box on the card is held
 against the CPU on the CPU's own maps (strictly) and on each device's
-own maps (map counts, image means within 5%). Each phase prints one JSON
-line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+own maps (map counts, image means within 5%). The microfacet and plastic
+BSDFs follow: ``cbox_materials`` (the box with a rough gold block, a
+rough plastic block, a plastic back wall, a two-sided floor, a rough
+glass sphere, a polarized-plastic sphere and a thin glass pane; 512x512,
+16 spp, ``path``) with every kernel call of one pass checked and timed,
+and under the photon mapper in a homogeneous medium (512x256, 2 spp, the
+per-photon BSDF gathers), each against the CPU at 64x64 or 64x32. Last
+the thesis options on the NLVRL box: ``cbox_nlvrl_aniso`` (HG g = 0.8,
+the tabulated anisotropic camera CDF, diced and lengthened VRLs; the
+``long_vrl`` call checked and timed alone) and ``cbox_nlvrl_ris_bre``
+(RIS VRL selection and the beam radiance estimate), each preprocessed,
+rendered at 512x256, 2 spp and held against the CPU at 64x32. Each
+phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
 the JAX package.
@@ -60,7 +71,13 @@ import tempfile
 import time
 
 
+_T0 = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if 'phase' in obj:
+        obj = {**obj, 'elapsed_s': time.time() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -77,6 +94,22 @@ FLOPS_PER_PAIR = 46
 # triangles the kernel keeps whole in shared memory (kWholeMaxTris in
 # csrc/intersect.cu); above it they stream through a ring
 WHOLE_SET_CAP = 1024
+
+# depth cuts that keep the script within its time limit (PERF.md §4):
+# the mesh render's samples, the march caps (``gather_points_cap``, 64 by
+# default) of the volume gather of cbox_materials_pm and cbox_nlvrl_aniso
+# and of the beam estimate's steps a segment in cbox_nlvrl_ris_bre, and
+# that scene's bends a camera ray (``max_nl_bends``, 32 by default)
+MESH_SPP = 4
+GATHER_CAP = 16
+BRE_STEPS = 8
+BRE_BENDS = 8
+# and of two checks against the CPU, whose CPU side is slow: the
+# heterogeneous box's samples (4 uncut), and the photons and camera
+# iterations of cbox_materials_pm at 64x32 (100,000 and 24)
+HETVOL_CHECK_SPP = 2
+PM_CHECK_CUTS = {'global_photons': 20000, 'volume_photons': 20000,
+                 'max_cam_iters': 8}
 
 
 def peaks(name: str):
@@ -297,22 +330,38 @@ def kernel_check(torch, kern, dev, scene, meta):
     return out, worst, box, cam_rays
 
 
-def record_calls(mnt, scene, meta) -> list:
+def record_calls(mnt, scene, meta, mark=None) -> list:
     """One pass (spp 1) of a render, keeping a copy of the triangles and
     rays of every intersection call it makes: [(tris, rays, any_hit)] in
-    the order of the calls."""
+    the order of the calls. ``mark`` (module, function name, list): the
+    indices of the calls made inside that function go to the list."""
     from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
-    real, calls = pisect.intersect_tris, []
+    real, calls, inside = pisect.intersect_tris, [], [0]
 
     def record(v0, e1, e2, o, d, mint, maxt, any_hit=False):
+        if inside[0]:
+            mark[2].append(len(calls))
         calls.append(((v0, e1, e2), (o.clone(), d.clone(), mint.clone(),
                                      maxt.clone()), any_hit))
         return real(v0, e1, e2, o, d, mint, maxt, any_hit=any_hit)
     pisect.intersect_tris = record
+    if mark is not None:
+        mod, attr, _ = mark
+        real_fn = getattr(mod, attr)
+
+        def marked(*args, **kw):
+            inside[0] += 1
+            try:
+                return real_fn(*args, **kw)
+            finally:
+                inside[0] -= 1
+        setattr(mod, attr, marked)
     try:
         mnt.render(scene, meta, seed=0, spp=1)
     finally:
         pisect.intersect_tris = real
+        if mark is not None:
+            setattr(mod, attr, real_fn)
     return calls
 
 
@@ -388,6 +437,182 @@ def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     own['mean_rel'] = abs(own['card_mean'] - own['cpu_mean']) \
         / max(abs(own['cpu_mean']), 1e-12)
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c), own
+
+
+def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
+    """A two-pass render timed by parts: (record, image as numpy); the
+    record holds wall, preprocess and camera seconds, rays, Mrays/s,
+    kernel launches, host syncs and each camera part's device time."""
+    from mitsuba_nlvrl_tpu_torch.testing.nlvrl_probe import (CAMERA_PARTS,
+                                                             record_parts)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    stats, info = [], {}
+    with record_parts(timed=True) as plog:
+        img = mnt.render(scene, meta, seed=0, spp=spp, ray_stats=stats,
+                         info=info)
+        torch.cuda.synchronize()
+    rays = float(sum(float(r) for r in stats))
+    cam_s = info['wall_s'] - info['preprocess_s']
+    img_np = img.cpu().numpy()
+    return {'wall_s': info['wall_s'], 'preprocess_s': info['preprocess_s'],
+            'camera_s': cam_s, 'rays': rays,
+            'mrays_per_s': rays / info['wall_s'] / 1e6,
+            'launches': kern.launches, 'host_syncs': sync.host_syncs,
+            'parts': {p: {'calls': plog.calls(p),
+                          'device_s': plog.device_s(p),
+                          'share_of_camera': plog.device_s(p) / cam_s}
+                      for p in CAMERA_PARTS},
+            'shoot_device_s': plog.device_s('shoot'),
+            'finite': bool(img.isfinite().all()),
+            'mean': float(img_np.mean()), 'shape': list(img_np.shape)}, \
+        img_np
+
+
+def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
+    """The microfacet and plastic BSDFs on the card: ``materials_render_rays``
+    (every kernel call of one pass of cbox_materials 512x512, bit for bit
+    and timed), ``materials_render`` (16 spp, ``path`` max_depth 8),
+    ``materials_card_vs_cpu`` (64x64, 4 spp), ``materials_pm_render``
+    (cbox_materials_pm 512x256, 2 spp: the photon mapper's per-photon
+    BSDF gathers) and ``materials_pm_card_vs_cpu`` (64x32, 2 spp).
+    Returns the renders' launches and the kernel's numbers on the pass."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.integrators import photon_est
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (MATERIALS,
+                                                        cbox_materials,
+                                                        cbox_materials_pm)
+    scene, meta = mnt.build_scene(cbox_materials(512, 512, 16))
+    calls = record_calls(mnt, scene, meta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'materials_render_rays', **own})
+    del calls
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    stats, t0 = [], time.time()
+    img = mnt.render(scene, meta, seed=0, spp=16, ray_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, syncs = kern.launches, sync.host_syncs
+    rays = float(sum(float(r) for r in stats))
+    img_np = img.cpu().numpy()
+    emit({'phase': 'materials_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'bsdfs': {k: v['type'] for k, v in MATERIALS.items()},
+          'wall_s': wall, 'rays': rays, 'mrays_per_s': rays / wall / 1e6,
+          'launches': launches, 'host_syncs': syncs,
+          'finite': bool(np.isfinite(img_np).all()),
+          'mean': float(img_np.mean()), 'shape': list(img_np.shape)})
+    assert 0 < launches <= 16 * 8 * 2, launches
+    assert np.isfinite(img_np).all() and img_np.shape == (512, 512, 3)
+    assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
+    agree = card_vs_cpu(mnt, compare, cbox_materials(64, 64, 4), 4)
+    emit({'phase': 'materials_card_vs_cpu', 'res': 64, 'spp': 4, **agree})
+    compare.check(agree)
+
+    pscene, pmeta = mnt.build_scene(cbox_materials_pm(
+        512, 256, 2, gather_points_cap=GATHER_CAP))
+    assert not photon_est._gather_diffuse_only(pmeta)
+    rec, pimg = two_pass_render(torch, mnt, sync, kern, pscene, pmeta, 2)
+    emit({'phase': 'materials_pm_render', 'res': [512, 256], 'spp': 2,
+          'integrator': 'photonmapper', 'gather_points_cap': GATHER_CAP,
+          **rec})
+    assert rec['launches'] > 0 and rec['parts']['surface_gather']['calls']
+    assert rec['finite'] and pimg.shape == (256, 512, 3)
+    assert 0.0 < rec['mean'] < 10.0, rec['mean']
+    agree, own_maps = nlvrl_card_vs_cpu(mnt, compare, cbox_materials_pm(
+        64, 32, 2, gather_points_cap=GATHER_CAP, **PM_CHECK_CUTS), 2)
+    emit({'phase': 'materials_pm_card_vs_cpu', 'res': [64, 32], 'spp': 2,
+          'cuts': PM_CHECK_CUTS, **agree, 'own_maps': own_maps})
+    compare.check(agree)
+    assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, own_maps
+    return {'launches_materials': launches,
+            'launches_materials_pm': rec['launches'],
+            'materials_ms': own['ms_per_launch'],
+            'materials_plain_ms': own['plain_ms_per_launch'],
+            'materials_bound_ms': own['bound_ms_per_launch'],
+            'max_abs_err': own['max_abs_err']}
+
+
+def nlvrl_option_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
+    """The thesis's options on the NLVRL box at full width (512x256, 2
+    spp, 8,000 VRLs; the caps cut to GATHER_CAP, BRE_STEPS and BRE_BENDS):
+    ``cbox_nlvrl_aniso`` (HG g = 0.8, the tabulated
+    anisotropic camera CDF, 4-fold dicing, lengthened VRLs: its preprocess,
+    every kernel call of one render with the long_vrl call marked, checked
+    and timed alone, the render, 64x32 card against CPU) and
+    ``cbox_nlvrl_ris_bre`` (RIS VRL selection and the beam radiance
+    estimate: the render, 64x32 card against CPU). Returns the renders'
+    launches and the kernel's numbers."""
+    from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
+    from mitsuba_nlvrl_tpu_torch.integrators import vrl as vrl_mod
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        NLVRL_ANISO_OPTIONS, NLVRL_RIS_BRE_OPTIONS, cbox_nlvrl, hg_phase)
+    out = {}
+    for name, opts, hg, caps in (
+            ('nlvrl_aniso', NLVRL_ANISO_OPTIONS, True,
+             {'gather_points_cap': GATHER_CAP}),
+            ('nlvrl_ris_bre', NLVRL_RIS_BRE_OPTIONS, False,
+             {'gather_points_cap': BRE_STEPS, 'max_nl_bends': BRE_BENDS})):
+        def desc(w, h, tv):
+            d = cbox_nlvrl(w, h, spp=2, target_vrls=tv, **caps, **opts)
+            return hg_phase(d) if hg else d
+        scene, meta = mnt.build_scene(desc(512, 256, 8000))
+        torch.cuda.synchronize()
+        kern.launches = 0
+        sync.host_syncs = 0
+        t0 = time.time()
+        maps = mnt.preprocess(scene, meta, 0)
+        torch.cuda.synchronize()
+        emit({'phase': f'{name}_preprocess', 'options': opts, 'cuts': caps,
+              'hg_g': 0.8 if hg else None, 'wall_s': time.time() - t0,
+              'launches': kern.launches, 'host_syncs': sync.host_syncs,
+              'vrl_rows': maps.vrl_o.shape[0],
+              **lighttrace.map_stats(maps)})
+        assert int(maps.vrl_count) > 0
+        del maps
+        if opts.get('long_vrl'):
+            # one render's calls, the long_vrl call among them
+            marked = []
+            calls = record_calls(mnt, scene, meta,
+                                 mark=(vrl_mod, '_lengthen_vrls', marked))
+            assert len(marked) == 1, marked
+            own = render_rays(torch, kern, calls, bw, fl,
+                              stride=max(1, len(calls) // 64))
+            tris, rays, any_hit = calls[marked[0]]
+            lrec = against_plain(torch, kern, tris, rays, any_hit)
+            lrec.pop('idx', None)
+            N, T = rays[0].shape[0], tris[0].shape[0]
+            _, _, b_bytes, b_ops = bound(N, T, any_hit, bw, fl)
+            lms = time_ms(lambda: kern.intersect_tris(*tris, *rays), 7, 50)
+            lplain = time_ms(lambda: kern.intersect_tris_plain(*tris, *rays),
+                             5, 3)
+            long_call = {'call': marked[0], 'rays': N, 'tris': T, 'ms': lms,
+                         'plain_ms': lplain, 'bound_ms': max(b_bytes, b_ops),
+                         'bound_by': ('bytes' if b_bytes >= b_ops
+                                      else 'operations'), **lrec}
+            emit({'phase': f'{name}_render_rays', **own,
+                  'long_vrl_call': long_call})
+            del calls
+            out.update({'long_vrl': long_call, f'{name}_rays': own})
+        rec, img = two_pass_render(torch, mnt, sync, kern, scene, meta, 2)
+        emit({'phase': f'{name}_render', 'res': [512, 256], 'spp': 2,
+              'target_vrls': 8000, 'options': opts, **rec})
+        assert rec['launches'] > 0 and rec['finite'], rec
+        assert img.shape == (256, 512, 3) and 0.0 < rec['mean'] < 10.0
+        if opts.get('use_bre'):
+            assert rec['parts']['beam']['calls'] > 0
+            assert rec['parts']['volume_gather']['calls'] == 0
+        out[f'launches_{name}'] = rec['launches']
+        agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
+                                            desc(64, 32, 1000), 2)
+        emit({'phase': f'{name}_card_vs_cpu', 'res': [64, 32], 'spp': 2,
+              **agree, 'own_maps': own_maps})
+        compare.check(agree)
+        assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
+            own_maps
+    return out
 
 
 def run_cli(args, timeout: float):
@@ -484,7 +709,7 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     cli_launches = stats['kernel_launches']
 
     # --- mesh_build: cbox_mesh at subdivision 5 ------------------------
-    mpath = cbox_mesh(os.path.join(workdir, 'mesh'), subdiv=5, spp=16,
+    mpath = cbox_mesh(os.path.join(workdir, 'mesh'), subdiv=5, spp=MESH_SPP,
                       res=512, max_depth=8)
     t0 = time.time()
     native.build()          # g++ at first use; the build below is timed
@@ -516,7 +741,7 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
           'upload_s': t_up, **bvh_shape(built['bvh'])})
     assert mmeta.has_bvh and mmeta.n_tris == 20480 + 12
 
-    # --- mesh_render: 512x512, 16 spp, path max_depth 8, through the BVH
+    # --- mesh_render: 512x512, MESH_SPP, path max_depth 8, through the BVH
     in_trav = {'s': 0.0}
     real_trav = bvh_mod.traverse
 
@@ -534,7 +759,8 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     mstats = []
     try:
         t0 = time.time()
-        mimg = mnt.render(mscene, mmeta, seed=0, spp=16, ray_stats=mstats)
+        mimg = mnt.render(mscene, mmeta, seed=0, spp=MESH_SPP,
+                          ray_stats=mstats)
         torch.cuda.synchronize()
         mwall = time.time() - t0
     finally:
@@ -542,7 +768,7 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     c = counters.read()
     mrays = float(sum(float(r) for r in mstats))
     mimg_np = mimg.cpu().numpy()
-    emit({'phase': 'mesh_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+    emit({'phase': 'mesh_render', 'res': 512, 'spp': MESH_SPP, 'max_depth': 8,
           'n_tris': mmeta.n_tris, 'wall_s': mwall, 'rays': mrays,
           'mrays_per_s': mrays / mwall / 1e6, 'launches': c['kernel_launches'],
           'host_syncs': c['host_syncs'], 'traverse_calls': c['bvh_calls'],
@@ -618,8 +844,6 @@ def main() -> int:
     from mitsuba_nlvrl_tpu_torch.core import sync
     from mitsuba_nlvrl_tpu_torch.testing.walk_probe import record_walks
     from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
-    from mitsuba_nlvrl_tpu_torch.testing.nlvrl_probe import (CAMERA_PARTS,
-                                                             record_parts)
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_light_spd,
                                                         cbox_nlvrl,
                                                         cornell_box,
@@ -770,17 +994,19 @@ def main() -> int:
     assert vfinite and vimg_np.shape == (576, 768, 3), vimg_np.shape
     assert 0.01 < float(vimg_np.mean()) < 10.0, vimg_np.mean()
 
-    # --- the volumetric card path against the CPU path, 64x64 at 4 spp -
-    for scene_name, desc in (
-            ('hetvol_volpath', hetvol_box(64, 64, spp=4, grid_res=32,
-                                          seed=0, scale=100.0)),
+    # --- the volumetric card path against the CPU path, 64x64 ----------
+    for scene_name, desc, spp in (
+            ('hetvol_volpath', hetvol_box(64, 64, spp=HETVOL_CHECK_SPP,
+                                          grid_res=32, seed=0, scale=100.0),
+             HETVOL_CHECK_SPP),
             ('homogeneous_volpathmis', cornell_box(
                 spp=4, res=64,
                 integrator={'type': 'volpathmis', 'max_depth': 8},
                 medium={'type': 'homogeneous', 'sigma_t': 0.5,
-                        'albedo': 0.8}))):
-        agree = card_vs_cpu(mnt, compare, desc, 4)
-        emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, **agree})
+                        'albedo': 0.8}), 4)):
+        agree = card_vs_cpu(mnt, compare, desc, spp)
+        emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, 'spp': spp,
+              **agree})
         compare.check(agree)
 
     # --- the NLVRL slice: cbox_nlvrl at full width ---------------------
@@ -821,37 +1047,17 @@ def main() -> int:
     del ncalls
     worst = max(worst, nown['max_abs_err'])
 
-    torch.cuda.synchronize()
-    kern.launches = 0
-    sync.host_syncs = 0
-    nstats, ninfo = [], {}
-    with record_parts(timed=True) as plog:
-        nimg = mnt.render(nscene, nmeta, seed=0, spp=2, ray_stats=nstats,
-                          info=ninfo)
-        torch.cuda.synchronize()
-    nlaunches, nsyncs = kern.launches, sync.host_syncs
-    nrays = float(sum(float(r) for r in nstats))
-    cam_s = ninfo['wall_s'] - ninfo['preprocess_s']
-    parts = {p: {'calls': plog.calls(p), 'device_s': plog.device_s(p),
-                 'share_of_camera': plog.device_s(p) / cam_s}
-             for p in CAMERA_PARTS}
-    nimg_np = nimg.cpu().numpy()
-    nfinite = bool(nimg.isfinite().all())
+    nrec, nimg_np = two_pass_render(torch, mnt, sync, kern, nscene, nmeta, 2)
+    nlaunches = nrec['launches']
     emit({'phase': 'nlvrl_render', 'res': [512, 256], 'spp': 2,
-          'integrator': 'vrl', 'target_vrls': 8000,
-          'wall_s': ninfo['wall_s'], 'preprocess_s': ninfo['preprocess_s'],
-          'camera_s': cam_s, 'rays': nrays,
-          'mrays_per_s': nrays / ninfo['wall_s'] / 1e6,
-          'launches': nlaunches, 'host_syncs': nsyncs, 'parts': parts,
-          'shoot_device_s': plog.device_s('shoot'),
+          'integrator': 'vrl', 'target_vrls': 8000, **nrec,
           'kernel_share_est': nlaunches * nown['ms_per_launch'] / 1e3
-          / ninfo['wall_s'],
-          'finite': nfinite, 'mean': float(nimg_np.mean()),
-          'shape': list(nimg_np.shape)})
-    assert nlaunches > 0 and plog.calls('bend') > 0, nlaunches
-    assert plog.calls('vrl_query') > 0 and plog.calls('volume_gather') > 0
-    assert nfinite and nimg_np.shape == (256, 512, 3), nimg_np.shape
-    assert 0.0 < float(nimg_np.mean()) < 10.0, nimg_np.mean()
+          / nrec['wall_s']})
+    assert nlaunches > 0 and nrec['parts']['bend']['calls'] > 0, nlaunches
+    assert nrec['parts']['vrl_query']['calls'] > 0
+    assert nrec['parts']['volume_gather']['calls'] > 0
+    assert nrec['finite'] and nimg_np.shape == (256, 512, 3), nimg_np.shape
+    assert 0.0 < nrec['mean'] < 10.0, nrec['mean']
 
     # --- the NLVRL card path against the CPU path, 64x32 at 2 spp -------
     for integ, tv in (('vrl', 1000), ('photonmapper', 1000)):
@@ -864,11 +1070,22 @@ def main() -> int:
         assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
             own_maps
 
+    # --- this slice: the microfacet and plastic BSDFs, the thesis options
+    mat = materials_phases(torch, mnt, kern, compare, sync, bw, fl)
+    opt = nlvrl_option_phases(torch, mnt, kern, compare, sync, bw, fl)
+    worst = max(worst, mat['max_abs_err'],
+                opt['nlvrl_aniso_rays']['max_abs_err'],
+                opt['long_vrl']['max_abs_err'])
+    new_launches = (mat['launches_materials'] + mat['launches_materials_pm']
+                    + opt['launches_nlvrl_aniso']
+                    + opt['launches_nlvrl_ris_bre'])
+
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect.cu',
         'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',
-        'launches': launches + vlaunches + nlaunches + cli_launches,
+        'launches': (launches + vlaunches + nlaunches + cli_launches
+                     + new_launches),
         'max_abs_err': worst,
         'ms': own['ms_per_launch'], 'plain_ms': own['plain_ms_per_launch'],
         'bound_ms': own['bound_ms_per_launch'], 'bound_by': own['bound_by'],
@@ -883,7 +1100,22 @@ def main() -> int:
         'nlvrl_bound_ms': nown['bound_ms_per_launch'],
         'nlvrl_bound_by': nown['bound_by'],
         'launches_scene_file': cli_launches,
-        'launches_mesh_render': mesh_launches}]})
+        'launches_mesh_render': mesh_launches,
+        'launches_materials': mat['launches_materials'],
+        'materials_ms': mat['materials_ms'],
+        'materials_plain_ms': mat['materials_plain_ms'],
+        'materials_bound_ms': mat['materials_bound_ms'],
+        'launches_materials_pm': mat['launches_materials_pm'],
+        'launches_nlvrl_aniso': opt['launches_nlvrl_aniso'],
+        'nlvrl_aniso_ms': opt['nlvrl_aniso_rays']['ms_per_launch'],
+        'nlvrl_aniso_plain_ms': opt['nlvrl_aniso_rays']['plain_ms_per_launch'],
+        'nlvrl_aniso_bound_ms': opt['nlvrl_aniso_rays']['bound_ms_per_launch'],
+        'launches_nlvrl_ris_bre': opt['launches_nlvrl_ris_bre'],
+        'long_vrl_rays': opt['long_vrl']['rays'],
+        'long_vrl_ms': opt['long_vrl']['ms'],
+        'long_vrl_plain_ms': opt['long_vrl']['plain_ms'],
+        'long_vrl_bound_ms': opt['long_vrl']['bound_ms'],
+        'long_vrl_bound_by': opt['long_vrl']['bound_by']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -571,6 +571,14 @@ def thin_raw(key, raw: RawDeposits, sp_cap: int, vp_cap: int,
         vrl_depth=vrl_dep, vrl_direct=vrl_dir, vrl_count=n_vrl)
 
 
+def pack_vrls(o, d, length, flux, medium, valid):
+    """The VRL rows [o(3) d(3) len flux(3) medium valid], one gather a
+    record."""
+    return torch.cat([o, d, length[:, None], flux,
+                      medium.to(torch.float32)[:, None],
+                      valid.to(torch.float32)[:, None]], dim=1)
+
+
 def build_maps(scene, meta, raw: RawDeposits, r_global, r_caustic,
                r_volume) -> PhotonMaps:
     """Hash grids and scale factors over the compact reservoirs. Each map
@@ -617,9 +625,8 @@ def build_maps(scene, meta, raw: RawDeposits, r_global, r_caustic,
         vrl_count=raw.vrl_count,
         sp_lost=raw.sp_lost, vp_lost=raw.vp_lost, vrl_lost=raw.vrl_lost,
         trunc_paths=raw.trunc_paths,
-        vrl_packed=torch.cat(
-            [raw.vrl_o, vrl_d, vrl_len[:, None], raw.vrl_flux,
-             col(raw.vrl_medium, 0), col(vrl_vmask, 0)], dim=1),
+        vrl_packed=pack_vrls(raw.vrl_o, vrl_d, vrl_len, raw.vrl_flux,
+                             raw.vrl_medium, vrl_vmask),
         sp_packed=torch.cat(
             [raw.sp_pos, raw.sp_dir, raw.sp_power, col(sp_caustic_b, P),
              col(sp_vmask, P), col(None, P)], dim=1),

@@ -14,16 +14,21 @@ Port of ``mitsuba_nlvrl_tpu/integrators/vrl.py``:
     and sigma_s, three transmittances with an occlusion walk;
   * VRL selection: a two-level Morton cluster hierarchy (coarse cluster,
     subcluster, member), the wavefront form of the reference's lightcut
-    (``VRLClusters``), or uniform selection.
+    (``VRLClusters``), uniform selection, or (``vrl_ris``, alias
+    ``rr_vrl``) resampled importance over every VRL in 512-VRL chunks;
+  * the thesis's options: ``long_vrl`` extends each VRL to the first
+    surface along it, ``dice_vrl`` > 1 cuts VRLs into sub-VRLs of a
+    common length, ``vrl_aniso_cdf`` samples the camera segment from a
+    tabulated CDF of both phase functions, and ``use_bre`` replaces the
+    volume gather by the beam radiance estimate.
 
 The reference's ``lax`` loops become host loops: the camera bounces and
 the VRL query over the live segment count read the device once a trip
-(``core/sync.py``); the volume gather runs the trips some lane needs (one
-read), and in a scene with a heterogeneous medium advances the sampler
-past the skipped trips' draws, so every later draw keeps its dimension.
-Options that a later slice ports (``vrl_ris``, ``rr_vrl``,
-``vrl_aniso_cdf``, ``dice_vrl``, ``long_vrl``, ``use_bre``,
-``map_psum_axis``) raise at scene build (``scene.types.check_meta``).
+(``core/sync.py``); the volume gather and the beam estimate run the trips
+some lane needs (one read), and in a scene with a heterogeneous medium
+advance the sampler past the skipped trips' draws, so every later draw
+keeps its dimension. ``map_psum_axis`` (the map all-reduce across
+devices) raises at scene build (``scene.types.check_meta``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from .. import medium as medium_mod
 from .. import phase as phase_mod
 from ..medium import nonlinear as nl_mod
 from ..ops import intersect as isect
-from ..scene.types import F_SMOOTH, MEDIUM_TYPES
+from ..scene.types import F_SMOOTH, M_PHASE_G, MEDIUM_TYPES
 from . import lighttrace
 from . import photon_est
 from .volpath import _where_tree, transmittance_to_point
@@ -101,10 +106,167 @@ def preprocess(scene, meta, key, vp_all_scatters: bool = False):
     # the volume grid's cell covers the jittered query radius (1.25 r)
     maps = lighttrace.build_maps(scene, meta, raw, r_global, r_caustic,
                                  1.25 * r_volume)
+    if bool(meta.iprop('long_vrl', False)):
+        maps = _lengthen_vrls(scene, maps)
+    dice = int(meta.iprop('dice_vrl', 1))
+    if dice > 1:
+        maps = _dice_vrls(scene, meta, rng.fold_in(key, 0xd1ce), maps, dice)
     if bool(meta.iprop('use_light_cut', True)):
         n_cl = int(meta.iprop('vrl_clusters', 1024))
         maps = maps._replace(clusters=build_vrl_clusters(scene, maps, n_cl))
     return maps
+
+
+def _repack_vrls(maps):
+    """The maps with ``vrl_packed`` rebuilt from the VRL fields. (The
+    reference leaves its packed rows as the light pass wrote them, so its
+    camera pass reads the lengths before ``long_vrl`` and, after
+    ``dice_vrl``, the undiced rows at clamped indices; ROADMAP queue C.)"""
+    return maps._replace(vrl_packed=lighttrace.pack_vrls(
+        maps.vrl_o, maps.vrl_d, maps.vrl_len, maps.vrl_flux, maps.vrl_medium,
+        maps.vrl_valid))
+
+
+def _lengthen_vrls(scene, maps):
+    """long_vrl: extend every VRL to the first surface along its ray. The
+    estimator integrates Tr from the VRL's origin, so only the length
+    changes."""
+    ray = Ray.make(maps.vrl_o + maps.vrl_d * 1e-4, maps.vrl_d)
+    si = isect.ray_intersect(scene, ray)
+    new_len = torch.where(si.valid & maps.vrl_valid, si.t + 1e-4,
+                          maps.vrl_len)
+    return _repack_vrls(maps._replace(vrl_len=new_len))
+
+
+def _dice_vrls(scene, meta, key, maps, dice: int):
+    """dice_vrl > 1: cut every VRL into sub-VRLs of the common length
+    mean_len / dice, each sub-VRL's flux carrying Tr(origin -> its start)
+    so the energy stays exact. As in the reference, a VRL has a static
+    budget of 2 * dice slots (tails beyond twice the mean length are cut)
+    and the diced map is compacted again on the device."""
+    V = maps.vrl_len.shape[0]
+    K = 2 * dice
+    dev = maps.vrl_len.device
+    nvalid = torch.clamp(maps.vrl_count.to(torch.float32), min=1.0)
+    avg = torch.where(maps.vrl_valid, maps.vrl_len, 0.0).sum() / nvalid
+    chunk = torch.clamp(avg / dice, min=1e-4)
+    start = chunk * torch.arange(K, dtype=torch.float32, device=dev)  # (K,)
+    sub_len = torch.minimum(torch.clamp(maps.vrl_len[:, None]
+                                        - start[None, :], min=0.0), chunk)
+    valid = (maps.vrl_valid[:, None] & (sub_len > 1e-5)).reshape(V * K)
+
+    def rep(a):
+        return a.repeat_interleave(K, dim=0)
+    med = rep(maps.vrl_medium)
+    start_f = start[None, :].expand(V, K).reshape(V * K)
+    # Tr(VRL origin -> sub-VRL start), absorbed into the sub-VRL's flux
+    # (stochastic for heterogeneous media: the flux is linear in it)
+    tr, _ = medium_mod.segment_tr(
+        scene, meta, Sampler.make(key, V * K, dev), rep(maps.vrl_o),
+        rep(maps.vrl_d), start_f, med,
+        torch.zeros((V * K,), dtype=torch.int32, device=dev), valid)
+    o = (maps.vrl_o[:, None, :]
+         + maps.vrl_d[:, None, :] * start[None, :, None]).reshape(V * K, 3)
+    n, vmask, (o, d, ln, flux, med, dep, direct) = lighttrace._compact_dev(
+        valid, [o, rep(maps.vrl_d), sub_len.reshape(V * K),
+                rep(maps.vrl_flux) * tr, med, rep(maps.vrl_depth),
+                rep(maps.vrl_direct)], V * K)
+    return _repack_vrls(maps._replace(
+        vrl_o=o, vrl_d=d, vrl_len=ln, vrl_flux=flux, vrl_medium=med,
+        vrl_depth=dep, vrl_direct=direct, vrl_valid=vmask,
+        vrl_count=n.to(maps.vrl_count.dtype)))
+
+
+ANISO_CDF_KNOTS = 10     # cosine-spaced knots of the tabulated CDF
+# peak knots at the VRL phase's maximum, in HG half-widths
+_ANISO_PEAK_OFFSETS = (-4.0, -1.0, 0.0, 1.0, 4.0)
+
+
+def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
+                   p_vrl, d_v, u2, act):
+    """Tabulated-CDF sampling of the camera-segment point: knots in
+    Kulla's theta space (10 cosine-spaced, five more around the VRL
+    phase's peak), the density at each the product of both phase
+    functions, blended half and half with the constant density of the
+    atan sampler, and the piecewise-linear CDF inverted exactly. As the
+    reference documents, this departs from the C++ original, which
+    renormalises u uniformly inside the bin but divides by the lerped
+    density. Returns (t_cam, inv_pdf_c, ok)."""
+    N = seg_o.shape[0]
+    dev = seg_o.device
+    u_hat = m.dot(seg_d, p_vrl - seg_o)
+    u0_hat = -u_hat
+    u1_hat = seg_len + u0_hat
+    foot = seg_o + seg_d * u_hat[:, None]
+    h = torch.clamp(m.norm(foot - p_vrl), min=1e-7)
+    th0 = torch.atan(u0_hat / h)
+    th1 = torch.atan(u1_hat / h)
+    K = ANISO_CDF_KNOTS
+    frac = 0.5 * (1.0 - torch.cos(
+        m.Pi * torch.arange(K, dtype=torch.float32, device=dev) / (K - 1)))
+    th = th0[:, None] + (th1 - th0)[:, None] * frac[None, :]    # (N, K)
+    # peak knots: the VRL phase peaks where the segment-to-VRL direction
+    # -sin(theta) seg_d + cos(theta) n_hat is closest to -d_v
+    g_v = scene.media.params[torch.clamp(med_v, min=0).long(), M_PHASE_G]
+    nhat = (p_vrl - foot) * m.safe_rcp(h)[:, None]
+    A = m.dot(seg_d, d_v)
+    B = m.dot(nhat, d_v)
+    th_p = torch.atan2(B, A) + 0.5 * m.Pi
+    th_p = torch.where(th_p > 0.5 * m.Pi, th_p - m.Pi, th_p)
+    # the HG half-width in scattering angle, about sqrt(1 - |g|)
+    delta = torch.clamp(torch.sqrt(torch.clamp(1.0 - torch.abs(g_v),
+                                               min=1e-4)) * 0.2, 0.01, 0.3)
+    offs = torch.tensor(_ANISO_PEAK_OFFSETS, device=dev)
+    th_pk = torch.minimum(torch.maximum(
+        th_p[:, None] + delta[:, None] * offs[None, :], th0[:, None]),
+        th1[:, None])
+    th = torch.sort(torch.cat([th, th_pk], dim=1), dim=1).values
+    K = K + offs.shape[0]
+    t_k = h[:, None] * torch.tan(th) - u0_hat[:, None]          # (N, K)
+    p_k = seg_o[:, None, :] + seg_d[:, None, :] * t_k[..., None]
+    dir_k = p_vrl[:, None, :] - p_k
+    dir_k = dir_k * m.safe_rcp(m.norm(dir_k))[..., None]        # (N, K, 3)
+
+    def rep(x):
+        return x.repeat_interleave(K, dim=0)
+    dflat = dir_k.reshape(N * K, 3)
+    ph_ray = phase_mod.eval(scene, meta, rep(cam_medium), rep(-seg_d),
+                            dflat, rep(act)).reshape(N, K)
+    ph_vrl = phase_mod.eval(scene, meta, rep(med_v), rep(-d_v), -dflat,
+                            rep(act)).reshape(N, K)
+    ph = torch.clamp(ph_ray * ph_vrl, min=0.0)
+    dth = th[:, 1:] - th[:, :-1]                                # (N, K-1)
+    total = (0.5 * (ph[:, 1:] + ph[:, :-1]) * dth).sum(dim=1)
+    ok = act & (total > 1e-12) & torch.isfinite(total)
+    # blend with the atan sampler's constant density: the pdf stays at
+    # least half the atan sampler's, and a constant density reduces to it
+    beta = 0.5
+    span = torch.clamp(th1 - th0, min=1e-9)
+    phi = (1.0 - beta) * ph * m.safe_rcp(total)[:, None] \
+        + (beta * m.safe_rcp(span))[:, None]                    # (N, K)
+    area = 0.5 * (phi[:, 1:] + phi[:, :-1]) * dth               # sums to 1
+    cdf = torch.cumsum(area, dim=1)
+    uu = torch.clamp(u2, 0.0, m.OneMinusEpsilon) * cdf[:, -1]
+    j = torch.clamp((cdf < uu[:, None]).sum(dim=1), max=K - 2)[:, None]
+    cdf0 = torch.cat([torch.zeros((N, 1), device=dev), cdf], dim=1)
+
+    def at(x):
+        return x.gather(1, j)[:, 0]
+    pa = at(phi[:, :-1])
+    pb = at(phi[:, 1:])
+    xi = torch.clamp((uu - at(cdf0)) * m.safe_rcp(at(area)), 0.0, 1.0)
+    # exact inversion of the linear density pa -> pb over the bin
+    dp = pb - pa
+    lin = torch.abs(dp) > 1e-9 * torch.maximum(pa, pb)
+    s = torch.where(lin, (m.safe_sqrt(pa * pa + xi * (pb * pb - pa * pa))
+                          - pa) * m.safe_rcp(dp), xi)
+    theta = at(th[:, :-1]) + at(dth) * s
+    q = pa + dp * s              # the blended density at the sample
+    tc = h * torch.tan(theta)
+    inv_pdf_c = (h * h + tc * tc) * m.safe_rcp(h * q)
+    t_cam = torch.minimum(torch.clamp(tc - u0_hat, min=0.0), seg_len)
+    ok = ok & torch.isfinite(inv_pdf_c) & (inv_pdf_c > 0)
+    return t_cam, inv_pdf_c, ok
 
 
 def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
@@ -163,6 +325,12 @@ def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
     uu = h_pt * torch.tan(m.lerp(th_a, th_b, u2))
     inv_pdf_c = (th_b - th_a) * (h_pt * h_pt + uu * uu) / h_pt
     t_cam = torch.minimum(torch.clamp(uu - u0_hat, min=0.0), seg_len)
+    if bool(meta.iprop('vrl_aniso_cdf', False)):
+        t_cam_a, inv_a, ok_a = _aniso_cam_cdf(
+            scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len, p_vrl,
+            d_v, u2, act & ~degenerate)
+        t_cam = torch.where(ok_a, t_cam_a, t_cam)
+        inv_pdf_c = torch.where(ok_a, inv_a, inv_pdf_c)
 
     # degenerate pairs (and use_uniform_sampling): uniform sampling of
     # both segments
@@ -387,6 +555,60 @@ def sample_cluster_vrl(clusters: VRLClusters, w, w_cdf, seg_o, seg_d,
     return torch.clamp(vi, max=V - 1), inv_pdf, ok
 
 
+VRL_RIS_CHUNK = 512
+
+
+def _vrl_ris_weights(maps, seg_o, seg_d, seg_len, sl):
+    """Selection weights (N, C) of a chunk of VRL ids ``sl`` (C,), -1 for
+    padding, against each camera segment: the VRL's power luminance times
+    its length over the squared distance from its midpoint to the
+    segment."""
+    sl_c = torch.clamp(sl, min=0).long()
+    vo, vd, vl = maps.vrl_o[sl_c], maps.vrl_d[sl_c], maps.vrl_len[sl_c]
+    lum = m.dot(maps.vrl_flux[sl_c], torch.tensor(_LUM, device=vo.device))
+    ok = maps.vrl_valid[sl_c] & (sl >= 0)
+    mid = vo + vd * (0.5 * vl)[:, None]                        # (C, 3)
+    # the closest point on the camera segment to each midpoint
+    rel = mid[None, :, :] - seg_o[:, None, :]                  # (N, C, 3)
+    t = torch.minimum(torch.clamp(m.dot(rel, seg_d[:, None, :]), min=0.0),
+                      seg_len[:, None])
+    d2 = m.squared_norm(rel - t[..., None] * seg_d[:, None, :])
+    w = (lum * vl)[None, :] / (d2 + 1e-3 * (1.0 + d2))
+    return torch.where(ok[None, :], torch.clamp(w, min=0.0), 0.0)
+
+
+def _ris_chunks(V: int, dev):
+    """The VRL ids in chunks of ``VRL_RIS_CHUNK``, the last padded with
+    -1."""
+    ch = min(VRL_RIS_CHUNK, V)
+    n_chunks = -(-V // ch)
+    idx = torch.cat([torch.arange(V, dtype=torch.int32, device=dev),
+                     torch.full((n_chunks * ch - V,), -1, dtype=torch.int32,
+                                device=dev)])
+    return idx.reshape(n_chunks, ch)
+
+
+def _ris_select(maps, seg_o, seg_d, seg_len, chunks, thresh):
+    """Invert the running sum of the weights over the chunks in order:
+    the first VRL whose running sum reaches ``thresh``. Returns (id, its
+    weight); id -1 where none does."""
+    N = seg_o.shape[0]
+    dev = seg_o.device
+    run = torch.zeros((N,), device=dev)
+    sel_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    sel_w = torch.zeros((N,), device=dev)
+    for sl in chunks:
+        w = _vrl_ris_weights(maps, seg_o, seg_d, seg_len, sl)
+        cw = torch.cumsum(w, dim=1) + run[:, None]
+        hit = (cw >= thresh[:, None]) & (sel_i < 0)[:, None]
+        first = hit.to(torch.int32).argmax(dim=1)
+        take = hit.any(dim=1)
+        sel_i = torch.where(take, sl[first], sel_i)
+        sel_w = torch.where(take, w.gather(1, first[:, None])[:, 0], sel_w)
+        run = cw[:, -1]
+    return sel_i, sel_w
+
+
 def query_vrls(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium, channel,
                sampler, active, samples_per_query: int,
                strategy: str = 'cluster'):
@@ -394,7 +616,9 @@ def query_vrls(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium, channel,
     each evaluated by ``vrl_contrib``. ``cluster`` selects through the
     VRL clusters (the reference's lightcut analog, the thesis's
     configurations), ``uniform`` uniformly (the reference's
-    no-acceleration default)."""
+    no-acceleration default), ``ris`` by resampled importance over every
+    VRL, two passes over 512-VRL chunks (the total weight, then the
+    inverted running sum), weighted by w_total / w_vi."""
     N = seg_o.shape[0]
     dev = seg_o.device
     V = maps.vrl_o.shape[0]
@@ -420,6 +644,28 @@ def query_vrls(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium, channel,
                                      seg_len, cam_medium, vi, u1, u2,
                                      channel, sampler, active & ok)
             acc = acc + c * torch.where(ok, inv_pdf, 0.0)[:, None]
+        return acc * (maps.vrl_scale / samples_per_query), sampler
+
+    if strategy == 'ris' and V >= 64:
+        chunks = _ris_chunks(V, dev)
+        w_total = torch.zeros((N,), device=dev)
+        for sl in chunks:
+            w_total = w_total + _vrl_ris_weights(maps, seg_o, seg_d, seg_len,
+                                                 sl).sum(dim=1)
+        ok_lane = active & (w_total > 0)
+        for _ in range(samples_per_query):
+            u_sel, sampler = sampler.next_1d()
+            u1, sampler = sampler.next_1d()
+            u2, sampler = sampler.next_1d()
+            sel_i, sel_w = _ris_select(maps, seg_o, seg_d, seg_len, chunks,
+                                       u_sel * w_total)
+            lane_ok = ok_lane & (sel_i >= 0) & (sel_w > 0)
+            c, sampler = vrl_contrib(scene, meta, maps, seg_o, seg_d,
+                                     seg_len, cam_medium,
+                                     torch.clamp(sel_i, min=0), u1, u2,
+                                     channel, sampler, lane_ok)
+            inv_p = torch.where(lane_ok, w_total * m.safe_rcp(sel_w), 0.0)
+            acc = acc + c * inv_p[:, None]
         return acc * (maps.vrl_scale / samples_per_query), sampler
 
     count = torch.clamp(maps.vrl_count, min=1)
@@ -511,8 +757,14 @@ def make_sample(use_vrls: bool):
         spq = int(meta.iprop('samples_per_query', 2))
         use_direct = bool(meta.iprop('use_direct_illum', True)) \
             or not use_vrls
-        strategy = 'cluster' if bool(meta.iprop('use_light_cut', True)) \
-            else 'uniform'
+        use_bre = bool(meta.iprop('use_bre', False))
+        # rr_vrl (the reference's distance roulette) is an alias of vrl_ris
+        if bool(meta.iprop('vrl_ris', meta.iprop('rr_vrl', False))):
+            strategy = 'ris'
+        elif bool(meta.iprop('use_light_cut', True)):
+            strategy = 'cluster'
+        else:
+            strategy = 'uniform'
         nl_cam = bool(meta.iprop('use_non_linear_camera', True)) \
             and bool(meta.iprop('use_non_linear', True)) \
             and MEDIUM_TYPES['nonlinear'] in meta.medium_types
@@ -565,7 +817,12 @@ def make_sample(use_vrls: bool):
             # direct: volume photons gathered along the bent ray
             u_r, smp = smp.next_1d()
             radius = r_volume * m.lerp(0.75, 1.25, u_r)
-            if use_direct:
+            if use_direct and use_bre:
+                direct_v, smp = _beam_segments(
+                    scene, meta, maps, bent, st, in_medium, radius, g_cap,
+                    smp, channel)
+                result = result + throughput * direct_v * maps.vp_scale
+            elif use_direct:
                 direct_v, smp = _gather_volume(
                     scene, meta, maps, bent, st, in_medium, radius, g_cap,
                     smp, channel)
@@ -667,6 +924,30 @@ def _gather_volume(scene, meta, maps, bent, st, in_medium, radius, g_cap,
         acc = acc + torch.where(ok[:, None], tr_run * est, 0.0)
         last_t = torch.where(ok, t_g, last_t)
     return acc, _skip_segment_tr(meta, smp, g_cap - n_g)
+
+
+def _beam_segments(scene, meta, maps, bent, st, in_medium, radius, g_cap,
+                   smp, channel):
+    """The beam radiance estimate of every bent segment (``g_cap`` steps
+    of 2 radius each at most), attenuated by the segments before it, over
+    the live segment count (one host read)."""
+    N = in_medium.shape[0]
+    dev = in_medium.device
+    n_seg = int_on_host(torch.where(in_medium, bent.count, 0).amax())
+    acc = torch.zeros((N, 3), device=dev)
+    seg_tr = torch.ones((N, 3), device=dev)
+    for s_i in range(n_seg):
+        so = bent.seg_o[:, s_i].contiguous()
+        sd = bent.seg_d[:, s_i].contiguous()
+        sl = bent.seg_len[:, s_i].contiguous()
+        ok = in_medium & (s_i < bent.count) & (sl > 0)
+        est = photon_est.estimate_beam(scene, meta, maps, so, sd, sl, -sd,
+                                       st.medium_idx, ok, radius, g_cap)
+        acc = acc + torch.where(ok[:, None], seg_tr * est, 0.0)
+        tr_s, smp = medium_mod.segment_tr(scene, meta, smp, so, sd, sl,
+                                          st.medium_idx, channel, ok)
+        seg_tr = seg_tr * tr_s
+    return acc, _skip_segment_tr(meta, smp, bent.seg_len.shape[1] - n_seg)
 
 
 def _query_segments(scene, meta, maps, bent, st, in_medium, spq, strategy,

@@ -27,6 +27,7 @@ bounds and corner-packed rows and the voxelised IOR grid derived here.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import fields
 from typing import Dict, List, Optional, Tuple
 
@@ -41,7 +42,7 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
                     M_BBOX_MAX, M_MAJORANT, M_NL_TOP_IOR, M_NL_BOT_IOR,
                     M_NL_RES, M_NL_FROM_BOTTOM, SLICE_MEDIA, SLICE_PHASES,
-                    BVH_MIN_TRIS,
+                    BVH_MIN_TRIS, F_MASK,
                     SLICE_SHAPES, check_meta, not_in_slice)
 from .mesh_io import (MeshData, compute_vertex_normals, load_blender,
                       load_obj, load_ply, load_serialized)
@@ -474,7 +475,9 @@ class SceneBuilder:
     def build(self) -> Tuple[Dict[str, np.ndarray], dict]:
         """Returns (arrays, meta) in the form ``scene_from_numpy`` takes."""
         desc = self.desc
-        if desc.get('spectral') or desc.get('double'):
+        # the reference's build_scene also turns float64 on from MNT_DOUBLE
+        if desc.get('spectral') or desc.get('double') \
+                or os.environ.get('MNT_DOUBLE', '') == '1':
             raise not_in_slice("spectral and double variants",
                                "item 10 (variants)")
         # --- film / sensor -------------------------------------------------
@@ -786,6 +789,8 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
         grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
                        if arrays.get('media.grid_sigma_p8') is not None
                        else None))
+    if (np.asarray(arrays['bsdfs.flags']) & F_MASK).any():
+        raise not_in_slice("bsdf type 'mask'", "item 7 (materials)")
     # the occluder subset, once per scene: triangles whose BSDF is not null
     tri_bsdf = np.asarray(arrays['shapes.bsdf_idx'])[
         np.asarray(arrays['geo.shape_idx'], np.int64)]

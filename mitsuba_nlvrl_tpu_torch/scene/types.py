@@ -77,7 +77,9 @@ M_NL_FROM_BOTTOM = 22
 # NotImplementedError naming the ROADMAP item that brings it.
 SLICE_SHAPES = ('rectangle', 'cube', 'sphere', 'disk', 'cylinder', 'obj',
                 'ply', 'serialized', 'blender', 'mesh')
-SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'null')
+SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
+               'null', 'roughconductor', 'roughdielectric', 'plastic',
+               'roughplastic', 'pplastic', 'twosided')
 SLICE_EMITTERS = ('area', 'point', 'constant')
 SLICE_SENSORS = ('perspective',)
 SLICE_SAMPLERS = ('independent',)
@@ -85,9 +87,9 @@ SLICE_INTEGRATORS = ('path', 'volpath', 'volpathmis', 'vrl', 'photonmapper',
                      'photonmap')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
 # options of the two-pass integrators that a later slice ports: each
-# raises when a scene turns it on (dice_vrl: a count above 1)
-DEFERRED_PROPS = ('vrl_ris', 'rr_vrl', 'vrl_aniso_cdf', 'dice_vrl',
-                  'long_vrl', 'use_bre', 'map_psum_axis')
+# raises when a scene turns it on (the map all-reduce over a mesh axis
+# comes with torch.distributed)
+DEFERRED_PROPS = ('map_psum_axis',)
 SLICE_PHASES = ('isotropic', 'hg')
 
 
@@ -272,11 +274,9 @@ def check_meta(meta: SceneMeta) -> None:
     if meta.integrator in ('vrl', 'photonmapper', 'photonmap'):
         for name in DEFERRED_PROPS:
             value = meta.iprop(name)
-            on = int(value) > 1 if name == 'dice_vrl' and value is not None \
-                else bool(value)
-            if on:
+            if value:
                 raise not_in_slice(f"integrator property {name}={value!r}",
-                                   "item 9 (NLVRL and the photon mapper)")
+                                   "item 12 (multi-GPU)")
     if meta.film.rfilter not in RFILTER_TYPES:
         raise ValueError(f"unknown reconstruction filter "
                          f"'{meta.film.rfilter}'")

@@ -12,6 +12,8 @@ Inside the block every call of a part is recorded:
   clusters        ``vrl.build_vrl_clusters``
   bend            ``nonlinear.bend_ray``, the camera pass's bend march
   volume_gather   ``vrl._gather_volume``, the volume-photon gather
+  beam            ``vrl._beam_segments``, the beam radiance estimate
+                  (``use_bre``) that takes the gather's place
   vrl_query       ``vrl._query_segments``, the VRL query of the segments
   surface_gather  ``photon_est.estimate_surface``, the surface gathers
 with ``timed``, CUDA events around it (device timeline) and the host
@@ -35,11 +37,13 @@ PARTS = {
     'clusters': (vrl, 'build_vrl_clusters'),
     'bend': (nonlinear, 'bend_ray'),
     'volume_gather': (vrl, '_gather_volume'),
+    'beam': (vrl, '_beam_segments'),
     'vrl_query': (vrl, '_query_segments'),
     'surface_gather': (photon_est, 'estimate_surface'),
 }
 # the parts of the camera pass
-CAMERA_PARTS = ('bend', 'volume_gather', 'vrl_query', 'surface_gather')
+CAMERA_PARTS = ('bend', 'volume_gather', 'beam', 'vrl_query',
+                'surface_gather')
 
 
 class PartLog:

@@ -6,7 +6,10 @@ density grid is made from a seed; ``cbox_nlvrl``, a stand-in for the
 thesis's headline configuration (cbox-nonlinear-homo-vrl); and the
 writers of two scene files, ``cbox_xml`` (the Cornell box as Mitsuba XML
 over OBJ meshes) and ``cbox_mesh`` (the same box with a displaced
-icosphere in a binary PLY, a stand-in for a real mesh)."""
+icosphere in a binary PLY, a stand-in for a real mesh); ``cbox_materials``,
+the box dressed in the microfacet and plastic BSDFs; and the thesis's
+option sets of ``cbox_nlvrl`` (``NLVRL_ANISO_OPTIONS``,
+``NLVRL_RIS_BRE_OPTIONS``, ``hg_phase``)."""
 from __future__ import annotations
 
 import os
@@ -359,3 +362,100 @@ def cbox_mesh(directory: str, subdiv: int = 5, seed: int = 0,
     with open(path, 'w') as f:
         f.write(_xml(spp, res, res, max_depth, shapes))
     return path
+
+
+# --- the thesis's options and the materials ---------------------------------
+
+# cbox_nlvrl_aniso: the golden cbox-nl-hg-vrl-aniso's options (tabulated
+# anisotropic camera CDF, diced and lengthened VRLs) with HG g = 0.8
+NLVRL_ANISO_OPTIONS = {'vrl_aniso_cdf': True, 'dice_vrl': 4,
+                       'long_vrl': True}
+NLVRL_ANISO_G = 0.8
+# cbox_nlvrl_ris_bre: RIS VRL selection and the beam radiance estimate
+NLVRL_RIS_BRE_OPTIONS = {'vrl_ris': True, 'use_bre': True}
+
+
+def hg_phase(desc: dict, g: float = NLVRL_ANISO_G) -> dict:
+    """``desc`` with every medium's phase set to HG with ``g``."""
+    for sh in desc['shapes']:
+        for side in ('interior', 'exterior'):
+            if sh.get(side) is not None:
+                sh[side] = dict(sh[side], phase={'type': 'hg', 'g': g})
+    return desc
+
+
+# cbox_materials: the BSDFs of each shape (values chosen for the test
+# scene; the rough plastic's Beckmann is recorded as the reference reads
+# it: its rough lobes are GGX whatever the distribution)
+MATERIALS = {
+    'floor': {'type': 'twosided',
+              'bsdf': {'type': 'diffuse', 'reflectance': (0.7, 0.7, 0.7)}},
+    'back_wall': {'type': 'plastic', 'diffuse_reflectance': (0.7, 0.7, 0.7),
+                  'int_ior': 1.5},
+    'tall_block': {'type': 'roughconductor', 'distribution': 'ggx',
+                   'alpha': 0.2, 'eta': (0.143, 0.374, 1.442),
+                   'k': (3.983, 2.385, 1.603)},
+    'short_block': {'type': 'roughplastic', 'distribution': 'beckmann',
+                    'alpha': 0.15, 'diffuse_reflectance': (0.1, 0.25, 0.6),
+                    'int_ior': 1.49},
+    'glass_sphere': {'type': 'roughdielectric', 'alpha': 0.1,
+                     'int_ior': 1.5},
+    'pane': {'type': 'thindielectric', 'int_ior': 1.5},
+    'pplastic_sphere': {'type': 'pplastic',
+                        'diffuse_reflectance': (0.6, 0.3, 0.05),
+                        'alpha': 0.06},
+}
+
+
+def dress_materials(desc: dict, tr_mod=tr) -> dict:
+    """Dress a ``cornell_box`` description in ``MATERIALS``: the floor and
+    the back wall change BSDF, and two blocks, two spheres and a vertical
+    pane join the box. ``tr_mod`` makes the transforms (this package's
+    ``core.transform`` unless a caller passes another with the same
+    functions)."""
+    shapes = desc['shapes']
+    shapes[0]['bsdf'] = MATERIALS['floor']
+    shapes[2]['bsdf'] = MATERIALS['back_wall']
+    shapes += [
+        {'type': 'cube', 'bsdf': MATERIALS['tall_block'],
+         'to_world': tr_mod.translate((-0.35, -0.4, 0.35))
+         @ tr_mod.rotate((0, 1, 0), 15) @ tr_mod.scale((0.28, 0.6, 0.28))},
+        {'type': 'cube', 'bsdf': MATERIALS['short_block'],
+         'to_world': tr_mod.translate((0.4, -0.7, -0.25))
+         @ tr_mod.rotate((0, 1, 0), -18) @ tr_mod.scale((0.28, 0.3, 0.28))},
+        {'type': 'sphere', 'center': (0.4, -0.14, -0.25), 'radius': 0.25,
+         'bsdf': MATERIALS['glass_sphere']},
+        {'type': 'sphere', 'center': (-0.5, -0.75, -0.5), 'radius': 0.25,
+         'bsdf': MATERIALS['pplastic_sphere']},
+        {'type': 'rectangle', 'bsdf': MATERIALS['pane'],
+         'to_world': tr_mod.translate((0.05, -0.65, -0.75))
+         @ tr_mod.rotate((0, 1, 0), 30) @ tr_mod.scale((0.25, 0.35, 1.0))},
+    ]
+    return desc
+
+
+def cbox_materials(res_w=512, res_h=512, spp=16, integrator=None,
+                   medium=None):
+    """The Cornell box in ``MATERIALS`` (``dress_materials``), by default
+    under ``path`` with max_depth 8."""
+    desc = cornell_box(spp=spp, res=res_w, medium=medium,
+                       integrator=integrator or {'type': 'path',
+                                                 'max_depth': 8})
+    desc['sensor']['film']['height'] = res_h
+    return dress_materials(desc)
+
+
+# cbox_materials_pm: the materials box filled with a homogeneous medium
+# (in the null cube) under the photon mapper
+MATERIALS_MEDIUM = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.8}
+MATERIALS_PM = {'type': 'photonmapper', 'max_depth': 8,
+                'global_photons': 100000, 'volume_photons': 100000}
+
+
+def cbox_materials_pm(res_w=512, res_h=256, spp=2, **props):
+    """``cbox_materials`` around ``MATERIALS_MEDIUM`` under the photon
+    mapper (``MATERIALS_PM``; ``props`` override its properties): its
+    camera gathers on the rough and plastic surfaces evaluate the BSDF
+    once a photon."""
+    return cbox_materials(res_w, res_h, spp, medium=dict(MATERIALS_MEDIUM),
+                          integrator={**MATERIALS_PM, **props})

@@ -120,3 +120,18 @@ def test_cli_without_a_card_exits_non_zero(scene_files, monkeypatch,
     assert not os.path.exists(d / 'none2.exr')
     with pytest.raises(NotImplementedError, match='item 10'):
         cli.main([path, '--spectral', '--device', 'cpu'])
+
+
+def test_mnt_double_raises(scene_files, monkeypatch):
+    """MNT_DOUBLE=1 asks the reference's build_scene for float64 (the
+    double variant, ROADMAP item 10): the port's build_scene and its CLI
+    raise rather than render float32."""
+    path, _, d = scene_files
+    monkeypatch.setenv('MNT_DOUBLE', '1')
+    with pytest.raises(NotImplementedError, match='item 10'):
+        P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')
+    with pytest.raises(NotImplementedError, match='item 10'):
+        cli.main([path, '-o', str(d / 'double.exr'), '--device', 'cpu'])
+    assert not os.path.exists(d / 'double.exr')
+    monkeypatch.setenv('MNT_DOUBLE', '0')
+    P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')

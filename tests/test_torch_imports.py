@@ -63,7 +63,7 @@ def test_no_forbidden_import_in_sources():
               'photon_est.py', 'photonmapper.py', 'nlvrl_probe.py',
               'port_profile_nlvrl.py', '__main__.py', 'xml.py', 'mesh_io.py',
               'bvh.py', 'io.py', 'exr_piz.py', 'ior_data.py',
-              'spectrum.py', 'cie_data.py'):
+              'spectrum.py', 'cie_data.py', 'microfacet.py', 'warp.py'):
         assert f in names, f
     assert not bad, bad
 
@@ -73,7 +73,11 @@ def test_cpu_render_loads_no_jax():
         "import sys\n"
         "import mitsuba_nlvrl_tpu_torch as P\n"
         "from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import "
+        "cbox_materials\n"
         "s, m = P.build_scene(cornell_box(spp=1, res=8), device='cpu')\n"
+        "sm, mm = P.build_scene(cbox_materials(8, 8, 1), device='cpu')\n"
+        "assert bool(P.render(sm, mm, seed=0).isfinite().all())\n"
         "img = P.render(s, m, seed=0, spp=1)\n"
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
         "print(' '.join(sorted(sys.modules)))\n")

@@ -394,22 +394,25 @@ def test_null_bsdf_matches_reference(cube_in_box):
 
 
 def test_nonlinear_media_are_not_in_the_slice():
-    """Nonlinear media build now (tests/test_torch_nonlinear.py); what of
-    ROADMAP item 9 is still outside the slice raises, from the port's
-    builder and from a reference scene carried over: here the beam
-    radiance estimate of a nonlinear box."""
-    integ = {'type': 'vrl', 'use_bre': True}
+    """Nonlinear media build now (tests/test_torch_nonlinear.py), with the
+    beam radiance estimate too (tests/test_torch_vrl_options.py); what is
+    still outside the slice raises, from the port's builder and from a
+    reference scene carried over: here the map all-reduce across devices
+    of a nonlinear box (ROADMAP item 12)."""
+    integ = {'type': 'vrl', 'map_psum_axis': 'mp'}
     desc = pscenes.cornell_box(medium={'type': 'nonlinear'},
                                integrator=integ)
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(NotImplementedError, match='item 12'):
         P.build_scene(desc, device='cpu')
     sj, mj = J.build_scene(scenes.cornell_box(medium={'type': 'nonlinear'},
                                               integrator=integ))
     from torch_parity import jax_meta_dict, scene_arrays
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(NotImplementedError, match='item 12'):
         P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
                            device='cpu')
-    P.build_scene(pscenes.cornell_box(medium={'type': 'nonlinear'}),
+    P.build_scene(pscenes.cornell_box(medium={'type': 'nonlinear'},
+                                      integrator={'type': 'vrl',
+                                                  'use_bre': True}),
                   device='cpu')
 
 

@@ -82,7 +82,7 @@ def test_scene_from_numpy_carries_reference_arrays(name):
 
 @pytest.mark.parametrize('change', [
     ('shape', {'type': 'instance'}),
-    ('bsdf', {'type': 'roughconductor'}),
+    ('bsdf', {'type': 'blendbsdf'}),
     ('bsdf', {'type': 'diffuse',
               'reflectance': {'type': 'checkerboard'}}),
     ('emitter', {'type': 'spot'}),

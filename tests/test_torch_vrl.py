@@ -3,8 +3,9 @@ the reference's own maps (carried over with ``maps_from_numpy``): the VRL
 clusters, the photon estimates, the cluster draw, one VRL's contribution
 and the VRL query, in a homogeneous box (anisotropic phase) and in the
 nonlinear box of ``cbox_nlvrl`` (its 640-cell IOR grid and laser); whole
-``vrl`` renders of both boxes, 16x8 at 2 spp; and the options that a
-later slice ports.
+``vrl`` renders of both boxes, 16x8 at 2 spp; and which options of
+ROADMAP item 9 build (tests/test_torch_vrl_options.py holds them against
+the reference).
 
 The reference runs with IEEE rounding (``torch_parity.ieee_reference``):
 the camera rays bend in the nonlinear medium and turn on the last bit at
@@ -205,27 +206,34 @@ def test_render_own_light_pass_matches_reference(medium):
     check_render_own_light_pass('vrl', medium, SPP)
 
 
-DEFERRED_VALUES = {'vrl_ris': True, 'rr_vrl': True, 'vrl_aniso_cdf': True,
-                   'dice_vrl': 3, 'long_vrl': True, 'use_bre': True,
-                   'map_psum_axis': 'mp'}
+ITEM9_VALUES = {'vrl_ris': True, 'rr_vrl': True, 'vrl_aniso_cdf': True,
+                'dice_vrl': 3, 'long_vrl': True, 'use_bre': True,
+                'map_psum_axis': 'mp'}
 
 
 @pytest.mark.parametrize('integrator', ['vrl', 'photonmapper'])
-@pytest.mark.parametrize('prop', DEFERRED_PROPS)
+@pytest.mark.parametrize('prop', list(ITEM9_VALUES))
 def test_deferred_properties_raise(prop, integrator):
-    """Each option of a later slice raises when a scene turns it on, from
-    the port's builder and from a reference scene carried over."""
+    """The options of ROADMAP item 9 build now, from the port's builder
+    and from a reference scene carried over; ``map_psum_axis`` (the map
+    all-reduce across devices, item 12) still raises from both."""
     def desc(pkg):
         d = pscenes.cornell_box(spp=1, res=8, medium=dict(
             pscenes.NLVRL_MEDIUM)) if pkg is pscenes else \
             scenes.cornell_box(spp=1, res=8,
                                medium=dict(pscenes.NLVRL_MEDIUM))
-        d['integrator'] = {'type': integrator, prop: DEFERRED_VALUES[prop]}
+        d['integrator'] = {'type': integrator, prop: ITEM9_VALUES[prop]}
         return d
-    with pytest.raises(NotImplementedError, match='item 9'):
-        P.build_scene(desc(pscenes), device='cpu')
     sj, mj = J.build_scene(desc(scenes))
-    with pytest.raises(NotImplementedError, match='item 9'):
+    if prop in DEFERRED_PROPS:
+        with pytest.raises(NotImplementedError, match='item 12'):
+            P.build_scene(desc(pscenes), device='cpu')
+        with pytest.raises(NotImplementedError, match='item 12'):
+            P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
+                               device='cpu')
+    else:
+        _, mp = P.build_scene(desc(pscenes), device='cpu')
+        assert mp.iprop(prop) == ITEM9_VALUES[prop]
         P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')
     # the option at its default builds
     d = desc(pscenes)
