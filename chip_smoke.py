@@ -47,13 +47,25 @@ rough plastic block, a plastic back wall, a two-sided floor, a rough
 glass sphere, a polarized-plastic sphere and a thin glass pane; 512x512,
 16 spp, ``path``) with every kernel call of one pass checked and timed,
 and under the photon mapper in a homogeneous medium (512x256, 2 spp, the
-per-photon BSDF gathers), each against the CPU at 64x64 or 64x32. Last
+per-photon BSDF gathers), each against the CPU at 64x64 or 64x32. Then
 the thesis options on the NLVRL box: ``cbox_nlvrl_aniso`` (HG g = 0.8,
 the tabulated anisotropic camera CDF, diced and lengthened VRLs; the
 ``long_vrl`` call checked and timed alone) and ``cbox_nlvrl_ris_bre``
 (RIS VRL selection and the beam radiance estimate), each preprocessed,
-rendered at 512x256, 2 spp and held against the CPU at 64x32. Each
-phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+rendered at 512x256, 2 spp and held against the CPU at 64x32. Then
+textures, the wrapper BSDFs, the remaining lights, samplers and sensors:
+``cbox_textured`` (a scene file written into a temporary directory: the
+box with a checkerboard floor, a bitmap back wall, normal- and
+bump-mapped blocks, a blended sphere, a masked pane, a shapegroup placed
+twice, a spot light; multijitter sampler, thin lens; 512x512, 16 spp)
+with every kernel call of one pass checked and timed, rendered in
+process and through the CLI (its EXR equal to the in-process render),
+``env_spheres`` (an environment map from an EXR, a directional sun, a
+slide projector, grid3d and mesh-attribute textures; stratified; 512x512,
+16 spp), and the card against the CPU on both at 64x64, on ``direct``,
+``depth``, the radiance and irradiance meters, a photon-mapper box lit
+by a spot and a directional light, and on the five samplers' jitter.
+Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
 the JAX package.
@@ -470,6 +482,27 @@ def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
         img_np
 
 
+def timed_render(torch, mnt, kern, sync, scene, meta, spp) -> tuple:
+    """A render timed on the host clock ending in a device synchronise:
+    (record with wall seconds, rays, Mrays/s, kernel launches, host syncs,
+    finite, mean; the image as numpy)."""
+    import numpy as np
+    torch.cuda.synchronize()
+    kern.launches = 0
+    sync.host_syncs = 0
+    stats, t0 = [], time.time()
+    img = mnt.render(scene, meta, seed=0, spp=spp, ray_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    rays = float(sum(float(r) for r in stats))
+    img_np = img.cpu().numpy()
+    return {'wall_s': wall, 'rays': rays, 'mrays_per_s': rays / wall / 1e6,
+            'launches': kern.launches, 'host_syncs': sync.host_syncs,
+            'finite': bool(np.isfinite(img_np).all()),
+            'mean': float(img_np.mean()), 'shape': list(img_np.shape)}, \
+        img_np
+
+
 def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     """The microfacet and plastic BSDFs on the card: ``materials_render_rays``
     (every kernel call of one pass of cbox_materials 512x512, bit for bit
@@ -488,22 +521,10 @@ def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     own = render_rays(torch, kern, calls, bw, fl)
     emit({'phase': 'materials_render_rays', **own})
     del calls
-    torch.cuda.synchronize()
-    kern.launches = 0
-    sync.host_syncs = 0
-    stats, t0 = [], time.time()
-    img = mnt.render(scene, meta, seed=0, spp=16, ray_stats=stats)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches, syncs = kern.launches, sync.host_syncs
-    rays = float(sum(float(r) for r in stats))
-    img_np = img.cpu().numpy()
+    rec, img_np = timed_render(torch, mnt, kern, sync, scene, meta, 16)
+    launches = rec['launches']
     emit({'phase': 'materials_render', 'res': 512, 'spp': 16, 'max_depth': 8,
-          'bsdfs': {k: v['type'] for k, v in MATERIALS.items()},
-          'wall_s': wall, 'rays': rays, 'mrays_per_s': rays / wall / 1e6,
-          'launches': launches, 'host_syncs': syncs,
-          'finite': bool(np.isfinite(img_np).all()),
-          'mean': float(img_np.mean()), 'shape': list(img_np.shape)})
+          'bsdfs': {k: v['type'] for k, v in MATERIALS.items()}, **rec})
     assert 0 < launches <= 16 * 8 * 2, launches
     assert np.isfinite(img_np).all() and img_np.shape == (512, 512, 3)
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
@@ -613,6 +634,161 @@ def nlvrl_option_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
         assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
             own_maps
     return out
+
+
+def item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir) -> dict:
+    """Textures, the wrapper BSDFs, the remaining lights, samplers and
+    sensors, direct/depth and instancing on the card: ``textured_build``,
+    ``textured_render_rays`` (every kernel call of one pass of
+    cbox_textured 512x512, bit for bit and timed), ``textured_render`` (16
+    spp, ``path`` max_depth 8, in process), ``textured_cli`` (the CLI on
+    the same scene file: its EXR equal to the in-process render);
+    ``env_render_rays`` and ``env_render`` (env_spheres 512x512, 16 spp,
+    built in process); then ``item7_checks``. Returns the renders'
+    launches and the kernel's numbers on their passes."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_textured,
+                                                        env_spheres)
+    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
+    out = {}
+
+    # --- cbox_textured: a scene file with bitmaps, 512x512, 16 spp ------
+    t0 = time.time()
+    path = cbox_textured(os.path.join(workdir, 'textured'), spp=16,
+                         res=512, max_depth=8)
+    scene, meta = mnt.build_scene(load_file(path))
+    torch.cuda.synchronize()
+    emit({'phase': 'textured_build', 'seconds': time.time() - t0,
+          'n_tris': meta.n_tris, 'n_spheres': meta.n_spheres,
+          'bsdf_types': list(meta.bsdf_types),
+          'emitter_types': list(meta.emitter_types),
+          'sampler': meta.sampler, 'sensor_type': meta.sensor_type,
+          'textures': int(scene.textures.type.shape[0]),
+          'bitmap_texels': list(scene.textures.data.shape)})
+    assert meta.n_tris < WHOLE_SET_CAP and meta.has_param_textures
+    calls = record_calls(mnt, scene, meta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'textured_render_rays', **own})
+    del calls
+    rec, img_np = timed_render(torch, mnt, kern, sync, scene, meta, 16)
+    emit({'phase': 'textured_render', 'res': 512, 'spp': 16,
+          'max_depth': 8, 'scene': 'cbox_textured', **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert img_np.shape == (512, 512, 3) and 0.01 < rec['mean'] < 10.0
+    exr = os.path.join(workdir, 'textured.exr')
+    wall, cli_out = run_cli([path, '-o', exr, '-v'], timeout=400)
+    stats = json.loads([x for x in cli_out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    im, names = read_exr(exr)
+    cli_img = im[..., [names.index(c) for c in 'RGB']]
+    emit({'phase': 'textured_cli', 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'],
+          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes(),
+          'finite': bool(np.isfinite(cli_img).all()),
+          'mean': float(cli_img.mean())})
+    # the same scene file, seed and device: the same image in every bit
+    assert cli_img.tobytes() == img_np.tobytes(), \
+        "the CLI's EXR differs from the in-process render"
+    assert stats['rays'] == rec['rays']
+    out.update(launches_textured=rec['launches'],
+               launches_textured_cli=stats['kernel_launches'],
+               textured_ms=own['ms_per_launch'],
+               textured_plain_ms=own['plain_ms_per_launch'],
+               textured_bound_ms=own['bound_ms_per_launch'],
+               max_abs_err=own['max_abs_err'])
+    del scene
+
+    # --- env_spheres: built in process, 512x512, 16 spp ---------------
+    t0 = time.time()
+    escene, emeta = mnt.build_scene(env_spheres(os.path.join(workdir, 'env'),
+                                                512, 512, 16))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    calls = record_calls(mnt, escene, emeta)
+    eown = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'env_render_rays', 'build_s': build_s,
+          'n_tris': emeta.n_tris, 'env_map': list(
+              escene.emitters.env_map.shape),
+          'warp_levels': len(escene.emitters.env_warp.levels), **eown})
+    del calls
+    rec, eimg = timed_render(torch, mnt, kern, sync, escene, emeta, 16)
+    emit({'phase': 'env_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'scene': 'env_spheres', **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert eimg.shape == (512, 512, 3) and 0.01 < rec['mean'] < 10.0
+    out.update(launches_env=rec['launches'], env_ms=eown['ms_per_launch'],
+               env_plain_ms=eown['plain_ms_per_launch'],
+               env_bound_ms=eown['bound_ms_per_launch'],
+               max_abs_err=max(out['max_abs_err'], eown['max_abs_err']))
+    del escene
+
+    item7_checks(torch, mnt, compare, workdir)
+    return out
+
+
+def item7_checks(torch, mnt, compare, workdir) -> None:
+    """Slice 7 on the card against the CPU (``compare.check`` on each):
+    cbox_textured and env_spheres at 64x64, 4 spp, direct and depth at
+    64x64, the radiance and irradiance meters on a 1x1 film, a 64x32
+    photon-mapper box lit by a spot and a directional light on the CPU's
+    maps; and film_jitter of the five samplers at 512x512, spp 7 and 16,
+    equal in bits, with the card's host reads of the cycle walk."""
+    from mitsuba_nlvrl_tpu_torch.core import rng, sync
+    from mitsuba_nlvrl_tpu_torch.sampler import film_jitter
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cbox_spot_directional, cbox_textured, cornell_box, env_spheres)
+
+    def meter(kind):
+        d = cornell_box(spp=64, res=1)
+        d['sensor'] = dict(d['sensor'], type=kind)
+        return d
+    checks = (
+        ('cbox_textured', load_file(cbox_textured(
+            os.path.join(workdir, 'textured64'), spp=4, res=64)), 4),
+        ('env_spheres', env_spheres(os.path.join(workdir, 'env64'), 64, 64,
+                                    4), 4),
+        ('direct', cornell_box(spp=4, res=64,
+                               integrator={'type': 'direct'}), 4),
+        ('depth', cornell_box(spp=2, res=64,
+                              integrator={'type': 'depth'}), 2),
+        ('radiancemeter', meter('radiancemeter'), 64),
+        ('irradiancemeter', meter('irradiancemeter'), 64))
+    for name, desc, spp in checks:
+        agree = card_vs_cpu(mnt, compare, desc, spp)
+        emit({'phase': 'item7_checks', 'check': name, 'spp': spp, **agree})
+        compare.check(agree)
+    agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
+                                        cbox_spot_directional(64, 32, 2), 2)
+    emit({'phase': 'item7_checks', 'check': 'photonmapper_spot_directional',
+          'res': [64, 32], 'spp': 2, **agree, 'own_maps': own_maps})
+    compare.check(agree)
+    assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, own_maps
+    # the card's host reads are those of the Kensler cycle walk (spp 7:
+    # multijitter over 7, orthogonal over 9 and 3; spp 16: orthogonal
+    # over 25 and 5)
+    N, same, reads = 512 * 512, {}, {}
+    for sampler in ('independent', 'stratified', 'multijitter', 'ldsampler',
+                    'orthogonal'):
+        for spp in (7, 16):
+            for p in (0, spp - 1):
+                key = rng.fold_in(rng.PRNGKey(0), p)
+                before = sync.host_syncs
+                g = film_jitter(sampler, key, p, spp, N,
+                                torch.device('cuda')).cpu().numpy()
+                reads[f'{sampler}/{spp}/{p}'] = sync.host_syncs - before
+                c = film_jitter(sampler, key, p, spp, N,
+                                torch.device('cpu')).numpy()
+                same[f'{sampler}/{spp}/{p}'] = g.tobytes() == c.tobytes()
+    emit({'phase': 'item7_checks', 'check': 'film_jitter_bits', 'res': 512,
+          'equal': same, 'card_walk_reads': reads})
+    assert all(same.values()), same
+    assert reads['multijitter/7/0'] > 0 and reads['orthogonal/16/0'] > 0, \
+        reads
 
 
 def run_cli(args, timeout: float):
@@ -1070,15 +1246,23 @@ def main() -> int:
         assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
             own_maps
 
-    # --- this slice: the microfacet and plastic BSDFs, the thesis options
+    # --- slice 6: the microfacet and plastic BSDFs, the thesis options --
     mat = materials_phases(torch, mnt, kern, compare, sync, bw, fl)
     opt = nlvrl_option_phases(torch, mnt, kern, compare, sync, bw, fl)
+    # --- slice 7: textures, wrappers, lights, samplers, sensors ---------
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_item7_')
+    try:
+        it7 = item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     worst = max(worst, mat['max_abs_err'],
                 opt['nlvrl_aniso_rays']['max_abs_err'],
-                opt['long_vrl']['max_abs_err'])
+                opt['long_vrl']['max_abs_err'], it7['max_abs_err'])
     new_launches = (mat['launches_materials'] + mat['launches_materials_pm']
                     + opt['launches_nlvrl_aniso']
-                    + opt['launches_nlvrl_ris_bre'])
+                    + opt['launches_nlvrl_ris_bre']
+                    + it7['launches_textured'] + it7['launches_textured_cli']
+                    + it7['launches_env'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -1115,7 +1299,15 @@ def main() -> int:
         'long_vrl_ms': opt['long_vrl']['ms'],
         'long_vrl_plain_ms': opt['long_vrl']['plain_ms'],
         'long_vrl_bound_ms': opt['long_vrl']['bound_ms'],
-        'long_vrl_bound_by': opt['long_vrl']['bound_by']}]})
+        'long_vrl_bound_by': opt['long_vrl']['bound_by'],
+        'launches_textured': it7['launches_textured'],
+        'launches_textured_cli': it7['launches_textured_cli'],
+        'textured_ms': it7['textured_ms'],
+        'textured_plain_ms': it7['textured_plain_ms'],
+        'textured_bound_ms': it7['textured_bound_ms'],
+        'launches_env': it7['launches_env'], 'env_ms': it7['env_ms'],
+        'env_plain_ms': it7['env_plain_ms'],
+        'env_bound_ms': it7['env_bound_ms']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -1,15 +1,21 @@
 """BSDF evaluation and sampling with masked type dispatch.
 
-Port of ``mitsuba_nlvrl_tpu/bsdf/__init__.py`` for ``diffuse``,
+Port of ``mitsuba_nlvrl_tpu/bsdf/__init__.py``: ``diffuse``,
 ``conductor``, ``dielectric``, ``thindielectric``, ``null`` (the
 pass-through boundary of a medium), the microfacet ``roughconductor`` and
 ``roughdielectric``, the ``plastic``, ``roughplastic`` and ``pplastic``
-family, and ``twosided`` (the nested BSDF's row with ``F_TWOSIDED``:
-backfaces mirror to the upper hemisphere). Parameters live in a packed
-(B, BSDF_NPARAM) table with the reference's layout; each lane gathers its
-row, and every type present in the scene (``SceneMeta.bsdf_types``) is
-evaluated masked over the whole wavefront, then selected. The rough
-lobes use GGX whatever ``distribution`` says, as the reference does.
+family, and the wrappers: ``twosided`` and ``mask`` (the nested BSDF's
+row with ``F_TWOSIDED`` or ``F_MASK``: backfaces mirror to the upper
+hemisphere; a mask passes rays through with probability 1 - opacity),
+``blendbsdf`` (a row naming two sub-rows and a weight), ``normalmap`` and
+``bumpmap`` (a row naming the nested row and the texture that tilts the
+shading frame). Parameters live in a packed (B, BSDF_NPARAM) table with
+the reference's layout; each lane gathers its row, and every type present
+in the scene (``SceneMeta.bsdf_types``) is evaluated masked over the
+whole wavefront, then selected. Textured parameters are texture ids in
+slots 15-19 of a row (diffuse reflectance, alpha, specular reflectance,
+opacity, blend weight), looked up per lane. The rough lobes use GGX
+whatever ``distribution`` says, as the reference does.
 
 Directions are in the local shading frame (z = normal); ``eval`` returns
 f * |cos_theta_o| and ``sample`` returns (record, f * cos / pdf).
@@ -28,8 +34,8 @@ from ..core.fresnel import (fresnel_dielectric, fresnel_conductor,
                             reflect_local, refract_local)
 from ..scene.ior_data import conductor_rgb, lookup_ior
 from ..scene.types import (BSDF_TYPES, F_DELTA, F_NULL, F_TRANSMISSION,
-                           F_SMOOTH, F_TWOSIDED, BSDF_NPARAM, SLICE_BSDFS,
-                           not_in_slice)
+                           F_SMOOTH, F_TWOSIDED, F_MASK, BSDF_NPARAM,
+                           SLICE_BSDFS, not_in_slice)
 
 RADIANCE = 0
 IMPORTANCE = 1
@@ -49,32 +55,59 @@ _IOR_KEYS = ('int_ior', 'ext_ior')
 
 
 def pack_params(props: dict) -> Tuple[int, int, list]:
-    """Return (type_code, flags, params[BSDF_NPARAM]) for a bsdf dict."""
+    """Return (type_code, flags, params[BSDF_NPARAM]) for a bsdf dict.
+
+    A textured parameter packs an untextured fallback (0.5 grey, or the
+    scalar's default); the builder registers its texture and passes the
+    id in ``_texture_id``, ``_alpha_tex``, ``_spec_tex`` or
+    ``_opacity_tex``. The BSDF nested in ``twosided`` or ``mask`` packs
+    here too, without such ids: its own textures are not registered, as
+    in the reference. ``blendbsdf``, ``normalmap`` and ``bumpmap`` rows
+    name other rows, so the builder packs them."""
     t = props['type']
-    if t not in SLICE_BSDFS:
-        raise not_in_slice(f"bsdf type '{t}'", "item 7 (materials)")
+    if t not in SLICE_BSDFS or t in ('blendbsdf', 'normalmap', 'bumpmap'):
+        if t in BSDF_TYPES and t not in SLICE_BSDFS:
+            raise not_in_slice(f"bsdf type '{t}'", "item 10 (variants)")
+        raise NotImplementedError(f"bsdf type {t}")
     if t == 'twosided':
         # the nested BSDF's row, flagged: backfaces mirror to the front
         code, flags, p = pack_params(props.get('bsdf', {'type': 'diffuse'}))
         return code, flags | F_TWOSIDED, p
+    if t == 'mask':
+        # the nested BSDF's row with the opacity in slot 14; a textured
+        # opacity rides slot 18 as id + 1 and rewrites slot 14 per lane
+        code, flags, p = pack_params(props.get('bsdf', {'type': 'diffuse'}))
+        op = props.get('opacity', 0.5)
+        if isinstance(op, dict):
+            p[14] = 0.5
+        else:
+            p[14] = float(op if isinstance(op, (int, float)) else
+                          sum(op) / len(op))
+        p[18] = float(props.get('_opacity_tex', -1)) + 1.0
+        return code, flags | F_MASK | F_NULL | F_TRANSMISSION, p
     p = [0.0] * BSDF_NPARAM
+    # textured alpha and specular reflectance: id + 1 (0 = untextured)
+    p[16] = float(props.get('_alpha_tex', -1)) + 1.0
+    p[17] = float(props.get('_spec_tex', -1)) + 1.0
 
     def value(key, default):
         v = props.get(key, default)
-        if isinstance(v, dict) or (isinstance(v, str)
-                                   and key not in _IOR_KEYS):
-            raise not_in_slice(f"textured, spectral or named parameter "
-                               f"{key}={v!r}", "item 7 (textures)")
+        if isinstance(v, str) and key not in _IOR_KEYS:
+            raise not_in_slice(f"spectral or named parameter {key}={v!r}",
+                               "item 10 (variants)")
         return v
 
     def rgb(key, default):
         v = value(key, default)
+        if isinstance(v, dict):
+            return [0.5, 0.5, 0.5]      # textured: the fallback
         if isinstance(v, (int, float)):
             return [float(v)] * 3
         return [float(x) for x in v]
 
     def scalar(key, default):
-        return float(value(key, default))
+        v = value(key, default)
+        return float(default) if isinstance(v, dict) else float(v)
 
     def ior(key, default):
         return lookup_ior(value(key, default))
@@ -96,7 +129,7 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
 
     if t == 'diffuse':
         p[0:3] = rgb('reflectance', 0.5)
-        p[15] = -1.0     # no reflectance texture
+        p[15] = float(props.get('_texture_id', -1))
         return BSDF_TYPES[t], F_SMOOTH, p
     if t in ('conductor', 'roughconductor'):
         p[0:3], p[3:6] = conductor_eta_k()
@@ -124,7 +157,7 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
     p[5] = 1.0 if props.get('nonlinear', False) else 0.0
     p[6:9] = rgb('specular_reflectance', 1.0)
     p[9] = scalar('alpha', 0.1 if t != 'pplastic' else 0.06)
-    p[15] = -1.0     # no diffuse_reflectance texture
+    p[15] = float(props.get('_texture_id', -1))
     if t == 'pplastic':
         # the specular lobe's sampling weight s_mean / (d_mean + s_mean)
         d_mean = sum(p[0:3]) / 3.0
@@ -137,9 +170,10 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
 # --- per-type implementations ----------------------------------------------
 # Each takes gathered per-lane params P: (N, BSDF_NPARAM), local wi/wo.
 
-def _diffuse_eval(P, wi, wo):
+def _diffuse_eval(P, wi, wo, textured_refl=None):
+    refl = textured_refl if textured_refl is not None else P[:, 0:3]
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
-    val = P[:, 0:3] * (m.InvPi * fr.cos_theta(wo))[:, None]
+    val = refl * (m.InvPi * fr.cos_theta(wo))[:, None]
     return torch.where(act[:, None], val, 0.0)
 
 
@@ -148,11 +182,12 @@ def _diffuse_pdf(P, wi, wo):
     return torch.where(act, warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
 
 
-def _diffuse_sample(P, wi, u1, u2, mode):
+def _diffuse_sample(P, wi, u1, u2, mode, textured_refl=None):
+    refl = textured_refl if textured_refl is not None else P[:, 0:3]
     wo = warp.square_to_cosine_hemisphere(u2)
     pdf = warp.square_to_cosine_hemisphere_pdf(wo)
     act = fr.cos_theta(wi) > 0
-    weight = torch.where(act[:, None], P[:, 0:3], 0.0)
+    weight = torch.where(act[:, None], refl, 0.0)
     bs = BSDFSample(wo=wo, pdf=torch.where(act, pdf, 0.0),
                     eta=torch.ones_like(pdf), delta=torch.zeros_like(act),
                     null=torch.zeros_like(act))
@@ -533,31 +568,238 @@ def _maybe_flip(flags, wi, *others):
     return (wi * fv,) + tuple(o * fv for o in others)
 
 
-def eval(scene, meta, si, wo, mode=RADIANCE):
-    """f(wi, wo) * |cos_theta_o| for each lane (zero for pure-delta lanes)."""
+# --- textured parameters and the wrappers ------------------------------------
+
+def _texture_kw(scene, meta, si) -> dict:
+    """The hit point and vertex colour, where the scene's textures read
+    them."""
+    from .. import texture as tex_mod
+    kw = {}
+    if getattr(meta, 'has_3d_textures', False):
+        kw['p_world'] = si.p
+    if getattr(meta, 'has_attr_textures', False):
+        kw['attr'] = tex_mod.vertex_attr(scene, si)
+    return kw
+
+
+def _textured_reflectance(scene, meta, si, P):
+    """Diffuse reflectance with its texture (slot 15 = texture id), or
+    None in a scene without textures."""
+    if not getattr(meta, 'has_textures', False):
+        return None
+    from .. import texture as tex_mod
+    tex_id = P[:, 15].to(torch.int32)
+    tex = tex_mod.eval(scene, tex_id, si.uv, **_texture_kw(scene, meta, si))
+    return torch.where((tex_id >= 0)[:, None], tex, P[:, 0:3])
+
+
+def _apply_param_textures(scene, meta, si, P, btype):
+    """Rewrite the gathered rows with their textured values: slot 16
+    (alpha texture id + 1, channel 0) -> alpha_u/v in slots 9 and 10;
+    slot 17 (specular reflectance id + 1) -> slots 6:9, or 2:5 for the
+    dielectric family; slot 15 (the plastic family's diffuse texture
+    id) -> 0:3; slot 18 (mask opacity id + 1, channel 0) -> slot 14."""
+    if not getattr(meta, 'has_param_textures', False):
+        return P
+    from .. import texture as tex_mod
+    P = P.clone()
+    a_id = P[:, 16].to(torch.int32) - 1
+    tex_a = tex_mod.eval(scene, a_id, si.uv)[:, 0]
+    alpha_ok = a_id >= 0
+    P[:, 9] = torch.where(alpha_ok, tex_a, P[:, 9])
+    P[:, 10] = torch.where(alpha_ok, tex_a, P[:, 10])
+    s_id = P[:, 17].to(torch.int32) - 1
+    tex_s = tex_mod.eval(scene, s_id, si.uv)
+    diel = ((btype == BSDF_TYPES['dielectric'])
+            | (btype == BSDF_TYPES['thindielectric'])
+            | (btype == BSDF_TYPES['roughdielectric']))
+    P[:, 6:9] = torch.where(((s_id >= 0) & ~diel)[:, None], tex_s,
+                            P[:, 6:9])
+    P[:, 2:5] = torch.where(((s_id >= 0) & diel)[:, None], tex_s, P[:, 2:5])
+    plas = ((btype == BSDF_TYPES['plastic'])
+            | (btype == BSDF_TYPES['roughplastic'])
+            | (btype == BSDF_TYPES['pplastic']))
+    d_id = torch.where(plas, P[:, 15].to(torch.int32), -1)
+    tex_d = tex_mod.eval(scene, d_id, si.uv)
+    P[:, 0:3] = torch.where((d_id >= 0)[:, None], tex_d, P[:, 0:3])
+    o_id = P[:, 18].to(torch.int32) - 1
+    tex_o = tex_mod.eval(scene, torch.clamp(o_id, min=0), si.uv)[:, 0]
+    P[:, 14] = torch.where(o_id >= 0, tex_o, P[:, 14])
+    return P
+
+
+_BLEND = BSDF_TYPES['blendbsdf']
+_NORMALMAP = BSDF_TYPES['normalmap']
+_BUMPMAP = BSDF_TYPES['bumpmap']
+# the bump map's central-difference step in uv
+_BUMP_EPS = 5e-4
+
+
+def _has_perturb(meta):
+    return _NORMALMAP in meta.bsdf_types or _BUMPMAP in meta.bsdf_types
+
+
+def _perturb_si(scene, meta, si):
+    """Resolve the normalmap and bumpmap rows: tilt the shading frame by
+    the row's texture and forward to the nested row. normalmap: the
+    tangent-space normal 2 rgb - 1. bumpmap: central differences of the
+    height texture in uv tilt the normal by -scale (dh/du, dh/dv) (uv
+    differences, not the surface partials dp_du: the hit record carries
+    unit tangents, as in the reference). The new tangent is the old one
+    made orthogonal to the new normal. Every lane's frame is rebuilt
+    this way, unperturbed lanes about their own normal."""
+    from .. import texture as tex_mod
+    from ..core.frame import Frame
+    btype, _, P = _rows(scene, si)
+    is_nm = btype == _NORMALMAP
+    is_bm = btype == _BUMPMAP
+    is_pert = is_nm | is_bm
+    tex_id = torch.where(is_pert, P[:, 1].to(torch.int32), -1)
+    N = btype.shape[0]
+    dev = si.uv.device
+    n_local = torch.cat([torch.zeros((N, 2), device=dev),
+                         torch.ones((N, 1), device=dev)], -1)
+    if _NORMALMAP in meta.bsdf_types:
+        rgb = tex_mod.eval(scene, tex_id, si.uv)
+        n_local = torch.where(is_nm[:, None], 2.0 * rgb - 1.0, n_local)
+    if _BUMPMAP in meta.bsdf_types:
+        scale = P[:, 2]
+        du = torch.tensor([_BUMP_EPS, 0.0], device=dev)
+        dv = torch.tensor([0.0, _BUMP_EPS], device=dev)
+
+        def h(uv):
+            return tex_mod.eval(scene, tex_id, uv)[:, 0]
+
+        dh_du = (h(si.uv + du) - h(si.uv - du)) / (2.0 * _BUMP_EPS)
+        dh_dv = (h(si.uv + dv) - h(si.uv - dv)) / (2.0 * _BUMP_EPS)
+        n_bm = torch.stack([-scale * dh_du, -scale * dh_dv,
+                            torch.ones_like(dh_du)], -1)
+        n_local = torch.where(is_bm[:, None], n_bm, n_local)
+    f = si.sh_frame
+    n_w = m.normalize(f.to_world(m.normalize(n_local)))
+    n_w = torch.where(is_pert[:, None], n_w, f.n)
+    s = m.normalize(f.s - n_w * m.dot(n_w, f.s)[:, None])
+    newf = Frame(s, m.cross(n_w, s), n_w)
+    nested = torch.where(is_pert, P[:, 0].to(torch.int32), si.bsdf_idx)
+    return si._replace(bsdf_idx=nested, sh_frame=newf,
+                       wi=newf.to_local(f.to_world(si.wi)))
+
+
+def _blend_weight(scene, meta, si, P):
+    """Per-lane blend weight: slot 2, or the mean of the slot-19 texture
+    (id + 1)."""
+    w = P[:, 2]
+    if not getattr(meta, 'has_textures', False):
+        return w
+    from .. import texture as tex_mod
+    t_id = P[:, 19].to(torch.int32) - 1
+    tex = tex_mod.eval(scene, torch.clamp(t_id, min=0), si.uv,
+                       **_texture_kw(scene, meta, si))
+    return torch.where(t_id >= 0, tex.mean(-1), w)
+
+
+def _blend_sub(scene, si, P, which):
+    """The hit with its BSDF row replaced by the blend's sub-row
+    ``which``. Every lane reads slots 0 and 1 of its row, rows that are
+    not blends too (their slots hold IORs and colours); such lanes are
+    clamped into the table (the reference relies on JAX clamping) and
+    their result is discarded."""
+    row = torch.clamp(P[:, which].to(torch.int32), 0,
+                      scene.bsdfs.type.shape[0] - 1)
+    return si._replace(bsdf_idx=row)
+
+
+def _unperturb_wo(f_orig, si, bs):
+    """A sampled direction from the perturbed shading frame back into the
+    caller's frame."""
+    if f_orig is None:
+        return bs
+    return bs._replace(wo=f_orig.to_local(si.sh_frame.to_world(bs.wo)))
+
+
+def eval(scene, meta, si, wo, mode=RADIANCE, textures=None,
+         _depth: int = 0):
+    """f(wi, wo) * |cos_theta_o| for each lane (zero for pure-delta lanes).
+    ``_depth`` 1 evaluates a blend's sub-rows (no second perturbation or
+    blend)."""
+    if _depth == 0 and _has_perturb(meta):
+        f0 = si.sh_frame
+        si = _perturb_si(scene, meta, si)
+        wo = si.sh_frame.to_local(f0.to_world(wo))
     btype, flags, P = _rows(scene, si)
+    P = _apply_param_textures(scene, meta, si, P, btype)
+    if textures is None:
+        textures = _textured_reflectance(scene, meta, si, P)
+    if _BLEND in meta.bsdf_types and _depth == 0:
+        w = _blend_weight(scene, meta, si, P)
+        fa = eval(scene, meta, _blend_sub(scene, si, P, 0), wo, mode, None, 1)
+        fb = eval(scene, meta, _blend_sub(scene, si, P, 1), wo, mode, None, 1)
+        blend_val = (1.0 - w)[:, None] * fa + w[:, None] * fb
+        base = eval(scene, meta, si, wo, mode, textures, 1)
+        return torch.where((btype == _BLEND)[:, None], blend_val, base)
     wi, wo = _maybe_flip(flags, si.wi, wo)
     out = torch.zeros(wo.shape[:-1] + (3,), device=wo.device)
     for code in meta.bsdf_types:
         fn = _EVAL.get(code)
-        if fn is not None:
-            out = torch.where((btype == code)[:, None], fn(P, wi, wo), out)
-    return out
+        if fn is None:
+            continue
+        kw = {}
+        if code == BSDF_TYPES['diffuse'] and textures is not None:
+            kw['textured_refl'] = textures
+        out = torch.where((btype == code)[:, None], fn(P, wi, wo, **kw), out)
+    # a masked row's surface lobe is attenuated by its opacity
+    return torch.where(((flags & F_MASK) > 0)[:, None], out * P[:, 14:15],
+                       out)
 
 
-def pdf(scene, meta, si, wo):
+def pdf(scene, meta, si, wo, _depth: int = 0):
+    if _depth == 0 and _has_perturb(meta):
+        f0 = si.sh_frame
+        si = _perturb_si(scene, meta, si)
+        wo = si.sh_frame.to_local(f0.to_world(wo))
     btype, flags, P = _rows(scene, si)
+    P = _apply_param_textures(scene, meta, si, P, btype)
+    if _BLEND in meta.bsdf_types and _depth == 0:
+        w = _blend_weight(scene, meta, si, P)
+        pa = pdf(scene, meta, _blend_sub(scene, si, P, 0), wo, 1)
+        pb = pdf(scene, meta, _blend_sub(scene, si, P, 1), wo, 1)
+        base = pdf(scene, meta, si, wo, 1)
+        return torch.where(btype == _BLEND, (1.0 - w) * pa + w * pb, base)
     wi, wo = _maybe_flip(flags, si.wi, wo)
     out = torch.zeros(wo.shape[:-1], device=wo.device)
     for code in meta.bsdf_types:
         fn = _PDF.get(code)
         if fn is not None:
             out = torch.where(btype == code, fn(P, wi, wo), out)
-    return out
+    return torch.where((flags & F_MASK) > 0, out * P[:, 14], out)
 
 
-def sample(scene, meta, si, u1, u2, mode=RADIANCE):
+def sample(scene, meta, si, u1, u2, mode=RADIANCE, textures=None,
+           _depth: int = 0):
+    f_orig = None
+    if _depth == 0 and _has_perturb(meta):
+        f_orig = si.sh_frame
+        si = _perturb_si(scene, meta, si)
     btype, flags, P = _rows(scene, si)
+    P = _apply_param_textures(scene, meta, si, P, btype)
+    if textures is None:
+        textures = _textured_reflectance(scene, meta, si, P)
+    if _BLEND in meta.bsdf_types and _depth == 0:
+        # pick a sub-row by the blend weight and reuse its sample, the pdf
+        # scaled by the pick's probability
+        is_b = btype == _BLEND
+        w = _blend_weight(scene, meta, si, P)
+        pick_b = u1 < w
+        sub_row = torch.where(pick_b, P[:, 1], P[:, 0]).to(torch.int32)
+        si_sub = si._replace(bsdf_idx=torch.where(is_b, sub_row,
+                                                  si.bsdf_idx))
+        u1r = torch.where(is_b, torch.where(
+            pick_b, u1 / torch.clamp(w, min=1e-6),
+            (u1 - w) / torch.clamp(1.0 - w, min=1e-6)), u1)
+        bs, weight = sample(scene, meta, si_sub, u1r, u2, mode, None, 1)
+        prob = torch.where(is_b, torch.where(pick_b, w, 1.0 - w), 1.0)
+        bs = bs._replace(pdf=bs.pdf * prob)
+        return _unperturb_wo(f_orig, si, bs), weight
     (wi,) = _maybe_flip(flags, si.wi)
     N = wi.shape[0]
     dev = wi.device
@@ -568,7 +810,13 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE):
                     null=torch.zeros((N,), dtype=torch.bool, device=dev))
     weight = torch.zeros((N, 3), device=dev)
     for code in meta.bsdf_types:
-        bs_c, w_c = _SAMPLE[code](P, wi, u1, u2, mode)
+        fn = _SAMPLE.get(code)
+        if fn is None:
+            continue
+        kw = {}
+        if code == BSDF_TYPES['diffuse'] and textures is not None:
+            kw['textured_refl'] = textures
+        bs_c, w_c = fn(P, wi, u1, u2, mode, **kw)
         sel = btype == code
         bs = BSDFSample(
             wo=torch.where(sel[:, None], bs_c.wo, bs.wo),
@@ -579,9 +827,19 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE):
         weight = torch.where(sel[:, None], w_c, weight)
     # the sampled direction of a flipped twosided lane goes back below
     flip = _flip_of(flags, si.wi)[:, None]
-    wo = torch.where(flip, bs.wo * torch.tensor([1.0, 1.0, -1.0], device=dev),
-                     bs.wo)
-    return bs._replace(wo=wo), weight
+    bs = bs._replace(wo=torch.where(
+        flip, bs.wo * torch.tensor([1.0, 1.0, -1.0], device=dev), bs.wo))
+    # a masked row passes straight through with probability 1 - opacity
+    # (u1 is reused by the nested lobe, as in the reference)
+    opacity = P[:, 14]
+    thru = ((flags & F_MASK) > 0) & (u1 >= opacity)
+    bs = BSDFSample(
+        wo=torch.where(thru[:, None], -wi, bs.wo),
+        pdf=torch.where(thru, 1.0 - opacity, bs.pdf),
+        eta=torch.where(thru, 1.0, bs.eta),
+        delta=bs.delta | thru, null=bs.null | thru)
+    weight = torch.where(thru[:, None], 1.0, weight)
+    return _unperturb_wo(f_orig, si, bs), weight
 
 
 def flags_of(scene, si):
@@ -589,9 +847,12 @@ def flags_of(scene, si):
 
 
 def eval_null_transmission(scene, meta, si):
-    """Transmittance of straight-through rays: 1 for null BSDFs, 0 for
-    the other types of this slice (``mask`` and the polarizing elements
-    come with items 7 and 10)."""
-    is_null = (flags_of(scene, si) & F_NULL) > 0
-    return torch.where(is_null[:, None], 1.0,
-                       torch.zeros((si.wi.shape[0], 3), device=si.wi.device))
+    """Transmittance of straight-through rays: 1 for null BSDFs, 1 -
+    opacity for masked ones, 0 otherwise."""
+    btype, flags, P = _rows(scene, si)
+    P = _apply_param_textures(scene, meta, si, P, btype)
+    is_mask = (flags & F_MASK) > 0
+    is_null = ((flags & F_NULL) > 0) & ~is_mask
+    out = torch.where(is_null[:, None], 1.0,
+                      torch.zeros((si.wi.shape[0], 3), device=si.wi.device))
+    return torch.where(is_mask[:, None], 1.0 - P[:, 14:15], out)

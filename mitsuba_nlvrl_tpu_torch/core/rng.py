@@ -132,3 +132,12 @@ class Sampler(NamedTuple):
         """Independent sampler for a sub-pass."""
         return Sampler.make(fold_in(self.key, (0x9e3779b9 + salt) & _MASK),
                             self.lanes, self.device)
+
+
+def seed_for(base_key, *indices) -> torch.Tensor:
+    """The key of a (pass, chunk, device, ...) tuple: ``fold_in`` of each
+    index in turn."""
+    k = base_key
+    for ix in indices:
+        k = fold_in(k, ix)
+    return k

@@ -1,5 +1,5 @@
-"""Sampling warps: [0,1)^2 -> distributions on disks, spheres, hemispheres
-and triangles.
+"""Sampling warps: [0,1)^2 -> distributions on disks, spheres, hemispheres,
+cones and triangles.
 
 Port of the warps of ``mitsuba_nlvrl_tpu/core/warp.py`` that the
 integrators and the BSDFs use (the Beckmann warp serves
@@ -69,3 +69,13 @@ def square_to_beckmann_pdf(v, alpha):
     tan2 = (1.0 - ct * ct) / torch.clamp(ct * ct, min=1e-20)
     pdf = torch.exp(-tan2 / (alpha * alpha)) / (m.Pi * alpha * alpha * ct ** 3)
     return torch.where(ct > 1e-9, pdf, 0.0)
+
+
+def square_to_uniform_cone(sample, cos_cutoff):
+    """Uniform direction in a cone around +z with cos(angle) >=
+    cos_cutoff."""
+    cos_theta = (1.0 - sample[..., 0]) + sample[..., 0] * cos_cutoff
+    sin_theta = m.safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * m.Pi * sample[..., 1]
+    return torch.stack([torch.cos(phi) * sin_theta,
+                        torch.sin(phi) * sin_theta, cos_theta], dim=-1)

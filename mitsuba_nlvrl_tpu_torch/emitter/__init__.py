@@ -1,11 +1,14 @@
 """Emitter evaluation and sampling with masked type dispatch.
 
-Port of ``mitsuba_nlvrl_tpu/emitter/__init__.py`` for ``area``, ``point``
-and ``constant``: uniform emitter pick plus per-type direction sampling
-toward a reference point, emission for rays that hit emissive geometry
-or escape to the environment, and emission rays for light tracing
-(``sample_ray``). The reference's one-hot-matmul gathers
-(``ops/gather.py``, a TPU workaround) are plain indexing here.
+Port of ``mitsuba_nlvrl_tpu/emitter/__init__.py`` for ``area``, ``point``,
+``constant``, ``directional``, ``spot``, ``envmap`` and ``projector``:
+uniform emitter pick plus per-type direction sampling toward a reference
+point, emission for rays that hit emissive geometry or escape to the
+environment (the constant light and the environment map, whose
+luminance is importance-sampled through ``core/distr2d.py``), and
+emission rays for light tracing (``sample_ray``). The reference's
+one-hot-matmul gathers (``ops/gather.py``, a TPU workaround) are plain
+indexing here.
 """
 from __future__ import annotations
 
@@ -19,12 +22,95 @@ from ..core import warp
 from ..core.frame import Frame
 from ..core.ray import Ray
 from ..core.records import DirectionSample
-from ..scene.types import (EMITTER_TYPES, EMITTER_NPARAM, SLICE_EMITTERS,
-                           not_in_slice)
+from ..scene.types import EMITTER_TYPES, EMITTER_NPARAM
 
 E_AREA = EMITTER_TYPES['area']
 E_POINT = EMITTER_TYPES['point']
 E_CONSTANT = EMITTER_TYPES['constant']
+E_DIRECTIONAL = EMITTER_TYPES['directional']
+E_SPOT = EMITTER_TYPES['spot']
+E_ENVMAP = EMITTER_TYPES['envmap']
+E_PROJECTOR = EMITTER_TYPES['projector']
+
+
+# --- environment map helpers -------------------------------------------------
+
+def _env_uv_from_local(d):
+    """Local direction -> equirectangular uv."""
+    u = torch.atan2(d[..., 0], -d[..., 2]) * m.InvTwoPi
+    u = torch.where(u < 0.0, u + 1.0, u)
+    v = m.safe_acos(torch.clamp(d[..., 1], -1.0, 1.0)) * m.InvPi
+    return u, v
+
+
+def _env_dir_from_uv(u, v):
+    """uv -> local direction (a spherical direction, then (y, z, -x))."""
+    theta = v * m.Pi
+    phi = u * (2.0 * m.Pi)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack([st * torch.sin(phi), ct, -st * torch.cos(phi)],
+                       dim=-1)
+
+
+def _env_eval_uv(scene, u, v):
+    """Bilinear environment-map lookup times its scale."""
+    tex = scene.emitters.env_map
+    H, W = tex.shape[0], tex.shape[1]
+    x = u * W - 0.5
+    y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.clamp(y.to(torch.int64), 0, H - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    tx = x - x0
+    ty = y - y0
+    x0w = torch.remainder(x0, W)
+    x1w = torch.remainder(x0 + 1, W)
+    c = (tex[y0, x0w] * ((1 - tx) * (1 - ty))[..., None]
+         + tex[y0, x1w] * (tx * (1 - ty))[..., None]
+         + tex[y1, x0w] * ((1 - tx) * ty)[..., None]
+         + tex[y1, x1w] * (tx * ty)[..., None])
+    return c * scene.emitters.env_scale
+
+
+def _env_solid_angle_pdf(pdf_uv, d_local):
+    """The unit-square density of a direction over its solid angle
+    (1 / (2 pi^2 sin theta))."""
+    inv_sin = m.safe_rsqrt(torch.clamp(
+        m.sqr(d_local[..., 0]) + m.sqr(d_local[..., 2]), min=1e-12))
+    return pdf_uv * inv_sin / (2.0 * m.Pi * m.Pi)
+
+
+def _env_sample(scene, u2):
+    """A direction toward the environment map, sampled by luminance:
+    (local direction, world direction, solid-angle pdf, radiance)."""
+    from ..core import distr2d
+    pos, pdf_uv = distr2d.sample_hierarchical(scene.emitters.env_warp, u2)
+    uu, vv = pos[..., 0], pos[..., 1]
+    d_local = _env_dir_from_uv(uu, vv)
+    d_w = m.normalize(scene.emitters.env_to_world.apply_vector(d_local))
+    return d_local, d_w, _env_solid_angle_pdf(pdf_uv, d_local), \
+        _env_eval_uv(scene, uu, vv)
+
+
+def _env_local(scene, ray_d):
+    return m.normalize(
+        scene.emitters.env_to_world.inverse().apply_vector(ray_d))
+
+
+def _rotate(Rflat, v):
+    """Row-major 3x3 matrices (N, 9) times vectors (N, 3)."""
+    R = Rflat.reshape(-1, 3, 3)
+    return (R[:, :, 0] * v[:, 0:1] + R[:, :, 1] * v[:, 1:2]
+            + R[:, :, 2] * v[:, 2:3])
+
+
+def _slide(scene, P, sel, uu, vv):
+    """The projector's slide at (uu, vv) on the lanes ``sel``; 1 where the
+    projector has no slide texture."""
+    from .. import texture as tex_mod
+    tex_id = torch.where(sel, P[:, 26].to(torch.int32) - 1, -1)
+    slide = tex_mod.eval(scene, tex_id, torch.stack([uu, vv], -1))
+    return torch.where((P[:, 26] > 0)[:, None], slide, 1.0)
 
 
 def spectrum_rgb(v: dict) -> list:
@@ -57,8 +143,8 @@ def spectrum_rgb(v: dict) -> list:
 def pack_params(props: dict) -> Tuple[int, list]:
     """Pack an emitter to (type_code, params[EMITTER_NPARAM])."""
     t = props['type']
-    if t not in SLICE_EMITTERS:
-        raise not_in_slice(f"emitter type '{t}'", "item 7 (lights)")
+    if t not in EMITTER_TYPES:
+        raise ValueError(f"unknown emitter type '{t}'")
     p = [0.0] * EMITTER_NPARAM
 
     def rgb(key, default):
@@ -76,8 +162,45 @@ def pack_params(props: dict) -> Tuple[int, list]:
         p[0:3] = [float(x) for x in props.get('position', (0, 0, 0))]
         p[3:6] = rgb('intensity', 1.0)
         return E_POINT, p
-    p[0:3] = rgb('radiance', 1.0)
-    return E_CONSTANT, p
+    if t == 'constant':
+        p[0:3] = rgb('radiance', 1.0)
+        return E_CONSTANT, p
+    if t == 'directional':
+        p[0:3] = [float(x) for x in props.get('direction', (0, 0, 1))]
+        p[3:6] = rgb('irradiance', 1.0)
+        return E_DIRECTIONAL, p
+    if t == 'envmap':
+        p[0] = float(props.get('scale', 1.0))
+        return E_ENVMAP, p
+    import numpy as np
+    if t == 'spot':
+        p[0:3] = [float(x) for x in props.get('position', (0, 0, 0))]
+        p[3:6] = [float(x) for x in props.get('direction', (0, 0, 1))]
+        p[6:9] = rgb('intensity', 1.0)
+        cutoff = float(props.get('cutoff_angle', 20.0))
+        beam = float(props.get('beam_width', cutoff * 0.75))
+        p[9] = float(np.cos(np.deg2rad(cutoff)))
+        p[10] = float(np.cos(np.deg2rad(beam)))
+        return E_SPOT, p
+    # projector: the reciprocal of the perspective camera, its irradiance
+    # given on the virtual image plane at z = 1. Layout: position [0:3],
+    # scale rgb [3:6], tan(fov/2) x and y [6], [7], the emitter-to-world
+    # rotation [8:17] and its inverse [17:26], slide texture id + 1 [26].
+    # The builder registers the slide (_irradiance_tex) and passes the
+    # bitmap's aspect (_aspect).
+    tw = props.get('to_world')
+    M = np.asarray(tw.m) if tw is not None else np.eye(4)
+    p[0:3] = [float(x) for x in M[:3, 3]]
+    p[3:6] = rgb('scale', 1.0)
+    fov = float(props.get('fov', 39.597755))  # 50mm-equivalent default
+    tan_x = float(np.tan(np.deg2rad(fov) * 0.5))
+    p[6] = tan_x
+    p[7] = tan_x / max(float(props.get('_aspect', 1.0)), 1e-6)
+    R = M[:3, :3]
+    p[8:17] = [float(x) for x in R.reshape(-1)]
+    p[17:26] = [float(x) for x in np.linalg.inv(R).reshape(-1)]
+    p[26] = float(props.get('_irradiance_tex', -1)) + 1.0
+    return E_PROJECTOR, p
 
 
 def _segment_searchsorted(cdf, offset, count, u):
@@ -109,7 +232,7 @@ def eval_hit(scene, meta, si, active):
 
 
 def eval_env(scene, meta, ray_d, active):
-    """Environment radiance for escaped rays (constant emitters)."""
+    """Environment radiance for escaped rays (constant and envmap)."""
     out = torch.zeros(ray_d.shape[:-1] + (3,), device=ray_d.device)
     if E_CONSTANT in meta.emitter_types:
         is_const = scene.emitters.type == E_CONSTANT
@@ -118,7 +241,16 @@ def eval_env(scene, meta, ray_d, active):
         # rows summed left to right, as the reference's reduction adds them
         rad = functools.reduce(torch.add, rad.unbind(0))
         out = out + torch.where(active[:, None], rad[None, :], 0.0)
+    if E_ENVMAP in meta.emitter_types:
+        u, v = _env_uv_from_local(_env_local(scene, ray_d))
+        out = out + torch.where(active[:, None], _env_eval_uv(scene, u, v),
+                                0.0)
     return out
+
+
+def env_emitter_idx(scene, meta):
+    """The first constant emitter's row (meaningful where there is one)."""
+    return torch.argmax((scene.emitters.type == E_CONSTANT).to(torch.int32))
 
 
 def sample_direction(scene, meta, ref_p, u_sel, u2, active
@@ -163,7 +295,9 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
                 0, n_cdf - 1).to(torch.int32)
         else:
             pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u2[:, 0])
-        pl = pos.long()
+        # lanes of other emitters search past the table's end (the
+        # reference relies on JAX clamping); they are masked out below
+        pl = torch.clamp(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
         tri = em.em_tri_idx[pl].long()
         # remap u within the cdf cell for the barycentric sample
         cdf_hi = em.em_tri_cdf[pl]
@@ -205,6 +339,23 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
         delta = delta | sel
         spec = torch.where(sel[:, None], inten, spec)
 
+    if E_SPOT in meta.emitter_types:
+        pos_p = P[:, 0:3]
+        dir_p = m.normalize(P[:, 3:6])
+        d_p = pos_p - ref_p
+        dist2 = m.squared_norm(d_p)
+        cos_f = m.dot(m.normalize(-d_p), dir_p)     # emitter -> ref
+        cos_cut, cos_beam = P[:, 9], P[:, 10]
+        falloff = torch.clamp(m.safe_div(cos_f - cos_cut,
+                                         cos_beam - cos_cut), 0.0, 1.0)
+        inside = cos_f > cos_cut
+        inten = P[:, 6:9] * (falloff * inside * m.safe_rcp(dist2))[:, None]
+        sel = etype == E_SPOT
+        p = torch.where(sel[:, None], pos_p, p)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        spec = torch.where(sel[:, None], inten, spec)
+
     if E_CONSTANT in meta.emitter_types:
         d_c = warp.square_to_uniform_sphere(u2)
         r_world = 2.0 * scene.bsphere_r
@@ -214,6 +365,47 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
         n = torch.where(sel[:, None], -d_c, n)
         pdf = torch.where(sel, warp.square_to_uniform_sphere_pdf(d_c), pdf)
         spec = torch.where(sel[:, None], P[:, 0:3], spec)
+
+    if E_DIRECTIONAL in meta.emitter_types:
+        dir_p = m.normalize(P[:, 0:3])
+        p_d = ref_p - dir_p * (2.0 * scene.bsphere_r)
+        sel = etype == E_DIRECTIONAL
+        p = torch.where(sel[:, None], p_d, p)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        spec = torch.where(sel[:, None], P[:, 3:6], spec)
+
+    if E_PROJECTOR in meta.emitter_types:
+        # a delta-position slide projector: the reference point in the
+        # emitter's frame, the slide at its frustum uv, weighted by
+        # pi / z^2 / cos(axis angle) so that a constant slide gives a
+        # constant irradiance at z = 1
+        pos_p = P[:, 0:3]
+        rel = ref_p - pos_p
+        local = _rotate(P[:, 17:26], rel)
+        z = local[:, 2]
+        uu = 0.5 * (1.0 - m.safe_div(m.safe_div(local[:, 0], z), P[:, 6]))
+        vv = 0.5 * (1.0 - m.safe_div(m.safe_div(local[:, 1], z), P[:, 7]))
+        inside = (z > 0) & (uu >= 0) & (uu <= 1) & (vv >= 0) & (vv <= 1)
+        sel = etype == E_PROJECTOR
+        slide = _slide(scene, P, sel & inside, uu, vv)
+        cos_axis = m.safe_div(z, m.norm(rel))
+        inten = slide * P[:, 3:6] * (m.Pi * m.safe_rcp(m.sqr(z))
+                                     * m.safe_rcp(cos_axis)
+                                     * inside)[:, None]
+        p = torch.where(sel[:, None], pos_p, p)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        spec = torch.where(sel[:, None], inten, spec)
+
+    if E_ENVMAP in meta.emitter_types:
+        _, d_w, pdf_e, spec_e = _env_sample(scene, u2)
+        p_e = ref_p + d_w * (2.0 * scene.bsphere_r)
+        sel = etype == E_ENVMAP
+        p = torch.where(sel[:, None], p_e, p)
+        n = torch.where(sel[:, None], -d_w, n)
+        pdf = torch.where(sel, pdf_e, pdf)
+        spec = torch.where(sel[:, None], spec_e, spec)
 
     d = p - ref_p
     dist = m.norm(d)
@@ -257,10 +449,20 @@ def pdf_direction(scene, meta, ref_p, si, active):
 
 
 def pdf_env_direction(scene, meta, active, ray_d=None):
-    """Solid-angle pdf for escaped rays hitting the constant emitter."""
+    """Solid-angle pdf for escaped rays hitting the environment (with a
+    constant light present, the constant light's alone, as in the
+    reference)."""
     E = max(scene.emitters.type.shape[0], 1)
     if E_CONSTANT in meta.emitter_types:
         return torch.where(active, m.InvFourPi / E, 0.0)
+    if E_ENVMAP in meta.emitter_types and ray_d is not None:
+        from ..core import distr2d
+        d_local = _env_local(scene, ray_d)
+        u, v = _env_uv_from_local(d_local)
+        pdf_uv = distr2d.eval_hierarchical(scene.emitters.env_warp,
+                                           torch.stack([u, v], dim=-1))
+        pdf = _env_solid_angle_pdf(pdf_uv, d_local)
+        return torch.where(active, pdf / E, 0.0)
     return torch.zeros(active.shape, device=active.device)
 
 
@@ -288,7 +490,9 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         off = em.tri_offset[el]
         cnt = torch.clamp(em.tri_count[el], min=1)
         pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u_pos[:, 0])
-        pl = pos.long()
+        # lanes of other emitters search past the table's end (the
+        # reference relies on JAX clamping); they are masked out below
+        pl = torch.clamp(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
         tri = em.em_tri_idx[pl].long()
         cdf_hi = em.em_tri_cdf[pl]
         cdf_lo = torch.where(pos > off,
@@ -320,6 +524,19 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         w = torch.where(sel, P[:, 3:6] * (4.0 * m.Pi), w)
         n_o = torch.where(sel, d_p, n_o)
 
+    if E_SPOT in meta.emitter_types:
+        cos_cut = P[:, 9]
+        local = warp.square_to_uniform_cone(u_dir, cos_cut)
+        d_s = Frame.from_normal(m.normalize(P[:, 3:6])).to_world(local)
+        falloff = torch.clamp(m.safe_div(local[:, 2] - cos_cut,
+                                         P[:, 10] - cos_cut), 0.0, 1.0)
+        inv_pdf = 2.0 * m.Pi * (1.0 - cos_cut)
+        sel = (etype == E_SPOT)[:, None]
+        o = torch.where(sel, P[:, 0:3], o)
+        d = torch.where(sel, d_s, d)
+        w = torch.where(sel, P[:, 6:9] * (falloff * inv_pdf)[:, None], w)
+        n_o = torch.where(sel, d_s, n_o)
+
     if E_CONSTANT in meta.emitter_types:
         # origin uniform on the scene's bounding sphere, direction
         # cosine-sampled about the inward normal: L * 4 pi^2 R^2
@@ -334,6 +551,55 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         d = torch.where(sel, d_c, d)
         w = torch.where(sel, w_c, w)
         n_o = torch.where(sel, -v0, n_o)
+
+    if E_DIRECTIONAL in meta.emitter_types:
+        # origin on the disk across the beam on the bounding sphere, the
+        # direction fixed: E * pi R^2
+        R = scene.bsphere_r
+        d_dir = m.normalize(P[:, 0:3])
+        disk = warp.square_to_uniform_disk_concentric(u_pos) * R
+        perp = Frame.from_normal(d_dir).to_world(torch.cat(
+            [disk, torch.zeros((N, 1), device=dev)], dim=-1))
+        o_d = scene.bsphere_c[None, :] + perp - d_dir * R
+        sel = (etype == E_DIRECTIONAL)[:, None]
+        o = torch.where(sel, o_d, o)
+        d = torch.where(sel, d_dir, d)
+        w = torch.where(sel, P[:, 3:6] * (m.Pi * R * R), w)
+        n_o = torch.where(sel, d_dir, n_o)
+
+    if E_PROJECTOR in meta.emitter_types:
+        # through the frustum from the pinhole, uv uniform on the slide
+        # (the reference's simplification: unbiased, not texel-weighted)
+        uu, vv = u_dir[:, 0], u_dir[:, 1]
+        dx = (1.0 - 2.0 * uu) * P[:, 6]
+        dy = (1.0 - 2.0 * vv) * P[:, 7]
+        d_local = m.normalize(torch.stack([dx, dy, torch.ones_like(dx)],
+                                          -1))
+        d_p = m.normalize(_rotate(P[:, 8:17], d_local))
+        sel1 = etype == E_PROJECTOR
+        w_p = _slide(scene, P, sel1, uu, vv) * P[:, 3:6]
+        sel = sel1[:, None]
+        o = torch.where(sel, P[:, 0:3], o)
+        d = torch.where(sel, d_p, d)
+        w = torch.where(sel, w_p, w)
+        n_o = torch.where(sel, d_p, n_o)
+
+    if E_ENVMAP in meta.emitter_types:
+        # the direction toward the map by luminance; the photon starts on
+        # the disk across it on the bounding sphere and flies inward
+        _, d_w, pdf_dir, L_e = _env_sample(scene, u_dir)
+        pdf_dir = torch.clamp(pdf_dir, min=1e-20)
+        R = scene.bsphere_r
+        disk = warp.square_to_uniform_disk_concentric(u_pos) * R
+        o_e = scene.bsphere_c[None, :] + d_w * R \
+            + Frame.from_normal(d_w).to_world(torch.cat(
+                [disk, torch.zeros((N, 1), device=dev)], dim=-1))
+        w_e = L_e * (m.Pi * R * R / pdf_dir)[:, None]
+        sel = (etype == E_ENVMAP)[:, None]
+        o = torch.where(sel, o_e, o)
+        d = torch.where(sel, -d_w, d)
+        w = torch.where(sel, w_e, w)
+        n_o = torch.where(sel, -d_w, n_o)
 
     w = w * E
     z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev)

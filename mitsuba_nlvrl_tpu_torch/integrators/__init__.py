@@ -4,20 +4,25 @@ Port of ``mitsuba_nlvrl_tpu/integrators/__init__.py``: each integrator
 exposes ``sample(scene, meta, sampler, ray, aux=None)`` over a ray
 wavefront; the two-pass integrators (``vrl``, ``photonmapper`` and its
 older name ``photonmap``) also expose ``preprocess(scene, meta, key) ->
-aux``, their photon and VRL maps, which every pass reads. This slice has
-``path``, ``volpath``, ``volpathmis`` (one estimator; the latter adds MIS
-at medium vertices), ``vrl`` and ``photonmapper``; the others raise,
-naming the ROADMAP item that brings them.
+aux``, their photon and VRL maps, which every pass reads. The port has
+``path``, ``direct``, ``depth``, ``volpath``, ``volpathmis`` (one
+estimator; the latter adds MIS at medium vertices), ``vrl`` and
+``photonmapper``; the others (``aov``, ``moment``, ``stokes``, the
+spectral and polarized paths) raise, naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
+from . import depth as _depth
+from . import direct as _direct
 from . import path as _path
 from . import photonmapper as _pm
 from . import volpath as _volpath
 from . import vrl as _vrl
 from ..scene.types import not_in_slice
 
-_REGISTRY = {'path': _path.sample, 'volpath': _volpath.sample,
+_REGISTRY = {'path': _path.sample, 'direct': _direct.sample,
+             'depth': _depth.sample, 'volpath': _volpath.sample,
              'volpathmis': _volpath.sample, 'vrl': _vrl.sample,
              'photonmapper': _pm.sample, 'photonmap': _pm.sample}
 _PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
@@ -26,8 +31,7 @@ _PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
 
 def get_integrator(name: str):
     if name not in _REGISTRY:
-        raise not_in_slice(f"integrator '{name}'",
-                           "items 7-11 (integrators)")
+        raise not_in_slice(f"integrator '{name}'", "item 10 (variants)")
     return _REGISTRY[name]
 
 

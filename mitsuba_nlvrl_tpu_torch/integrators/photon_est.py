@@ -82,8 +82,13 @@ def estimate_surface(scene, meta, maps, si, active, radius, caustic: bool,
             wo_local = torch.stack(
                 [m.dot(v, fr.s[:, None, :]), m.dot(v, fr.t[:, None, :]),
                  cos_o], dim=-1)                     # (N, K, 3)
-            si_flat = si._replace(wi=si.wi.repeat_interleave(K, 0),
-                                  bsdf_idx=si.bsdf_idx.repeat_interleave(K))
+            # every field a textured lobe reads, repeated per photon (the
+            # shading frame is not, as in the reference)
+            rep = lambda a: a.repeat_interleave(K, 0)  # noqa: E731
+            si_flat = si._replace(
+                wi=rep(si.wi), bsdf_idx=rep(si.bsdf_idx), uv=rep(si.uv),
+                p=rep(si.p), prim_index=rep(si.prim_index),
+                shape_idx=rep(si.shape_idx), valid=rep(si.valid))
             f = bsdf_mod.eval(scene, meta, si_flat,
                               wo_local.reshape(N * K, 3)).reshape(N, K, 3)
             # the density estimate wants f_r alone: divide out the folded

@@ -1,23 +1,32 @@
 """Scene builder: description dicts -> SoA tensors.
 
-Port of ``mitsuba_nlvrl_tpu/scene/builder.py`` for the types this slice
+Port of ``mitsuba_nlvrl_tpu/scene/builder.py`` for the types the port
 renders (``types.SLICE_*``). A scene description (nested dicts, as
 ``testing/scenes.py`` makes them) is flattened on the host into numpy
 arrays keyed like the reference's ``SceneData`` fields ("geo.v0",
-"bsdfs.params", "sensor.to_world.m", ...), and ``scene_from_numpy`` turns
-those into tensors on the render device. The reference's own build goes
-through the same function, which is how the tests render the very same
-arrays in both packages.
+"bsdfs.params", "sensor.to_world.m", "emitters.env_warp.levels.0", ...),
+and ``scene_from_numpy`` turns those into tensors on the render device.
+The reference's own build goes through the same function, which is how
+the tests render the very same arrays in both packages.
 
 All geometry is pre-transformed to world space; rectangles and cubes
 become exact triangle pairs, disks and cylinders tessellate, OBJ, PLY,
 Mitsuba .serialized and Blender meshes load through ``mesh_io``; spheres
 stay analytic unless emissive (area emitters sample triangles, so an
-emissive sphere tessellates). From ``BVH_MIN_TRIS`` triangles the builder
-makes the reference's BVH (``ops/bvh.build``), reorders the triangle
-tables by it and remaps the emitters' triangle ids, as the reference does;
-below it the triangles keep their input order and the dense kernel
-intersects them. The reference's TPU cluster arrays are not built.
+emissive sphere tessellates). ``shapegroup``/``instance`` are flattened:
+each instance adds its group's shapes under the composed transform. From
+``BVH_MIN_TRIS`` triangles the builder makes the reference's BVH
+(``ops/bvh.build``), reorders the triangle tables by it and remaps the
+emitters' triangle ids, as the reference does; below it the triangles
+keep their input order and the dense kernel intersects them. The
+reference's TPU cluster arrays are not built.
+
+Textures (BSDF parameters, the wrapper BSDFs' weights and normals, the
+projector's slide) become rows of a texture table with their bitmaps and
+volumes stacked; meshes with vertex colours carry per-corner colours for
+``mesh_attribute``. An ``envmap`` gets its texels and the Hierarchical2D
+warp of its luminance; a missing envmap file is replaced by the
+reference's procedural sky.
 
 Shapes may bound participating media (``interior``/``exterior``); a
 medium-only shape gets a ``null`` BSDF. Homogeneous, heterogeneous (one
@@ -42,14 +51,16 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
                     M_BBOX_MAX, M_MAJORANT, M_NL_TOP_IOR, M_NL_BOT_IOR,
                     M_NL_RES, M_NL_FROM_BOTTOM, SLICE_MEDIA, SLICE_PHASES,
-                    BVH_MIN_TRIS, F_MASK,
-                    SLICE_SHAPES, check_meta, not_in_slice)
+                    BVH_MIN_TRIS, TEXTURE_TYPES, TEX_NPARAM,
+                    SLICE_SHAPES, TextureTable, check_meta, not_in_slice)
 from .mesh_io import (MeshData, compute_vertex_normals, load_blender,
                       load_obj, load_ply, load_serialized)
 from .vol_io import load_vol
 from ..ops import bvh as bvh_mod
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
+from .. import texture as tex_mod
+from ..core import distr2d
 from ..sensor import build_sensor
 
 
@@ -144,7 +155,7 @@ def _load_shape_mesh(sh: dict) -> Optional[MeshData]:
     """The shape's mesh in object space, or None for an analytic sphere."""
     t = sh['type']
     if t not in SLICE_SHAPES:
-        raise not_in_slice(f"shape type '{t}'", "item 4 (scene front-end)")
+        raise NotImplementedError(f"shape type {t}")
     if t == 'mesh':
         return sh['mesh']
     if t == 'sphere':
@@ -177,6 +188,120 @@ def _load_shape_mesh(sh: dict) -> Optional[MeshData]:
 
 
 _NULL_BSDF = {'type': 'null'}
+
+
+def _procedural_sky(H: int = 64, W: int = 128) -> np.ndarray:
+    """The reference's stand-in for a missing envmap file: a blue to
+    horizon gradient, a bright warm sun disk 30 degrees up and a dim
+    brown ground."""
+    theta = (np.arange(H) + 0.5) / H * np.pi          # 0 = up
+    phi = (np.arange(W) + 0.5) / W * 2.0 * np.pi
+    t, p = np.meshgrid(theta, phi, indexing='ij')
+    sky_t = np.clip(t / (0.5 * np.pi), 0.0, 1.0)      # 0 zenith -> 1 horizon
+    zen = np.array([0.35, 0.55, 1.15])
+    hor = np.array([1.05, 0.95, 0.85])
+    img = zen[None, None] * (1 - sky_t[..., None]) \
+        + hor[None, None] * sky_t[..., None]
+    img[t > 0.5 * np.pi] = np.array([0.22, 0.17, 0.12])
+    # a sun disk of about 4 degrees radius at 30 degrees elevation
+    sun_dir = np.array([np.cos(np.radians(30)) * 1.0, 0.0,
+                        np.sin(np.radians(30))])
+    d = np.stack([np.sin(t) * np.cos(p), np.sin(t) * np.sin(p),
+                  np.cos(t)], axis=-1)
+    cosang = d @ np.array([sun_dir[0], sun_dir[1], sun_dir[2]])
+    img[cosang > np.cos(np.radians(4.0))] = np.array([60.0, 52.0, 40.0])
+    return img.astype(np.float32)
+
+
+def _env_tables(desc: dict):
+    """(texels, luminance nodes, to_world, scale) of the scene's first
+    envmap, or None. The luminance is sampled at the node grid with sin
+    theta at theta = y / (H - 1) pi, zero at the poles."""
+    env_descs = [e for e in desc.get('emitters', [])
+                 if e.get('type') == 'envmap']
+    if not env_descs:
+        return None
+    eprops = env_descs[0]
+    from ..utils.io import read_exr
+    try:
+        img, names = read_exr(eprops['filename'])
+        if set('RGB') <= set(names):
+            img = img[:, :, [names.index(c) for c in 'RGB']]
+        img = img[:, :, :3]
+    except FileNotFoundError:
+        print(f"warning: envmap '{eprops.get('filename')}' not found; "
+              f"substituting a procedural gradient+sun sky")
+        img = _procedural_sky()
+    env_map = np.ascontiguousarray(img, np.float32)
+    He = env_map.shape[0]
+    lum = (env_map * np.array([0.2126, 0.7152, 0.0722])).sum(-1)
+    sin_t = np.sin(np.arange(He) / max(He - 1, 1) * np.pi)
+    env_lum = (lum * sin_t[:, None] + 1e-12).astype(np.float32)
+    return (env_map, env_lum,
+            eprops.get('to_world', Transform.identity()),
+            float(eprops.get('scale', 1.0)))
+
+
+def _expand_instances(shapes: List[dict]) -> List[dict]:
+    """Shapegroups are not drawn; each instance adds its group's shapes
+    under the instance's transform composed with their own."""
+    out = []
+    for sh in shapes:
+        t = sh.get('type')
+        if t == 'shapegroup':
+            continue
+        if t == 'instance':
+            subs = sh.get('shapegroup', {}).get('shape', [])
+            if isinstance(subs, dict):
+                subs = [subs]
+            T_inst = sh.get('to_world', Transform.identity())
+            for sub in subs:
+                sub2 = dict(sub)
+                sub2['to_world'] = T_inst @ sub.get('to_world',
+                                                    Transform.identity())
+                out.append(sub2)
+            continue
+        out.append(sh)
+    return out
+
+
+def _texture_arrays(tex_rows, bitmaps, volumes) -> dict:
+    """The texture table's arrays: bitmaps and volumes stacked, each
+    padded to the largest; a table of one empty row without textures."""
+    f32 = np.float32
+    if not tex_rows:
+        return {'textures.type': np.zeros((1,), np.int32),
+                'textures.params': np.zeros((1, TEX_NPARAM), f32),
+                'textures.data': np.zeros((1, 1, 1, 3), f32),
+                'textures.size': np.zeros((1, 2), np.int32)}
+    out = {'textures.type': np.asarray([r[0] for r in tex_rows], np.int32),
+           'textures.params': np.asarray([r[1] for r in tex_rows], f32)}
+    sizes = np.zeros((len(tex_rows), 2), np.int32)
+    if bitmaps:
+        Hm = max(b.shape[0] for b in bitmaps)
+        Wm = max(b.shape[1] for b in bitmaps)
+        data = np.zeros((len(bitmaps), Hm, Wm, 3), f32)
+        for bi, b in enumerate(bitmaps):
+            data[bi, :b.shape[0], :b.shape[1]] = b
+        for ti, (tc, tp) in enumerate(tex_rows):
+            if tc == TEXTURE_TYPES['bitmap']:
+                sizes[ti] = bitmaps[int(tp[0])].shape[:2]
+    else:
+        data = np.zeros((1, 1, 1, 3), f32)
+    out['textures.data'] = data
+    out['textures.size'] = sizes
+    if volumes:
+        shape = [max(v.shape[k] for v in volumes) for k in range(3)]
+        vol = np.zeros((len(volumes), *shape, 3), f32)
+        for vi, vv in enumerate(volumes):
+            vol[vi, :vv.shape[0], :vv.shape[1], :vv.shape[2]] = vv
+        vol_size = np.ones((len(tex_rows), 3), np.int32)
+        for ti, (tc, tp) in enumerate(tex_rows):
+            if tc == TEXTURE_TYPES['grid3d']:
+                vol_size[ti] = volumes[int(tp[0])].shape[:3]
+        out['textures.vol'] = vol
+        out['textures.vol_size'] = vol_size
+    return out
 
 # duplicate the density grid 8x only up to this size (4M voxels -> 160 MB)
 _PACK_MAX_VOXELS = 1 << 22
@@ -452,15 +577,96 @@ class SceneBuilder:
     def __init__(self, desc: dict):
         self.desc = desc
         self.bsdf_rows: List[Tuple[int, int, list]] = []
+        # the wrapper rows (blendbsdf, normalmap, bumpmap) by id(props)
+        self.bsdf_cache: Dict[int, int] = {}
         self.media_cache: Dict[int, int] = {}
         self.media_rows: List[dict] = []
+        self.tex_rows: List[Tuple[int, list]] = []
+        self.tex_bitmaps: List[np.ndarray] = []
+        self.tex_volumes: List[np.ndarray] = []
+        self.tex_cache: Dict[int, int] = {}
+        # the named attribute of the scene's mesh_attribute textures whose
+        # colours the corner buffer holds (one name a scene)
+        self.mesh_attr_name: Optional[str] = None
+
+    def _texture_index(self, props: dict) -> int:
+        key = id(props)
+        if key in self.tex_cache:
+            return self.tex_cache[key]
+        if props.get('type') == 'mesh_attribute':
+            name = props.get('name', 'vertex_color')
+            prev = self.mesh_attr_name
+            if prev is not None and prev != name:
+                print(f"warning: multiple mesh_attribute names "
+                      f"({prev!r}, {name!r}); only {prev!r} is buffered")
+            else:
+                self.mesh_attr_name = name
+        self.tex_rows.append(tex_mod.pack(props, self.tex_bitmaps,
+                                          self.tex_volumes))
+        self.tex_cache[key] = len(self.tex_rows) - 1
+        return self.tex_cache[key]
+
+    def _wrapper_row(self, key: int, code: int, flags: int, p: list) -> int:
+        self.bsdf_rows.append((code, flags, p))
+        self.bsdf_cache[key] = len(self.bsdf_rows) - 1
+        return self.bsdf_cache[key]
 
     def _bsdf_index(self, props: Optional[dict]) -> int:
-        # One row per shape, shared dicts included: the reference's table
-        # has the same rows (its id-keyed cache is written under another
-        # key and never hits), so both packages index alike.
-        self.bsdf_rows.append(bsdf_mod.pack_params(props or
-                                                   {'type': 'diffuse'}))
+        # A plain BSDF gets a row of its own each time, shared dicts
+        # included: the reference's id-keyed cache is written under
+        # another key for them and never hits, so both packages index
+        # alike. Its wrapper rows are cached by the wrapper dict's id.
+        if props is None:
+            props = {'type': 'diffuse'}
+        key = id(props)
+        if key in self.bsdf_cache:
+            return self.bsdf_cache[key]
+        kind = props.get('type')
+        if kind in ('normalmap', 'bumpmap'):
+            # the nested row, the perturbing texture and the bump scale
+            nested = props.get('bsdf', {'type': 'diffuse'})
+            if isinstance(nested, list):
+                nested = nested[0]
+            row_n = self._bsdf_index(nested)
+            tex = props.get(kind) or props.get('texture')
+            if tex is None:   # any other child dict with a texture type
+                tex = next((v for v in props.values() if isinstance(v, dict)
+                            and v.get('type') in TEXTURE_TYPES), None)
+            p = [0.0] * BSDF_NPARAM
+            p[0] = float(row_n)
+            p[1] = float(self._texture_index(tex) if tex is not None
+                         else -1)
+            p[2] = float(props.get('scale', 1.0))
+            return self._wrapper_row(key, BSDF_TYPES[kind],
+                                     self.bsdf_rows[row_n][1], p)
+        if kind == 'blendbsdf':
+            subs = props.get('bsdf', [])
+            if isinstance(subs, dict):
+                subs = [subs, {'type': 'diffuse'}]
+            row_a = self._bsdf_index(subs[0])
+            row_b = self._bsdf_index(subs[1])
+            w = props.get('weight', 0.5)
+            p = [0.0] * BSDF_NPARAM
+            p[0], p[1] = float(row_a), float(row_b)
+            if isinstance(w, dict):
+                # a textured weight: slot 19 = texture id + 1
+                p[2] = 0.5
+                p[19] = float(self._texture_index(w)) + 1.0
+            else:
+                p[2] = float(w)
+            return self._wrapper_row(
+                key, BSDF_TYPES['blendbsdf'],
+                self.bsdf_rows[row_a][1] | self.bsdf_rows[row_b][1], p)
+        # textured parameters: register the textures, pass their ids
+        for name, marker in (('reflectance', '_texture_id'),
+                             ('diffuse_reflectance', '_texture_id'),
+                             ('alpha', '_alpha_tex'),
+                             ('specular_reflectance', '_spec_tex'),
+                             ('opacity', '_opacity_tex')):
+            if isinstance(props.get(name), dict) and marker not in props:
+                props = dict(props,
+                             **{marker: self._texture_index(props[name])})
+        self.bsdf_rows.append(bsdf_mod.pack_params(props))
         return len(self.bsdf_rows) - 1
 
     def _medium_index(self, props: Optional[dict]) -> int:
@@ -500,12 +706,11 @@ class SceneBuilder:
         shape_rows = []     # (bsdf, emitter, interior, exterior medium)
         area_emitters = []  # (props, shape_idx)
         shape_tri_ranges = []
-        shapes = desc.get('shapes', [])
+        tri_c = []          # per-corner colours (mesh_attribute)
+        any_colors = False
+        shapes = _expand_instances(desc.get('shapes', []))
         meshes = []
         for sh in shapes:
-            if sh.get('type') in ('instance', 'shapegroup'):
-                raise not_in_slice("shape instancing",
-                                   "item 4 (scene front-end)")
             to_world = sh.get('to_world', Transform.identity())
             shape_idx = len(shape_rows)
             mesh = _load_shape_mesh(sh)
@@ -553,6 +758,19 @@ class SceneBuilder:
                 tri_v.append(v[faces].astype(np.float32))       # (F,3,3)
                 tri_n.append(n[faces].astype(np.float32))
                 tri_uv.append(uv[faces].astype(np.float32))
+                # the colours of the attribute the textures name so far: a
+                # face attribute repeats over its corners
+                attr_name = self.mesh_attr_name or 'vertex_color'
+                fa = mesh.face_attrs or {}
+                if attr_name.startswith('face_') and attr_name[5:] in fa:
+                    fv = fa[attr_name[5:]].astype(np.float32)   # (F, 3)
+                    tri_c.append(np.repeat(fv[:, None, :], 3, axis=1))
+                    any_colors = True
+                elif mesh.colors is not None:
+                    tri_c.append(mesh.colors[faces].astype(np.float32))
+                    any_colors = True
+                else:
+                    tri_c.append(np.zeros((len(faces), 3, 3), np.float32))
                 tri_shape.append(np.full(len(faces), shape_idx, np.int32))
                 shape_tri_ranges.append((tri_start, len(faces)))
             shape_rows.append([bsdf_idx, emitter_idx, int_med, ext_med])
@@ -562,11 +780,13 @@ class SceneBuilder:
             Nrm = np.concatenate(tri_n)
             UV = np.concatenate(tri_uv)
             TS = np.concatenate(tri_shape)
+            C = np.concatenate(tri_c) if any_colors else None
         else:
             V = np.zeros((0, 3, 3), np.float32)
             Nrm = np.zeros((0, 3, 3), np.float32)
             UV = np.zeros((0, 3, 2), np.float32)
             TS = np.zeros((0,), np.int32)
+            C = None
         T = len(V)
 
         # --- the BVH from BVH_MIN_TRIS triangles: reorder the triangles by
@@ -579,6 +799,8 @@ class SceneBuilder:
             tri_perm_inv = np.empty(T, np.int64)
             tri_perm_inv[perm] = np.arange(T)
             V, Nrm, UV, TS = V[perm], Nrm[perm], UV[perm], TS[perm]
+            if C is not None:
+                C = C[perm]
 
         # --- emitters: area emitters first (their index is list position) --
         emitter_rows = []       # (type, params, shape_idx)
@@ -602,6 +824,16 @@ class SceneBuilder:
             em_area.append(total)
             emitter_rows.append((code, params, shape_idx))
         for props in desc.get('emitters', []):
+            if props.get('type') == 'projector' \
+                    and isinstance(props.get('irradiance'), dict):
+                # the slide texture, and its bitmap's aspect
+                tid = self._texture_index(props['irradiance'])
+                tc, tp = self.tex_rows[tid]
+                aspect = 1.0
+                if tc == TEXTURE_TYPES['bitmap']:
+                    b = self.tex_bitmaps[int(tp[0])]
+                    aspect = b.shape[1] / b.shape[0]
+                props = dict(props, _irradiance_tex=tid, _aspect=aspect)
             code, params = emitter_mod.pack_params(props)
             tw = props.get('to_world')
             if tw is not None and code == EMITTER_TYPES['point']:
@@ -612,6 +844,16 @@ class SceneBuilder:
             tri_counts.append(0)
             em_area.append(0.0)
         E = len(emitter_rows)
+
+        # --- the environment map (at most one) -------------------------
+        env = _env_tables(desc)
+        if env is None:
+            env_map = np.zeros((1, 1, 3), np.float32)
+            env_lum = np.ones((2, 2), np.float32)
+            env_to_world, env_scale = Transform.identity(), 1.0
+        else:
+            env_map, env_lum, env_to_world, env_scale = env
+        env_nodes, env_levels = distr2d.build_hierarchical_np(env_lum)
 
         # --- media ---------------------------------------------------------
         med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium = \
@@ -678,6 +920,19 @@ class SceneBuilder:
             'bsphere_c': np.asarray(center, f32),
             'bsphere_r': np.asarray(radius, f32),
         }
+        if C is not None:
+            arrays.update({'geo.c0': C[:, 0], 'geo.c1': C[:, 1],
+                           'geo.c2': C[:, 2]})
+        arrays.update({
+            'emitters.env_map': env_map,
+            'emitters.env_warp.nodes': env_nodes,
+            'emitters.env_to_world.m': np.asarray(env_to_world.m, f32),
+            'emitters.env_to_world.inv': np.asarray(env_to_world.inv, f32),
+            'emitters.env_scale': np.asarray(env_scale, f32)})
+        arrays.update({f'emitters.env_warp.levels.{k}': lv
+                       for k, lv in enumerate(env_levels)})
+        arrays.update(_texture_arrays(self.tex_rows, self.tex_bitmaps,
+                                      self.tex_volumes))
         arrays.update({f'sensor.{k}': v for k, v in sensor.items()})
         if bvh_np is not None:
             arrays.update({f'bvh.{k}': v
@@ -706,6 +961,18 @@ class SceneBuilder:
             phase_types=tuple(sorted(set(int(x)
                                          for x in med_phase[:n_media]))),
             has_media=n_media > 0, has_bvh=bvh_np is not None,
+            has_textures=len(self.tex_rows) > 0,
+            has_3d_textures=any(r[0] == TEXTURE_TYPES['grid3d']
+                                for r in self.tex_rows),
+            has_attr_textures=C is not None and any(
+                r[0] == TEXTURE_TYPES['mesh_attribute']
+                for r in self.tex_rows),
+            has_param_textures=any(
+                r[2][16] > 0 or r[2][17] > 0 or r[2][18] > 0
+                or (r[0] in (BSDF_TYPES['plastic'],
+                             BSDF_TYPES['roughplastic'],
+                             BSDF_TYPES['pplastic']) and r[2][15] >= 0)
+                for r in self.bsdf_rows),
             sensor_type=sensor_type, film=film,
             sampler=sampler_desc.get('type', 'independent'), spp=spp,
             integrator=integ.get('type', 'path'),
@@ -730,8 +997,6 @@ def resolve_device(device=None) -> torch.device:
 # Scene flags of the reference's SceneMeta that name features outside this
 # slice, with the ROADMAP item that ports each.
 _OUT_OF_SLICE_FLAGS = {
-    'has_textures': "item 7 (textures)",
-    'has_param_textures': "item 7 (textures)",
     'spectral': "item 10 (variants)",
     'has_conductor_spd': "item 10 (variants)",
     'measured_meta': "item 10 (variants)",
@@ -771,15 +1036,42 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
         return cls(**{f: get(f'{prefix}.{f}', dtypes.get(f, np.float32))
                       for f in cls._fields})
 
+    def optional(key, dtype):
+        return get(key, dtype) if arrays.get(key) is not None else ()
+
     i32 = np.int32
-    geo = table(Geometry, 'geo', {'shape_idx': i32, 'sph_shape_idx': i32})
+    geo = Geometry(**{f: get(f'geo.{f}', i32 if 'shape_idx' in f
+                             else np.float32)
+                      for f in Geometry._fields if f not in ('c0', 'c1',
+                                                             'c2')},
+                   **{f: optional(f'geo.{f}', np.float32)
+                      for f in ('c0', 'c1', 'c2')})
     shapes = table(ShapeTable, 'shapes', {
         'bsdf_idx': i32, 'emitter_idx': i32, 'int_medium': i32,
         'ext_medium': i32})
     bsdfs = table(BSDFTable, 'bsdfs', {'type': i32, 'flags': i32})
-    emitters = table(EmitterTable, 'emitters', {
-        'type': i32, 'shape_idx': i32, 'tri_offset': i32, 'tri_count': i32,
-        'em_tri_idx': i32})
+    n_levels = sum(1 for k in arrays
+                   if k.startswith('emitters.env_warp.levels.'))
+    env_warp = distr2d.Hierarchical2D(
+        nodes=get('emitters.env_warp.nodes', np.float32),
+        levels=tuple(get(f'emitters.env_warp.levels.{k}', np.float32)
+                     for k in range(n_levels)))
+    emitters = EmitterTable(
+        **{f: get(f'emitters.{f}', i32 if f in (
+            'type', 'shape_idx', 'tri_offset', 'tri_count', 'em_tri_idx')
+            else np.float32)
+           for f in EmitterTable._fields
+           if f not in ('env_warp', 'env_to_world')},
+        env_warp=env_warp,
+        env_to_world=Transform(get('emitters.env_to_world.m', np.float32),
+                               get('emitters.env_to_world.inv', np.float32)))
+    textures = TextureTable(
+        type=get('textures.type', i32),
+        params=get('textures.params', np.float32),
+        data=get('textures.data', np.float32),
+        size=get('textures.size', i32),
+        vol=optional('textures.vol', np.float32),
+        vol_size=optional('textures.vol_size', i32))
     media = MediumTable(
         type=get('media.type', i32), phase_type=get('media.phase_type', i32),
         **{f: get(f'media.{f}', np.float32)
@@ -789,8 +1081,6 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
         grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
                        if arrays.get('media.grid_sigma_p8') is not None
                        else None))
-    if (np.asarray(arrays['bsdfs.flags']) & F_MASK).any():
-        raise not_in_slice("bsdf type 'mask'", "item 7 (materials)")
     # the occluder subset, once per scene: triangles whose BSDF is not null
     tri_bsdf = np.asarray(arrays['shapes.bsdf_idx'])[
         np.asarray(arrays['geo.shape_idx'], np.int64)]
@@ -814,8 +1104,8 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
                 ('node_a', i32), ('node_b', i32), ('node_leaf', bool),
                 ('order', i32))})
     scene = SceneData(geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
-                      media=media, occluders=occluders, sensor=sensor,
-                      bvh=bvh,
+                      media=media, occluders=occluders, textures=textures,
+                      sensor=sensor, bvh=bvh,
                       **{k: get(k, np.float32) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
     return scene, meta_t

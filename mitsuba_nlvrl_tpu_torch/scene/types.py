@@ -5,8 +5,9 @@ build time into structure-of-arrays tensors indexed by integer type codes,
 and per-lane virtual dispatch becomes masked evaluation over the few types
 a scene uses (``SceneMeta`` records which). The type tables keep the
 reference's codes, so packed parameter rows mean the same in both
-packages. This slice holds the tables the ``path``, ``volpath``,
-``volpathmis``, ``vrl`` and ``photonmapper`` integrators read.
+packages. The tables hold what the ``path``, ``direct``, ``depth``,
+``volpath``, ``volpathmis``, ``vrl`` and ``photonmapper`` integrators
+read, textures and the environment map's warp among them.
 """
 from __future__ import annotations
 
@@ -73,18 +74,22 @@ M_NL_BOT_IOR = 18
 M_NL_RES = 19       # [19:22] voxel resolution (as float)
 M_NL_FROM_BOTTOM = 22
 
-# What this slice of the port renders; anything else raises
-# NotImplementedError naming the ROADMAP item that brings it.
+TEXTURE_TYPES = {'bitmap': 0, 'checkerboard': 1, 'constant': 2,
+                 'grid3d': 3, 'constant3d': 4, 'mesh_attribute': 5}
+TEX_NPARAM = 24
+
+# What the port renders; anything else raises NotImplementedError naming
+# the ROADMAP item that brings it. ``shapegroup`` and ``instance`` are
+# flattened by the builder; ``mask`` packs as its nested BSDF's row with
+# ``F_MASK``.
 SLICE_SHAPES = ('rectangle', 'cube', 'sphere', 'disk', 'cylinder', 'obj',
                 'ply', 'serialized', 'blender', 'mesh')
 SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
                'null', 'roughconductor', 'roughdielectric', 'plastic',
-               'roughplastic', 'pplastic', 'twosided')
-SLICE_EMITTERS = ('area', 'point', 'constant')
-SLICE_SENSORS = ('perspective',)
-SLICE_SAMPLERS = ('independent',)
-SLICE_INTEGRATORS = ('path', 'volpath', 'volpathmis', 'vrl', 'photonmapper',
-                     'photonmap')
+               'roughplastic', 'pplastic', 'twosided', 'mask', 'blendbsdf',
+               'normalmap', 'bumpmap')
+SLICE_INTEGRATORS = ('path', 'direct', 'depth', 'volpath', 'volpathmis',
+                     'vrl', 'photonmapper', 'photonmap')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
 # options of the two-pass integrators that a later slice ports: each
 # raises when a scene turns it on (the map all-reduce over a mesh axis
@@ -114,6 +119,11 @@ class Geometry(NamedTuple):
     sph_center: torch.Tensor     # (S, 3)
     sph_radius: torch.Tensor     # (S,)
     sph_shape_idx: torch.Tensor  # (S,) int32
+    # per-corner colours, present only when a mesh carries them (the
+    # mesh_attribute textures read them)
+    c0: object = ()              # (T, 3)
+    c1: object = ()
+    c2: object = ()
 
 
 class ShapeTable(NamedTuple):
@@ -139,6 +149,13 @@ class EmitterTable(NamedTuple):
     em_tri_idx: torch.Tensor  # (TE,) int32 triangle ids
     em_tri_cdf: torch.Tensor  # (TE,) float32, per-emitter normalized cdf
     em_area: torch.Tensor     # (E,) float32 total emitter area
+    # the environment map (at most one a scene; (1, 1, 3) zeros without):
+    # radiance texels, the Hierarchical2D warp of luminance * sin(theta)
+    # (core/distr2d.py), the emitter-to-world transform and the scale
+    env_map: torch.Tensor     # (He, We, 3)
+    env_warp: object
+    env_to_world: Transform
+    env_scale: torch.Tensor   # ()
 
 
 class MediumTable(NamedTuple):
@@ -161,6 +178,18 @@ class MediumTable(NamedTuple):
     # voxel, its block's bound (slot 8) and control or leap distance
     # (slot 9); None when the grid is absent or too large to copy
     grid_sigma_p8: Optional[torch.Tensor] = None
+
+
+class TextureTable(NamedTuple):
+    """Textures of BSDF parameters, the projector's slide and the wrapper
+    BSDFs (one row a texture, ``texture/__init__.py`` gives the layout).
+    Bitmaps are stacked padded to the largest; grid3d volumes likewise."""
+    type: torch.Tensor       # (Tx,) int32
+    params: torch.Tensor     # (Tx, TEX_NPARAM)
+    data: torch.Tensor       # (Tb, Hmax, Wmax, 3) float32
+    size: torch.Tensor       # (Tx, 2) int32 (H, W); 0 for other rows
+    vol: object = ()         # (Tv, Dm, Hm, Wm, 3) float32
+    vol_size: object = ()    # (Tx, 3) int32 (D, H, W); 1 for other rows
 
 
 class Occluders(NamedTuple):
@@ -189,6 +218,7 @@ class SceneData(NamedTuple):
     emitters: EmitterTable
     media: MediumTable
     occluders: Occluders
+    textures: TextureTable
     sensor: SensorData
     bbox_lo: torch.Tensor     # (3,)
     bbox_hi: torch.Tensor     # (3,)
@@ -231,6 +261,11 @@ class SceneMeta:
     integrator_props: Tuple[Tuple[str, object], ...] = ()
     has_media: bool = False
     has_bvh: bool = False
+    has_textures: bool = False
+    has_3d_textures: bool = False    # grid3d rows (eval needs the hit point)
+    has_attr_textures: bool = False  # mesh_attribute rows and corner colours
+    has_param_textures: bool = False  # alpha, specular, plastic diffuse or
+    #                                   opacity textures
     camera_medium: int = -1    # medium the camera starts in (-1 vacuum)
 
     def iprop(self, name, default=None):
@@ -246,18 +281,12 @@ def check_meta(meta: SceneMeta) -> None:
     for code in meta.bsdf_types:
         if bsdf_names.get(code) not in SLICE_BSDFS:
             raise not_in_slice(f"bsdf type '{bsdf_names.get(code)}'",
-                               "item 7 (materials)")
-    em_names = {v: k for k, v in EMITTER_TYPES.items()}
+                               "item 10 (variants)")
     for code in meta.emitter_types:
-        if em_names.get(code) not in SLICE_EMITTERS:
-            raise not_in_slice(f"emitter type '{em_names.get(code)}'",
-                               "item 7 (lights)")
-    sen_names = {v: k for k, v in SENSOR_TYPES.items()}
-    if sen_names.get(meta.sensor_type) not in SLICE_SENSORS:
-        raise not_in_slice(f"sensor type '{sen_names.get(meta.sensor_type)}'",
-                           "item 5 (camera and film)")
-    if meta.sampler not in SLICE_SAMPLERS:
-        raise not_in_slice(f"sampler '{meta.sampler}'", "item 3 (sampling)")
+        if code not in EMITTER_TYPES.values():
+            raise ValueError(f"unknown emitter type code {code}")
+    if meta.sensor_type not in SENSOR_TYPES.values():
+        raise ValueError(f"unknown sensor type code {meta.sensor_type}")
     med_names = {v: k for k, v in MEDIUM_TYPES.items()}
     for code in meta.medium_types:
         if med_names.get(code) not in SLICE_MEDIA:
@@ -270,7 +299,7 @@ def check_meta(meta: SceneMeta) -> None:
                                "item 8 (volumetrics)")
     if meta.integrator not in SLICE_INTEGRATORS:
         raise not_in_slice(f"integrator '{meta.integrator}'",
-                           "items 7-11 (integrators)")
+                           "item 10 (variants)")
     if meta.integrator in ('vrl', 'photonmapper', 'photonmap'):
         for name in DEFERRED_PROPS:
             value = meta.iprop(name)

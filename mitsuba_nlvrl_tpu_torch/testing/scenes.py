@@ -9,7 +9,11 @@ over OBJ meshes) and ``cbox_mesh`` (the same box with a displaced
 icosphere in a binary PLY, a stand-in for a real mesh); ``cbox_materials``,
 the box dressed in the microfacet and plastic BSDFs; and the thesis's
 option sets of ``cbox_nlvrl`` (``NLVRL_ANISO_OPTIONS``,
-``NLVRL_RIS_BRE_OPTIONS``, ``hg_phase``)."""
+``NLVRL_RIS_BRE_OPTIONS``, ``hg_phase``); and the scenes of textures,
+the wrapper BSDFs and the remaining lights, samplers and sensors:
+``cbox_textured`` (a scene file with its bitmaps), ``env_spheres`` (an
+environment-lit description with its EXR and PLY) and
+``cbox_spot_directional``."""
 from __future__ import annotations
 
 import os
@@ -459,3 +463,407 @@ def cbox_materials_pm(res_w=512, res_h=256, spp=2, **props):
     once a photon."""
     return cbox_materials(res_w, res_h, spp, medium=dict(MATERIALS_MEDIUM),
                           integrator={**MATERIALS_PM, **props})
+
+
+# --- textures, the wrapper BSDFs, the remaining lights, samplers and sensors
+
+# cbox_textured: the chosen values of the scene file (no reference scene of
+# it is in the repository)
+TEXTURED_BITMAP_RES = 256       # the back wall's picture
+TEXTURED_MAP_RES = 64           # the parameter maps
+TEXTURED_APERTURE = 0.02        # the thin lens: radius and focus distance
+TEXTURED_FOCUS = 3.2
+TEXTURED_BUMP_SCALE = 0.02
+
+
+def _noise(rng, res: int, octaves: int = 3) -> np.ndarray:
+    """A smooth (res, res) field in [0, 1]: a few octaves of bilinearly
+    upsampled uniform noise."""
+    out = np.zeros((res, res))
+    for k in range(octaves):
+        n = 4 << k
+        g = rng.uniform(0.0, 1.0, (n + 1, n + 1))
+        x = np.linspace(0.0, n, res)
+        i = np.minimum(x.astype(int), n - 1)
+        f = x - i
+        rows = g[i] * (1 - f)[:, None] + g[i + 1] * f[:, None]
+        out += (rows[:, i] * (1 - f) + rows[:, i + 1] * f) / (2 ** k)
+    out -= out.min()
+    return out / max(out.max(), 1e-12)
+
+
+def textured_bitmaps(directory: str, seed: int = 0) -> dict:
+    """Writes the PNGs of ``cbox_textured`` from
+    ``numpy.random.default_rng(seed)``: the back wall's colour picture
+    (``wall.png``, sRGB) and the raw parameter maps ``alpha.png``
+    (roughness 0.05-0.4), ``normal.png`` (a tangent-space normal map),
+    ``height.png``, ``weight.png`` (a blend weight) and ``opacity.png``
+    (a mask with holes). Returns their file names by role."""
+    from ..utils.io import write_png
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    R, r = TEXTURED_BITMAP_RES, TEXTURED_MAP_RES
+    wall = np.stack([_noise(rng, R), _noise(rng, R), _noise(rng, R)], -1)
+    yy, xx = np.mgrid[0:R, 0:R] / R
+    stripes = 0.5 + 0.5 * np.sin(2 * np.pi * 6 * (xx + 0.3 * yy))
+    wall = 0.15 + 0.7 * (0.6 * wall + 0.4 * stripes[..., None]
+                         * np.array([0.9, 0.6, 0.3]))
+    h = _noise(rng, r)
+    gy, gx = np.gradient(h)
+    n = np.stack([-4.0 * gx * r / 8, -4.0 * gy * r / 8, np.ones_like(h)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    maps = {
+        'wall': wall,
+        'alpha': 0.05 + 0.35 * _noise(rng, r),
+        'normal': 0.5 * (n + 1.0),
+        'height': h,
+        'weight': _noise(rng, r),
+        'opacity': (_noise(rng, r) > 0.35).astype(np.float64),
+    }
+    names = {}
+    for role, img in maps.items():
+        names[role] = f'{role}.png'
+        write_png(os.path.join(directory, names[role]),
+                  np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img,
+                  gamma=role == 'wall')
+    return names
+
+
+def uv_cube():
+    """A unit cube (half-extent 1) with four vertices a face, each face's
+    uv spanning [0, 1]^2: (vertices, normals, uvs, faces)."""
+    v, n, uv, f = [], [], [], []
+    for axis in range(3):
+        for sgn in (-1.0, 1.0):
+            nrm = np.zeros(3)
+            nrm[axis] = sgn
+            a, b = [k for k in range(3) if k != axis]
+            base = len(v)
+            for su, sv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = np.zeros(3)
+                p[axis], p[a], p[b] = sgn, su * sgn, sv
+                v.append(p)
+                n.append(nrm)
+                uv.append(((su + 1) / 2, (sv + 1) / 2))
+            f += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return (np.asarray(v, np.float32), np.asarray(n, np.float32),
+            np.asarray(uv, np.float32), np.asarray(f, np.int32))
+
+
+def _tf(ops) -> list:
+    """XML transform children: ``ops`` applied in order, each ('scale',
+    xyz), ('rotate', axis, deg) or ('translate', xyz)."""
+    out = []
+    for op in ops:
+        if op[0] == 'rotate':
+            x, y, z = op[1]
+            out.append(f'<rotate x="{x}" y="{y}" z="{z}" angle="{op[2]}"/>')
+        else:
+            x, y, z = op[1]
+            out.append(f'<{op[0]} x="{_num(x)}" y="{_num(y)}" '
+                       f'z="{_num(z)}"/>')
+    return ['<transform name="to_world">'] + ['    ' + o for o in out] \
+        + ['</transform>']
+
+
+def _indent(lines, n):
+    return [' ' * n + x for x in lines]
+
+
+# the rooms' walls as (name, transform ops); the floor, back wall and
+# ceiling light differ by scene
+_WALLS = (('floor', [('rotate', (1, 0, 0), -90), ('translate', (0, -1, 0))]),
+          ('ceiling', [('rotate', (1, 0, 0), 90), ('translate', (0, 1, 0))]),
+          ('back', [('rotate', (1, 0, 0), 180), ('translate', (0, 0, 1))]),
+          ('left', [('rotate', (0, 1, 0), 90), ('translate', (-1, 0, 0))]),
+          ('right', [('rotate', (0, 1, 0), -90), ('translate', (1, 0, 0))]))
+
+
+def cbox_textured(directory: str, spp: int = 16, res: int = 512,
+                  max_depth: int = 8, seed: int = 0) -> str:
+    """Writes ``cbox_textured.xml`` with its PNGs (``textured_bitmaps``)
+    and a uv-mapped cube OBJ into ``directory``; returns its path. The
+    Cornell box under a ``multijitter`` sampler and a ``thinlens``
+    camera, ``path`` with ``max_depth``: a ``checkerboard`` floor, a
+    back wall with a ``bitmap`` picture, a ``normalmap`` block over a
+    ``roughconductor`` whose alpha is a bitmap, a ``bumpmap`` block over
+    a ``roughplastic`` with a checkerboard diffuse reflectance, a
+    ``blendbsdf`` sphere with a bitmap weight, a ``mask`` pane with a
+    bitmap opacity, two spheres placed by one ``shapegroup`` and two
+    ``instance``s, the ceiling light and a ``spot``. 38 triangles and 3
+    analytic spheres."""
+    os.makedirs(directory, exist_ok=True)
+    tex = textured_bitmaps(directory, seed)
+    _write_obj(os.path.join(directory, 'block.obj'), *uv_cube())
+
+    def bitmap(name, role, raw=True):
+        return [f'<texture name="{name}" type="bitmap">',
+                f'    <string name="filename" value="{tex[role]}"/>',
+                f'    <boolean name="raw" value="{str(raw).lower()}"/>',
+                '</texture>']
+
+    def diffuse(rgb):
+        return ['<bsdf type="diffuse">',
+                f'    <rgb name="reflectance" value="{_rgb(rgb)}"/>',
+                '</bsdf>']
+
+    def checker(name, c0, c1, scale):
+        return [f'<texture name="{name}" type="checkerboard">',
+                f'    <rgb name="color0" value="{_rgb(c0)}"/>',
+                f'    <rgb name="color1" value="{_rgb(c1)}"/>',
+                f'    <float name="uscale" value="{scale}"/>',
+                f'    <float name="vscale" value="{scale}"/>',
+                '</texture>']
+
+    def shape(kind, body, ops=(), extra=()):
+        return _indent([f'<shape type="{kind}">', *_indent(list(extra), 4),
+                        *_indent(_tf(ops) if ops else [], 4),
+                        *_indent(body, 4), '</shape>'], 4)
+
+    white = (0.7, 0.7, 0.7)
+    walls = dict(_WALLS)
+    out = ['<?xml version="1.0" encoding="utf-8"?>',
+           '<scene version="2.0.0">',
+           '    <integrator type="path">',
+           f'        <integer name="max_depth" value="{max_depth}"/>',
+           '    </integrator>',
+           '    <sensor type="thinlens">',
+           '        <float name="fov" value="70"/>',
+           '        <string name="fov_axis" value="x"/>',
+           f'        <float name="aperture_radius" value="{TEXTURED_APERTURE}"/>',
+           f'        <float name="focus_distance" value="{TEXTURED_FOCUS}"/>',
+           '        <float name="near_clip" value="0.01"/>',
+           '        <float name="far_clip" value="100"/>',
+           '        <transform name="to_world">',
+           '            <lookat origin="0, 0, -3.2" target="0, 0, 0" '
+           'up="0, 1, 0"/>',
+           '        </transform>',
+           '        <sampler type="multijitter">',
+           f'            <integer name="sample_count" value="{spp}"/>',
+           '        </sampler>',
+           '        <film type="hdrfilm">',
+           f'            <integer name="width" value="{res}"/>',
+           f'            <integer name="height" value="{res}"/>',
+           '            <rfilter type="box"/>',
+           '        </film>',
+           '    </sensor>']
+    out += shape('rectangle', ['<bsdf type="diffuse">', *_indent(checker(
+        'reflectance', (0.8, 0.8, 0.75), (0.15, 0.15, 0.2), 4), 4),
+        '</bsdf>'], walls['floor'])
+    out += shape('rectangle', diffuse(white), walls['ceiling'])
+    out += shape('rectangle', ['<bsdf type="diffuse">',
+                               *_indent(bitmap('reflectance', 'wall',
+                                               raw=False), 4), '</bsdf>'],
+                 walls['back'])
+    out += shape('rectangle', diffuse((0.6, 0.05, 0.05)), walls['left'])
+    out += shape('rectangle', diffuse((0.05, 0.6, 0.05)), walls['right'])
+    out += shape('rectangle', diffuse(white) + [
+        '<emitter type="area">',
+        '    <rgb name="radiance" value="10, 10, 10"/>',
+        '</emitter>'], [('scale', (0.3, 0.3, 0.3)),
+                        ('rotate', (1, 0, 0), 90),
+                        ('translate', (0, 0.99, 0))])
+    out += shape('obj', [
+        '<bsdf type="normalmap">', *_indent(bitmap('normalmap', 'normal'), 4),
+        '    <bsdf type="roughconductor">',
+        *_indent(bitmap('alpha', 'alpha'), 8),
+        '        <rgb name="eta" value="0.143, 0.374, 1.442"/>',
+        '        <rgb name="k" value="3.983, 2.385, 1.603"/>',
+        '    </bsdf>', '</bsdf>'],
+        [('scale', (0.28, 0.6, 0.28)), ('rotate', (0, 1, 0), 15),
+         ('translate', (-0.35, -0.4, 0.35))],
+        ['<string name="filename" value="block.obj"/>'])
+    out += shape('obj', [
+        '<bsdf type="bumpmap">', *_indent(bitmap('bumpmap', 'height'), 4),
+        f'    <float name="scale" value="{TEXTURED_BUMP_SCALE}"/>',
+        '    <bsdf type="roughplastic">',
+        '        <float name="alpha" value="0.15"/>',
+        *_indent(checker('diffuse_reflectance', (0.1, 0.25, 0.6),
+                         (0.6, 0.5, 0.1), 3), 8),
+        '    </bsdf>', '</bsdf>'],
+        [('scale', (0.28, 0.3, 0.28)), ('rotate', (0, 1, 0), -18),
+         ('translate', (0.4, -0.7, -0.25))],
+        ['<string name="filename" value="block.obj"/>'])
+    out += shape('sphere', [
+        '<bsdf type="blendbsdf">', *_indent(bitmap('weight', 'weight'), 4),
+        '    <bsdf type="roughconductor">',
+        '        <float name="alpha" value="0.05"/>',
+        '    </bsdf>', *_indent(diffuse((0.7, 0.2, 0.1)), 4), '</bsdf>'],
+        extra=['<point name="center" x="0.4" y="-0.14" z="-0.25"/>',
+               '<float name="radius" value="0.25"/>'])
+    out += shape('rectangle', [
+        '<bsdf type="mask">', *_indent(bitmap('opacity', 'opacity'), 4),
+        *_indent(diffuse((0.2, 0.5, 0.8)), 4), '</bsdf>'],
+        [('scale', (0.25, 0.35, 1.0)), ('rotate', (0, 1, 0), 30),
+         ('translate', (0.05, -0.65, -0.75))])
+    out += _indent(['<shape type="shapegroup" id="pebbles">',
+                    '    <shape type="sphere">',
+                    '        <float name="radius" value="0.12"/>',
+                    *_indent(diffuse((0.8, 0.7, 0.3)), 8),
+                    '    </shape>', '</shape>'], 4)
+    for pos in ((-0.55, -0.88, -0.45), (0.65, 0.3, 0.5)):
+        out += shape('instance', ['<ref id="pebbles"/>'],
+                     [('translate', pos)])
+    out += ['    <emitter type="spot">',
+            '        <point name="position" x="-0.6" y="0.9" z="-0.6"/>',
+            '        <vector name="direction" x="0.5" y="-1" z="0.6"/>',
+            '        <rgb name="intensity" value="6, 5, 4"/>',
+            '        <float name="cutoff_angle" value="25"/>',
+            '    </emitter>', '</scene>']
+    path = os.path.join(directory, 'cbox_textured.xml')
+    with open(path, 'w') as f:
+        f.write('\n'.join(out) + '\n')
+    return path
+
+
+# env_spheres: the chosen values (no reference scene of it is in the
+# repository)
+ENV_SKY_RES = (512, 256)
+ENV_ICOSPHERE_SUBDIV = 2
+ENV_GRID_RES = 8
+
+
+def sky_exr(path: str, res=ENV_SKY_RES, seed: int = 0) -> None:
+    """An equirectangular sky from ``numpy.random.default_rng(seed)``: a
+    zenith-to-horizon gradient, noisy clouds, a bright sun and a dark
+    ground, written as an RGB EXR."""
+    from ..utils.io import write_exr
+    W, H = res
+    rng = np.random.default_rng(seed)
+    theta = (np.arange(H) + 0.5) / H * np.pi
+    phi = (np.arange(W) + 0.5) / W * 2 * np.pi
+    t, p = np.meshgrid(theta, phi, indexing='ij')
+    up = np.clip(t / (0.5 * np.pi), 0.0, 1.0)[..., None]
+    img = np.array([0.3, 0.5, 1.1]) * (1 - up) + np.array([1.0, 0.95, 0.9]) \
+        * up
+    clouds = _noise(rng, max(W, H))[:H, :W]
+    img = img * (0.7 + 0.6 * clouds[..., None])
+    img[t > 0.5 * np.pi] = np.array([0.2, 0.16, 0.12])
+    sun = np.array([np.cos(np.radians(35)) * np.cos(1.0),
+                    np.cos(np.radians(35)) * np.sin(1.0),
+                    np.sin(np.radians(35))])
+    d = np.stack([np.sin(t) * np.cos(p), np.sin(t) * np.sin(p), np.cos(t)],
+                 -1)
+    img[d @ sun[[0, 1, 2]] > np.cos(np.radians(3.0))] = (80.0, 70.0, 55.0)
+    write_exr(path, img.astype(np.float32))
+
+
+def colored_icosphere_ply(path: str, subdiv: int = ENV_ICOSPHERE_SUBDIV,
+                          seed: int = 0) -> int:
+    """A unit icosphere in a binary PLY with float vertex colours from
+    ``numpy.random.default_rng(seed)``; returns its triangle count."""
+    from ..scene.builder import icosphere_mesh
+    mesh = icosphere_mesh(subdiv)
+    rng = np.random.default_rng(seed)
+    col = rng.uniform(0.1, 0.9, (len(mesh.vertices), 3)).astype(np.float32)
+    v = mesh.vertices
+    header = (f"ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(v)}\nproperty float x\n"
+              f"property float y\nproperty float z\nproperty float red\n"
+              f"property float green\nproperty float blue\n"
+              f"element face {len(mesh.faces)}\n"
+              f"property list uchar int vertex_indices\nend_header\n")
+    rec = np.zeros(len(mesh.faces),
+                   np.dtype([('n', 'u1'), ('i', '<i4', (3,))]))
+    rec['n'] = 3
+    rec['i'] = mesh.faces
+    with open(path, 'wb') as f:
+        f.write(header.encode('ascii'))
+        f.write(np.ascontiguousarray(np.concatenate([v, col], 1),
+                                     '<f4').tobytes())
+        f.write(rec.tobytes())
+    return len(mesh.faces)
+
+
+def env_grid(res: int = ENV_GRID_RES, seed: int = 0) -> np.ndarray:
+    """The (res, res, res, 3) colour volume of env_spheres' grid3d
+    texture."""
+    rng = np.random.default_rng(seed + 1)
+    return rng.uniform(0.05, 0.95, (res, res, res, 3)).astype(np.float32)
+
+
+def env_spheres(directory: str, res_w: int = 512, res_h: int = 512,
+                spp: int = 16, max_depth: int = 8, seed: int = 0,
+                tr_mod=tr, integrator=None) -> dict:
+    """Writes ``sky.exr`` (``sky_exr``) and ``ico.ply``
+    (``colored_icosphere_ply``) into ``directory`` and returns the
+    description: a ``checkerboard`` ground; a ``roughconductor``, a
+    ``roughdielectric`` and a ``plastic`` sphere whose diffuse
+    reflectance is a ``grid3d`` texture given as an array; the vertex-
+    coloured icosphere under ``mesh_attribute``; lit by the ``envmap``, a
+    ``directional`` sun and a ``projector`` with a checkerboard slide;
+    ``stratified`` sampler, ``path`` with ``max_depth``. ``tr_mod`` makes
+    the transforms."""
+    os.makedirs(directory, exist_ok=True)
+    sky = os.path.join(directory, 'sky.exr')
+    sky_exr(sky, seed=seed)
+    ply = os.path.join(directory, 'ico.ply')
+    colored_icosphere_ply(ply, seed=seed)
+    c_plastic = (-0.35, 0.3, -0.9)
+    return {
+        'integrator': integrator or {'type': 'path',
+                                     'max_depth': max_depth},
+        'sensor': {
+            'type': 'perspective', 'fov': 50.0,
+            'to_world': tr_mod.look_at((0, 1.2, -4.2), (0, 0.3, 0),
+                                       (0, 1, 0)),
+            'film': {'width': res_w, 'height': res_h,
+                     'rfilter': {'type': 'box'}},
+            'sampler': {'type': 'stratified', 'sample_count': spp}},
+        'shapes': [
+            {'type': 'rectangle',
+             'bsdf': {'type': 'diffuse', 'reflectance': {
+                 'type': 'checkerboard', 'color0': (0.7, 0.7, 0.7),
+                 'color1': (0.2, 0.2, 0.25), 'uscale': 8.0,
+                 'vscale': 8.0}},
+             'to_world': tr_mod.rotate((1, 0, 0), -90) @ tr_mod.scale(6)},
+            {'type': 'sphere', 'center': (-1.1, 0.45, 0.3), 'radius': 0.45,
+             'bsdf': {'type': 'roughconductor', 'alpha': 0.15,
+                      'eta': (0.2, 0.92, 1.1), 'k': (3.9, 2.45, 2.14)}},
+            {'type': 'sphere', 'center': (0.0, 0.45, 0.6), 'radius': 0.45,
+             'bsdf': {'type': 'roughdielectric', 'alpha': 0.08,
+                      'int_ior': 1.5}},
+            {'type': 'sphere', 'center': c_plastic, 'radius': 0.3,
+             'bsdf': {'type': 'plastic', 'int_ior': 1.5,
+                      'diffuse_reflectance': {
+                          'type': 'grid3d', 'grid': env_grid(seed=seed),
+                          'bbox_min': tuple(x - 0.3 for x in c_plastic),
+                          'bbox_max': tuple(x + 0.3 for x in c_plastic)}}},
+            {'type': 'ply', 'filename': ply,
+             'bsdf': {'type': 'diffuse', 'reflectance': {
+                 'type': 'mesh_attribute', 'name': 'vertex_color'}},
+             'to_world': tr_mod.translate((1.15, 0.4, 0.2))
+             @ tr_mod.scale(0.4)},
+        ],
+        'emitters': [
+            {'type': 'envmap', 'filename': sky, 'scale': 1.0},
+            {'type': 'directional', 'direction': (-0.4, -1.0, 0.5),
+             'irradiance': (2.0, 1.8, 1.5)},
+            {'type': 'projector', 'fov': 30.0, 'scale': (3.0, 3.0, 3.0),
+             'irradiance': {'type': 'checkerboard',
+                            'color0': (1.0, 0.2, 0.2),
+                            'color1': (0.2, 0.2, 1.0), 'uscale': 4.0,
+                            'vscale': 4.0},
+             'to_world': tr_mod.look_at((2.5, 2.5, -1.5), (0, 0.3, 0.3),
+                                        (0, 1, 0))},
+        ],
+    }
+
+
+def cbox_spot_directional(res_w: int = 64, res_h: int = 32, spp: int = 2,
+                          integrator=None) -> dict:
+    """The Cornell box lit by a ``spot`` inside and a ``directional``
+    light through its open front, by default under the photon mapper:
+    its light pass shoots from both (``emitter.sample_ray``)."""
+    desc = cornell_box(spp=spp, res=res_w, light='none',
+                       integrator=integrator or {
+                           'type': 'photonmapper', 'max_depth': 6,
+                           'global_photons': 20000})
+    desc['sensor']['film']['height'] = res_h
+    desc['emitters'] = [
+        {'type': 'spot', 'position': (0.0, 0.9, -0.3),
+         'direction': (0.1, -1.0, 0.4), 'intensity': (8.0, 7.0, 6.0),
+         'cutoff_angle': 35.0},
+        {'type': 'directional', 'direction': (0.25, -0.45, 1.0),
+         'irradiance': (1.5, 1.5, 1.4)}]
+    return desc

@@ -1,5 +1,5 @@
-"""Image IO: OpenEXR (float32; read: none, zip, zips and PIZ), PNG,
-PFM, PPM and RGBE, and image resampling.
+"""Image IO: OpenEXR (float32; read: none, zip, zips and PIZ), PNG
+(read and write, without PIL), PFM, PPM and RGBE, and image resampling.
 
 Port of ``mitsuba_nlvrl_tpu/utils/io.py`` (pure python, numpy and zlib, so
 the port keeps its own copy). The writers and ``resample_image`` take a
@@ -203,6 +203,103 @@ def write_png(path: str, image: np.ndarray, gamma: bool = True) -> None:
     finally:
         if f is not path:
             f.close()
+
+
+def _png_unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (none, sub, up, average, paeth) of a
+    non-interlaced PNG: (H, stride) uint8."""
+    out = np.zeros((H, stride), np.uint8)
+    prior = np.zeros(stride, np.int64)
+    pos = 0
+    for y in range(H):
+        ftype = raw[pos]
+        row = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int64)
+        pos += stride + 1
+        if ftype == 0:
+            cur = row
+        elif ftype == 1:        # sub: a running sum along each byte lane
+            pad = -stride % bpp
+            lanes = np.concatenate([row, np.zeros(pad, np.int64)]
+                                   ).reshape(-1, bpp)
+            cur = (np.cumsum(lanes, axis=0) & 0xFF).reshape(-1)[:stride]
+        elif ftype == 2:
+            cur = (row + prior) & 0xFF
+        elif ftype in (3, 4):   # average, paeth: a byte needs its left one
+            r, b = row.tolist(), prior.tolist()
+            c = [0] * stride
+            for i in range(stride):
+                left = c[i - bpp] if i >= bpp else 0
+                if ftype == 3:
+                    c[i] = (r[i] + ((left + b[i]) >> 1)) & 0xFF
+                    continue
+                ul = b[i - bpp] if i >= bpp else 0
+                p_ = left + b[i] - ul
+                pa, pb, pc = abs(p_ - left), abs(p_ - b[i]), abs(p_ - ul)
+                pred = left if pa <= pb and pa <= pc else \
+                    (b[i] if pb <= pc else ul)
+                c[i] = (r[i] + pred) & 0xFF
+            cur = np.asarray(c, np.int64)
+        else:
+            raise ValueError(f"PNG row filter {ftype}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a non-interlaced PNG to its samples, (H, W, C) uint8 or
+    uint16 (C: 1 grey, 2 grey and alpha, 3 RGB, 4 RGBA). Palette images
+    expand to RGB, or to RGBA when they carry transparency; grey and
+    palette images of 1, 2 or 4 bits widen to 8. Needs zlib and numpy
+    only."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, plte, trns = 8, [], None, None
+    while pos < len(data):
+        n, tag = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b'IHDR':
+            W, H, depth, ctype, _, _, interlace = struct.unpack('>IIBBBBB',
+                                                                body)
+        elif tag == b'PLTE':
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b'tRNS':
+            trns = body
+        elif tag == b'IDAT':
+            idat.append(body)
+        elif tag == b'IEND':
+            break
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced PNG")
+    chans = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    bits = chans * depth
+    stride = (W * bits + 7) // 8
+    rows = _png_unfilter(zlib.decompress(b''.join(idat)), H, stride,
+                         max(1, bits // 8))
+    if depth == 16:
+        img = rows.view('>u2').astype(np.uint16).reshape(H, W, chans)
+    elif depth == 8:
+        img = rows.reshape(H, W, chans)
+    else:       # 1, 2 or 4 bits a sample: grey or palette indices
+        per = 8 // depth
+        shifts = np.arange(per - 1, -1, -1) * depth
+        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        img = samples.reshape(H, -1)[:, :W, None].astype(np.uint8)
+        if ctype == 0:      # widen grey to 8 bits, as decoders do
+            img = (img.astype(np.uint16) * (255 // ((1 << depth) - 1))
+                   ).astype(np.uint8)
+    if ctype == 3:
+        idx = img[..., 0]
+        rgb = plte[idx]
+        if trns is None:
+            return rgb
+        alpha = np.full(len(plte), 255, np.uint8)
+        alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    return img
 
 
 # --- PFM / PPM / RGBE -------------------------------------------------------

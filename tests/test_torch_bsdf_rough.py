@@ -127,30 +127,77 @@ def test_eval_pdf_sample_match_reference(name, hemisphere):
 
 
 @pytest.mark.parametrize('change', [
-    {'type': 'mask', 'bsdf': {'type': 'diffuse'}},
-    {'type': 'roughconductor', 'alpha': {'type': 'bitmap'}},
-    {'type': 'roughplastic', 'specular_reflectance': {'type': 'bitmap'}},
-    {'type': 'plastic', 'diffuse_reflectance': {'type': 'checkerboard'}},
+    {'type': 'measured', 'filename': 'absent.bsdf'},
+    {'type': 'measured_polarized', 'filename': 'absent.pbsdf'},
+    {'type': 'circular'},
+    {'type': 'mask', 'bsdf': {'type': 'polarizer'}},
 ])
 def test_outside_the_slice_still_raises(change):
+    """The measured and polarizing BSDFs (alone or in a mask) raise,
+    naming ROADMAP item 10."""
     desc = pscenes.cornell_box(spp=1, res=8)
     desc['shapes'][0]['bsdf'] = change
-    item = 'item 7 (materials)' if change['type'] == 'mask' \
-        else 'item 7 (textures)'
-    with pytest.raises(NotImplementedError, match=item.replace('(', r'\(')
-                       .replace(')', r'\)')):
+    with pytest.raises(NotImplementedError, match=r'item 10 \(variants\)'):
         P.build_scene(desc, device='cpu')
 
 
+ITEM7_ROWS = [
+    {'type': 'mask', 'opacity': 0.4, 'bsdf': {'type': 'diffuse'}},
+    {'type': 'roughconductor', 'alpha': {'type': 'checkerboard',
+                                         'color0': 0.1, 'color1': 0.4}},
+    {'type': 'roughplastic', 'specular_reflectance': {
+        'type': 'checkerboard', 'color0': 0.9, 'color1': 0.3}},
+    {'type': 'plastic', 'diffuse_reflectance': {'type': 'checkerboard'}},
+]
+
+
+@pytest.mark.parametrize('change', ITEM7_ROWS)
+def test_item7_rows_build_and_match(change):
+    """A mask and textured alpha, specular and plastic diffuse parameters
+    build, through the port's description and from the reference's
+    arrays, and the 16x16, 2 spp render matches the reference's on every
+    pixel (1e-3 relative), the rays within ``compare.RAYS_RTOL``."""
+    d = scenes.cornell_box(spp=2, res=16)
+    d['shapes'][0]['bsdf'] = change
+    dp = pscenes.cornell_box(spp=2, res=16)
+    dp['shapes'][0]['bsdf'] = change
+    sj, mj, sp, mp = build_both(d)
+    sq, _ = P.build_scene(dp, device='cpu')
+    ref = scene_arrays(sj)
+    for k, a in scene_arrays(sq).items():
+        np.testing.assert_allclose(np.asarray(a, np.float64),
+                                   np.asarray(ref[k], np.float64),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    stats = []
+    with ieee_reference():
+        img_j = np.asarray(J.render(sj, mj, seed=0, spp=2, ray_stats=stats,
+                                    spp_per_dispatch=1))
+    img_p, _, rays_p = compare.render_with_passes(sp, mp, 0, 2)
+    _check_pixels(img_p, img_j, rays_p, sum(float(r) for r in stats))
+
+
 def test_mask_from_reference_arrays_raises():
-    """A reference scene whose row carries the mask flag (its type code
-    is the nested BSDF's) raises from ``scene_from_numpy``."""
+    """A reference scene whose masked row wraps a BSDF outside the port
+    (a polarizer, ROADMAP item 10) raises from ``scene_from_numpy``; a
+    masked diffuse row carries over (``test_mask_from_reference_arrays_
+    builds``)."""
+    d = scenes.cornell_box(spp=1, res=8)
+    d['shapes'][0]['bsdf'] = {'type': 'mask', 'opacity': 0.5,
+                              'bsdf': {'type': 'polarizer'}}
+    sj, mj = J.build_scene(d)
+    with pytest.raises(NotImplementedError, match='item 10'):
+        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')
+
+
+def test_mask_from_reference_arrays_builds():
     d = scenes.cornell_box(spp=1, res=8)
     d['shapes'][0]['bsdf'] = {'type': 'mask', 'opacity': 0.5,
                               'bsdf': {'type': 'diffuse'}}
     sj, mj = J.build_scene(d)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')
+    sp, mp = P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
+                                device='cpu')
+    assert (sp.bsdfs.flags[0] & 32) > 0 and float(sp.bsdfs.params[0, 14]) \
+        == 0.5
 
 
 def _materials_desc(pkg, tr_mod, **kw):

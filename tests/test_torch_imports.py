@@ -1,5 +1,5 @@
-"""The port stands alone: it never imports JAX or the JAX package, and its
-entry points never drop to the CPU on their own."""
+"""The port stands alone: it never imports JAX, the JAX package or PIL,
+and its entry points never drop to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'mitsuba_nlvrl_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu', 'PIL')
 
 
 def _forbidden(module: str) -> bool:
@@ -26,6 +26,7 @@ def test_name_guard_matches_whole_module_names():
     assert not _forbidden('mitsuba_nlvrl_tpu_torch')
     assert not _forbidden('mitsuba_nlvrl_tpu_torch.core.rng')
     assert not _forbidden('jaxtyping_like')
+    assert _forbidden('PIL') and _forbidden('PIL.Image')
 
 
 def _sources():
@@ -63,8 +64,11 @@ def test_no_forbidden_import_in_sources():
               'photon_est.py', 'photonmapper.py', 'nlvrl_probe.py',
               'port_profile_nlvrl.py', '__main__.py', 'xml.py', 'mesh_io.py',
               'bvh.py', 'io.py', 'exr_piz.py', 'ior_data.py',
-              'spectrum.py', 'cie_data.py', 'microfacet.py', 'warp.py'):
+              'spectrum.py', 'cie_data.py', 'microfacet.py', 'warp.py',
+              'distr.py', 'distr2d.py', 'direct.py', 'depth.py'):
         assert f in names, f
+    texture = os.path.join(PORT, 'texture', '__init__.py')
+    assert texture in set(_sources())
     assert not bad, bad
 
 
@@ -167,6 +171,37 @@ def test_cpu_scene_file_render_loads_no_jax(tmp_path):
     loaded = out.stdout.split()
     for mod in ('scene.xml', 'scene.mesh_io', 'native', 'ops.bvh',
                 'utils.io', '__main__'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_cpu_textured_render_loads_no_jax(tmp_path):
+    """ROADMAP item 7 (textures and the PNG reader, the wrapper BSDFs, the
+    remaining lights, samplers and sensors, direct and depth, instancing)
+    renders on the CPU without JAX, the reference package or PIL."""
+    code = (
+        "import sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.scene.xml import load_file\n"
+        "from mitsuba_nlvrl_tpu_torch.testing import scenes as S\n"
+        f"d = {str(tmp_path)!r}\n"
+        "s, m = P.build_scene(load_file(S.cbox_textured(d, spp=1, res=8)),\n"
+        "                     device='cpu')\n"
+        "assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "s, m = P.build_scene(S.env_spheres(d, 8, 8, 1), device='cpu')\n"
+        "assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "for i in ('direct', 'depth'):\n"
+        "    s, m = P.build_scene(S.cornell_box(spp=1, res=8,\n"
+        "                         integrator={'type': i}), device='cpu')\n"
+        "    assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('texture', 'core.distr2d', 'sampler', 'integrators.direct',
+                'integrators.depth'):
         assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
     assert not [m for m in loaded if _forbidden(m)]
 

@@ -1,5 +1,7 @@
 """The port's scene builder against the reference's: every SceneData array
 the port holds equals the reference build to 1e-6."""
+import os
+
 import numpy as np
 import pytest
 
@@ -80,22 +82,12 @@ def test_scene_from_numpy_carries_reference_arrays(name):
     _assert_meta(mp, mj)
 
 
-@pytest.mark.parametrize('change', [
-    ('shape', {'type': 'instance'}),
-    ('bsdf', {'type': 'blendbsdf'}),
-    ('bsdf', {'type': 'diffuse',
-              'reflectance': {'type': 'checkerboard'}}),
-    ('emitter', {'type': 'spot'}),
-    ('sensor', 'thinlens'),
-    ('sampler', 'stratified'),
-    ('integrator', 'direct'),
-    ('medium', {'type': 'homogeneous', 'sigma_t': {'type': 'checkerboard'}}),
-])
-def test_types_outside_the_slice_raise(change):
-    what, value = change
-    desc = port_scenes.cornell_box(light='area')
+def _change(desc, what, value):
+    """``desc`` with one part replaced: a shape added, the first shape's
+    BSDF, an emitter added, the sensor or sampler type, the integrator,
+    the first shape's interior medium or the whole-scene variant flag."""
     if what == 'shape':
-        desc['shapes'].append(dict(value, bsdf={'type': 'diffuse'}))
+        desc['shapes'].append(value)
     elif what == 'bsdf':
         desc['shapes'][0]['bsdf'] = value
     elif what == 'emitter':
@@ -106,7 +98,87 @@ def test_types_outside_the_slice_raise(change):
         desc['sensor']['sampler']['type'] = value
     elif what == 'integrator':
         desc['integrator'] = {'type': value}
+    elif what == 'variant':
+        desc[value] = True
     else:
         desc['shapes'][0]['interior'] = value
+    return desc
+
+
+def _jpeg(directory) -> str:
+    """A file with a JPEG's signature (its decoder is never reached)."""
+    path = os.path.join(str(directory), 'slide.jpg')
+    with open(path, 'wb') as f:
+        f.write(b'\xff\xd8\xff\xe0' + bytes(60))
+    return path
+
+
+@pytest.mark.parametrize('change', [
+    ('medium', {'type': 'homogeneous', 'sigma_t': {'type': 'checkerboard'}}),
+    ('bsdf', {'type': 'measured', 'filename': 'absent.bsdf'}),
+    ('bsdf', {'type': 'polarizer'}),
+    ('integrator', 'aov'),
+    ('bsdf', {'type': 'diffuse',
+              'reflectance': {'type': 'bitmap', 'filename': 'JPEG'}}),
+    ('bsdf', {'type': 'retarder'}),
+    ('integrator', 'moment'),
+    ('variant', 'spectral'),
+])
+def test_types_outside_the_slice_raise(change, tmp_path):
+    """What the port does not render yet raises, naming its ROADMAP item:
+    textured media (item 8), measured and polarizing BSDFs, the AOV
+    integrators and the spectral variant (item 10), JPEG bitmaps (item
+    12)."""
+    what, value = change
+    if what == 'bsdf' and value.get('reflectance', {}).get('filename') \
+            == 'JPEG':
+        value = dict(value, reflectance=dict(value['reflectance'],
+                                             filename=_jpeg(tmp_path)))
+    desc = _change(port_scenes.cornell_box(light='area'), what, value)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         P.build_scene(desc, device='cpu')
+
+
+def _item7_change(s, what):
+    """Each type of ROADMAP item 7 (with items 3, 4 and 5) in the Cornell
+    box of package module ``s`` (its own transforms)."""
+    return {
+        'instance': ('shape', {
+            'type': 'instance', 'to_world': s.tr.translate((0.3, -0.6, 0.2)),
+            'shapegroup': {'type': 'shapegroup', 'shape': [
+                {'type': 'sphere', 'radius': 0.2,
+                 'bsdf': {'type': 'diffuse', 'reflectance': 0.3}},
+                {'type': 'rectangle', 'bsdf': {'type': 'diffuse'},
+                 'to_world': s.tr.scale(0.2)}]}}),
+        'blendbsdf': ('bsdf', {'type': 'blendbsdf', 'weight': 0.3, 'bsdf': [
+            {'type': 'diffuse'}, {'type': 'conductor'}]}),
+        'checkerboard': ('bsdf', {'type': 'diffuse', 'reflectance': {
+            'type': 'checkerboard', 'uscale': 3.0}}),
+        'spot': ('emitter', {'type': 'spot', 'position': (0, 0.8, 0),
+                             'direction': (0, -1, 0.2)}),
+        'thinlens': ('sensor', 'thinlens'),
+        'stratified': ('sampler', 'stratified'),
+        'direct': ('integrator', 'direct'),
+    }[what]
+
+
+@pytest.mark.parametrize('what', ['instance', 'blendbsdf', 'checkerboard',
+                                  'spot', 'thinlens', 'stratified',
+                                  'direct'])
+def test_item7_types_build(what):
+    """The types that raised before ROADMAP item 7 build: the port's
+    description and the reference's give the same arrays, and the
+    reference's arrays carry over through ``scene_from_numpy``."""
+    sj, mj = J.build_scene(_change(scenes.cornell_box(light='area'),
+                                   *_item7_change(scenes, what)))
+    sp, mp = P.build_scene(_change(port_scenes.cornell_box(light='area'),
+                                   *_item7_change(port_scenes, what)),
+                           device='cpu')
+    ref = scene_arrays(sj)
+    _assert_same(scene_arrays(sp), ref)
+    _assert_meta(mp, mj)
+    sq, mq = P.scene_from_numpy(ref, jax_meta_dict(mj), device='cpu')
+    _assert_same(scene_arrays(sq), ref)
+    _assert_meta(mq, mj)
+    img = P.render(sq, mq, seed=0, spp=1)
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0

@@ -23,7 +23,8 @@ import mitsuba_nlvrl_tpu_torch as P
 
 def scene_arrays(scene) -> dict:
     """Flatten a SceneData of either package into {dotted field path:
-    ndarray}, the form ``scene_from_numpy`` takes. The port's occluder
+    ndarray}, the form ``scene_from_numpy`` takes; a tuple's items take
+    their index ("emitters.env_warp.levels.0"). The port's occluder
     subset is left out: ``scene_from_numpy`` derives it from the other
     arrays (tests/test_torch_medium.py checks it)."""
     out = {}
@@ -34,6 +35,9 @@ def scene_arrays(scene) -> dict:
         if hasattr(node, '_fields'):
             for f in node._fields:
                 walk(f'{prefix}.{f}' if prefix else f, getattr(node, f))
+        elif isinstance(node, tuple):    # the warp's levels; () absent
+            for i, x in enumerate(node):
+                walk(f'{prefix}.{i}', x)
         elif hasattr(node, 'shape'):
             out[prefix] = np.asarray(node)
     walk('', scene)
