@@ -65,6 +65,19 @@ slide projector, grid3d and mesh-attribute textures; stratified; 512x512,
 16 spp), and the card against the CPU on both at 64x64, on ``direct``,
 ``depth``, the radiance and irradiance meters, a photon-mapper box lit
 by a spot and a directional light, and on the five samplers' jitter.
+Then spectral and polarized transport, the wrapper integrators and the
+regeneration scheduler: ``cbox_spectral`` (the box under the reference
+cbox.xml's tabulated light with two blocks of a named conductor whose
+eta/k curves the phase writes; 512x512, 16 spp, in process and through
+the CLI's ``--spectral``, its EXR equal in bits), ``cbox_polarized``
+(``stokes`` around ``path``: a polarizer, a quarter-wave retarder, a
+circular element, a glass sphere, conductor blocks, a pplastic wall;
+512x512, 16 spp, components 0 and 1, then spectral component 3), each
+with every kernel call of one pass checked and timed, ``hetvol_volpath``
+through the regeneration scheduler (``MNT_REGEN=1``) beside the pass
+loop's render, and the card against the CPU at 64x64 on each of them, on
+``aov``, ``moment``, an albedo-grid medium and a fog box under
+regeneration, with regeneration held to the pass loop by the noise rule.
 Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
@@ -416,14 +429,16 @@ def render_rays(torch, kern, calls, bw, fl, stride: int = 1) -> dict:
             'max_abs_err': worst, 'timed_every': stride, 'calls': recs}
 
 
-def card_vs_cpu(mnt, compare, desc, spp) -> dict:
-    """One scene rendered on the card and on the CPU from one seed: the
-    numbers of ``compare.agreement``."""
+def card_vs_cpu(mnt, compare, desc, spp, scale=None) -> tuple:
+    """One scene rendered on the card and on the CPU from one seed: (the
+    numbers of ``compare.agreement``, gated against ``scale`` where it is
+    given, the CPU's image)."""
     sg, mg = mnt.build_scene(desc)
     sc, mc = mnt.build_scene(desc, device='cpu')
     img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
     img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp)
-    return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c)
+    return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c,
+                             scale=scale), img_c
 
 
 def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
@@ -485,19 +500,21 @@ def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
 def timed_render(torch, mnt, kern, sync, scene, meta, spp) -> tuple:
     """A render timed on the host clock ending in a device synchronise:
     (record with wall seconds, rays, Mrays/s, kernel launches, host syncs,
-    finite, mean; the image as numpy)."""
+    the scheduler, finite, mean; the image as numpy)."""
     import numpy as np
     torch.cuda.synchronize()
     kern.launches = 0
     sync.host_syncs = 0
-    stats, t0 = [], time.time()
-    img = mnt.render(scene, meta, seed=0, spp=spp, ray_stats=stats)
+    stats, info, t0 = [], {}, time.time()
+    img = mnt.render(scene, meta, seed=0, spp=spp, ray_stats=stats,
+                     info=info)
     torch.cuda.synchronize()
     wall = time.time() - t0
     rays = float(sum(float(r) for r in stats))
     img_np = img.cpu().numpy()
     return {'wall_s': wall, 'rays': rays, 'mrays_per_s': rays / wall / 1e6,
             'launches': kern.launches, 'host_syncs': sync.host_syncs,
+            'scheduler': info.get('scheduler', 'passes'),
             'finite': bool(np.isfinite(img_np).all()),
             'mean': float(img_np.mean()), 'shape': list(img_np.shape)}, \
         img_np
@@ -528,7 +545,7 @@ def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     assert 0 < launches <= 16 * 8 * 2, launches
     assert np.isfinite(img_np).all() and img_np.shape == (512, 512, 3)
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
-    agree = card_vs_cpu(mnt, compare, cbox_materials(64, 64, 4), 4)
+    agree, _ = card_vs_cpu(mnt, compare, cbox_materials(64, 64, 4), 4)
     emit({'phase': 'materials_card_vs_cpu', 'res': 64, 'spp': 4, **agree})
     compare.check(agree)
 
@@ -759,7 +776,7 @@ def item7_checks(torch, mnt, compare, workdir) -> None:
         ('radiancemeter', meter('radiancemeter'), 64),
         ('irradiancemeter', meter('irradiancemeter'), 64))
     for name, desc, spp in checks:
-        agree = card_vs_cpu(mnt, compare, desc, spp)
+        agree, _ = card_vs_cpu(mnt, compare, desc, spp)
         emit({'phase': 'item7_checks', 'check': name, 'spp': spp, **agree})
         compare.check(agree)
     agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
@@ -789,6 +806,253 @@ def item7_checks(torch, mnt, compare, workdir) -> None:
     assert all(same.values()), same
     assert reads['multijitter/7/0'] > 0 and reads['orthogonal/16/0'] > 0, \
         reads
+
+
+def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
+                 pass_loop) -> dict:
+    """Spectral and polarized transport, the wrapper integrators and the
+    regeneration scheduler on the card: ``spectral_render_rays``,
+    ``spectral_render`` and ``spectral_cli`` (cbox_spectral 512x512, 16
+    spp, ``path`` max_depth 8, the reference cbox.xml's light SPD and a
+    named conductor whose curves the phase writes into ``MNT_IOR_DIR``;
+    the CLI's ``--spectral`` EXR equal in bits to the in-process render);
+    ``polarized_render_rays`` and ``polarized_render`` (cbox_polarized
+    512x512, 16 spp, ``stokes`` around ``path`` max_depth 8, components 0
+    and 1, then spectral, component 3); ``regen_render_rays`` and
+    ``regen_render`` (hetvol_volpath under ``MNT_REGEN=1``, beside the
+    pass loop's render of the same scene, ``pass_loop``); then
+    ``item8_checks``. Returns the renders' launches and the kernel's
+    numbers on their passes."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        SPECTRAL_CONDUCTOR, cbox_polarized, cbox_spectral, hetvol_box,
+        with_component)
+    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
+    out = {'max_abs_err': 0.0}
+
+    def kernel_numbers(tag, own):
+        out.update({f'{tag}_ms': own['ms_per_launch'],
+                    f'{tag}_plain_ms': own['plain_ms_per_launch'],
+                    f'{tag}_bound_ms': own['bound_ms_per_launch'],
+                    f'{tag}_bound_by': own['bound_by']})
+        out['max_abs_err'] = max(out['max_abs_err'], own['max_abs_err'])
+
+    # --- cbox_spectral: a scene file, 512x512, 16 spp ------------------
+    sdir = os.path.join(workdir, 'spectral')
+    path = cbox_spectral(sdir, spp=16, res=512, max_depth=8)
+    os.environ['MNT_IOR_DIR'] = sdir
+    t0 = time.time()
+    desc = load_file(path)
+    desc['spectral'] = True
+    scene, meta = mnt.build_scene(desc)
+    torch.cuda.synchronize()
+    assert meta.spectral and meta.has_conductor_spd
+    calls = record_calls(mnt, scene, meta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'spectral_render_rays', 'build_s': time.time() - t0,
+          'n_tris': meta.n_tris, 'conductor_curves': list(
+              scene.conductor_spd.shape), **own})
+    del calls
+    kernel_numbers('spectral', own)
+    rec, img_np = timed_render(torch, mnt, kern, sync, scene, meta, 16)
+    emit({'phase': 'spectral_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'scene': 'cbox_spectral', **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert img_np.shape == (512, 512, 3) and 0.01 < rec['mean'] < 10.0
+    exr = os.path.join(workdir, 'spectral.exr')
+    wall, cli_out = run_cli([path, '-o', exr, '--spectral', '-v'],
+                            timeout=400)
+    stats = json.loads([x for x in cli_out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    im, names = read_exr(exr)
+    cli_img = im[..., [names.index(c) for c in 'RGB']]
+    emit({'phase': 'spectral_cli', 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'],
+          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes(),
+          'mean': float(cli_img.mean())})
+    assert cli_img.tobytes() == img_np.tobytes(), \
+        "the CLI's spectral EXR differs from the in-process render"
+    assert stats['rays'] == rec['rays']
+    out.update(launches_spectral=rec['launches'],
+               launches_spectral_cli=stats['kernel_launches'])
+    del scene
+
+    # --- cbox_polarized: stokes, 512x512, 16 spp ------------------------
+    pscene, pmeta = mnt.build_scene(cbox_polarized(
+        512, 16, 0, conductor=SPECTRAL_CONDUCTOR))
+    calls = record_calls(mnt, pscene, pmeta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'polarized_render_rays', 'n_tris': pmeta.n_tris,
+          'bsdf_types': list(pmeta.bsdf_types), **own})
+    del calls
+    kernel_numbers('polarized', own)
+    out['launches_polarized'] = 0
+    for c in (0, 1):
+        rec, pimg = timed_render(torch, mnt, kern, sync, pscene,
+                                 with_component(pmeta, c), 16)
+        emit({'phase': 'polarized_render', 'res': 512, 'spp': 16,
+              'max_depth': 8, 'component': c, 'spectral': False, **rec})
+        assert rec['launches'] > 0 and rec['finite'], rec
+        assert (0.01 < rec['mean'] < 10.0) if c == 0 \
+            else float(np.abs(pimg).max()) > 1e-3
+        out['launches_polarized'] += rec['launches']
+    del pscene
+    sdesc = cbox_polarized(512, 16, 3, spectral=True,
+                           conductor=SPECTRAL_CONDUCTOR)
+    pscene, pmeta = mnt.build_scene(sdesc)
+    assert pmeta.spectral and pmeta.has_conductor_spd
+    calls = record_calls(mnt, pscene, pmeta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'polarized_render_rays', 'spectral': True, **own})
+    del calls
+    kernel_numbers('spectral_polarized', own)
+    rec, pimg = timed_render(torch, mnt, kern, sync, pscene, pmeta, 16)
+    emit({'phase': 'polarized_render', 'res': 512, 'spp': 16,
+          'max_depth': 8, 'component': 3, 'spectral': True, **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert float(np.abs(pimg).max()) > 1e-3
+    out['launches_spectral_polarized'] = rec['launches']
+    del pscene
+
+    # --- hetvol_volpath through the regeneration scheduler ---------------
+    os.environ['MNT_REGEN'] = '1'
+    try:
+        vscene, vmeta = mnt.build_scene(hetvol_box(768, 576, spp=2,
+                                                   grid_res=128, seed=0,
+                                                   scale=100.0))
+        calls = record_calls(mnt, vscene, vmeta)
+        own = render_rays(torch, kern, calls, bw, fl,
+                          stride=max(1, len(calls) // 64))
+        emit({'phase': 'regen_render_rays', **own})
+        del calls
+        kernel_numbers('regen', own)
+        rec, _ = timed_render(torch, mnt, kern, sync, vscene, vmeta, 2)
+        emit({'phase': 'regen_render', 'res': [768, 576], 'spp': 2,
+              'scene': 'hetvol_volpath', **rec, 'pass_loop': pass_loop,
+              'wall_vs_pass_loop': rec['wall_s'] / pass_loop['wall_s'],
+              'rays_vs_pass_loop': rec['rays'] / pass_loop['rays']})
+        assert rec['scheduler'] == 'regen' and rec['finite'], rec
+        assert rec['launches'] > 0 and 0.01 < rec['mean'] < 10.0, rec
+        out['launches_regen'] = rec['launches']
+        del vscene
+    finally:
+        del os.environ['MNT_REGEN']
+
+    item8_checks(torch, mnt, compare, workdir)
+    return out
+
+
+def item8_checks(torch, mnt, compare, workdir) -> None:
+    """Slice 8 on the card against the CPU (``compare.check`` on each, at
+    64x64): cbox_spectral; cbox_polarized components 0 and 1 and its
+    spectral component 3 (S1 and S3 gated against S0); ``aov`` with
+    sh_normal, position and uv; ``moment`` around ``path``; a
+    heterogeneous box with an albedo gridvolume; regeneration on a
+    homogeneous-fog box (card regen against CPU regen). Then regeneration
+    against the pass loop on the card (a 64x64 heterogeneous box, 4 spp):
+    on two seeds the reference's noise rule (the gap between the
+    schedulers' images under 1.5 times the seed-to-seed noise, the means
+    within 8%); on four, with the regeneration's film jitter salted by
+    the seed, the means within 6 standard errors over seeds."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.integrators import regen as regen_mod
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        SPECTRAL_CONDUCTOR, albedo_grid_medium, cbox_polarized,
+        cbox_spectral, cornell_box, hetvol_box)
+
+    def gate(name, desc, spp, scale=None):
+        agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
+        emit({'phase': 'item8_checks', 'check': name, 'spp': spp, **agree})
+        compare.check(agree)
+        return img_c
+
+    desc = load_file(cbox_spectral(os.path.join(workdir, 'spectral64'),
+                                   spp=4, res=64, max_depth=8))
+    desc['spectral'] = True
+    gate('cbox_spectral', desc, 4)
+    s0 = gate('cbox_polarized_s0', cbox_polarized(
+        64, 2, 0, conductor=SPECTRAL_CONDUCTOR), 2)
+    gate('cbox_polarized_s1', cbox_polarized(
+        64, 2, 1, conductor=SPECTRAL_CONDUCTOR), 2, scale=s0)
+    s0 = gate('cbox_spectral_polarized_s0', cbox_polarized(
+        64, 2, 0, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2)
+    gate('cbox_spectral_polarized_s3', cbox_polarized(
+        64, 2, 3, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2,
+        scale=s0)
+    for kind in ('sh_normal', 'position', 'uv'):
+        gate(f'aov_{kind}', cornell_box(spp=2, res=64, integrator={
+            'type': 'aov', 'aovs': f'x:{kind}'}), 2,
+            scale=np.ones((64, 64, 3)))
+    gate('moment_path', cornell_box(spp=4, res=64, integrator={
+        'type': 'moment', 'integrator': {'type': 'path', 'max_depth': 8}}),
+        4)
+    gate('albedo_grid', cornell_box(
+        spp=2, res=64, medium=albedo_grid_medium(16, scale=5.0),
+        integrator={'type': 'volpath', 'max_depth': 8}), 2)
+    fog = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.9}
+    os.environ['MNT_REGEN'] = '1'
+    try:
+        gate('regen_fog', cornell_box(
+            spp=2, res=64, medium=fog,
+            integrator={'type': 'volpath', 'max_depth': 8}), 2)
+        # regeneration against the pass loop on the card (the noise rule
+        # of the reference's tests/test_regen.py), on a thinner medium:
+        # the pass loop's small passes drain to their slowest walk (156 s
+        # for 16 spp at sigma_t x100, 110 s for 2 x 8 spp at x20 and the
+        # schedulers beside, on an H100)
+        scene, meta = mnt.build_scene(hetvol_box(64, 64, spp=4,
+                                                 grid_res=32, seed=0,
+                                                 scale=5.0))
+        seeds = (1, 2, 3, 4)
+
+        def images(mode, seeds):
+            os.environ['MNT_REGEN'] = mode
+            return np.stack([mnt.render(scene, meta, seed=s,
+                                        spp=4).cpu().numpy() for s in seeds])
+        loop = images('0', seeds)
+        regen = images('1', seeds[:2])
+        # the regeneration film jitter is a function of (pass, pixel)
+        # alone, in the reference as here, so its film positions do not
+        # move with the seed: across seeds its image keeps one fixed
+        # sampling error at the light's edges (about 5% of the mean at
+        # this size), and seeds cannot bound the schedulers' gap. With
+        # the pass index salted by the seed each seed draws its own
+        # positions, and the means must agree within 6 standard errors
+        # over seeds (the rule of the reference's homogeneous-fog test)
+        real = regen_mod.lane_jitter
+        try:
+            salted = []
+            for s in seeds:
+                regen_mod.lane_jitter = \
+                    lambda t, pss, pix, s=s: real(t, pss + 4096 * s, pix)
+                salted.append(images('1', (s,))[0])
+        finally:
+            regen_mod.lane_jitter = real
+        salted = np.stack(salted)
+    finally:
+        del os.environ['MNT_REGEN']
+    noise = float(np.abs(loop[0] - loop[1]).mean())
+    cross = float(np.abs(regen.mean(0) - loop[:2].mean(0)).mean())
+    rel = float(abs(regen.mean() - loop[:2].mean()) / loop[:2].mean())
+    m_loop, m_salt = loop.mean(axis=(1, 2, 3)), salted.mean(axis=(1, 2, 3))
+    se = float(np.sqrt(m_loop.var(ddof=1) / len(seeds)
+                       + m_salt.var(ddof=1) / len(seeds)))
+    gap = float(m_salt.mean() - m_loop.mean())
+    emit({'phase': 'item8_checks', 'check': 'regen_vs_pass_loop',
+          'scene': 'hetvol_box 64x64, sigma_t x5', 'spp': 4,
+          'seeds': list(seeds[:2]),
+          'noise': noise, 'cross': cross, 'mean_rel': rel,
+          'salted_seeds': list(seeds), 'salted_gap': gap,
+          'salted_rel': gap / float(m_loop.mean()), 'salted_se': se,
+          'salted_z': gap / se})
+    assert np.isfinite(regen).all() and cross < 1.5 * noise, (cross, noise)
+    assert rel < 0.08, rel
+    assert np.isfinite(salted).all() and abs(gap) < 6 * se, (gap, se)
 
 
 def run_cli(args, timeout: float):
@@ -962,7 +1226,7 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     sdesc = load_file(mpath)
     sdesc['sensor']['film'].update(width=64, height=64)
     sdesc['sensor']['sampler']['sample_count'] = 2
-    agree = card_vs_cpu(mnt, compare, sdesc, 2)
+    agree, _ = card_vs_cpu(mnt, compare, sdesc, 2)
     emit({'phase': 'mesh_card_vs_cpu', 'res': 64, 'spp': 2, **agree})
     compare.check(agree)
 
@@ -1108,7 +1372,7 @@ def main() -> int:
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
 
     # --- the card path against the CPU path, 64x64 at 4 spp -----------
-    agree = card_vs_cpu(mnt, compare, cornell_box(
+    agree, _ = card_vs_cpu(mnt, compare, cornell_box(
         spp=4, res=64, integrator={'type': 'path', 'max_depth': 8}), 4)
     emit({'phase': 'card_vs_cpu', **agree})
     compare.check(agree)
@@ -1180,7 +1444,7 @@ def main() -> int:
                 integrator={'type': 'volpathmis', 'max_depth': 8},
                 medium={'type': 'homogeneous', 'sigma_t': 0.5,
                         'albedo': 0.8}), 4)):
-        agree = card_vs_cpu(mnt, compare, desc, spp)
+        agree, _ = card_vs_cpu(mnt, compare, desc, spp)
         emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, 'spp': spp,
               **agree})
         compare.check(agree)
@@ -1255,14 +1519,32 @@ def main() -> int:
         it7 = item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # --- slice 8: spectral, polarized, wrappers, regeneration ----------
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_item8_')
+    ior_dir = os.environ.get('MNT_IOR_DIR')
+    try:
+        it8 = item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
+                           {'wall_s': vwall, 'rays': vrays,
+                            'launches': vlaunches, 'host_syncs': vsyncs})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        if ior_dir is None:
+            os.environ.pop('MNT_IOR_DIR', None)
+        else:
+            os.environ['MNT_IOR_DIR'] = ior_dir
     worst = max(worst, mat['max_abs_err'],
                 opt['nlvrl_aniso_rays']['max_abs_err'],
-                opt['long_vrl']['max_abs_err'], it7['max_abs_err'])
+                opt['long_vrl']['max_abs_err'], it7['max_abs_err'],
+                it8['max_abs_err'])
     new_launches = (mat['launches_materials'] + mat['launches_materials_pm']
                     + opt['launches_nlvrl_aniso']
                     + opt['launches_nlvrl_ris_bre']
                     + it7['launches_textured'] + it7['launches_textured_cli']
-                    + it7['launches_env'])
+                    + it7['launches_env'] + it8['launches_spectral']
+                    + it8['launches_spectral_cli']
+                    + it8['launches_polarized']
+                    + it8['launches_spectral_polarized']
+                    + it8['launches_regen'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -1307,7 +1589,8 @@ def main() -> int:
         'textured_bound_ms': it7['textured_bound_ms'],
         'launches_env': it7['launches_env'], 'env_ms': it7['env_ms'],
         'env_plain_ms': it7['env_plain_ms'],
-        'env_bound_ms': it7['env_bound_ms']}]})
+        'env_bound_ms': it7['env_bound_ms'],
+        **{k: v for k, v in it8.items() if k != 'max_abs_err'}}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

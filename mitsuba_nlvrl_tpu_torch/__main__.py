@@ -41,7 +41,8 @@ def main(argv=None) -> int:
                     help='override film resolution')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--spectral', action='store_true',
-                    help='hero-wavelength spectral transport (not ported)')
+                    help='hero-wavelength spectral transport (the path '
+                         'integrator and the stokes/moment/aov wrappers)')
     ap.add_argument('--png', default=None, help='also write a tonemapped PNG')
     ap.add_argument('--timeout', type=float, default=None, metavar='SEC',
                     help='stop rendering after SEC seconds and develop the '
@@ -59,14 +60,10 @@ def main(argv=None) -> int:
 
     from .core import counters
     from .scene.builder import build_scene, resolve_device
-    from .scene.types import not_in_slice
     from .scene.xml import load_file
     from .render import preprocess, render
     from .utils.io import host_array, write_exr, write_png
 
-    if args.spectral:
-        raise not_in_slice("spectral transport (--spectral)",
-                           "item 10 (variants)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -81,6 +78,8 @@ def main(argv=None) -> int:
         w, _, h = args.res.partition('x')
         desc['sensor']['film']['width'] = int(w)
         desc['sensor']['film']['height'] = int(h)
+    if args.spectral:
+        desc['spectral'] = True
     scene, meta = build_scene(desc, device=device)
     print(f'[load] {args.scene}: {meta.n_tris} tris, {meta.n_emitters} '
           f'emitters, {meta.n_media} media, integrator={meta.integrator}, '

@@ -22,6 +22,7 @@ f * |cos_theta_o| and ``sample`` returns (record, f * cos / pdf).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -32,7 +33,7 @@ from ..core import microfacet as mf
 from ..core import warp
 from ..core.fresnel import (fresnel_dielectric, fresnel_conductor,
                             reflect_local, refract_local)
-from ..scene.ior_data import conductor_rgb, lookup_ior
+from ..scene.ior_data import conductor_rgb, conductor_spd_id, lookup_ior
 from ..scene.types import (BSDF_TYPES, F_DELTA, F_NULL, F_TRANSMISSION,
                            F_SMOOTH, F_TWOSIDED, F_MASK, BSDF_NPARAM,
                            SLICE_BSDFS, not_in_slice)
@@ -115,9 +116,14 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
     def conductor_eta_k():
         mat = props.get('material')
         if isinstance(mat, str):
-            # a named material's tabulated eta/k, integrated to RGB
+            # a named material's tabulated eta/k, integrated to RGB; its
+            # curves are registered for the spectral variants (slot 13 =
+            # curve id + 1; 0 = RGB only)
             pair = conductor_rgb(mat)
             if pair is not None:
+                sid = conductor_spd_id(mat)
+                if sid is not None:
+                    p[13] = float(sid + 1)
                 return list(pair[0]), list(pair[1])
             print(f"warning: conductor material {mat!r} has no "
                   f".spd data; keeping eta/k defaults")
@@ -140,6 +146,23 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
         p[11] = 0.0 if props.get('distribution', 'ggx') == 'ggx' else 1.0
         return BSDF_TYPES[t], F_SMOOTH, p
     if t == 'null':
+        return BSDF_TYPES[t], F_DELTA | F_NULL | F_TRANSMISSION, p
+    if t in ('polarizer', 'retarder', 'circular'):
+        # optical elements. Unpolarized transport reduces them to null
+        # pass-through attenuators, weight 0.5 T / T / 0.5 T (slots 0:3);
+        # the polarized layer (bsdf/polarized.py) reads the element's
+        # rotation theta in radians (slot 3), the retarder's phase delay
+        # in radians or the circular element's handedness +1/-1 (slot 4)
+        # and the raw transmittance (5:8)
+        fac = 1.0 if t == 'retarder' else 0.5
+        tr_rgb = rgb('transmittance', 1.0)
+        p[0:3] = [fac * c for c in tr_rgb]
+        p[3] = float(props.get('theta', 0.0)) * math.pi / 180.0
+        if t == 'retarder':
+            p[4] = float(props.get('delta', 90.0)) * math.pi / 180.0
+        elif t == 'circular':
+            p[4] = -1.0 if props.get('left_handed', False) else 1.0
+        p[5:8] = tr_rgb
         return BSDF_TYPES[t], F_DELTA | F_NULL | F_TRANSMISSION, p
     if t in ('dielectric', 'thindielectric', 'roughdielectric'):
         p[0] = ior('int_ior', 1.5046)     # bk7
@@ -230,6 +253,13 @@ def _null_sample(P, wi, u1, u2, mode):
     tru = torch.ones((N,), dtype=torch.bool, device=wi.device)
     bs = BSDFSample(wo=-wi, pdf=one, eta=one, delta=tru, null=tru)
     return bs, torch.ones((N, 3), dtype=wi.dtype, device=wi.device)
+
+
+def _attenuator_sample(P, wi, u1, u2, mode):
+    """Null pass-through attenuated by slots 0:3: the unpolarized
+    reduction of ``polarizer``, ``retarder`` and ``circular``."""
+    bs, _ = _null_sample(P, wi, u1, u2, mode)
+    return bs, P[:, 0:3]
 
 
 def _thindielectric_sample(P, wi, u1, u2, mode):
@@ -547,8 +577,13 @@ _SAMPLE = {
     BSDF_TYPES['roughdielectric']: _roughdielectric_sample,
     BSDF_TYPES['plastic']: _plastic_sample,
     BSDF_TYPES['roughplastic']: _roughplastic_sample,
+    BSDF_TYPES['polarizer']: _attenuator_sample,
+    BSDF_TYPES['retarder']: _attenuator_sample,
+    BSDF_TYPES['circular']: _attenuator_sample,
     BSDF_TYPES['pplastic']: _pplastic_sample,
 }
+_ATTENUATORS = tuple(BSDF_TYPES[t]
+                     for t in ('polarizer', 'retarder', 'circular'))
 
 
 def _rows(scene, si):
@@ -855,4 +890,46 @@ def eval_null_transmission(scene, meta, si):
     is_null = ((flags & F_NULL) > 0) & ~is_mask
     out = torch.where(is_null[:, None], 1.0,
                       torch.zeros((si.wi.shape[0], 3), device=si.wi.device))
-    return torch.where(is_mask[:, None], 1.0 - P[:, 14:15], out)
+    out = torch.where(is_mask[:, None], 1.0 - P[:, 14:15], out)
+    # the optical elements attenuate straight-through rays by their
+    # unpolarized weight
+    is_att = torch.zeros_like(is_mask)
+    for code in _ATTENUATORS:
+        is_att = is_att | (btype == code)
+    return torch.where(is_att[:, None], P[:, 0:3], out)
+
+
+def spectral_fresnel_ratio(scene, meta, si, wo, lam):
+    """A conductor's Fresnel term a hero wavelength at a time for the
+    spectral variants. Their weights are upsample(f_rgb, lam); a
+    conductor's f_rgb carries F_rgb(cos_h), so the factor F(lam, cos_h) /
+    upsample(F_rgb, lam) puts the tabulated complex IOR's Fresnel in place
+    of the upsampled one (exact for an achromatic specular reflectance).
+    Returns an (N, L) factor (1 on other lanes and on conductors without a
+    curve), or None when the scene has no tabulated curve. Conductor rows
+    reached through a ``blendbsdf`` keep the RGB upsampling."""
+    if not getattr(meta, 'has_conductor_spd', False):
+        return None
+    from ..core import spectral as sp
+    if _has_perturb(meta):
+        f0 = si.sh_frame
+        si = _perturb_si(scene, meta, si)
+        wo = si.sh_frame.to_local(f0.to_world(wo))
+    btype, flags, P = _rows(scene, si)
+    wi, wo = _maybe_flip(flags, si.wi, wo)
+    is_cond = ((btype == BSDF_TYPES['conductor'])
+               | (btype == BSDF_TYPES['roughconductor']))
+    sid = P[:, 13].to(torch.int32) - 1
+    use = is_cond & (sid >= 0)
+    # the half-vector cosine: for the delta conductor wo = reflect(wi), so
+    # normalize(wi + wo) is the normal and cos_h = cos_theta_i
+    h = m.normalize(wi + wo)
+    cos_h = torch.abs(m.dot(wi, h))
+    curves = scene.conductor_spd[torch.clamp(sid, min=0).long()]
+    eta_l = sp.cie_table_eval(curves[:, 0, :], lam)
+    k_l = sp.cie_table_eval(curves[:, 1, :], lam)
+    F_l = fresnel_conductor(cos_h, eta_l, k_l)                  # (N, L)
+    F_rgb = fresnel_conductor(cos_h, P[:, 0:3], P[:, 3:6])      # (N, 3)
+    F_up = sp.upsample_weight(F_rgb, lam)                       # (N, L)
+    return torch.where(use[:, None] & (F_up > 1e-6),
+                       F_l / torch.clamp(F_up, min=1e-6), 1.0)

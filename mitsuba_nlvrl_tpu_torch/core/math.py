@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # --- constants (match the reference package) ---------------------------------
@@ -30,9 +31,38 @@ OneMinusEpsilon = float(torch.tensor(1.0 - 1.1920929e-7, dtype=torch.float32))
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
+def sqrt(x):
+    """The correctly rounded square root on every device. On the CPU,
+    torch's vectorised float32 sqrt is an ulp off near rounding midpoints
+    on some hosts (an AVX-512 Xeon: 0.7% of lanes), where the reference's
+    and the card's are correctly rounded; the square root of the float64
+    value, rounded to float32, is the correctly rounded float32 result
+    (float64 carries more than twice float32's precision)."""
+    if x.dtype == torch.float32 and x.device.type == 'cpu':
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
+def fma(a, b: float, c):
+    """``a * b + c`` rounded once (``b`` a constant), as the compiled
+    reference computes it: LLVM contracts a product and a sum into one
+    fused multiply-add, even at XLA's optimisation level 0 (ROADMAP C).
+    The product of two float32 values is exact in float64, so the
+    float64 sum rounds as the fused operation does (a double rounding
+    differs only at exact float32 midpoints)."""
+    b = float(np.float32(b))
+    return (a.to(torch.float64) * b + c.to(torch.float64)).to(torch.float32)
+
+
+def rcp32(c) -> float:
+    """float32(1 / c): the compiled reference divides by a constant as a
+    product with its float32 reciprocal (ROADMAP C)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def safe_sqrt(x):
     """sqrt clamped to zero for negative inputs."""
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return sqrt(torch.clamp(x, min=0.0))
 
 
 def safe_rsqrt(x):
@@ -40,7 +70,7 @@ def safe_rsqrt(x):
     to the bit (``torch.rsqrt`` is an approximation whose last bit
     differs between them, and a bend in a nonlinear medium at a total
     internal reflection turns on that bit)."""
-    return 1.0 / torch.sqrt(torch.clamp(x, min=_F32_TINY))
+    return 1.0 / sqrt(torch.clamp(x, min=_F32_TINY))
 
 
 def safe_acos(x):

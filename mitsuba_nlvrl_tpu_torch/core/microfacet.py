@@ -37,9 +37,9 @@ def smith_g1(v, h, ax, ay, dist_type=GGX):
     xy_alpha2 = m.sqr(ax * v[..., 0]) + m.sqr(ay * v[..., 1])
     tan2 = xy_alpha2 / torch.clamp(m.sqr(v[..., 2]), min=1e-12)
     if dist_type == GGX:
-        g = 2.0 / (1.0 + torch.sqrt(1.0 + tan2))
+        g = 2.0 / (1.0 + m.sqrt(1.0 + tan2))
     else:
-        a = 1.0 / torch.clamp(torch.sqrt(tan2), min=1e-12)
+        a = 1.0 / torch.clamp(m.sqrt(tan2), min=1e-12)
         # Beckmann's rational approximation
         g = torch.where(a >= 1.6, 1.0,
                         (3.535 * a + 2.181 * a * a)
@@ -53,7 +53,7 @@ def sample_vndf(wi, sample2, ax, ay, dist_type=GGX):
     """Sample the visible normals (Heitz 2018 for GGX; Beckmann samples
     the plain distribution of normals). Returns (h, pdf)."""
     if dist_type == BECKMANN:
-        alpha = torch.sqrt(ax * ay)
+        alpha = m.sqrt(ax * ay)
         h = warp.square_to_beckmann(sample2, alpha)
         return h, warp.square_to_beckmann_pdf(h, alpha)
 
@@ -87,7 +87,7 @@ def sample_vndf(wi, sample2, ax, ay, dist_type=GGX):
 def vndf_pdf(wi, h, ax, ay, dist_type=GGX):
     """The pdf of visible-normal sampling: G1(wi) D(h) |wi.h| / |cos_i|."""
     if dist_type == BECKMANN:
-        return warp.square_to_beckmann_pdf(h, torch.sqrt(ax * ay))
+        return warp.square_to_beckmann_pdf(h, m.sqrt(ax * ay))
     d = ggx_d(h, ax, ay)
     g1 = smith_g1(wi, h, ax, ay, dist_type)
     return g1 * torch.abs(m.dot(wi, h)) * d \

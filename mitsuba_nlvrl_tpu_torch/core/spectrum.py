@@ -10,17 +10,20 @@ sRGB when a scene is loaded:
   * spectra are pre-scaled by 1/106.75 (``CIE_Y_NORMALIZATION``) so a
     unit-valued spectrum has luminance 1.
 
-Spectral transport (the render-time functions) is ROADMAP item 10.
+The render-time colour operations (``srgb_to_xyz``, ``xyz_to_srgb``,
+``luminance``) act on torch tensors.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .cie_data import (CIE_MIN, CIE_MAX, CIE_SAMPLES, CIE_Y_NORMALIZATION,
                        CIE_X, CIE_Y, CIE_Z)
 
 __all__ = ['CIE_Y_NORMALIZATION', 'XYZ_TO_SRGB', 'SRGB_TO_XYZ',
-           'cie1931_xyz_np', 'spectrum_to_rgb', 'blackbody_rgb']
+           'cie1931_xyz_np', 'spectrum_to_rgb', 'blackbody_rgb',
+           'srgb_to_xyz', 'xyz_to_srgb', 'luminance']
 
 _CIE_XYZ_NP = np.stack([np.asarray(CIE_X), np.asarray(CIE_Y),
                         np.asarray(CIE_Z)])
@@ -79,3 +82,20 @@ def blackbody_rgb(temperature: float) -> np.ndarray:
     P = (2 * h * c * c) / lam**5 \
         / (np.exp(h * c / (lam * kb * temperature)) - 1) * 1e-9
     return spectrum_to_rgb(lam * 1e9, P, bounded=False, unit_scale=True)
+
+
+# --- render-time colour operations --------------------------------------------
+
+def srgb_to_xyz(rgb: torch.Tensor) -> torch.Tensor:
+    return rgb @ torch.as_tensor(SRGB_TO_XYZ, dtype=torch.float32,
+                                 device=rgb.device).T
+
+
+def xyz_to_srgb(xyz: torch.Tensor) -> torch.Tensor:
+    return xyz @ torch.as_tensor(XYZ_TO_SRGB, dtype=torch.float32,
+                                 device=xyz.device).T
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return (rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160
+            + rgb[..., 2] * 0.072169)

@@ -113,19 +113,31 @@ def _slide(scene, P, sel, uu, vv):
     return torch.where((P[:, 26] > 0)[:, None], slide, 1.0)
 
 
-def spectrum_rgb(v: dict) -> list:
+SPEC_RGB = 0        # srgb_d65 expansion of the packed RGB (spectral mode)
+SPEC_BLACKBODY = 1  # Planck's law at spec_param = temperature
+SPEC_TABLE = 2      # tabulated SPD row spec_param of the scene's table
+
+
+def spectrum_rgb(v: dict, spec: list) -> list:
     """The RGB radiance of a spectrum-valued emitter parameter (a
     blackbody, ``d65`` or a regular or irregular SPD), integrated at pack
-    time as the reference's RGB variant does. Spectral transport, which
-    would sample the SPD itself, is ROADMAP item 10."""
+    time as the reference's RGB variant does. ``spec`` (kind, param,
+    scale, table row or None) receives the true spectrum, which the
+    spectral variant samples at its hero wavelengths."""
     import numpy as np
-    from ..core.spectrum import blackbody_rgb, spectrum_to_rgb
+    from ..core import spectral as sp
+    from ..core.spectrum import (CIE_Y_NORMALIZATION, blackbody_rgb,
+                                 spectrum_to_rgb)
     st = v.get('type', 'spectrum')
     scale = float(v.get('scale', 1.0))
     if st == 'blackbody':
         T = float(v.get('temperature', 6500.0))
+        spec[0], spec[1], spec[2] = SPEC_BLACKBODY, T, \
+            scale * CIE_Y_NORMALIZATION
         return [float(x) * scale for x in blackbody_rgb(T)]
     if st == 'd65':
+        spec[0] = SPEC_TABLE
+        spec[3] = (sp.D65_HAT * scale).astype(np.float32)
         return [scale] * 3
     if st == 'regular':
         wav = np.linspace(float(v.get('lambda_min', 360.0)),
@@ -136,42 +148,50 @@ def spectrum_rgb(v: dict) -> list:
         pairs = v.get('value', v.get('values'))
         wav = np.asarray([q[0] for q in pairs], np.float64)
         vals = np.asarray([q[1] for q in pairs], np.float64)
+    grid = np.linspace(sp.CIE_MIN, sp.CIE_MAX, sp.CIE_SAMPLES)
+    row = np.interp(grid, wav, vals, left=0.0, right=0.0)
+    spec[0] = SPEC_TABLE
+    spec[3] = (row * scale * CIE_Y_NORMALIZATION).astype(np.float32)
     return [float(x) * scale
             for x in spectrum_to_rgb(wav, vals, bounded=False)]
 
 
-def pack_params(props: dict) -> Tuple[int, list]:
-    """Pack an emitter to (type_code, params[EMITTER_NPARAM])."""
+def pack_params(props: dict) -> Tuple[int, list, tuple]:
+    """Pack an emitter to (type_code, params[EMITTER_NPARAM], spec), where
+    ``spec`` = (kind, param, scale, table row or None) records its true
+    spectrum for the spectral variant (RGB transport reads the packed,
+    integrated RGB)."""
     t = props['type']
     if t not in EMITTER_TYPES:
         raise ValueError(f"unknown emitter type '{t}'")
     p = [0.0] * EMITTER_NPARAM
+    spec = [SPEC_RGB, 0.0, 1.0, None]
 
     def rgb(key, default):
         v = props.get(key, default)
         if isinstance(v, dict):
-            return spectrum_rgb(v)
+            return spectrum_rgb(v, spec)
         if isinstance(v, (int, float)):
             return [float(v)] * 3
         return [float(x) for x in v]
 
     if t == 'area':
         p[0:3] = rgb('radiance', 1.0)
-        return E_AREA, p
+        return E_AREA, p, tuple(spec)
     if t == 'point':
         p[0:3] = [float(x) for x in props.get('position', (0, 0, 0))]
         p[3:6] = rgb('intensity', 1.0)
-        return E_POINT, p
+        return E_POINT, p, tuple(spec)
     if t == 'constant':
         p[0:3] = rgb('radiance', 1.0)
-        return E_CONSTANT, p
+        return E_CONSTANT, p, tuple(spec)
     if t == 'directional':
         p[0:3] = [float(x) for x in props.get('direction', (0, 0, 1))]
         p[3:6] = rgb('irradiance', 1.0)
-        return E_DIRECTIONAL, p
+        return E_DIRECTIONAL, p, tuple(spec)
     if t == 'envmap':
         p[0] = float(props.get('scale', 1.0))
-        return E_ENVMAP, p
+        return E_ENVMAP, p, tuple(spec)
     import numpy as np
     if t == 'spot':
         p[0:3] = [float(x) for x in props.get('position', (0, 0, 0))]
@@ -181,7 +201,7 @@ def pack_params(props: dict) -> Tuple[int, list]:
         beam = float(props.get('beam_width', cutoff * 0.75))
         p[9] = float(np.cos(np.deg2rad(cutoff)))
         p[10] = float(np.cos(np.deg2rad(beam)))
-        return E_SPOT, p
+        return E_SPOT, p, tuple(spec)
     # projector: the reciprocal of the perspective camera, its irradiance
     # given on the virtual image plane at z = 1. Layout: position [0:3],
     # scale rgb [3:6], tan(fov/2) x and y [6], [7], the emitter-to-world
@@ -200,7 +220,50 @@ def pack_params(props: dict) -> Tuple[int, list]:
     p[8:17] = [float(x) for x in R.reshape(-1)]
     p[17:26] = [float(x) for x in np.linalg.inv(R).reshape(-1)]
     p[26] = float(props.get('_irradiance_tex', -1)) + 1.0
-    return E_PROJECTOR, p
+    return E_PROJECTOR, p, tuple(spec)
+
+
+def spectral_radiance(scene, rgb, e_idx, lam):
+    """Promote an RGB emitter quantity (radiance, or a radiance/pdf NEE
+    weight) to spectral samples at the hero wavelengths lam (N, L).
+
+    Emitters given an RGB value take the srgb_d65 expansion; emitters
+    given a true SPD (blackbody, d65, regular, irregular) evaluate it,
+    and the achromatic factors the transport folded into ``rgb`` (pdfs,
+    MIS weights, masks) come back as the luminance ratio against the
+    emitter's packed radiance."""
+    from ..core import spectral as sp
+    from ..core.spectrum import luminance
+    default = sp.emitter_spectrum(rgb, lam)
+    em = scene.emitters
+    e = torch.clamp(e_idx, min=0).long()
+    kind = em.spec_kind[e]
+    param = em.spec_param[e]
+    scale = em.spec_scale[e]
+    # the packed radiance's slot depends on the emitter type
+    etype = em.type[e]
+    offs = torch.where((etype == E_POINT) | (etype == E_DIRECTIONAL)
+                       | (etype == E_PROJECTOR), 3,
+                       torch.where(etype == E_SPOT, 6, 0))
+    cols = offs[:, None].long() + torch.arange(3, device=lam.device)
+    base_rgb = torch.gather(em.params[e], 1, cols)
+    ratio = luminance(rgb) / torch.clamp(luminance(base_rgb), min=1e-12)
+    bb = sp.planck(lam, torch.clamp(param, min=1.0)[:, None]) \
+        * scale[:, None]
+    # tabulated SPD rows on the regular 360-830 grid
+    row = torch.clamp(param.to(torch.int32), 0,
+                      em.spec_table.shape[0] - 1).long()
+    t = (lam - sp.CIE_MIN) * ((sp.CIE_SAMPLES - 1)
+                              / (sp.CIE_MAX - sp.CIE_MIN))
+    ok = (lam >= sp.CIE_MIN) & (lam <= sp.CIE_MAX)
+    i0 = t.to(torch.int32).clamp(0, sp.CIE_SAMPLES - 2).long()
+    w1 = t - i0
+    v0 = em.spec_table[row[:, None], i0]
+    v1 = em.spec_table[row[:, None], i0 + 1]
+    tab = torch.where(ok, v0 * (1.0 - w1) + v1 * w1, 0.0)
+    spd = torch.where((kind == SPEC_BLACKBODY)[:, None], bb, tab) \
+        * ratio[:, None]
+    return torch.where((kind == SPEC_RGB)[:, None], default, spd)
 
 
 def _segment_searchsorted(cdf, offset, count, u):

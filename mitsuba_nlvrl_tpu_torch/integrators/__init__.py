@@ -5,14 +5,15 @@ exposes ``sample(scene, meta, sampler, ray, aux=None)`` over a ray
 wavefront; the two-pass integrators (``vrl``, ``photonmapper`` and its
 older name ``photonmap``) also expose ``preprocess(scene, meta, key) ->
 aux``, their photon and VRL maps, which every pass reads. The port has
-``path``, ``direct``, ``depth``, ``volpath``, ``volpathmis`` (one
-estimator; the latter adds MIS at medium vertices), ``vrl`` and
-``photonmapper``; the others (``aov``, ``moment``, ``stokes``, the
-spectral and polarized paths) raise, naming the ROADMAP item that brings
-them.
+``path`` (with its spectral variant, ``path_spectral``), ``direct``,
+``depth``, ``volpath``, ``volpathmis`` (one estimator; the latter adds
+MIS at medium vertices), ``vrl``, ``photonmapper`` and the wrappers
+``aov``, ``moment`` and ``stokes`` (whose polarized paths are
+``path_polarized`` and ``path_spectral_polarized``).
 """
 from __future__ import annotations
 
+from . import aov as _aov
 from . import depth as _depth
 from . import direct as _direct
 from . import path as _path
@@ -24,7 +25,9 @@ from ..scene.types import not_in_slice
 _REGISTRY = {'path': _path.sample, 'direct': _direct.sample,
              'depth': _depth.sample, 'volpath': _volpath.sample,
              'volpathmis': _volpath.sample, 'vrl': _vrl.sample,
-             'photonmapper': _pm.sample, 'photonmap': _pm.sample}
+             'photonmapper': _pm.sample, 'photonmap': _pm.sample,
+             'aov': _aov.sample_aov, 'moment': _aov.sample_moment,
+             'stokes': _aov.sample_stokes}
 _PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
                'photonmap': _pm.preprocess}
 

@@ -120,7 +120,11 @@ def make_body(scene, meta, N: int):
 
 def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
     """Estimate incident radiance along each camera ray. Returns (L, valid,
-    sampler)."""
+    sampler). A spectral scene takes the hero-wavelength variant
+    (``path_spectral``), as in the reference."""
+    if meta.spectral:
+        from . import path_spectral
+        return path_spectral.sample(scene, meta, sampler, ray, aux)
     N = ray.o.shape[0]
     dev = ray.o.device
     st = PathState(

@@ -214,7 +214,7 @@ def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
     th_p = torch.atan2(B, A) + 0.5 * m.Pi
     th_p = torch.where(th_p > 0.5 * m.Pi, th_p - m.Pi, th_p)
     # the HG half-width in scattering angle, about sqrt(1 - |g|)
-    delta = torch.clamp(torch.sqrt(torch.clamp(1.0 - torch.abs(g_v),
+    delta = torch.clamp(m.sqrt(torch.clamp(1.0 - torch.abs(g_v),
                                                min=1e-4)) * 0.2, 0.01, 0.3)
     offs = torch.tensor(_ANISO_PEAK_OFFSETS, device=dev)
     th_pk = torch.minimum(torch.maximum(

@@ -249,6 +249,59 @@ def get_scattering_coefficients(scene, meta, medium_idx, p, active):
             torch.where(z, 0.0, sigma_t))
 
 
+def sample_interaction(scene, meta, ray: Ray, u, channel, medium_idx,
+                       active) -> Tuple[MediumInteraction, torch.Tensor]:
+    """Free-flight distance sampling against the majorant of the hero
+    ``channel``. Returns (mi, mint); ``mi.valid``: a (real or null)
+    collision sampled before the ray leaves the medium. No integrator
+    calls it; it is kept for parity with the reference."""
+    aabb_hit, mint, maxt = intersect_aabb(scene, meta, medium_idx, ray)
+    act = active & aabb_hit
+    mint = torch.where(act, torch.maximum(ray.mint, mint), 0.0)
+    maxt = torch.where(act, torch.minimum(ray.maxt, maxt), m.Infinity)
+    majorant = get_majorant(scene, medium_idx)
+    mj = _ch(majorant, channel)
+    u = torch.clamp(u, 0.0, m.OneMinusEpsilon)
+    sampled_t = mint + (-torch.log1p(-u) / torch.clamp(mj, min=1e-30))
+    valid = act & (sampled_t <= maxt) & (mj > 0)
+    t = torch.where(valid, sampled_t, m.Infinity)
+    p = ray.at(torch.where(valid, sampled_t, 0.0))
+    sigma_s, sigma_n, sigma_t = get_scattering_coefficients(
+        scene, meta, medium_idx, p, valid)
+    mi = MediumInteraction(
+        valid=valid, t=t, p=p, wi=-ray.d,
+        medium_idx=medium_idx, sigma_s=sigma_s, sigma_n=sigma_n,
+        sigma_t=sigma_t, combined_extinction=majorant)
+    return mi, mint
+
+
+def eval_tr_and_pdf(mi: MediumInteraction, mint, si_t, active):
+    """Transmittance and free-flight pdf of a sampled segment."""
+    t = torch.minimum(torch.where(torch.isfinite(mi.t), mi.t, si_t),
+                      si_t) - mint
+    t = torch.clamp(t, min=0.0)
+    tr = torch.exp(-t[:, None] * mi.combined_extinction)
+    pdf = torch.where((si_t < mi.t)[:, None], tr,
+                      tr * mi.combined_extinction)
+    return tr, pdf
+
+
+def homogeneous_transmittance(scene, medium_idx, length, active):
+    """Closed-form transmittance of a homogeneous segment (the majorant
+    equals sigma_t there)."""
+    majorant = get_majorant(scene, medium_idx)
+    tr = torch.exp(-torch.clamp(length, min=0.0)[:, None] * majorant)
+    return torch.where(active[:, None], tr, 1.0)
+
+
+def is_homogeneous_like(scene, meta, medium_idx):
+    """Lanes whose medium has a constant extinction: homogeneous, or
+    nonlinear (optically homogeneous)."""
+    _, mtype = _rows(scene, medium_idx)
+    return (mtype == MEDIUM_TYPES['homogeneous']) \
+        | (mtype == MEDIUM_TYPES['nonlinear'])
+
+
 def _medium_facts(scene, medium_idx):
     """Loop-invariant facts of each lane's medium for the walks:
     (sigma_t * scale per unit density (N, 3), albedo (N, 3), lo (N, 3),

@@ -1,17 +1,22 @@
 """Top-level render orchestration.
 
-Port of ``mitsuba_nlvrl_tpu/render.py`` without bands and without the
-regeneration scheduler: one *pass* renders a full-film wavefront at 1 spp
-and splats it, and passes loop on the host up to the target spp. The pass
-keys are those of the reference (``fold_in(PRNGKey(seed), p)`` for pass
-p), so both packages trace the same paths for the same seed. Two-pass
-integrators (``vrl``, ``photonmapper``) run their photon and VRL shooting
-(``preprocess``) once, with the reference's key, and hand the maps
-(``aux``) to every pass. The render runs where the scene's tensors lie,
-under ``torch.no_grad()``; gradients come with the autodiff slice.
+Port of ``mitsuba_nlvrl_tpu/render.py`` without bands: one *pass* renders
+a full-film wavefront at 1 spp and splats it, and passes loop on the host
+up to the target spp. The pass keys are those of the reference
+(``fold_in(PRNGKey(seed), p)`` for pass p), so both packages trace the
+same paths for the same seed. Two-pass integrators (``vrl``,
+``photonmapper``, also inside a ``moment``, ``stokes`` or ``aov``
+wrapper) run their photon and VRL shooting (``preprocess``) once, with
+the reference's key, and hand the maps (``aux``) to every pass. With
+``MNT_REGEN=1`` a volumetric ``volpath`` render or a ``path`` render
+takes the regeneration scheduler instead (``integrators/regen.py``), as
+the reference does off TPU; the pass loop stays the default. The render
+runs where the scene's tensors lie, under ``torch.no_grad()``; gradients
+come with the autodiff slice.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -23,17 +28,34 @@ from . import film as film_mod
 from . import sensor as sensor_mod
 from .integrators import get_integrator, get_preprocess
 from .integrators.common import film_sample_positions
+from .integrators.regen import regen_supported, render_regen
+from .scene.types import unwrap
 
 
 def preprocess(scene, meta, seed: int = 0):
     """The integrator's preprocess (photon and VRL shooting), or None for
     a one-pass integrator; its key is the reference's,
-    ``fold_in(PRNGKey(seed), 0x9e37)``."""
-    pre = get_preprocess(meta.integrator)
+    ``fold_in(PRNGKey(seed), 0x9e37)``. A wrapper integrator (``moment``,
+    ``stokes``, ``aov``) runs the preprocess of the one it wraps."""
+    inner = unwrap(meta)
+    pre = get_preprocess(inner.integrator)
     if pre is None:
         return None
     with torch.no_grad():
-        return pre(scene, meta, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
+        return pre(scene, inner, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
+
+
+def _use_regen(meta, should_stop, on_pass, timeout) -> bool:
+    """The reference's gate off TPU: opt-in (``MNT_REGEN=1``), for a
+    volumetric ``volpath``/``volpathmis`` render or a ``path`` render
+    with a decomposable sampler, not spectral, and without per-pass
+    hooks."""
+    name = meta.integrator
+    volumetric = name in ('volpath', 'volpathmis') and meta.has_media
+    return (os.environ.get('MNT_REGEN', '') == '1'
+            and regen_supported(meta, name)
+            and should_stop is None and on_pass is None and timeout is None
+            and (volumetric or name == 'path'))
 
 
 def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
@@ -68,9 +90,11 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     scene's device.
 
     If ``ray_stats`` is a list, each pass appends its measured ray count
-    (a device scalar: read it after the render). ``info`` receives
+    (a device scalar: read it after the render; a chunk of the
+    regeneration scheduler appends one). ``info`` receives
     ``passes_done``, ``stopped_early``, ``wall_s`` and ``preprocess_s``
-    (the preprocess's share of ``wall_s``).
+    (the preprocess's share of ``wall_s``), and ``scheduler`` 'regen'
+    where the regeneration scheduler rendered.
 
     Cooperative cancellation, as the reference's: ``timeout`` seconds
     (of passes, the preprocess not counted) and a ``should_stop()``
@@ -80,6 +104,17 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     runs after pass ``p`` with a function that develops the film so far
     (the CLI writes it on SIGHUP). ``verbose`` prints a line a pass."""
     spp = spp or meta.spp
+    if _use_regen(meta, should_stop, on_pass, timeout):
+        t0 = time.time()
+        acc = render_regen(scene, meta, seed=seed, spp=spp,
+                           ray_stats=ray_stats, verbose=verbose)
+        if scene.device.type == 'cuda':
+            torch.cuda.synchronize(scene.device)
+        if info is not None:
+            info.update(passes_done=spp, stopped_early=False,
+                        wall_s=time.time() - t0, preprocess_s=0.0,
+                        scheduler='regen')
+        return film_mod.develop(acc)
     key = rng.PRNGKey(seed)
     acc = None
     t0 = time.time()

@@ -11,16 +11,17 @@ The reference computes in uint32. Torch has no full uint32 arithmetic on
 the card, so the hashes run on int64 tensors masked to 32 bits after
 every step, and a product of two 32-bit values (which can reach 2^64) is
 formed from 16-bit halves of one factor (``_mul32``). The per-lane
-regeneration jitter (``lane_jitter``, ``lane_uniform2``) comes with the
-regeneration scheduler (ROADMAP item 8).
+regeneration jitter (``lane_jitter``, ``lane_uniform2``) is a pure
+function of each lane's (pass, pixel) pair, equal in bits to the
+reference's.
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
+from ..core import math as m
 from ..core import rng
 from ..core import sync
 
@@ -106,22 +107,6 @@ def _cmj_permute(i, l: int, p):
     return ((x + p) & _MASK) % l
 
 
-def _fma(a, b: float, c):
-    """``a * b + c`` rounded once, as the reference's compiled pass
-    computes it: XLA turns a division by a constant into a product with
-    its float32 reciprocal and contracts a product and a sum into one
-    fused multiply-add. The product of two float32 values is exact in
-    float64, so the float64 sum rounds as the fused operation does (a
-    double rounding differs only at exact float32 midpoints)."""
-    b = float(np.float32(b))
-    return (a.to(torch.float64) * b + c.to(torch.float64)).to(torch.float32)
-
-
-def _rcp32(c: int) -> float:
-    """float32(1 / c), the factor XLA multiplies by for ``x / c``."""
-    return float(np.float32(1.0 / c))
-
-
 def _cmj_randbits(i, p):
     """The jitter bits of Kensler's multi-jitter (its float is
     ``bits * (1 / 4294967808)``)."""
@@ -178,8 +163,8 @@ def film_jitter(sampler_type: str, key, pass_idx: int, spp: int, N: int,
         u = rng.uniform(key, (N, 2), device)
         sx = torch.remainder(s, a).to(torch.float32)
         sy = torch.div(s, a, rounding_mode='floor').to(torch.float32)
-        return torch.stack([(sx + u[:, 0]) * _rcp32(a),
-                            (sy + u[:, 1]) * _rcp32(b)], dim=-1)
+        return torch.stack([(sx + u[:, 0]) * m.rcp32(a),
+                            (sy + u[:, 1]) * m.rcp32(b)], dim=-1)
 
     if sampler_type == 'orthogonal':
         # Bose orthogonal-array strata: r the smallest prime with r^2 >=
@@ -201,8 +186,8 @@ def film_jitter(sampler_type: str, key, pass_idx: int, spp: int, N: int,
                                               & _MASK))
             sub = _cmj_permute(a_ik, r, _mul32(p, ((j + 1) * 0x68bc21eb)
                                                & _MASK))
-            return _fma(sub.to(torch.float32) + jit, _rcp32(r),
-                        st.to(torch.float32)) * _rcp32(r)
+            return m.fma(sub.to(torch.float32) + jit, m.rcp32(r),
+                         st.to(torch.float32)) * m.rcp32(r)
         return torch.stack([bose(a0, a1, 0, u[:, 0]),
                             bose(a1, a0, 1, u[:, 1])], dim=-1)
 
@@ -221,18 +206,78 @@ def film_jitter(sampler_type: str, key, pass_idx: int, spp: int, N: int,
         jy = _cmj_randbits(s, _mul32(p, 0x368cc8b7)).to(torch.float32)
         # ((s % mm) + (sy + jx) / nn) / mm, as the compiled reference
         # rounds it
-        x = _fma(_fma(jx, _RANDFLOAT_SCALE, sy.to(torch.float32)),
-                 _rcp32(nn), s_lo.to(torch.float32)) * _rcp32(mm)
+        x = m.fma(m.fma(jx, _RANDFLOAT_SCALE, sy.to(torch.float32)),
+                  m.rcp32(nn), s_lo.to(torch.float32)) * m.rcp32(mm)
         if mm > 1:
-            y = _fma(_fma(jy, _RANDFLOAT_SCALE, sx.to(torch.float32)),
-                     _rcp32(mm), s_hi.to(torch.float32)) * _rcp32(nn)
+            y = m.fma(m.fma(jy, _RANDFLOAT_SCALE, sx.to(torch.float32)),
+                      m.rcp32(mm), s_hi.to(torch.float32)) * m.rcp32(nn)
         else:
             # sx is 0 and the division by 1 folds away, so the jitter's
             # product fuses with the sum into s_hi
-            y = _fma(jy, _RANDFLOAT_SCALE, s_hi.to(torch.float32)) \
-                * _rcp32(nn)
+            y = m.fma(jy, _RANDFLOAT_SCALE, s_hi.to(torch.float32)) \
+                * m.rcp32(nn)
         return torch.stack([torch.remainder(x, 1.0),
                             torch.remainder(y, 1.0)], dim=-1)
 
     # other names draw independent jitter, as the reference does
     return rng.uniform(key, (N, 2), device)
+
+
+# the samplers whose jitter decomposes into a function of (pass, pixel):
+# the regeneration scheduler needs one (integrators/regen.py)
+REGEN_SAMPLERS = ('independent', 'ldsampler')
+
+
+def _vdc_lanes(i):
+    """``_vdc_u32`` of every lane of an int64 tensor."""
+    i = i & _MASK
+    i = ((i & 0x55555555) << 1) | ((i & 0xAAAAAAAA) >> 1)
+    i = ((i & 0x33333333) << 2) | ((i & 0xCCCCCCCC) >> 2)
+    i = ((i & 0x0F0F0F0F) << 4) | ((i & 0xF0F0F0F0) >> 4)
+    i = ((i & 0x00FF00FF) << 8) | ((i & 0xFF00FF00) >> 8)
+    return ((i << 16) | (i >> 16)) & _MASK
+
+
+def _sobol2_lanes(i):
+    """``_sobol2_u32`` of every lane of an int64 tensor."""
+    i = i & _MASK
+    r = torch.zeros_like(i)
+    v = 1 << 31
+    for _ in range(32):
+        r = torch.where((i & 1) > 0, r ^ v, r)
+        i, v = i >> 1, v ^ (v >> 1)
+    return r
+
+
+def _u32_to_unit(x):
+    return x.to(torch.float32) / 4294967296.0
+
+
+def lane_jitter(sampler_type: str, pass_lane, pix_lane):
+    """The film jitter of the regeneration scheduler: each lane carries
+    its own (pass, pixel) pair, and the jitter is a function of both
+    alone, so the refill's camera ray and the splat's reconstruction
+    compute the same offsets. ``ldsampler``: the scrambled (0,2)-sequence
+    of ``film_jitter`` with the global pixel index as the scramble lane;
+    ``independent``: counter-hash uniforms of (pass, pixel)."""
+    pl = pass_lane.to(torch.int64) & _MASK
+    px = pix_lane.to(torch.int64) & _MASK
+    if sampler_type == 'ldsampler':
+        x = _u32_to_unit(_vdc_lanes(pl) ^ _hash_u32(px, 0x1234567))
+        y = _u32_to_unit(_sobol2_lanes(pl) ^ _hash_u32(px, 0x89abcdf))
+        return torch.stack([x, y], dim=-1)
+    h = _hash_u32(px ^ _mul32(pl, 0x9e3779b9), 0x51ed2701)
+    x = _u32_to_unit(_hash_u32(h, 0x68bc21eb))
+    y = _u32_to_unit(_hash_u32(h, 0x02e5be93))
+    return torch.stack([x, y], dim=-1)
+
+
+def lane_uniform2(pass_lane, pix_lane, salt: int):
+    """Two more uniforms a lane (the aperture's) on the same (pass,
+    pixel) stream, independent of ``lane_jitter``."""
+    pl = pass_lane.to(torch.int64) & _MASK
+    px = pix_lane.to(torch.int64) & _MASK
+    h = _hash_u32(px ^ _mul32(pl, 0x9e3779b9), salt)
+    x = _u32_to_unit(_hash_u32(h, 0x7feb352d))
+    y = _u32_to_unit(_hash_u32(h, 0x846ca68b))
+    return torch.stack([x, y], dim=-1)

@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.cie_data import CIE_SAMPLES
 from ..core.transform import Transform
 from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     BSDFTable, EmitterTable, MediumTable, Occluders,
@@ -55,6 +56,7 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     SLICE_SHAPES, TextureTable, check_meta, not_in_slice)
 from .mesh_io import (MeshData, compute_vertex_normals, load_blender,
                       load_obj, load_ply, load_serialized)
+from .ior_data import spd_curves
 from .vol_io import load_vol
 from ..ops import bvh as bvh_mod
 from .. import bsdf as bsdf_mod
@@ -472,26 +474,27 @@ def _nl_ior_grid(props: dict, lo_, hi_, med_params_row) -> np.ndarray:
 
 
 def _pack_media(media_rows: List[dict], med_bbox: dict):
-    """(type, phase_type, params, density grid, nonlinear IOR grid,
-    nonlinear medium index) of the scene's media, as the reference's
-    builder packs them (one density grid and one IOR grid a scene)."""
+    """(type, phase_type, params, density grid, albedo grid, nonlinear
+    IOR grid, nonlinear medium index) of the scene's media, as the
+    reference's builder packs them (one density grid, one albedo grid and
+    one IOR grid a scene)."""
     M_rows = max(len(media_rows), 1)
     med_type = np.zeros(M_rows, np.int32)
     med_phase = np.zeros(M_rows, np.int32)
     med_params = np.zeros((M_rows, MEDIUM_NPARAM), np.float32)
     grid_sigma = np.zeros((1, 1, 1), np.float32)
+    grid_albedo = np.zeros((1, 1, 1, 3), np.float32)
     nl_ior = np.ones((1,), np.float32)
     nl_medium = -1
     for mi, props in enumerate(media_rows):
         mt = props['type']
         if mt not in SLICE_MEDIA:
-            raise not_in_slice(f"medium type '{mt}'", "item 8 (volumetrics)")
+            raise ValueError(f"unknown medium type '{mt}'")
         med_type[mi] = MEDIUM_TYPES[mt]
         ph = props.get('phase', {'type': 'isotropic'})
         ph_type = ph.get('type', 'isotropic')
         if ph_type not in SLICE_PHASES:
-            raise not_in_slice(f"phase function '{ph_type}'",
-                               "item 8 (volumetrics)")
+            raise ValueError(f"unknown phase function '{ph_type}'")
         med_phase[mi] = PHASE_TYPES[ph_type]
         # HG's default asymmetry is g = 0.8, as in the reference
         med_params[mi, M_PHASE_G] = float(ph.get('g', 0.8))             if ph_type == 'hg' else float(ph.get('g', 0.0))
@@ -504,14 +507,18 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
             if 'sigma_s' in props or 'sigma_a' in props:
                 ss = _rgb_of(props, 'sigma_s', 0.0)
                 sa = _rgb_of(props, 'sigma_a', 0.0)
-                st = ss + sa
-                al = np.where(st > 0, ss / np.maximum(st, 1e-30), 0.0)
+                st = al = None
+                if ss is not None and sa is not None:
+                    st = ss + sa
+                    al = np.where(st > 0, ss / np.maximum(st, 1e-30), 0.0)
             else:
                 st = _rgb_of(props, 'sigma_t', 1.0)
                 al = _rgb_of(props, 'albedo', 0.75)
             if st is None or al is None:
-                raise not_in_slice("textured homogeneous medium",
-                                   "item 8 (volumetrics)")
+                raise ValueError(
+                    f"medium {mi}: a {mt} medium takes constant sigma_t, "
+                    f"sigma_s, sigma_a and albedo; a texture there is "
+                    f"refused, as the reference builder refuses it")
             med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = st
             med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
             med_params[mi, M_MAJORANT:M_MAJORANT + 3] = st * scale_v
@@ -533,21 +540,37 @@ def _pack_media(media_rows: List[dict], med_bbox: dict):
         else:
             st = _rgb_of(props, 'sigma_t', 1.0)
             if st is None:
-                raise not_in_slice(f"sigma_t texture {stv!r}",
-                                   "item 8 (volumetrics)")
+                raise ValueError(
+                    f"medium {mi}: a heterogeneous medium's textured "
+                    f"sigma_t must be a gridvolume, not {stv.get('type')!r}; "
+                    f"the reference builder refuses it too")
             med_params[mi, M_SIGMA_T:M_SIGMA_T + 3] = st
             med_params[mi, M_MAJORANT:M_MAJORANT + 3] = st * scale_v
         al = _rgb_of(props, 'albedo', 0.75)
         if al is None:
             av = props['albedo']
-            if av.get('type') != 'constvolume':
-                raise not_in_slice("albedo grids", "item 8 (volumetrics)")
-            cv = av.get('value', av.get('color', 0.75))
-            al = np.full(3, float(cv), np.float32) \
-                if isinstance(cv, (int, float)) else \
-                np.asarray(cv, np.float32)
+            if av.get('type') == 'gridvolume':
+                # carried but not read: the reference's media and
+                # integrators never look grid_albedo up, so the row's
+                # albedo is one (ROADMAP C, reference facts)
+                vg2 = av.get('_grid') or load_vol(av['filename'])
+                d = np.asarray(vg2.data, np.float32)
+                grid_albedo = d if d.shape[-1] == 3 else \
+                    np.repeat(d, 3, axis=-1)
+                al = np.ones(3, np.float32)
+            elif av.get('type') == 'constvolume':
+                cv = av.get('value', av.get('color', 0.75))
+                al = np.full(3, float(cv), np.float32) \
+                    if isinstance(cv, (int, float)) else \
+                    np.asarray(cv, np.float32)
+            else:
+                raise ValueError(
+                    f"medium {mi}: albedo texture {av.get('type')!r} is "
+                    f"neither a gridvolume nor a constvolume; the "
+                    f"reference builder refuses it too")
         med_params[mi, M_ALBEDO:M_ALBEDO + 3] = al
-    return med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium
+    return (med_type, med_phase, med_params, grid_sigma, grid_albedo,
+            nl_ior, nl_medium)
 
 
 def _medium_bboxes(shapes: List[dict], shape_rows: list,
@@ -682,10 +705,8 @@ class SceneBuilder:
         """Returns (arrays, meta) in the form ``scene_from_numpy`` takes."""
         desc = self.desc
         # the reference's build_scene also turns float64 on from MNT_DOUBLE
-        if desc.get('spectral') or desc.get('double') \
-                or os.environ.get('MNT_DOUBLE', '') == '1':
-            raise not_in_slice("spectral and double variants",
-                               "item 10 (variants)")
+        if desc.get('double') or os.environ.get('MNT_DOUBLE', '') == '1':
+            raise not_in_slice("the double variant", "item 10 (variants)")
         # --- film / sensor -------------------------------------------------
         sensor_desc = desc.get('sensor', {'type': 'perspective'})
         film_desc = sensor_desc.get('film', {})
@@ -806,8 +827,19 @@ class SceneBuilder:
         emitter_rows = []       # (type, params, shape_idx)
         em_tri_idx, em_tri_cdf, em_area = [], [], []
         tri_offsets, tri_counts = [], []
+        emitter_specs = []      # (kind, param, scale) per emitter
+        spd_rows = []           # the tabulated SPDs SPEC_TABLE rows name
+
+        def reg_spec(spec):
+            kind, param, sscale, table = spec
+            if table is not None:
+                param = float(len(spd_rows))
+                spd_rows.append(np.asarray(table, np.float32))
+            emitter_specs.append((kind, param, sscale))
+
         for props, shape_idx in area_emitters:
-            code, params = emitter_mod.pack_params(props)
+            code, params, espec = emitter_mod.pack_params(props)
+            reg_spec(espec)
             start, count = shape_tri_ranges[shape_idx]
             idxs = np.arange(start, start + count, dtype=np.int32)
             if tri_perm_inv is not None:
@@ -834,7 +866,8 @@ class SceneBuilder:
                     b = self.tex_bitmaps[int(tp[0])]
                     aspect = b.shape[1] / b.shape[0]
                 props = dict(props, _irradiance_tex=tid, _aspect=aspect)
-            code, params = emitter_mod.pack_params(props)
+            code, params, espec = emitter_mod.pack_params(props)
+            reg_spec(espec)
             tw = props.get('to_world')
             if tw is not None and code == EMITTER_TYPES['point']:
                 M = np.asarray(tw.m)
@@ -856,8 +889,8 @@ class SceneBuilder:
         env_nodes, env_levels = distr2d.build_hierarchical_np(env_lum)
 
         # --- media ---------------------------------------------------------
-        med_type, med_phase, med_params, grid_sigma, nl_ior, nl_medium = \
-            _pack_media(
+        (med_type, med_phase, med_params, grid_sigma, grid_albedo, nl_ior,
+         nl_medium) = _pack_media(
             self.media_rows, _medium_bboxes(shapes, shape_rows, meshes))
         n_media = len(self.media_rows)
 
@@ -890,6 +923,17 @@ class SceneBuilder:
             bflags = np.zeros((1,), np.int32)
             bparams = np.zeros((1, BSDF_NPARAM), np.float32)
 
+        # tabulated conductor eta/k curves of the spectral variant: live
+        # when some conductor's slot 13 names one (curve id + 1)
+        curves = spd_curves()
+        has_cond_spd = bool(
+            curves is not None
+            and any(r[0] in (BSDF_TYPES['conductor'],
+                             BSDF_TYPES['roughconductor'])
+                    and r[2][13] > 0 for r in self.bsdf_rows))
+        cond_spd = (curves if has_cond_spd
+                    else np.zeros((1, 2, CIE_SAMPLES), np.float32))
+
         f32 = np.float32
         arrays = {
             'geo.v0': v0, 'geo.e1': e1, 'geo.e2': e2,
@@ -916,6 +960,15 @@ class SceneBuilder:
             'emitters.em_tri_cdf': (np.concatenate(em_tri_cdf) if em_tri_cdf
                                     else np.zeros(0, f32)),
             'emitters.em_area': np.asarray(em_area, f32),
+            'emitters.spec_kind': np.asarray(
+                [e[0] for e in emitter_specs], np.int32).reshape(E),
+            'emitters.spec_param': np.asarray(
+                [e[1] for e in emitter_specs], f32).reshape(E),
+            'emitters.spec_scale': np.asarray(
+                [e[2] for e in emitter_specs], f32).reshape(E),
+            'emitters.spec_table': (np.stack(spd_rows) if spd_rows
+                                    else np.zeros((1, 95), f32)),
+            'conductor_spd': cond_spd,
             'bbox_lo': np.asarray(lo, f32), 'bbox_hi': np.asarray(hi, f32),
             'bsphere_c': np.asarray(center, f32),
             'bsphere_r': np.asarray(radius, f32),
@@ -941,6 +994,7 @@ class SceneBuilder:
         arrays.update({
             'media.type': med_type, 'media.phase_type': med_phase,
             'media.params': med_params, 'media.grid_sigma_t': grid_sigma,
+            'media.grid_albedo': grid_albedo,
             'media.grid_sup': (_supervoxel_max(grid_sigma) if dense
                                else np.ones((1, 1, 1), f32)),
             'media.grid_sup_min': (_supervoxel_min(grid_sigma) if dense
@@ -973,12 +1027,25 @@ class SceneBuilder:
                              BSDF_TYPES['roughplastic'],
                              BSDF_TYPES['pplastic']) and r[2][15] >= 0)
                 for r in self.bsdf_rows),
+            spectral=bool(desc.get('spectral', False)),
+            has_conductor_spd=has_cond_spd,
             sensor_type=sensor_type, film=film,
             sampler=sampler_desc.get('type', 'independent'), spp=spp,
             integrator=integ.get('type', 'path'),
             integrator_props=tuple(sorted(
-                (k, v) for k, v in integ.items() if k != 'type')))
+                (k, _freeze(v)) for k, v in integ.items() if k != 'type')))
         return arrays, meta
+
+
+def _freeze(v):
+    """A hashable copy of an integrator property: nested dicts (the
+    integrator a ``moment``, ``stokes`` or ``aov`` wraps) become sorted
+    (key, value) tuples, lists tuples, as in the reference."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, list):
+        return tuple(_freeze(x) for x in v)
+    return v
 
 
 def resolve_device(device=None) -> torch.device:
@@ -997,8 +1064,6 @@ def resolve_device(device=None) -> torch.device:
 # Scene flags of the reference's SceneMeta that name features outside this
 # slice, with the ROADMAP item that ports each.
 _OUT_OF_SLICE_FLAGS = {
-    'spectral': "item 10 (variants)",
-    'has_conductor_spd': "item 10 (variants)",
     'measured_meta': "item 10 (variants)",
 }
 
@@ -1058,7 +1123,8 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
                      for k in range(n_levels)))
     emitters = EmitterTable(
         **{f: get(f'emitters.{f}', i32 if f in (
-            'type', 'shape_idx', 'tri_offset', 'tri_count', 'em_tri_idx')
+            'type', 'shape_idx', 'tri_offset', 'tri_count', 'em_tri_idx',
+            'spec_kind')
             else np.float32)
            for f in EmitterTable._fields
            if f not in ('env_warp', 'env_to_world')},
@@ -1080,7 +1146,10 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
         nl_medium=get('media.nl_medium', i32),
         grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
                        if arrays.get('media.grid_sigma_p8') is not None
-                       else None))
+                       else None),
+        grid_albedo=(get('media.grid_albedo', np.float32)
+                     if arrays.get('media.grid_albedo') is not None
+                     else None))
     # the occluder subset, once per scene: triangles whose BSDF is not null
     tri_bsdf = np.asarray(arrays['shapes.bsdf_idx'])[
         np.asarray(arrays['geo.shape_idx'], np.int64)]
@@ -1106,6 +1175,9 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
     scene = SceneData(geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
                       media=media, occluders=occluders, textures=textures,
                       sensor=sensor, bvh=bvh,
+                      conductor_spd=(get('conductor_spd', np.float32)
+                                     if arrays.get('conductor_spd')
+                                     is not None else ()),
                       **{k: get(k, np.float32) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
     return scene, meta_t

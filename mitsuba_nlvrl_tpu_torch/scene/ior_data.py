@@ -114,3 +114,43 @@ def conductor_rgb(name):
     k = tuple(spectrum_to_rgb(wk, vk, bounded=False))
     _CONDUCTOR_CACHE[key] = (eta, k)
     return eta, k
+
+
+_SPD_CURVES = []     # (2, CIE_SAMPLES) float32 eta/k rows, append-only
+_SPD_ID_CACHE = {}
+
+
+def conductor_spd_id(name):
+    """Register a named conductor's tabulated eta/k curves resampled onto
+    the CIE wavelength grid; returns a stable row id into ``spd_curves()``,
+    or None when no .spd data exists. The spectral variants lerp these
+    curves at the hero wavelengths, so the conductor's Fresnel term is
+    evaluated a wavelength at a time."""
+    key = name.strip()
+    if key.lower() == 'none':
+        return None
+    if key in _SPD_ID_CACHE:
+        return _SPD_ID_CACHE[key]
+    pe, pk = _find_spd(key, 'eta'), _find_spd(key, 'k')
+    if pe is None or pk is None:
+        return None
+    import numpy as np
+    from ..core.cie_data import CIE_MIN, CIE_MAX, CIE_SAMPLES
+    grid = np.linspace(CIE_MIN, CIE_MAX, CIE_SAMPLES)
+    we, ve = load_spd(pe)
+    wk, vk = load_spd(pk)
+    eta = np.interp(grid, we, ve)
+    k = np.interp(grid, wk, vk)
+    _SPD_CURVES.append(np.stack([eta, k]).astype(np.float32))
+    i = len(_SPD_CURVES) - 1
+    _SPD_ID_CACHE[key] = i
+    return i
+
+
+def spd_curves():
+    """Every registered conductor curve, (C, 2, CIE_SAMPLES) numpy, or None
+    when no named conductor has been seen."""
+    import numpy as np
+    if not _SPD_CURVES:
+        return None
+    return np.stack(_SPD_CURVES)

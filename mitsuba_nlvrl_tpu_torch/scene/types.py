@@ -11,6 +11,7 @@ read, textures and the environment map's warp among them.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
@@ -87,9 +88,16 @@ SLICE_SHAPES = ('rectangle', 'cube', 'sphere', 'disk', 'cylinder', 'obj',
 SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
                'null', 'roughconductor', 'roughdielectric', 'plastic',
                'roughplastic', 'pplastic', 'twosided', 'mask', 'blendbsdf',
-               'normalmap', 'bumpmap')
+               'normalmap', 'bumpmap', 'polarizer', 'retarder', 'circular')
 SLICE_INTEGRATORS = ('path', 'direct', 'depth', 'volpath', 'volpathmis',
-                     'vrl', 'photonmapper', 'photonmap')
+                     'vrl', 'photonmapper', 'photonmap', 'aov', 'moment',
+                     'stokes')
+# integrators that wrap another (its ``integrator`` property)
+WRAPPER_INTEGRATORS = ('aov', 'moment', 'stokes')
+# where a spectral scene renders (the innermost integrator under the
+# wrappers): only the reference's ``path`` dispatches spectral transport;
+# ``depth`` outputs geometry alone
+SPECTRAL_INTEGRATORS = ('path', 'depth')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
 # options of the two-pass integrators that a later slice ports: each
 # raises when a scene turns it on (the map all-reduce over a mesh axis
@@ -156,6 +164,13 @@ class EmitterTable(NamedTuple):
     env_warp: object
     env_to_world: Transform
     env_scale: torch.Tensor   # ()
+    # each emitter's true spectrum for the spectral variant
+    # (emitter.SPEC_*): its kind, blackbody temperature or table row, and
+    # scale; the tabulated SPDs on the CIE grid
+    spec_kind: torch.Tensor   # (E,) int32
+    spec_param: torch.Tensor  # (E,) float32
+    spec_scale: torch.Tensor  # (E,) float32
+    spec_table: torch.Tensor  # (max(1, n_spd), 95) float32
 
 
 class MediumTable(NamedTuple):
@@ -178,6 +193,10 @@ class MediumTable(NamedTuple):
     # voxel, its block's bound (slot 8) and control or leap distance
     # (slot 9); None when the grid is absent or too large to copy
     grid_sigma_p8: Optional[torch.Tensor] = None
+    # a heterogeneous medium's albedo gridvolume, (Az, Ay, Ax, 3): carried
+    # as the reference carries it, and read by nothing (its row's albedo
+    # is one; ROADMAP C)
+    grid_albedo: Optional[torch.Tensor] = None
 
 
 class TextureTable(NamedTuple):
@@ -227,6 +246,9 @@ class SceneData(NamedTuple):
     # the BVH over the (reordered) triangles of a scene of BVH_MIN_TRIS or
     # more (ops/bvh.BVHArrays); None below
     bvh: Optional[object] = None
+    # the named conductors' eta/k curves on the CIE grid, (C, 2, 95), that
+    # BSDF slot 13 names (id + 1) for the spectral variant; () when absent
+    conductor_spd: object = ()
 
     @property
     def device(self) -> torch.device:
@@ -267,12 +289,41 @@ class SceneMeta:
     has_param_textures: bool = False  # alpha, specular, plastic diffuse or
     #                                   opacity textures
     camera_medium: int = -1    # medium the camera starts in (-1 vacuum)
+    spectral: bool = False     # hero-wavelength transport (path family)
+    has_conductor_spd: bool = False  # tabulated conductor eta/k curves
 
     def iprop(self, name, default=None):
         for k, v in self.integrator_props:
             if k == name:
                 return v
         return default
+
+
+def nested_meta(meta: SceneMeta, default: str = 'path') -> SceneMeta:
+    """The meta of the integrator a wrapper integrator holds: its
+    ``integrator`` property, a type name or a frozen description (sorted
+    (key, value) tuples, as the builder freezes nested dicts)."""
+    v = meta.iprop('integrator', default)
+    if isinstance(v, str):
+        name, props = v, ()
+    elif isinstance(v, tuple):
+        d = dict(v)
+        name = d.pop('type', default)
+        props = tuple(sorted(d.items()))
+    else:
+        name, props = default, ()
+    return dataclasses.replace(meta, integrator=name, integrator_props=props)
+
+
+def unwrap(meta: SceneMeta, depth: int = 4) -> SceneMeta:
+    """The meta of the innermost integrator under up to ``depth``
+    wrappers (the reference's preprocess unwraps as far, so a wrapped
+    two-pass integrator still shoots its photons)."""
+    for _ in range(depth):
+        if meta.integrator not in WRAPPER_INTEGRATORS:
+            break
+        meta = nested_meta(meta)
+    return meta
 
 
 def check_meta(meta: SceneMeta) -> None:
@@ -290,19 +341,25 @@ def check_meta(meta: SceneMeta) -> None:
     med_names = {v: k for k, v in MEDIUM_TYPES.items()}
     for code in meta.medium_types:
         if med_names.get(code) not in SLICE_MEDIA:
-            raise not_in_slice(f"medium type '{med_names.get(code)}'",
-                               "item 8 (volumetrics)")
+            raise ValueError(f"unknown medium type code {code}")
     ph_names = {v: k for k, v in PHASE_TYPES.items()}
     for code in meta.phase_types:
         if ph_names.get(code) not in SLICE_PHASES:
-            raise not_in_slice(f"phase function '{ph_names.get(code)}'",
-                               "item 8 (volumetrics)")
+            raise ValueError(f"unknown phase function code {code}")
     if meta.integrator not in SLICE_INTEGRATORS:
         raise not_in_slice(f"integrator '{meta.integrator}'",
                            "item 10 (variants)")
-    if meta.integrator in ('vrl', 'photonmapper', 'photonmap'):
+    inner = unwrap(meta)
+    if inner.integrator not in SLICE_INTEGRATORS:
+        raise not_in_slice(f"integrator '{inner.integrator}'",
+                           "item 10 (variants)")
+    if meta.spectral and inner.integrator not in SPECTRAL_INTEGRATORS:
+        # the reference renders RGB there without a word
+        raise not_in_slice(f"spectral transport in integrator "
+                           f"'{inner.integrator}'", "item 10 (variants)")
+    if inner.integrator in ('vrl', 'photonmapper', 'photonmap'):
         for name in DEFERRED_PROPS:
-            value = meta.iprop(name)
+            value = inner.iprop(name)
             if value:
                 raise not_in_slice(f"integrator property {name}={value!r}",
                                    "item 12 (multi-GPU)")

@@ -64,9 +64,15 @@ def z_test(mean, spp, ref, ref_var, ref_spp):
     return 2.0 * (1.0 - cdf.numpy())
 
 
-def agreement(img, ref, ref_passes, rays, ref_rays) -> dict:
-    """The gates' numbers for ``img`` against the reference ``ref``."""
-    close = np.abs(img - ref) <= PIXEL_RTOL * np.abs(ref) + 1e-6
+def agreement(img, ref, ref_passes, rays, ref_rays, scale=None) -> dict:
+    """The gates' numbers for ``img`` against the reference ``ref``. A
+    signed image (a Stokes component S1-S3, which crosses zero) takes its
+    relative gates against ``scale``, the reference's S0 image: pixels
+    within 1e-3 of the pixel's S0, the mean within 1e-3 of S0's mean."""
+    mean_scale = abs(float(ref.mean())) if scale is None \
+        else float(np.abs(scale).mean())
+    scale = np.abs(ref) if scale is None else np.abs(scale)
+    close = np.abs(img - ref) <= PIXEL_RTOL * scale + 1e-6
     spp = ref_passes.shape[0]
     p = z_test(img, spp, ref, ref_passes.var(axis=0, ddof=1), spp)
     alpha_c = 1.0 - (1.0 - Z_ALPHA) ** (1.0 / p.size)
@@ -74,7 +80,7 @@ def agreement(img, ref, ref_passes, rays, ref_rays) -> dict:
         'pixels_within_1e-3': float(close.all(axis=-1).mean()),
         'mean': float(img.mean()), 'ref_mean': float(ref.mean()),
         'mean_rel': float(abs(img.mean() - ref.mean())
-                          / max(abs(ref.mean()), 1e-12)),
+                          / max(mean_scale, 1e-12)),
         'rays': float(rays), 'ref_rays': float(ref_rays),
         'rays_rel': float(abs(rays - ref_rays) / max(ref_rays, 1.0)),
         'z_pass_fraction': float((p >= alpha_c).mean()),

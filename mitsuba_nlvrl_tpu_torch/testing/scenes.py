@@ -13,9 +13,14 @@ option sets of ``cbox_nlvrl`` (``NLVRL_ANISO_OPTIONS``,
 the wrapper BSDFs and the remaining lights, samplers and sensors:
 ``cbox_textured`` (a scene file with its bitmaps), ``env_spheres`` (an
 environment-lit description with its EXR and PLY) and
-``cbox_spot_directional``."""
+``cbox_spot_directional``; and the spectral and polarized scenes:
+``cbox_spectral`` (a scene file with a named conductor whose curves
+``write_conductor_spd`` writes), ``cbox_polarized`` (optical elements,
+polarizing materials, the ``stokes`` integrator) and ``albedo_grid_box``
+(a heterogeneous medium with an albedo gridvolume)."""
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -867,3 +872,197 @@ def cbox_spot_directional(res_w: int = 64, res_h: int = 32, spp: int = 2,
         {'type': 'directional', 'direction': (0.25, -0.45, 1.0),
          'irradiance': (1.5, 1.5, 1.4)}]
     return desc
+
+
+# --- spectral and polarized scenes -------------------------------------------
+
+# the named conductor of the spectral scenes; ``write_conductor_spd``
+# writes its tabulated complex IOR (a copper-like dispersion, values chosen)
+SPECTRAL_CONDUCTOR = 'CuSynth'
+
+
+def conductor_curves():
+    """(wavelengths in nm, eta, k) of ``SPECTRAL_CONDUCTOR``, 300-900 nm
+    every 10 nm."""
+    wl = np.arange(300.0, 901.0, 10.0)
+    t = (wl - 300.0) / 600.0
+    return wl, 1.25 - t + 0.3 * np.sin(6.0 * t), 1.8 + 3.2 * t
+
+
+def write_conductor_spd(directory: str, name: str = SPECTRAL_CONDUCTOR
+                        ) -> str:
+    """Writes ``<name>.eta.spd`` and ``<name>.k.spd`` into ``directory``
+    (the directory ``MNT_IOR_DIR`` must name) and returns it."""
+    os.makedirs(directory, exist_ok=True)
+    wl, eta, k = conductor_curves()
+    for which, vals in (('eta', eta), ('k', k)):
+        with open(os.path.join(directory, f'{name}.{which}.spd'), 'w') as f:
+            f.write(f'# {name} {which}: chosen values\n')
+            f.writelines(f'{w:g} {v:.6f}\n' for w, v in zip(wl, vals))
+    return directory
+
+
+# the spectral scenes' two conductor blocks: (BSDF type, transform ops);
+# they stand a thousandth above the floor, so that no face of theirs is
+# coplanar with it (a hit there would be a tie broken by the last bit)
+_SPECTRAL_BLOCKS = (
+    ('conductor', [('scale', (0.3, 0.45, 0.3)), ('rotate', (0, 1, 0), 20),
+                   ('translate', (-0.35, -0.549, 0.35))]),
+    ('roughconductor', [('scale', (0.3, 0.3, 0.3)),
+                        ('rotate', (0, 1, 0), -15),
+                        ('translate', (0.4, -0.699, -0.2))]),
+)
+SPECTRAL_ALPHA = 0.15
+
+
+def _ops_transform(ops, tr_mod):
+    """``_tf``'s operations as a transform of ``tr_mod``, applied in
+    order."""
+    t = None
+    for op in ops:
+        m = (tr_mod.rotate(op[1], op[2]) if op[0] == 'rotate'
+             else getattr(tr_mod, op[0])(op[1]))
+        t = m if t is None else m @ t
+    return t
+
+
+def dress_spectral(desc: dict, tr_mod=tr,
+                   conductor: str = SPECTRAL_CONDUCTOR) -> dict:
+    """Turns spectral transport on in a ``cornell_box`` description and
+    adds a ``conductor`` and a ``roughconductor`` block of the named
+    material (its curves from ``MNT_IOR_DIR``)."""
+    desc['spectral'] = True
+    for kind, ops in _SPECTRAL_BLOCKS:
+        bsdf = {'type': kind, 'material': conductor}
+        if kind == 'roughconductor':
+            bsdf['alpha'] = SPECTRAL_ALPHA
+        desc['shapes'].append({'type': 'cube', 'bsdf': bsdf,
+                               'to_world': _ops_transform(ops, tr_mod)})
+    return desc
+
+
+def cbox_spectral(directory: str, spp: int = 16, res: int = 512,
+                  max_depth: int = 8) -> str:
+    """Writes ``cbox_spectral.xml`` (``cbox_xml``'s box, its light the
+    reference cbox.xml's SPD, with ``dress_spectral``'s two blocks), its
+    OBJ meshes and the conductor's curves into ``directory``; returns the
+    scene file's path. The file holds no spectral switch: the loader's
+    description takes ``desc['spectral'] = True`` and the CLI
+    ``--spectral``. ``MNT_IOR_DIR`` must name ``directory``."""
+    write_conductor_spd(directory)
+    lines = _xml(spp, res, res, max_depth,
+                 _cbox_shapes(directory)).split('\n')
+    blocks = []
+    for kind, ops in _SPECTRAL_BLOCKS:
+        blocks += ['    <shape type="cube">']
+        blocks += _indent(_tf(ops), 8)
+        blocks += [f'        <bsdf type="{kind}">',
+                   f'            <string name="material" '
+                   f'value="{SPECTRAL_CONDUCTOR}"/>']
+        if kind == 'roughconductor':
+            blocks += [f'            <float name="alpha" '
+                       f'value="{SPECTRAL_ALPHA}"/>']
+        blocks += ['        </bsdf>', '    </shape>']
+    end = lines.index('</scene>')
+    path = os.path.join(directory, 'cbox_spectral.xml')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines[:end] + blocks + lines[end:]))
+    return path
+
+
+# cbox_polarized's optical elements and materials (values chosen)
+POLARIZED = {
+    'polarizer': {'type': 'polarizer', 'theta': 30.0},
+    'retarder': {'type': 'retarder', 'theta': 45.0, 'delta': 90.0},
+    'circular': {'type': 'circular'},
+    'glass': {'type': 'dielectric', 'int_ior': 1.5},
+    'gold': {'type': 'conductor', 'eta': (0.143, 0.374, 1.442),
+             'k': (3.983, 2.385, 1.603)},
+    'rough_gold': {'type': 'roughconductor', 'alpha': 0.2,
+                   'eta': (0.143, 0.374, 1.442), 'k': (3.983, 2.385, 1.603)},
+    'pplastic': {'type': 'pplastic', 'diffuse_reflectance': (0.2, 0.3, 0.6),
+                 'alpha': 0.06},
+}
+
+
+def dress_polarized(desc: dict, tr_mod=tr, conductor: str = None) -> dict:
+    """Dresses a ``cornell_box`` description for polarized transport: a
+    ``polarizer`` pane at 30 degrees, a quarter-wave ``retarder`` at 45
+    degrees and a ``circular`` element between the camera and the box; a
+    ``dielectric`` sphere, a ``conductor`` block and a ``roughconductor``
+    block (of the named material ``conductor`` when given, else RGB
+    gold); a ``pplastic`` back wall."""
+    P = dict(POLARIZED)
+    if conductor is not None:
+        P['gold'] = {'type': 'conductor', 'material': conductor}
+        P['rough_gold'] = {'type': 'roughconductor', 'alpha': 0.2,
+                           'material': conductor}
+    shapes = desc['shapes']
+    shapes[2]['bsdf'] = P['pplastic']
+    shapes += [
+        {'type': 'rectangle', 'bsdf': P['polarizer'],
+         'to_world': tr_mod.translate((-0.45, 0.15, -0.7))
+         @ tr_mod.scale(0.32)},
+        {'type': 'rectangle', 'bsdf': P['retarder'],
+         'to_world': tr_mod.translate((0.45, 0.15, -0.7))
+         @ tr_mod.scale(0.32)},
+        {'type': 'rectangle', 'bsdf': P['circular'],
+         'to_world': tr_mod.translate((0.0, 0.55, -0.8))
+         @ tr_mod.scale(0.2)},
+        {'type': 'sphere', 'center': (0.45, -0.68, 0.1), 'radius': 0.3,
+         'bsdf': P['glass']},
+        {'type': 'cube', 'bsdf': P['gold'],
+         'to_world': tr_mod.translate((-0.45, -0.7, 0.4))
+         @ tr_mod.rotate((0, 1, 0), 25) @ tr_mod.scale(0.28)},
+        {'type': 'cube', 'bsdf': P['rough_gold'],
+         'to_world': tr_mod.translate((0.05, -0.79, 0.65))
+         @ tr_mod.rotate((0, 1, 0), -20) @ tr_mod.scale(0.2)},
+    ]
+    return desc
+
+
+def stokes_integrator(component: int, max_depth: int = 8) -> dict:
+    return {'type': 'stokes', 'component': component,
+            'integrator': {'type': 'path', 'max_depth': max_depth}}
+
+
+def with_component(meta, component: int):
+    """A ``stokes`` meta with another ``component``."""
+    props = tuple((k, component if k == 'component' else v)
+                  for k, v in meta.integrator_props)
+    return dataclasses.replace(meta, integrator_props=props)
+
+
+def cbox_polarized(res: int = 512, spp: int = 16, component: int = 0,
+                   spectral: bool = False, conductor: str = None,
+                   max_depth: int = 8) -> dict:
+    """``cornell_box`` under ``stokes`` (``component``) around ``path``
+    with ``max_depth``, dressed by ``dress_polarized``; ``spectral`` turns
+    the spectral polarized variant on."""
+    desc = dress_polarized(cornell_box(
+        spp=spp, res=res, integrator=stokes_integrator(component,
+                                                       max_depth)),
+        conductor=conductor)
+    if spectral:
+        desc['spectral'] = True
+    return desc
+
+
+def albedo_grid(grid_res: int = 8, seed: int = 0):
+    """A seeded RGB albedo gridvolume over the medium cube's bbox."""
+    r = np.random.default_rng(seed + 101)
+    data = r.uniform(0.2, 0.9, size=(grid_res,) * 3 + (3,))
+    h = MEDIUM_CUBE_SCALE
+    return VolumeGrid(data=data.astype(np.float32),
+                      bbox_min=np.full(3, -h, np.float32),
+                      bbox_max=np.full(3, h, np.float32))
+
+
+def albedo_grid_medium(grid_res: int = 16, seed: int = 0,
+                       scale: float = 20.0) -> dict:
+    """``hetvol_medium`` whose albedo is an ``albedo_grid``: the reference
+    carries the grid and renders with albedo one."""
+    med = hetvol_medium(grid_res=grid_res, seed=seed, scale=scale)
+    med['albedo'] = {'type': 'gridvolume',
+                     '_grid': albedo_grid(max(grid_res // 2, 2), seed)}
+    return med

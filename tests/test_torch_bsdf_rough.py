@@ -129,12 +129,14 @@ def test_eval_pdf_sample_match_reference(name, hemisphere):
 @pytest.mark.parametrize('change', [
     {'type': 'measured', 'filename': 'absent.bsdf'},
     {'type': 'measured_polarized', 'filename': 'absent.pbsdf'},
-    {'type': 'circular'},
-    {'type': 'mask', 'bsdf': {'type': 'polarizer'}},
+    {'type': 'mask', 'bsdf': {'type': 'measured', 'filename': 'a.bsdf'}},
+    {'type': 'twosided', 'bsdf': {'type': 'measured_polarized',
+                                  'filename': 'a.pbsdf'}},
 ])
 def test_outside_the_slice_still_raises(change):
-    """The measured and polarizing BSDFs (alone or in a mask) raise,
-    naming ROADMAP item 10."""
+    """The measured BSDFs (alone or wrapped) raise, naming ROADMAP item
+    10; the polarizing ones render since slice 8
+    (tests/test_torch_polarized.py)."""
     desc = pscenes.cornell_box(spp=1, res=8)
     desc['shapes'][0]['bsdf'] = change
     with pytest.raises(NotImplementedError, match=r'item 10 \(variants\)'):
@@ -177,13 +179,17 @@ def test_item7_rows_build_and_match(change):
 
 
 def test_mask_from_reference_arrays_raises():
-    """A reference scene whose masked row wraps a BSDF outside the port
-    (a polarizer, ROADMAP item 10) raises from ``scene_from_numpy``; a
-    masked diffuse row carries over (``test_mask_from_reference_arrays_
-    builds``)."""
+    """A reference scene with a masked row beside a BSDF outside the port
+    (a measured one, ROADMAP item 10; the reference cannot mask it)
+    raises from ``scene_from_numpy``; a masked diffuse row alone carries
+    over (``test_mask_from_reference_arrays_builds``). The masked
+    polarizer this test used to hold renders since slice 8."""
+    from test_measured import _synth_fields
     d = scenes.cornell_box(spp=1, res=8)
     d['shapes'][0]['bsdf'] = {'type': 'mask', 'opacity': 0.5,
                               'bsdf': {'type': 'polarizer'}}
+    d['shapes'][1]['bsdf'] = {'type': 'measured',
+                              '_fields': _synth_fields(res=8, n_theta=3)}
     sj, mj = J.build_scene(d)
     with pytest.raises(NotImplementedError, match='item 10'):
         P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')

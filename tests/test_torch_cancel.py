@@ -6,8 +6,11 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
 
 import mitsuba_nlvrl_tpu_torch as P
+
+torch.set_num_threads(1)   # one intra-op thread a test worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,8 @@ from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
 from mitsuba_nlvrl_tpu_torch.testing import scenes as pscenes
 from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -118,8 +120,10 @@ def test_cli_without_a_card_exits_non_zero(scene_files, monkeypatch,
     assert cli.main([path, '-o', str(d / 'none2.exr')]) != 0
     assert "device='cpu'" in capsys.readouterr().err
     assert not os.path.exists(d / 'none2.exr')
+    # spectral transport outside ``path`` still refuses (item 10)
     with pytest.raises(NotImplementedError, match='item 10'):
-        cli.main([path, '--spectral', '--device', 'cpu'])
+        cli.main([path, '--spectral', '--integrator', 'volpath',
+                  '--device', 'cpu'])
 
 
 def test_mnt_double_raises(scene_files, monkeypatch):
@@ -135,3 +139,21 @@ def test_mnt_double_raises(scene_files, monkeypatch):
     assert not os.path.exists(d / 'double.exr')
     monkeypatch.setenv('MNT_DOUBLE', '0')
     P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')
+
+
+def test_cli_spectral_exr_is_the_in_process_render(tmp_path, monkeypatch):
+    """``--spectral`` on ``cbox_spectral`` (the named conductor's curves
+    from ``MNT_IOR_DIR``): the EXR equals the in-process spectral render
+    in bits."""
+    path = pscenes.cbox_spectral(str(tmp_path), spp=1, res=8, max_depth=4)
+    monkeypatch.setenv('MNT_IOR_DIR', str(tmp_path))
+    out = str(tmp_path / 'spectral.exr')
+    res = run_cli(path, '-o', out, '--device', 'cpu', '--spectral')
+    assert res.returncode == 0, res.stderr
+    desc = load_file(path)
+    desc['spectral'] = True
+    s, m = P.build_scene(desc, device='cpu')
+    assert m.spectral and m.has_conductor_spd
+    img = P.render(s, m, seed=0).numpy()
+    assert np.array_equal(_rgb(out), img)
+    assert img.mean() > 0.01

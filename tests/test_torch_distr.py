@@ -22,6 +22,8 @@ from mitsuba_nlvrl_tpu.core import distr2d as jd2
 from mitsuba_nlvrl_tpu_torch.core import distr as pdistr
 from mitsuba_nlvrl_tpu_torch.core import distr2d as pd2
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 RTOL = 1e-5
 N = 4096
 

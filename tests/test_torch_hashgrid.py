@@ -16,6 +16,8 @@ import torch
 from mitsuba_nlvrl_tpu.ops import hashgrid as jgrid
 from mitsuba_nlvrl_tpu_torch.ops import hashgrid as pgrid
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 
 def _photons(seed, P=3000):
     """Photons crowded into a few cells (many a cell), some below the

@@ -12,6 +12,8 @@ import torch
 from mitsuba_nlvrl_tpu.utils import io as J
 from mitsuba_nlvrl_tpu_torch.utils import io as P
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a PIZ-compressed EXR in the repository (none is committed yet)
 PIZ_EXR = os.path.join(ROOT, 'tests', 'data', 'piz.exr')

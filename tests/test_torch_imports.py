@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'mitsuba_nlvrl_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu', 'PIL')
@@ -65,7 +67,10 @@ def test_no_forbidden_import_in_sources():
               'port_profile_nlvrl.py', '__main__.py', 'xml.py', 'mesh_io.py',
               'bvh.py', 'io.py', 'exr_piz.py', 'ior_data.py',
               'spectrum.py', 'cie_data.py', 'microfacet.py', 'warp.py',
-              'distr.py', 'distr2d.py', 'direct.py', 'depth.py'):
+              'distr.py', 'distr2d.py', 'direct.py', 'depth.py',
+              'spectral.py', 'mueller.py', 'polarized.py',
+              'path_spectral.py', 'path_polarized.py',
+              'path_spectral_polarized.py', 'aov.py', 'regen.py'):
         assert f in names, f
     texture = os.path.join(PORT, 'texture', '__init__.py')
     assert texture in set(_sources())
@@ -260,3 +265,53 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(ValueError, match='no kernel'):
         kern.intersect_tris(*meta)
     assert not calls
+
+
+def test_cpu_spectral_polarized_render_loads_no_jax(tmp_path):
+    """Slice 8 (spectral transport with its coefficient table, the Mueller
+    calculus and the polarized BSDFs, the aov, moment and stokes
+    integrators, albedo grids and the regeneration scheduler) renders on
+    the CPU without JAX or the reference package, and reads the port's
+    own table."""
+    code = (
+        "import os, sys\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.core import spectral\n"
+        "from mitsuba_nlvrl_tpu_torch.testing import scenes as S\n"
+        f"os.environ['MNT_IOR_DIR'] = S.write_conductor_spd("
+        f"{str(tmp_path)!r})\n"
+        "d = S.dress_spectral(S.cornell_box(spp=1, res=6))\n"
+        "descs = [d, S.cbox_polarized(6, 1, 2),\n"
+        "         S.cbox_polarized(6, 1, 3, spectral=True,\n"
+        "                          conductor=S.SPECTRAL_CONDUCTOR),\n"
+        "         S.cornell_box(spp=1, res=6, integrator={'type': 'aov',\n"
+        "                       'aovs': 'nn:sh_normal'}),\n"
+        "         S.cornell_box(spp=1, res=6,\n"
+        "                       integrator={'type': 'moment'}),\n"
+        "         S.cornell_box(spp=1, res=6,\n"
+        "                       medium=S.albedo_grid_medium(8),\n"
+        "                       integrator={'type': 'volpath'})]\n"
+        "for i, desc in enumerate(descs):\n"
+        "    if i == 5:\n"
+        "        os.environ.update(MNT_REGEN='1', MNT_REGEN_LANES='64')\n"
+        "    s, m = P.build_scene(desc, device='cpu')\n"
+        "    info = {}\n"
+        "    img = P.render(s, m, seed=0, info=info)\n"
+        "    assert img.shape == (6, 6, 3) and bool(img.isfinite().all())\n"
+        "assert info['scheduler'] == 'regen'\n"
+        "assert spectral.get_lut_np().shape == (3, 32, 33, 33, 3)\n"
+        "print(spectral.LUT_PATH)\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lut_path, modules = out.stdout.strip().split('\n')[-2:]
+    assert lut_path == os.path.join(PORT, 'data', 'srgb_coeff.npz')
+    loaded = modules.split()
+    for mod in ('core.spectral', 'core.mueller', 'bsdf.polarized',
+                'integrators.path_spectral', 'integrators.path_polarized',
+                'integrators.path_spectral_polarized', 'integrators.aov',
+                'integrators.regen'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]

@@ -26,6 +26,8 @@ from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
 from mitsuba_nlvrl_tpu_torch.ops.cuda import intersect_cuda as kern
 from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box, sphere_scene
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(kern.SOURCE)), 'csrc')
 
 _C_TYPES = {'void*': ctypes.c_void_p, 'int': ctypes.c_int}

@@ -195,11 +195,12 @@ def test_pack_rows_match_reference(name, tmp_path):
     props = dict(props, to_world=pscenes.tr.look_at(
         (1.0, 2.0, -2.0), (0, 0.3, 0), (0, 1, 0))) \
         if name == 'projector' else props
-    code_j, row_j, _ = jem.pack_params(props)
-    code_p, row_p = pem.pack_params(props)
+    code_j, row_j, spec_j = jem.pack_params(props)
+    code_p, row_p, spec_p = pem.pack_params(props)
     assert code_p == code_j
     np.testing.assert_allclose(np.float32(row_p), np.float32(row_j),
                                rtol=0, atol=1e-6)
+    assert spec_p == spec_j
 
 
 def test_env_emitter_idx_matches_reference(tmp_path):

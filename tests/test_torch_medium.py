@@ -431,3 +431,105 @@ def test_record_walks_counts_the_walks_and_restores():
     assert {w['track'] for w in log.walks} == {True, False}
     assert log.trips() == log.trips(True) + log.trips(False) > 0
     assert 0 < sum(w['ops'] for w in log.walks) < log.ops
+
+
+# --- slice 8: albedo grids, the medium helpers, refused textures ------------
+
+def test_medium_helpers_match_reference(hetvol):
+    """The helpers no integrator calls: free-flight sampling against the
+    hero channel's majorant, the segment's transmittance and pdf, the
+    closed-form homogeneous transmittance and the constant-extinction
+    mask (the interaction within 1e-6 relative; the transmittances and
+    pdfs, exponentials of the sampled distances' log1p, within 1e-5:
+    1.3e-6 at most measured)."""
+    sj, mj, sp, mp, o, d = hetvol
+    N = o.shape[0]
+    rng = np.random.default_rng(21)
+    u = rng.uniform(size=N).astype(np.float32)
+    ch = rng.integers(0, 3, N).astype(np.int32)
+    m0 = np.where(rng.uniform(size=N) < 0.9, 0, -1).astype(np.int32)
+    act = rng.uniform(size=N) < 0.95
+    maxt = np.where(rng.uniform(size=N) < 0.5, np.inf,
+                    rng.uniform(0.5, 4.0, N)).astype(np.float32)
+    jr, pr = _rays(o, d, np.zeros(N, np.float32), maxt)
+    mi_j, mint_j = jax.jit(lambda s, r, a, b, c, e: jmed.sample_interaction(
+        s, mj, r, a, b, c, e))(sj, jr, jnp.asarray(u), jnp.asarray(ch),
+                               jnp.asarray(m0), jnp.asarray(act))
+    mi_p, mint_p = pmed.sample_interaction(
+        sp, mp, pr, _t(u), _t(ch, torch.int32), _t(m0, torch.int32),
+        _t(act, torch.bool))
+    assert (_np(mi_p.valid) == _np(mi_j.valid)).all()
+    assert 0 < _np(mi_p.valid).sum() < N
+    for f in ('t', 'p', 'sigma_s', 'sigma_n', 'sigma_t',
+              'combined_extinction', 'wi'):
+        np.testing.assert_allclose(_np(getattr(mi_p, f)),
+                                   _np(getattr(mi_j, f)), rtol=1e-6,
+                                   atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(_np(mint_p), _np(mint_j), rtol=1e-6,
+                               atol=1e-6)
+    si_t = rng.uniform(0.1, 5.0, N).astype(np.float32)
+    tr_j, pdf_j = jmed.eval_tr_and_pdf(mi_j, mint_j, jnp.asarray(si_t),
+                                       jnp.asarray(act))
+    tr_p, pdf_p = pmed.eval_tr_and_pdf(mi_p, mint_p, _t(si_t),
+                                       _t(act, torch.bool))
+    np.testing.assert_allclose(_np(tr_p), _np(tr_j), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(_np(pdf_p), _np(pdf_j), rtol=1e-5, atol=1e-7)
+    length = rng.uniform(-0.5, 3.0, N).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(pmed.homogeneous_transmittance(sp, _t(m0, torch.int32),
+                                           _t(length), _t(act, torch.bool))),
+        _np(jmed.homogeneous_transmittance(sj, jnp.asarray(m0),
+                                           jnp.asarray(length),
+                                           jnp.asarray(act))),
+        rtol=1e-5, atol=1e-7)
+    for sj_, mj_, sp_, mp_ in ((sj, mj, sp, mp), build_both(
+            scenes.cornell_box(medium=HOMOGENEOUS))):
+        assert (_np(pmed.is_homogeneous_like(sp_, mp_, _t(m0, torch.int32)))
+                == _np(jmed.is_homogeneous_like(sj_, mj_,
+                                                jnp.asarray(m0)))).all()
+
+
+def test_albedo_grid_box_matches_reference():
+    """A heterogeneous medium whose albedo is a gridvolume: both builders
+    carry the grid and set the row's albedo to one (no integrator of the
+    reference reads the grid), and the volpath renders agree (every pixel
+    within 1e-3 relative, the rays equal)."""
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    from torch_parity import ieee_reference
+    med = pscenes.albedo_grid_medium(grid_res=8, scale=10.0)
+    desc_p = pscenes.cornell_box(spp=2, res=8, medium=med,
+                                 integrator={'type': 'volpath',
+                                             'max_depth': 6})
+    sp_own, _ = P.build_scene(desc_p, device='cpu')
+    sj, mj, sp, mp = build_both(scenes.cornell_box(
+        spp=2, res=8, medium=med,
+        integrator={'type': 'volpath', 'max_depth': 6}))
+    grid = np.asarray(med['albedo']['_grid'].data)
+    for s_ in (sj, sp_own):
+        np.testing.assert_array_equal(_np(s_.media.grid_albedo), grid)
+        np.testing.assert_array_equal(_np(s_.media.params)[0, 3:6], 1.0)
+    stats = []
+    with ieee_reference():
+        img_j = np.asarray(J.render(sj, mj, seed=0, spp=2, ray_stats=stats,
+                                    spp_per_dispatch=1))
+    img_p, _, rays_p = compare.render_with_passes(sp, mp, 0, 2)
+    close = np.abs(img_p - img_j) <= 1e-3 * np.abs(img_j) + 1e-6
+    assert close.all(), float(np.abs(img_p - img_j).max())
+    assert rays_p == sum(float(r) for r in stats)
+
+
+@pytest.mark.parametrize('medium', [
+    {'type': 'homogeneous', 'sigma_t': {'type': 'checkerboard'},
+     'albedo': 0.8},
+    {'type': 'heterogeneous', 'sigma_t': {'type': 'checkerboard'}},
+])
+def test_textured_media_are_refused_as_the_reference_refuses_them(medium):
+    """A textured homogeneous medium, or a heterogeneous one whose textured
+    sigma_t is not a gridvolume: the reference's builder fails on the
+    texture (its RGB reader returns None), and the port's raises a
+    ValueError that says so."""
+    with pytest.raises((TypeError, ValueError)):
+        J.build_scene(scenes.cornell_box(spp=1, res=4, medium=medium))
+    with pytest.raises(ValueError, match='refuse'):
+        P.build_scene(pscenes.cornell_box(spp=1, res=4, medium=medium),
+                      device='cpu')

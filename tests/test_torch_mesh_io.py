@@ -7,9 +7,12 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from mitsuba_nlvrl_tpu.scene import mesh_io as J
 from mitsuba_nlvrl_tpu_torch.scene import mesh_io as P
+
+torch.set_num_threads(1)   # one intra-op thread a test worker
 
 
 def _mesh(seed, n_verts=40, n_quads=30, n_tris=20):

@@ -20,6 +20,8 @@ from mitsuba_nlvrl_tpu.core import warp as jwarp
 from mitsuba_nlvrl_tpu_torch.core import microfacet as pmf
 from mitsuba_nlvrl_tpu_torch.core import warp as pwarp
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 RTOL = 1e-5
 DIR_ATOL = 4e-5
 N = 4096

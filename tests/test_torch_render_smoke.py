@@ -4,10 +4,13 @@ Cornell box under its three lights, ``direct`` against ``path`` at
 max_depth 2, the ``depth`` integrator, a sphere scene, determinism for a
 seed, a white furnace)."""
 import numpy as np
+import torch
 
 import mitsuba_nlvrl_tpu_torch as P
 from mitsuba_nlvrl_tpu_torch.core import transform as tr
 from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box, sphere_scene
+
+torch.set_num_threads(1)   # one intra-op thread a test worker
 
 
 def _render(desc, spp, seed=0):

@@ -8,6 +8,8 @@ import torch
 from mitsuba_nlvrl_tpu.core.rng import Sampler as JSampler
 from mitsuba_nlvrl_tpu_torch.core import rng
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 
 def _bits(key):
     return np.asarray(key).astype(np.int64)

@@ -29,6 +29,8 @@ from mitsuba_nlvrl_tpu_torch.scene import types as ptypes
 from mitsuba_nlvrl_tpu_torch.testing import scenes as pscenes
 from mitsuba_nlvrl_tpu_torch.utils.io import read_png, write_exr
 
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
 N = 4096
 
 

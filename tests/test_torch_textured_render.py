@@ -7,9 +7,17 @@ textures), and the ``direct`` and ``depth`` integrators; the scene
 arrays of each equal the reference's.
 
 Tolerances: arrays 1e-6; every pixel within 1e-3 relative (1e-6
-absolute) and the ray counts equal, the reference rendered with IEEE
-rounding (``torch_parity.ieee_reference``: XLA's fused multiply-adds
-move a hit across a checkerboard edge or a mask's opacity threshold)."""
+absolute), the reference rendered with IEEE rounding
+(``torch_parity.ieee_reference``: XLA's fused multiply-adds move a hit
+across a checkerboard edge or a mask's opacity threshold); the ray
+counts equal, but within 0.1% for ``cbox_textured``. XLA's sin and cos and torch's are not correctly
+rounded and differ by an ulp on a few lanes (torch's by the host's
+vector unit), and in ``cbox_textured`` the block's bottom face lies in
+the floor's plane: on an AVX-512 host one camera path of pass 1 (lane
+169) leaves its first diffuse bounce two ulps apart and meets that tie
+at t = 0.25514594 against 0.25514597, hitting the block's back in the
+reference (the path ends) and the floor in the port (one more bounce
+and shadow ray: 3,484 rays against 3,482)."""
 import functools
 
 import numpy as np
@@ -85,7 +93,10 @@ def test_render_matches_reference(name, tmp_path_factory):
     assert img_p.shape == img_j.shape == (RES, RES, 3)
     close = np.abs(img_p - img_j) <= 1e-3 * np.abs(img_j) + 1e-6
     assert close.all(), float(np.abs(img_p - img_j).max())
-    assert rays_p == rays_j
+    if name == 'cbox_textured':       # the floor's tie, see above
+        assert abs(rays_p - rays_j) <= 1e-3 * rays_j, (rays_p, rays_j)
+    else:
+        assert rays_p == rays_j
     assert img_p.mean() > 0.005
 
 

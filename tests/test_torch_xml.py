@@ -176,17 +176,25 @@ SPECTRA = {
 def test_spectrum_emitters_pack_the_references_rgb(name):
     for props in ({'type': 'area', 'radiance': SPECTRA[name]},
                   {'type': 'point', 'intensity': SPECTRA[name]}):
-        code_j, params_j, _ = j_pack_emitter(props)
-        code_p, params_p = p_pack_emitter(props)
+        code_j, params_j, spec_j = j_pack_emitter(props)
+        code_p, params_p, spec_p = p_pack_emitter(props)
         assert code_p == code_j
         assert np.array_equal(np.float32(params_p), np.float32(params_j))
+        # the true spectrum the spectral variant samples
+        assert spec_p[:3] == spec_j[:3]
+        assert np.array_equal(spec_p[3], spec_j[3])
     assert max(params_p) > 0
 
 
 def test_spectral_transport_still_raises():
+    """Spectral transport renders on ``path``; on the other integrators,
+    where the reference renders RGB without a word, it still raises,
+    naming ROADMAP item 10."""
     desc = pscenes.cornell_box(radiance=SPECTRA['blackbody'])
-    P.build_scene(desc, device='cpu')
     desc['spectral'] = True
+    _, meta = P.build_scene(desc, device='cpu')
+    assert meta.spectral
+    desc['integrator'] = {'type': 'volpath'}
     with pytest.raises(NotImplementedError, match='item 10'):
         P.build_scene(desc, device='cpu')
 

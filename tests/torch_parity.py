@@ -14,11 +14,16 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from test_golden_suite import _z_test
 
 import mitsuba_nlvrl_tpu as J
 import mitsuba_nlvrl_tpu_torch as P
+
+# one intra-op thread a process: the Tier-1 command runs six pytest
+# workers on the machine's cores, and each worker collects every file
+torch.set_num_threads(1)
 
 
 def scene_arrays(scene) -> dict:
@@ -42,6 +47,20 @@ def scene_arrays(scene) -> dict:
             out[prefix] = np.asarray(node)
     walk('', scene)
     return out
+
+
+def port_si(si):
+    """A reference SurfaceInteraction as the port's record (CPU
+    tensors)."""
+    from mitsuba_nlvrl_tpu_torch.core.frame import Frame
+    from mitsuba_nlvrl_tpu_torch.core.records import SurfaceInteraction
+
+    def t(x):
+        return torch.as_tensor(np.array(x))
+    return SurfaceInteraction(**{
+        f: (Frame(*(t(v) for v in si.sh_frame)) if f == 'sh_frame'
+            else t(getattr(si, f)))
+        for f in SurfaceInteraction._fields})
 
 
 def jax_meta_dict(meta) -> dict:
@@ -199,3 +218,63 @@ def check_render_own_light_pass(integrator: str, medium: str, spp: int):
     assert z >= compare.Z_FRACTION, z
     assert abs(img_p.mean() - img_j.mean()) \
         <= compare.MEAN_RTOL * img_j.mean(), (img_p.mean(), img_j.mean())
+
+
+def reference_stokes_images(sj, mj, spp: int):
+    """The reference's four Stokes component images of a ``stokes`` scene
+    (``path`` nested, spectral or not) and its ray count, from one
+    compiled pass that keeps every component: each pass is the
+    reference's ``_pass_body`` (its keys, sensor rays, film splat), under
+    ``ieee_reference``. Returns ((4, H, W, 3) developed images, rays)."""
+    from mitsuba_nlvrl_tpu import film as jfilm, sensor as jsensor
+    from mitsuba_nlvrl_tpu.core.rng import Sampler as JSampler
+    from mitsuba_nlvrl_tpu.integrators import path_polarized as jpol
+    from mitsuba_nlvrl_tpu.integrators import path_spectral_polarized as jsp
+    from mitsuba_nlvrl_tpu.integrators.aov import _nested
+    from mitsuba_nlvrl_tpu.integrators.common import film_sample_positions
+    mod = jsp if mj.spectral else jpol
+    _, inner = _nested(mj)
+    N = mj.film.width * mj.film.height
+
+    def one_pass(scene, key, p):
+        pos_key, samp_key = jax.random.split(key)
+        pos, pos01 = film_sample_positions(mj, pos_key, p)
+        ray, sw = jsensor.sample_ray(
+            scene, mj, pos01,
+            jax.random.uniform(jax.random.fold_in(pos_key, 1), (N, 2)))
+        stokes, _, smp = mod.sample_full(scene, inner,
+                                         JSampler.make(samp_key, N), ray)
+        jit = pos - jnp.floor(pos)
+        imgs = []
+        for c in range(4):
+            L = jnp.where(jnp.isfinite(stokes[:, :, c]), stokes[:, :, c],
+                          0.0) * sw
+            imgs.append(jfilm.splat_pixel_ordered(mj.film, jit, L,
+                                                  jfilm.new_image(mj.film)))
+        return jnp.stack(imgs), smp.rays
+
+    acc, rays = 0.0, 0.0
+    with ieee_reference():
+        f = ieee_jit(one_pass)
+        for p in range(spp):
+            img, r = f(sj, jax.random.fold_in(jax.random.PRNGKey(0), p),
+                       jnp.uint32(p))
+            acc = acc + np.asarray(img)
+            rays += float(r)
+    return np.stack([np.asarray(jfilm.develop(a)) for a in acc]), rays
+
+
+def check_stokes_render(sp, mp, images_j, rays_j, component: int, spp: int):
+    """The port's ``stokes`` render of ``component`` against the
+    reference's image: every pixel within 1e-3 of the pixel's largest
+    S0 channel (S1-S3 are signed and cross zero), the rays equal."""
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import with_component
+    img_p, _, rays_p = compare.render_with_passes(
+        sp, with_component(mp, component), 0, spp)
+    ref = images_j[component]
+    scale = np.abs(images_j[0]).max(axis=-1, keepdims=True)
+    bad = np.abs(img_p - ref) > 1e-3 * scale + 1e-6
+    assert not bad.any(), (component, float(np.abs(img_p - ref).max()))
+    assert rays_p == rays_j
+    return img_p
