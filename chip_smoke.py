@@ -78,6 +78,16 @@ through the regeneration scheduler (``MNT_REGEN=1``) beside the pass
 loop's render, and the card against the CPU at 64x64 on each of them, on
 ``aov``, ``moment``, an albedo-grid medium and a fog box under
 regeneration, with regeneration held to the pass loop by the noise rule.
+Then differentiable rendering (``autodiff.render``, checkpointed bounces
+and walks, torch autograd): ``cbox_path_grad`` (the inverse-rendering
+loop at 512x512: a target render, the BSDF parameters at 0.3 times
+their values, 8 Adam steps of a 1 spp render and its backward pass) and
+``hetvol_volpath_grad`` (the gradient of the 768x576 ``hetvol_box``'s
+mean image with respect to its 128^3 density grid, then one SGD step
+through ``with_sigma_grid``), every kernel call of one diff step of each
+held to the plain version as it is made, the backward pass's recompute
+included, and the card's gradients against the CPU's on a 64x64 box and
+a 24x24 heterogeneous box (``autodiff_checks``).
 Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
@@ -134,7 +144,13 @@ BRE_BENDS = 8
 # iterations of cbox_materials_pm at 64x32 (100,000 and 24)
 HETVOL_CHECK_SPP = 2
 PM_CHECK_CUTS = {'global_photons': 20000, 'volume_photons': 20000,
-                 'max_cam_iters': 8}
+                 'max_cam_iters': 4}
+# and, to make room for slice 9's phases (PERF.md §4): the depth of
+# the polarized renders, of the volumetric checks against the CPU (the
+# heterogeneous and homogeneous boxes, the albedo grid, regeneration
+# against the pass loop) and of the mesh check (8 uncut; the photon
+# mapper check's camera iterations above, 8 before)
+CUT_DEPTH = 4
 
 
 def peaks(name: str):
@@ -883,7 +899,7 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
 
     # --- cbox_polarized: stokes, 512x512, 16 spp ------------------------
     pscene, pmeta = mnt.build_scene(cbox_polarized(
-        512, 16, 0, conductor=SPECTRAL_CONDUCTOR))
+        512, 16, 0, conductor=SPECTRAL_CONDUCTOR, max_depth=CUT_DEPTH))
     calls = record_calls(mnt, pscene, pmeta)
     own = render_rays(torch, kern, calls, bw, fl)
     emit({'phase': 'polarized_render_rays', 'n_tris': pmeta.n_tris,
@@ -895,14 +911,15 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
         rec, pimg = timed_render(torch, mnt, kern, sync, pscene,
                                  with_component(pmeta, c), 16)
         emit({'phase': 'polarized_render', 'res': 512, 'spp': 16,
-              'max_depth': 8, 'component': c, 'spectral': False, **rec})
+              'max_depth': CUT_DEPTH, 'component': c, 'spectral': False,
+              **rec})
         assert rec['launches'] > 0 and rec['finite'], rec
         assert (0.01 < rec['mean'] < 10.0) if c == 0 \
             else float(np.abs(pimg).max()) > 1e-3
         out['launches_polarized'] += rec['launches']
     del pscene
     sdesc = cbox_polarized(512, 16, 3, spectral=True,
-                           conductor=SPECTRAL_CONDUCTOR)
+                           conductor=SPECTRAL_CONDUCTOR, max_depth=CUT_DEPTH)
     pscene, pmeta = mnt.build_scene(sdesc)
     assert pmeta.spectral and pmeta.has_conductor_spd
     calls = record_calls(mnt, pscene, pmeta)
@@ -912,7 +929,7 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
     kernel_numbers('spectral_polarized', own)
     rec, pimg = timed_render(torch, mnt, kern, sync, pscene, pmeta, 16)
     emit({'phase': 'polarized_render', 'res': 512, 'spp': 16,
-          'max_depth': 8, 'component': 3, 'spectral': True, **rec})
+          'max_depth': CUT_DEPTH, 'component': 3, 'spectral': True, **rec})
     assert rec['launches'] > 0 and rec['finite'], rec
     assert float(np.abs(pimg).max()) > 1e-3
     out['launches_spectral_polarized'] = rec['launches']
@@ -993,7 +1010,7 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
         4)
     gate('albedo_grid', cornell_box(
         spp=2, res=64, medium=albedo_grid_medium(16, scale=5.0),
-        integrator={'type': 'volpath', 'max_depth': 8}), 2)
+        integrator={'type': 'volpath', 'max_depth': CUT_DEPTH}), 2)
     fog = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.9}
     os.environ['MNT_REGEN'] = '1'
     try:
@@ -1007,7 +1024,8 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
         # schedulers beside, on an H100)
         scene, meta = mnt.build_scene(hetvol_box(64, 64, spp=4,
                                                  grid_res=32, seed=0,
-                                                 scale=5.0))
+                                                 scale=5.0,
+                                                 max_depth=CUT_DEPTH))
         seeds = (1, 2, 3, 4)
 
         def images(mode, seeds):
@@ -1053,6 +1071,281 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
     assert np.isfinite(regen).all() and cross < 1.5 * noise, (cross, noise)
     assert rel < 0.08, rel
     assert np.isfinite(salted).all() and abs(gap) < 6 * se, (gap, se)
+
+
+# slice 9: the inverse-rendering loop's Adam steps, and the grid of the
+# volumetric gradient's configuration
+AD_STEPS = 8
+AD_GRID_RES = 128
+# the heterogeneous gradient's depth: its diff bounce loop runs
+# min(192, max(8, 3 * max_depth)) trips, and at max_depth 8 the backward
+# pass took 74-79 s on an H100, the script over its limit (PERF.md §4)
+AD_DEPTH = 3
+# the heterogeneous box's depth in the card-against-CPU gradient check
+AD_CHECK_DEPTH = 3
+
+
+class diff_step_check:
+    """Every kernel call made inside the block, in the forward pass and in
+    the backward pass's recompute alike, held against the plain version on
+    the same inputs as it is made: t, u, v equal in bits and idx equal for
+    a nearest hit, the occlusion for an any hit. The mismatches add up on
+    the card (no host read a call); ``done()`` reads them once."""
+
+    def __init__(self, torch, kern):
+        self.torch, self.kern = torch, kern
+        self.calls = {'forward': 0, 'recompute': 0}
+
+    def __enter__(self):
+        from mitsuba_nlvrl_tpu_torch.core import counters
+        from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
+        torch, kern = self.torch, self.kern
+        self.mismatch = 0
+        self.pisect, self.real = pisect, pisect.intersect_tris
+
+        def checked(v0, e1, e2, o, d, mint, maxt, any_hit=False):
+            got = self.real(v0, e1, e2, o, d, mint, maxt, any_hit=any_hit)
+            ref = kern.intersect_tris_plain(v0, e1, e2, o, d, mint, maxt,
+                                            any_hit=any_hit)
+            self.calls['recompute' if counters.recomputing
+                       else 'forward'] += 1
+            bad = (torch.isfinite(got[0]) != torch.isfinite(ref[0])).sum()
+            if not any_hit:
+                bad = bad + (got[1] != ref[1]).sum() + sum(
+                    (a.view(torch.int32) != b.view(torch.int32)).sum()
+                    for a, b in ((got[0], ref[0]), (got[2], ref[2]),
+                                 (got[3], ref[3])))
+            self.mismatch += bad
+            return got
+        pisect.intersect_tris = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.pisect.intersect_tris = self.real
+
+    def done(self) -> dict:
+        rec = {'calls_forward': self.calls['forward'],
+               'calls_recompute': self.calls['recompute'],
+               'bit_mismatch': int(self.mismatch)}
+        assert rec['bit_mismatch'] == 0, rec
+        assert rec['calls_forward'] > 0 and rec['calls_recompute'] > 0, rec
+        return rec
+
+
+def ad_counts(kern, sync) -> dict:
+    return {'launches': kern.launches,
+            'launches_recompute': kern.launches_recompute,
+            'host_syncs': sync.host_syncs,
+            'host_syncs_recompute': sync.host_syncs_recompute}
+
+
+def path_grad_phase(torch, mnt, kern, sync) -> dict:
+    """``cbox_path_grad``: the inverse-rendering loop of tests/test_api.py
+    at the cbox_path configuration's width (the 512x512 Cornell box,
+    ``path`` max_depth 8). The target is a 1 spp render of seed 3; the
+    BSDF parameters start at 0.3 times their values; AD_STEPS Adam steps
+    (lr 0.05), each a 1 spp differentiable render and its backward pass.
+    One diff step is first checked call by call (``diff_step_check``).
+    Prints every step's loss, forward and backward seconds, launches and
+    host syncs (forward and recompute apart), and the peak memory; holds
+    the last loss below the first and every gradient finite."""
+    from mitsuba_nlvrl_tpu_torch import autodiff as ad
+    from mitsuba_nlvrl_tpu_torch.core import counters
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+
+    scene, meta = mnt.build_scene(cornell_box(
+        spp=1, res=512, integrator={'type': 'path', 'max_depth': 8}))
+    pm = ad.traverse(scene).keep(['bsdfs.params'])
+    with torch.no_grad():
+        target = ad.render(scene, meta, spp=1, seed=3)
+    opt = ad.Adam(pm, lr=0.05)
+    opt.params = {'bsdfs.params': pm['bsdfs.params'] * 0.3}
+
+    def loss_of():
+        img = ad.render(scene, meta, params=opt.params, pmap=pm, spp=1,
+                        seed=3)
+        return ((img - target) ** 2).mean()
+
+    # one diff step checked call by call (also the warm-up)
+    with diff_step_check(torch, kern) as chk:
+        loss_of().backward()
+        torch.cuda.synchronize()
+    check = chk.done()
+    opt.zero_grad()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    steps, t_all = [], time.time()
+    for _ in range(AD_STEPS):
+        c0 = ad_counts(kern, sync)
+        t0 = time.time()
+        loss = loss_of()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        c1 = ad_counts(kern, sync)
+        opt.zero_grad()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.time()
+        c2 = ad_counts(kern, sync)
+        grad = opt.params['bsdfs.params'].grad
+        finite = bool(grad.isfinite().all())
+        opt.step()
+        steps.append({'loss': float(loss), 'forward_s': t1 - t0,
+                      'backward_s': t2 - t1, 'grad_finite': finite,
+                      'grad_abs_sum': float(grad.abs().sum()),
+                      **{f'forward_{k}': c1[k] - c0[k] for k in c0},
+                      **{f'backward_{k}': c2[k] - c1[k] for k in c0}})
+    torch.cuda.synchronize()
+    wall = time.time() - t_all
+    counts = ad_counts(kern, sync)
+    rec = {'res': 512, 'spp': 1, 'max_depth': 8, 'steps': AD_STEPS,
+           'lr': 0.05, 'wall_s': wall, 'losses': [s['loss'] for s in steps],
+           'peak_memory_gib': torch.cuda.max_memory_allocated() / 2**30,
+           **counts, 'step_records': steps, 'check': check}
+    emit({'phase': 'cbox_path_grad', **rec})
+    assert counts['launches'] > 0 and counts['launches_recompute'] > 0, \
+        counts
+    assert all(s['grad_finite'] for s in steps), steps
+    assert rec['losses'][-1] < rec['losses'][0], rec['losses']
+    return rec
+
+
+def hetvol_grad_phase(torch, mnt, kern, sync) -> dict:
+    """``hetvol_volpath_grad``: the gradient of the mean image of the
+    hetvol_volpath configuration (``hetvol_box`` 768x576, a 128^3 grid,
+    sigma_t x100, ``volpath``; cut to 1 spp from the cell's 2 and to
+    max_depth AD_DEPTH from 8) with respect to ``media.grid_sigma_t``,
+    every kernel call of the diff step checked as it is made, then one
+    SGD step through the
+    ``ParameterMap`` (``with_sigma_grid`` refreshes the derived arrays).
+    Prints wall seconds (forward, backward and the step apart), peak
+    memory, launches and host syncs, and the voxels with a nonzero
+    gradient."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import autodiff as ad
+    from mitsuba_nlvrl_tpu_torch.core import counters
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import hetvol_box
+
+    scene, meta = mnt.build_scene(hetvol_box(
+        768, 576, spp=1, grid_res=AD_GRID_RES, seed=0, scale=100.0,
+        max_depth=AD_DEPTH))
+    pm = ad.traverse(scene).keep(['media.grid_sigma_t'])
+    opt = ad.SGD(pm, lr=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    with diff_step_check(torch, kern) as chk:
+        t0 = time.time()
+        img = ad.render(scene, meta, params=opt.params, pmap=pm, spp=1,
+                        seed=0)
+        loss = img.mean()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        c1 = ad_counts(kern, sync)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.time()
+    counts = ad_counts(kern, sync)
+    check = chk.done()
+    grid0 = pm['media.grid_sigma_t'].clone()
+    grad = opt.params['media.grid_sigma_t'].grad.clone()
+    t3 = time.time()
+    opt.step()
+    updated = opt.update_scene()
+    torch.cuda.synchronize()
+    t4 = time.time()
+    nonzero = int((grad != 0).sum())
+    med = updated.media
+    rec = {'res': [768, 576], 'spp': 1, 'grid_res': AD_GRID_RES,
+           'sigma_t_scale': 100.0, 'max_depth': AD_DEPTH,
+           'bounce_trips_bound': min(192, max(8, 3 * AD_DEPTH)),
+           'walk_events_bound': 192,
+           'forward_s': t1 - t0, 'backward_s': t2 - t1,
+           'sgd_step_s': t4 - t3, 'mean': float(loss),
+           'peak_memory_gib': torch.cuda.max_memory_allocated() / 2**30,
+           **counts,
+           **{f'forward_{k}': c1[k] for k in c1},
+           'nonzero_voxels': nonzero, 'voxels': grad.numel(),
+           'grad_finite': bool(grad.isfinite().all()),
+           'grad_abs_sum': float(grad.abs().sum()), 'check': check}
+    emit({'phase': 'hetvol_volpath_grad', **rec})
+    assert counts['launches'] > 0 and counts['launches_recompute'] > 0, \
+        counts
+    assert rec['grad_finite'] and nonzero > 0, rec
+    assert bool(img.isfinite().all()) and 0.0 < rec['mean'] < 10.0, rec
+    # the step went through with_sigma_grid: a new grid, its bounds and
+    # its packed rows refreshed
+    assert torch.equal(med.grid_sigma_t, grid0 - grad)
+    assert med.grid_sigma_p8 is not None and not med.grid_sigma_t.requires_grad
+    assert bool((med.grid_sup.amax() >= med.grid_sigma_t.amax()).item())
+    return rec
+
+
+def autodiff_checks(torch, mnt) -> None:
+    """The card's gradients against the CPU's on reduced scenes: the
+    Cornell box at 64x64 (``path`` max_depth 8: bsdfs.params and
+    emitters.params) and ``hetvol_box`` at 24x24 with a 16^3 grid
+    (sigma_t x20 as in the CPU parity tests, ``volpath`` at the CPU
+    test's max_depth 3, AD_CHECK_DEPTH; media.params,
+    media.grid_sigma_t), each the gradient of sum(image * W) for a seeded
+    W. The images agree within 1e-5 relative. Each gradient entry is held
+    to the CPU tests' tolerance (1e-4 relative plus 1e-6 or 1e-5); the
+    card's transcendentals differ from the CPU's by ulps, so a lane whose
+    walk turns on one takes another decision, and as the render gates
+    allow such lanes, at most one entry in a thousand (and one at least)
+    may fall outside, their error summing to 1e-4 of the gradient's
+    absolute sum at most."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import autodiff as ad
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box, hetvol_box
+
+    cases = (
+        ('cbox_path_64', cornell_box(spp=1, res=64, integrator={
+            'type': 'path', 'max_depth': 8}),
+         ('bsdfs.params', 'emitters.params'), 1e-6),
+        ('hetvol_24', hetvol_box(24, 24, spp=1, grid_res=16, seed=0,
+                                 scale=20.0, max_depth=AD_CHECK_DEPTH),
+         ('media.params', 'media.grid_sigma_t'), 1e-5))
+    for name, desc, keys, atol in cases:
+        out, secs = {}, {}
+        for device in ('cuda', 'cpu'):
+            t0 = time.time()
+            scene, meta = mnt.build_scene(desc, device=device)
+            pm = ad.traverse(scene).keep(keys)
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in pm.to_dict().items()}
+            img = ad.render(scene, meta, params=params, pmap=pm, spp=1,
+                            seed=0)
+            W = torch.as_tensor(np.random.default_rng(0).standard_normal(
+                tuple(img.shape)).astype(np.float32), device=device)
+            (img * W).sum().backward()
+            out[device] = (img.detach().cpu().numpy(),
+                           {k: v.grad.cpu().numpy()
+                            for k, v in params.items()})
+            secs[device] = time.time() - t0
+        img_g, g_g = out['cuda']
+        img_c, g_c = out['cpu']
+        rec = {'check': name, 'card_s': secs['cuda'], 'cpu_s': secs['cpu'],
+               'image_max_abs_err': float(np.abs(img_g - img_c).max())}
+        for k in keys:
+            err = np.abs(g_g[k] - g_c[k])
+            outside = err > atol + 1e-4 * np.abs(g_c[k])
+            rec[k] = {'max_abs_err': float(err.max()),
+                      'abs_sum': float(np.abs(g_c[k]).sum()),
+                      'entries': int(err.size),
+                      'outside_tolerance': int(outside.sum()),
+                      'outside_err_sum': float(err[outside].sum()),
+                      'finite': bool(np.isfinite(g_g[k]).all())}
+        emit({'phase': 'autodiff_checks', **rec})
+        np.testing.assert_allclose(img_g, img_c, rtol=1e-5, atol=1e-6)
+        for k in keys:
+            r = rec[k]
+            assert r['finite'] and r['abs_sum'] > 0, (k, rec)
+            assert r['outside_tolerance'] <= max(1, r['entries'] // 1000), \
+                (k, rec)
+            assert r['outside_err_sum'] <= 1e-4 * r['abs_sum'], (k, rec)
 
 
 def run_cli(args, timeout: float):
@@ -1226,6 +1519,7 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     sdesc = load_file(mpath)
     sdesc['sensor']['film'].update(width=64, height=64)
     sdesc['sensor']['sampler']['sample_count'] = 2
+    sdesc['integrator']['max_depth'] = CUT_DEPTH
     agree, _ = card_vs_cpu(mnt, compare, sdesc, 2)
     emit({'phase': 'mesh_card_vs_cpu', 'res': 64, 'spp': 2, **agree})
     compare.check(agree)
@@ -1437,11 +1731,12 @@ def main() -> int:
     # --- the volumetric card path against the CPU path, 64x64 ----------
     for scene_name, desc, spp in (
             ('hetvol_volpath', hetvol_box(64, 64, spp=HETVOL_CHECK_SPP,
-                                          grid_res=32, seed=0, scale=100.0),
+                                          grid_res=32, seed=0, scale=100.0,
+                                          max_depth=CUT_DEPTH),
              HETVOL_CHECK_SPP),
             ('homogeneous_volpathmis', cornell_box(
                 spp=4, res=64,
-                integrator={'type': 'volpathmis', 'max_depth': 8},
+                integrator={'type': 'volpathmis', 'max_depth': CUT_DEPTH},
                 medium={'type': 'homogeneous', 'sigma_t': 0.5,
                         'albedo': 0.8}), 4)):
         agree, _ = card_vs_cpu(mnt, compare, desc, spp)
@@ -1532,6 +1827,12 @@ def main() -> int:
             os.environ.pop('MNT_IOR_DIR', None)
         else:
             os.environ['MNT_IOR_DIR'] = ior_dir
+    # --- slice 9: differentiable rendering -----------------------------
+    pgrad = path_grad_phase(torch, mnt, kern, sync)
+    hgrad = hetvol_grad_phase(torch, mnt, kern, sync)
+    autodiff_checks(torch, mnt)
+    ad_launches = (pgrad['launches'] + pgrad['launches_recompute']
+                   + hgrad['launches'] + hgrad['launches_recompute'])
     worst = max(worst, mat['max_abs_err'],
                 opt['nlvrl_aniso_rays']['max_abs_err'],
                 opt['long_vrl']['max_abs_err'], it7['max_abs_err'],
@@ -1544,7 +1845,7 @@ def main() -> int:
                     + it8['launches_spectral_cli']
                     + it8['launches_polarized']
                     + it8['launches_spectral_polarized']
-                    + it8['launches_regen'])
+                    + it8['launches_regen'] + ad_launches)
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -1590,7 +1891,13 @@ def main() -> int:
         'launches_env': it7['launches_env'], 'env_ms': it7['env_ms'],
         'env_plain_ms': it7['env_plain_ms'],
         'env_bound_ms': it7['env_bound_ms'],
-        **{k: v for k, v in it8.items() if k != 'max_abs_err'}}]})
+        **{k: v for k, v in it8.items() if k != 'max_abs_err'},
+        'launches_autodiff': ad_launches,
+        'launches_cbox_path_grad': pgrad['launches'],
+        'launches_cbox_path_grad_recompute': pgrad['launches_recompute'],
+        'launches_hetvol_volpath_grad': hgrad['launches'],
+        'launches_hetvol_volpath_grad_recompute':
+            hgrad['launches_recompute']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -284,7 +284,7 @@ def _reflect_about(wi, h):
 def _spec_pdf(wi, wo, h, ax, ay):
     """The pdf of a VNDF-sampled reflection: pdf_h / (4 |wo.h|)."""
     return mf.vndf_pdf(wi, h, ax, ay) \
-        / (4.0 * torch.clamp(torch.abs(m.dot(wo, h)), min=1e-9))
+        / (4.0 * m.clip(torch.abs(m.dot(wo, h)), min=1e-9))
 
 
 def _roughconductor_eval(P, wi, wo):
@@ -296,7 +296,7 @@ def _roughconductor_eval(P, wi, wo):
     G = mf.smith_g1(wi, h, ax, ay) * mf.smith_g1(wo, h, ax, ay)
     F = fresnel_conductor(m.dot(wi, h), P[:, 0:3], P[:, 3:6])
     val = P[:, 6:9] * F \
-        * (D * G / (4.0 * torch.clamp(cos_i, min=1e-9)))[:, None]
+        * (D * G / (4.0 * m.clip(cos_i, min=1e-9)))[:, None]
     return torch.where(act[:, None], val, 0.0)
 
 
@@ -310,11 +310,11 @@ def _roughconductor_sample(P, wi, u1, u2, mode):
     ax, ay = P[:, 9], P[:, 10]
     h, pdf_h = mf.sample_vndf(wi, u2, ax, ay)
     wo = _reflect_about(wi, h)
-    pdf = pdf_h / (4.0 * torch.clamp(torch.abs(m.dot(wo, h)), min=1e-9))
+    pdf = pdf_h / (4.0 * m.clip(torch.abs(m.dot(wo, h)), min=1e-9))
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0) & (pdf > 0)
     f = _roughconductor_eval(P, wi, wo)
     weight = torch.where(act[:, None],
-                         f / torch.clamp(pdf, min=1e-20)[:, None], 0.0)
+                         f / m.clip(pdf, min=1e-20)[:, None], 0.0)
     return _smooth_sample(wo, torch.where(act, pdf, 0.0), act), weight
 
 
@@ -349,13 +349,13 @@ def _roughdielectric_eval(P, wi, wo):
     G = mf.smith_g1(wi * torch.sign(cos_i)[:, None], h, ax, ay) \
         * mf.smith_g1(wo * torch.sign(cos_o)[:, None], h, ax, ay)
     # reflection: F D G / (4 |cos_i|), the cosine of wo included
-    val_r = P[:, 2:5] * (F * D * G / (4.0 * torch.clamp(torch.abs(cos_i),
+    val_r = P[:, 2:5] * (F * D * G / (4.0 * m.clip(torch.abs(cos_i),
                                                         min=1e-9)))[:, None]
     denom = wi_h + eta_path * wo_h
-    jac = torch.abs(wi_h * wo_h) / torch.clamp(
+    jac = torch.abs(wi_h * wo_h) / m.clip(
         torch.abs(cos_i) * m.sqr(denom), min=1e-12)
     val_t = P[:, 5:8] * ((1.0 - F) * D * G * m.sqr(eta_path) * jac
-                         / torch.clamp(m.sqr(eta_path), min=1e-12))[:, None]
+                         / m.clip(m.sqr(eta_path), min=1e-12))[:, None]
     val = torch.where(reflect_case[:, None], val_r, val_t)
     ok = (torch.abs(cos_i) > 1e-6) & (D > 0)
     return torch.where(ok[:, None], val, 0.0)
@@ -370,12 +370,12 @@ def _roughdielectric_pdf(P, wi, wo):
     wo_h = m.dot(wo, h)
     F, _, _, _ = fresnel_dielectric(wi_h, eta)
     prob = torch.where(reflect_case, F, 1.0 - F)
-    dwh_refl = 1.0 / (4.0 * torch.clamp(torch.abs(wo_h), min=1e-9))
+    dwh_refl = 1.0 / (4.0 * m.clip(torch.abs(wo_h), min=1e-9))
     denom = wi_h + eta_path * wo_h
     dwh_refr = m.sqr(eta_path) * torch.abs(wo_h) \
-        / torch.clamp(m.sqr(denom), min=1e-12)
+        / m.clip(m.sqr(denom), min=1e-12)
     jac = torch.where(reflect_case, dwh_refl, dwh_refr)
-    return torch.clamp(prob * pdf_h * jac, min=0.0)
+    return m.clip(prob * pdf_h * jac, min=0.0)
 
 
 def _roughdielectric_sample(P, wi, u1, u2, mode):
@@ -430,10 +430,10 @@ def _plastic_sample(P, wi, u1, u2, mode):
                      warp.square_to_cosine_hemisphere(u2))
     Fo, _, _, _ = fresnel_dielectric(fr.cos_theta(wo), eta)
     refl = P[:, 0:3]
-    diff = refl / torch.clamp(1.0 - refl * _plastic_fdr(1.0 / eta)[:, None],
+    diff = refl / m.clip(1.0 - refl * _plastic_fdr(1.0 / eta)[:, None],
                               min=1e-6) \
         * (1.0 / m.sqr(eta) * (1.0 - Fi) * (1.0 - Fo))[:, None]
-    w_diff = diff / torch.clamp(1.0 - prob_spec, min=1e-6)[:, None]
+    w_diff = diff / m.clip(1.0 - prob_spec, min=1e-6)[:, None]
     act = cos_i > 0
     weight = torch.where(sel_spec[:, None], P[:, 6:9], w_diff)
     weight = torch.where(act[:, None], weight, 0.0)
@@ -454,7 +454,7 @@ def _plastic_eval(P, wi, wo):
     refl = P[:, 0:3]
     fdr = _plastic_fdr(1.0 / eta)
     inv_eta2 = 1.0 / m.sqr(eta)
-    val = refl / torch.clamp(1.0 - refl * fdr[:, None], min=1e-6) \
+    val = refl / m.clip(1.0 - refl * fdr[:, None], min=1e-6) \
         * (m.InvPi * cos_o * inv_eta2 * (1.0 - Fi) * (1.0 - Fo))[:, None]
     return torch.where(act[:, None], val, 0.0)
 
@@ -475,7 +475,7 @@ def _ggx_spec(P, wi, wo, eta):
     D = mf.ggx_d(h, ax, ay)
     G = mf.smith_g1(wi, h, ax, ay) * mf.smith_g1(wo, h, ax, ay)
     Fh, _, _, _ = fresnel_dielectric(m.dot(wi, h), eta)
-    return P[:, 6:9] * (Fh * D * G / (4.0 * torch.clamp(fr.cos_theta(wi),
+    return P[:, 6:9] * (Fh * D * G / (4.0 * m.clip(fr.cos_theta(wi),
                                                         min=1e-9)))[:, None]
 
 
@@ -658,7 +658,7 @@ def _apply_param_textures(scene, meta, si, P, btype):
     tex_d = tex_mod.eval(scene, d_id, si.uv)
     P[:, 0:3] = torch.where((d_id >= 0)[:, None], tex_d, P[:, 0:3])
     o_id = P[:, 18].to(torch.int32) - 1
-    tex_o = tex_mod.eval(scene, torch.clamp(o_id, min=0), si.uv)[:, 0]
+    tex_o = tex_mod.eval(scene, m.clip(o_id, min=0), si.uv)[:, 0]
     P[:, 14] = torch.where(o_id >= 0, tex_o, P[:, 14])
     return P
 
@@ -728,7 +728,7 @@ def _blend_weight(scene, meta, si, P):
         return w
     from .. import texture as tex_mod
     t_id = P[:, 19].to(torch.int32) - 1
-    tex = tex_mod.eval(scene, torch.clamp(t_id, min=0), si.uv,
+    tex = tex_mod.eval(scene, m.clip(t_id, min=0), si.uv,
                        **_texture_kw(scene, meta, si))
     return torch.where(t_id >= 0, tex.mean(-1), w)
 
@@ -739,7 +739,7 @@ def _blend_sub(scene, si, P, which):
     not blends too (their slots hold IORs and colours); such lanes are
     clamped into the table (the reference relies on JAX clamping) and
     their result is discarded."""
-    row = torch.clamp(P[:, which].to(torch.int32), 0,
+    row = m.clip(P[:, which].to(torch.int32), 0,
                       scene.bsdfs.type.shape[0] - 1)
     return si._replace(bsdf_idx=row)
 
@@ -829,8 +829,8 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE, textures=None,
         si_sub = si._replace(bsdf_idx=torch.where(is_b, sub_row,
                                                   si.bsdf_idx))
         u1r = torch.where(is_b, torch.where(
-            pick_b, u1 / torch.clamp(w, min=1e-6),
-            (u1 - w) / torch.clamp(1.0 - w, min=1e-6)), u1)
+            pick_b, u1 / m.clip(w, min=1e-6),
+            (u1 - w) / m.clip(1.0 - w, min=1e-6)), u1)
         bs, weight = sample(scene, meta, si_sub, u1r, u2, mode, None, 1)
         prob = torch.where(is_b, torch.where(pick_b, w, 1.0 - w), 1.0)
         bs = bs._replace(pdf=bs.pdf * prob)
@@ -925,11 +925,11 @@ def spectral_fresnel_ratio(scene, meta, si, wo, lam):
     # normalize(wi + wo) is the normal and cos_h = cos_theta_i
     h = m.normalize(wi + wo)
     cos_h = torch.abs(m.dot(wi, h))
-    curves = scene.conductor_spd[torch.clamp(sid, min=0).long()]
+    curves = scene.conductor_spd[m.clip(sid, min=0).long()]
     eta_l = sp.cie_table_eval(curves[:, 0, :], lam)
     k_l = sp.cie_table_eval(curves[:, 1, :], lam)
     F_l = fresnel_conductor(cos_h, eta_l, k_l)                  # (N, L)
     F_rgb = fresnel_conductor(cos_h, P[:, 0:3], P[:, 3:6])      # (N, 3)
     F_up = sp.upsample_weight(F_rgb, lam)                       # (N, L)
     return torch.where(use[:, None] & (F_up > 1e-6),
-                       F_l / torch.clamp(F_up, min=1e-6), 1.0)
+                       F_l / m.clip(F_up, min=1e-6), 1.0)

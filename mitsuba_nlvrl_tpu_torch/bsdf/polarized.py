@@ -64,7 +64,7 @@ def _ones(N, like):
 def _safe_dir(v, fallback):
     """normalize(v), the fallback where v is (nearly) degenerate."""
     n = m.norm(v)
-    safe = v / torch.clamp(n, min=1e-12)[..., None]
+    safe = v / m.clip(n, min=1e-12)[..., None]
     return torch.where((n > 1e-6)[..., None], safe, fallback)
 
 
@@ -137,7 +137,7 @@ def _pplastic_mueller_eval(P, wi_loc, wo_loc, mode):
     G = mf.smith_g1(wi_loc, H, ax, ay) * mf.smith_g1(wo_loc, H, ax, ay)
     F = mu.specular_reflection(m.dot(wo_hat, H), eta)
     F = _rot_to_implicit(F, H, wo_hat, wi_hat)
-    val_spec = D * G / (4.0 * torch.clamp(cos_i, min=1e-9))
+    val_spec = D * G / (4.0 * m.clip(cos_i, min=1e-9))
     spec = (P[:, 6:9] * val_spec[:, None])[:, :, None, None] \
         * F[:, None, :, :]
     # --- diffuse lobe ----------------------------------------------------
@@ -262,7 +262,7 @@ def _conductor_row_terms(scene, si, wo_loc, lam, mode, btype, flags, P):
     # the delta lobe's eval m00 == 0
     cosm = torch.where(is_rough, m.dot(wo_hat, H), fr.cos_theta(wo_hat))
 
-    curves = scene.conductor_spd[torch.clamp(sid, min=0).long()]
+    curves = scene.conductor_spd[m.clip(sid, min=0).long()]
     eta_l = sp.cie_table_eval(curves[:, 0, :], lam)       # (N, L)
     k_l = sp.cie_table_eval(curves[:, 1, :], lam)
 
@@ -305,15 +305,15 @@ def spectral_conductor_terms(scene, meta, si, wo_loc, lam, mode=RADIANCE,
     use, F_l, F_up, Mw = _conductor_row_terms(scene, si, wo_loc, lam, mode,
                                               btype, flags, P)
     ratio = torch.where(use[:, None] & (F_up > 1e-6),
-                        F_l / torch.clamp(F_up, min=1e-6), 1.0)
+                        F_l / m.clip(F_up, min=1e-6), 1.0)
 
     blend = BSDF_TYPES['blendbsdf']
     if blend in types:
         from . import eval as bsdf_eval
         is_b = btype == blend
         last = scene.bsdfs.type.shape[0] - 1
-        ca = torch.clamp(P[:, 0].to(torch.int32), 0, last)
-        cb = torch.clamp(P[:, 1].to(torch.int32), 0, last)
+        ca = m.clip(P[:, 0].to(torch.int32), 0, last)
+        cb = m.clip(P[:, 1].to(torch.int32), 0, last)
         si_a = si._replace(bsdf_idx=ca)
         si_b = si._replace(bsdf_idx=cb)
         bta, fla, Pa = _rows(scene, si_a)
@@ -335,9 +335,9 @@ def spectral_conductor_terms(scene, meta, si, wo_loc, lam, mode=RADIANCE,
         up_b = sp.upsample_weight(fb, lam)
         up_blend = sp.upsample_weight(fa + fb, lam)
         r_a = torch.where(ua[:, None] & (Fua > 1e-6),
-                          Fla / torch.clamp(Fua, min=1e-6), 1.0)
+                          Fla / m.clip(Fua, min=1e-6), 1.0)
         r_b = torch.where(ub[:, None] & (Fub > 1e-6),
-                          Flb / torch.clamp(Fub, min=1e-6), 1.0)
+                          Flb / m.clip(Fub, min=1e-6), 1.0)
         # a smooth (delta) conductor child evaluates to 0; on the lanes
         # that consume its structure (the sampled mirror direction) its
         # magnitude is share x the per-wavelength Fresnel. The sample
@@ -355,7 +355,7 @@ def spectral_conductor_terms(scene, meta, si, wo_loc, lam, mode=RADIANCE,
             + torch.where(da[:, None], sh_a[:, None] * Fua, 0.0) \
             + torch.where(db[:, None], sh_b[:, None] * Fub, 0.0)
         ratio_bl = torch.where(den > 1e-9,
-                               (mag_a + mag_b) / torch.clamp(den, min=1e-9),
+                               (mag_a + mag_b) / m.clip(den, min=1e-9),
                                1.0)
         any_cond = is_b & (ua | ub)
         ratio = torch.where(any_cond[:, None], ratio_bl, ratio)

@@ -19,7 +19,7 @@ def _as_f32(x, device=None) -> torch.Tensor:
 
 def _cell_index(cdf, x, n_cells: int) -> torch.Tensor:
     """The cell whose cumulative integral first exceeds x (clamped)."""
-    return torch.clamp(torch.searchsorted(cdf, x.contiguous(), right=True),
+    return m.clip(torch.searchsorted(cdf, x.contiguous(), right=True),
                        0, n_cells - 1)
 
 
@@ -31,7 +31,7 @@ def _invert_linear_cell(rem, p0, p1, dx):
     disc = m.safe_sqrt(b * b + 4.0 * a * rem)
     t = torch.where(torch.abs(a) > 1e-12 * torch.abs(b),
                     m.safe_div(2.0 * rem, b + disc), m.safe_div(rem, b))
-    return torch.clamp(t, 0.0, 1.0)
+    return m.clip(t, 0.0, 1.0)
 
 
 class DiscreteDistribution(NamedTuple):
@@ -55,8 +55,8 @@ class DiscreteDistribution(NamedTuple):
         """Sample an index and rescale u to [0,1) within the chosen bin."""
         idx = self.sample(u)
         il = idx.long()
-        lo = torch.where(idx > 0, self.cdf[torch.clamp(il - 1, min=0)], 0.0)
-        u_re = torch.clamp(m.safe_div(u * self.total - lo, self.pmf[il]),
+        lo = torch.where(idx > 0, self.cdf[m.clip(il - 1, min=0)], 0.0)
+        u_re = m.clip(m.safe_div(u * self.total - lo, self.pmf[il]),
                            0.0, m.OneMinusEpsilon)
         return idx, u_re
 
@@ -92,20 +92,20 @@ class ContinuousDistribution(NamedTuple):
         dx = self._dx()
         x = u * self.integral
         idx = _cell_index(self.cdf, x, n - 1)
-        lo = torch.where(idx > 0, self.cdf[torch.clamp(idx - 1, min=0)], 0.0)
+        lo = torch.where(idx > 0, self.cdf[m.clip(idx - 1, min=0)], 0.0)
         t = _invert_linear_cell(x - lo, self.pdf[idx], self.pdf[idx + 1], dx)
         return self.range_min + (idx + t) * dx
 
     def eval_pdf(self, x: torch.Tensor) -> torch.Tensor:
         n = self.pdf.shape[0]
-        f = torch.clamp((x - self.range_min) / self._dx(), 0.0,
+        f = m.clip((x - self.range_min) / self._dx(), 0.0,
                         n - 1 - 1e-6)
         idx = f.to(torch.int32)
         t = f - idx
         il = idx.long()
         inside = (x >= self.range_min) & (x <= self.range_max)
         return torch.where(inside, m.lerp(self.pdf[il],
-                                          self.pdf[torch.clamp(il + 1,
+                                          self.pdf[m.clip(il + 1,
                                                                max=n - 1)],
                                           t), 0.0)
 
@@ -132,7 +132,7 @@ class IrregularContinuousDistribution(NamedTuple):
         n = self.pdf.shape[0]
         x = u * self.integral
         idx = _cell_index(self.cdf, x, n - 1)
-        lo = torch.where(idx > 0, self.cdf[torch.clamp(idx - 1, min=0)], 0.0)
+        lo = torch.where(idx > 0, self.cdf[m.clip(idx - 1, min=0)], 0.0)
         dx = self.nodes[idx + 1] - self.nodes[idx]
         t = _invert_linear_cell(x - lo, self.pdf[idx], self.pdf[idx + 1], dx)
         return self.nodes[idx] + t * dx
@@ -140,11 +140,11 @@ class IrregularContinuousDistribution(NamedTuple):
     def eval_pdf(self, x: torch.Tensor) -> torch.Tensor:
         """Linear interpolation of the density."""
         n = self.pdf.shape[0]
-        idx = torch.clamp(torch.searchsorted(self.nodes, x.contiguous(),
+        idx = m.clip(torch.searchsorted(self.nodes, x.contiguous(),
                                              right=True) - 1, 0, n - 2)
         x0 = self.nodes[idx]
         x1 = self.nodes[idx + 1]
         t = m.safe_div(x - x0, x1 - x0)
         inside = (x >= self.nodes[0]) & (x <= self.nodes[-1])
         return torch.where(inside, m.lerp(self.pdf[idx], self.pdf[idx + 1],
-                                          torch.clamp(t, 0.0, 1.0)), 0.0)
+                                          m.clip(t, 0.0, 1.0)), 0.0)

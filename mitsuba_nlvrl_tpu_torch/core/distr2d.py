@@ -74,7 +74,7 @@ def build_hierarchical(data: np.ndarray, device=None) -> Hierarchical2D:
 def _at(L, y, x):
     """L[0, y, x] with both indices clamped into the level."""
     h, w = L.shape[1], L.shape[2]
-    return L[0, torch.clamp(y, 0, h - 1), torch.clamp(x, 0, w - 1)]
+    return L[0, m.clip(y, 0, h - 1), m.clip(x, 0, w - 1)]
 
 
 def _block(L, oy, ox):
@@ -107,18 +107,18 @@ def _node_corners(dist, oy, ox):
 def _cell(dist, pos):
     """The node cell of pos and the position inside it."""
     h, w = dist.nodes.shape[1:]
-    px = torch.clamp(pos[..., 0], 0.0, 1.0) * (w - 1)
-    py = torch.clamp(pos[..., 1], 0.0, 1.0) * (h - 1)
-    ox = torch.clamp(px.to(torch.int64), 0, w - 2)
-    oy = torch.clamp(py.to(torch.int64), 0, h - 2)
+    px = m.clip(pos[..., 0], 0.0, 1.0) * (w - 1)
+    py = m.clip(pos[..., 1], 0.0, 1.0) * (h - 1)
+    ox = m.clip(px.to(torch.int64), 0, w - 2)
+    oy = m.clip(py.to(torch.int64), 0, h - 2)
     return ox, oy, px - ox, py - oy
 
 
 def sample_hierarchical(dist: Hierarchical2D, u2):
     """Hierarchical sample warping: (pos (N, 2) in [0, 1]^2, pdf), the pdf
     the unit-square density."""
-    sx = torch.clamp(u2[..., 0], 0.0, 1.0)
-    sy = torch.clamp(u2[..., 1], 0.0, 1.0)
+    sx = m.clip(u2[..., 0], 0.0, 1.0)
+    sy = m.clip(u2[..., 1], 0.0, 1.0)
     ox = torch.zeros(sx.shape, dtype=torch.int64, device=sx.device)
     oy = torch.zeros_like(ox)
     for L in dist.levels:                       # coarsest -> finest patches
@@ -128,19 +128,19 @@ def sample_hierarchical(dist: Hierarchical2D, u2):
         my = sy > r0
         oy = 2 * oy + my
         sy = torch.where(my, sy - r0, sy) \
-            / torch.clamp(torch.where(my, r1, r0), min=1e-30)
+            / m.clip(torch.where(my, r1, r0), min=1e-30)
         c0 = torch.where(my, v01, v00)
         c1 = torch.where(my, v11, v10)
         sx = sx * (c0 + c1)
         mx = sx > c0
         ox = 2 * ox + mx
         sx = torch.where(mx, sx - c0, sx) \
-            / torch.clamp(torch.where(mx, c1, c0), min=1e-30)
-        sx = torch.clamp(sx, 0.0, 1.0)
-        sy = torch.clamp(sy, 0.0, 1.0)
+            / m.clip(torch.where(mx, c1, c0), min=1e-30)
+        sx = m.clip(sx, 0.0, 1.0)
+        sy = m.clip(sy, 0.0, 1.0)
     h, w = dist.nodes.shape[1:]
-    ox = torch.clamp(ox, max=w - 2)
-    oy = torch.clamp(oy, max=h - 2)
+    ox = m.clip(ox, max=w - 2)
+    oy = m.clip(oy, max=h - 2)
     v00, v10, v01, v11 = _node_corners(dist, oy, ox)
     # square_to_bilinear
     sy = _interval_to_linear(v00 + v10, v01 + v11, sy)
@@ -170,11 +170,11 @@ def invert_hierarchical(dist: Hierarchical2D, pos):
         c0 = torch.where(ym, v01, v00)
         c1 = torch.where(ym, v11, v10)
         sy = sy * torch.where(ym, r1, r0) + torch.where(ym, r0, 0.0)
-        sy = sy / torch.clamp(r0 + r1, min=1e-30)
+        sy = sy / m.clip(r0 + r1, min=1e-30)
         sx = sx * torch.where(xm, c1, c0) + torch.where(xm, c0, 0.0)
-        sx = sx / torch.clamp(c0 + c1, min=1e-30)
-        sx = torch.clamp(sx, 0.0, 1.0)
-        sy = torch.clamp(sy, 0.0, 1.0)
+        sx = sx / m.clip(c0 + c1, min=1e-30)
+        sx = m.clip(sx, 0.0, 1.0)
+        sy = m.clip(sy, 0.0, 1.0)
         ox = ox >> 1
         oy = oy >> 1
     return torch.stack([sx, sy], dim=-1), pdf

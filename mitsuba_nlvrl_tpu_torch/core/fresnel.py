@@ -22,7 +22,7 @@ def fresnel_dielectric(cos_theta_i, eta):
     eta_ti = torch.where(outside, rcp_eta, eta)
 
     cti_abs = torch.abs(cos_theta_i)
-    sin2_t = eta_ti * eta_ti * torch.clamp(1.0 - cti_abs * cti_abs, min=0.0)
+    sin2_t = eta_ti * eta_ti * m.clip(1.0 - cti_abs * cti_abs, min=0.0)
     tir = sin2_t > 1.0
     cos_t_abs = m.safe_sqrt(1.0 - sin2_t)
 

@@ -6,12 +6,16 @@ that float32 rounding matches it step by step.
 
 The reference's ``safe_sqrt``, ``safe_rsqrt``, ``safe_acos`` and
 ``safe_asin`` are ``jax.custom_jvp`` primitives whose derivatives are
-clamped to zero at the singular points. Here they are forward functions:
-the renderer runs under ``torch.no_grad()`` until the autodiff slice
-turns them into ``torch.autograd.Function``s with the same clamping.
+clamped to zero at the singular points (``x > 1e-12`` for the roots,
+``1 - x * x > 1e-12`` for the inverse sines): without the clamp, an
+infinite derivative times a masked lane's zero cotangent is a NaN that
+poisons every gradient. Here they are ``torch.autograd.Function``s with
+the same clamping, taken only where a gradient is wanted; without one
+they are the plain forward expressions.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -60,25 +64,136 @@ def rcp32(c) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
-def safe_sqrt(x):
-    """sqrt clamped to zero for negative inputs."""
+def _sqrt_fwd(x):
     return sqrt(torch.clamp(x, min=0.0))
+
+
+def _rsqrt_fwd(x):
+    return 1.0 / sqrt(torch.clamp(x, min=_F32_TINY))
+
+
+def _acos_fwd(x):
+    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+
+def _asin_fwd(x):
+    return torch.arcsin(torch.clamp(x, -1.0, 1.0))
+
+
+def _clamped_rsqrt(s):
+    """1 / sqrt(max(s, 1e-12)) where s > 1e-12, else 0."""
+    return torch.where(s > 1e-12, 1.0 / torch.sqrt(torch.clamp(s, min=1e-12)),
+                       0.0)
+
+
+class _SafeSqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _sqrt_fwd(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.where(x > 1e-12, 0.5 / torch.clamp(y, min=1e-12),
+                               0.0)
+
+
+class _SafeRsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _rsqrt_fwd(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.where(x > 1e-12,
+                               -0.5 * y / torch.clamp(x, min=1e-12), 0.0)
+
+
+class _SafeAcos(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _acos_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * -_clamped_rsqrt(1.0 - x * x)
+
+
+class _SafeAsin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _asin_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * _clamped_rsqrt(1.0 - x * x)
+
+
+def _wants_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def safe_sqrt(x):
+    """sqrt clamped to zero for negative inputs; its derivative is 0 at
+    and below x = 1e-12."""
+    return _SafeSqrt.apply(x) if _wants_grad(x) else _sqrt_fwd(x)
 
 
 def safe_rsqrt(x):
     """1 / sqrt(x), both correctly rounded, so the card and the CPU agree
     to the bit (``torch.rsqrt`` is an approximation whose last bit
     differs between them, and a bend in a nonlinear medium at a total
-    internal reflection turns on that bit)."""
-    return 1.0 / sqrt(torch.clamp(x, min=_F32_TINY))
+    internal reflection turns on that bit). Its derivative is 0 at and
+    below x = 1e-12."""
+    return _SafeRsqrt.apply(x) if _wants_grad(x) else _rsqrt_fwd(x)
 
 
 def safe_acos(x):
-    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+    """arccos of x clamped to [-1, 1]; its derivative is 0 where
+    1 - x * x <= 1e-12."""
+    return _SafeAcos.apply(x) if _wants_grad(x) else _acos_fwd(x)
 
 
 def safe_asin(x):
-    return torch.arcsin(torch.clamp(x, -1.0, 1.0))
+    """arcsin of x clamped to [-1, 1]; its derivative is 0 where
+    1 - x * x <= 1e-12."""
+    return _SafeAsin.apply(x) if _wants_grad(x) else _asin_fwd(x)
+
+
+@functools.lru_cache(maxsize=256)
+def _scalar(v, dtype, device) -> torch.Tensor:
+    """A 0-d constant, made once a (value, dtype, device)."""
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def _bound(v, x):
+    return v if isinstance(v, torch.Tensor) else _scalar(v, x.dtype,
+                                                         x.device)
+
+
+def clip(x, min=None, max=None):
+    """``torch.clamp`` with the derivative of the reference's
+    ``jnp.maximum``/``jnp.minimum``/``jnp.clip``: the same values, but
+    under autograd the derivative at a tie (x equal to a bound) splits
+    evenly between x and the bound, as JAX's does, where ``torch.clamp``
+    gives x all of it. Ties are common where a ray starts on a medium's
+    bounding box (a distance clamped at 0 is exactly 0)."""
+    if not _wants_grad(x):
+        return torch.clamp(x, min, max)
+    if min is not None:
+        x = torch.maximum(x, _bound(min, x))
+    if max is not None:
+        x = torch.minimum(x, _bound(max, x))
+    return x
 
 
 def safe_div(a, b, eps=1e-20):
@@ -165,7 +280,7 @@ def refract_snell(wi, n, eta_rel):
     ``eta_rel = n1 / n2`` (N,); returns (wo, tir_mask). The geometry of
     the nonlinear medium's cell-boundary bend."""
     eta = eta_rel[..., None]
-    cos_i = torch.clamp(dot(n, wi, keepdims=True), -1.0, 1.0)
+    cos_i = clip(dot(n, wi, keepdims=True), -1.0, 1.0)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = k[..., 0] < 0.0
     wo = eta * wi - (eta * cos_i + safe_sqrt(k)) * n
@@ -191,7 +306,7 @@ def spherical_direction(theta, phi):
 
 
 def linear_to_srgb(x):
-    x = torch.clamp(x, 0.0, 1.0)
+    x = clip(x, 0.0, 1.0)
     return torch.where(x <= 0.0031308, 12.92 * x,
                        1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
 

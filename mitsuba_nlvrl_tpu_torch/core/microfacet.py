@@ -27,7 +27,7 @@ def ggx_d(h, ax, ay):
 def beckmann_d(h, ax, ay):
     x, y, z = h[..., 0], h[..., 1], h[..., 2]
     z2 = m.sqr(z)
-    e = torch.exp(-(m.sqr(x / ax) + m.sqr(y / ay)) / torch.clamp(z2, min=1e-12))
+    e = torch.exp(-(m.sqr(x / ax) + m.sqr(y / ay)) / m.clip(z2, min=1e-12))
     d = e / (m.Pi * ax * ay * m.sqr(z2))
     return torch.where(z > 1e-6, d, 0.0)
 
@@ -35,11 +35,11 @@ def beckmann_d(h, ax, ay):
 def smith_g1(v, h, ax, ay, dist_type=GGX):
     """Smith masking G1 of direction v with half vector h."""
     xy_alpha2 = m.sqr(ax * v[..., 0]) + m.sqr(ay * v[..., 1])
-    tan2 = xy_alpha2 / torch.clamp(m.sqr(v[..., 2]), min=1e-12)
+    tan2 = xy_alpha2 / m.clip(m.sqr(v[..., 2]), min=1e-12)
     if dist_type == GGX:
         g = 2.0 / (1.0 + m.sqrt(1.0 + tan2))
     else:
-        a = 1.0 / torch.clamp(m.sqrt(tan2), min=1e-12)
+        a = 1.0 / m.clip(m.sqrt(tan2), min=1e-12)
         # Beckmann's rational approximation
         g = torch.where(a >= 1.6, 1.0,
                         (3.535 * a + 2.181 * a * a)
@@ -62,7 +62,7 @@ def sample_vndf(wi, sample2, ax, ay, dist_type=GGX):
         [ax * wi[..., 0], ay * wi[..., 1], wi[..., 2]], dim=-1))
     # orthonormal basis around v
     lensq = m.sqr(v[..., 0]) + m.sqr(v[..., 1])
-    inv = m.safe_rsqrt(torch.clamp(lensq, min=1e-12))
+    inv = m.safe_rsqrt(m.clip(lensq, min=1e-12))
     t1 = torch.where((lensq > 1e-12)[..., None],
                      torch.stack([-v[..., 1] * inv, v[..., 0] * inv,
                                   torch.zeros_like(inv)], dim=-1),
@@ -75,11 +75,11 @@ def sample_vndf(wi, sample2, ax, ay, dist_type=GGX):
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + v[..., 2])
     p2 = (1.0 - s) * m.safe_sqrt(1.0 - p1 * p1) + s * p2
-    p3 = m.safe_sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    p3 = m.safe_sqrt(m.clip(1.0 - p1 * p1 - p2 * p2, min=0.0))
     nh = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * v
     # unstretch
     h = m.normalize(torch.stack(
-        [ax * nh[..., 0], ay * nh[..., 1], torch.clamp(nh[..., 2], min=1e-9)],
+        [ax * nh[..., 0], ay * nh[..., 1], m.clip(nh[..., 2], min=1e-9)],
         dim=-1))
     return h, vndf_pdf(wi, h, ax, ay, dist_type)
 
@@ -91,4 +91,4 @@ def vndf_pdf(wi, h, ax, ay, dist_type=GGX):
     d = ggx_d(h, ax, ay)
     g1 = smith_g1(wi, h, ax, ay, dist_type)
     return g1 * torch.abs(m.dot(wi, h)) * d \
-        / torch.clamp(torch.abs(fr.cos_theta(wi)), min=1e-9)
+        / m.clip(torch.abs(fr.cos_theta(wi)), min=1e-9)

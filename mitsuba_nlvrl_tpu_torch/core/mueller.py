@@ -157,12 +157,12 @@ def fresnel_polarized(cos_theta_i, eta):
 def _phase(prod, c, guard_c: bool):
     """cos and sin of the phase delay arg(prod)."""
     mag = _cabs(prod)
-    cos_d = torch.where(mag > 0, prod.real / torch.clamp(mag, min=1e-20),
+    cos_d = torch.where(mag > 0, prod.real / m.clip(mag, min=1e-20),
                         0.0) if guard_c else \
-        prod.real / torch.clamp(mag, min=1e-20)
-    sin_d = torch.where(mag > 0, prod.imag / torch.clamp(mag, min=1e-20),
+        prod.real / m.clip(mag, min=1e-20)
+    sin_d = torch.where(mag > 0, prod.imag / m.clip(mag, min=1e-20),
                         0.0) if guard_c else \
-        prod.imag / torch.clamp(mag, min=1e-20)
+        prod.imag / m.clip(mag, min=1e-20)
     if guard_c:
         cos_d = torch.where(c == 0, 0.0, cos_d)
         sin_d = torch.where(c == 0, 0.0, sin_d)
@@ -226,7 +226,7 @@ def specular_reflection_conductor(cos_theta_i, eta, k):
     r_s, r_p = r_s * r_s, r_p * r_p
     a = 0.5 * (r_s + r_p)
     b = 0.5 * (r_s - r_p)
-    c = m.sqrt(torch.clamp(r_s * r_p, min=0.0))
+    c = m.sqrt(m.clip(r_s * r_p, min=0.0))
     cos_d, sin_d = _phase(a_p * torch.conj(a_s), c, False)
     return _mat([a, b, 0, 0,
                  b, a, 0, 0,
@@ -243,7 +243,7 @@ def stokes_basis(forward):
 
 def unit_angle(a, b):
     """The angle between unit vectors, stable near 0 and pi."""
-    return 2.0 * torch.asin(torch.clamp(0.5 * m.norm(b - a), 0.0, 1.0))
+    return 2.0 * torch.asin(m.clip(0.5 * m.norm(b - a), 0.0, 1.0))
 
 
 def rotate_stokes_basis(forward, basis_current, basis_target):

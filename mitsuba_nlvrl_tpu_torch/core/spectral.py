@@ -235,7 +235,7 @@ def srgb_model_eval(coeff, lam):
     wavelengths (..., L) -> (..., L)."""
     t = (lam - WAVELENGTH_MIN) * _SPAN_RCP
     v = (coeff[..., 0:1] * t + coeff[..., 1:2]) * t + coeff[..., 2:3]
-    return torch.clamp(0.5 * v / m.sqrt(v * v + 1.0) + 0.5, 0.0, 1.0)
+    return m.clip(0.5 * v / m.sqrt(v * v + 1.0) + 0.5, 0.0, 1.0)
 
 
 _OTHERS = ((1, 2), (0, 2), (0, 1))
@@ -244,9 +244,9 @@ _OTHERS = ((1, 2), (0, 2), (0, 1))
 def _lut_fetch(rgb):
     """Trilerped coefficients of rgb (N, 3) in [0, 1] -> (N, 3)."""
     lut = get_lut(rgb.device)
-    rgb = torch.clamp(rgb, 1e-4, 1.0)
+    rgb = m.clip(rgb, 1e-4, 1.0)
     imax = torch.argmax(rgb, dim=-1)                      # (N,)
-    mx = rgb.max(dim=-1).values
+    mx = rgb.amax(dim=-1)
     # the off-max components in build_lut's order
     oth = torch.as_tensor(_OTHERS, device=rgb.device)[imax]   # (N, 2)
     oth1 = torch.gather(rgb, 1, oth[:, 0:1])[:, 0] / mx
@@ -254,9 +254,9 @@ def _lut_fetch(rgb):
     fs = (m.sqrt(mx) - _S0) * _S_SCALE
     fa = oth1 * (LUT_A - 1)
     fb = oth2 * (LUT_A - 1)
-    fs = torch.clamp(fs, 0.0, LUT_S - 1 - 1e-4)
-    fa = torch.clamp(fa, 0.0, LUT_A - 1 - 1e-4)
-    fb = torch.clamp(fb, 0.0, LUT_A - 1 - 1e-4)
+    fs = m.clip(fs, 0.0, LUT_S - 1 - 1e-4)
+    fa = m.clip(fa, 0.0, LUT_A - 1 - 1e-4)
+    fb = m.clip(fb, 0.0, LUT_A - 1 - 1e-4)
     i_s, i_a, i_b = (x.to(torch.int32).long() for x in (fs, fa, fb))
     ws, wa, wb = fs - i_s, fa - i_a, fb - i_b
     out = 0.0
@@ -276,15 +276,15 @@ def upsample_reflectance(rgb, lam):
     coeff = _lut_fetch(rgb)
     val = srgb_model_eval(coeff, lam)
     # exact zeros stay zero (black reflectors must not leak energy)
-    return torch.where((rgb.max(dim=-1).values > 1e-5)[:, None], val, 0.0)
+    return torch.where((rgb.amax(dim=-1) > 1e-5)[:, None], val, 0.0)
 
 
 def upsample_weight(rgb, lam):
     """Upsample an unbounded non-negative RGB quantity (a path weight or a
     radiance scale): normalise by the max component, upsample the chroma,
     scale back. Achromatic weights pass through exactly."""
-    mx = rgb.max(dim=-1).values
-    safe = torch.clamp(mx, min=1e-12)
+    mx = rgb.amax(dim=-1)
+    safe = m.clip(mx, min=1e-12)
     val = upsample_reflectance(rgb / safe[:, None], lam)
     return val * mx[:, None]
 
@@ -294,7 +294,7 @@ def cie_table_eval(tab, lam):
     broadcast against lam (..., L) -> (..., L). Wavelengths outside the
     grid clamp to its ends."""
     t = (lam - CIE_MIN) * ((CIE_SAMPLES - 1) / (CIE_MAX - CIE_MIN))
-    t = torch.clamp(t, 0.0, CIE_SAMPLES - 1.0)
+    t = m.clip(t, 0.0, CIE_SAMPLES - 1.0)
     i0 = t.to(torch.int32).clamp(0, CIE_SAMPLES - 2).long()
     w1 = t - i0
     if tab.dim() < lam.dim():

@@ -50,13 +50,13 @@ def square_to_cosine_hemisphere(sample):
 
 
 def square_to_cosine_hemisphere_pdf(v):
-    return torch.clamp(v[..., 2], min=0.0) * m.InvPi
+    return m.clip(v[..., 2], min=0.0) * m.InvPi
 
 
 def square_to_beckmann(sample, alpha):
     """A Beckmann-distributed normal around +z."""
     phi = 2.0 * m.Pi * sample[..., 1]
-    log_s = torch.log(torch.clamp(1.0 - sample[..., 0], min=1e-38))
+    log_s = torch.log(m.clip(1.0 - sample[..., 0], min=1e-38))
     tan2 = -alpha * alpha * log_s
     cos_theta = 1.0 / m.safe_sqrt(1.0 + tan2)
     sin_theta = m.safe_sqrt(1.0 - cos_theta * cos_theta)
@@ -66,7 +66,7 @@ def square_to_beckmann(sample, alpha):
 
 def square_to_beckmann_pdf(v, alpha):
     ct = v[..., 2]
-    tan2 = (1.0 - ct * ct) / torch.clamp(ct * ct, min=1e-20)
+    tan2 = (1.0 - ct * ct) / m.clip(ct * ct, min=1e-20)
     pdf = torch.exp(-tan2 / (alpha * alpha)) / (m.Pi * alpha * alpha * ct ** 3)
     return torch.where(ct > 1e-9, pdf, 0.0)
 

@@ -39,7 +39,7 @@ def _env_uv_from_local(d):
     """Local direction -> equirectangular uv."""
     u = torch.atan2(d[..., 0], -d[..., 2]) * m.InvTwoPi
     u = torch.where(u < 0.0, u + 1.0, u)
-    v = m.safe_acos(torch.clamp(d[..., 1], -1.0, 1.0)) * m.InvPi
+    v = m.safe_acos(m.clip(d[..., 1], -1.0, 1.0)) * m.InvPi
     return u, v
 
 
@@ -57,10 +57,10 @@ def _env_eval_uv(scene, u, v):
     tex = scene.emitters.env_map
     H, W = tex.shape[0], tex.shape[1]
     x = u * W - 0.5
-    y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
+    y = m.clip(v * H - 0.5, 0.0, H - 1.0)
     x0 = torch.floor(x).to(torch.int64)
-    y0 = torch.clamp(y.to(torch.int64), 0, H - 1)
-    y1 = torch.clamp(y0 + 1, max=H - 1)
+    y0 = m.clip(y.to(torch.int64), 0, H - 1)
+    y1 = m.clip(y0 + 1, max=H - 1)
     tx = x - x0
     ty = y - y0
     x0w = torch.remainder(x0, W)
@@ -75,7 +75,7 @@ def _env_eval_uv(scene, u, v):
 def _env_solid_angle_pdf(pdf_uv, d_local):
     """The unit-square density of a direction over its solid angle
     (1 / (2 pi^2 sin theta))."""
-    inv_sin = m.safe_rsqrt(torch.clamp(
+    inv_sin = m.safe_rsqrt(m.clip(
         m.sqr(d_local[..., 0]) + m.sqr(d_local[..., 2]), min=1e-12))
     return pdf_uv * inv_sin / (2.0 * m.Pi * m.Pi)
 
@@ -236,7 +236,7 @@ def spectral_radiance(scene, rgb, e_idx, lam):
     from ..core.spectrum import luminance
     default = sp.emitter_spectrum(rgb, lam)
     em = scene.emitters
-    e = torch.clamp(e_idx, min=0).long()
+    e = m.clip(e_idx, min=0).long()
     kind = em.spec_kind[e]
     param = em.spec_param[e]
     scale = em.spec_scale[e]
@@ -247,11 +247,11 @@ def spectral_radiance(scene, rgb, e_idx, lam):
                        torch.where(etype == E_SPOT, 6, 0))
     cols = offs[:, None].long() + torch.arange(3, device=lam.device)
     base_rgb = torch.gather(em.params[e], 1, cols)
-    ratio = luminance(rgb) / torch.clamp(luminance(base_rgb), min=1e-12)
-    bb = sp.planck(lam, torch.clamp(param, min=1.0)[:, None]) \
+    ratio = luminance(rgb) / m.clip(luminance(base_rgb), min=1e-12)
+    bb = sp.planck(lam, m.clip(param, min=1.0)[:, None]) \
         * scale[:, None]
     # tabulated SPD rows on the regular 360-830 grid
-    row = torch.clamp(param.to(torch.int32), 0,
+    row = m.clip(param.to(torch.int32), 0,
                       em.spec_table.shape[0] - 1).long()
     t = (lam - sp.CIE_MIN) * ((sp.CIE_SAMPLES - 1)
                               / (sp.CIE_MAX - sp.CIE_MIN))
@@ -276,7 +276,7 @@ def _segment_searchsorted(cdf, offset, count, u):
     for _ in range(steps):
         cont = lo < hi
         mid = torch.div(lo + hi, 2, rounding_mode='floor')
-        go_right = cdf[torch.clamp(mid, 0, n_total - 1).long()] < u
+        go_right = cdf[m.clip(mid, 0, n_total - 1).long()] < u
         lo = torch.where(cont & go_right, mid + 1, lo)
         hi = torch.where(cont & ~go_right, mid, hi)
     return torch.minimum(torch.maximum(lo, offset), offset + count - 1)
@@ -288,7 +288,7 @@ def eval_hit(scene, meta, si, active):
     if scene.emitters.type.shape[0] == 0:
         return torch.zeros(si.p.shape[:-1] + (3,), device=si.p.device)
     has = active & (si.emitter_idx >= 0)
-    e = torch.clamp(si.emitter_idx, min=0).long()
+    e = m.clip(si.emitter_idx, min=0).long()
     rad = scene.emitters.params[e][:, 0:3]
     front = si.wi[:, 2] > 0  # local frame: emitter normal side
     return torch.where((has & front)[:, None], rad, 0.0)
@@ -335,7 +335,7 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
             emitter_idx=torch.full((N,), -1, dtype=torch.int32, device=dev))
         return ds, zeros3
 
-    e_idx = torch.clamp((u_sel * E).to(torch.int32), max=E - 1)
+    e_idx = m.clip((u_sel * E).to(torch.int32), max=E - 1)
     el = e_idx.long()
     etype = scene.emitters.type[el]
     P = scene.emitters.params[el]
@@ -349,10 +349,10 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
     if E_AREA in meta.emitter_types:
         em = scene.emitters
         off = em.tri_offset[el]
-        cnt = torch.clamp(em.tri_count[el], min=1)
+        cnt = m.clip(em.tri_count[el], min=1)
         n_cdf = em.em_tri_cdf.shape[0]
         if E == 1:
-            pos = torch.clamp(
+            pos = m.clip(
                 torch.searchsorted(em.em_tri_cdf, u2[:, 0].contiguous(),
                                    right=True),
                 0, n_cdf - 1).to(torch.int32)
@@ -360,13 +360,13 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
             pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u2[:, 0])
         # lanes of other emitters search past the table's end (the
         # reference relies on JAX clamping); they are masked out below
-        pl = torch.clamp(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
+        pl = m.clip(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
         tri = em.em_tri_idx[pl].long()
         # remap u within the cdf cell for the barycentric sample
         cdf_hi = em.em_tri_cdf[pl]
         cdf_lo = torch.where(pos > off,
-                             em.em_tri_cdf[torch.clamp(pl - 1, min=0)], 0.0)
-        u0 = torch.clamp(m.safe_div(u2[:, 0] - cdf_lo, cdf_hi - cdf_lo),
+                             em.em_tri_cdf[m.clip(pl - 1, min=0)], 0.0)
+        u0 = m.clip(m.safe_div(u2[:, 0] - cdf_lo, cdf_hi - cdf_lo),
                          0.0, m.OneMinusEpsilon)
         bary = warp.square_to_uniform_triangle(
             torch.stack([u0, u2[:, 1]], dim=-1))
@@ -380,7 +380,7 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
         dist_a = m.safe_sqrt(dist2)
         d_a = d_a * m.safe_rcp(dist_a)[:, None]
         cos_l = -m.dot(d_a, n_a)
-        area = torch.clamp(em.em_area[el], min=1e-20)
+        area = m.clip(em.em_area[el], min=1e-20)
         pdf_a = m.safe_div(dist2, cos_l * area)
         ok = cos_l > 0
         pdf_a = torch.where(ok, pdf_a, 0.0)
@@ -409,7 +409,7 @@ def sample_direction(scene, meta, ref_p, u_sel, u2, active
         dist2 = m.squared_norm(d_p)
         cos_f = m.dot(m.normalize(-d_p), dir_p)     # emitter -> ref
         cos_cut, cos_beam = P[:, 9], P[:, 10]
-        falloff = torch.clamp(m.safe_div(cos_f - cos_cut,
+        falloff = m.clip(m.safe_div(cos_f - cos_cut,
                                          cos_beam - cos_cut), 0.0, 1.0)
         inside = cos_f > cos_cut
         inten = P[:, 6:9] * (falloff * inside * m.safe_rcp(dist2))[:, None]
@@ -491,7 +491,7 @@ def pdf_direction(scene, meta, ref_p, si, active):
         return torch.zeros(ref_p.shape[:-1], device=ref_p.device)
     E = max(scene.emitters.type.shape[0], 1)
     has = active & (si.emitter_idx >= 0)
-    e = torch.clamp(si.emitter_idx, min=0).long()
+    e = m.clip(si.emitter_idx, min=0).long()
     etype = scene.emitters.type[e]
     area_e = scene.emitters.em_area[e]
     pdf = torch.zeros(ref_p.shape[:-1], device=ref_p.device)
@@ -501,7 +501,7 @@ def pdf_direction(scene, meta, ref_p, si, active):
         dist2 = m.squared_norm(d)
         dist = m.safe_sqrt(dist2)
         cos_l = torch.abs(m.dot(d * m.safe_rcp(dist)[..., None], si.n))
-        area = torch.clamp(area_e, min=1e-20)
+        area = m.clip(area_e, min=1e-20)
         pdf_a = m.safe_div(dist2, cos_l * area)
         pdf = torch.where(etype == E_AREA, pdf_a, pdf)
 
@@ -539,7 +539,7 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
     E = scene.emitters.type.shape[0]
     N = u_sel.shape[0]
     dev = u_sel.device
-    e_idx = torch.clamp((u_sel * E).to(torch.int32), max=max(E - 1, 0))
+    e_idx = m.clip((u_sel * E).to(torch.int32), max=max(E - 1, 0))
     el = e_idx.long()
     etype = scene.emitters.type[el]
     P = scene.emitters.params[el]
@@ -551,16 +551,16 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
     if E_AREA in meta.emitter_types:
         em = scene.emitters
         off = em.tri_offset[el]
-        cnt = torch.clamp(em.tri_count[el], min=1)
+        cnt = m.clip(em.tri_count[el], min=1)
         pos = _segment_searchsorted(em.em_tri_cdf, off, cnt, u_pos[:, 0])
         # lanes of other emitters search past the table's end (the
         # reference relies on JAX clamping); they are masked out below
-        pl = torch.clamp(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
+        pl = m.clip(pos.long(), 0, em.em_tri_cdf.shape[0] - 1)
         tri = em.em_tri_idx[pl].long()
         cdf_hi = em.em_tri_cdf[pl]
         cdf_lo = torch.where(pos > off,
-                             em.em_tri_cdf[torch.clamp(pl - 1, min=0)], 0.0)
-        u0 = torch.clamp(m.safe_div(u_pos[:, 0] - cdf_lo, cdf_hi - cdf_lo),
+                             em.em_tri_cdf[m.clip(pl - 1, min=0)], 0.0)
+        u0 = m.clip(m.safe_div(u_pos[:, 0] - cdf_lo, cdf_hi - cdf_lo),
                          0.0, m.OneMinusEpsilon)
         bary = warp.square_to_uniform_triangle(
             torch.stack([u0, u_pos[:, 1]], dim=-1))
@@ -570,7 +570,7 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         n_a = m.normalize(m.cross(e1, e2))
         d_a = Frame.from_normal(n_a).to_world(
             warp.square_to_cosine_hemisphere(u_dir))
-        area = torch.clamp(em.em_area[el], min=1e-20)
+        area = m.clip(em.em_area[el], min=1e-20)
         # L * pi * area: the cosine-sampled direction cancels cos / pdf
         w_a = P[:, 0:3] * (m.Pi * area)[:, None]
         sel = (etype == E_AREA)[:, None]
@@ -591,7 +591,7 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         cos_cut = P[:, 9]
         local = warp.square_to_uniform_cone(u_dir, cos_cut)
         d_s = Frame.from_normal(m.normalize(P[:, 3:6])).to_world(local)
-        falloff = torch.clamp(m.safe_div(local[:, 2] - cos_cut,
+        falloff = m.clip(m.safe_div(local[:, 2] - cos_cut,
                                          P[:, 10] - cos_cut), 0.0, 1.0)
         inv_pdf = 2.0 * m.Pi * (1.0 - cos_cut)
         sel = (etype == E_SPOT)[:, None]
@@ -651,7 +651,7 @@ def sample_ray(scene, meta, u_sel, u_pos, u_dir, active
         # the direction toward the map by luminance; the photon starts on
         # the disk across it on the bounding sphere and flies inward
         _, d_w, pdf_dir, L_e = _env_sample(scene, u_dir)
-        pdf_dir = torch.clamp(pdf_dir, min=1e-20)
+        pdf_dir = m.clip(pdf_dir, min=1e-20)
         R = scene.bsphere_r
         disk = warp.square_to_uniform_disk_concentric(u_pos) * R
         o_e = scene.bsphere_c[None, :] + d_w * R \

@@ -1,9 +1,12 @@
 """Film accumulation: reconstruction-filtered sample splatting.
 
-Port of ``mitsuba_nlvrl_tpu/film/__init__.py``: the camera wavefront holds
-exactly one sample per pixel in row-major order, so the filter footprint
-is a fixed set of relative taps and the splat is a sum of shifted images.
-A weight channel is accumulated alongside and divided out in ``develop``.
+Port of ``mitsuba_nlvrl_tpu/film/__init__.py``. ``splat`` spreads each
+sample at a continuous pixel position over its filter footprint with one
+scatter-add a tap; the camera wavefront of the primal render holds
+exactly one sample per pixel in row-major order, so there the footprint is
+a fixed set of relative taps and ``splat_pixel_ordered`` sums shifted
+images. A weight channel is accumulated alongside and divided out in
+``develop``.
 """
 from __future__ import annotations
 
@@ -25,12 +28,12 @@ def filter_eval(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == 'box':
         return torch.where(ax <= 0.5, 1.0, 0.0)
     if name == 'tent':
-        return torch.clamp(1.0 - ax, min=0.0)
+        return m.clip(1.0 - ax, min=0.0)
     if name == 'gaussian':
         std = 0.5
         alpha = -1.0 / (2.0 * std * std)
         r = FILTER_RADII['gaussian']
-        return torch.clamp(torch.exp(alpha * ax * ax)
+        return m.clip(torch.exp(alpha * ax * ax)
                            - pymath.exp(alpha * r * r), min=0.0)
     if name in ('mitchell', 'catmullrom'):
         if name == 'mitchell':
@@ -49,6 +52,44 @@ def filter_eval(name: str, x: torch.Tensor) -> torch.Tensor:
         return torch.where(ax < tau, torch.sinc(ax) * torch.sinc(ax / tau),
                            0.0)
     raise ValueError(name)
+
+
+def splat(film: FilmMeta, pos: torch.Tensor, values: torch.Tensor,
+          weights: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    """Accumulate N samples into image (H, W, C+1), differentiably in
+    ``values`` and ``weights``.
+
+    pos: (N, 2) continuous pixel coordinates (x, y); values (N, C);
+    weights (N,) sample weights (0 disables a lane). Each of the filter's
+    k x k taps is one out-of-place ``index_add`` (the order of the sums
+    within a pixel is the device's)."""
+    H, W = image.shape[0], image.shape[1]
+    radius = FILTER_RADII[film.rfilter]
+    k = 1 if film.rfilter == 'box' else int(pymath.ceil(2.0 * radius))
+    N, C = values.shape
+    if k > 1:
+        base = torch.floor(pos - (0.5 * (k - 1) + 0.5) + 0.5)
+    else:
+        base = torch.floor(pos)
+    base = base.to(torch.int32)
+    vals_w = torch.cat([values, torch.ones((N, 1), dtype=values.dtype,
+                                           device=values.device)], -1) \
+        * weights[:, None]
+    img = image.reshape(H * W, C + 1)
+    for oy in range(k):
+        for ox in range(k):
+            px = base[:, 0] + ox
+            py = base[:, 1] + oy
+            if k == 1:
+                w = torch.ones((N,), dtype=values.dtype, device=values.device)
+            else:
+                w = filter_eval(film.rfilter, px + 0.5 - pos[:, 0]) \
+                    * filter_eval(film.rfilter, py + 0.5 - pos[:, 1])
+            inside = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+            w = torch.where(inside & (weights > 0), w, 0.0)
+            flat = m.clip(py, 0, H - 1) * W + m.clip(px, 0, W - 1)
+            img = img.index_add(0, flat.long(), vals_w * w[:, None])
+    return img.reshape(H, W, C + 1)
 
 
 def splat_pixel_ordered(film: FilmMeta, jitter: torch.Tensor,

@@ -1,8 +1,9 @@
 """Integrator registry.
 
 Port of ``mitsuba_nlvrl_tpu/integrators/__init__.py``: each integrator
-exposes ``sample(scene, meta, sampler, ray, aux=None)`` over a ray
-wavefront; the two-pass integrators (``vrl``, ``photonmapper`` and its
+exposes ``sample(scene, meta, sampler, ray, active=None, diff=False,
+aux=None)`` over a ray wavefront (``active`` the lanes to trace, all by
+default; ``diff`` the differentiable bounce loops); the two-pass integrators (``vrl``, ``photonmapper`` and its
 older name ``photonmap``) also expose ``preprocess(scene, meta, key) ->
 aux``, their photon and VRL maps, which every pass reads. The port has
 ``path`` (with its spectral variant, ``path_spectral``), ``direct``,

@@ -24,7 +24,8 @@ from ..ops import intersect as isect
 from ..scene.types import nested_meta
 
 
-def sample_aov(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_aov(scene, meta, sampler: Sampler, ray: Ray, active=None,
+               diff: bool = False, aux=None):
     N = ray.o.shape[0]
     spec = meta.iprop('aovs', 'dd.y:depth')
     kind = spec.split(':')[-1].strip()
@@ -50,30 +51,32 @@ def sample_aov(scene, meta, sampler: Sampler, ray: Ray, aux=None):
     return out, si.valid, sampler
 
 
-def sample_moment(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_moment(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                  diff: bool = False, aux=None):
     from . import get_integrator
     meta2 = nested_meta(meta)
     L, valid, sampler = get_integrator(meta2.integrator)(
-        scene, meta2, sampler, ray, aux=aux)
+        scene, meta2, sampler, ray, active, diff=diff, aux=aux)
     return L * L, valid, sampler
 
 
-def sample_stokes(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_stokes(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                  diff: bool = False, aux=None):
     from . import get_integrator
     meta2 = nested_meta(meta)
     comp = int(meta.iprop('component', 0))
     if meta2.integrator == 'path':
         if meta2.spectral:
             from . import path_spectral_polarized as spp
-            stokes, valid, sampler = spp.sample_full(scene, meta2, sampler,
-                                                     ray, aux)
+            stokes, valid, sampler = spp.sample_full(
+                scene, meta2, sampler, ray, active, diff=diff, aux=aux)
         else:
             from . import path_polarized
             stokes, valid, sampler = path_polarized.sample_full(
-                scene, meta2, sampler, ray, aux)
+                scene, meta2, sampler, ray, active, diff=diff, aux=aux)
         return stokes[:, :, comp], valid, sampler
     L, valid, sampler = get_integrator(meta2.integrator)(
-        scene, meta2, sampler, ray, aux=aux)
+        scene, meta2, sampler, ray, active, diff=diff, aux=aux)
     if comp != 0:
         L = torch.zeros_like(L)
     return L, valid, sampler

@@ -9,7 +9,8 @@ from ..core.rng import Sampler
 from ..ops import intersect as isect
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+           diff: bool = False, aux=None):
     si = isect.ray_intersect(scene, ray)
     d = torch.where(si.valid, si.t, 0.0)
     return d[:, None].repeat(1, 3), si.valid, sampler

@@ -16,13 +16,14 @@ from ..core.rng import Sampler
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..ops import intersect as isect
-from .common import mis_weight
+from .common import initial_active, mis_weight
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+           diff: bool = False, aux=None):
     N = ray.o.shape[0]
     dev = ray.o.device
-    active = torch.ones((N,), dtype=torch.bool, device=dev)
+    active = initial_active(active, N, dev)
     si = isect.ray_intersect(scene, ray)
 
     result = emitter_mod.eval_hit(scene, meta, si, active & si.valid)

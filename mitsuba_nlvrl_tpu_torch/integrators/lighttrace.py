@@ -84,7 +84,7 @@ def _scatter_rows(bufs, count, valid, rows, cap: int):
     iw = torch.where(ok, idx, cap).long()
     new = [b.index_put((iw,), r) for b, r in zip(bufs, rows)]
     n_valid = valid.sum(dtype=torch.int32)
-    new_count = torch.clamp(count + n_valid, max=cap)
+    new_count = m.clip(count + n_valid, max=cap)
     return new, new_count, count + n_valid - new_count
 
 
@@ -245,7 +245,7 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
                        ld.expand(N, 3).contiguous(), mint=0.0)
 
     u_ch, sampler = sampler.next_1d()
-    channel = torch.clamp((u_ch * 3).to(torch.int32), max=2)
+    channel = m.clip((u_ch * 3).to(torch.int32), max=2)
 
     i32 = torch.int32
     st = ShootState(
@@ -274,7 +274,8 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
 
         # russian roulette
         active = st.active & (throughput != 0).any(dim=-1)
-        q = torch.clamp(throughput.amax(dim=-1) * m.sqr(st.eta), max=0.95)
+        q = m.clip((throughput.amax(dim=-1) * m.sqr(st.eta)).detach(),
+                        max=0.95)
         perform_rr = st.depth > rr_depth
         u_rr, smp = smp.next_1d()
         active = active & ((u_rr < q) | ~perform_rr)
@@ -298,11 +299,11 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
         if has_nl:
             majorant = medium_mod.get_majorant(scene, st.medium_idx)
             mj = medium_mod._ch(majorant, st.channel)
-            midx_safe = torch.clamp(st.medium_idx, min=0).long()
+            midx_safe = m.clip(st.medium_idx, min=0).long()
             is_nl = active_medium & (scene.media.type[midx_safe]
                                      == MEDIUM_TYPES['nonlinear'])
-            t_coll = -torch.log1p(-torch.clamp(u_fl, 0, m.OneMinusEpsilon)) \
-                / torch.clamp(mj, min=1e-30)
+            t_coll = -torch.log1p(-m.clip(u_fl, 0, m.OneMinusEpsilon)) \
+                / m.clip(mj, min=1e-30)
             cur_ray, t_coll, vrl_start, bend_deps = _march_nonlinear(
                 scene, meta, st._replace(ray=cur_ray), t_coll, is_nl,
                 max_bends, min_vrl_len)
@@ -335,7 +336,7 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
                 is_nl[:, None],
                 throughput * torch.where(
                     (tr_pdf > 0)[:, None],
-                    tr_vec / torch.clamp(tr_pdf, min=1e-30)[:, None], 0.0),
+                    tr_vec / m.clip(tr_pdf, min=1e-30)[:, None], 0.0),
                 throughput)
         else:
             coll_nl = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -365,7 +366,7 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
         throughput = torch.where(
             act_real[:, None],
             throughput * sigma_s * (
-                medium_mod._ch(comb, st.channel) / torch.clamp(
+                medium_mod._ch(comb, st.channel) / m.clip(
                     medium_mod._ch(sigma_t, st.channel),
                     min=1e-30))[:, None], throughput)
 
@@ -496,7 +497,7 @@ def _compact_dev(valid, arrays, cap: int):
     (stable), truncated or padded to ``cap``."""
     order = torch.argsort((~valid).to(torch.int8), stable=True)
     take = order[:cap]
-    n = torch.clamp(valid.sum(), max=cap)
+    n = m.clip(valid.sum(), max=cap)
     vmask = torch.arange(cap, device=valid.device) < n
     return n, vmask, [a[take] for a in arrays]
 
@@ -518,7 +519,7 @@ def photon_radii(grid: hashgrid.HashGrid, pos, valid, k: float = 8.0,
     counts = hashgrid.fold_neighbors(
         grid, pos, valid, fold,
         torch.zeros(pos.shape[:1], device=pos.device), max_per_cell)
-    r = r0 * torch.pow(k / torch.clamp(counts, min=1.0), 1.0 / 3.0)
+    r = r0 * torch.pow(k / m.clip(counts, min=1.0), 1.0 / 3.0)
     return torch.minimum(torch.maximum(r, 0.25 * r0), r0)
 
 
@@ -532,10 +533,10 @@ def _thin(key, valid, flux, arrays, cap: int):
     order = torch.argsort(torch.where(valid, r, 2.0), stable=True)
     take = order[:cap]
     count = valid.sum(dtype=torch.int32)
-    kept = torch.clamp(count, max=cap)
+    kept = m.clip(count, max=cap)
     vmask = torch.arange(take.shape[0], device=dev) < kept
     scale = count.to(torch.float32) \
-        / torch.clamp(kept, min=1).to(torch.float32)
+        / m.clip(kept, min=1).to(torch.float32)
     flux_out = torch.where(vmask[:, None], flux[take] * scale, 0.0)
     return kept, vmask, flux_out, [a[take] for a in arrays]
 

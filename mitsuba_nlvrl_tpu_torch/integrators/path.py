@@ -7,6 +7,7 @@ roulette. Dirac lobes are tracked with masks.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -14,11 +15,11 @@ import torch
 from ..core import math as m
 from ..core.ray import Ray, spawn_ray
 from ..core.rng import Sampler
-from ..core.sync import any_on_host
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..ops import intersect as isect
-from .common import mis_weight, russian_roulette
+from .common import (bounce_loop, initial_active, mis_weight,
+                     russian_roulette)
 
 
 class PathState(NamedTuple):
@@ -118,13 +119,17 @@ def make_body(scene, meta, N: int):
     return body
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+           diff: bool = False, aux=None):
     """Estimate incident radiance along each camera ray. Returns (L, valid,
     sampler). A spectral scene takes the hero-wavelength variant
-    (``path_spectral``), as in the reference."""
+    (``path_spectral``), as in the reference. ``diff=True`` runs each
+    bounce under a checkpoint for reverse-mode autograd, at most
+    ``max_depth`` bounces (``common.bounce_loop``)."""
     if meta.spectral:
         from . import path_spectral
-        return path_spectral.sample(scene, meta, sampler, ray, aux)
+        return path_spectral.sample(scene, meta, sampler, ray, active,
+                                    diff=diff, aux=aux)
     N = ray.o.shape[0]
     dev = ray.o.device
     st = PathState(
@@ -133,14 +138,15 @@ def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
         result=torch.zeros((N, 3), device=dev),
         eta=torch.ones((N,), device=dev),
         depth=torch.zeros((N,), dtype=torch.int32, device=dev),
-        active=torch.ones((N,), dtype=torch.bool, device=dev),
+        active=initial_active(active, N, dev),
         prev_pdf=torch.ones((N,), device=dev),
         prev_delta=torch.ones((N,), dtype=torch.bool, device=dev),
         prev_p=ray.o)
     body = make_body(scene, meta, N)
     # The reference's lax.while_loop becomes a host loop. Its condition
     # reads `active.any()` back from the device: one host sync per bounce.
-    while any_on_host(st.active):
-        st = body(st)
+    # Its depth test ends every lane within max_depth bounces; the primal
+    # loop has no other bound.
+    st = bounce_loop(body, st, _max_depth(meta) if diff else math.inf, diff)
     return st.result, torch.ones((N,), dtype=torch.bool, device=dev), \
         st.sampler

@@ -22,12 +22,11 @@ from ..core import math as m
 from ..core import mueller as mu
 from ..core.ray import Ray, spawn_ray
 from ..core.rng import Sampler
-from ..core.sync import any_on_host
 from ..bsdf import polarized as bpol
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..ops import intersect as isect
-from .common import mis_weight
+from .common import bounce_loop, initial_active, mis_weight
 from .path import _max_depth
 
 
@@ -65,10 +64,11 @@ def emitted_rgb(scene, meta, si, st):
 
 
 def roulette(throughput, eta, depth, rr_depth, u_rr):
-    """Russian roulette on the depolarized power: (survive, throughput)."""
+    """Russian roulette on the depolarized power: (survive, throughput);
+    the survival probability is detached, as in the reference."""
     tp_unpol = throughput[..., 0, 0]
     do_rr = depth >= rr_depth
-    q = torch.clamp(tp_unpol.amax(dim=-1) * m.sqr(eta), max=0.95)
+    q = m.clip((tp_unpol.amax(dim=-1) * m.sqr(eta)).detach(), max=0.95)
     survive = torch.where(do_rr, u_rr < q, True)
     throughput = torch.where(
         (do_rr & survive)[:, None, None, None],
@@ -150,7 +150,7 @@ def make_body(scene, meta, spectral_terms=None):
     return body, max_depth
 
 
-def initial_fields(ray: Ray, C: int) -> dict:
+def initial_fields(ray: Ray, C: int, active=None) -> dict:
     """The fields every polarized state starts a camera path with."""
     N = ray.o.shape[0]
     dev = ray.o.device
@@ -159,28 +159,22 @@ def initial_fields(ray: Ray, C: int) -> dict:
         result=torch.zeros((N, C, 4), device=dev),
         eta=torch.ones((N,), device=dev),
         depth=torch.zeros((N,), dtype=torch.int32, device=dev),
-        active=torch.ones((N,), dtype=torch.bool, device=dev),
+        active=initial_active(active, N, dev),
         prev_pdf=torch.ones((N,), device=dev),
         prev_delta=torch.ones((N,), dtype=torch.bool, device=dev),
         prev_p=ray.o)
 
 
-def run(body, max_depth, st, **kw):
-    """The bounce loop: the reference's counter equals every live lane's
-    depth; one host read a bounce."""
-    it = 0
-    while it < max_depth and any_on_host(st.active):
-        st = body(st, **kw)
-        it += 1
-    return st
-
-
-def sample_stokes_vec(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_stokes_vec(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                      diff: bool = False, aux=None):
     """The polarized L_i estimate: (Stokes (N, 3, 4), valid, sampler) in
-    the implicit Stokes frame of each camera ray."""
+    the implicit Stokes frame of each camera ray. The reference's loop
+    counter equals every live lane's depth: at most ``max_depth``
+    bounces, each checkpointed under ``diff``."""
     body, max_depth = make_body(scene, meta)
-    st = PolPathState(sampler=sampler, ray=ray, **initial_fields(ray, 3))
-    st = run(body, max_depth, st)
+    st = PolPathState(sampler=sampler, ray=ray,
+                      **initial_fields(ray, 3, active))
+    st = bounce_loop(body, st, max_depth, diff)
     return st.result, torch.ones_like(st.active), st.sampler
 
 
@@ -195,16 +189,17 @@ def sensor_frame_rotation(scene, ray: Ray):
     target = m.cross(ray.d, up.expand(ray.d.shape))
     tn = m.norm(target)
     target = torch.where((tn > 1e-6)[:, None],
-                         target / torch.clamp(tn, min=1e-12)[:, None],
+                         target / m.clip(tn, min=1e-12)[:, None],
                          current)
     return mu.rotate_stokes_basis(fwd, current, target)
 
 
-def sample_full(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_full(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                diff: bool = False, aux=None):
     """The sensor-frame Stokes estimate: (Stokes (N, 3, 4), valid,
     sampler)."""
     stokes, valid, sampler = sample_stokes_vec(scene, meta, sampler, ray,
-                                               aux)
+                                               active, diff=diff, aux=aux)
     R = sensor_frame_rotation(scene, ray)          # (N, 4, 4)
     stokes = torch.einsum('nij,ncj->nci', R, stokes)
     return stokes, valid, sampler

@@ -28,11 +28,11 @@ from ..core import math as m
 from ..core import spectral as sp
 from ..core.ray import Ray, spawn_ray
 from ..core.rng import Sampler
-from ..core.sync import any_on_host
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from ..ops import intersect as isect
-from .common import mis_weight, russian_roulette
+from .common import (bounce_loop, initial_active, mis_weight,
+                     russian_roulette)
 from .path import _max_depth
 
 # the golden ratio's fractional part: the wavelength sequence's step
@@ -89,9 +89,10 @@ def emitted(scene, meta, si, st, lam):
     return le_s + le_env_s
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+           diff: bool = False, aux=None):
     """The spectral L_i estimate developed to linear sRGB: (rgb, valid,
-    sampler)."""
+    sampler). ``diff=True`` checkpoints each bounce, as ``path`` does."""
     N = ray.o.shape[0]
     dev = ray.o.device
     max_depth = _max_depth(meta)
@@ -104,7 +105,7 @@ def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
         result=torch.zeros((N, sp.N_HERO), device=dev),
         eta=torch.ones((N,), device=dev),
         depth=torch.zeros((N,), dtype=torch.int32, device=dev),
-        active=torch.ones((N,), dtype=torch.bool, device=dev),
+        active=initial_active(active, N, dev),
         prev_pdf=torch.ones((N,), device=dev),
         prev_delta=torch.ones((N,), dtype=torch.bool, device=dev),
         prev_p=ray.o, lam=lam)
@@ -175,9 +176,6 @@ def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
             lam=st.lam)
 
     # the reference's loop counter equals every live lane's depth
-    it = 0
-    while it < max_depth and any_on_host(st.active):
-        st = body(st)
-        it += 1
+    st = bounce_loop(body, st, max_depth, diff)
     rgb = sp.spectral_to_srgb(st.result, lam, inv_pdf)
     return rgb, torch.ones((N,), dtype=torch.bool, device=dev), st.sampler

@@ -26,7 +26,8 @@ from ..core import spectral as sp
 from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..bsdf import polarized as bpol
-from .path_polarized import (initial_fields, make_body, run,
+from .common import bounce_loop
+from .path_polarized import (initial_fields, make_body,
                              sensor_frame_rotation)
 from .path_spectral import emitted, hero_wavelengths
 
@@ -39,7 +40,7 @@ def _band_of(lam):
 def mueller_to_spectral(M_rgb, lam):
     """(N, 3, 4, 4) RGB Mueller and (N, H) wavelengths -> (N, H, 4, 4):
     upsampled m00 times the band's normalised structure."""
-    m00 = torch.clamp(M_rgb[..., 0, 0], min=0.0)               # (N, 3)
+    m00 = m.clip(M_rgb[..., 0, 0], min=0.0)               # (N, 3)
     s = sp.upsample_weight(m00, lam)                          # (N, H)
     band = _band_of(lam).long()                               # (N, H)
     idx = band[..., None, None].expand(band.shape + (4, 4))
@@ -63,7 +64,8 @@ class SpecPolState(NamedTuple):
     prev_p: torch.Tensor
 
 
-def sample_stokes_vec(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_stokes_vec(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                      diff: bool = False, aux=None):
     """The spectral polarized L_i: (Stokes (N, H, 4), lam, inv_pdf, valid,
     sampler) in the implicit Stokes frame of each camera ray."""
     N = ray.o.shape[0]
@@ -84,17 +86,18 @@ def sample_stokes_vec(scene, meta, sampler: Sampler, ray: Ray, aux=None):
 
     body, max_depth = make_body(scene, meta, spectral_terms)
     st = SpecPolState(sampler=sampler, ray=ray,
-                      **initial_fields(ray, sp.N_HERO))
-    st = run(body, max_depth, st, lam=lam, emitted=emitted)
+                      **initial_fields(ray, sp.N_HERO, active))
+    st = bounce_loop(body, st, max_depth, diff, lam=lam, emitted=emitted)
     return st.result, lam, inv_pdf, torch.ones_like(st.active), st.sampler
 
 
-def sample_full(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample_full(scene, meta, sampler: Sampler, ray: Ray, active=None,
+                diff: bool = False, aux=None):
     """The sensor-frame sRGB Stokes estimate: (Stokes (N, 3, 4), valid,
     sampler). Each component develops through the CIE curves like
     spectral radiance (S1-S3 are signed; the development is linear)."""
     spec, lam, inv_pdf, valid, sampler = sample_stokes_vec(
-        scene, meta, sampler, ray, aux)
+        scene, meta, sampler, ray, active, diff=diff, aux=aux)
     R = sensor_frame_rotation(scene, ray)          # (N, 4, 4)
     spec = torch.einsum('nij,nhj->nhi', R, spec)
     stokes = torch.stack(
@@ -103,7 +106,9 @@ def sample_full(scene, meta, sampler: Sampler, ray: Ray, aux=None):
     return stokes, valid, sampler
 
 
-def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+           diff: bool = False, aux=None):
     """The radiance-only entry (S0)."""
-    stokes, valid, sampler = sample_full(scene, meta, sampler, ray, aux)
+    stokes, valid, sampler = sample_full(scene, meta, sampler, ray, active,
+                                         diff=diff, aux=aux)
     return stokes[:, :, 0], valid, sampler

@@ -93,10 +93,10 @@ def estimate_surface(scene, meta, maps, si, active, radius, caustic: bool,
                               wo_local.reshape(N * K, 3)).reshape(N, K, 3)
             # the density estimate wants f_r alone: divide out the folded
             # cosine (the photon density already carries it)
-            f = f / torch.clamp(torch.abs(cos_o), min=1e-3)[..., None]
+            f = f / m.clip(torch.abs(cos_o), min=1e-3)[..., None]
         w = torch.ones_like(d2)
         if caustic:
-            w = torch.clamp(1.0 - m.safe_sqrt(d2 * inv_r2), min=0.0)
+            w = m.clip(1.0 - m.safe_sqrt(d2 * inv_r2), min=0.0)
         contrib = rows[..., 6:9] * f * w[..., None]
         return acc + torch.where(sel[..., None], contrib, 0.0).sum(dim=1)
 
@@ -189,7 +189,7 @@ def estimate_beam(scene, meta, maps, o, d, t_max, wo, medium_idx, active,
             kern = m.sqr(1.0 - perp2 / rr2) / rr2 * m.InvPi * 3.0
             # Tr to the closest approach: the completed steps' depth plus
             # this step's midpoint extinction up to it
-            depth = tau[:, None, :] + torch.clamp(
+            depth = tau[:, None, :] + m.clip(
                 t_p - t0[:, None], min=0.0)[..., None] * st_mid[:, None, :]
             contrib = rows[..., 6:9] * (pf * kern)[..., None] \
                 * torch.exp(-depth)

@@ -269,8 +269,9 @@ def render_regen(scene, meta, seed: int = 0, spp=None, ray_stats=None,
     return image
 
 
-def regen_supported(meta, name: str) -> bool:
+def regen_supported(meta, name: str, diff: bool = False) -> bool:
     """The reference's gate: a supported integrator family, a
-    decomposable film sampler, and no spectral mode."""
-    return _family(name) is not None and meta.sampler in REGEN_SAMPLERS \
-        and not meta.spectral
+    decomposable film sampler, the primal render (a differentiable render
+    never takes the scheduler), and no spectral mode."""
+    return (not diff) and _family(name) is not None \
+        and meta.sampler in REGEN_SAMPLERS and not meta.spectral

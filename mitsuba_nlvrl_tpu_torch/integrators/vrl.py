@@ -51,6 +51,7 @@ from ..ops import intersect as isect
 from ..scene.types import F_SMOOTH, M_PHASE_G, MEDIUM_TYPES
 from . import lighttrace
 from . import photon_est
+from .common import initial_active
 from .volpath import _where_tree, transmittance_to_point
 
 # luminance weights of the cluster flux
@@ -147,11 +148,11 @@ def _dice_vrls(scene, meta, key, maps, dice: int):
     V = maps.vrl_len.shape[0]
     K = 2 * dice
     dev = maps.vrl_len.device
-    nvalid = torch.clamp(maps.vrl_count.to(torch.float32), min=1.0)
+    nvalid = m.clip(maps.vrl_count.to(torch.float32), min=1.0)
     avg = torch.where(maps.vrl_valid, maps.vrl_len, 0.0).sum() / nvalid
-    chunk = torch.clamp(avg / dice, min=1e-4)
+    chunk = m.clip(avg / dice, min=1e-4)
     start = chunk * torch.arange(K, dtype=torch.float32, device=dev)  # (K,)
-    sub_len = torch.minimum(torch.clamp(maps.vrl_len[:, None]
+    sub_len = torch.minimum(m.clip(maps.vrl_len[:, None]
                                         - start[None, :], min=0.0), chunk)
     valid = (maps.vrl_valid[:, None] & (sub_len > 1e-5)).reshape(V * K)
 
@@ -198,7 +199,7 @@ def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
     u0_hat = -u_hat
     u1_hat = seg_len + u0_hat
     foot = seg_o + seg_d * u_hat[:, None]
-    h = torch.clamp(m.norm(foot - p_vrl), min=1e-7)
+    h = m.clip(m.norm(foot - p_vrl), min=1e-7)
     th0 = torch.atan(u0_hat / h)
     th1 = torch.atan(u1_hat / h)
     K = ANISO_CDF_KNOTS
@@ -207,14 +208,14 @@ def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
     th = th0[:, None] + (th1 - th0)[:, None] * frac[None, :]    # (N, K)
     # peak knots: the VRL phase peaks where the segment-to-VRL direction
     # -sin(theta) seg_d + cos(theta) n_hat is closest to -d_v
-    g_v = scene.media.params[torch.clamp(med_v, min=0).long(), M_PHASE_G]
+    g_v = scene.media.params[m.clip(med_v, min=0).long(), M_PHASE_G]
     nhat = (p_vrl - foot) * m.safe_rcp(h)[:, None]
     A = m.dot(seg_d, d_v)
     B = m.dot(nhat, d_v)
     th_p = torch.atan2(B, A) + 0.5 * m.Pi
     th_p = torch.where(th_p > 0.5 * m.Pi, th_p - m.Pi, th_p)
     # the HG half-width in scattering angle, about sqrt(1 - |g|)
-    delta = torch.clamp(m.sqrt(torch.clamp(1.0 - torch.abs(g_v),
+    delta = m.clip(m.sqrt(m.clip(1.0 - torch.abs(g_v),
                                                min=1e-4)) * 0.2, 0.01, 0.3)
     offs = torch.tensor(_ANISO_PEAK_OFFSETS, device=dev)
     th_pk = torch.minimum(torch.maximum(
@@ -234,27 +235,27 @@ def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
                             dflat, rep(act)).reshape(N, K)
     ph_vrl = phase_mod.eval(scene, meta, rep(med_v), rep(-d_v), -dflat,
                             rep(act)).reshape(N, K)
-    ph = torch.clamp(ph_ray * ph_vrl, min=0.0)
+    ph = m.clip(ph_ray * ph_vrl, min=0.0)
     dth = th[:, 1:] - th[:, :-1]                                # (N, K-1)
     total = (0.5 * (ph[:, 1:] + ph[:, :-1]) * dth).sum(dim=1)
     ok = act & (total > 1e-12) & torch.isfinite(total)
     # blend with the atan sampler's constant density: the pdf stays at
     # least half the atan sampler's, and a constant density reduces to it
     beta = 0.5
-    span = torch.clamp(th1 - th0, min=1e-9)
+    span = m.clip(th1 - th0, min=1e-9)
     phi = (1.0 - beta) * ph * m.safe_rcp(total)[:, None] \
         + (beta * m.safe_rcp(span))[:, None]                    # (N, K)
     area = 0.5 * (phi[:, 1:] + phi[:, :-1]) * dth               # sums to 1
     cdf = torch.cumsum(area, dim=1)
-    uu = torch.clamp(u2, 0.0, m.OneMinusEpsilon) * cdf[:, -1]
-    j = torch.clamp((cdf < uu[:, None]).sum(dim=1), max=K - 2)[:, None]
+    uu = m.clip(u2, 0.0, m.OneMinusEpsilon) * cdf[:, -1]
+    j = m.clip((cdf < uu[:, None]).sum(dim=1), max=K - 2)[:, None]
     cdf0 = torch.cat([torch.zeros((N, 1), device=dev), cdf], dim=1)
 
     def at(x):
         return x.gather(1, j)[:, 0]
     pa = at(phi[:, :-1])
     pb = at(phi[:, 1:])
-    xi = torch.clamp((uu - at(cdf0)) * m.safe_rcp(at(area)), 0.0, 1.0)
+    xi = m.clip((uu - at(cdf0)) * m.safe_rcp(at(area)), 0.0, 1.0)
     # exact inversion of the linear density pa -> pb over the bin
     dp = pb - pa
     lin = torch.abs(dp) > 1e-9 * torch.maximum(pa, pb)
@@ -264,7 +265,7 @@ def _aniso_cam_cdf(scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len,
     q = pa + dp * s              # the blended density at the sample
     tc = h * torch.tan(theta)
     inv_pdf_c = (h * h + tc * tc) * m.safe_rcp(h * q)
-    t_cam = torch.minimum(torch.clamp(tc - u0_hat, min=0.0), seg_len)
+    t_cam = torch.minimum(m.clip(tc - u0_hat, min=0.0), seg_len)
     ok = ok & torch.isfinite(inv_pdf_c) & (inv_pdf_c > 0)
     return t_cam, inv_pdf_c, ok
 
@@ -289,9 +290,9 @@ def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
     denom = 1.0 - b * b
     s_c = torch.where(torch.abs(denom) > 1e-9, m.safe_div(b * e - d_, denom),
                       0.0)
-    s_c = torch.minimum(torch.clamp(s_c, min=0.0), seg_len)
-    t_v = torch.minimum(torch.clamp(e + b * s_c, min=0.0), len_v)
-    s_c = torch.minimum(torch.clamp(-d_ + b * t_v, min=0.0), seg_len)
+    s_c = torch.minimum(m.clip(s_c, min=0.0), seg_len)
+    t_v = torch.minimum(m.clip(e + b * s_c, min=0.0), len_v)
+    s_c = torch.minimum(m.clip(-d_ + b * t_v, min=0.0), seg_len)
 
     h = m.norm((seg_o + seg_d * s_c[:, None]) - (o_v + d_v * t_v[:, None]))
     sin_theta = m.norm(m.cross(d_v, seg_d))
@@ -300,8 +301,8 @@ def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
     # --- Kulla inverse CDF on the VRL (asinh space) -----------------------
     v0_hat = -t_v
     v1_hat = len_v + v0_hat
-    s_safe = torch.clamp(sin_theta, min=1e-6)
-    h_safe = torch.clamp(h, min=1e-7)
+    s_safe = m.clip(sin_theta, min=1e-6)
+    h_safe = m.clip(h, min=1e-7)
 
     def asinh(x):
         return torch.log(x + m.safe_sqrt(x * x + 1.0))
@@ -311,20 +312,20 @@ def vrl_contrib(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium,
     v = h_safe * torch.sinh(m.lerp(a0, a1, u1)) / s_safe
     inv_pdf_v = (a1 - a0) * m.safe_sqrt(h_safe * h_safe
                                         + v * v * s_safe * s_safe) / s_safe
-    t_vrl = torch.minimum(torch.clamp(v + t_v, min=0.0), len_v)
+    t_vrl = torch.minimum(m.clip(v + t_v, min=0.0), len_v)
     p_vrl = o_v + d_v * t_vrl[:, None]
 
     # --- the camera segment (atan space) ----------------------------------
     u_hat = m.dot(seg_d, p_vrl - seg_o)
     u0_hat = -u_hat
     u1_hat = seg_len + u0_hat
-    h_pt = torch.clamp(m.norm(seg_o + seg_d * u_hat[:, None] - p_vrl),
+    h_pt = m.clip(m.norm(seg_o + seg_d * u_hat[:, None] - p_vrl),
                        min=1e-7)
     th_a = torch.atan(u0_hat / h_pt)
     th_b = torch.atan(u1_hat / h_pt)
     uu = h_pt * torch.tan(m.lerp(th_a, th_b, u2))
     inv_pdf_c = (th_b - th_a) * (h_pt * h_pt + uu * uu) / h_pt
-    t_cam = torch.minimum(torch.clamp(uu - u0_hat, min=0.0), seg_len)
+    t_cam = torch.minimum(m.clip(uu - u0_hat, min=0.0), seg_len)
     if bool(meta.iprop('vrl_aniso_cdf', False)):
         t_cam_a, inv_a, ok_a = _aniso_cam_cdf(
             scene, meta, cam_medium, med_v, seg_o, seg_d, seg_len, p_vrl,
@@ -420,19 +421,19 @@ def build_vrl_clusters(scene, maps, n_clusters: int) -> VRLClusters:
     F = K1 * K2
     M = -(-V // F)
     mid = maps.vrl_o + maps.vrl_d * (0.5 * maps.vrl_len)[:, None]
-    ext = torch.clamp(scene.bbox_hi - scene.bbox_lo, min=1e-9)
-    qm = torch.clamp(((mid - scene.bbox_lo) / ext * 1023.0).to(torch.int32),
+    ext = m.clip(scene.bbox_hi - scene.bbox_lo, min=1e-9)
+    qm = m.clip(((mid - scene.bbox_lo) / ext * 1023.0).to(torch.int32),
                      0, 1023)
     code = torch.where(maps.vrl_valid, _morton3(qm), 0x7fffffff)
     order = torch.argsort(code, stable=True).to(torch.int32)
     member = torch.cat([order, torch.full((F * M - V,), V, dtype=torch.int32,
                                           device=dev)]).reshape(F, M)
-    mi = torch.clamp(member, max=V - 1).long()
+    mi = m.clip(member, max=V - 1).long()
     mvalid = (member < V) & maps.vrl_valid[mi]
 
     lum = torch.tensor(_LUM, device=dev)
     lum_m = torch.where(mvalid, m.dot(maps.vrl_flux[mi], lum)
-                        * torch.clamp(maps.vrl_len[mi], min=1e-6), 0.0)
+                        * m.clip(maps.vrl_len[mi], min=1e-6), 0.0)
     f_lum = lum_m.sum(dim=1)                                   # (F,)
 
     mid_m = maps.vrl_o[mi] + maps.vrl_d[mi] \
@@ -464,7 +465,7 @@ def _seg_point_dist2(seg_o, seg_d, seg_len, p):
     """Squared distance from the camera segments (N, 3) + (N,) to points
     (N, K, 3) -> (N, K)."""
     rel = p - seg_o[:, None, :]
-    t = torch.minimum(torch.clamp(m.dot(rel, seg_d[:, None, :]), min=0.0),
+    t = torch.minimum(m.clip(m.dot(rel, seg_d[:, None, :]), min=0.0),
                       seg_len[:, None])
     return m.squared_norm(rel - t[..., None] * seg_d[:, None, :])
 
@@ -490,7 +491,7 @@ def _lc_stage_weights(lum, cent, r2, seg_o, seg_d, seg_len, sig_min):
     (..., K, 3) broadcast against the (N,) lanes."""
     d2 = _seg_point_dist2(seg_o, seg_d, seg_len, cent)
     w = lum * m.safe_rcp(m.safe_sqrt(d2 + r2 + 1e-4))
-    d_near = torch.clamp(m.safe_sqrt(d2) - m.safe_sqrt(r2), min=0.0)
+    d_near = m.clip(m.safe_sqrt(d2) - m.safe_sqrt(r2), min=0.0)
     return w * torch.exp(-sig_min[:, None] * d_near)
 
 
@@ -498,7 +499,7 @@ def _pick(cdf, u):
     """Inverse-CDF index of u in [0, 1) along axis 1 of (N, K) running
     sums."""
     i = (cdf < u[:, None] * cdf[:, -1:]).sum(dim=1)
-    return torch.clamp(i, max=cdf.shape[1] - 1)
+    return m.clip(i, max=cdf.shape[1] - 1)
 
 
 def _sample_discrete(w, u):
@@ -552,7 +553,7 @@ def sample_cluster_vrl(clusters: VRLClusters, w, w_cdf, seg_o, seg_d,
     ok = (vi < V) & (p_c > 0) & (p_s > 0) & (p_m > 0) \
         & (w_tot > 0) & (ws_tot > 0) & (wm_tot > 0)
     inv_pdf = m.safe_rcp(p_c * p_s * p_m)
-    return torch.clamp(vi, max=V - 1), inv_pdf, ok
+    return m.clip(vi, max=V - 1), inv_pdf, ok
 
 
 VRL_RIS_CHUNK = 512
@@ -563,18 +564,18 @@ def _vrl_ris_weights(maps, seg_o, seg_d, seg_len, sl):
     padding, against each camera segment: the VRL's power luminance times
     its length over the squared distance from its midpoint to the
     segment."""
-    sl_c = torch.clamp(sl, min=0).long()
+    sl_c = m.clip(sl, min=0).long()
     vo, vd, vl = maps.vrl_o[sl_c], maps.vrl_d[sl_c], maps.vrl_len[sl_c]
     lum = m.dot(maps.vrl_flux[sl_c], torch.tensor(_LUM, device=vo.device))
     ok = maps.vrl_valid[sl_c] & (sl >= 0)
     mid = vo + vd * (0.5 * vl)[:, None]                        # (C, 3)
     # the closest point on the camera segment to each midpoint
     rel = mid[None, :, :] - seg_o[:, None, :]                  # (N, C, 3)
-    t = torch.minimum(torch.clamp(m.dot(rel, seg_d[:, None, :]), min=0.0),
+    t = torch.minimum(m.clip(m.dot(rel, seg_d[:, None, :]), min=0.0),
                       seg_len[:, None])
     d2 = m.squared_norm(rel - t[..., None] * seg_d[:, None, :])
     w = (lum * vl)[None, :] / (d2 + 1e-3 * (1.0 + d2))
-    return torch.where(ok[None, :], torch.clamp(w, min=0.0), 0.0)
+    return torch.where(ok[None, :], m.clip(w, min=0.0), 0.0)
 
 
 def _ris_chunks(V: int, dev):
@@ -662,13 +663,13 @@ def query_vrls(scene, meta, maps, seg_o, seg_d, seg_len, cam_medium, channel,
             lane_ok = ok_lane & (sel_i >= 0) & (sel_w > 0)
             c, sampler = vrl_contrib(scene, meta, maps, seg_o, seg_d,
                                      seg_len, cam_medium,
-                                     torch.clamp(sel_i, min=0), u1, u2,
+                                     m.clip(sel_i, min=0), u1, u2,
                                      channel, sampler, lane_ok)
             inv_p = torch.where(lane_ok, w_total * m.safe_rcp(sel_w), 0.0)
             acc = acc + c * inv_p[:, None]
         return acc * (maps.vrl_scale / samples_per_query), sampler
 
-    count = torch.clamp(maps.vrl_count, min=1)
+    count = m.clip(maps.vrl_count, min=1)
     for _ in range(samples_per_query):
         u_sel, sampler = sampler.next_1d()
         u1, sampler = sampler.next_1d()
@@ -744,10 +745,37 @@ def _skip_segment_tr(meta, sampler, n: int) -> Sampler:
     return sampler
 
 
+def _requires_grad(tree) -> bool:
+    """Whether any tensor of a record (nested named tuples) requires
+    grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, tuple):
+        return any(_requires_grad(x) for x in tree)
+    return False
+
+
 def make_sample(use_vrls: bool):
     """The camera pass of ``vrl`` (use_vrls) or ``photonmapper``."""
+    name = 'vrl' if use_vrls else 'photonmapper'
 
-    def sample(scene, meta, sampler: Sampler, ray: Ray, aux=None):
+    def sample(scene, meta, sampler: Sampler, ray: Ray, active=None,
+               diff: bool = False, aux=None):
+        """The camera pass. It is not differentiable, as in the reference:
+        there its bounce loop is a ``lax.while_loop``, which ``jax.grad``
+        cannot reverse, and its differentiable render passes no maps. So
+        under ``diff``, or where autograd would record a gradient of the
+        scene or the maps, it raises. The light pass (``preprocess``) is
+        differentiable in both packages."""
+        if diff or (torch.is_grad_enabled()
+                    and (_requires_grad(scene) or _requires_grad(aux))):
+            raise ValueError(
+                f"the {name} camera pass cannot be differentiated: the "
+                f"reference runs it in lax.while_loops, which reverse-mode "
+                f"differentiation cannot go through, and its "
+                f"differentiable render gives it no photon or VRL maps; "
+                f"differentiate the light pass (preprocess), or render "
+                f"with path, volpath or volpathmis")
         maps: lighttrace.PhotonMaps = aux
         N = ray.o.shape[0]
         dev = ray.o.device
@@ -775,13 +803,13 @@ def make_sample(use_vrls: bool):
         zeros3 = torch.zeros((N, 3), device=dev)
 
         u_ch, sampler = sampler.next_1d()
-        channel = torch.clamp((u_ch * 3).to(torch.int32), max=2)
+        channel = m.clip((u_ch * 3).to(torch.int32), max=2)
         st = VRLCamState(
             sampler=sampler, ray=ray, throughput=torch.ones((N, 3),
                                                             device=dev),
             result=zeros3, depth=torch.ones((N,), dtype=torch.int32,
                                             device=dev),
-            active=torch.ones((N,), dtype=torch.bool, device=dev),
+            active=initial_active(active, N, dev),
             medium_idx=torch.full((N,), meta.camera_medium,
                                   dtype=torch.int32, device=dev),
             specular_chain=torch.ones((N,), dtype=torch.bool, device=dev))

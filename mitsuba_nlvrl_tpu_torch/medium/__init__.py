@@ -1,9 +1,8 @@
 """Participating media: homogeneous, heterogeneous (grid) and nonlinear.
 
-Port of ``mitsuba_nlvrl_tpu/medium/__init__.py`` for the primal render
-(gradients and ``with_sigma_grid`` come with the autodiff slice). Every
-function takes a per-lane ``medium_idx`` (-1 = vacuum) and dispatches
-masked over the few medium types a scene holds (``SceneMeta.medium_types``).
+Port of ``mitsuba_nlvrl_tpu/medium/__init__.py``. Every function takes a
+per-lane ``medium_idx`` (-1 = vacuum) and dispatches masked over the few
+medium types a scene holds (``SceneMeta.medium_types``).
 A nonlinear medium is optically homogeneous (its IOR grid bends rays,
 ``medium/nonlinear.py``; its extinction is constant), so everything here
 that is not the heterogeneous walk treats it in closed form, as it treats
@@ -19,6 +18,15 @@ once every ``WALK_UNROLL`` masked events, and it draws the reference's
 random numbers: ``uniform(fold_in(key, it), (WALK_UNROLL, N, n_u))`` per
 trip, with ``it`` counting events. Every lane stays in place and masked,
 so a lane's random numbers do not depend on the others.
+
+Under ``diff`` (the differentiable render) the density is read from
+``grid_sigma_t`` itself, not from its corner-packed copy, so gradients
+reach the grid, and the block bounds come from ``grid_sup`` and
+``grid_sup_min``. The walk is then the reference's bounded, checkpointed
+scan: at most ``ceil(min(max_steps, 192) / WALK_UNROLL)`` trips, each
+recomputed during the backward pass. A lane still walking at that bound
+is cut as the primal walk cuts one at ``max_steps``: this truncation is
+part of the reference's diff-mode estimator.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core import math as m
+from ..core import remat
 from ..core import rng
 from ..core.ray import Ray
 from ..core.records import MediumInteraction
@@ -47,6 +56,8 @@ RR_TR_THRESH = 0.03
 # fold_in constant of the first control collision; not a multiple of
 # WALK_UNROLL, so it never meets a trip's fold
 _CTRL0_FOLD = 0x7ffffff1
+# tracking events of a walk under ``diff``, at most (the reference's scan)
+DIFF_WALK_EVENTS = 192
 
 
 @functools.lru_cache(maxsize=64)
@@ -57,23 +68,25 @@ def _const3(values: Tuple[float, float, float], device) -> torch.Tensor:
 
 
 def _rows(scene, medium_idx):
-    """(params (N, MEDIUM_NPARAM), type (N,)) of each lane's medium."""
-    midx = torch.clamp(medium_idx, min=0).long()
-    return scene.media.params[midx], scene.media.type[midx]
+    """(params (N, MEDIUM_NPARAM), type (N,)) of each lane's medium
+    (``index_select``: its backward is one scatter-add)."""
+    midx = m.clip(medium_idx, min=0).long()
+    return (scene.media.params.index_select(0, midx),
+            scene.media.type.index_select(0, midx))
 
 
 def _trilinear(shape, lo, hi, p):
     """Cell-centred trilinear setup over a (Dz, Dy, Dx) grid on [lo, hi]:
     (inside, base voxel (z0, y0, x0) int32, tz, ty, tx), edge-clamped."""
     Dz, Dy, Dx = shape
-    rel = (p - lo) / torch.clamp(hi - lo, min=1e-30)
+    rel = (p - lo) / m.clip(hi - lo, min=1e-30)
     inside = ((rel >= 0.0) & (rel <= 1.0)).all(dim=-1)
-    fx = torch.clamp(rel[..., 0] * Dx - 0.5, 0.0, Dx - 1.0)
-    fy = torch.clamp(rel[..., 1] * Dy - 0.5, 0.0, Dy - 1.0)
-    fz = torch.clamp(rel[..., 2] * Dz - 0.5, 0.0, Dz - 1.0)
-    x0 = torch.clamp(fx.to(torch.int32), 0, Dx - 1)
-    y0 = torch.clamp(fy.to(torch.int32), 0, Dy - 1)
-    z0 = torch.clamp(fz.to(torch.int32), 0, Dz - 1)
+    fx = m.clip(rel[..., 0] * Dx - 0.5, 0.0, Dx - 1.0)
+    fy = m.clip(rel[..., 1] * Dy - 0.5, 0.0, Dy - 1.0)
+    fz = m.clip(rel[..., 2] * Dz - 0.5, 0.0, Dz - 1.0)
+    x0 = m.clip(fx.to(torch.int32), 0, Dx - 1)
+    y0 = m.clip(fy.to(torch.int32), 0, Dy - 1)
+    z0 = m.clip(fz.to(torch.int32), 0, Dz - 1)
     return (inside, (z0, y0, x0), fz - z0, fy - y0, fx - x0)
 
 
@@ -83,17 +96,21 @@ def _grid_lookup(grid, bbox_lo, bbox_hi, p):
     Dz, Dy, Dx = grid.shape
     inside, (z0, y0, x0), tz, ty, tx = _trilinear(grid.shape, bbox_lo,
                                                   bbox_hi, p)
-    x1 = torch.clamp(x0 + 1, max=Dx - 1)
-    y1 = torch.clamp(y0 + 1, max=Dy - 1)
-    z1 = torch.clamp(z0 + 1, max=Dz - 1)
-
-    def at(z, y, x):
-        return grid[z.long(), y.long(), x.long()]
-
-    c00 = m.lerp(at(z0, y0, x0), at(z0, y0, x1), tx)
-    c01 = m.lerp(at(z0, y1, x0), at(z0, y1, x1), tx)
-    c10 = m.lerp(at(z1, y0, x0), at(z1, y0, x1), tx)
-    c11 = m.lerp(at(z1, y1, x0), at(z1, y1, x1), tx)
+    x0, y0, z0 = x0.long(), y0.long(), z0.long()
+    x1 = m.clip(x0 + 1, max=Dx - 1)
+    y1 = m.clip(y0 + 1, max=Dy - 1)
+    z1 = m.clip(z0 + 1, max=Dz - 1)
+    # the eight corners in one gather of the flat grid (under autograd
+    # its backward is one scatter-add, where eight 3-d index gathers
+    # would each sort their indices)
+    rows = [(z * Dy + y) * Dx for z in (z0, z1) for y in (y0, y1)]
+    flat = torch.stack([r + x for r in rows for x in (x0, x1)])
+    g = grid.reshape(-1).index_select(0, flat.reshape(-1)).reshape(
+        flat.shape)
+    c00 = m.lerp(g[0], g[1], tx)
+    c01 = m.lerp(g[2], g[3], tx)
+    c10 = m.lerp(g[4], g[5], tx)
+    c11 = m.lerp(g[6], g[7], tx)
     c0 = m.lerp(c00, c01, ty)
     c1 = m.lerp(c10, c11, ty)
     return torch.where(inside, m.lerp(c0, c1, tz), 0.0)
@@ -120,13 +137,41 @@ def _grid_lookup_packed(packed, shape, bbox_lo, bbox_hi, p):
     return torch.where(inside, (rows[..., :8] * w).sum(dim=-1), 0.0)
 
 
-def _sigma_grid_eval(scene, lo, hi, p):
-    """Density at p: the packed grid where the scene has one."""
+def _sigma_grid_eval(scene, lo, hi, p, diff: bool = False):
+    """Density at p: the packed grid where the scene has one, unless
+    differentiating (the packed copy is derived at build time, so
+    gradients must flow through ``grid_sigma_t`` itself)."""
     med = scene.media
-    if med.grid_sigma_p8 is not None:
+    if med.grid_sigma_p8 is not None and not diff:
         return _grid_lookup_packed(med.grid_sigma_p8, med.grid_sigma_t.shape,
                                    lo, hi, p)
     return _grid_lookup(med.grid_sigma_t, lo, hi, p)
+
+
+def with_sigma_grid(media, grid):
+    """``media`` with a new density grid and its derived arrays refreshed:
+    the supervoxel bounds and controls, and the corner-packed copy. Use
+    it instead of ``media._replace(grid_sigma_t=...)``, which leaves the
+    derived copies stale (the trackers would sample against wrong
+    majorants). The derived arrays are built on the host from the grid's
+    value; the new grid keeps no autograd history."""
+    import numpy as np
+    from ..scene.builder import (_PACK_MAX_VOXELS, _corner_pack,
+                                 _supervoxel_max, _supervoxel_min)
+    dev = media.grid_sigma_t.device
+    g = np.asarray(torch.as_tensor(grid).detach().cpu(), np.float32)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    dense = g.size > 1
+    return media._replace(
+        grid_sigma_t=t(g),
+        grid_sup=t(_supervoxel_max(g) if dense
+                   else np.ones((1, 1, 1), np.float32)),
+        grid_sup_min=t(_supervoxel_min(g) if dense
+                       else np.zeros((1, 1, 1), np.float32)),
+        grid_sigma_p8=(t(_corner_pack(g)) if 1 < g.size <= _PACK_MAX_VOXELS
+                       else None))
 
 
 def medium_bbox(scene, medium_idx):
@@ -147,9 +192,16 @@ def intersect_aabb(scene, meta, medium_idx, ray: Ray):
     hit = torch.ones((N,), dtype=torch.bool, device=dev)
     if MT_HETEROGENEOUS in meta.medium_types:
         P, mtype = _rows(scene, medium_idx)
+        inv_d = 1.0 / ray.d
         lo = P[:, M_BBOX_MIN:M_BBOX_MIN + 3]
         hi = P[:, M_BBOX_MAX:M_BBOX_MAX + 3]
-        inv_d = 1.0 / ray.d
+        if P.requires_grad:
+            # the slab distances of a zero direction component are
+            # infinite: there the bounds take no gradient (the
+            # reference's is 0 * inf, a NaN, on such lanes, all masked)
+            fin = torch.isfinite(inv_d)
+            lo = torch.where(fin, lo, lo.detach())
+            hi = torch.where(fin, hi, hi.detach())
         t0 = (lo - ray.o) * inv_d
         t1 = (hi - ray.o) * inv_d
         near = torch.minimum(t0, t1).amax(dim=-1)
@@ -189,8 +241,8 @@ def block_index_of(scene, meta, medium_idx, p):
     lo = P[:, M_BBOX_MIN:M_BBOX_MIN + 3]
     hi = P[:, M_BBOX_MAX:M_BBOX_MAX + 3]
     Sv, kv, Dv = _sup_static(scene)
-    rel = (p - lo) / torch.clamp(hi - lo, min=1e-30)
-    return torch.minimum(torch.clamp(torch.floor(rel * Dv / kv), min=0.0),
+    rel = (p - lo) / m.clip(hi - lo, min=1e-30)
+    return torch.minimum(m.clip(torch.floor(rel * Dv / kv), min=0.0),
                          Sv - 1.0).to(torch.int32)
 
 
@@ -208,7 +260,7 @@ def _dda_init(scene, meta, medium_idx, ray: Ray, mint):
     lo = P[:, M_BBOX_MIN:M_BBOX_MIN + 3]
     hi = P[:, M_BBOX_MAX:M_BBOX_MAX + 3]
     Sv, kv, Dv = _sup_static(scene)
-    cell = torch.clamp(hi - lo, min=1e-30) * kv / Dv
+    cell = m.clip(hi - lo, min=1e-30) * kv / Dv
     p0 = ray.at(mint)
     bidx = block_index_of(scene, meta, medium_idx, p0)
     d = ray.d
@@ -229,7 +281,8 @@ def get_majorant(scene, medium_idx):
     return P[:, M_MAJORANT:M_MAJORANT + 3]
 
 
-def get_scattering_coefficients(scene, meta, medium_idx, p, active):
+def get_scattering_coefficients(scene, meta, medium_idx, p, active,
+                                diff: bool = False):
     """(sigma_s, sigma_n, sigma_t) at world point p, per lane;
     sigma_n = majorant - sigma_t."""
     P, mtype = _rows(scene, medium_idx)
@@ -238,11 +291,11 @@ def get_scattering_coefficients(scene, meta, medium_idx, p, active):
     if MT_HETEROGENEOUS in meta.medium_types and \
             scene.media.grid_sigma_t.numel() > 1:
         dens = _sigma_grid_eval(scene, P[:, M_BBOX_MIN:M_BBOX_MIN + 3],
-                                P[:, M_BBOX_MAX:M_BBOX_MAX + 3], p)
+                                P[:, M_BBOX_MAX:M_BBOX_MAX + 3], p, diff)
         is_het = (mtype == MT_HETEROGENEOUS)[:, None]
         sigma_t = torch.where(is_het, sigma_t * dens[:, None], sigma_t)
     sigma_s = sigma_t * albedo
-    sigma_n = torch.clamp(P[:, M_MAJORANT:M_MAJORANT + 3] - sigma_t,
+    sigma_n = m.clip(P[:, M_MAJORANT:M_MAJORANT + 3] - sigma_t,
                           min=0.0)
     z = ~active[:, None]
     return (torch.where(z, 0.0, sigma_s), torch.where(z, 0.0, sigma_n),
@@ -261,8 +314,8 @@ def sample_interaction(scene, meta, ray: Ray, u, channel, medium_idx,
     maxt = torch.where(act, torch.minimum(ray.maxt, maxt), m.Infinity)
     majorant = get_majorant(scene, medium_idx)
     mj = _ch(majorant, channel)
-    u = torch.clamp(u, 0.0, m.OneMinusEpsilon)
-    sampled_t = mint + (-torch.log1p(-u) / torch.clamp(mj, min=1e-30))
+    u = m.clip(u, 0.0, m.OneMinusEpsilon)
+    sampled_t = mint + (-torch.log1p(-u) / m.clip(mj, min=1e-30))
     valid = act & (sampled_t <= maxt) & (mj > 0)
     t = torch.where(valid, sampled_t, m.Infinity)
     p = ray.at(torch.where(valid, sampled_t, 0.0))
@@ -279,7 +332,7 @@ def eval_tr_and_pdf(mi: MediumInteraction, mint, si_t, active):
     """Transmittance and free-flight pdf of a sampled segment."""
     t = torch.minimum(torch.where(torch.isfinite(mi.t), mi.t, si_t),
                       si_t) - mint
-    t = torch.clamp(t, min=0.0)
+    t = m.clip(t, min=0.0)
     tr = torch.exp(-t[:, None] * mi.combined_extinction)
     pdf = torch.where((si_t < mi.t)[:, None], tr,
                       tr * mi.combined_extinction)
@@ -290,7 +343,7 @@ def homogeneous_transmittance(scene, medium_idx, length, active):
     """Closed-form transmittance of a homogeneous segment (the majorant
     equals sigma_t there)."""
     majorant = get_majorant(scene, medium_idx)
-    tr = torch.exp(-torch.clamp(length, min=0.0)[:, None] * majorant)
+    tr = torch.exp(-m.clip(length, min=0.0)[:, None] * majorant)
     return torch.where(active[:, None], tr, 1.0)
 
 
@@ -313,32 +366,33 @@ def _medium_facts(scene, medium_idx):
             mtype == MT_HETEROGENEOUS)
 
 
-def _row_eval(scene, meta, medium_idx, lo, hi, p):
+def _row_eval(scene, meta, medium_idx, lo, hi, p, diff: bool = False):
     """(density, block bound, block control, usable) at world point p in
     one row gather of the corner-packed grid (slot 8 the block's bound,
-    slot 9 its control or leap distance); without the packed copy, a
-    trilinear lookup and a gather of the point's supervoxel. All are 0
-    outside the grid bbox; ``usable`` is False where the scene has no
-    block bounds (the walk then uses the global majorant)."""
+    slot 9 its control or leap distance); without the packed copy, or
+    under ``diff``, a trilinear lookup of ``grid_sigma_t`` and a gather of
+    the point's supervoxel. All are 0 outside the grid bbox; ``usable`` is
+    False where the scene has no block bounds (the walk then uses the
+    global majorant)."""
     med = scene.media
-    if med.grid_sigma_p8 is not None:
+    if med.grid_sigma_p8 is not None and not diff:
         inside, rows, w = _packed_row(med.grid_sigma_p8,
                                       med.grid_sigma_t.shape, lo, hi, p)
         dens = (rows[..., :8] * w).sum(dim=-1)
         return (torch.where(inside, dens, 0.0),
                 torch.where(inside, rows[..., 8], 0.0),
                 torch.where(inside, rows[..., 9], 0.0), True)
-    dens = _sigma_grid_eval(scene, lo, hi, p)
+    dens = _sigma_grid_eval(scene, lo, hi, p, diff)
     sup, smin = med.grid_sup, med.grid_sup_min
     if sup.numel() > 1 or med.grid_sigma_t.numel() > 1:
-        rel = (p - lo) / torch.clamp(hi - lo, min=1e-30)
+        rel = (p - lo) / m.clip(hi - lo, min=1e-30)
         inside = ((rel >= 0.0) & (rel <= 1.0)).all(dim=-1)
         if sup.numel() > 1:
             Sz, Sy, Sx = sup.shape
             bidx = block_index_of(scene, meta, medium_idx, p).long()
-            bz = torch.clamp(bidx[:, 2], 0, Sz - 1)
-            by = torch.clamp(bidx[:, 1], 0, Sy - 1)
-            bx = torch.clamp(bidx[:, 0], 0, Sx - 1)
+            bz = m.clip(bidx[:, 2], 0, Sz - 1)
+            by = m.clip(bidx[:, 1], 0, Sy - 1)
+            bx = m.clip(bidx[:, 0], 0, Sx - 1)
             bmaj = sup[bz, by, bx]
             bmin = (smin[bz, by, bx] if smin.shape == sup.shape
                     else torch.zeros(p.shape[:-1], device=p.device))
@@ -369,7 +423,8 @@ class _Walk(NamedTuple):
 
 
 def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
-                   mint, maxt, walking, track: bool, max_steps: int):
+                   mint, maxt, walking, track: bool, max_steps: int,
+                   diff: bool = False):
     """Null-collision walk over [mint, maxt] against supervoxel-local
     majorants, with one row gather a tracking event: at the collision
     point (collision events) or at the midpoint of the next DDA interval
@@ -386,6 +441,9 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
     mj_loc: null w *= sigma_n * mj_loc / sigma_n_hero, collision step
     w *= exp(-dt * (maj - mj_loc)) / mj_loc (hero-channel telescoping;
     the caller applies the real event's sigma_s factor).
+
+    Under ``diff`` the walk runs at most ``ceil(min(max_steps, 192) /
+    WALK_UNROLL)`` trips, each checkpointed (the reference's scan).
 
     Returns (t, w, found, dens_col, maj_vec, still_walking, events)."""
     N = ray.o.shape[0]
@@ -406,18 +464,18 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
                 torch.zeros_like(bmaj_b)
         mv = torch.where(is_het[:, None], sigma_unit * bmaj_b[:, None],
                          majorant)
-        bmin_pos = torch.clamp(bmin_b, min=0.0)
+        bmin_pos = m.clip(bmin_b, min=0.0)
         cv = torch.where(is_het[:, None],
                          sigma_unit * torch.minimum(bmin_pos,
                                                     bmaj_b)[:, None], 0.0)
-        Dd = torch.where(is_het, torch.clamp(-bmin_b, min=0.0), 0.0)
+        Dd = torch.where(is_het, m.clip(-bmin_b, min=0.0), 0.0)
         return mv, cv, Dd
 
     def ctrl_draw(t_from, c_vec, u):
         """Distance of the next control collision (inf without control)."""
         c_h = _ch(c_vec, channel)
-        t_c = t_from - torch.log1p(-torch.clamp(u, 0.0, m.OneMinusEpsilon)) \
-            / torch.clamp(c_h, min=1e-30)
+        t_c = t_from - torch.log1p(-m.clip(u, 0.0, m.OneMinusEpsilon)) \
+            / m.clip(c_h, min=1e-30)
         return torch.where(c_h > 1e-20, t_c, m.Infinity)
 
     def sub_step(s: _Walk, u) -> _Walk:
@@ -427,9 +485,9 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
         mj_loc = _ch(s.maj_vec, channel)
         c_loc = _ch(s.c_vec, channel)
         # the loop's event rate is the residual maj - c in both modes
-        res_rate = torch.clamp(mj_loc - c_loc, min=0.0)
+        res_rate = m.clip(mj_loc - c_loc, min=0.0)
         r_pos = res_rate > 1e-20
-        dt = -torch.log1p(-torch.clamp(u[:, 0], 0.0, m.OneMinusEpsilon)) \
+        dt = -torch.log1p(-m.clip(u[:, 0], 0.0, m.OneMinusEpsilon)) \
             / torch.where(r_pos, res_rate, 1.0)
         dt = torch.where(r_pos, dt, 3e38)
         t_exit = s.t_next_ax.amin(dim=-1)
@@ -450,11 +508,11 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
                                 torch.where(boundary, t_stop, t))
             rate = torch.where(r_pos, res_rate, 0.0)
         # hero-channel telescoped exponential over the step
-        seg = torch.clamp(torch.where(col, t_new - t, t_stop - t), min=0.0)
+        seg = m.clip(torch.where(col, t_new - t, t_stop - t), min=0.0)
         ratio = torch.exp(-seg[:, None] * (s.maj_vec - rate[:, None]))
         if track:
             w = torch.where(walking[:, None], w * ratio / torch.where(
-                col, torch.clamp(rate, min=1e-30), 1.0)[:, None], w)
+                col, m.clip(rate, min=1e-30), 1.0)[:, None], w)
         else:
             w = torch.where(walking[:, None], w * ratio, w)
         # DDA step for block crossings
@@ -465,7 +523,7 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
             # empty-space leap: every block before min_axis(t_next +
             # (d_leap - 1) * t_delta) is vacuum, so jump there at once;
             # the per-axis crossings stay on their lattice
-            t_shift = torch.clamp(s.d_leap - 1.0, min=0.0)[:, None] \
+            t_shift = m.clip(s.d_leap - 1.0, min=0.0)[:, None] \
                 * t_delta_fin
             leap = crossed & (s.d_leap >= 1.0)
             t_safe = (s.t_next_ax + t_shift).amin(dim=-1)
@@ -476,7 +534,7 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
             behind = (s.t_next_ax <= t_safe[:, None]) \
                 & torch.isfinite(t_delta)
             n_a = torch.floor(
-                torch.clamp(t_safe[:, None] - s.t_next_ax, min=0.0)
+                m.clip(t_safe[:, None] - s.t_next_ax, min=0.0)
                 / torch.where(behind, t_delta, 1.0)) + 1.0
             tn_l = torch.where(behind, s.t_next_ax + n_a * t_delta,
                                s.t_next_ax)
@@ -488,16 +546,16 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
             col, t_new, 0.5 * (t_new + torch.minimum(t_exit_new, maxt)))
         dens, bmaj, bmin, bok = _row_eval(
             scene, meta, medium_idx, lo, hi,
-            ray.at(torch.where(walking, probe_t, 0.0)))
+            ray.at(torch.where(walking, probe_t, 0.0)), diff)
         sigma_t_v = torch.where(is_het[:, None], sigma_unit * dens[:, None],
                                 sigma_unit)
-        sigma_n_loc = torch.clamp(s.maj_vec - sigma_t_v, min=0.0)
+        sigma_n_loc = m.clip(s.maj_vec - sigma_t_v, min=0.0)
         found, dens_col = s.found, s.dens_col
         if track:
             st_ch = _ch(sigma_t_v, channel)
             sn_ch = _ch(sigma_n_loc, channel)
-            p_real = torch.clamp(st_ch - c_loc, min=0.0) \
-                / torch.clamp(res_rate, min=1e-30)
+            p_real = m.clip(st_ch - c_loc, min=0.0) \
+                / m.clip(res_rate, min=1e-30)
             real = ctrl_hit | (col & (u[:, 1] < p_real))
             null = col & ~real
             w = torch.where(null[:, None], w * sigma_n_loc
@@ -507,13 +565,13 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
             walking_next = null | crossed
         else:
             w = torch.where(col[:, None], w * sigma_n_loc * m.safe_rcp(
-                torch.clamp(rate, min=1e-30))[:, None], w)
+                m.clip(rate, min=1e-30))[:, None], w)
             wmax = w.amax(dim=-1)
             rr = col & (wmax < RR_TR_THRESH)
-            p_srv = torch.clamp(wmax * (1.0 / RR_TR_THRESH), 0.0, 1.0)
+            p_srv = m.clip(wmax * (1.0 / RR_TR_THRESH), 0.0, 1.0)
             die = rr & (u[:, 1] >= p_srv)
             w = torch.where((rr & ~die)[:, None], w * m.safe_rcp(
-                torch.clamp(p_srv, min=1e-30))[:, None], w)
+                m.clip(p_srv, min=1e-30))[:, None], w)
             w = torch.where(die[:, None], 0.0, w)
             walking_next = (col & ~die) | crossed
         # crossing lanes adopt the new block's bounds (midpoint probe);
@@ -535,7 +593,7 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
     # the initial interval [mint, min(exit, maxt)]: probe its midpoint
     mid0 = 0.5 * (mint + torch.minimum(t_next0.amin(dim=-1), maxt))
     _, bmaj0, bmin0, bok0 = _row_eval(scene, meta, medium_idx, lo, hi,
-                                      ray.at(mid0))
+                                      ray.at(mid0), diff)
     maj_vec0, c_vec0, d_leap0 = local_bounds(bmaj0, bmin0, bok0)
     t0 = torch.where(walking, mint, 0.0)
     if track:
@@ -548,32 +606,44 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
               c_vec0, d_leap0, torch.zeros((N,), device=dev), t_next0,
               t_ctrl0)
     n_u = 3 if track else 2
-    it = 0
-    # the reference's while_loop: WALK_UNROLL masked events a trip, at
-    # most max_steps events, one read of any(walking) a trip
-    while it < max_steps and any_on_host(s.walking):
+
+    def trip(s: _Walk, it: int) -> _Walk:
         us = rng.uniform(rng.fold_in(key, it), (WALK_UNROLL, N, n_u), dev)
         for k in range(WALK_UNROLL):
             s = sub_step(s, us[k])
+        return s
+
+    # the reference's while_loop: WALK_UNROLL masked events a trip, at
+    # most max_steps events, one read of any(walking) a trip. Under diff
+    # its scan of ceil(min(max_steps, 192) / WALK_UNROLL) checkpointed
+    # trips; a trip with no lane walking changes nothing, so the loop
+    # stops there all the same.
+    cap = max_steps
+    if diff:
+        cap = -(-min(max_steps, DIFF_WALK_EVENTS) // WALK_UNROLL) \
+            * WALK_UNROLL
+    it = 0
+    while it < cap and any_on_host(s.walking):
+        s = remat.checkpoint(trip, s, it) if diff else trip(s, it)
         it += WALK_UNROLL
     return s.t, s.w, s.found, s.dens_col, s.maj_vec, s.walking, it
 
 
 def segment_tr(scene, meta, sampler, o, d, seg_len, medium_idx, channel,
-               active):
+               active, diff: bool = False):
     """Spectral transmittance over one medium segment [0, seg_len] along
     (o, d): exact Beer-Lambert for homogeneous media, supervoxel ratio
     tracking for heterogeneous ones. Returns (tr (N, 3), sampler)."""
     N = o.shape[0]
     dev = o.device
     majorant = get_majorant(scene, medium_idx)
-    seg = torch.clamp(torch.where(torch.isfinite(seg_len), seg_len, 0.0),
+    seg = m.clip(torch.where(torch.isfinite(seg_len), seg_len, 0.0),
                       min=0.0)
     tr_homo = torch.exp(-majorant * seg[:, None])
     if MT_HETEROGENEOUS not in meta.medium_types:
         return torch.where(active[:, None], tr_homo, 1.0), sampler
 
-    midx = torch.clamp(medium_idx, min=0).long()
+    midx = m.clip(medium_idx, min=0).long()
     is_het = (scene.media.type[midx] == MT_HETEROGENEOUS) & active
     key = rng.fold_in(sampler.key, sampler.dim)
     sampler = sampler._replace(dim=sampler.dim + 1)
@@ -582,19 +652,20 @@ def segment_tr(scene, meta, sampler, o, d, seg_len, medium_idx, channel,
     # clip to the grid bbox: the density is zero outside, and the walk's
     # midpoint probes must land inside it
     hit_bb, near, far = intersect_aabb(scene, meta, medium_idx, ray)
-    mint = torch.minimum(torch.clamp(near, min=0.0), seg)
-    maxt = torch.minimum(torch.clamp(far, min=0.0), seg)
+    mint = torch.minimum(m.clip(near, min=0.0), seg)
+    maxt = torch.minimum(m.clip(far, min=0.0), seg)
     walking = is_het & hit_bb & (maxt > mint)
     _, tr_het, _, _, _, still, _ = _majorant_walk(
         scene, meta, ray, key, channel, medium_idx, mint, maxt, walking,
-        track=False, max_steps=1024)
+        track=False, max_steps=1024, diff=diff)
     tr_het = torch.where(still[:, None], 0.0, tr_het)   # hit the cap
     tr = torch.where(is_het[:, None], tr_het, tr_homo)
     return torch.where(active[:, None], tr, 1.0), sampler
 
 
 def sample_real_interaction(scene, meta, ray: Ray, sampler, channel,
-                            medium_idx, active, max_steps: int = 4096):
+                            medium_idx, active, max_steps: int = 4096,
+                            diff: bool = False):
     """Delta tracking to the next real collision, null collisions resolved
     inside the walk. The weights equal the reference's outer-loop form
     (one majorant event a bounce), so the estimator is unchanged:
@@ -619,13 +690,13 @@ def sample_real_interaction(scene, meta, ray: Ray, sampler, channel,
 
     t, w, found, dens_col, maj_col, _, _ = _majorant_walk(
         scene, meta, ray, key, channel, medium_idx, mint, maxt, walking,
-        track=True, max_steps=max_steps)
+        track=True, max_steps=max_steps, diff=diff)
 
     # lanes whose hero majorant is zero never walk: they leave the segment
     # with the exact Beer-Lambert ratio of the other channels; the finite
     # clamp keeps inf * 0 out of gray media
     never = act & ~walking
-    seg_n = torch.clamp(torch.clamp(maxt - mint, min=0.0), max=3e37)
+    seg_n = m.clip(m.clip(maxt - mint, min=0.0), max=3e37)
     w = torch.where(never[:, None], torch.exp(
         -seg_n[:, None] * (majorant - mj_glob[:, None])), w)
 
@@ -640,7 +711,7 @@ def sample_real_interaction(scene, meta, ray: Ray, sampler, channel,
         p=ray.at(torch.where(found, t, 0.0)), wi=-ray.d,
         medium_idx=medium_idx,
         sigma_s=torch.where(z, 0.0, sigma_t * albedo),
-        sigma_n=torch.where(z, 0.0, torch.clamp(maj_col - sigma_t,
+        sigma_n=torch.where(z, 0.0, m.clip(maj_col - sigma_t,
                                                 min=0.0)),
         sigma_t=sigma_t,
         combined_extinction=torch.where(found[:, None], maj_col, majorant))

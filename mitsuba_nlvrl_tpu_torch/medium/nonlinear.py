@@ -43,10 +43,10 @@ class NonLinearInteraction(NamedTuple):
 
 
 def _nl_grid_info(scene, medium_idx):
-    P = scene.media.params[torch.clamp(medium_idx, min=0).long()]
+    P = scene.media.params[m.clip(medium_idx, min=0).long()]
     lo = P[:, M_BBOX_MIN:M_BBOX_MIN + 3]
     hi = P[:, M_BBOX_MAX:M_BBOX_MAX + 3]
-    res = torch.clamp(P[:, M_NL_RES:M_NL_RES + 3].to(torch.int32), min=1)
+    res = m.clip(P[:, M_NL_RES:M_NL_RES + 3].to(torch.int32), min=1)
     cell = (hi - lo) / res.to(torch.float32)
     return lo, hi, res, cell
 
@@ -54,7 +54,7 @@ def _nl_grid_info(scene, medium_idx):
 def _cell_ior(scene, c, res):
     flat = (c[:, 0] * res[:, 1] + c[:, 1]) * res[:, 2] + c[:, 2]
     n = scene.media.nl_ior.shape[0]
-    return scene.media.nl_ior[torch.clamp(flat, 0, n - 1).long()]
+    return scene.media.nl_ior[m.clip(flat, 0, n - 1).long()]
 
 
 def sample_nonlinear_interaction(scene, meta, ray: Ray, medium_idx, active
@@ -63,15 +63,15 @@ def sample_nonlinear_interaction(scene, meta, ray: Ray, medium_idx, active
     lane is not in a nonlinear medium, its origin lies outside the grid,
     or the crossed face leaves the grid (flat axes with res 1 included)."""
     lo, hi, res, cell = _nl_grid_info(scene, medium_idx)
-    midx = torch.clamp(medium_idx, min=0).long()
+    midx = m.clip(medium_idx, min=0).long()
     is_nl = (scene.media.type[midx] == MT_NONLINEAR) & (medium_idx >= 0)
 
     p0 = ray.at(ray.mint)
     inside = ((p0 >= lo) & (p0 <= hi)).all(dim=-1)
     act = active & is_nl & inside
 
-    c = torch.floor((p0 - lo) / torch.clamp(cell, min=1e-30)).to(torch.int32)
-    c = torch.minimum(torch.clamp(c, min=0), res - 1)
+    c = torch.floor((p0 - lo) / m.clip(cell, min=1e-30)).to(torch.int32)
+    c = torch.minimum(m.clip(c, min=0), res - 1)
     n1 = _cell_ior(scene, c, res)
 
     # slab test against the current cell's box: exit distance and axis
@@ -95,11 +95,11 @@ def sample_nonlinear_interaction(scene, meta, ray: Ray, medium_idx, active
     # the neighbour cell along the travel direction
     c_nb = c + step_sign.to(torch.int32)[:, None] * one_hot.to(torch.int32)
     act = act & ((c_nb >= 0) & (c_nb < res)).all(dim=-1)
-    n2 = _cell_ior(scene, torch.minimum(torch.clamp(c_nb, min=0), res - 1),
+    n2 = _cell_ior(scene, torch.minimum(m.clip(c_nb, min=0), res - 1),
                    res)
 
     # refract, or reflect at total internal reflection
-    eta_rel = n1 / torch.clamp(n2, min=1e-6)
+    eta_rel = n1 / m.clip(n2, min=1e-6)
     wo_refr, tir = m.refract_snell(ray.d, normal, eta_rel)
     wo_refl = ray.d - 2.0 * m.dot(ray.d, normal, keepdims=True) * normal
     wo = torch.where(tir[:, None], wo_refl, wo_refr)
@@ -134,7 +134,7 @@ class BentRay(NamedTuple):
         last = torch.arange(S, device=t.device)[None, :] \
             < (self.count[:, None] - 1)
         idx = ((t[:, None] >= cum) & last).sum(dim=1)
-        idx = torch.clamp(idx, 0, S - 1)[:, None]
+        idx = m.clip(idx, 0, S - 1)[:, None]
         local_t = t - prev.gather(1, idx)[:, 0]
         i3 = idx[:, :, None].expand(-1, 1, 3)
         o = self.seg_o.gather(1, i3)[:, 0]
@@ -202,7 +202,7 @@ def bend_ray(scene, meta, ray: Ray, medium_idx, active, max_segments: int,
         bend = act & nli.valid & ~hit_first
         seg_end_t = torch.where(
             bend, nli.t, torch.where(hit_first, hit_t,
-                                     torch.clamp(remaining, max=1e8)))
+                                     m.clip(remaining, max=1e8)))
         seg_o[:, i] = torch.where(act[:, None], cur.o, seg_o[:, i])
         seg_d[:, i] = torch.where(act[:, None], cur.d, seg_d[:, i])
         seg_len[:, i] = torch.where(act, seg_end_t, seg_len[:, i])

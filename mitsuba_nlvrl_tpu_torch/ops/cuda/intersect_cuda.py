@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...core import counters as _counters
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(_PKG, 'csrc', 'intersect.cu')
@@ -51,8 +53,10 @@ GEOMETRY_FIELDS = ('grid', 'smem_bytes', 'ring', 'ray_tile')
 _GEOMETRY = struct.Struct(f'<{len(GEOMETRY_FIELDS)}i')
 
 # number of kernel launches since the last reset (read by chip_smoke.py to
-# show that a render went through the kernel)
+# show that a render went through the kernel); launches made while
+# autograd recomputes a checkpointed function count apart
 launches = 0
+launches_recompute = 0
 
 _fn = None                # the bound mnt_intersect_tris
 _lib = None
@@ -197,7 +201,7 @@ def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     int32 (-1 on a miss), u, v float32 barycentrics. With ``any_hit`` only
     t is computed: finite exactly when the ray is occluded; idx, u and v
     are None."""
-    global launches
+    global launches, launches_recompute
     dev = o.device
     if dev.type == 'cpu':
         return intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit)
@@ -239,7 +243,10 @@ def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    if _counters.recomputing:
+        launches_recompute += 1
+    else:
+        launches += 1
     return t, idx, u, v
 
 

@@ -128,16 +128,25 @@ def _any_hit(scene, ray: Ray, maxt, occluders_only: bool) -> torch.Tensor:
     return occluded
 
 
+def _detached(ray: Ray, maxt):
+    """The ray and its ``maxt`` override cut from autograd: intersection
+    carries no gradient (the reference differentiates throughput weights
+    only, never the sampling structure), so the kernel needs no backward
+    pass and the plain version records no graph."""
+    return (Ray(*(x.detach() for x in ray)),
+            None if maxt is None else maxt.detach())
+
+
 def ray_test(scene, ray: Ray, maxt=None) -> torch.Tensor:
-    """Shadow-ray any-hit."""
-    return _any_hit(scene, ray, maxt, False)
+    """Shadow-ray any-hit (a mask: it carries no gradient)."""
+    return _any_hit(scene, *_detached(ray, maxt), False)
 
 
 def ray_test_occluders(scene, ray: Ray, maxt=None) -> torch.Tensor:
     """Any hit against primitives whose BSDF is not ``null``: the shadow
     query of the single-segment NEE path (integrators/volpath.py), which
     passes through pure-null medium boundaries without a surface walk."""
-    return _any_hit(scene, ray, maxt, True)
+    return _any_hit(scene, *_detached(ray, maxt), True)
 
 
 def compute_si(scene, ray: Ray, pi: PreliminaryHit) -> SurfaceInteraction:
@@ -204,6 +213,10 @@ def compute_si(scene, ray: Ray, pi: PreliminaryHit) -> SurfaceInteraction:
 
 
 def ray_intersect(scene, ray: Ray, maxt=None) -> SurfaceInteraction:
-    """Closest-hit intersection (the reference detaches it from autodiff;
-    this slice renders without gradients)."""
+    """Closest-hit intersection, detached from autograd as in the
+    reference: the rays going in are detached, so the interaction coming
+    out carries no gradient (shape gradients are out of scope; a
+    parameter-dependent origin, such as a sampled medium collision,
+    would otherwise push cotangents into masked lanes)."""
+    ray, maxt = _detached(ray, maxt)
     return compute_si(scene, ray, intersect_preliminary(scene, ray, maxt))

@@ -20,14 +20,14 @@ P_HG = PHASE_TYPES['hg']
 
 
 def _rows(scene, medium_idx):
-    midx = torch.clamp(medium_idx, min=0).long()
+    midx = m.clip(medium_idx, min=0).long()
     return (scene.media.phase_type[midx],
             scene.media.params[midx][:, M_PHASE_G])
 
 
 def _hg_eval(g, cos_theta):
     temp = 1.0 + g * g + 2.0 * g * cos_theta
-    return m.InvFourPi * (1.0 - g * g) / torch.clamp(
+    return m.InvFourPi * (1.0 - g * g) / m.clip(
         temp * m.safe_sqrt(temp), min=1e-12)
 
 

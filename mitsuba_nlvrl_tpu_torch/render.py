@@ -11,8 +11,10 @@ the reference's key, and hand the maps (``aux``) to every pass. With
 ``MNT_REGEN=1`` a volumetric ``volpath`` render or a ``path`` render
 takes the regeneration scheduler instead (``integrators/regen.py``), as
 the reference does off TPU; the pass loop stays the default. The render
-runs where the scene's tensors lie, under ``torch.no_grad()``; gradients
-come with the autodiff slice.
+runs where the scene's tensors lie, under ``torch.no_grad()``; the
+differentiable render is ``autodiff.render``. ``preprocess`` called on
+its own records autograd history, as the reference's light pass is
+differentiable.
 """
 from __future__ import annotations
 
@@ -36,13 +38,14 @@ def preprocess(scene, meta, seed: int = 0):
     """The integrator's preprocess (photon and VRL shooting), or None for
     a one-pass integrator; its key is the reference's,
     ``fold_in(PRNGKey(seed), 0x9e37)``. A wrapper integrator (``moment``,
-    ``stokes``, ``aov``) runs the preprocess of the one it wraps."""
+    ``stokes``, ``aov``) runs the preprocess of the one it wraps. The
+    light pass is differentiable, as the reference's is: where a scene
+    leaf requires grad, the maps carry its gradient."""
     inner = unwrap(meta)
     pre = get_preprocess(inner.integrator)
     if pre is None:
         return None
-    with torch.no_grad():
-        return pre(scene, inner, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
+    return pre(scene, inner, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
 
 
 def _use_regen(meta, should_stop, on_pass, timeout) -> bool:
@@ -53,7 +56,7 @@ def _use_regen(meta, should_stop, on_pass, timeout) -> bool:
     name = meta.integrator
     volumetric = name in ('volpath', 'volpathmis') and meta.has_media
     return (os.environ.get('MNT_REGEN', '') == '1'
-            and regen_supported(meta, name)
+            and regen_supported(meta, name, diff=False)
             and should_stop is None and on_pass is None and timeout is None
             and (volumetric or name == 'path'))
 
@@ -119,7 +122,8 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     acc = None
     t0 = time.time()
     if aux is None:
-        aux = preprocess(scene, meta, seed)
+        with torch.no_grad():
+            aux = preprocess(scene, meta, seed)
     if scene.device.type == 'cuda':
         torch.cuda.synchronize(scene.device)
     t_pre = time.time() - t0

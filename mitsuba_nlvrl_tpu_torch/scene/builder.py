@@ -1068,16 +1068,20 @@ _OUT_OF_SLICE_FLAGS = {
 }
 
 
-def scene_from_numpy(arrays: dict, meta: dict, device=None
+def scene_from_numpy(arrays: dict, meta: dict, device=None,
+                     params: Optional[dict] = None
                      ) -> Tuple[SceneData, SceneMeta]:
     """Build the port's ``SceneData``/``SceneMeta`` from numpy arrays.
 
     ``arrays`` maps dotted field paths of the reference's ``SceneData``
     ("geo.v0", "emitters.em_tri_cdf", "sensor.to_world.m", ...) to numpy
-    arrays; keys this slice does not read are ignored. ``meta`` holds the
-    fields of the reference's ``SceneMeta`` (``film`` as a dict). Nothing
-    here imports JAX: the caller flattens a reference scene into numpy
-    first."""
+    arrays; keys the port does not read are ignored. ``meta`` holds the
+    fields of the reference's ``SceneMeta`` (``film`` as a dict).
+    ``params``, a reference ``ParameterMap.to_dict()`` as numpy arrays,
+    is loaded key for key through the port's ``ParameterMap`` after the
+    build (its keys are the same dotted paths; a new density grid
+    refreshes its derived arrays). Nothing here imports JAX: the caller
+    flattens a reference scene into numpy first."""
     device = resolve_device(device)
     for name, item in _OUT_OF_SLICE_FLAGS.items():
         if meta.get(name):
@@ -1180,6 +1184,14 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None
                                      is not None else ()),
                       **{k: get(k, np.float32) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
+    if params:
+        from ..autodiff import ParameterMap
+        pm = ParameterMap(scene)
+        for k, v in params.items():
+            if k not in pm:
+                raise KeyError(f"'{k}' is not a differentiable parameter")
+            pm[k] = np.asarray(v)
+        scene = pm.scene
     return scene, meta_t
 
 

@@ -151,13 +151,14 @@ def hetvol_medium(grid_res: int = 32, seed: int = 0, scale: float = 100.0):
 
 
 def hetvol_box(res_w=768, res_h=576, spp=2, grid_res=128, seed=0,
-               scale=100.0):
+               scale=100.0, max_depth=8):
     """The Cornell box around a heterogeneous medium in its null cube:
     the film, sigma_t scale and HG phase of the reference's hetvol scene,
     with a density grid made from ``seed`` (``hetvol_density``), rendered
-    by ``volpath`` with max_depth 8."""
+    by ``volpath`` with ``max_depth`` (8, the configuration's)."""
     desc = cornell_box(spp=spp, res=res_w,
-                       integrator={'type': 'volpath', 'max_depth': 8},
+                       integrator={'type': 'volpath',
+                                   'max_depth': max_depth},
                        medium=hetvol_medium(grid_res, seed, scale))
     desc['sensor']['film']['height'] = res_h
     return desc

@@ -70,7 +70,8 @@ def test_no_forbidden_import_in_sources():
               'distr.py', 'distr2d.py', 'direct.py', 'depth.py',
               'spectral.py', 'mueller.py', 'polarized.py',
               'path_spectral.py', 'path_polarized.py',
-              'path_spectral_polarized.py', 'aov.py', 'regen.py'):
+              'path_spectral_polarized.py', 'aov.py', 'regen.py',
+              'autodiff.py', 'render_dist.py', 'remat.py'):
         assert f in names, f
     texture = os.path.join(PORT, 'texture', '__init__.py')
     assert texture in set(_sources())
@@ -313,5 +314,37 @@ def test_cpu_spectral_polarized_render_loads_no_jax(tmp_path):
                 'integrators.path_spectral', 'integrators.path_polarized',
                 'integrators.path_spectral_polarized', 'integrators.aov',
                 'integrators.regen'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_cpu_diff_render_loads_no_jax():
+    """The autodiff slice (autodiff.py, parallel/render_dist.py, the
+    checkpointed bounce loops, the scatter splat) renders and
+    differentiates on the CPU without JAX or the reference package."""
+    code = (
+        "import sys, torch\n"
+        "from mitsuba_nlvrl_tpu_torch import build_scene, autodiff as ad\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import hetvol_box\n"
+        "for d, key in ((cornell_box(spp=1, res=6), 'bsdfs.params'),\n"
+        "               (hetvol_box(6, 4, spp=1, grid_res=8, scale=5.0),\n"
+        "                'media.grid_sigma_t')):\n"
+        "    s, m = build_scene(d, device='cpu')\n"
+        "    pm = ad.traverse(s).keep([key])\n"
+        "    opt = ad.Adam(pm, lr=0.01)\n"
+        "    img = ad.render(s, m, params=opt.params, pmap=pm, spp=1)\n"
+        "    img.mean().backward()\n"
+        "    g = opt.params[key].grad\n"
+        "    assert bool(g.isfinite().all()) and float(g.abs().sum()) > 0\n"
+        "    opt.step()\n"
+        "    assert opt.update_scene() is pm.scene\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('autodiff', 'parallel.render_dist', 'core.remat'):
         assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
     assert not [m for m in loaded if _forbidden(m)]

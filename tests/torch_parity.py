@@ -104,9 +104,12 @@ def ieee_jit(fn, **kw):
 
 
 @contextlib.contextmanager
-def ieee_reference():
+def ieee_reference(nested: bool = False):
     """Inside the block the reference's jitted functions, those it makes
-    at call time and its render pass, compile with IEEE rounding."""
+    at call time and its render pass, compile with IEEE rounding. With
+    ``nested`` the jits the reference makes at call time stay plain: the
+    caller wraps them in one top-level ``ieee_jit`` (JAX refuses compiler
+    options on a jit inside another jit or a grad)."""
     import mitsuba_nlvrl_tpu.core.math as jm
     jrender = sys.modules['mitsuba_nlvrl_tpu.render']
     real = (jm.safe_rsqrt, jrender.render_pass)
@@ -119,7 +122,8 @@ def ieee_reference():
 
     jm.safe_rsqrt = lambda x: 1.0 / jax.lax.optimization_barrier(
         jnp.sqrt(jnp.maximum(x, tiny)))
-    jax.jit = jit
+    if not nested:
+        jax.jit = jit
     jrender.render_pass = jit(jrender._pass_body,
                               static_argnames=('meta', 'integrator'))
     try:
