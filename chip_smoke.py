@@ -88,7 +88,23 @@ through ``with_sigma_grid``), every kernel call of one diff step of each
 held to the plain version as it is made, the backward pass's recompute
 included, and the card's gradients against the CPU's on a 64x64 box and
 a 24x24 heterogeneous box (``autodiff_checks``).
-Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+Then the measured BSDFs, the double variant and the repaired spectral
+fallback: ``cbox_measured`` (the box with an isotropic and an
+anisotropic synthesized measured block, read from an XML file and its
+``.bsdf`` files; 512x512, 16 spp, ``path`` max_depth 8; in process and
+through the CLI, its EXR equal in bits), ``cbox_measured_polarized`` (a
+``.pbsdf`` sphere under ``stokes`` around ``path``; 512x512, 16 spp),
+each with every kernel call of one pass checked and timed; the float64
+kernel against its float64 plain version (the double scene's camera
+rays and edge cases) and timed at 262,144 x 12 against its bound;
+``cbox_path`` in float64 (512x512, 16 spp: every float64 kernel call of
+one pass bit for bit, the render beside the float32 render's wall, one
+float64 gradient step); and the card against the CPU on each of them,
+on a spectral ``volpath`` render of ``hetvol_box`` and a spectral
+``vrl`` render of ``cbox_nlvrl`` (``item10_checks``).
+The CPU halves of the two-pass checks against the CPU run in one
+spawned worker process beside the card's phases, which the script ends
+on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
 the JAX package.
@@ -98,6 +114,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -117,13 +134,26 @@ def emit(obj) -> None:
 
 
 # --- the card's published peaks (NVIDIA data sheets, dense) ----------------
-# (memory bytes/s, fp32 FLOP/s outside the tensor cores)
-_PEAKS = (('H200', 4.8e12, 67e12), ('H100 NVL', 3.9e12, 60e12),
-          ('H100 PCIe', 2.0e12, 51e12), ('H100', 3.35e12, 67e12))
+# (memory bytes/s, fp32 FLOP/s outside the tensor cores, fp64 FLOP/s
+# outside the tensor cores)
+_PEAKS = (('H200', 4.8e12, 67e12, 34e12), ('H100 NVL', 3.9e12, 60e12, 30e12),
+          ('H100 PCIe', 2.0e12, 51e12, 26e12),
+          ('H100', 3.35e12, 67e12, 34e12))
 
 # arithmetic of one ray-triangle test in csrc/intersect.cu (products,
 # sums and the division; the seven comparisons are not counted)
 FLOPS_PER_PAIR = 46
+
+
+# the float64 render's own gate against the CPU, set from its readings
+# (PERF.md §4): at least DOUBLE_PIXEL_FRACTION of the pixels within
+# DOUBLE_RTOL relative (every pixel cannot be: the warps of the float32
+# uniforms stay float32, as in the reference, and the card's float32 sin
+# and cos part from the CPU's by an ulp) and the means within
+# DOUBLE_MEAN_RTOL; a float32 render of the same scene misses both
+DOUBLE_RTOL = 1e-6
+DOUBLE_PIXEL_FRACTION = 0.995
+DOUBLE_MEAN_RTOL = 1e-8
 
 
 # triangles the kernel keeps whole in shared memory (kWholeMaxTris in
@@ -154,9 +184,10 @@ CUT_DEPTH = 4
 
 
 def peaks(name: str):
-    for key, bw, fl in _PEAKS:
+    """(memory bytes/s, fp32 FLOP/s, fp64 FLOP/s) of the card."""
+    for key, bw, fl, fl64 in _PEAKS:
         if key in name:
-            return bw, fl
+            return bw, fl, fl64
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
@@ -203,12 +234,15 @@ def host_ms(fn, calls: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def bound(N: int, T: int, any_hit: bool, bw: float, fl: float):
+def bound(N: int, T: int, any_hit: bool, bw: float, fl: float,
+          fbytes: int = 4):
     """(bytes, flops, bytes-bound ms, ops-bound ms) of one call: every
     input byte read once and every output byte written once (t, idx, u, v
     for nearest hit, t alone for any hit) over the memory rate,
-    FLOPS_PER_PAIR a ray-triangle pair over the fp32 rate."""
-    nbytes = N * (12 + 12 + 4 + 4) + 3 * T * 12 + N * (4 if any_hit else 16)
+    FLOPS_PER_PAIR a ray-triangle pair over the float rate ``fl`` (fp32,
+    or fp64 with ``fbytes`` 8 for the float64 kernel)."""
+    nbytes = (N * 8 * fbytes + 9 * T * fbytes
+              + N * (fbytes if any_hit else 3 * fbytes + 4))
     nops = FLOPS_PER_PAIR * N * T
     return nbytes, nops, nbytes / bw * 1e3, nops / fl * 1e3
 
@@ -406,18 +440,22 @@ def record_calls(mnt, scene, meta, mark=None) -> list:
     return calls
 
 
-def render_rays(torch, kern, calls, bw, fl, stride: int = 1) -> dict:
+def render_rays(torch, kern, calls, bw, fl, stride: int = 1,
+                fl64: float = None) -> dict:
     """The kernel on a render's own rays: every call of one pass against
     the plain version, every ``stride``-th call timed alone, then the
     pass's calls timed together (device time of the pass's kernel work)
-    and its plain version."""
+    and its plain version. A float64 scene's calls go to the float64
+    kernel, bound at the fp64 rate ``fl64``."""
     recs, worst, bounds = [], 0.0, []
     for k, (tris, rays, any_hit) in enumerate(calls):
         rec = against_plain(torch, kern, tris, rays, any_hit)
         rec.pop('idx', None)
         worst = max(worst, rec.get('max_abs_err', 0.0))
         N, T = rays[0].shape[0], tris[0].shape[0]
-        _, _, b_bytes, b_ops = bound(N, T, any_hit, bw, fl)
+        fb = rays[0].element_size()
+        _, _, b_bytes, b_ops = bound(N, T, any_hit, bw,
+                                     fl64 if fb == 8 else fl, fb)
         bounds.append((b_bytes, b_ops))
         if k % stride:
             continue
@@ -457,6 +495,91 @@ def card_vs_cpu(mnt, compare, desc, spp, scale=None) -> tuple:
                              scale=scale), img_c
 
 
+def double_card_vs_cpu(mnt, compare, desc, spp) -> dict:
+    """A float64 scene on the card and on the CPU from one seed: the
+    numbers of ``compare.agreement``, the images' dtypes, the share of
+    pixels within DOUBLE_RTOL and the largest relative pixel error; and
+    the same two and the means' relative difference for the card's
+    float32 render of the same scene against the CPU's float64 one."""
+    import numpy as np
+    sg, mg = mnt.build_scene(desc)
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
+    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp)
+    s32, m32 = mnt.build_scene({**desc, 'double': False})
+    img_32, _, _ = compare.render_with_passes(s32, m32, 0, spp)
+
+    def pixel_rel(img):
+        rel = np.abs(img.astype(np.float64) - img_c) / (np.abs(img_c)
+                                                        + 1e-12)
+        return rel.max(axis=-1)
+
+    rel_g, rel_32 = pixel_rel(img_g), pixel_rel(img_32)
+    return {**compare.agreement(img_g, img_c, passes_c, rays_g, rays_c),
+            'dtype': str(img_g.dtype), 'cpu_dtype': str(img_c.dtype),
+            'pixels_within_rtol': float((rel_g <= DOUBLE_RTOL).mean()),
+            'max_pixel_rel': float(rel_g.max()),
+            'float32_pixels_within_rtol': float(
+                (rel_32 <= DOUBLE_RTOL).mean()),
+            'float32_max_pixel_rel': float(rel_32.max()),
+            'float32_mean_rel': float(abs(img_32.mean() - img_c.mean())
+                                      / abs(img_c.mean()))}
+
+
+# The CPU halves of the two-pass checks against the CPU (their light pass
+# and camera passes on the CPU, 12-46 s each, PERF.md §4) run in one
+# spawned worker process beside the card's phases: ``start_cpu_halves``
+# submits them, ``nlvrl_card_vs_cpu`` takes its half from there by the
+# pickled (description, spp), and computes one in process that was not
+# submitted. ``stop_cpu_halves`` ends the worker.
+_cpu_pool = None
+_cpu_jobs = {}
+CPU_WORKER_THREADS = 6      # of the card machine's 8 cores
+
+
+def _cpu_worker_init() -> None:
+    import torch
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def nlvrl_cpu_half(desc, spp) -> tuple:
+    """The CPU's half of ``nlvrl_card_vs_cpu``: (its maps as numpy, their
+    counts, the image, the per-pass images, the rays)."""
+    import mitsuba_nlvrl_tpu_torch as mnt
+    from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    maps_c = mnt.preprocess(sc, mc, 0)
+    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp,
+                                                         maps_c)
+    return (mnt.maps_to_numpy(maps_c), lighttrace.map_stats(maps_c), img_c,
+            passes_c, rays_c)
+
+
+def start_cpu_halves(jobs) -> None:
+    """Submit the CPU halves of ``jobs`` ((description, spp) pairs, in the
+    order the phases reach them) to one spawned worker process."""
+    global _cpu_pool
+    import multiprocessing
+    _cpu_pool = multiprocessing.get_context('spawn').Pool(
+        1, initializer=_cpu_worker_init)
+    for desc, spp in jobs:
+        _cpu_jobs[pickle.dumps((desc, spp))] = _cpu_pool.apply_async(
+            nlvrl_cpu_half, (desc, spp))
+
+
+def stop_cpu_halves() -> list:
+    """End the worker; returns the submitted halves no check took."""
+    global _cpu_pool
+    if _cpu_pool is not None:
+        _cpu_pool.terminate()
+        _cpu_pool.join()
+        _cpu_pool = None
+    left = list(_cpu_jobs)
+    _cpu_jobs.clear()
+    return left
+
+
 def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     """A two-pass scene on the card and on the CPU from one seed: the
     camera passes on the CPU's maps carried to the card (the numbers of
@@ -464,22 +587,65 @@ def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     counts and image means)."""
     import numpy as np
     from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
+    job = _cpu_jobs.pop(pickle.dumps((desc, spp)), None)
+    maps_np, cpu_maps, img_c, passes_c, rays_c = (
+        nlvrl_cpu_half(desc, spp) if job is None else job.get())
     sg, mg = mnt.build_scene(desc)
-    sc, mc = mnt.build_scene(desc, device='cpu')
-    maps_c = mnt.preprocess(sc, mc, 0)
     maps_g = mnt.preprocess(sg, mg, 0)
-    carried = mnt.maps_from_numpy(mnt.maps_to_numpy(maps_c), device='cuda')
+    carried = mnt.maps_from_numpy(maps_np, device='cuda')
     img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp, carried)
-    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp,
-                                                         maps_c)
     own_g, _, _ = compare.render_with_passes(sg, mg, 0, spp, maps_g)
     own = {'card_maps': lighttrace.map_stats(maps_g),
-           'cpu_maps': lighttrace.map_stats(maps_c),
+           'cpu_maps': cpu_maps,
            'card_mean': float(own_g.mean()), 'cpu_mean': float(img_c.mean()),
-           'card_finite': bool(np.isfinite(own_g).all())}
+           'card_finite': bool(np.isfinite(own_g).all()),
+           'cpu_half_in_worker': job is not None}
     own['mean_rel'] = abs(own['card_mean'] - own['cpu_mean']) \
         / max(abs(own['cpu_mean']), 1e-12)
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c), own
+
+
+def nlvrl_check_desc(integrator: str, spectral: bool = False) -> dict:
+    """The 64x32 NLVRL box of the ``vrl``/``photonmapper`` checks against
+    the CPU (and the repaired spectral ``vrl`` check)."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_nlvrl
+    d = cbox_nlvrl(64, 32, spp=2, target_vrls=1000, integrator=integrator)
+    if spectral:
+        d['spectral'] = True
+    return d
+
+
+def materials_pm_check_desc() -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_materials_pm
+    return cbox_materials_pm(64, 32, 2, gather_points_cap=GATHER_CAP,
+                             **PM_CHECK_CUTS)
+
+
+def option_cases() -> tuple:
+    """(name, options, HG phase, caps) of ``nlvrl_option_phases``."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        NLVRL_ANISO_OPTIONS, NLVRL_RIS_BRE_OPTIONS)
+    return (('nlvrl_aniso', NLVRL_ANISO_OPTIONS, True,
+             {'gather_points_cap': GATHER_CAP}),
+            ('nlvrl_ris_bre', NLVRL_RIS_BRE_OPTIONS, False,
+             {'gather_points_cap': BRE_STEPS, 'max_nl_bends': BRE_BENDS}))
+
+
+def option_desc(opts, hg, caps, w, h, tv) -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_nlvrl, hg_phase
+    d = cbox_nlvrl(w, h, spp=2, target_vrls=tv, **caps, **opts)
+    return hg_phase(d) if hg else d
+
+
+def cpu_half_jobs() -> list:
+    """The two-pass checks against the CPU, in the order the phases reach
+    them, each at 2 spp."""
+    return [(d, 2) for d in (
+        nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'),
+        materials_pm_check_desc(),
+        *(option_desc(o, hg, c, 64, 32, 1000)
+          for _, o, hg, c in option_cases()),
+        nlvrl_check_desc('vrl', spectral=True))]
 
 
 def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
@@ -575,8 +741,8 @@ def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     assert rec['launches'] > 0 and rec['parts']['surface_gather']['calls']
     assert rec['finite'] and pimg.shape == (256, 512, 3)
     assert 0.0 < rec['mean'] < 10.0, rec['mean']
-    agree, own_maps = nlvrl_card_vs_cpu(mnt, compare, cbox_materials_pm(
-        64, 32, 2, gather_points_cap=GATHER_CAP, **PM_CHECK_CUTS), 2)
+    agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
+                                        materials_pm_check_desc(), 2)
     emit({'phase': 'materials_pm_card_vs_cpu', 'res': [64, 32], 'spp': 2,
           'cuts': PM_CHECK_CUTS, **agree, 'own_maps': own_maps})
     compare.check(agree)
@@ -601,17 +767,10 @@ def nlvrl_option_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     launches and the kernel's numbers."""
     from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
     from mitsuba_nlvrl_tpu_torch.integrators import vrl as vrl_mod
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        NLVRL_ANISO_OPTIONS, NLVRL_RIS_BRE_OPTIONS, cbox_nlvrl, hg_phase)
     out = {}
-    for name, opts, hg, caps in (
-            ('nlvrl_aniso', NLVRL_ANISO_OPTIONS, True,
-             {'gather_points_cap': GATHER_CAP}),
-            ('nlvrl_ris_bre', NLVRL_RIS_BRE_OPTIONS, False,
-             {'gather_points_cap': BRE_STEPS, 'max_nl_bends': BRE_BENDS})):
+    for name, opts, hg, caps in option_cases():
         def desc(w, h, tv):
-            d = cbox_nlvrl(w, h, spp=2, target_vrls=tv, **caps, **opts)
-            return hg_phase(d) if hg else d
+            return option_desc(opts, hg, caps, w, h, tv)
         scene, meta = mnt.build_scene(desc(512, 256, 8000))
         torch.cuda.synchronize()
         kern.launches = 0
@@ -1567,7 +1726,304 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     return cli_launches, c['kernel_launches']
 
 
+def kernel_f64_phases(torch, kern, scene, meta, bw, fl64) -> dict:
+    """The float64 kernel against its float64 plain version on the double
+    scene's camera rays and at its edges (ties, ragged counts, triangles
+    across several shared-memory tiles, none), nearest and any hit, equal
+    in bits; then its time at 262,144 camera rays x 12 triangles against
+    the bound (bytes over the memory rate, FLOPS_PER_PAIR a pair over
+    the fp64 rate)."""
+    from mitsuba_nlvrl_tpu_torch import sensor as sensor_mod
+    from mitsuba_nlvrl_tpu_torch.core import rng
+    from mitsuba_nlvrl_tpu_torch.integrators.common import \
+        film_sample_positions
+    dev, f64 = scene.device, torch.float64
+    pos_key, _ = rng.split(rng.fold_in(rng.PRNGKey(0), 0))
+    _, pos01 = film_sample_positions(meta, pos_key, 0, dev)
+    cam, _ = sensor_mod.sample_ray(scene, meta, pos01, None)
+    box = (scene.geo.v0, scene.geo.e1, scene.geo.e2)
+    cam_rays = tuple(x.contiguous() for x in (cam.o, cam.d, cam.mint,
+                                               cam.maxt))
+    assert all(x.dtype == f64 for x in box + cam_rays)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev,
+                                           dtype=f64)
+
+    def random_rays(N):
+        o = rand(N, 3, lo=-3.0, hi=3.0)
+        d = rand(N, 3) - o
+        d = d / d.norm(dim=1, keepdim=True)
+        return (o, d.contiguous(), torch.full((N,), 1e-4, device=dev,
+                                              dtype=f64),
+                torch.full((N,), math.inf, device=dev, dtype=f64))
+
+    def random_tris(T):
+        return (rand(T, 3), rand(T, 3, lo=-0.6, hi=0.6),
+                rand(T, 3, lo=-0.6, hi=0.6))
+
+    ties = tuple(torch.cat([x, x]).contiguous() for x in random_tris(300))
+    cases = {'cbox_camera_512': (box, cam_rays),
+             'random_1000': (random_tris(1000), random_rays(65536)),
+             'ties_600': (ties, random_rays(65536)),
+             'ragged_n': (random_tris(257), random_rays(100003)),
+             'zero_tris': (tuple(torch.zeros((0, 3), device=dev, dtype=f64)
+                                 for _ in range(3)), random_rays(4099)),
+             'n_1': (random_tris(300), random_rays(1))}
+    checks, worst = {}, 0.0
+    for name, (tris, rays) in cases.items():
+        for any_hit in (False, True):
+            rec = against_plain(torch, kern, tris, rays, any_hit)
+            idx = rec.pop('idx', None)
+            worst = max(worst, rec.get('max_abs_err', 0.0))
+            if name == 'ties_600' and not any_hit:
+                assert bool((idx[idx >= 0] < 300).all()), rec
+            if any_hit:   # the float64 kernel writes the smallest hit t
+                got = kern.intersect_tris(*tris, *rays, any_hit=True)[0]
+                ref = kern.intersect_tris_plain(*tris, *rays,
+                                                any_hit=True)[0]
+                rec['t_bit_mismatch'] = int((got.view(torch.int64)
+                                             != ref.view(torch.int64)).sum())
+                assert rec['t_bit_mismatch'] == 0, rec
+            checks[f"{name}{'_any' if any_hit else ''}"] = rec
+    N, T = cam_rays[0].shape[0], box[0].shape[0]
+    ms = time_ms(lambda: kern.intersect_tris(*box, *cam_rays), 7, 50)
+    ms_any = time_ms(lambda: kern.intersect_tris(*box, *cam_rays,
+                                                 any_hit=True), 7, 50)
+    plain_ms = time_ms(lambda: kern.intersect_tris_plain(*box, *cam_rays),
+                       5, 3)
+    nbytes, nops, b_bytes, b_ops = bound(N, T, False, bw, fl64, 8)
+    _, _, b_bytes_any, _ = bound(N, T, True, bw, fl64, 8)
+    bound_ms = max(b_bytes, b_ops)
+    rec = {'rays': N, 'tris': T, 'ms': ms, 'ms_any_hit': ms_any,
+           'plain_ms': plain_ms, 'bytes': nbytes, 'flops': nops,
+           'fp64_flops_per_s': fl64, 'bound_ms': bound_ms,
+           'bound_bytes_ms': b_bytes, 'bound_ops_ms': b_ops,
+           'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
+           'roofline_share': bound_ms / ms,
+           'roofline_share_any_hit': max(b_bytes_any, b_ops) / ms_any}
+    return {'checks': checks, 'max_abs_err': worst, 'time': rec}
+
+
+def double_render(torch, mnt, kern, sync, scene, meta, spp) -> tuple:
+    """``timed_render`` of a float64 scene: both kernels' counts set to 0
+    before and read after; (record, image)."""
+    kern.launches_f64 = 0
+    rec, img = timed_render(torch, mnt, kern, sync, scene, meta, spp)
+    rec['launches_f64'] = kern.launches_f64
+    return rec, img
+
+
+def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
+                  f32_wall) -> dict:
+    """Slice 10 on the card. ``measured_render_rays``, ``measured_render``
+    and ``measured_cli`` (cbox_measured: the box with an isotropic and an
+    anisotropic measured block, read from an XML file and its ``.bsdf``
+    files, 512x512, 16 spp, ``path`` max_depth 8; the CLI's EXR equal in
+    bits to the in-process render); ``measured_polarized_render_rays`` and
+    ``measured_polarized_render`` (a ``.pbsdf`` sphere under ``stokes``
+    around ``path``, 512x512, 16 spp, CUT_DEPTH, component 1);
+    ``double_kernel`` (the float64 kernel against its plain version and
+    timed), ``double_render_rays`` and ``double_render`` (cbox_path in
+    float64 beside the float32 render's wall, ``f32_wall``), a float64
+    ``cbox_path_grad`` step; then ``item10_checks``, the card against the
+    CPU. Returns the renders' launches and the kernels' numbers."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import autodiff as ad
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cbox_light_spd, cbox_measured, cbox_measured_polarized, cornell_box)
+    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
+    out = {'max_abs_err': 0.0}
+
+    def kernel_numbers(tag, own):
+        out.update({f'{tag}_ms': own['ms_per_launch'],
+                    f'{tag}_plain_ms': own['plain_ms_per_launch'],
+                    f'{tag}_bound_ms': own['bound_ms_per_launch'],
+                    f'{tag}_bound_by': own['bound_by']})
+        out['max_abs_err'] = max(out['max_abs_err'], own['max_abs_err'])
+
+    # --- cbox_measured: a scene file with two .bsdf files --------------
+    mdir = os.path.join(workdir, 'measured')
+    path = cbox_measured(mdir, spp=16, res=512, max_depth=8)
+    t0 = time.time()
+    scene, meta = mnt.build_scene(load_file(path))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    assert [tuple(x) for x in meta.measured_meta] == [(True, True, 1),
+                                                     (False, True, 2)]
+    calls = record_calls(mnt, scene, meta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'measured_render_rays', 'build_s': build_s,
+          'n_tris': meta.n_tris, **own})
+    del calls
+    kernel_numbers('measured', own)
+    rec, img_np = timed_render(torch, mnt, kern, sync, scene, meta, 16)
+    emit({'phase': 'measured_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'scene': 'cbox_measured', **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert 0.01 < rec['mean'] < 10.0, rec
+    exr = os.path.join(workdir, 'measured.exr')
+    wall, cli_out = run_cli([path, '-o', exr, '-v'], timeout=400)
+    stats = json.loads([x for x in cli_out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    im, names = read_exr(exr)
+    cli_img = im[..., [names.index(c) for c in 'RGB']]
+    emit({'phase': 'measured_cli', 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'],
+          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes()})
+    assert cli_img.tobytes() == img_np.tobytes(), \
+        "the CLI's measured EXR differs from the in-process render"
+    assert stats['rays'] == rec['rays']
+    out.update(launches_measured=rec['launches'],
+               launches_measured_cli=stats['kernel_launches'])
+    del scene
+
+    # --- cbox_measured_polarized: stokes, 512x512, 16 spp --------------
+    pscene, pmeta = mnt.build_scene(cbox_measured_polarized(
+        os.path.join(workdir, 'pol'), 512, 16, 1, max_depth=CUT_DEPTH))
+    calls = record_calls(mnt, pscene, pmeta)
+    own = render_rays(torch, kern, calls, bw, fl)
+    emit({'phase': 'measured_polarized_render_rays',
+          'n_tris': pmeta.n_tris, **own})
+    del calls
+    kernel_numbers('measured_polarized', own)
+    rec, pimg = timed_render(torch, mnt, kern, sync, pscene, pmeta, 16)
+    emit({'phase': 'measured_polarized_render', 'res': 512, 'spp': 16,
+          'max_depth': CUT_DEPTH, 'component': 1, **rec})
+    assert rec['launches'] > 0 and rec['finite'], rec
+    assert float(np.abs(pimg).max()) > 1e-3
+    out['launches_measured_polarized'] = rec['launches']
+    del pscene
+
+    # --- cbox_path in float64 ------------------------------------------
+    desc = cornell_box(spp=16, res=512,
+                       integrator={'type': 'path', 'max_depth': 8},
+                       radiance=cbox_light_spd())
+    desc['double'] = True
+    dscene, dmeta = mnt.build_scene(desc)
+    assert dscene.dtype == torch.float64
+    k64 = kernel_f64_phases(torch, kern, dscene, dmeta, bw, fl64)
+    emit({'phase': 'double_kernel', **k64})
+    out['max_abs_err_f64'] = k64['max_abs_err']
+    calls = record_calls(mnt, dscene, dmeta)
+    assert [c[2] for c in calls] == [False, True] * 8, len(calls)
+    assert all(r.dtype == torch.float64 for _, rays, _ in calls
+               for r in rays)
+    own64 = render_rays(torch, kern, calls, bw, fl, fl64=fl64)
+    emit({'phase': 'double_render_rays', **own64})
+    del calls
+    out['max_abs_err_f64'] = max(out['max_abs_err_f64'],
+                                 own64['max_abs_err'])
+    rec, dimg = double_render(torch, mnt, kern, sync, dscene, dmeta, 16)
+    emit({'phase': 'double_render', 'res': 512, 'spp': 16, 'max_depth': 8,
+          'scene': 'cbox_path_double', **rec, 'float32_wall_s': f32_wall,
+          'wall_vs_float32': rec['wall_s'] / f32_wall})
+    assert rec['launches_f64'] == 16 * 8 * 2 and rec['launches'] == 0, rec
+    assert rec['finite'] and 0.01 < rec['mean'] < 10.0, rec
+    # one float64 gradient step of cbox_path_grad
+    pm = ad.traverse(dscene).keep(['bsdfs.params'])
+    leaf = (pm['bsdfs.params'] * 0.3).detach().requires_grad_(True)
+    with torch.no_grad():
+        target = ad.render(dscene, dmeta, spp=1, seed=3)
+    kern.launches_f64 = kern.launches_f64_recompute = 0
+    t0 = time.time()
+    img = ad.render(dscene, dmeta, params={'bsdfs.params': leaf}, pmap=pm,
+                    spp=1, seed=3)
+    loss = ((img - target) ** 2).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    g = leaf.grad
+    grec = {'wall_s': time.time() - t0, 'loss': float(loss.detach()),
+            'dtype': str(img.dtype), 'grad_finite': bool(g.isfinite().all()),
+            'grad_abs_sum': float(g.abs().sum()),
+            'launches_f64': kern.launches_f64,
+            'launches_f64_recompute': kern.launches_f64_recompute}
+    emit({'phase': 'double_grad_step', 'res': 512, 'spp': 1,
+          'max_depth': 8, **grec})
+    assert grec['grad_finite'] and grec['grad_abs_sum'] > 0, grec
+    assert img.dtype == torch.float64 and grec['launches_f64'] > 0, grec
+    out.update(launches_f64=rec['launches_f64'] + grec['launches_f64']
+               + grec['launches_f64_recompute'],
+               launches_double_render=rec['launches_f64'],
+               launches_double_grad=grec['launches_f64'],
+               launches_double_grad_recompute=grec[
+                   'launches_f64_recompute'],
+               f64_ms=own64['ms_per_launch'],
+               f64_plain_ms=own64['plain_ms_per_launch'],
+               f64_bound_ms=own64['bound_ms_per_launch'],
+               f64_bound_by=own64['bound_by'])
+    del dscene
+
+    item10_checks(torch, mnt, compare, workdir)
+    return out
+
+
+def item10_checks(torch, mnt, compare, workdir) -> None:
+    """Slice 10 on the card against the CPU (``compare.check`` on each):
+    cbox_measured at 64x64 from its scene file; cbox_measured_polarized
+    at 64x64, components 0 and 1 (S1 gated against S0); cbox_path in
+    float64 at 64x64, also to its own gate (DOUBLE_RTOL and the rest),
+    which its float32 render misses; the repaired spectral fallback: a spectral
+    ``volpath`` render of hetvol_box at 64x32 and a spectral ``vrl``
+    render of cbox_nlvrl at 64x32 (the strict gate on the CPU's maps and
+    the means within 5% on each device's own)."""
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cbox_measured, cbox_measured_polarized, cornell_box, hetvol_box)
+
+    def gate(name, desc, spp, scale=None):
+        agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
+        emit({'phase': 'item10_checks', 'check': name, 'spp': spp, **agree})
+        compare.check(agree)
+        return img_c
+
+    gate('cbox_measured', load_file(cbox_measured(
+        os.path.join(workdir, 'measured64'), spp=2, res=64, max_depth=8)), 2)
+    pdir = os.path.join(workdir, 'pol64')
+    s0 = gate('cbox_measured_polarized_s0', cbox_measured_polarized(
+        pdir, 64, 2, 0, max_depth=CUT_DEPTH), 2)
+    gate('cbox_measured_polarized_s1', cbox_measured_polarized(
+        pdir, 64, 2, 1, max_depth=CUT_DEPTH), 2, scale=s0)
+    desc = cornell_box(spp=4, res=64,
+                       integrator={'type': 'path', 'max_depth': 8})
+    desc['double'] = True
+    agree = double_card_vs_cpu(mnt, compare, desc, 4)
+    emit({'phase': 'item10_checks', 'check': 'cbox_path_double', 'spp': 4,
+          'rtol': DOUBLE_RTOL, 'pixel_fraction': DOUBLE_PIXEL_FRACTION,
+          'mean_rtol': DOUBLE_MEAN_RTOL, **agree})
+    compare.check(agree)
+    assert agree['dtype'] == agree['cpu_dtype'] == 'float64', agree
+    assert agree['pixels_within_rtol'] >= DOUBLE_PIXEL_FRACTION, agree
+    assert agree['mean_rel'] <= DOUBLE_MEAN_RTOL, agree
+    assert agree['float32_pixels_within_rtol'] < DOUBLE_PIXEL_FRACTION, agree
+    assert agree['float32_mean_rel'] > DOUBLE_MEAN_RTOL, agree
+    desc = hetvol_box(64, 32, spp=HETVOL_CHECK_SPP, grid_res=32, seed=0,
+                      scale=100.0, max_depth=CUT_DEPTH)
+    desc['spectral'] = True
+    gate('hetvol_volpath_spectral', desc, HETVOL_CHECK_SPP)
+    agree, own_maps = nlvrl_card_vs_cpu(
+        mnt, compare, nlvrl_check_desc('vrl', spectral=True), 2)
+    emit({'phase': 'item10_checks', 'check': 'cbox_nlvrl_vrl_spectral',
+          **agree, 'own_maps': own_maps})
+    compare.check(agree)
+    assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
+        own_maps
+
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        stop_cpu_halves()
+
+
+def _main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1599,6 +2055,7 @@ def main() -> int:
     kern.build(verbose=True)
     emit({'phase': 'build', 'seconds': time.time() - t0,
           'library': kern.library_path()})
+    start_cpu_halves(cpu_half_jobs())
 
     # --- the launch geometry and the kernel against its plain version ---
     emit({'phase': 'geometry_check', **geometry_check(torch, kern)})
@@ -1611,7 +2068,7 @@ def main() -> int:
     checks, worst, box, cam_rays = kernel_check(torch, kern, dev, scene,
                                                 meta)
     emit({'phase': 'kernel_check', 'cases': checks, 'max_abs_err': worst})
-    bw, fl = peaks(name)
+    bw, fl, fl64 = peaks(name)
     # 1,023 random triangles (the largest scene the reference sweeps
     # without a BVH) against 262,144 incoherent rays
     gen = torch.Generator(device=dev).manual_seed(99)
@@ -1795,10 +2252,9 @@ def main() -> int:
     assert 0.0 < nrec['mean'] < 10.0, nrec['mean']
 
     # --- the NLVRL card path against the CPU path, 64x32 at 2 spp -------
-    for integ, tv in (('vrl', 1000), ('photonmapper', 1000)):
-        agree, own_maps = nlvrl_card_vs_cpu(
-            mnt, compare, cbox_nlvrl(64, 32, spp=2, target_vrls=tv,
-                                     integrator=integ), 2)
+    for integ in ('vrl', 'photonmapper'):
+        agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
+                                            nlvrl_check_desc(integ), 2)
         emit({'phase': 'nlvrl_card_vs_cpu', 'integrator': integ, **agree,
               'own_maps': own_maps})
         compare.check(agree)
@@ -1831,12 +2287,21 @@ def main() -> int:
     pgrad = path_grad_phase(torch, mnt, kern, sync)
     hgrad = hetvol_grad_phase(torch, mnt, kern, sync)
     autodiff_checks(torch, mnt)
+    # --- slice 10: measured BSDFs, float64, the spectral fallback -------
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_item10_')
+    try:
+        it10 = item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64,
+                             workdir, wall)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    left = stop_cpu_halves()
+    assert not left, f"{len(left)} CPU halves submitted and not taken"
     ad_launches = (pgrad['launches'] + pgrad['launches_recompute']
                    + hgrad['launches'] + hgrad['launches_recompute'])
     worst = max(worst, mat['max_abs_err'],
                 opt['nlvrl_aniso_rays']['max_abs_err'],
                 opt['long_vrl']['max_abs_err'], it7['max_abs_err'],
-                it8['max_abs_err'])
+                it8['max_abs_err'], it10['max_abs_err'])
     new_launches = (mat['launches_materials'] + mat['launches_materials_pm']
                     + opt['launches_nlvrl_aniso']
                     + opt['launches_nlvrl_ris_bre']
@@ -1845,7 +2310,10 @@ def main() -> int:
                     + it8['launches_spectral_cli']
                     + it8['launches_polarized']
                     + it8['launches_spectral_polarized']
-                    + it8['launches_regen'] + ad_launches)
+                    + it8['launches_regen'] + ad_launches
+                    + it10['launches_measured']
+                    + it10['launches_measured_cli']
+                    + it10['launches_measured_polarized'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -1897,7 +2365,25 @@ def main() -> int:
         'launches_cbox_path_grad_recompute': pgrad['launches_recompute'],
         'launches_hetvol_volpath_grad': hgrad['launches'],
         'launches_hetvol_volpath_grad_recompute':
-            hgrad['launches_recompute']}]})
+            hgrad['launches_recompute'],
+        **{k: it10[k] for k in (
+            'launches_measured', 'launches_measured_cli', 'measured_ms',
+            'measured_plain_ms', 'measured_bound_ms', 'measured_bound_by',
+            'launches_measured_polarized', 'measured_polarized_ms',
+            'measured_polarized_plain_ms', 'measured_polarized_bound_ms',
+            'measured_polarized_bound_by')}}, {
+        'name': 'intersect_tris_f64', 'route': 'cuda',
+        'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect_f64.cu',
+        'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',
+        'launches': it10['launches_f64'],
+        'max_abs_err': it10['max_abs_err_f64'],
+        'ms': it10['f64_ms'], 'plain_ms': it10['f64_plain_ms'],
+        'bound_ms': it10['f64_bound_ms'], 'bound_by': it10['f64_bound_by'],
+        'library_ms': None,
+        'launches_double_render': it10['launches_double_render'],
+        'launches_double_grad': it10['launches_double_grad'],
+        'launches_double_grad_recompute':
+            it10['launches_double_grad_recompute']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

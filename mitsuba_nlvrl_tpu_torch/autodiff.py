@@ -128,7 +128,7 @@ def _render_helper(scene, meta, spp, seed, integrator, diff=True):
         L = render_wavefront(scene, meta, pos, kp, integrator, diff=diff)
         img = film_mod.splat(meta.film, pos, L,
                              torch.ones((pos.shape[0],), device=dev),
-                             film_mod.new_image(meta.film, device=dev))
+                             film_mod.new_image(meta.film, dev, scene.dtype))
         acc = img if acc is None else acc + img
     return film_mod.develop(acc)
 

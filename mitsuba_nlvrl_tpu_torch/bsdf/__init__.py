@@ -9,7 +9,10 @@ row with ``F_TWOSIDED`` or ``F_MASK``: backfaces mirror to the upper
 hemisphere; a mask passes rays through with probability 1 - opacity),
 ``blendbsdf`` (a row naming two sub-rows and a weight), ``normalmap`` and
 ``bumpmap`` (a row naming the nested row and the texture that tilts the
-shading frame). Parameters live in a packed (B, BSDF_NPARAM) table with
+shading frame), and the measured ``measured`` and ``measured_polarized``
+(a row naming its material's tables in ``SceneData.measured`` or
+``measured_pol``; ``bsdf/measured.py``, ``bsdf/measured_pol.py``).
+Parameters live in a packed (B, BSDF_NPARAM) table with
 the reference's layout; each lane gathers its row, and every type present
 in the scene (``SceneMeta.bsdf_types``) is evaluated masked over the
 whole wavefront, then selected. Textured parameters are texture ids in
@@ -36,7 +39,7 @@ from ..core.fresnel import (fresnel_dielectric, fresnel_conductor,
 from ..scene.ior_data import conductor_rgb, conductor_spd_id, lookup_ior
 from ..scene.types import (BSDF_TYPES, F_DELTA, F_NULL, F_TRANSMISSION,
                            F_SMOOTH, F_TWOSIDED, F_MASK, BSDF_NPARAM,
-                           SLICE_BSDFS, not_in_slice)
+                           SLICE_BSDFS)
 
 RADIANCE = 0
 IMPORTANCE = 1
@@ -52,7 +55,8 @@ class BSDFSample(NamedTuple):
 
 # --- parameter packing (host side, used by the scene builder) ---------------
 
-_IOR_KEYS = ('int_ior', 'ext_ior')
+_BUILDER_ROWS = ('blendbsdf', 'normalmap', 'bumpmap', 'measured',
+                 'measured_polarized')
 
 
 def pack_params(props: dict) -> Tuple[int, int, list]:
@@ -66,9 +70,10 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
     in the reference. ``blendbsdf``, ``normalmap`` and ``bumpmap`` rows
     name other rows, so the builder packs them."""
     t = props['type']
-    if t not in SLICE_BSDFS or t in ('blendbsdf', 'normalmap', 'bumpmap'):
-        if t in BSDF_TYPES and t not in SLICE_BSDFS:
-            raise not_in_slice(f"bsdf type '{t}'", "item 10 (variants)")
+    # the rows that name other rows or tables are packed by the builder;
+    # nested in ``twosided`` or ``mask`` they raise here, as in the
+    # reference
+    if t not in SLICE_BSDFS or t in _BUILDER_ROWS:
         raise NotImplementedError(f"bsdf type {t}")
     if t == 'twosided':
         # the nested BSDF's row, flagged: backfaces mirror to the front
@@ -91,15 +96,8 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
     p[16] = float(props.get('_alpha_tex', -1)) + 1.0
     p[17] = float(props.get('_spec_tex', -1)) + 1.0
 
-    def value(key, default):
-        v = props.get(key, default)
-        if isinstance(v, str) and key not in _IOR_KEYS:
-            raise not_in_slice(f"spectral or named parameter {key}={v!r}",
-                               "item 10 (variants)")
-        return v
-
     def rgb(key, default):
-        v = value(key, default)
+        v = props.get(key, default)
         if isinstance(v, dict):
             return [0.5, 0.5, 0.5]      # textured: the fallback
         if isinstance(v, (int, float)):
@@ -107,11 +105,11 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
         return [float(x) for x in v]
 
     def scalar(key, default):
-        v = value(key, default)
+        v = props.get(key, default)
         return float(default) if isinstance(v, dict) else float(v)
 
     def ior(key, default):
-        return lookup_ior(value(key, default))
+        return lookup_ior(props.get(key, default))
 
     def conductor_eta_k():
         mat = props.get('material')
@@ -782,6 +780,10 @@ def eval(scene, meta, si, wo, mode=RADIANCE, textures=None,
         if code == BSDF_TYPES['diffuse'] and textures is not None:
             kw['textured_refl'] = textures
         out = torch.where((btype == code)[:, None], fn(P, wi, wo, **kw), out)
+    for sel, data, mm, mod in _measured_slots(scene, meta, btype, P):
+        val = (mod.eval(data, mm, wi, wo) if mm is not None
+               else mod.eval(data, P, wi, wo))
+        out = torch.where(sel[:, None], val, out)
     # a masked row's surface lobe is attenuated by its opacity
     return torch.where(((flags & F_MASK) > 0)[:, None], out * P[:, 14:15],
                        out)
@@ -806,6 +808,10 @@ def pdf(scene, meta, si, wo, _depth: int = 0):
         fn = _PDF.get(code)
         if fn is not None:
             out = torch.where(btype == code, fn(P, wi, wo), out)
+    for sel, data, mm, mod in _measured_slots(scene, meta, btype, P):
+        val = (mod.pdf(data, mm, wi, wo) if mm is not None
+               else mod.pdf(P, wi, wo))
+        out = torch.where(sel, val, out)
     return torch.where((flags & F_MASK) > 0, out * P[:, 14], out)
 
 
@@ -860,6 +866,15 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE, textures=None,
             delta=torch.where(sel, bs_c.delta, bs.delta),
             null=torch.where(sel, bs_c.null, bs.null))
         weight = torch.where(sel[:, None], w_c, weight)
+    for sel, data, mm, mod in _measured_slots(scene, meta, btype, P):
+        wo_k, pdf_k, w_k = (mod.sample(data, mm, wi, u2) if mm is not None
+                            else mod.sample(data, P, wi, u1, u2))
+        bs = BSDFSample(
+            wo=torch.where(sel[:, None], wo_k, bs.wo),
+            pdf=torch.where(sel, pdf_k, bs.pdf),
+            eta=torch.where(sel, 1.0, bs.eta),
+            delta=bs.delta & ~sel, null=bs.null & ~sel)
+        weight = torch.where(sel[:, None], w_k, weight)
     # the sampled direction of a flipped twosided lane goes back below
     flip = _flip_of(flags, si.wi)[:, None]
     bs = bs._replace(wo=torch.where(
@@ -875,6 +890,26 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE, textures=None,
         delta=bs.delta | thru, null=bs.null | thru)
     weight = torch.where(thru[:, None], 1.0, weight)
     return _unperturb_wo(f_orig, si, bs), weight
+
+
+def _measured_slots(scene, meta, btype, P):
+    """(lane mask, tables, MeasuredMeta or None, module) of each measured
+    material of the scene, one masked call a material as the reference
+    loops over them: ``measured`` rows with their meta, then
+    ``measured_polarized`` rows (meta None)."""
+    out = []
+    slot = P[:, 0].to(torch.int64)
+    if BSDF_TYPES['measured'] in meta.bsdf_types:
+        from . import measured as mod
+        is_m = btype == BSDF_TYPES['measured']
+        out += [(is_m & (slot == k), scene.measured[k], mm, mod)
+                for k, mm in enumerate(meta.measured_meta)]
+    if BSDF_TYPES['measured_polarized'] in meta.bsdf_types:
+        from . import measured_pol as mod
+        is_m = btype == BSDF_TYPES['measured_polarized']
+        out += [(is_m & (slot == k), data, None, mod)
+                for k, data in enumerate(scene.measured_pol)]
+    return out
 
 
 def flags_of(scene, si):

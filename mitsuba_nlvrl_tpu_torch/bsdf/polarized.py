@@ -13,8 +13,8 @@ Polarization-aware types:
   * polarizer, retarder, circular -- optical elements with the axes of a
                         tilted element
   * pplastic          -- a two-lobe Mueller eval
-Every other type depolarizes. ``measured_polarized`` is ROADMAP item 10
-(measured BSDFs) and raises.
+  * measured_polarized -- the measured Mueller grid (bsdf/measured_pol.py)
+Every other type depolarizes.
 
 As in the reference, null and mask pass-through lanes keep their
 polarization (the identity Mueller matrix) instead of depolarizing:
@@ -38,7 +38,7 @@ from ..core import frame as fr
 from ..core import microfacet as mf
 from ..core import mueller as mu
 from ..core.fresnel import fresnel_conductor, fresnel_dielectric
-from ..scene.types import BSDF_TYPES, not_in_slice
+from ..scene.types import BSDF_TYPES
 from . import (RADIANCE, _blend_weight, _has_perturb, _maybe_flip,
                _perturb_si, _rows, eval as eval_unpol,
                sample as sample_unpol)
@@ -176,9 +176,6 @@ def _polarize_weight(scene, meta, si, wo_loc, w_unpol, mode,
     """An unpolarized RGB weight as an (N, 3, 4, 4) world Mueller
     matrix."""
     types = meta.bsdf_types
-    if BSDF_TYPES['measured_polarized'] in types:
-        raise not_in_slice("bsdf type 'measured_polarized'",
-                           "item 10 (variants, measured BSDFs)")
     btype, flags, P = _rows(scene, si)
     wi_loc, wo_l = _maybe_flip(flags, si.wi, wo_loc)
     N = wi_loc.shape[0]
@@ -238,6 +235,18 @@ def _polarize_weight(scene, meta, si, wo_loc, w_unpol, mode,
             Mpp = Mpp * m.safe_rcp(pdf_val)[:, None, None, None]
         weight = torch.where((btype == BSDF_TYPES['pplastic'])
                              [:, None, None, None], Mpp, weight)
+
+    if BSDF_TYPES['measured_polarized'] in types:
+        # the measured Mueller eval, over the pdf for a sampling weight
+        from . import measured_pol as mp_mod
+        slot = P[:, 0].to(torch.int64)
+        for k, data in enumerate(scene.measured_pol):
+            Mk = mp_mod.eval_mueller_world_local(data, P, wi_loc, wo_l,
+                                                 mode == RADIANCE)
+            if pdf_val is not None:
+                Mk = Mk * m.safe_rcp(pdf_val)[:, None, None, None]
+            sel = (btype == BSDF_TYPES['measured_polarized']) & (slot == k)
+            weight = torch.where(sel[:, None, None, None], Mk, weight)
 
     return _to_world_mueller(si, weight, -wo_hat, wi_hat)
 

@@ -1,5 +1,6 @@
 """The render's counters in one place: launches of the ray-triangle
-kernel (``ops/cuda/intersect_cuda.launches``), BVH traversals, their steps
+kernels (``ops/cuda/intersect_cuda.launches``, and ``launches_f64`` of the
+double variant's), BVH traversals, their steps
 and the lanes cut at the step cap (``ops/bvh.stats``), and host reads
 (``core/sync.host_syncs``). ``reset`` sets all to 0 and ``read`` returns
 them, so a caller brackets a render with the two.
@@ -21,6 +22,8 @@ def reset() -> None:
     from ..ops.cuda import intersect_cuda
     intersect_cuda.launches = 0
     intersect_cuda.launches_recompute = 0
+    intersect_cuda.launches_f64 = 0
+    intersect_cuda.launches_f64_recompute = 0
     bvh.reset_stats()
     sync.host_syncs = 0
     sync.host_syncs_recompute = 0
@@ -36,4 +39,7 @@ def read() -> dict:
             'bvh_lanes_cut': bvh.stats['lanes_cut'],
             'host_syncs': sync.host_syncs,
             'kernel_launches_recompute': intersect_cuda.launches_recompute,
+            'kernel_launches_f64': intersect_cuda.launches_f64,
+            'kernel_launches_f64_recompute':
+                intersect_cuda.launches_f64_recompute,
             'host_syncs_recompute': sync.host_syncs_recompute}

@@ -1,7 +1,8 @@
 """Shading frame: local orthonormal basis around a normal.
 
 Port of ``mitsuba_nlvrl_tpu/core/frame.py``: three unit vectors with
-to_local/to_world and ``cos_theta``.
+to_local/to_world, and the local-frame trigonometry of a direction (z the
+normal).
 """
 from __future__ import annotations
 
@@ -34,3 +35,35 @@ class Frame(NamedTuple):
 def cos_theta(v):
     """cos of the angle to the normal, for v in local coordinates."""
     return v[..., 2]
+
+
+def cos_theta_2(v):
+    return m.sqr(v[..., 2])
+
+
+def sin_theta_2(v):
+    return m.clip(1.0 - cos_theta_2(v), min=0.0)
+
+
+def sin_theta(v):
+    return m.safe_sqrt(sin_theta_2(v))
+
+
+def tan_theta(v):
+    return m.safe_div(sin_theta(v), cos_theta(v))
+
+
+def tan_theta_2(v):
+    return m.safe_div(sin_theta_2(v), cos_theta_2(v))
+
+
+def sin_phi(v):
+    st = sin_theta(v)
+    return torch.where(st == 0.0, 0.0,
+                       m.clip(m.safe_div(v[..., 1], st), -1.0, 1.0))
+
+
+def cos_phi(v):
+    st = sin_theta(v)
+    return torch.where(st == 0.0, 1.0,
+                       m.clip(m.safe_div(v[..., 0], st), -1.0, 1.0))

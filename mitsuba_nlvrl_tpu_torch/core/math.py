@@ -196,6 +196,15 @@ def clip(x, min=None, max=None):
     return x
 
 
+def promote(x, ref):
+    """``x`` in the promoted type of ``x`` and ``ref``. A zero-dimensional
+    tensor does not raise the float type of a tensor with dimensions in
+    torch, where a JAX array does: under the double variant a float32
+    lane value meeting a float64 scene scalar takes this first, so that
+    both packages round alike."""
+    return x.to(torch.promote_types(x.dtype, ref.dtype))
+
+
 def safe_div(a, b, eps=1e-20):
     """a/b with 0 where |b| is (near-)zero."""
     denom_ok = torch.abs(b) > eps

@@ -72,6 +72,15 @@ class MediumInteraction(NamedTuple):
     combined_extinction: torch.Tensor  # (..., 3) majorant
 
 
+class PositionSample(NamedTuple):
+    """An area-measure sample of a point on a shape or emitter."""
+    p: torch.Tensor            # (..., 3)
+    n: torch.Tensor            # (..., 3)
+    uv: torch.Tensor           # (..., 2)
+    pdf: torch.Tensor          # (...,) area-measure pdf
+    delta: torch.Tensor        # (...,) bool
+
+
 class DirectionSample(NamedTuple):
     """Solid-angle emitter sample toward a reference point."""
     p: torch.Tensor            # (..., 3) point on emitter

@@ -76,8 +76,9 @@ def split(key, n: int = 2) -> Tuple[torch.Tensor, ...]:
     return tuple(_key(a[i], b[i]) for i in range(n))
 
 
-def random_bits(key, shape, device=None) -> torch.Tensor:
-    """32 random bits per element (as int64), row-major counters."""
+def _threefry_words(key, shape, device):
+    """The two threefry output words of each element, row-major
+    counters."""
     k1, k2 = _key_ints(key)
     n = 1
     for s in shape:
@@ -86,12 +87,23 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
         raise NotImplementedError("random bits beyond 2**32 elements")
     counts = torch.arange(n, dtype=torch.int64, device=device)
     a, b = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return (a ^ b).reshape(shape)
+    return a.reshape(shape), b.reshape(shape)
 
 
-def uniform(key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1): the top 23
-    bits as the mantissa of a float in [1, 2), minus one."""
+def random_bits(key, shape, device=None) -> torch.Tensor:
+    """32 random bits per element (as int64), row-major counters."""
+    a, b = _threefry_words(key, shape, device)
+    return a ^ b
+
+
+def uniform(key, shape, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` in [0, 1): the top
+    mantissa bits of the element's random bits as a float in [1, 2),
+    minus one. float32 takes 23 of the 32 bits ``a ^ b``; float64 (the
+    reference's default float under x64) 52 of the 64 bits ``a:b``."""
+    if dtype == torch.float64:
+        a, b = _threefry_words(key, shape, device)
+        return ((a << 20) | (b >> 12)).to(torch.float64) * 2.0 ** -52
     bits = random_bits(key, shape, device)
     return (bits >> 9).to(torch.float32) * (1.0 / (1 << 23))
 

@@ -131,10 +131,12 @@ def splat_pixel_ordered(film: FilmMeta, jitter: torch.Tensor,
     return img
 
 
-def new_image(film: FilmMeta, device=None) -> torch.Tensor:
-    """(H, W, 4) zeros: rgb * weight and the weight."""
-    return torch.zeros((film.height, film.width, 4),
-                       dtype=torch.float32, device=device)
+def new_image(film: FilmMeta, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+    """(H, W, 4) zeros: rgb * weight and the weight, in the scene's float
+    type."""
+    return torch.zeros((film.height, film.width, 4), dtype=dtype,
+                       device=device)
 
 
 def develop(image: torch.Tensor) -> torch.Tensor:

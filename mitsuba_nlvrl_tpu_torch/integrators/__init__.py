@@ -21,7 +21,6 @@ from . import path as _path
 from . import photonmapper as _pm
 from . import volpath as _volpath
 from . import vrl as _vrl
-from ..scene.types import not_in_slice
 
 _REGISTRY = {'path': _path.sample, 'direct': _direct.sample,
              'depth': _depth.sample, 'volpath': _volpath.sample,
@@ -35,7 +34,7 @@ _PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
 
 def get_integrator(name: str):
     if name not in _REGISTRY:
-        raise not_in_slice(f"integrator '{name}'", "item 10 (variants)")
+        raise KeyError(f"unknown integrator '{name}'")
     return _REGISTRY[name]
 
 

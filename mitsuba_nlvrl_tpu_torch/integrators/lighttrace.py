@@ -198,9 +198,11 @@ _RESERVOIRS = ('sp_pos', 'sp_power', 'sp_dir', 'sp_normal', 'sp_depth',
                'vrl_direct')
 
 
-def _empty_raw(N, sp_cap, vp_cap, vrl_cap, dev) -> RawDeposits:
-    """Reservoirs with one spare row each (``_scatter_rows``)."""
-    def z(n, *shape, dtype=torch.float32):
+def _empty_raw(N, sp_cap, vp_cap, vrl_cap, dev,
+               ft=torch.float32) -> RawDeposits:
+    """Reservoirs with one spare row each (``_scatter_rows``), their
+    floats in the scene's type ``ft``."""
+    def z(n, *shape, dtype=ft):
         return torch.zeros((n + 1,) + shape, dtype=dtype, device=dev)
     zi = torch.zeros((), dtype=torch.int32, device=dev)
     zb = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -237,10 +239,10 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
         # the laser replaces the ray's geometry only: the flux stays the
         # sampled emitter's, as the reference keeps it
         lo = torch.tensor(meta.iprop('laser_origin', (0.0, 0.0, 0.0)),
-                          dtype=torch.float32, device=dev)
+                          dtype=scene.dtype, device=dev)
         ld = m.normalize(torch.tensor(
             meta.iprop('laser_direction', (0.0, 0.0, 1.0)),
-            dtype=torch.float32, device=dev))
+            dtype=scene.dtype, device=dev))
         ray = Ray.make(lo.expand(N, 3).contiguous(),
                        ld.expand(N, 3).contiguous(), mint=0.0)
 
@@ -262,7 +264,7 @@ def shoot(scene, meta, key, n_paths: int, max_depth: int = 8,
         vrl_direct=act0, channel=channel)
 
     has_nl = MEDIUM_TYPES['nonlinear'] in meta.medium_types and max_bends > 0
-    raw = _empty_raw(N, sp_cap, vp_cap, vrl_cap, dev)
+    raw = _empty_raw(N, sp_cap, vp_cap, vrl_cap, dev, scene.dtype)
     trunc = torch.zeros((N,), dtype=torch.bool, device=dev)
     inf = torch.full((N,), m.Infinity, device=dev)
 
@@ -529,7 +531,7 @@ def _thin(key, valid, flux, arrays, cap: int):
     budget. Returns (kept, vmask, flux_out, arrays_out), cap rows each."""
     n = valid.shape[0]
     dev = valid.device
-    r = rng.uniform(key, (n,), dev)
+    r = rng.uniform(key, (n,), dev, flux.dtype)
     order = torch.argsort(torch.where(valid, r, 2.0), stable=True)
     take = order[:cap]
     count = valid.sum(dtype=torch.int32)

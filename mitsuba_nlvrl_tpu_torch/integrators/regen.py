@@ -241,7 +241,7 @@ def render_regen(scene, meta, seed: int = 0, spp=None, ray_stats=None,
     body = (path_mod if family == 'path' else volpath).make_body(
         scene, meta, n_lanes)
 
-    image = film_mod.new_image(meta.film, device=dev)
+    image = film_mod.new_image(meta.film, dev, scene.dtype)
     p = 0
     with torch.no_grad():
         while p < spp:

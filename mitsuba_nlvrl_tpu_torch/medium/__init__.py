@@ -598,7 +598,7 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
     t0 = torch.where(walking, mint, 0.0)
     if track:
         t_ctrl0 = ctrl_draw(t0, c_vec0, rng.uniform(
-            rng.fold_in(key, _CTRL0_FOLD), (N,), dev))
+            rng.fold_in(key, _CTRL0_FOLD), (N,), dev, scene.dtype))
     else:
         t_ctrl0 = torch.full((N,), m.Infinity, device=dev)
     s = _Walk(t0, torch.ones((N, 3), device=dev), walking,
@@ -608,7 +608,8 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
     n_u = 3 if track else 2
 
     def trip(s: _Walk, it: int) -> _Walk:
-        us = rng.uniform(rng.fold_in(key, it), (WALK_UNROLL, N, n_u), dev)
+        us = rng.uniform(rng.fold_in(key, it), (WALK_UNROLL, N, n_u), dev,
+                         scene.dtype)
         for k in range(WALK_UNROLL):
             s = sub_step(s, us[k])
         return s

@@ -165,12 +165,11 @@ def traverse(bvh: BVHArrays, tri_v0, tri_e1, tri_e2, o, d, mint, maxt,
     """Nearest (or any) hit of rays (o, d) in [mint, maxt) against the BVH
     over the reordered triangles ``tri_*``. Returns (t, reordered idx, u,
     v): t is inf and idx -1 on a miss."""
-    N, dev = o.shape[0], o.device
-    f32 = torch.float32
-    hit_t = torch.full((N,), torch.inf, dtype=f32, device=dev)
+    N, dev, ft = o.shape[0], o.device, o.dtype   # float64 when double
+    hit_t = torch.full((N,), torch.inf, dtype=ft, device=dev)
     best_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((N,), dtype=f32, device=dev)
-    best_v = torch.zeros((N,), dtype=f32, device=dev)
+    best_u = torch.zeros((N,), dtype=ft, device=dev)
+    best_v = torch.zeros((N,), dtype=ft, device=dev)
     stats['calls'] += 1
     if N == 0 or tri_v0.shape[0] == 0:
         return hit_t, best_i, best_u, best_v

@@ -3,14 +3,16 @@
 Counterpart of ``mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py``. The
 kernel (``csrc/intersect.cu``) replaces the TPU kernel ``_mt_kernel``: a
 dense rays x triangles Möller-Trumbore sweep with a fused nearest-hit or
-any-hit reduction. ``intersect_tris`` takes the kernel on CUDA tensors and
-the plain PyTorch version ``intersect_tris_plain`` on CPU tensors; on a
-CUDA tensor it launches the kernel or raises.
+any-hit reduction. The double variant's scenes take a second kernel of
+the same contract in float64 (``csrc/intersect_f64.cu``), chosen by the
+arguments' dtype. ``intersect_tris`` takes a kernel on CUDA tensors and
+the plain PyTorch version ``intersect_tris_plain`` (float32 or float64)
+on CPU tensors; on a CUDA tensor it launches the kernel or raises.
 
-The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
-``mitsuba_nlvrl_tpu_torch/_build/``, under a name that carries a hash of
-the source and flags (an edited source is rebuilt), and bound with
-``ctypes``.
+The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use into
+``mitsuba_nlvrl_tpu_torch/_build/`` (one nvcc a source, started
+together), under names that carry a hash of the source and flags (an
+edited source is rebuilt), and bound with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ...core import counters as _counters
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(_PKG, 'csrc', 'intersect.cu')
+SOURCE_F64 = os.path.join(_PKG, 'csrc', 'intersect_f64.cu')
 BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
@@ -45,6 +48,7 @@ ARGTYPES = {
     'mnt_intersect_geometry': [ctypes.c_int] * 3 + [ctypes.c_void_p],
     'mnt_intersect_tris': [ctypes.c_void_p],
 }
+ARGTYPES_F64 = {'mnt_intersect_tris_f64': [ctypes.c_void_p]}
 LAUNCH_FIELDS = ('v0', 'e1', 'e2', 'n_tris', 'o', 'd', 'mint', 'maxt',
                  'n_rays', 'any_hit', 't_out', 'i_out', 'u_out', 'v_out',
                  'stream')
@@ -57,11 +61,24 @@ _GEOMETRY = struct.Struct(f'<{len(GEOMETRY_FIELDS)}i')
 # autograd recomputes a checkpointed function count apart
 launches = 0
 launches_recompute = 0
+# the same for the float64 kernel
+launches_f64 = 0
+launches_f64_recompute = 0
 
-_fn = None                # the bound mnt_intersect_tris
-_lib = None
-_lock = threading.Lock()
 _F32 = torch.float32
+_F64 = torch.float64
+# a float type's kernel: its source, its entry points' argument types, the
+# entry point that launches it, and its two counters above
+_KERNELS = {
+    _F32: (SOURCE, ARGTYPES, 'mnt_intersect_tris', 'launches',
+           'launches_recompute'),
+    _F64: (SOURCE_F64, ARGTYPES_F64, 'mnt_intersect_tris_f64',
+           'launches_f64', 'launches_f64_recompute'),
+}
+_fns = {}                 # float type -> its bound entry point
+_count = globals()        # the counters, by name
+_lib = None               # the float32 library (it answers geometry())
+_lock = threading.Lock()
 _local = threading.local()   # a thread's LaunchArgs buffer and its address
 _MAX_ROWS = (2**31 - 1) // 3   # 3 * N and 3 * T must fit the kernel's ints
 
@@ -83,44 +100,66 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or NVCC")
 
 
-def library_path() -> str:
+def library_path(source: str = SOURCE) -> str:
     h = hashlib.sha256()
-    with open(SOURCE, 'rb') as f:
+    with open(source, 'rb') as f:
         h.update(f.read())
     h.update(' '.join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f'libmnt_intersect_{h.hexdigest()[:16]}.so')
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f'libmnt_{stem}_{h.hexdigest()[:16]}.so')
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel if its library is missing; returns its path.
-    ``verbose`` adds ``-Xptxas -v`` and prints nvcc's report on stderr."""
-    path = library_path()
-    if os.path.exists(path) and not verbose:
-        return path
+def build(verbose: bool = False, sources=(SOURCE, SOURCE_F64)) -> str:
+    """Compile those of ``sources`` whose libraries are missing, one nvcc
+    a source started together; returns the first source's library path.
+    ``verbose`` adds ``-Xptxas -v`` and prints nvcc's reports on stderr."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
-           '-o', tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)
-    if verbose:
-        print(res.stderr, end='', file=sys.stderr)
-    return path
+    jobs = []
+    for src in sources:
+        path = library_path(src)
+        if os.path.exists(path) and not verbose:
+            continue
+        tmp = f'{path}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), *NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
+               '-o', tmp, src]
+        jobs.append((path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for path, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, path)
+        if verbose:
+            print(err, end='', file=sys.stderr)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return library_path(sources[0])
 
 
-def _load():
-    global _lib, _fn
+def _bind(path: str, argtypes: dict):
+    lib = ctypes.CDLL(path)
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _load(dtype=_F32):
+    """Build and bind the kernel of float type ``dtype`` at its first use;
+    returns its entry point."""
+    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in ARGTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib, _fn = lib, lib.mnt_intersect_tris
-    return _lib
+        if dtype not in _fns:
+            source, argtypes, entry = _KERNELS[dtype][:3]
+            build(sources=(source,))
+            lib = _bind(library_path(source), argtypes)
+            if dtype is _F32:
+                _lib = lib
+            _fns[dtype] = getattr(lib, entry)
+    return _fns[dtype]
 
 
 def geometry(n_rays: int, n_tris: int, any_hit: bool = False,
@@ -128,7 +167,8 @@ def geometry(n_rays: int, n_tris: int, any_hit: bool = False,
     """The launch the kernel makes for ``n_rays`` rays against ``n_tris``
     triangles on a CUDA device (the current one by default), as the
     library works it out at each launch."""
-    lib = _load()
+    _load()
+    lib = _lib
     buf = ctypes.create_string_buffer(_GEOMETRY.size)
     with torch.cuda.device(device):
         err = lib.mnt_intersect_geometry(n_rays, n_tris, int(any_hit), buf)
@@ -151,11 +191,12 @@ _current_device = getattr(torch._C, '_cuda_getDevice',
                           torch.cuda.current_device)
 
 
-def _check(name, x, shape, device):
+def _check(name, x, shape, device, dtype):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} as v0 is (float32 or "
+                        f"float64), got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
                          f"{shape}")
@@ -166,26 +207,28 @@ def _check(name, x, shape, device):
 def _explain(v0, e1, e2, o, d, mint, maxt):
     """Raise the error that names the first argument the kernel refuses."""
     T, N, dev = v0.shape[0], o.shape[0], o.device
+    dtype = v0.dtype if v0.dtype in (_F32, _F64) else _F32
     for name, x, shape in (('v0', v0, (T, 3)), ('e1', e1, (T, 3)),
                            ('e2', e2, (T, 3)), ('o', o, (N, 3)),
                            ('d', d, (N, 3)), ('mint', mint, (N,)),
                            ('maxt', maxt, (N,))):
-        _check(name, x, shape, dev)
+        _check(name, x, shape, dev, dtype)
     raise ValueError(f"{N} rays, {T} triangles: the kernel takes at most "
                      f"{_MAX_ROWS} of each")
 
 
 def _args_ok(v0, e1, e2, o, d, mint, maxt, T, N, dev) -> bool:
-    """Whether the kernel takes these arguments (one pass, no tuples of
-    tensors; _explain says what is wrong)."""
+    """Whether a kernel takes these arguments, all float32 or all float64
+    (one pass, no tuples of tensors; _explain says what is wrong)."""
     tri_shape, ray_shape = (T, 3), (N, 3)
+    ft = v0.dtype
     return (v0.shape == tri_shape and e1.shape == tri_shape
             and e2.shape == tri_shape and o.shape == ray_shape
             and d.shape == ray_shape and mint.shape == (N,)
             and maxt.shape == (N,) and N <= _MAX_ROWS and T <= _MAX_ROWS
-            and v0.dtype is _F32 and e1.dtype is _F32 and e2.dtype is _F32
-            and o.dtype is _F32 and d.dtype is _F32 and mint.dtype is _F32
-            and maxt.dtype is _F32 and v0.device == dev and e1.device == dev
+            and (ft is _F32 or ft is _F64) and e1.dtype is ft
+            and e2.dtype is ft and o.dtype is ft and d.dtype is ft
+            and mint.dtype is ft and maxt.dtype is ft and v0.device == dev and e1.device == dev
             and e2.device == dev and d.device == dev and mint.device == dev
             and maxt.device == dev and v0.is_contiguous()
             and e1.is_contiguous() and e2.is_contiguous()
@@ -196,12 +239,12 @@ def _args_ok(v0, e1, e2, o, d, mint, maxt, T, N, dev) -> bool:
 def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     """Nearest (or any) hit of N rays against T triangles.
 
-    v0, e1, e2: (T, 3) float32; o, d: (N, 3); mint, maxt: (N,).
-    Returns (t, idx, u, v), each (N,): t float32 (inf on a miss), idx
-    int32 (-1 on a miss), u, v float32 barycentrics. With ``any_hit`` only
-    t is computed: finite exactly when the ray is occluded; idx, u and v
-    are None."""
-    global launches, launches_recompute
+    v0, e1, e2: (T, 3); o, d: (N, 3); mint, maxt: (N,), all float32 (the
+    float32 kernel) or all float64 (the float64 kernel). Returns (t, idx,
+    u, v), each (N,): t (inf on a miss), idx int32 (-1 on a miss), u, v
+    barycentrics, in the arguments' float type. With ``any_hit`` only t is
+    computed: finite exactly when the ray is occluded; idx, u and v are
+    None."""
     dev = o.device
     if dev.type == 'cpu':
         return intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit)
@@ -221,8 +264,8 @@ def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
         v = torch.empty_like(mint)
     if N == 0:
         return t, idx, u, v
-    if _fn is None:
-        _load()
+    ft = v0.dtype
+    fn = _fns.get(ft) or _load(ft)
     di = dev.index
     packed = getattr(_local, 'packed', None)
     if packed is None:
@@ -236,17 +279,15 @@ def intersect_tris(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
                     0 if any_hit else u.data_ptr(),
                     0 if any_hit else v.data_ptr(), _raw_stream(di))
     if di == _current_device():
-        err = _fn(packed[1])
+        err = fn(packed[1])
     else:
         with torch.cuda.device(di):
-            err = _fn(packed[1])
+            err = fn(packed[1])
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
                            f"{err}")
-    if _counters.recomputing:
-        launches_recompute += 1
-    else:
-        launches += 1
+    counter = _KERNELS[ft][4 if _counters.recomputing else 3]
+    _count[counter] += 1
     return t, idx, u, v
 
 
@@ -287,10 +328,10 @@ def intersect_tris_plain(v0, e1, e2, o, d, mint, maxt, any_hit: bool = False):
     the smallest hit t and None for idx, u and v). Runs on any device."""
     T, N = v0.shape[0], o.shape[0]
     dev = o.device
-    best_t = torch.full((N,), math.inf, device=dev)
+    best_t = torch.full((N,), math.inf, dtype=o.dtype, device=dev)
     best_i = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((N,), device=dev)
-    best_v = torch.zeros((N,), device=dev)
+    best_u = torch.zeros((N,), dtype=o.dtype, device=dev)
+    best_v = torch.zeros((N,), dtype=o.dtype, device=dev)
     chunk = min(1024, max(128, -(-T // 128) * 128))
     ray_block = max(1, _PLAIN_PLANE // chunk)
     for r0 in range(0, N, ray_block):

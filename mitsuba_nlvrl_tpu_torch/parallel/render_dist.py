@@ -32,7 +32,7 @@ def render_wavefront(scene, meta, pos, key, integrator: Optional[str] = None,
     N = pos.shape[0]
     ray, sensor_weight = sensor_mod.sample_ray(
         scene, meta, pos * scale, rng.uniform(rng.fold_in(key, 1), (N, 2),
-                                              dev))
+                                              dev, scene.dtype))
     sampler = Sampler.make(rng.fold_in(key, 2), N, dev)
     L, valid, _ = integ(scene, meta, sampler, ray, diff=diff)
     return torch.where(torch.isfinite(L), L, 0.0) * sensor_weight

@@ -73,11 +73,11 @@ def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
         N = pos.shape[0]
         ray, sensor_weight = sensor_mod.sample_ray(
             scene, meta, pos01, rng.uniform(rng.fold_in(pos_key, 1), (N, 2),
-                                            dev))
+                                            dev, scene.dtype))
         sampler = Sampler.make(samp_key, N, dev)
         L, valid, sampler = integ(scene, meta, sampler, ray, aux=aux)
         L = torch.where(torch.isfinite(L), L, 0.0) * sensor_weight
-        image = film_mod.new_image(meta.film, device=dev)
+        image = film_mod.new_image(meta.film, dev, scene.dtype)
         # the camera wavefront is pixel-ordered: dense shifted-add splat
         jitter = pos - torch.floor(pos)
         image = film_mod.splat_pixel_ordered(meta.film, jitter, L, image)

@@ -28,6 +28,12 @@ volumes stacked; meshes with vertex colours carry per-corner colours for
 warp of its luminance; a missing envmap file is replaced by the
 reference's procedural sky.
 
+A ``measured`` or ``measured_polarized`` BSDF reads its tensor file
+(``filename``, or parsed ``_fields``) into the scene's ``measured`` and
+``measured_pol`` tables. ``desc['double']`` or ``MNT_DOUBLE=1`` makes
+every float table float64 (the double variant), and so does a reference
+scene whose arrays are float64.
+
 Shapes may bound participating media (``interior``/``exterior``); a
 medium-only shape gets a ``null`` BSDF. Homogeneous, heterogeneous (one
 density grid a scene) and nonlinear (one IOR grid a scene) media are
@@ -52,8 +58,8 @@ from .types import (SceneData, SceneMeta, FilmMeta, Geometry, ShapeTable,
                     M_SIGMA_T, M_ALBEDO, M_SCALE, M_PHASE_G, M_BBOX_MIN,
                     M_BBOX_MAX, M_MAJORANT, M_NL_TOP_IOR, M_NL_BOT_IOR,
                     M_NL_RES, M_NL_FROM_BOTTOM, SLICE_MEDIA, SLICE_PHASES,
-                    BVH_MIN_TRIS, TEXTURE_TYPES, TEX_NPARAM,
-                    SLICE_SHAPES, TextureTable, check_meta, not_in_slice)
+                    BVH_MIN_TRIS, TEXTURE_TYPES, TEX_NPARAM, F_SMOOTH,
+                    SLICE_SHAPES, TextureTable, check_meta)
 from .mesh_io import (MeshData, compute_vertex_normals, load_blender,
                       load_obj, load_ply, load_serialized)
 from .ior_data import spd_curves
@@ -63,6 +69,7 @@ from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from .. import texture as tex_mod
 from ..core import distr2d
+from ..bsdf.measured import MeasuredMeta
 from ..sensor import build_sensor
 
 
@@ -611,6 +618,10 @@ class SceneBuilder:
         # the named attribute of the scene's mesh_attribute textures whose
         # colours the corner buffer holds (one name a scene)
         self.mesh_attr_name: Optional[str] = None
+        # measured materials: (arrays keyed by the MeasuredData field path,
+        # MeasuredMeta) and the measured polarized grids' arrays
+        self.measured: List[Tuple[dict, tuple]] = []
+        self.measured_pol: List[dict] = []
 
     def _texture_index(self, props: dict) -> int:
         key = id(props)
@@ -633,6 +644,29 @@ class SceneBuilder:
         self.bsdf_rows.append((code, flags, p))
         self.bsdf_cache[key] = len(self.bsdf_rows) - 1
         return self.bsdf_cache[key]
+
+    def _measured_row(self, key: int, kind: str, props: dict) -> int:
+        """A measured material's row: its tables go to the scene's
+        ``measured`` (or ``measured_pol``) tuple, read from ``filename``
+        or from the parsed fields in ``_fields``, and the row holds the
+        slot in param 0 (and the polarized mixture's alpha and a fixed
+        wavelength in params 1-2)."""
+        from ..bsdf import measured as meas_mod, measured_pol as mp_mod
+        tf = props.get('_fields')
+        if tf is None:
+            tf = meas_mod.read_tensor_file(props['filename'])
+        p = [0.0] * BSDF_NPARAM
+        if kind == 'measured':
+            data, mm = meas_mod.load_fields(tf, device='cpu')
+            p[0] = float(len(self.measured))
+            self.measured.append((_flat_arrays(data), mm))
+        else:
+            p[0] = float(len(self.measured_pol))
+            self.measured_pol.append(_flat_arrays(
+                mp_mod.load_fields(tf, device='cpu')))
+            p[1] = float(props.get('alpha_sample', 0.1))
+            p[2] = float(props.get('wavelength', -1.0))
+        return self._wrapper_row(key, BSDF_TYPES[kind], F_SMOOTH, p)
 
     def _bsdf_index(self, props: Optional[dict]) -> int:
         # A plain BSDF gets a row of its own each time, shared dicts
@@ -662,6 +696,8 @@ class SceneBuilder:
             p[2] = float(props.get('scale', 1.0))
             return self._wrapper_row(key, BSDF_TYPES[kind],
                                      self.bsdf_rows[row_n][1], p)
+        if kind in ('measured', 'measured_polarized'):
+            return self._measured_row(key, kind, props)
         if kind == 'blendbsdf':
             subs = props.get('bsdf', [])
             if isinstance(subs, dict):
@@ -704,9 +740,6 @@ class SceneBuilder:
     def build(self) -> Tuple[Dict[str, np.ndarray], dict]:
         """Returns (arrays, meta) in the form ``scene_from_numpy`` takes."""
         desc = self.desc
-        # the reference's build_scene also turns float64 on from MNT_DOUBLE
-        if desc.get('double') or os.environ.get('MNT_DOUBLE', '') == '1':
-            raise not_in_slice("the double variant", "item 10 (variants)")
         # --- film / sensor -------------------------------------------------
         sensor_desc = desc.get('sensor', {'type': 'perspective'})
         film_desc = sensor_desc.get('film', {})
@@ -1003,6 +1036,11 @@ class SceneBuilder:
             'media.nl_medium': np.asarray(nl_medium, np.int32)})
         if dense and grid_sigma.size <= _PACK_MAX_VOXELS:
             arrays['media.grid_sigma_p8'] = _corner_pack(grid_sigma)
+        for k, (flat, _) in enumerate(self.measured):
+            arrays.update({f'measured.{k}.{f}': a for f, a in flat.items()})
+        for k, flat in enumerate(self.measured_pol):
+            arrays.update({f'measured_pol.{k}.{f}': a
+                           for f, a in flat.items()})
 
         integ = desc.get('integrator', {'type': 'path'})
         meta = dict(
@@ -1029,6 +1067,8 @@ class SceneBuilder:
                 for r in self.bsdf_rows),
             spectral=bool(desc.get('spectral', False)),
             has_conductor_spd=has_cond_spd,
+            measured_meta=tuple(mm for _, mm in self.measured),
+            double=_wants_double(desc),
             sensor_type=sensor_type, film=film,
             sampler=sampler_desc.get('type', 'independent'), spp=spp,
             integrator=integ.get('type', 'path'),
@@ -1061,11 +1101,52 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-# Scene flags of the reference's SceneMeta that name features outside this
-# slice, with the ROADMAP item that ports each.
-_OUT_OF_SLICE_FLAGS = {
-    'measured_meta': "item 10 (variants)",
-}
+def _wants_double(desc: dict) -> bool:
+    """The double variant: ``desc['double']``, or ``MNT_DOUBLE=1`` in the
+    environment, as the reference's ``build_scene`` reads them."""
+    return bool(desc.get('double', False)) \
+        or os.environ.get('MNT_DOUBLE', '') == '1'
+
+
+def _flat_arrays(node, prefix='') -> dict:
+    """A NamedTuple of tensors (tuples of them included) as {dotted
+    field path: ndarray}, the keys ``scene_from_numpy`` reads."""
+    out = {}
+    items = (node._asdict().items() if hasattr(node, '_fields')
+             else enumerate(node))
+    for f, x in items:
+        key = f'{prefix}{f}'
+        if isinstance(x, tuple):
+            out.update(_flat_arrays(x, key + '.'))
+        else:
+            out[key] = x.numpy()
+    return out
+
+
+def _measured_from_arrays(get, arrays) -> Tuple[tuple, tuple]:
+    """(measured, measured_pol) tuples of a scene's arrays."""
+    from ..bsdf.measured import MeasuredData
+    from ..bsdf.measured_pol import MeasuredPolData
+
+    def count(prefix):
+        return sum(1 for k in arrays if k.startswith(prefix)
+                   and k.endswith('.table' if 'pol' in prefix
+                                  else '.ndf.data'))
+
+    def marginal(p):
+        n = sum(1 for k in arrays if k.startswith(p + '.param_values.'))
+        return distr2d.Marginal2D(
+            get(p + '.data'), get(p + '.marg_cdf'), get(p + '.cond_cdf'),
+            tuple(get(f'{p}.param_values.{d}') for d in range(n)))
+    measured = tuple(
+        MeasuredData(**{f: marginal(f'measured.{k}.{f}')
+                        for f in MeasuredData._fields})
+        for k in range(count('measured.')))
+    measured_pol = tuple(
+        MeasuredPolData(**{f: get(f'measured_pol.{k}.{f}')
+                           for f in MeasuredPolData._fields})
+        for k in range(count('measured_pol.')))
+    return measured, measured_pol
 
 
 def scene_from_numpy(arrays: dict, meta: dict, device=None,
@@ -1083,9 +1164,11 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
     refreshes its derived arrays). Nothing here imports JAX: the caller
     flattens a reference scene into numpy first."""
     device = resolve_device(device)
-    for name, item in _OUT_OF_SLICE_FLAGS.items():
-        if meta.get(name):
-            raise not_in_slice(f"scene feature '{name}'", item)
+    # the double variant: every float table in float64, as the
+    # reference's build casts its scene under x64
+    double = bool(meta.get('double')) \
+        or np.asarray(arrays['geo.v0']).dtype == np.float64
+    F = np.float64 if double else np.float32
     known = {f.name for f in fields(SceneMeta)}
     kw = {k: v for k, v in meta.items() if k in known}
     kw['film'] = FilmMeta(**{k: v for k, v in dict(meta['film']).items()
@@ -1094,6 +1177,9 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
         kw[k] = tuple(int(x) for x in kw.get(k, ()))
     kw['integrator_props'] = tuple(
         tuple(p) for p in kw.get('integrator_props', ()))
+    kw['measured_meta'] = tuple(
+        MeasuredMeta(bool(iso), bool(jac), int(red))
+        for iso, jac, red in kw.get('measured_meta', ()))
     meta_t = SceneMeta(**kw)
     check_meta(meta_t)
 
@@ -1102,7 +1188,7 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
         return torch.as_tensor(np.array(a, dtype), device=device)
 
     def table(cls, prefix, dtypes):
-        return cls(**{f: get(f'{prefix}.{f}', dtypes.get(f, np.float32))
+        return cls(**{f: get(f'{prefix}.{f}', dtypes.get(f, F))
                       for f in cls._fields})
 
     def optional(key, dtype):
@@ -1110,10 +1196,10 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
 
     i32 = np.int32
     geo = Geometry(**{f: get(f'geo.{f}', i32 if 'shape_idx' in f
-                             else np.float32)
+                             else F)
                       for f in Geometry._fields if f not in ('c0', 'c1',
                                                              'c2')},
-                   **{f: optional(f'geo.{f}', np.float32)
+                   **{f: optional(f'geo.{f}', F)
                       for f in ('c0', 'c1', 'c2')})
     shapes = table(ShapeTable, 'shapes', {
         'bsdf_idx': i32, 'emitter_idx': i32, 'int_medium': i32,
@@ -1122,36 +1208,36 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
     n_levels = sum(1 for k in arrays
                    if k.startswith('emitters.env_warp.levels.'))
     env_warp = distr2d.Hierarchical2D(
-        nodes=get('emitters.env_warp.nodes', np.float32),
-        levels=tuple(get(f'emitters.env_warp.levels.{k}', np.float32)
+        nodes=get('emitters.env_warp.nodes', F),
+        levels=tuple(get(f'emitters.env_warp.levels.{k}', F)
                      for k in range(n_levels)))
     emitters = EmitterTable(
         **{f: get(f'emitters.{f}', i32 if f in (
             'type', 'shape_idx', 'tri_offset', 'tri_count', 'em_tri_idx',
             'spec_kind')
-            else np.float32)
+            else F)
            for f in EmitterTable._fields
            if f not in ('env_warp', 'env_to_world')},
         env_warp=env_warp,
-        env_to_world=Transform(get('emitters.env_to_world.m', np.float32),
-                               get('emitters.env_to_world.inv', np.float32)))
+        env_to_world=Transform(get('emitters.env_to_world.m', F),
+                               get('emitters.env_to_world.inv', F)))
     textures = TextureTable(
         type=get('textures.type', i32),
-        params=get('textures.params', np.float32),
-        data=get('textures.data', np.float32),
+        params=get('textures.params', F),
+        data=get('textures.data', F),
         size=get('textures.size', i32),
-        vol=optional('textures.vol', np.float32),
+        vol=optional('textures.vol', F),
         vol_size=optional('textures.vol_size', i32))
     media = MediumTable(
         type=get('media.type', i32), phase_type=get('media.phase_type', i32),
-        **{f: get(f'media.{f}', np.float32)
+        **{f: get(f'media.{f}', F)
            for f in ('params', 'grid_sigma_t', 'grid_sup', 'grid_sup_min',
                      'nl_ior')},
         nl_medium=get('media.nl_medium', i32),
-        grid_sigma_p8=(get('media.grid_sigma_p8', np.float32)
+        grid_sigma_p8=(get('media.grid_sigma_p8', F)
                        if arrays.get('media.grid_sigma_p8') is not None
                        else None),
-        grid_albedo=(get('media.grid_albedo', np.float32)
+        grid_albedo=(get('media.grid_albedo', F)
                      if arrays.get('media.grid_albedo') is not None
                      else None))
     # the occluder subset, once per scene: triangles whose BSDF is not null
@@ -1164,25 +1250,28 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None,
         sel = torch.as_tensor(np.flatnonzero(occ), device=device)
         occluders = Occluders(*(x[sel].contiguous()
                                 for x in (geo.v0, geo.e1, geo.e2)))
-    to_world = Transform(get('sensor.to_world.m', np.float32),
-                         get('sensor.to_world.inv', np.float32))
+    to_world = Transform(get('sensor.to_world.m', F),
+                         get('sensor.to_world.inv', F))
     sensor = SensorData(to_world=to_world, **{
-        f: get(f'sensor.{f}', np.float32)
+        f: get(f'sensor.{f}', F)
         for f in SensorData._fields if f != 'to_world'})
     bvh = None
     if arrays.get('bvh.node_lo') is not None:
         bvh = bvh_mod.BVHArrays(**{
             f: get(f'bvh.{f}', dt) for f, dt in (
-                ('node_lo', np.float32), ('node_hi', np.float32),
+                ('node_lo', F), ('node_hi', F),
                 ('node_a', i32), ('node_b', i32), ('node_leaf', bool),
                 ('order', i32))})
+    measured, measured_pol = _measured_from_arrays(
+        lambda k: get(k, F), arrays)
     scene = SceneData(geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
                       media=media, occluders=occluders, textures=textures,
-                      sensor=sensor, bvh=bvh,
-                      conductor_spd=(get('conductor_spd', np.float32)
+                      sensor=sensor, bvh=bvh, measured=measured,
+                      measured_pol=measured_pol,
+                      conductor_spd=(get('conductor_spd', F)
                                      if arrays.get('conductor_spd')
                                      is not None else ()),
-                      **{k: get(k, np.float32) for k in
+                      **{k: get(k, F) for k in
                          ('bbox_lo', 'bbox_hi', 'bsphere_c', 'bsphere_r')})
     if params:
         from ..autodiff import ParameterMap

@@ -88,16 +88,13 @@ SLICE_SHAPES = ('rectangle', 'cube', 'sphere', 'disk', 'cylinder', 'obj',
 SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
                'null', 'roughconductor', 'roughdielectric', 'plastic',
                'roughplastic', 'pplastic', 'twosided', 'mask', 'blendbsdf',
-               'normalmap', 'bumpmap', 'polarizer', 'retarder', 'circular')
+               'normalmap', 'bumpmap', 'polarizer', 'retarder', 'circular',
+               'measured', 'measured_polarized')
 SLICE_INTEGRATORS = ('path', 'direct', 'depth', 'volpath', 'volpathmis',
                      'vrl', 'photonmapper', 'photonmap', 'aov', 'moment',
                      'stokes')
 # integrators that wrap another (its ``integrator`` property)
 WRAPPER_INTEGRATORS = ('aov', 'moment', 'stokes')
-# where a spectral scene renders (the innermost integrator under the
-# wrappers): only the reference's ``path`` dispatches spectral transport;
-# ``depth`` outputs geometry alone
-SPECTRAL_INTEGRATORS = ('path', 'depth')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
 # options of the two-pass integrators that a later slice ports: each
 # raises when a scene turns it on (the map all-reduce over a mesh axis
@@ -249,10 +246,20 @@ class SceneData(NamedTuple):
     # the named conductors' eta/k curves on the CIE grid, (C, 2, 95), that
     # BSDF slot 13 names (id + 1) for the spectral variant; () when absent
     conductor_spd: object = ()
+    # the measured BSDFs' warps, one bsdf.measured.MeasuredData a material
+    # (the row's slot 0 names it), and the measured polarized grids, one
+    # bsdf.measured_pol.MeasuredPolData a material
+    measured: Tuple = ()
+    measured_pol: Tuple = ()
 
     @property
     def device(self) -> torch.device:
         return self.geo.v0.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The scene's float type: float64 under the double variant."""
+        return self.geo.v0.dtype
 
 
 @dataclass(frozen=True)
@@ -291,6 +298,9 @@ class SceneMeta:
     camera_medium: int = -1    # medium the camera starts in (-1 vacuum)
     spectral: bool = False     # hero-wavelength transport (path family)
     has_conductor_spd: bool = False  # tabulated conductor eta/k curves
+    # one bsdf.measured.MeasuredMeta (isotropic, jacobian, reduction) a
+    # measured material
+    measured_meta: Tuple = ()
 
     def iprop(self, name, default=None):
         for k, v in self.integrator_props:
@@ -331,8 +341,7 @@ def check_meta(meta: SceneMeta) -> None:
     bsdf_names = {v: k for k, v in BSDF_TYPES.items()}
     for code in meta.bsdf_types:
         if bsdf_names.get(code) not in SLICE_BSDFS:
-            raise not_in_slice(f"bsdf type '{bsdf_names.get(code)}'",
-                               "item 10 (variants)")
+            raise ValueError(f"unknown bsdf type code {code}")
     for code in meta.emitter_types:
         if code not in EMITTER_TYPES.values():
             raise ValueError(f"unknown emitter type code {code}")
@@ -346,17 +355,10 @@ def check_meta(meta: SceneMeta) -> None:
     for code in meta.phase_types:
         if ph_names.get(code) not in SLICE_PHASES:
             raise ValueError(f"unknown phase function code {code}")
-    if meta.integrator not in SLICE_INTEGRATORS:
-        raise not_in_slice(f"integrator '{meta.integrator}'",
-                           "item 10 (variants)")
     inner = unwrap(meta)
-    if inner.integrator not in SLICE_INTEGRATORS:
-        raise not_in_slice(f"integrator '{inner.integrator}'",
-                           "item 10 (variants)")
-    if meta.spectral and inner.integrator not in SPECTRAL_INTEGRATORS:
-        # the reference renders RGB there without a word
-        raise not_in_slice(f"spectral transport in integrator "
-                           f"'{inner.integrator}'", "item 10 (variants)")
+    for name in (meta.integrator, inner.integrator):
+        if name not in SLICE_INTEGRATORS:
+            raise KeyError(f"unknown integrator '{name}'")
     if inner.integrator in ('vrl', 'photonmapper', 'photonmap'):
         for name in DEFERRED_PROPS:
             value = inner.iprop(name)

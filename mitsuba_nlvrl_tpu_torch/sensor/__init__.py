@@ -67,13 +67,13 @@ def sample_ray(scene, meta, pos_sample: torch.Tensor,
         # camera space: +z forward, +y up (image top = small sy -> +y)
         sx = pos_sample[:, 0]
         sy = pos_sample[:, 1]
-        dx = (1.0 - 2.0 * sx) * sen.tan_fov_x
-        dy = (1.0 - 2.0 * sy) * sen.tan_fov_y
+        dx = m.promote(1.0 - 2.0 * sx, sen.tan_fov_x) * sen.tan_fov_x
+        dy = m.promote(1.0 - 2.0 * sy, sen.tan_fov_y) * sen.tan_fov_y
         d_cam = torch.stack([dx, dy, torch.ones_like(dx)], dim=-1)
         if stype == SENSOR_TYPES['thinlens']:
             # the ray through the lens point toward the focus plane point
-            p_lens2 = warp.square_to_uniform_disk_concentric(
-                aperture_sample) * sen.aperture_radius
+            p_lens2 = m.promote(warp.square_to_uniform_disk_concentric(
+                aperture_sample), sen.aperture_radius) * sen.aperture_radius
             o_cam = torch.cat([p_lens2, torch.zeros((N, 1), device=dev)],
                               dim=-1)
             d_cam = m.normalize(d_cam * sen.focus_distance - o_cam)

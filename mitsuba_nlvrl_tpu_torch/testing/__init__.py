@@ -1,1 +1,2 @@
-"""Procedural scenes for tests and the chip smoke run."""
+"""Procedural scenes, the card-against-CPU gates and the chi-square test
+(``chi2``) for tests and the chip smoke run."""

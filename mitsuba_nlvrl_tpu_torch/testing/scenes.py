@@ -1067,3 +1067,154 @@ def albedo_grid_medium(grid_res: int = 16, seed: int = 0,
     med['albedo'] = {'type': 'gridvolume',
                      '_grid': albedo_grid(max(grid_res // 2, 2), seed)}
     return med
+
+
+# --- measured materials -------------------------------------------------------
+#
+# The RGL database's measured files are not in the repository, so the
+# measured scenes carry synthesized materials on the grids such a file
+# holds: a GGX-flavoured NDF, VNDF, luminance and spectra (``.bsdf``) and a
+# polarizing or depolarizing Mueller grid (``.pbsdf``), written with
+# ``bsdf.measured.write_tensor_file`` and read back through the file
+# reader. The warps' invariants (sample against pdf, eval = weight * pdf,
+# invert of sample) hold for any positive fields.
+
+
+def measured_fields(res: int = 32, n_theta: int = 8, alpha: float = 0.4,
+                    n_phi: int = 0) -> dict:
+    """The fields of a synthesized ``.bsdf`` file. ``n_phi`` 0: isotropic
+    (phi_i holds -pi and pi); else ``n_phi`` azimuths over [-pi, 0], a
+    measurement reduced by symmetry 2, whose VNDF and spectra vary with
+    the incident azimuth."""
+    theta_i = np.linspace(0.0, np.pi / 2 * 0.98, n_theta).astype(np.float32)
+    if n_phi:
+        phi_i = np.linspace(-np.pi, 0.0, n_phi).astype(np.float32)
+    else:
+        phi_i = np.array([-np.pi, np.pi], np.float32)
+    wavelengths = np.array([420.0, 500.0, 580.0, 660.0], np.float32)
+    xu = np.linspace(1e-3, 1.0, res)                     # theta2u coords
+    yu = np.linspace(0.0, 1.0, res)                      # phi2u coords
+    theta_m = xu ** 2 * (np.pi / 2)
+    phi_m = (2.0 * yu - 1.0) * np.pi
+
+    def ggx_d(t):
+        c2 = np.cos(t) ** 2
+        return alpha ** 2 / (np.pi * (c2 * (alpha ** 2 - 1) + 1) ** 2)
+
+    ndf = np.tile(ggx_d(theta_m)[None, :], (res, 1)).astype(np.float32)
+    sigma = np.tile((0.5 + 0.5 * np.cos(theta_m))[None, :],
+                    (res, 1)).astype(np.float32)
+    m_dirs = np.stack(np.broadcast_arrays(
+        np.cos(phi_m)[:, None] * np.sin(theta_m)[None, :],
+        np.sin(phi_m)[:, None] * np.sin(theta_m)[None, :],
+        np.cos(theta_m)[None, :]), -1)
+    jac = 2 * np.pi ** 2 * xu[None, :] * np.sin(theta_m)[None, :]
+    n_p = len(phi_i)
+    vndf = np.zeros((n_p, n_theta, res, res), np.float32)
+    lum = np.zeros((n_p, n_theta, res, res), np.float32)
+    spectra = np.zeros((n_p, n_theta, 4, res, res), np.float32)
+    for pi_, ph in enumerate(phi_i):
+        # an isotropic file's VNDF is relative to the incident azimuth
+        ph = ph if n_phi else 0.0
+        for ti, t in enumerate(theta_i):
+            wi = np.array([np.sin(t) * np.cos(ph), np.sin(t) * np.sin(ph),
+                           np.cos(t)])
+            dvis = ggx_d(theta_m)[None, :] * np.maximum(m_dirs @ wi, 0.0) \
+                + 1e-4
+            vndf[pi_, ti] = (dvis * jac).astype(np.float32)
+            lum[pi_, ti] = (0.4 + 0.6 * np.outer(1 - yu * (1 - yu),
+                                                 np.cos(theta_m))).astype(
+                np.float32)
+        tint = 1.0 + (0.3 * np.cos(2.0 * ph) if n_phi else 0.0)
+        for k in range(4):
+            w = (0.3 + 0.7 * k / 3.0) * tint
+            spectra[pi_, :, k] = w * (0.2 + np.cos(theta_m)[None, :])
+    return {
+        'theta_i': theta_i, 'phi_i': phi_i, 'wavelengths': wavelengths,
+        'ndf': ndf, 'sigma': sigma, 'vndf': vndf, 'luminance': lum,
+        'spectra': spectra,
+        'description': np.frombuffer(b'synthetic ggx', np.uint8),
+        'jacobian': np.array([1], np.uint8),
+    }
+
+
+def measured_pol_fields(kind: str = 'polarizing', Pd: int = 9, Td: int = 7,
+                        Th: int = 6) -> dict:
+    """The fields of a synthesized ``.pbsdf`` file on (phi_d, theta_d,
+    theta_h, wavelength) grids: a depolarizing lobe (M00 alone) or an
+    ideal linear polarizer scaled by a smooth magnitude."""
+    phi_d = np.linspace(-np.pi, np.pi, Pd).astype(np.float32)
+    theta_d = np.linspace(0.0, np.pi / 2, Td).astype(np.float32)
+    theta_h = np.linspace(0.0, np.pi / 2, Th).astype(np.float32)
+    wvls = np.array([450, 550, 650], np.uint16)
+    W = wvls.shape[0]
+    mag = (0.1 + 0.4 * np.cos(theta_h)[:, None]
+           * (0.5 + 0.5 * np.arange(W)[None, :] / (W - 1)))  # (Th, W)
+    M = np.zeros((Pd, Td, Th, W, 4, 4), np.float32)
+    if kind == 'depolarizing':
+        M[..., 0, 0] = mag[None, None]
+    else:
+        pol = 0.5 * np.array([[1, 1, 0, 0], [1, 1, 0, 0],
+                              [0, 0, 0, 0], [0, 0, 0, 0]], np.float32)
+        M[:] = mag[None, None, :, :, None, None] * pol
+    return {'theta_h': theta_h.reshape(1, -1),
+            'theta_d': theta_d.reshape(1, -1),
+            'phi_d': phi_d.reshape(1, -1), 'wvls': wvls, 'M': M}
+
+
+# cbox_measured's blocks: an isotropic material with the jacobian and an
+# anisotropic one reduced by symmetry 2
+MEASURED_FILES = {'iso.bsdf': dict(res=32, n_theta=8),
+                  'aniso.bsdf': dict(res=32, n_theta=6, alpha=0.25,
+                                     n_phi=5)}
+
+
+def cbox_measured(directory: str, spp: int = 16, res: int = 512,
+                  max_depth: int = 8) -> str:
+    """Writes ``cbox_measured.xml`` with the box's OBJ walls and two
+    synthesized ``.bsdf`` files (``MEASURED_FILES``) into ``directory``;
+    returns its path: the Cornell box under ``path`` with ``max_depth``
+    and two blocks in the measured materials."""
+    from ..bsdf.measured import write_tensor_file
+    os.makedirs(directory, exist_ok=True)
+    for name, kw in MEASURED_FILES.items():
+        write_tensor_file(os.path.join(directory, name),
+                          measured_fields(**kw))
+    lines = _xml(spp, res, res, max_depth,
+                 _cbox_shapes(directory)).splitlines()[:-1]
+    for fname, ops in (
+            ('iso.bsdf', [('scale', (0.28, 0.6, 0.28)),
+                          ('rotate', (0, 1, 0), 15),
+                          ('translate', (-0.35, -0.4, 0.35))]),
+            ('aniso.bsdf', [('scale', (0.28, 0.3, 0.28)),
+                            ('rotate', (0, 1, 0), -18),
+                            ('translate', (0.4, -0.7, -0.25))])):
+        lines += ['    <shape type="cube">', *_indent(_tf(ops), 8),
+                  '        <bsdf type="measured">',
+                  f'            <string name="filename" value="{fname}"/>',
+                  '        </bsdf>', '    </shape>']
+    path = os.path.join(directory, 'cbox_measured.xml')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines + ['</scene>']) + '\n')
+    return path
+
+
+MEASURED_POL_SPHERE = {'center': (0.0, -0.55, 0.1), 'radius': 0.45}
+
+
+def cbox_measured_polarized(directory: str, res: int = 512, spp: int = 16,
+                            component: int = 1, max_depth: int = 8) -> dict:
+    """``cornell_box`` under ``stokes`` (``component``) around ``path`` with
+    ``max_depth`` and a sphere in a synthesized polarizing ``.pbsdf``
+    material written into ``directory``."""
+    from ..bsdf.measured import write_tensor_file
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, 'sphere.pbsdf')
+    write_tensor_file(path, measured_pol_fields())
+    desc = cornell_box(spp=spp, res=res,
+                       integrator=stokes_integrator(component, max_depth))
+    desc['shapes'].append({'type': 'sphere', **MEASURED_POL_SPHERE,
+                           'bsdf': {'type': 'measured_polarized',
+                                    'filename': path,
+                                    'alpha_sample': 0.3}})
+    return desc

@@ -127,20 +127,42 @@ def test_eval_pdf_sample_match_reference(name, hemisphere):
 
 
 @pytest.mark.parametrize('change', [
-    {'type': 'measured', 'filename': 'absent.bsdf'},
-    {'type': 'measured_polarized', 'filename': 'absent.pbsdf'},
-    {'type': 'mask', 'bsdf': {'type': 'measured', 'filename': 'a.bsdf'}},
+    {'type': 'measured', 'filename': 'm.bsdf'},
+    {'type': 'measured_polarized', 'filename': 'm.pbsdf'},
+    {'type': 'mask', 'bsdf': {'type': 'measured', 'filename': 'm.bsdf'}},
     {'type': 'twosided', 'bsdf': {'type': 'measured_polarized',
-                                  'filename': 'a.pbsdf'}},
+                                  'filename': 'm.pbsdf'}},
 ])
-def test_outside_the_slice_still_raises(change):
-    """The measured BSDFs (alone or wrapped) raise, naming ROADMAP item
-    10; the polarizing ones render since slice 8
-    (tests/test_torch_polarized.py)."""
-    desc = pscenes.cornell_box(spp=1, res=8)
-    desc['shapes'][0]['bsdf'] = change
-    with pytest.raises(NotImplementedError, match=r'item 10 \(variants\)'):
-        P.build_scene(desc, device='cpu')
+def test_outside_the_slice_still_raises(change, tmp_path):
+    """The measured BSDFs build and render from their files (slice 10);
+    wrapped in ``mask`` or ``twosided`` they raise NotImplementedError, as
+    the reference does (its ``pack_params`` packs no measured row)."""
+    from mitsuba_nlvrl_tpu_torch.bsdf.measured import write_tensor_file
+    write_tensor_file(str(tmp_path / 'm.bsdf'),
+                      pscenes.measured_fields(res=8, n_theta=3))
+    write_tensor_file(str(tmp_path / 'm.pbsdf'),
+                      pscenes.measured_pol_fields())
+
+    def located(b):
+        b = dict(b)
+        if 'filename' in b:
+            b['filename'] = str(tmp_path / b['filename'])
+        if 'bsdf' in b:
+            b['bsdf'] = located(b['bsdf'])
+        return b
+    descs = [pkg.cornell_box(spp=1, res=8) for pkg in (pscenes, scenes)]
+    for d in descs:
+        d['shapes'][0]['bsdf'] = located(change)
+    if change['type'] in ('mask', 'twosided'):
+        for build in (lambda: P.build_scene(descs[0], device='cpu'),
+                      lambda: J.build_scene(descs[1])):
+            with pytest.raises(NotImplementedError, match='bsdf type'):
+                build()
+        return
+    s, m = P.build_scene(descs[0], device='cpu')
+    assert P.bsdf.BSDF_TYPES[change['type']] in m.bsdf_types
+    img = P.render(s, m, seed=0)
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.01
 
 
 ITEM7_ROWS = [
@@ -179,20 +201,33 @@ def test_item7_rows_build_and_match(change):
 
 
 def test_mask_from_reference_arrays_raises():
-    """A reference scene with a masked row beside a BSDF outside the port
-    (a measured one, ROADMAP item 10; the reference cannot mask it)
-    raises from ``scene_from_numpy``; a masked diffuse row alone carries
-    over (``test_mask_from_reference_arrays_builds``). The masked
-    polarizer this test used to hold renders since slice 8."""
+    """A reference scene with a masked polarizer beside a measured BSDF
+    (the measured row and its warps, slot 0, carried as arrays) builds
+    from ``scene_from_numpy``: its arrays equal the port's own build of
+    the same description, and it renders. (A mask around the measured
+    BSDF itself raises in both packages:
+    ``test_outside_the_slice_still_raises``.)"""
     from test_measured import _synth_fields
-    d = scenes.cornell_box(spp=1, res=8)
-    d['shapes'][0]['bsdf'] = {'type': 'mask', 'opacity': 0.5,
-                              'bsdf': {'type': 'polarizer'}}
-    d['shapes'][1]['bsdf'] = {'type': 'measured',
-                              '_fields': _synth_fields(res=8, n_theta=3)}
-    sj, mj = J.build_scene(d)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')
+    descs = []
+    for pkg in (scenes, pscenes):
+        d = pkg.cornell_box(spp=1, res=8)
+        d['shapes'][0]['bsdf'] = {'type': 'mask', 'opacity': 0.5,
+                                  'bsdf': {'type': 'polarizer'}}
+        d['shapes'][1]['bsdf'] = {'type': 'measured',
+                                  '_fields': _synth_fields(res=8, n_theta=3)}
+        descs.append(d)
+    sj, mj = J.build_scene(descs[0])
+    sp, mp = P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
+                                device='cpu')
+    assert len(sp.measured) == 1 and tuple(mp.measured_meta[0]) == \
+        tuple(mj.measured_meta[0])
+    sq, mq = P.build_scene(descs[1], device='cpu')
+    assert mq == mp
+    ref = scene_arrays(sj)
+    for k, a in scene_arrays(sq).items():
+        assert np.array_equal(np.asarray(a), np.asarray(ref[k])), k
+    img = P.render(sp, mp, seed=0)
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.01
 
 
 def test_mask_from_reference_arrays_builds():

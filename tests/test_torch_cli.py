@@ -120,25 +120,31 @@ def test_cli_without_a_card_exits_non_zero(scene_files, monkeypatch,
     assert cli.main([path, '-o', str(d / 'none2.exr')]) != 0
     assert "device='cpu'" in capsys.readouterr().err
     assert not os.path.exists(d / 'none2.exr')
-    # spectral transport outside ``path`` still refuses (item 10)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        cli.main([path, '--spectral', '--integrator', 'volpath',
-                  '--device', 'cpu'])
+    # spectral transport outside ``path`` renders the reference's RGB
+    # transport (tests/test_torch_spectral.py holds the images)
+    out = str(d / 'spectral_volpath.exr')
+    assert cli.main([path, '--spectral', '--integrator', 'volpath',
+                     '--device', 'cpu', '-o', out]) == 0
+    assert np.isfinite(_rgb(out)).all()
 
 
 def test_mnt_double_raises(scene_files, monkeypatch):
-    """MNT_DOUBLE=1 asks the reference's build_scene for float64 (the
-    double variant, ROADMAP item 10): the port's build_scene and its CLI
-    raise rather than render float32."""
+    """MNT_DOUBLE=1 turns the double variant on, as in the reference's
+    build_scene: the port's build_scene makes every float table float64,
+    and the CLI renders in float64 an EXR equal to the in-process float64
+    render (written as float32). MNT_DOUBLE=0 builds float32."""
     path, _, d = scene_files
     monkeypatch.setenv('MNT_DOUBLE', '1')
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')
-    with pytest.raises(NotImplementedError, match='item 10'):
-        cli.main([path, '-o', str(d / 'double.exr'), '--device', 'cpu'])
-    assert not os.path.exists(d / 'double.exr')
+    s, m = P.build_scene(load_file(path), device='cpu')
+    assert s.dtype == torch.float64 and s.bsdfs.params.dtype == torch.float64
+    img = P.render(s, m, seed=0)
+    assert img.dtype == torch.float64
+    out = str(d / 'double.exr')
+    assert cli.main([path, '-o', out, '--device', 'cpu']) == 0
+    np.testing.assert_array_equal(_rgb(out), img.numpy().astype(np.float32))
     monkeypatch.setenv('MNT_DOUBLE', '0')
-    P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')
+    s, _ = P.build_scene(pscenes.cornell_box(spp=1, res=8), device='cpu')
+    assert s.dtype == torch.float32
 
 
 def test_cli_spectral_exr_is_the_in_process_render(tmp_path, monkeypatch):

@@ -71,7 +71,9 @@ def test_no_forbidden_import_in_sources():
               'spectral.py', 'mueller.py', 'polarized.py',
               'path_spectral.py', 'path_polarized.py',
               'path_spectral_polarized.py', 'aov.py', 'regen.py',
-              'autodiff.py', 'render_dist.py', 'remat.py'):
+              'autodiff.py', 'render_dist.py', 'remat.py', 'measured.py',
+              'measured_pol.py', 'chi2.py', 'checkpoint.py', 'logger.py',
+              'profiler.py', 'viewer.py'):
         assert f in names, f
     texture = os.path.join(PORT, 'texture', '__init__.py')
     assert texture in set(_sources())
@@ -346,5 +348,58 @@ def test_cpu_diff_render_loads_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = out.stdout.split()
     for mod in ('autodiff', 'parallel.render_dist', 'core.remat'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_cpu_slice10_loads_no_jax(tmp_path):
+    """Slice 10 (the measured BSDFs read from their files, the double
+    variant, a spectral request on ``volpath``, the chi-square harness,
+    the warps, the core pieces and the single-card utilities) runs on the
+    CPU without JAX or the reference package loaded."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch import viewer\n"
+        "from mitsuba_nlvrl_tpu_torch.core import warp\n"
+        "from mitsuba_nlvrl_tpu_torch.core.ray import BBox, "
+        "ray_bbox_intersect\n"
+        "from mitsuba_nlvrl_tpu_torch.core.transform import "
+        "AnimatedTransform\n"
+        "from mitsuba_nlvrl_tpu_torch.core.records import PositionSample\n"
+        "from mitsuba_nlvrl_tpu_torch.scene.xml import load_file\n"
+        "from mitsuba_nlvrl_tpu_torch.testing import scenes as S\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.chi2 import ChiSquareTest, "
+        "SphericalDomain\n"
+        "from mitsuba_nlvrl_tpu_torch.utils import checkpoint, logger, "
+        "profiler\n"
+        f"d = {str(tmp_path)!r}\n"
+        "s, m = P.build_scene(load_file(S.cbox_measured(d, spp=1, res=8)),\n"
+        "                     device='cpu')\n"
+        "assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "s, m = P.build_scene(S.cbox_measured_polarized(d, 8, 1),\n"
+        "                     device='cpu')\n"
+        "assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "desc = S.cornell_box(spp=1, res=8); desc['double'] = True\n"
+        "s, m = P.build_scene(desc, device='cpu')\n"
+        "assert P.render(s, m, seed=0).dtype == torch.float64\n"
+        "desc = S.cornell_box(spp=1, res=8, integrator={'type': 'volpath'})\n"
+        "desc['spectral'] = True\n"
+        "s, m = P.build_scene(desc, device='cpu')\n"
+        "assert bool(P.render(s, m, seed=0).isfinite().all())\n"
+        "t = ChiSquareTest(SphericalDomain(), warp.square_to_cosine_hemisphere,"
+        "\n                  warp.square_to_cosine_hemisphere_pdf,"
+        " sample_count=20000, res=8)\n"
+        "assert t.run(0.001), t.messages\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('bsdf.measured', 'bsdf.measured_pol', 'core.distr2d',
+                'testing.chi2', 'utils.checkpoint', 'utils.logger',
+                'utils.profiler', 'viewer'):
         assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
     assert not [m for m in loaded if _forbidden(m)]

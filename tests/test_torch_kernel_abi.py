@@ -66,9 +66,9 @@ def abi_mismatches(decls: dict, argtypes: dict) -> list:
     return out
 
 
-def c_struct_fields(name: str) -> list:
-    """[(type, field)] of ``struct name`` in the kernel's source."""
-    with open(kern.SOURCE) as f:
+def c_struct_fields(name: str, source: str = kern.SOURCE) -> list:
+    """[(type, field)] of ``struct name`` in a kernel's source."""
+    with open(source) as f:
         src = f.read()
     body = re.search(rf'struct {name} {{(.*?)}};', src, re.S).group(1)
     return re.findall(r'(\w+) (\w+);', body)
@@ -98,19 +98,24 @@ def struct_mismatches(c_fields: list, py_fields, fmt: str, ctype: str,
 
 def test_c_declarations_found():
     decls = c_declarations()
-    assert set(decls) == {'mnt_intersect_tris', 'mnt_intersect_geometry'}
+    assert set(decls) == {'mnt_intersect_tris', 'mnt_intersect_geometry',
+                          'mnt_intersect_tris_f64'}
     assert decls['mnt_intersect_tris'] == [ctypes.c_void_p]
+    assert decls['mnt_intersect_tris_f64'] == [ctypes.c_void_p]
 
 
 def test_argtypes_match_c_declarations():
-    assert abi_mismatches(c_declarations(), kern.ARGTYPES) == []
+    assert abi_mismatches(c_declarations(),
+                          {**kern.ARGTYPES, **kern.ARGTYPES_F64}) == []
 
 
-@pytest.mark.parametrize('name,n_fields', [('LaunchArgs', 15),
-                                           ('Geometry', 4)])
-def test_structs_match_the_wrapper(name, n_fields):
+@pytest.mark.parametrize('name,n_fields,source', [
+    ('LaunchArgs', 15, kern.SOURCE), ('Geometry', 4, kern.SOURCE),
+    ('LaunchArgs', 15, kern.SOURCE_F64)])
+def test_structs_match_the_wrapper(name, n_fields, source):
+    """The float64 kernel takes the float32 kernel's packed arguments."""
     py_fields, packer, ctype, code = STRUCTS[name]
-    fields = c_struct_fields(name)
+    fields = c_struct_fields(name, source)
     assert len(fields) == n_fields
     assert struct_mismatches(fields, py_fields, packer.format, ctype,
                              code) == []
@@ -171,23 +176,34 @@ def test_wrapper_refusals_name_the_argument(which, bad, err, match):
         kern._explain(*args)
 
 
+def _double(desc):
+    return dict(desc, double=True)
+
+
 @pytest.mark.parametrize('desc', [
     lambda: cornell_box(spp=1, res=8,
                         integrator={'type': 'path', 'max_depth': 4}),
-    lambda: sphere_scene(spp=1, res=8, bsdf={'type': 'dielectric'})])
+    lambda: sphere_scene(spp=1, res=8, bsdf={'type': 'dielectric'}),
+    lambda: _double(cornell_box(spp=1, res=8,
+                                integrator={'type': 'path',
+                                            'max_depth': 4}))])
 def test_render_hands_the_kernel_contiguous_rays(monkeypatch, desc):
-    """The wrapper refuses strided rays on the card, so every ray the
-    integrator builds must be contiguous already."""
+    """The wrapper refuses strided rays on the card, and rays of another
+    float type than the scene's, so every ray the integrator builds must
+    be contiguous already and in the scene's type (float64 under the
+    double variant)."""
     calls = []
     plain = kern.intersect_tris_plain
+    d = desc()
+    want = torch.float64 if d.get('double') else torch.float32
 
     def check(*args, any_hit=False):
         assert all(x.is_contiguous() for x in args)
-        assert all(x.dtype == torch.float32 for x in args)
+        assert all(x.dtype == want for x in args)
         calls.append(any_hit)
         return plain(*args, any_hit=any_hit)
     monkeypatch.setattr(pisect, 'intersect_tris', check)
-    scene, meta = P.build_scene(desc(), device='cpu')
+    scene, meta = P.build_scene(d, device='cpu')
     P.render(scene, meta, seed=0, spp=1)
     assert False in calls and True in calls
 

@@ -4,6 +4,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import mitsuba_nlvrl_tpu as J
 import mitsuba_nlvrl_tpu_torch as P
@@ -118,8 +119,8 @@ def _jpeg(directory) -> str:
 
 @pytest.mark.parametrize('change', [
     ('variant', 'double'),
-    ('bsdf', {'type': 'measured', 'filename': 'absent.bsdf'}),
-    ('bsdf', {'type': 'measured_polarized', 'filename': 'absent.pbsdf'}),
+    ('bsdf', {'type': 'measured', 'filename': 'm.bsdf'}),
+    ('bsdf', {'type': 'measured_polarized', 'filename': 'm.pbsdf'}),
     ('spectral', 'volpath'),
     ('bsdf', {'type': 'diffuse',
               'reflectance': {'type': 'bitmap', 'filename': 'JPEG'}}),
@@ -129,19 +130,42 @@ def _jpeg(directory) -> str:
 ])
 def test_types_outside_the_slice_raise(change, tmp_path):
     """What the port does not render yet raises, naming its ROADMAP item:
-    the double variant, measured BSDFs and spectral transport outside the
-    ``path`` integrator (item 10), JPEG bitmaps (item 12). Textured media,
-    polarizing BSDFs, the AOV integrators and spectral ``path`` render
-    since slice 8 (a textured medium is a ValueError: the reference
-    refuses it too)."""
+    JPEG bitmaps (item 12). The double variant, the measured BSDFs and a
+    spectral request on the integrators other than ``path`` (where the
+    reference renders its RGB transport) build since slice 10, in the
+    port's builder as in the reference's: the same arrays and meta
+    (float64 under the double variant)."""
+    from mitsuba_nlvrl_tpu_torch.bsdf.measured import write_tensor_file
     what, value = change
     if what == 'bsdf' and value.get('reflectance', {}).get('filename') \
             == 'JPEG':
         value = dict(value, reflectance=dict(value['reflectance'],
                                              filename=_jpeg(tmp_path)))
-    desc = _change(port_scenes.cornell_box(light='area'), what, value)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        P.build_scene(desc, device='cpu')
+        desc = _change(port_scenes.cornell_box(light='area'), what, value)
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            P.build_scene(desc, device='cpu')
+        return
+    if what == 'bsdf':
+        write_tensor_file(str(tmp_path / 'm.bsdf'),
+                          port_scenes.measured_fields(res=8, n_theta=3))
+        write_tensor_file(str(tmp_path / 'm.pbsdf'),
+                          port_scenes.measured_pol_fields())
+        value = dict(value, filename=str(tmp_path / value['filename']))
+    sp, mp = P.build_scene(_change(port_scenes.cornell_box(light='area'),
+                                   what, value), device='cpu')
+    # the reference's double variant turns x64 on for the whole process
+    # (tests/test_double.py runs it in a subprocess): its arrays are the
+    # float32 build's, each float table cast to float64
+    dj = _change(scenes.cornell_box(light='area'), what, value)
+    dj.pop('double', None)
+    sj, mj = J.build_scene(dj)
+    port = scene_arrays(sp)
+    _assert_same(port, scene_arrays(sj))
+    if what == 'variant':
+        assert all(a.dtype != np.float32 for a in port.values())
+    _assert_meta(mp, mj)
+    assert mp.spectral == (what == 'spectral')
+    assert (sp.dtype == torch.float64) == (what == 'variant')
 
 
 def _item7_change(s, what):

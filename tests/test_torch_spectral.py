@@ -278,24 +278,42 @@ def test_spectral_render_matches_reference(conductor_dir):
 
 @pytest.mark.parametrize('integrator', ['volpath', 'vrl'])
 def test_spectral_refusals_name_item_10(integrator):
-    """A spectral request on an integrator whose reference renders RGB
-    without a word raises, from the port's builder and from a reference
-    scene carried over; so does the double variant."""
-    desc = pscenes.cornell_box(
-        spp=1, res=8, integrator={'type': integrator},
-        medium={'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.8})
-    desc['spectral'] = True
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.build_scene(desc, device='cpu')
-    dj = scenes.cornell_box(
-        spp=1, res=8, integrator={'type': integrator},
-        medium={'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.8})
-    dj['spectral'] = True
-    sj, mj = J.build_scene(dj)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
-                           device='cpu')
+    """A spectral request on an integrator other than ``path`` renders
+    what the reference renders, its RGB transport (the reference renders
+    spectral only under ``path``): from the port's builder, and from the
+    reference's arrays through both packages, every pixel within 1e-3
+    relative and the rays equal (``vrl`` on the reference's maps); the
+    double variant builds in float64."""
+    from torch_parity import HOMOGENEOUS_HG, two_pass_desc
+    if integrator == 'vrl':
+        dj, dp = (two_pass_desc(pkg, 'vrl', 'homogeneous')
+                  for pkg in (scenes, pscenes))
+    else:
+        dj, dp = (pkg.cornell_box(spp=2, res=8, medium=HOMOGENEOUS_HG,
+                                  integrator={'type': integrator,
+                                              'max_depth': 4})
+                  for pkg in (scenes, pscenes))
+    dj['spectral'] = dp['spectral'] = True
+    _, mq = P.build_scene(dp, device='cpu')
+    assert mq.spectral and mq.integrator == integrator
+    sj, mj, sp, mp = build_both(dj)
+    stats, aux = [], None
+    with ieee_reference():
+        if integrator == 'vrl':
+            from mitsuba_nlvrl_tpu.render import preprocess
+            aux = preprocess(sj, mj, 0)
+        img_j = np.asarray(J.render(sj, mj, seed=0, spp=2, aux=aux,
+                                    ray_stats=stats, spp_per_dispatch=1))
+    maps_p = (P.maps_from_numpy(scene_arrays(aux), device='cpu')
+              if aux is not None else None)
+    img_p, _, rays_p = compare.render_with_passes(sp, mp, 0, 2, maps_p)
+    close = np.abs(img_p - img_j) <= 1e-3 * np.abs(img_j) + 1e-6
+    assert close.all(), float(np.abs(img_p - img_j).max())
+    assert rays_p == sum(float(r) for r in stats)
+    assert img_p.mean() > 0.005
     desc = pscenes.cornell_box(spp=1, res=8)
     desc['double'] = True
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.build_scene(desc, device='cpu')
+    s64, _ = P.build_scene(desc, device='cpu')
+    assert s64.dtype == torch.float64
+
+

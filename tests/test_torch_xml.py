@@ -188,15 +188,18 @@ def test_spectrum_emitters_pack_the_references_rgb(name):
 
 def test_spectral_transport_still_raises():
     """Spectral transport renders on ``path``; on the other integrators,
-    where the reference renders RGB without a word, it still raises,
-    naming ROADMAP item 10."""
-    desc = pscenes.cornell_box(radiance=SPECTRA['blackbody'])
+    where the reference renders its RGB transport, the port renders the
+    same (tests/test_torch_spectral.py::test_spectral_refusals_name_item_10
+    holds the images to the reference's)."""
+    desc = pscenes.cornell_box(radiance=SPECTRA['blackbody'], spp=1, res=8)
     desc['spectral'] = True
     _, meta = P.build_scene(desc, device='cpu')
     assert meta.spectral
     desc['integrator'] = {'type': 'volpath'}
-    with pytest.raises(NotImplementedError, match='item 10'):
-        P.build_scene(desc, device='cpu')
+    s, meta = P.build_scene(desc, device='cpu')
+    assert meta.spectral and meta.integrator == 'volpath'
+    img = P.render(s, meta, seed=0)
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.01
 
 
 def test_named_iors_and_conductors_match_reference(tmp_path, monkeypatch):
