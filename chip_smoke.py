@@ -102,6 +102,16 @@ one pass bit for bit, the render beside the float32 render's wall, one
 float64 gradient step); and the card against the CPU on each of them,
 on a spectral ``volpath`` render of ``hetvol_box`` and a spectral
 ``vrl`` render of ``cbox_nlvrl`` (``item10_checks``).
+Then slice 11: the redesigned float64 kernel is held in bits on more
+edges (the whole-set cap of 512 triangles and the ring above it, grids
+one tile short of or over the resident blocks, misaligned rays, bounded
+t, extreme scales) and timed at 262,144 random rays x 1,023 random
+triangles too; every float64 call of the float64 gradient step, its
+recompute's too, is held in bits as it is made; ``autodiff_checks``
+adds the materials box at 64x64 (every microfacet and plastic BSDF: the
+gradient of bsdfs.params finite on both devices and within the CPU
+tests' tolerance); and ``integrator_keyword`` renders a ``path`` box
+with ``integrator='depth'`` on the card.
 The CPU halves of the two-pass checks against the CPU run in one
 spawned worker process beside the card's phases, which the script ends
 on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -1449,7 +1459,10 @@ def autodiff_checks(torch, mnt) -> None:
     (sigma_t x20 as in the CPU parity tests, ``volpath`` at the CPU
     test's max_depth 3, AD_CHECK_DEPTH; media.params,
     media.grid_sigma_t), each the gradient of sum(image * W) for a seeded
-    W. The images agree within 1e-5 relative. Each gradient entry is held
+    W, and the materials box at 64x64 (``path`` max_depth 3, every
+    microfacet and plastic BSDF: bsdfs.params, finite in every entry on
+    both devices, slice 11). The images agree within 1e-5 relative. Each
+    gradient entry is held
     to the CPU tests' tolerance (1e-4 relative plus 1e-6 or 1e-5); the
     card's transcendentals differ from the CPU's by ulps, so a lane whose
     walk turns on one takes another decision, and as the render gates
@@ -1458,12 +1471,16 @@ def autodiff_checks(torch, mnt) -> None:
     absolute sum at most."""
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import autodiff as ad
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box, hetvol_box
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cornell_box, dress_materials, hetvol_box)
 
     cases = (
         ('cbox_path_64', cornell_box(spp=1, res=64, integrator={
             'type': 'path', 'max_depth': 8}),
          ('bsdfs.params', 'emitters.params'), 1e-6),
+        ('cbox_materials_64', dress_materials(cornell_box(
+            spp=1, res=64, integrator={'type': 'path', 'max_depth': 3})),
+         ('bsdfs.params',), 1e-6),
         ('hetvol_24', hetvol_box(24, 24, spp=1, grid_res=16, seed=0,
                                  scale=20.0, max_depth=AD_CHECK_DEPTH),
          ('media.params', 'media.grid_sigma_t'), 1e-5))
@@ -1496,12 +1513,14 @@ def autodiff_checks(torch, mnt) -> None:
                       'entries': int(err.size),
                       'outside_tolerance': int(outside.sum()),
                       'outside_err_sum': float(err[outside].sum()),
-                      'finite': bool(np.isfinite(g_g[k]).all())}
+                      'finite': bool(np.isfinite(g_g[k]).all()),
+                      'cpu_finite': bool(np.isfinite(g_c[k]).all())}
         emit({'phase': 'autodiff_checks', **rec})
         np.testing.assert_allclose(img_g, img_c, rtol=1e-5, atol=1e-6)
         for k in keys:
             r = rec[k]
-            assert r['finite'] and r['abs_sum'] > 0, (k, rec)
+            assert r['finite'] and r['cpu_finite'] and r['abs_sum'] > 0, \
+                (k, rec)
             assert r['outside_tolerance'] <= max(1, r['entries'] // 1000), \
                 (k, rec)
             assert r['outside_err_sum'] <= 1e-4 * r['abs_sum'], (k, rec)
@@ -1726,13 +1745,20 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     return cli_launches, c['kernel_launches']
 
 
-def kernel_f64_phases(torch, kern, scene, meta, bw, fl64) -> dict:
-    """The float64 kernel against its float64 plain version on the double
-    scene's camera rays and at its edges (ties, ragged counts, triangles
-    across several shared-memory tiles, none), nearest and any hit, equal
-    in bits; then its time at 262,144 camera rays x 12 triangles against
-    the bound (bytes over the memory rate, FLOPS_PER_PAIR a pair over
-    the fp64 rate)."""
+# triangles the float64 kernel keeps whole in shared memory
+# (kWholeMaxTris in csrc/intersect_f64.cu); above it they stream through
+# a ring
+WHOLE_SET_CAP_F64 = 512
+
+
+def f64_cases(torch, kern, scene, meta) -> dict:
+    """The float64 kernel's cases, {name: (tris, rays)}: the double
+    scene's camera rays, random rays against 1,023 random triangles (the
+    timed shape bound by operations), and its edges: ties, ragged counts,
+    the whole-set cap and the ring above it, grids one tile short of or
+    over the resident blocks, ray arrays 8 bytes off a 16-byte boundary,
+    bounded t, scenes scaled by 1e80 and 1e-5 (det near 1e160 and
+    1e-10, against the 1e-12 threshold), and no triangles."""
     from mitsuba_nlvrl_tpu_torch import sensor as sensor_mod
     from mitsuba_nlvrl_tpu_torch.core import rng
     from mitsuba_nlvrl_tpu_torch.integrators.common import \
@@ -1763,14 +1789,52 @@ def kernel_f64_phases(torch, kern, scene, meta, bw, fl64) -> dict:
         return (rand(T, 3), rand(T, 3, lo=-0.6, hi=0.6),
                 rand(T, 3, lo=-0.6, hi=0.6))
 
+    def scaled(tris, rays, s):
+        return (tuple(x * s for x in tris),
+                (rays[0] * s, rays[1], rays[2] * s, rays[3]))
+
     ties = tuple(torch.cat([x, x]).contiguous() for x in random_tris(300))
-    cases = {'cbox_camera_512': (box, cam_rays),
-             'random_1000': (random_tris(1000), random_rays(65536)),
-             'ties_600': (ties, random_rays(65536)),
-             'ragged_n': (random_tris(257), random_rays(100003)),
-             'zero_tris': (tuple(torch.zeros((0, 3), device=dev, dtype=f64)
-                                 for _ in range(3)), random_rays(4099)),
-             'n_1': (random_tris(300), random_rays(1))}
+    cap = WHOLE_SET_CAP_F64
+    geo = kern.geometry(1 << 28, 100, dtype=f64)
+    tile, resident = geo.ray_tile, geo.grid
+    ring_grid = kern.geometry(1 << 28, cap + 1, dtype=f64).grid
+    shifted = tuple(x[1:] for x in random_rays(65537))
+    assert shifted[0].data_ptr() % 16 == 8 and shifted[2].data_ptr() % 16 == 8
+    bounded = random_rays(65536)
+    bounded = (bounded[0], bounded[1], rand(65536, lo=0.0, hi=2.0),
+               rand(65536, lo=1.0, hi=4.0))
+    some = random_tris(300)
+    return {'cbox_camera_512': (box, cam_rays),
+            'random_1023': (random_tris(1023), random_rays(262144)),
+            'random_1000': (random_tris(1000), random_rays(65536)),
+            'ties_600': (ties, random_rays(65536)),
+            'ragged_n': (random_tris(257), random_rays(100003)),
+            'zero_tris': (tuple(torch.zeros((0, 3), device=dev, dtype=f64)
+                                for _ in range(3)), random_rays(4099)),
+            'n_1': (some, random_rays(1)),
+            'n_255': (some, random_rays(255)),
+            'n_257': (some, random_rays(257)),
+            f'whole_cap_{cap}': (random_tris(cap), random_rays(65536)),
+            f'ring_{cap + 1}': (random_tris(cap + 1),
+                                random_rays(tile * ring_grid + 1)),
+            'grid_tiles_minus_1': (random_tris(100),
+                                   random_rays(tile * resident - 1)),
+            'grid_tiles_plus_1': (random_tris(100),
+                                  random_rays(tile * resident + 1)),
+            'misaligned_8b': (some, shifted),
+            'bounded_t': (some, bounded),
+            'scaled_1e80': scaled(some, random_rays(65536), 1e80),
+            'scaled_1e-5': scaled(some, random_rays(65536), 1e-5)}
+
+
+def kernel_f64_phases(torch, kern, scene, meta, bw, fl64) -> dict:
+    """The float64 kernel against its float64 plain version on every case
+    of ``f64_cases``, nearest and any hit, equal in bits (any hit: the
+    smallest hit t); then its time at 262,144 camera rays x 12 triangles
+    and at 262,144 random rays x 1,023 random triangles against the bound
+    (bytes over the memory rate, FLOPS_PER_PAIR a pair over the fp64
+    rate), with the launch it makes."""
+    cases = f64_cases(torch, kern, scene, meta)
     checks, worst = {}, 0.0
     for name, (tris, rays) in cases.items():
         for any_hit in (False, True):
@@ -1787,23 +1851,30 @@ def kernel_f64_phases(torch, kern, scene, meta, bw, fl64) -> dict:
                                              != ref.view(torch.int64)).sum())
                 assert rec['t_bit_mismatch'] == 0, rec
             checks[f"{name}{'_any' if any_hit else ''}"] = rec
-    N, T = cam_rays[0].shape[0], box[0].shape[0]
-    ms = time_ms(lambda: kern.intersect_tris(*box, *cam_rays), 7, 50)
-    ms_any = time_ms(lambda: kern.intersect_tris(*box, *cam_rays,
-                                                 any_hit=True), 7, 50)
-    plain_ms = time_ms(lambda: kern.intersect_tris_plain(*box, *cam_rays),
-                       5, 3)
-    nbytes, nops, b_bytes, b_ops = bound(N, T, False, bw, fl64, 8)
-    _, _, b_bytes_any, _ = bound(N, T, True, bw, fl64, 8)
-    bound_ms = max(b_bytes, b_ops)
-    rec = {'rays': N, 'tris': T, 'ms': ms, 'ms_any_hit': ms_any,
-           'plain_ms': plain_ms, 'bytes': nbytes, 'flops': nops,
-           'fp64_flops_per_s': fl64, 'bound_ms': bound_ms,
-           'bound_bytes_ms': b_bytes, 'bound_ops_ms': b_ops,
-           'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
-           'roofline_share': bound_ms / ms,
-           'roofline_share_any_hit': max(b_bytes_any, b_ops) / ms_any}
-    return {'checks': checks, 'max_abs_err': worst, 'time': rec}
+    times = {}
+    for shape in ('cbox_camera_512', 'random_1023'):
+        tris, rays = cases[shape]
+        N, T = rays[0].shape[0], tris[0].shape[0]
+        ms = time_ms(lambda: kern.intersect_tris(*tris, *rays), 7, 50)
+        ms_any = time_ms(lambda: kern.intersect_tris(*tris, *rays,
+                                                     any_hit=True), 7, 50)
+        plain_ms = time_ms(lambda: kern.intersect_tris_plain(*tris, *rays),
+                           5, 3)
+        nbytes, nops, b_bytes, b_ops = bound(N, T, False, bw, fl64, 8)
+        _, _, b_bytes_any, _ = bound(N, T, True, bw, fl64, 8)
+        bound_ms = max(b_bytes, b_ops)
+        geo = kern.geometry(N, T, dtype=torch.float64)
+        times[shape] = {
+            'rays': N, 'tris': T, 'ms': ms, 'ms_any_hit': ms_any,
+            'plain_ms': plain_ms, 'bytes': nbytes, 'flops': nops,
+            'fp64_flops_per_s': fl64, 'bound_ms': bound_ms,
+            'bound_bytes_ms': b_bytes, 'bound_ops_ms': b_ops,
+            'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
+            'roofline_share': bound_ms / ms,
+            'roofline_share_any_hit': max(b_bytes_any, b_ops) / ms_any,
+            'grid': geo.grid, 'smem_bytes': geo.smem_bytes,
+            'ring': geo.ring, 'ray_tile': geo.ray_tile}
+    return {'checks': checks, 'max_abs_err': worst, 'time': times}
 
 
 def double_render(torch, mnt, kern, sync, scene, meta, spp) -> tuple:
@@ -1910,6 +1981,9 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
     k64 = kernel_f64_phases(torch, kern, dscene, dmeta, bw, fl64)
     emit({'phase': 'double_kernel', **k64})
     out['max_abs_err_f64'] = k64['max_abs_err']
+    for shape, rec in k64['time'].items():
+        out.update({f'f64_{shape}_{k}': rec[k] for k in (
+            'ms', 'ms_any_hit', 'plain_ms', 'bound_ms', 'bound_by')})
     calls = record_calls(mnt, dscene, dmeta)
     assert [c[2] for c in calls] == [False, True] * 8, len(calls)
     assert all(r.dtype == torch.float64 for _, rays, _ in calls
@@ -1932,17 +2006,20 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
         target = ad.render(dscene, dmeta, spp=1, seed=3)
     kern.launches_f64 = kern.launches_f64_recompute = 0
     t0 = time.time()
-    img = ad.render(dscene, dmeta, params={'bsdfs.params': leaf}, pmap=pm,
-                    spp=1, seed=3)
-    loss = ((img - target) ** 2).mean()
-    loss.backward()
-    torch.cuda.synchronize()
+    # every float64 call of the step, the recompute's too, held in bits
+    with diff_step_check(torch, kern) as chk:
+        img = ad.render(dscene, dmeta, params={'bsdfs.params': leaf},
+                        pmap=pm, spp=1, seed=3)
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
     g = leaf.grad
     grec = {'wall_s': time.time() - t0, 'loss': float(loss.detach()),
             'dtype': str(img.dtype), 'grad_finite': bool(g.isfinite().all()),
             'grad_abs_sum': float(g.abs().sum()),
             'launches_f64': kern.launches_f64,
-            'launches_f64_recompute': kern.launches_f64_recompute}
+            'launches_f64_recompute': kern.launches_f64_recompute,
+            'bit_check': chk.done()}
     emit({'phase': 'double_grad_step', 'res': 512, 'spp': 1,
           'max_depth': 8, **grec})
     assert grec['grad_finite'] and grec['grad_abs_sum'] > 0, grec
@@ -2014,6 +2091,40 @@ def item10_checks(torch, mnt, compare, workdir) -> None:
     assert own_maps['card_finite'] and own_maps['mean_rel'] <= 0.05, \
         own_maps
 
+
+
+def integrator_keyword_check(torch, mnt, kern) -> dict:
+    """``render(..., integrator='depth')`` on the card (slice 11): the
+    64x64 box built for ``path`` rendered with the ``depth`` integrator
+    equals in bits the box built for ``depth``, both on the card, and
+    99% of its pixels are within 1e-5 relative of the CPU's (the card's
+    sin and cos part from the CPU's by an ulp, so an edge ray may meet
+    another triangle)."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    desc = cornell_box(spp=2, res=64, integrator={'type': 'path',
+                                                  'max_depth': 8})
+    depth_desc = cornell_box(spp=2, res=64, integrator={'type': 'depth'})
+    kern.launches = 0
+    sg, mg = mnt.build_scene(desc)
+    img = mnt.render(sg, mg, seed=0, integrator='depth')
+    sd, md = mnt.build_scene(depth_desc)
+    own = mnt.render(sd, md, seed=0)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    cpu = mnt.render(sc, mc, seed=0, integrator='depth').numpy()
+    got = img.cpu().numpy()
+    rel = np.abs(got - cpu) / np.maximum(np.abs(cpu), 1e-6)
+    rec = {'equal_to_depth_scene': bool(torch.equal(img, own)),
+           'pixels_within_1e-5': float((rel <= 1e-5).mean()),
+           'max_depth_value': float(got.max()), 'launches': launches,
+           'finite': bool(np.isfinite(got).all())}
+    emit({'phase': 'integrator_keyword', 'res': 64, 'spp': 2, **rec})
+    assert rec['equal_to_depth_scene'] and rec['finite'], rec
+    assert rec['pixels_within_1e-5'] >= 0.99 and launches > 0, rec
+    assert rec['max_depth_value'] > 1.0, rec
+    return rec
 
 
 def main() -> int:
@@ -2294,6 +2405,8 @@ def _main() -> int:
                              workdir, wall)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # --- slice 11: the integrator= keyword -----------------------------
+    integrator_keyword_check(torch, mnt, kern)
     left = stop_cpu_halves()
     assert not left, f"{len(left)} CPU halves submitted and not taken"
     ad_launches = (pgrad['launches'] + pgrad['launches_recompute']
@@ -2380,6 +2493,8 @@ def _main() -> int:
         'ms': it10['f64_ms'], 'plain_ms': it10['f64_plain_ms'],
         'bound_ms': it10['f64_bound_ms'], 'bound_by': it10['f64_bound_by'],
         'library_ms': None,
+        **{k: v for k, v in it10.items() if k.startswith(('f64_cbox_',
+                                                          'f64_random_'))},
         'launches_double_render': it10['launches_double_render'],
         'launches_double_grad': it10['launches_double_grad'],
         'launches_double_grad_recompute':

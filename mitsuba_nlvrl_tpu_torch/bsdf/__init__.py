@@ -25,6 +25,7 @@ f * |cos_theta_o| and ``sample`` returns (record, f * cos / pdf).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -191,6 +192,36 @@ def pack_params(props: dict) -> Tuple[int, int, list]:
 # --- per-type implementations ----------------------------------------------
 # Each takes gathered per-lane params P: (N, BSDF_NPARAM), local wi/wo.
 
+# A parameter row, and a direction, on which every lobe of this module is
+# finite: iors 1.5 and 1 (slots 0, 1 and 3, 4), alpha and every other
+# slot 0.5; and the normal.
+_FINITE_ROW = (1.5, 1.0, 0.5, 1.5, 1.0) + (0.5,) * (BSDF_NPARAM - 5)
+
+
+@functools.lru_cache(maxsize=16)
+def _finite_consts(dtype, device):
+    return (torch.tensor(_FINITE_ROW, dtype=dtype, device=device),
+            torch.tensor((0.0, 0.0, 1.0), dtype=dtype, device=device))
+
+
+def _finite_lanes(keep, P, *dirs):
+    """The double-``where`` idiom for lanes whose result the caller drops:
+    outside ``keep`` the row P becomes ``_FINITE_ROW`` and each direction
+    the normal, so that every factor computed there is finite. The
+    caller's select sends those lanes a zero cotangent, which must not
+    meet an infinite factor (0 * inf is NaN, and the NaN would reach every
+    parameter through the row gather). Kept lanes compute as before, to
+    the bit; without autograd nothing is replaced."""
+    if not torch.is_grad_enabled() or not any(
+            x.requires_grad for x in (P,) + dirs):
+        return (P,) + dirs
+    k = keep[:, None]
+    row = _finite_consts(P.dtype, P.device)[0]
+    up = _finite_consts(dirs[0].dtype, dirs[0].device)[1]
+    return (torch.where(k, P, row),) + tuple(torch.where(k, d, up)
+                                             for d in dirs)
+
+
 def _diffuse_eval(P, wi, wo, textured_refl=None):
     refl = textured_refl if textured_refl is not None else P[:, 0:3]
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
@@ -286,8 +317,9 @@ def _spec_pdf(wi, wo, h, ax, ay):
 
 
 def _roughconductor_eval(P, wi, wo):
-    cos_i, cos_o = fr.cos_theta(wi), fr.cos_theta(wo)
-    act = (cos_i > 0) & (cos_o > 0)
+    act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
+    cos_i = fr.cos_theta(wi)
     h = m.normalize(wi + wo)
     ax, ay = P[:, 9], P[:, 10]
     D = mf.ggx_d(h, ax, ay)
@@ -300,6 +332,7 @@ def _roughconductor_eval(P, wi, wo):
 
 def _roughconductor_pdf(P, wi, wo):
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
     h = m.normalize(wi + wo)
     return torch.where(act, _spec_pdf(wi, wo, h, P[:, 9], P[:, 10]), 0.0)
 
@@ -337,6 +370,8 @@ def _roughdielectric_h(wi, wo, eta):
 
 def _roughdielectric_eval(P, wi, wo):
     """Walter et al. 2007 microfacet refraction."""
+    grazing = torch.abs(fr.cos_theta(wi)) <= 1e-6     # dropped below
+    P, wi, wo = _finite_lanes(~grazing, P, wi, wo)
     eta = P[:, 0] / P[:, 1]
     h, cos_i, cos_o, reflect_case, eta_path = _roughdielectric_h(wi, wo, eta)
     ax, ay = P[:, 9], P[:, 10]
@@ -355,7 +390,7 @@ def _roughdielectric_eval(P, wi, wo):
     val_t = P[:, 5:8] * ((1.0 - F) * D * G * m.sqr(eta_path) * jac
                          / m.clip(m.sqr(eta_path), min=1e-12))[:, None]
     val = torch.where(reflect_case[:, None], val_r, val_t)
-    ok = (torch.abs(cos_i) > 1e-6) & (D > 0)
+    ok = ~grazing & (D > 0)
     return torch.where(ok[:, None], val, 0.0)
 
 
@@ -444,8 +479,9 @@ def _plastic_sample(P, wi, u1, u2, mode):
 
 
 def _plastic_eval(P, wi, wo):
+    act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
     cos_i, cos_o = fr.cos_theta(wi), fr.cos_theta(wo)
-    act = (cos_i > 0) & (cos_o > 0)
     eta = P[:, 3] / P[:, 4]
     Fi, _, _, _ = fresnel_dielectric(cos_i, eta)
     Fo, _, _, _ = fresnel_dielectric(cos_o, eta)
@@ -458,9 +494,9 @@ def _plastic_eval(P, wi, wo):
 
 
 def _plastic_pdf(P, wi, wo):
-    cos_i, cos_o = fr.cos_theta(wi), fr.cos_theta(wo)
-    act = (cos_i > 0) & (cos_o > 0)
-    Fi, _, _, _ = fresnel_dielectric(cos_i, P[:, 3] / P[:, 4])
+    act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
+    Fi, _, _, _ = fresnel_dielectric(fr.cos_theta(wi), P[:, 3] / P[:, 4])
     return torch.where(act, (1.0 - Fi)
                        * warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
 
@@ -480,14 +516,15 @@ def _ggx_spec(P, wi, wo, eta):
 def _roughplastic_eval(P, wi, wo):
     """GGX specular plus Fresnel-attenuated diffuse."""
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
     spec = _ggx_spec(P, wi, wo, P[:, 3] / P[:, 4])
     return torch.where(act[:, None], spec + _plastic_eval(P, wi, wo), 0.0)
 
 
 def _roughplastic_pdf(P, wi, wo):
-    cos_i = fr.cos_theta(wi)
-    act = (cos_i > 0) & (fr.cos_theta(wo) > 0)
-    Fi, _, _, _ = fresnel_dielectric(cos_i, P[:, 3] / P[:, 4])
+    act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
+    Fi, _, _, _ = fresnel_dielectric(fr.cos_theta(wi), P[:, 3] / P[:, 4])
     h = m.normalize(wi + wo)
     pdf_spec = _spec_pdf(wi, wo, h, P[:, 9], P[:, 9])
     pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo)
@@ -520,8 +557,9 @@ def _pplastic_eval(P, wi, wo):
     """The polarized plastic's unpolarized arm: GGX specular reflection
     plus a Fresnel-attenuated Lambertian lobe (refract in, scatter,
     refract out; no internal-scattering series)."""
+    act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
     cos_i, cos_o = fr.cos_theta(wi), fr.cos_theta(wo)
-    act = (cos_i > 0) & (cos_o > 0)
     eta = P[:, 3] / P[:, 4]
     spec = _ggx_spec(P, wi, wo, eta)
     Fi, _, _, _ = fresnel_dielectric(cos_i, eta)
@@ -533,6 +571,7 @@ def _pplastic_eval(P, wi, wo):
 def _pplastic_pdf(P, wi, wo):
     """The mixture pdf with the static specular weight (slot 12)."""
     act = (fr.cos_theta(wi) > 0) & (fr.cos_theta(wo) > 0)
+    P, wi, wo = _finite_lanes(act, P, wi, wo)
     prob_spec = P[:, 12]
     h = m.normalize(wi + wo)
     p_spec = _spec_pdf(wi, wo, h, P[:, 9], P[:, 9])
@@ -779,7 +818,9 @@ def eval(scene, meta, si, wo, mode=RADIANCE, textures=None,
         kw = {}
         if code == BSDF_TYPES['diffuse'] and textures is not None:
             kw['textured_refl'] = textures
-        out = torch.where((btype == code)[:, None], fn(P, wi, wo, **kw), out)
+        sel = btype == code
+        out = torch.where(sel[:, None],
+                          fn(*_finite_lanes(sel, P, wi, wo), **kw), out)
     for sel, data, mm, mod in _measured_slots(scene, meta, btype, P):
         val = (mod.eval(data, mm, wi, wo) if mm is not None
                else mod.eval(data, P, wi, wo))
@@ -807,7 +848,8 @@ def pdf(scene, meta, si, wo, _depth: int = 0):
     for code in meta.bsdf_types:
         fn = _PDF.get(code)
         if fn is not None:
-            out = torch.where(btype == code, fn(P, wi, wo), out)
+            sel = btype == code
+            out = torch.where(sel, fn(*_finite_lanes(sel, P, wi, wo)), out)
     for sel, data, mm, mod in _measured_slots(scene, meta, btype, P):
         val = (mod.pdf(data, mm, wi, wo) if mm is not None
                else mod.pdf(P, wi, wo))
@@ -857,8 +899,9 @@ def sample(scene, meta, si, u1, u2, mode=RADIANCE, textures=None,
         kw = {}
         if code == BSDF_TYPES['diffuse'] and textures is not None:
             kw['textured_refl'] = textures
-        bs_c, w_c = fn(P, wi, u1, u2, mode, **kw)
         sel = btype == code
+        P_c, wi_c = _finite_lanes(sel, P, wi)
+        bs_c, w_c = fn(P_c, wi_c, u1, u2, mode, **kw)
         bs = BSDFSample(
             wo=torch.where(sel[:, None], bs_c.wo, bs.wo),
             pdf=torch.where(sel, bs_c.pdf, bs.pdf),

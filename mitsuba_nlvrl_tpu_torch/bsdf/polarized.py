@@ -39,8 +39,8 @@ from ..core import microfacet as mf
 from ..core import mueller as mu
 from ..core.fresnel import fresnel_conductor, fresnel_dielectric
 from ..scene.types import BSDF_TYPES
-from . import (RADIANCE, _blend_weight, _has_perturb, _maybe_flip,
-               _perturb_si, _rows, eval as eval_unpol,
+from . import (RADIANCE, _blend_weight, _finite_lanes, _has_perturb,
+               _maybe_flip, _perturb_si, _rows, eval as eval_unpol,
                sample as sample_unpol)
 
 _AWARE_SCALAR = ('dielectric', 'polarizer', 'retarder', 'circular')
@@ -124,8 +124,9 @@ def _element_mueller(P, btype, wi_loc, mode):
 def _pplastic_mueller_eval(P, wi_loc, wo_loc, mode):
     """The (N, 3, 4, 4) polarized pplastic eval: GGX specular reflection
     plus refract in, depolarizing subsurface, refract out."""
+    act = (fr.cos_theta(wi_loc) > 0) & (fr.cos_theta(wo_loc) > 0)
+    P, wi_loc, wo_loc = _finite_lanes(act, P, wi_loc, wo_loc)
     cos_i, cos_o = fr.cos_theta(wi_loc), fr.cos_theta(wo_loc)
-    act = (cos_i > 0) & (cos_o > 0)
     eta = P[:, 3] / P[:, 4]
     ax = ay = P[:, 9]
     wo_hat = wo_loc if mode == RADIANCE else wi_loc
@@ -196,45 +197,57 @@ def _polarize_weight(scene, meta, si, wo_loc, w_unpol, mode,
             Mtype = Mtype[:, None].expand(N, 3, 4, 4)
         Mhat = torch.where(sel[:, None, None, None], Mtype, Mhat)
 
+    def lanes(sel):
+        """(P, wi, wo, wo_hat, wi_hat) with the lanes outside ``sel``
+        made finite (``_finite_lanes``): ``put`` drops them."""
+        P_s, wi_s, wo_s = _finite_lanes(sel, P, wi_loc, wo_l)
+        return ((P_s, wi_s, wo_s, wo_s, wi_s) if mode == RADIANCE
+                else (P_s, wi_s, wo_s, wi_s, wo_s))
+
     if BSDF_TYPES['dielectric'] in types:
-        eta = P[:, 0] / P[:, 1]
-        coh = fr.cos_theta(wo_hat)
-        transmitted = fr.cos_theta(wi_loc) * fr.cos_theta(wo_l) < 0
+        sel = btype == BSDF_TYPES['dielectric']
+        P_s, wi_s, wo_s, woh, wih = lanes(sel)
+        eta = P_s[:, 0] / P_s[:, 1]
+        coh = fr.cos_theta(woh)
+        transmitted = fr.cos_theta(wi_s) * fr.cos_theta(wo_s) < 0
         R = _norm00(mu.specular_reflection(coh, eta))
         T = _norm00(mu.specular_transmission(coh, eta))
         Md = torch.where(transmitted[:, None, None], T, R)
-        put(btype == BSDF_TYPES['dielectric'],
-            _rot_to_implicit(Md, n_loc, wo_hat, wi_hat))
+        put(sel, _rot_to_implicit(Md, n_loc, woh, wih))
     if BSDF_TYPES['conductor'] in types:
+        sel = btype == BSDF_TYPES['conductor']
+        P_s, _, _, woh, wih = lanes(sel)
         Mc = _norm00(mu.specular_reflection_conductor(
-            fr.cos_theta(wo_hat), P[:, 0:3], P[:, 3:6]))  # (N, 3, 4, 4)
-        put(btype == BSDF_TYPES['conductor'],
-            _rot_to_implicit(Mc, n_loc[:, None], wo_hat[:, None],
-                             wi_hat[:, None]))
+            fr.cos_theta(woh), P_s[:, 0:3], P_s[:, 3:6]))  # (N, 3, 4, 4)
+        put(sel, _rot_to_implicit(Mc, n_loc[:, None], woh[:, None],
+                                  wih[:, None]))
     if BSDF_TYPES['roughconductor'] in types:
-        H = _safe_dir(wi_loc + wo_l, n_loc)
+        sel = btype == BSDF_TYPES['roughconductor']
+        P_s, wi_s, wo_s, woh, wih = lanes(sel)
+        H = _safe_dir(wi_s + wo_s, n_loc)
         Mr = _norm00(mu.specular_reflection_conductor(
-            m.dot(wo_hat, H), P[:, 0:3], P[:, 3:6]))
-        put(btype == BSDF_TYPES['roughconductor'],
-            _rot_to_implicit(Mr, H[:, None], wo_hat[:, None],
-                             wi_hat[:, None]))
+            m.dot(woh, H), P_s[:, 0:3], P_s[:, 3:6]))
+        put(sel, _rot_to_implicit(Mr, H[:, None], woh[:, None],
+                                  wih[:, None]))
     el_codes = [BSDF_TYPES[t] for t in ('polarizer', 'retarder', 'circular')
                 if BSDF_TYPES[t] in types]
     if el_codes:
         sel = torch.zeros((N,), dtype=torch.bool, device=wi_loc.device)
         for c in el_codes:
             sel = sel | (btype == c)
-        put(sel, _element_mueller(P, btype, wi_loc, mode))
+        P_s, wi_s = lanes(sel)[:2]
+        put(sel, _element_mueller(P_s, btype, wi_s, mode))
 
     weight = w_unpol[:, :, None, None] * Mhat
 
     if BSDF_TYPES['pplastic'] in types:
         # the two-lobe Mueller eval, over the pdf for a sampling weight
-        Mpp = _pplastic_mueller_eval(P, wi_loc, wo_l, mode)
+        sel = btype == BSDF_TYPES['pplastic']
+        P_s, wi_s, wo_s = lanes(sel)[:3]
+        Mpp = _pplastic_mueller_eval(P_s, wi_s, wo_s, mode)
         if pdf_val is not None:
             Mpp = Mpp * m.safe_rcp(pdf_val)[:, None, None, None]
-        weight = torch.where((btype == BSDF_TYPES['pplastic'])
-                             [:, None, None, None], Mpp, weight)
+        weight = torch.where(sel[:, None, None, None], Mpp, weight)
 
     if BSDF_TYPES['measured_polarized'] in types:
         # the measured Mueller eval, over the pdf for a sampling weight

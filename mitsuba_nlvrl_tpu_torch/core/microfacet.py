@@ -17,19 +17,24 @@ BECKMANN = 1
 
 
 def ggx_d(h, ax, ay):
-    """The GGX normal distribution D(h)."""
+    """The GGX normal distribution D(h). Below the horizon t is replaced
+    before the division (the double ``where``): those lanes are dropped,
+    and t may be 0 there (h = 0), whose infinite derivative would meet
+    their zero cotangent."""
     x, y, z = h[..., 0], h[..., 1], h[..., 2]
-    t = m.sqr(x / ax) + m.sqr(y / ay) + m.sqr(z)
+    up = z > 0
+    t = torch.where(up, m.sqr(x / ax) + m.sqr(y / ay) + m.sqr(z), 1.0)
     d = 1.0 / (m.Pi * ax * ay * m.sqr(t))
-    return torch.where(z > 0, d, 0.0)
+    return torch.where(up, d, 0.0)
 
 
 def beckmann_d(h, ax, ay):
     x, y, z = h[..., 0], h[..., 1], h[..., 2]
     z2 = m.sqr(z)
     e = torch.exp(-(m.sqr(x / ax) + m.sqr(y / ay)) / m.clip(z2, min=1e-12))
-    d = e / (m.Pi * ax * ay * m.sqr(z2))
-    return torch.where(z > 1e-6, d, 0.0)
+    up = z > 1e-6
+    d = e / (m.Pi * ax * ay * m.sqr(torch.where(up, z2, 1.0)))
+    return torch.where(up, d, 0.0)
 
 
 def smith_g1(v, h, ax, ay, dist_type=GGX):

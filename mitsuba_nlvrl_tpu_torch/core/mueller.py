@@ -32,10 +32,13 @@ def _t(x, like=None):
 
 
 def _cdiv(a, b):
-    """a / b for complex tensors by Smith's algorithm."""
+    """a / b for complex tensors by Smith's algorithm. The ratio's branch
+    that is not taken divides by 1 (the double ``where``), so that its
+    zero cotangent meets no infinite factor where b is real."""
     ar, ai, c, d = a.real, a.imag, b.real, b.imag
     big = torch.abs(c) >= torch.abs(d)
-    r = torch.where(big, d / c, c / d)
+    r = torch.where(big, d / torch.where(big, c, 1.0),
+                    c / torch.where(big, 1.0, d))
     den = torch.where(big, c + d * r, d + c * r)
     re = torch.where(big, (ar + ai * r) / den, (ar * r + ai) / den)
     im = torch.where(big, (ai - ar * r) / den, (ai * r - ar) / den)

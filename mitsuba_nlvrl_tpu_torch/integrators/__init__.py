@@ -10,7 +10,8 @@ aux``, their photon and VRL maps, which every pass reads. The port has
 ``depth``, ``volpath``, ``volpathmis`` (one estimator; the latter adds
 MIS at medium vertices), ``vrl``, ``photonmapper`` and the wrappers
 ``aov``, ``moment`` and ``stokes`` (whose polarized paths are
-``path_polarized`` and ``path_spectral_polarized``).
+``path_polarized`` and ``path_spectral_polarized``). ``register`` adds a
+user's integrator, as the reference's does.
 """
 from __future__ import annotations
 
@@ -30,6 +31,15 @@ _REGISTRY = {'path': _path.sample, 'direct': _direct.sample,
              'stokes': _aov.sample_stokes}
 _PREPROCESS = {'vrl': _vrl.preprocess, 'photonmapper': _pm.preprocess,
                'photonmap': _pm.preprocess}
+
+
+def register(name: str, fn, preprocess=None) -> None:
+    """Add integrator ``fn`` (``sample``'s signature above) under ``name``,
+    with ``preprocess`` for a two-pass integrator. A scene may then name
+    it, and ``render``'s ``integrator=`` may too."""
+    _REGISTRY[name] = fn
+    if preprocess is not None:
+        _PREPROCESS[name] = preprocess
 
 
 def get_integrator(name: str):

@@ -48,7 +48,10 @@ ARGTYPES = {
     'mnt_intersect_geometry': [ctypes.c_int] * 3 + [ctypes.c_void_p],
     'mnt_intersect_tris': [ctypes.c_void_p],
 }
-ARGTYPES_F64 = {'mnt_intersect_tris_f64': [ctypes.c_void_p]}
+ARGTYPES_F64 = {
+    'mnt_intersect_geometry_f64': [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    'mnt_intersect_tris_f64': [ctypes.c_void_p],
+}
 LAUNCH_FIELDS = ('v0', 'e1', 'e2', 'n_tris', 'o', 'd', 'mint', 'maxt',
                  'n_rays', 'any_hit', 't_out', 'i_out', 'u_out', 'v_out',
                  'stream')
@@ -68,16 +71,18 @@ launches_f64_recompute = 0
 _F32 = torch.float32
 _F64 = torch.float64
 # a float type's kernel: its source, its entry points' argument types, the
-# entry point that launches it, and its two counters above
+# entry point that launches it, its two counters above and the entry
+# point that reports its launch geometry
 _KERNELS = {
     _F32: (SOURCE, ARGTYPES, 'mnt_intersect_tris', 'launches',
-           'launches_recompute'),
+           'launches_recompute', 'mnt_intersect_geometry'),
     _F64: (SOURCE_F64, ARGTYPES_F64, 'mnt_intersect_tris_f64',
-           'launches_f64', 'launches_f64_recompute'),
+           'launches_f64', 'launches_f64_recompute',
+           'mnt_intersect_geometry_f64'),
 }
 _fns = {}                 # float type -> its bound entry point
+_libs = {}                # float type -> its library
 _count = globals()        # the counters, by name
-_lib = None               # the float32 library (it answers geometry())
 _lock = threading.Lock()
 _local = threading.local()   # a thread's LaunchArgs buffer and its address
 _MAX_ROWS = (2**31 - 1) // 3   # 3 * N and 3 * T must fit the kernel's ints
@@ -150,28 +155,25 @@ def _bind(path: str, argtypes: dict):
 def _load(dtype=_F32):
     """Build and bind the kernel of float type ``dtype`` at its first use;
     returns its entry point."""
-    global _lib
     with _lock:
         if dtype not in _fns:
             source, argtypes, entry = _KERNELS[dtype][:3]
             build(sources=(source,))
-            lib = _bind(library_path(source), argtypes)
-            if dtype is _F32:
-                _lib = lib
-            _fns[dtype] = getattr(lib, entry)
+            _libs[dtype] = _bind(library_path(source), argtypes)
+            _fns[dtype] = getattr(_libs[dtype], entry)
     return _fns[dtype]
 
 
 def geometry(n_rays: int, n_tris: int, any_hit: bool = False,
-             device=None) -> Geometry:
-    """The launch the kernel makes for ``n_rays`` rays against ``n_tris``
-    triangles on a CUDA device (the current one by default), as the
-    library works it out at each launch."""
-    _load()
-    lib = _lib
+             device=None, dtype=_F32) -> Geometry:
+    """The launch the kernel of float type ``dtype`` makes for ``n_rays``
+    rays against ``n_tris`` triangles on a CUDA device (the current one by
+    default), as the library works it out at each launch."""
+    _load(dtype)
+    fn = getattr(_libs[dtype], _KERNELS[dtype][5])
     buf = ctypes.create_string_buffer(_GEOMETRY.size)
     with torch.cuda.device(device):
-        err = lib.mnt_intersect_geometry(n_rays, n_tris, int(any_hit), buf)
+        err = fn(n_rays, n_tris, int(any_hit), buf)
     if err != 0:
         raise RuntimeError(f"intersect kernel geometry failed: CUDA error "
                            f"{err}")

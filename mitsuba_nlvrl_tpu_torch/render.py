@@ -18,6 +18,7 @@ differentiable.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -34,13 +35,16 @@ from .integrators.regen import regen_supported, render_regen
 from .scene.types import unwrap
 
 
-def preprocess(scene, meta, seed: int = 0):
-    """The integrator's preprocess (photon and VRL shooting), or None for
-    a one-pass integrator; its key is the reference's,
-    ``fold_in(PRNGKey(seed), 0x9e37)``. A wrapper integrator (``moment``,
-    ``stokes``, ``aov``) runs the preprocess of the one it wraps. The
-    light pass is differentiable, as the reference's is: where a scene
-    leaf requires grad, the maps carry its gradient."""
+def preprocess(scene, meta, seed: int = 0, integrator: Optional[str] = None):
+    """The preprocess (photon and VRL shooting) of the scene's integrator,
+    or of ``integrator`` where it is given, or None for a one-pass
+    integrator; its key is the reference's, ``fold_in(PRNGKey(seed),
+    0x9e37)``. A wrapper integrator (``moment``, ``stokes``, ``aov``)
+    runs the preprocess of the one it wraps. The light pass is
+    differentiable, as the reference's is: where a scene leaf requires
+    grad, the maps carry its gradient."""
+    if integrator is not None:
+        meta = dataclasses.replace(meta, integrator=integrator)
     inner = unwrap(meta)
     pre = get_preprocess(inner.integrator)
     if pre is None:
@@ -48,12 +52,11 @@ def preprocess(scene, meta, seed: int = 0):
     return pre(scene, inner, rng.fold_in(rng.PRNGKey(seed), 0x9e37))
 
 
-def _use_regen(meta, should_stop, on_pass, timeout) -> bool:
+def _use_regen(meta, name, should_stop, on_pass, timeout) -> bool:
     """The reference's gate off TPU: opt-in (``MNT_REGEN=1``), for a
     volumetric ``volpath``/``volpathmis`` render or a ``path`` render
-    with a decomposable sampler, not spectral, and without per-pass
-    hooks."""
-    name = meta.integrator
+    (``name``) with a decomposable sampler, not spectral, and without
+    per-pass hooks."""
     volumetric = name in ('volpath', 'volpathmis') and meta.has_media
     return (os.environ.get('MNT_REGEN', '') == '1'
             and regen_supported(meta, name, diff=False)
@@ -61,11 +64,13 @@ def _use_regen(meta, should_stop, on_pass, timeout) -> bool:
             and (volumetric or name == 'path'))
 
 
-def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
+def render_pass(scene, meta, key, pass_idx: int = 0, aux=None,
+                integrator: Optional[str] = None):
     """One 1-spp pass over the full film; returns ((H, W, 4) premultiplied
     [rgb * weight, weight] accumulation, measured ray count). ``aux``: the
-    maps of a two-pass integrator."""
-    integ = get_integrator(meta.integrator)
+    maps of a two-pass integrator; ``integrator``: render with it instead
+    of the scene's own."""
+    integ = get_integrator(integrator or meta.integrator)
     dev = scene.device
     with torch.no_grad():
         pos_key, samp_key = rng.split(key)
@@ -87,10 +92,12 @@ def render_pass(scene, meta, key, pass_idx: int = 0, aux=None):
 def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
            ray_stats: Optional[list] = None, info: Optional[dict] = None,
            aux=None, verbose: bool = False,
-           timeout: Optional[float] = None, should_stop=None, on_pass=None):
+           timeout: Optional[float] = None, should_stop=None, on_pass=None,
+           integrator: Optional[str] = None):
     """Full render: the preprocess where the integrator has one (unless
     ``aux`` brings its maps), then ``spp`` passes -> (H, W, 3) image on the
-    scene's device.
+    scene's device. ``integrator`` renders the scene with that integrator
+    instead of its own, as the reference's keyword does.
 
     If ``ray_stats`` is a list, each pass appends its measured ray count
     (a device scalar: read it after the render; a chunk of the
@@ -107,10 +114,12 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     runs after pass ``p`` with a function that develops the film so far
     (the CLI writes it on SIGHUP). ``verbose`` prints a line a pass."""
     spp = spp or meta.spp
-    if _use_regen(meta, should_stop, on_pass, timeout):
+    name = integrator or meta.integrator
+    if _use_regen(meta, name, should_stop, on_pass, timeout):
         t0 = time.time()
         acc = render_regen(scene, meta, seed=seed, spp=spp,
-                           ray_stats=ray_stats, verbose=verbose)
+                           ray_stats=ray_stats, verbose=verbose,
+                           integrator=name)
         if scene.device.type == 'cuda':
             torch.cuda.synchronize(scene.device)
         if info is not None:
@@ -123,7 +132,7 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     t0 = time.time()
     if aux is None:
         with torch.no_grad():
-            aux = preprocess(scene, meta, seed)
+            aux = preprocess(scene, meta, seed, integrator)
     if scene.device.type == 'cuda':
         torch.cuda.synchronize(scene.device)
     t_pre = time.time() - t0
@@ -131,7 +140,8 @@ def render(scene, meta, seed: int = 0, spp: Optional[int] = None,
     done = 0
     while done < spp:
         p = done
-        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p, aux)
+        img, nrays = render_pass(scene, meta, rng.fold_in(key, p), p, aux,
+                                 integrator)
         acc = img if acc is None else acc + img
         if ray_stats is not None:
             ray_stats.append(nrays)

@@ -90,9 +90,6 @@ SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
                'roughplastic', 'pplastic', 'twosided', 'mask', 'blendbsdf',
                'normalmap', 'bumpmap', 'polarizer', 'retarder', 'circular',
                'measured', 'measured_polarized')
-SLICE_INTEGRATORS = ('path', 'direct', 'depth', 'volpath', 'volpathmis',
-                     'vrl', 'photonmapper', 'photonmap', 'aov', 'moment',
-                     'stokes')
 # integrators that wrap another (its ``integrator`` property)
 WRAPPER_INTEGRATORS = ('aov', 'moment', 'stokes')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
@@ -355,10 +352,11 @@ def check_meta(meta: SceneMeta) -> None:
     for code in meta.phase_types:
         if ph_names.get(code) not in SLICE_PHASES:
             raise ValueError(f"unknown phase function code {code}")
+    # the registry: the built-in integrators and any registered since
+    from ..integrators import get_integrator
     inner = unwrap(meta)
     for name in (meta.integrator, inner.integrator):
-        if name not in SLICE_INTEGRATORS:
-            raise KeyError(f"unknown integrator '{name}'")
+        get_integrator(name)    # KeyError for a name it does not hold
     if inner.integrator in ('vrl', 'photonmapper', 'photonmap'):
         for name in DEFERRED_PROPS:
             value = inner.iprop(name)

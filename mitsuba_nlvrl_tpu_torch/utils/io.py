@@ -207,7 +207,8 @@ def write_png(path: str, image: np.ndarray, gamma: bool = True) -> None:
 
 def _png_unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row filters (none, sub, up, average, paeth) of a
-    non-interlaced PNG: (H, stride) uint8."""
+    non-interlaced PNG, or of one pass of an interlaced one: (H, stride)
+    uint8."""
     out = np.zeros((H, stride), np.uint8)
     prior = np.zeros(stride, np.int64)
     pos = 0
@@ -246,12 +247,39 @@ def _png_unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(rows: np.ndarray, W: int, depth: int, ctype: int,
+                 chans: int) -> np.ndarray:
+    """The (H, W, chans) samples of unfiltered rows (H, stride): uint16 at
+    16 bits, else uint8; grey of 1, 2 or 4 bits widened to 8."""
+    H = rows.shape[0]
+    if depth == 16:
+        return rows.view('>u2').astype(np.uint16).reshape(H, W, chans)
+    if depth == 8:
+        return rows.reshape(H, W, chans)
+    per = 8 // depth       # 1, 2 or 4 bits a sample: grey or palette indices
+    shifts = np.arange(per - 1, -1, -1) * depth
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    img = samples.reshape(H, -1)[:, :W, None].astype(np.uint8)
+    if ctype == 0:      # widen grey to 8 bits, as decoders do
+        img = (img.astype(np.uint16) * (255 // ((1 << depth) - 1))
+               ).astype(np.uint8)
+    return img
+
+
 def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG to its samples, (H, W, C) uint8 or
-    uint16 (C: 1 grey, 2 grey and alpha, 3 RGB, 4 RGBA). Palette images
-    expand to RGB, or to RGBA when they carry transparency; grey and
-    palette images of 1, 2 or 4 bits widen to 8. Needs zlib and numpy
-    only."""
+    """Read a PNG to its samples, (H, W, C) uint8 or uint16 (C: 1 grey, 2
+    grey and alpha, 3 RGB, 4 RGBA). Palette images expand to RGB, or to
+    RGBA when they carry transparency; grey and palette images of 1, 2 or
+    4 bits widen to 8. An Adam7-interlaced file is decoded pass by pass:
+    each pass unfiltered with its own row stride (a pass that holds no
+    pixel of a small image has no rows) and its pixels scattered into the
+    image (a plain file is one pass of the whole image). Needs zlib and
+    numpy only."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != b'\x89PNG\r\n\x1a\n':
@@ -272,25 +300,23 @@ def read_png(path: str) -> np.ndarray:
             idat.append(body)
         elif tag == b'IEND':
             break
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace}")
     chans = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     bits = chans * depth
-    stride = (W * bits + 7) // 8
-    rows = _png_unfilter(zlib.decompress(b''.join(idat)), H, stride,
-                         max(1, bits // 8))
-    if depth == 16:
-        img = rows.view('>u2').astype(np.uint16).reshape(H, W, chans)
-    elif depth == 8:
-        img = rows.reshape(H, W, chans)
-    else:       # 1, 2 or 4 bits a sample: grey or palette indices
-        per = 8 // depth
-        shifts = np.arange(per - 1, -1, -1) * depth
-        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        img = samples.reshape(H, -1)[:, :W, None].astype(np.uint8)
-        if ctype == 0:      # widen grey to 8 bits, as decoders do
-            img = (img.astype(np.uint16) * (255 // ((1 << depth) - 1))
-                   ).astype(np.uint8)
+    bpp = max(1, bits // 8)
+    raw = zlib.decompress(b''.join(idat))
+    img = np.zeros((H, W, chans), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * bits + 7) // 8
+        rows = _png_unfilter(raw[pos:pos + ph * (stride + 1)], ph, stride,
+                             bpp)
+        pos += ph * (stride + 1)
+        img[y0::dy, x0::dx] = _png_samples(rows, pw, depth, ctype, chans)
     if ctype == 3:
         idx = img[..., 0]
         rgb = plte[idx]

@@ -1,62 +1,73 @@
-"""The port's ray-triangle kernel against other versions of it, on one
+"""The port's ray-triangle kernels against other versions of them, on one
 GPU, in one process.
 
     python3 scripts/port_kernel_compare.py --parent DIR \
-        [--variant TAG=DIR ...] [--out DIR]
+        [--variant TAG=DIR ...] [--dtype float32|float64] [--out DIR]
 
-Each DIR is the root of another checkout of the repository: --parent the
-parent commit (for example unpacked with `git archive`), each --variant a
-copy of this checkout with the kernel changed (for example one constant of
-`csrc/intersect.cu` edited). Its `mitsuba_nlvrl_tpu_torch/ops/cuda/
-intersect_cuda.py` is loaded under another name and builds its own kernel
-into its own `_build/`. Prints JSON lines:
+--dtype picks the kernel: `csrc/intersect.cu` (float32, the default) or
+`csrc/intersect_f64.cu` (float64, the double variant's). Each DIR is the
+root of another checkout of the repository: --parent the parent commit
+(for example unpacked with `git archive`), each --variant a copy of this
+checkout with the kernel changed (for example one constant edited). Its
+`mitsuba_nlvrl_tpu_torch/ops/cuda/intersect_cuda.py` is loaded under
+another package name and binds its own kernel from its own `_build/`;
+every version is compiled at the start, one nvcc each, started together.
+Prints JSON lines:
 
   build     nvcc's -Xptxas -v report (registers, shared memory, spills) of
-            every library, and the card's name and power limit
-  sass      per kernel function of every library: SASS instructions and
-            the count of each opcode (`cuobjdump -sass`), and for the
-            parent and this checkout the instructions a ray-triangle
-            pair; the full listings go to --out
+            every version, and the card's name and power limit
+  sass      per kernel function of every version: SASS instructions and
+            the count of each opcode (`cuobjdump -sass`), and (float32) the
+            instructions a ray-triangle pair; the full listings go to --out
+  check     every version against the plain version: idx and the bits of
+            t, u, v (nearest hit); any hit the bits of t (float64, which
+            writes the smallest hit t) or occlusion (float32). float32 on
+            the two timed shapes, float64 on every chip_smoke.f64_cases case
   scan      parent and change against the triangle count at the main
             path's rays
   floors    a device copy of the kernel's bytes, a one-element launch
   host_pieces  host time of the pieces of a wrapper call
-  check     every version against this checkout's kernel: idx and the
-            bits of t, u, v equal (nearest hit), occlusion equal (any hit)
   time      device time of one call (CUDA graph replay, as chip_smoke.py
             times it), at 262,144 Cornell-box camera rays x 12 triangles and
             262,144 random rays x 1,023 random triangles, nearest and any
             hit, in the order parent, change, variants, change, parent
-  render_rays  the same for the calls of one pass of the 512x512 render
-            (chip_smoke.render_calls): the pass's 16 calls together, its
-            bounce rays' nearest-hit calls and its shadow-ray calls
+  render_rays  the calls of one pass of the 512x512, 16 spp Cornell box
+            (`cbox_path`; in float64 `cbox_path_double`), each checked,
+            then timed together and by kind (the bounce rays' nearest-hit
+            calls, the shadow-ray calls), device ms a launch
+  render    that render end to end, wall seconds, with each version's
+            wrapper in place of the port's, in the same order; the images
+            equal in bits
   l2        the camera-ray call on the same rays again and again against
             the same call on 16 distinct copies of them (L2-resident or
             not)
   host      host time a wrapper call (parent, change, change, parent)
+
+Exits 1 if a version disagrees with the plain version or the renders
+differ.
 """
 from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import ctypes
 import importlib.util
-import io
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import time
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import (FLOPS_PER_PAIR, bound as bound_of,  # noqa: E402
-                        host_ms, peaks, render_calls, time_ms)
+from chip_smoke import (bound as bound_of, f64_cases,  # noqa: E402
+                        host_ms, peaks, record_calls, time_ms)
 from mitsuba_nlvrl_tpu_torch.ops.cuda import intersect_cuda as kern  # noqa
 
 # triangle counts of the scan over T (the Cornell box's 12, cycled)
@@ -67,19 +78,48 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def load_module(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
+def load_other(root: str, tag: str):
+    """The intersect_cuda module of the checkout at ``root``, imported as
+    ``_cmp_<tag>.ops.cuda.intersect_cuda`` (its relative imports resolve
+    inside that checkout; no package __init__ runs)."""
+    pkg, name = os.path.join(root, 'mitsuba_nlvrl_tpu_torch'), f'_cmp_{tag}'
+    for sub in ((), ('core',), ('ops',), ('ops', 'cuda')):
+        mod = types.ModuleType('.'.join((name, *sub)))
+        mod.__path__ = [os.path.join(pkg, *sub)]
+        sys.modules[mod.__name__] = mod
+    full = f'{name}.ops.cuda.intersect_cuda'
+    spec = importlib.util.spec_from_file_location(
+        full, os.path.join(pkg, 'ops', 'cuda', 'intersect_cuda.py'))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[full] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def build_report(build):
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        path = build(verbose=True)
-    return path, [ln for ln in err.getvalue().splitlines()
-                  if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
+def build_all(mods: dict, dtype) -> dict:
+    """Compile every version's kernel of float type ``dtype`` into the
+    library its module loads, with -Xptxas -v, one nvcc each, started
+    together: {tag: (library path, ptxas report lines)}."""
+    attr = 'SOURCE_F64' if dtype is torch.float64 else 'SOURCE'
+    procs = {}
+    for tag, mod in mods.items():
+        src = getattr(mod, attr)
+        path = mod.library_path(src)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cmd = [mod._nvcc(), *mod.NVCC_FLAGS, '-Xptxas', '-v', '-o',
+               f'{path}.tmp', src]
+        procs[tag] = (path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for tag, (path, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{err}")
+        os.replace(f'{path}.tmp', path)
+        out[tag] = (path, [ln.strip() for ln in err.splitlines()
+                           if 'registers' in ln or 'spill' in ln
+                           or 'Compiling' in ln])
+    return out
 
 
 def _addr(line: str) -> int:
@@ -90,28 +130,14 @@ def _branch_target(line: str) -> int:
     return int(re.search(r'BRA (?:[!\w]+, )?0x([0-9a-f]+)', line).group(1), 16)
 
 
-def pair_cost(lines: list, parent: bool) -> dict:
+def pair_cost(lines: list) -> dict:
     """Issued instructions of one ray-triangle pair on the fast path, read
-    from a nearest-hit kernel's SASS (``lines``, one instruction each).
-
-    Parent: the body of the first triangle loop (from the target of its
-    backward branch to that branch), less the out-of-line slow reciprocal
-    (from the instruction before CALL.REL to the next BRA), for one ray.
-    Redesign: the code of one triangle against the thread's rays (from
-    one group of LDS.128 to the next), less the slow reciprocal the first
-    vote skips, over the rays (one MUFU.RCP each on the fast path); the
-    instructions up to the vote after u and after v are the cost of a
-    pair that leaves there."""
-    if parent:
-        for i, line in enumerate(lines):
-            if 'BRA' in line and _branch_target(line) < _addr(line):
-                top = [j for j, x in enumerate(lines)
-                       if _addr(x) == _branch_target(line)][0]
-                body = lines[top:i + 1]
-                break
-        call = [j for j, x in enumerate(body) if 'CALL.REL' in x][0]
-        end = next(j for j in range(call, len(body)) if 'BRA' in body[j])
-        return {'rays': 1, 'full': len(body) - (end - call + 2)}
+    from the float32 nearest-hit kernel's SASS (``lines``, one instruction
+    each): the code of one triangle against the thread's rays (from one
+    group of LDS.128 to the next), less the slow reciprocal the first vote
+    skips, over the rays (one MUFU.RCP each on the fast path); the
+    instructions up to the vote after u and after v are the cost of a pair
+    that leaves there."""
     loads = [i for i, x in enumerate(lines) if 'LDS.128' in x]
     block = lines[loads[0]:loads[2]]
     votes = [i for i, x in enumerate(block) if 'VOTE.ANY P' in x]
@@ -127,7 +153,7 @@ def pair_cost(lines: list, parent: bool) -> dict:
             'exit_after_v': (votes[2] + 2 - slow) / rays}
 
 
-def sass(path: str, tag: str, out_dir: str) -> dict:
+def sass(path: str, tag: str, out_dir: str, with_pair_cost: bool) -> dict:
     cuobjdump = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
                              'bin', 'cuobjdump')
     text = subprocess.run([cuobjdump, '-sass', path], capture_output=True,
@@ -149,23 +175,34 @@ def sass(path: str, tag: str, out_dir: str) -> dict:
     out = {k: {'instructions': sum(c.values()), 'opcodes': dict(c)}
            for k, c in kernels.items()}
     for k, listing in listings.items():
-        # the parent's one kernel; the others' nearest-hit whole-set one
-        if tag == 'parent' or 'ILb0ELb0E' in k:
-            out[k]['pair_cost'] = pair_cost(listing, tag == 'parent')
+        if with_pair_cost and 'ILb0ELb0E' in k:   # nearest hit, whole set
+            out[k]['pair_cost'] = pair_cost(listing)
     return out
 
 
-def shapes(dev):
-    """The timed shapes, and the calls of one pass of the main path's
-    render."""
+def main_scene(dtype):
+    """The main path's Cornell box, 512x512, 16 spp, ``path`` max_depth 8
+    (``cbox_path``; ``cbox_path_double`` in float64), on the card."""
     import mitsuba_nlvrl_tpu_torch as mnt
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_light_spd,
+                                                        cornell_box)
+    desc = cornell_box(spp=16, res=512,
+                       integrator={'type': 'path', 'max_depth': 8},
+                       radiance=cbox_light_spd())
+    desc['double'] = dtype is torch.float64
+    scene, meta = mnt.build_scene(desc)
+    assert scene.dtype == dtype
+    return scene, meta
+
+
+def cases_f32(scene, meta) -> dict:
+    """The two timed shapes in float32: the box's camera rays and random
+    rays against 1,023 random triangles, {name: (tris, rays)}."""
     from mitsuba_nlvrl_tpu_torch import sensor
     from mitsuba_nlvrl_tpu_torch.core import rng
     from mitsuba_nlvrl_tpu_torch.integrators.common import \
         film_sample_positions
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
-    scene, meta = mnt.build_scene(cornell_box(
-        spp=16, res=512, integrator={'type': 'path', 'max_depth': 8}))
+    dev = scene.device
     pos_key, _ = rng.split(rng.fold_in(rng.PRNGKey(0), 0))
     _, pos01 = film_sample_positions(meta, pos_key, 0, dev)
     cam, _ = sensor.sample_ray(scene, meta, pos01, None)
@@ -181,13 +218,31 @@ def shapes(dev):
     big_rays = (o, (d / d.norm(dim=1, keepdim=True)).contiguous(),
                 torch.full((262144,), 1e-4, device=dev),
                 torch.full((262144,), math.inf, device=dev))
-    cases = {'cbox_camera_512': ((g.v0, g.e1, g.e2),
-                                 (cam.o, cam.d, cam.mint, cam.maxt)),
-             'random_1023': (big, big_rays)}
-    return cases, render_calls(mnt, scene, meta)
+    return {'cbox_camera_512': ((g.v0, g.e1, g.e2),
+                                tuple(x.contiguous() for x in (
+                                    cam.o, cam.d, cam.mint, cam.maxt))),
+            'random_1023': (big, big_rays)}
 
 
-def scan(case, callers, bw, fl, smi):
+def mismatches(got, ref, any_hit: bool) -> int:
+    """Entries in which a kernel's (t, idx, u, v) differ from the plain
+    version's: the bits of t, u, v and idx (nearest hit); any hit the
+    bits of t in float64 (the smallest hit t), occlusion in float32 (the
+    float32 kernel stops at the first hit)."""
+    def bits(x):
+        return x.view(torch.int64 if x.dtype == torch.float64
+                      else torch.int32)
+    if any_hit:
+        if got[0].dtype == torch.float64:
+            return int((bits(got[0]) != bits(ref[0])).sum())
+        return int((torch.isfinite(got[0]) != torch.isfinite(ref[0])).sum())
+    return (sum(int((bits(a) != bits(b)).sum())
+                for a, b in ((got[0], ref[0]), (got[2], ref[2]),
+                             (got[3], ref[3])))
+            + int((got[1] != ref[1]).sum()))
+
+
+def scan(case, callers, bw, fl, fb, smi):
     """Device time against the triangle count, at the main path's 262,144
     camera rays: the intercept is the kernel's cost with no pair to test
     (launch, ray loads, stores), the slope the cost of a triangle."""
@@ -200,25 +255,26 @@ def scan(case, callers, bw, fl, smi):
         for tag in ('parent', 'change', 'change', 'parent'):
             ms = time_ms(lambda: callers[tag](*tris, *rays), 7, 50)
             runs.setdefault(tag, []).append(ms)
-        bound = max((N * 48 + 36 * T) / bw, FLOPS_PER_PAIR * N * T / fl) * 1e3
+        bound = max(bound_of(N, T, False, bw, fl, fb)[2:])
         emit({'phase': 'scan', 'rays': N, 'tris': T, 'bound_ms': bound,
               'ms': runs, 'nvidia_smi': smi})
 
 
-def floors(case, bw, smi):
+def floors(case, bw, fb, smi):
     """Yardsticks at the main path's bytes: a device copy that moves as
     many bytes as the kernel (read half, write half), and an empty launch
     in a CUDA graph."""
     _, rays = case
-    nbytes = rays[0].shape[0] * 48 + 36 * 12
+    nbytes = bound_of(rays[0].shape[0], 12, False, bw, 1.0, fb)[0]
     src = torch.empty(nbytes // 8, device=rays[0].device)
     dst = torch.empty_like(src)
     copy_ms = time_ms(lambda: dst.copy_(src), 7, 50)
     tiny = torch.empty(1, device=rays[0].device)
     empty_ms = time_ms(lambda: tiny.add_(0), 7, 50)
-    emit({'phase': 'floors', 'bytes': 2 * src.numel() * 4,
-          'copy_ms': copy_ms, 'copy_gb_per_s': 2 * src.numel() * 4
-          / copy_ms / 1e6, 'bytes_bound_ms': 2 * src.numel() * 4 / bw * 1e3,
+    moved = 2 * src.numel() * 4
+    emit({'phase': 'floors', 'bytes': moved, 'copy_ms': copy_ms,
+          'copy_gb_per_s': moved / copy_ms / 1e6,
+          'bytes_bound_ms': moved / bw * 1e3,
           'one_element_add_ms': empty_ms, 'nvidia_smi': smi})
 
 
@@ -229,13 +285,12 @@ def host_pieces(case, smi, calls=2000):
     ctypes (launch geometry included), the whole call (device work queued,
     not waited for), the stream handle by PyTorch's public and its C
     binding."""
-    import time
     (v0, e1, e2), (o, d, mint, maxt) = case
     T, N, dev = v0.shape[0], o.shape[0], o.device
     outputs = [torch.empty_like(mint) for _ in range(4)]
     out_ptrs = [x.data_ptr() for x in outputs]
     packed = ctypes.create_string_buffer(kern._PACK.size)
-    launch = kern._load()
+    launch = kern._load(v0.dtype)
 
     def pack():
         kern._PACK.pack_into(
@@ -244,7 +299,7 @@ def host_pieces(case, smi, calls=2000):
             0, *out_ptrs, kern._raw_stream(dev.index))
 
     def one_buffer_views():
-        buf = torch.empty((4, N), device=dev)
+        buf = torch.empty((4, N), device=dev, dtype=mint.dtype)
         _, i, _, _ = buf.unbind(0)
         i.view(torch.int32)
 
@@ -279,8 +334,8 @@ def host_pieces(case, smi, calls=2000):
 def l2(case, callers, smi, copies=16):
     """The camera-ray call repeated on one copy of its rays (which then
     stays in the 50 MB L2 cache) against the same call on ``copies``
-    distinct copies (134 MB together, read from device memory each time),
-    device ms a launch, parent and change."""
+    distinct copies (read from device memory each time), device ms a
+    launch, parent and change."""
     tris, rays = case
     distinct = [tuple(x.clone() for x in rays) for _ in range(copies)]
     runs = []
@@ -293,38 +348,63 @@ def l2(case, callers, smi, copies=16):
     emit({'phase': 'l2', 'copies': copies, 'runs': runs, 'nvidia_smi': smi})
 
 
-def same(a, b, any_hit) -> bool:
-    if any_hit:
-        return bool((torch.isfinite(a[0]) == torch.isfinite(b[0])).all())
-    return all(bool((x.view(torch.int32) == y.view(torch.int32)).all())
-               for x, y in zip(a, b))
-
-
-def render_rays(box, calls, callers, order, bw, fl, smi):
-    """Every version on the rays of one pass of the render: checked call by
-    call, then the pass's calls timed together and by kind (the nearest-hit
-    calls on bounce rays, after the camera rays' first; the shadow-ray
-    calls), device ms a launch."""
-    T = box[0].shape[0]
-    for k, (rays, any_hit) in enumerate(calls):
-        ref = kern.intersect_tris(*box, *rays, any_hit=any_hit)
-        equal = {t: same(c(*box, *rays, any_hit=any_hit), ref, any_hit)
-                 for t, c in callers.items()}
-        assert all(equal.values()), (k, equal)
+def render_rays(calls, callers, order, bw, fl, fb, smi) -> int:
+    """Every version on the calls of one pass of the render: checked call
+    by call against the plain version, then the pass's calls timed
+    together and by kind (the nearest-hit calls on bounce rays, after the
+    camera rays' first; the shadow-ray calls), device ms a launch.
+    Returns the mismatches."""
+    bad = collections.Counter()
+    for tris, rays, any_hit in calls:
+        ref = kern.intersect_tris_plain(*tris, *rays, any_hit=any_hit)
+        for tag, c in callers.items():
+            bad[tag] += mismatches(c(*tris, *rays, any_hit=any_hit), ref,
+                                   any_hit)
+    emit({'phase': 'render_rays_check', 'calls': len(calls),
+          'mismatches': dict(bad)})
     groups = {'pass': calls, 'bounce_nearest': calls[2::2],
               'shadow_any_hit': calls[1::2]}
     for name, group in groups.items():
-        bound = sum(max(bound_of(r[0].shape[0], T, a, bw, fl)[2:])
-                    for r, a in group) / len(group)
+        bound = sum(max(bound_of(r[0].shape[0], t[0].shape[0], a, bw, fl,
+                                 fb)[2:]) for t, r, a in group) / len(group)
         runs = []
         for tag in order:
-            ms = time_ms(lambda: [callers[tag](*box, *r, any_hit=a)
-                                  for r, a in group], 7, 5) / len(group)
+            ms = time_ms(lambda: [callers[tag](*t, *r, any_hit=a)
+                                  for t, r, a in group], 7, 5) / len(group)
             runs.append({'version': tag, 'ms_per_launch': ms,
                          'roofline_share': bound / ms})
         emit({'phase': 'render_rays', 'calls': name, 'launches':
               len(group), 'bound_ms_per_launch': bound, 'runs': runs,
               'nvidia_smi': smi})
+    return sum(bad.values())
+
+
+def render(scene, meta, callers, order, smi) -> int:
+    """The render end to end (wall seconds, synchronised) with each
+    version's wrapper in the port's place, after a 1-spp pass to warm it
+    up; returns the number of versions whose image differs from the
+    first's."""
+    import mitsuba_nlvrl_tpu_torch as mnt
+    from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
+    real, runs, first, differ = pisect.intersect_tris, [], None, 0
+    for tag in order:
+        pisect.intersect_tris = callers[tag]
+        try:
+            mnt.render(scene, meta, seed=0, spp=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = mnt.render(scene, meta, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pisect.intersect_tris = real
+        first = img if first is None else first
+        same = bool(torch.equal(img, first))
+        differ += not same
+        runs.append({'version': tag, 'wall_s': wall, 'equal_bits': same})
+    emit({'phase': 'render', 'spp': meta.spp, 'dtype': str(scene.dtype),
+          'runs': runs, 'nvidia_smi': smi})
+    return differ
 
 
 def main() -> int:
@@ -332,6 +412,8 @@ def main() -> int:
     ap.add_argument('--parent', required=True)
     ap.add_argument('--variant', action='append', default=[],
                     metavar='TAG=DIR')
+    ap.add_argument('--dtype', choices=('float32', 'float64'),
+                    default='float32')
     ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out'))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -342,44 +424,52 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    dev = torch.device('cuda', torch.cuda.current_device())
+    dtype = getattr(torch, args.dtype)
+    f64 = dtype is torch.float64
 
-    def other(root, tag):
-        return load_module(os.path.join(
-            root, 'mitsuba_nlvrl_tpu_torch', 'ops', 'cuda',
-            'intersect_cuda.py'), f'{tag}_intersect_cuda')
-    mods = {'parent': other(args.parent, 'parent'), 'change': kern}
+    mods = {'parent': load_other(args.parent, 'parent'), 'change': kern}
     for spec in args.variant:
         tag, root = spec.split('=', 1)
-        mods[tag] = other(root, tag)
-    reports, libs = {}, {}
-    for tag, mod in mods.items():
-        libs[tag], reports[tag] = build_report(mod.build)
-    callers = {tag: mod.intersect_tris for tag, mod in mods.items()}
+        mods[tag] = load_other(root, tag)
+    built = build_all(mods, dtype)
     emit({'phase': 'build', 'nvidia_smi': smi, 'name': name,
           'torch': torch.__version__, 'cuda': torch.version.cuda,
-          'ptxas': reports})
-    for tag, path in libs.items():
+          'dtype': args.dtype,
+          'ptxas': {t: r for t, (_, r) in built.items()}})
+    for tag, (path, _) in built.items():
         emit({'phase': 'sass', 'library': tag, 'kernels': sass(
-            path, tag, args.out)})
+            path, f"{tag}{'_f64' if f64 else ''}", args.out, not f64)})
+    callers = {tag: mod.intersect_tris for tag, mod in mods.items()}
 
-    bw, fl, _ = peaks(name)
+    bw, fl32, fl64 = peaks(name)
+    fl, fb = (fl64, 8) if f64 else (fl32, 4)
     variants = [t for t in mods if t not in ('parent', 'change')]
     order = ['parent', 'change'] + variants + ['change', 'parent']
-    cases, calls = shapes(dev)
-    scan(cases['cbox_camera_512'], callers, bw, fl, smi)
-    floors(cases['cbox_camera_512'], bw, smi)
-    host_pieces(cases['cbox_camera_512'], smi)
-    for shape, (tris, rays) in cases.items():
+    scene, meta = main_scene(dtype)
+    cases = (f64_cases(torch, kern, scene, meta) if f64
+             else cases_f32(scene, meta))
+    failed = 0
+    for case, (tris, rays) in cases.items():
+        for any_hit in (False, True):
+            ref = kern.intersect_tris_plain(*tris, *rays, any_hit=any_hit)
+            bad = {t: mismatches(c(*tris, *rays, any_hit=any_hit), ref,
+                                 any_hit) for t, c in callers.items()}
+            failed += sum(bad.values())
+            emit({'phase': 'check', 'case': case, 'any_hit': any_hit,
+                  'rays': rays[0].shape[0], 'tris': tris[0].shape[0],
+                  'hits': int(torch.isfinite(ref[0]).sum()),
+                  'mismatches': bad})
+
+    camera = cases['cbox_camera_512']
+    scan(camera, callers, bw, fl, fb, smi)
+    floors(camera, bw, fb, smi)
+    host_pieces(camera, smi)
+    for shape in ('cbox_camera_512', 'random_1023'):
+        tris, rays = cases[shape]
         N, T = rays[0].shape[0], tris[0].shape[0]
         for any_hit in (False, True):
-            # any hit reads as much and writes t alone
-            nbytes = N * (36 if any_hit else 48) + 36 * T
-            bound = max(nbytes / bw, FLOPS_PER_PAIR * N * T / fl) * 1e3
-            ref = kern.intersect_tris(*tris, *rays, any_hit=any_hit)
-            emit({'phase': 'check', 'shape': shape, 'any_hit': any_hit,
-                  'equal': {t: same(c(*tris, *rays, any_hit=any_hit), ref,
-                                    any_hit) for t, c in callers.items()}})
+            _, _, b_bytes, b_ops = bound_of(N, T, any_hit, bw, fl, fb)
+            bound = max(b_bytes, b_ops)
             runs = []
             for tag in order:
                 ms = time_ms(lambda: callers[tag](*tris, *rays,
@@ -387,12 +477,19 @@ def main() -> int:
                 runs.append({'version': tag, 'ms': ms,
                              'roofline_share': bound / ms})
             emit({'phase': 'time', 'shape': shape, 'rays': N, 'tris': T,
-                  'any_hit': any_hit, 'bound_ms': bound, 'runs': runs,
+                  'any_hit': any_hit, 'bound_ms': bound,
+                  'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
+                  'runs': runs, 'geometry': kern.geometry(
+                      N, T, any_hit, dtype=dtype)._asdict(),
                   'nvidia_smi': smi})
-    render_rays(cases['cbox_camera_512'][0], calls, callers, order, bw, fl,
-                smi)
-    l2(cases['cbox_camera_512'], callers, smi)
+    import mitsuba_nlvrl_tpu_torch as mnt
+    failed += render_rays(record_calls(mnt, scene, meta), callers, order,
+                          bw, fl, fb, smi)
+    failed += render(scene, meta, callers, order, smi)
+    l2(camera, callers, smi)
     for shape, (tris, rays) in cases.items():
+        if shape not in ('cbox_camera_512', 'random_1023'):
+            continue
         host = []
         for tag in ('parent', 'change', 'change', 'parent'):
             host.append({'version': tag, 'host_ms_per_call': host_ms(
@@ -402,7 +499,7 @@ def main() -> int:
         emit({'phase': 'host', 'shape': shape, 'runs': host,
               'nvidia_smi': smi})
     print(smi, flush=True)
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == '__main__':

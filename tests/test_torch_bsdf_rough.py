@@ -133,7 +133,7 @@ def test_eval_pdf_sample_match_reference(name, hemisphere):
     {'type': 'twosided', 'bsdf': {'type': 'measured_polarized',
                                   'filename': 'm.pbsdf'}},
 ])
-def test_outside_the_slice_still_raises(change, tmp_path):
+def test_measured_builds_and_wrapped_measured_raises(change, tmp_path):
     """The measured BSDFs build and render from their files (slice 10);
     wrapped in ``mask`` or ``twosided`` they raise NotImplementedError, as
     the reference does (its ``pack_params`` packs no measured row)."""
@@ -206,7 +206,7 @@ def test_mask_from_reference_arrays_raises():
     from ``scene_from_numpy``: its arrays equal the port's own build of
     the same description, and it renders. (A mask around the measured
     BSDF itself raises in both packages:
-    ``test_outside_the_slice_still_raises``.)"""
+    ``test_measured_builds_and_wrapped_measured_raises``.)"""
     from test_measured import _synth_fields
     descs = []
     for pkg in (scenes, pscenes):

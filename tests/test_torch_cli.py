@@ -128,7 +128,7 @@ def test_cli_without_a_card_exits_non_zero(scene_files, monkeypatch,
     assert np.isfinite(_rgb(out)).all()
 
 
-def test_mnt_double_raises(scene_files, monkeypatch):
+def test_mnt_double_renders_float64(scene_files, monkeypatch):
     """MNT_DOUBLE=1 turns the double variant on, as in the reference's
     build_scene: the port's build_scene makes every float table float64,
     and the CLI renders in float64 an EXR equal to the in-process float64

@@ -99,9 +99,12 @@ def struct_mismatches(c_fields: list, py_fields, fmt: str, ctype: str,
 def test_c_declarations_found():
     decls = c_declarations()
     assert set(decls) == {'mnt_intersect_tris', 'mnt_intersect_geometry',
-                          'mnt_intersect_tris_f64'}
+                          'mnt_intersect_tris_f64',
+                          'mnt_intersect_geometry_f64'}
     assert decls['mnt_intersect_tris'] == [ctypes.c_void_p]
     assert decls['mnt_intersect_tris_f64'] == [ctypes.c_void_p]
+    assert (decls['mnt_intersect_geometry_f64']
+            == decls['mnt_intersect_geometry'])
 
 
 def test_argtypes_match_c_declarations():
@@ -111,9 +114,10 @@ def test_argtypes_match_c_declarations():
 
 @pytest.mark.parametrize('name,n_fields,source', [
     ('LaunchArgs', 15, kern.SOURCE), ('Geometry', 4, kern.SOURCE),
-    ('LaunchArgs', 15, kern.SOURCE_F64)])
+    ('LaunchArgs', 15, kern.SOURCE_F64), ('Geometry', 4, kern.SOURCE_F64)])
 def test_structs_match_the_wrapper(name, n_fields, source):
-    """The float64 kernel takes the float32 kernel's packed arguments."""
+    """The float64 kernel takes the float32 kernel's packed arguments and
+    reports its launch in the same struct."""
     py_fields, packer, ctype, code = STRUCTS[name]
     fields = c_struct_fields(name, source)
     assert len(fields) == n_fields

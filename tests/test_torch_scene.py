@@ -128,7 +128,7 @@ def _jpeg(directory) -> str:
     ('spectral', 'photonmapper'),
     ('spectral', 'volpathmis'),
 ])
-def test_types_outside_the_slice_raise(change, tmp_path):
+def test_later_types_build_like_the_reference_or_raise(change, tmp_path):
     """What the port does not render yet raises, naming its ROADMAP item:
     JPEG bitmaps (item 12). The double variant, the measured BSDFs and a
     spectral request on the integrators other than ``path`` (where the

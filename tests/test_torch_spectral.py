@@ -277,7 +277,7 @@ def test_spectral_render_matches_reference(conductor_dir):
 
 
 @pytest.mark.parametrize('integrator', ['volpath', 'vrl'])
-def test_spectral_refusals_name_item_10(integrator):
+def test_spectral_request_renders_rgb_transport(integrator):
     """A spectral request on an integrator other than ``path`` renders
     what the reference renders, its RGB transport (the reference renders
     spectral only under ``path``): from the port's builder, and from the

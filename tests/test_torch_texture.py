@@ -53,34 +53,53 @@ def _filter_row(ftype, row, prior, bpp):
     return bytes([ftype]) + bytes(out)
 
 
-def write_test_png(path, samples, ctype, depth, palette=None, trns=None):
-    """A non-interlaced PNG of (H, W, C) samples (indices for a palette),
-    its rows cycling through the five filters."""
+def _sample_rows(samples, depth):
+    """(H, stride) bytes of (H, W, C) samples, sub-byte samples packed
+    from the high bits."""
     H, W = samples.shape[:2]
     if depth == 16:
-        rows = samples.astype('>u2').reshape(H, -1).view(np.uint8)
-    elif depth == 8:
-        rows = samples.astype(np.uint8).reshape(H, -1)
-    else:
-        per = 8 // depth
-        flat = samples.reshape(H, W).astype(np.uint8)
-        pad = np.zeros((H, -W % per), np.uint8)
-        flat = np.concatenate([flat, pad], 1).reshape(H, -1, per)
-        shifts = np.arange(per - 1, -1, -1) * depth
-        rows = (flat << shifts).sum(-1).astype(np.uint8)
+        return samples.astype('>u2').reshape(H, -1).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(H, -1)
+    per = 8 // depth
+    flat = samples.reshape(H, W).astype(np.uint8)
+    pad = np.zeros((H, -W % per), np.uint8)
+    flat = np.concatenate([flat, pad], 1).reshape(H, -1, per)
+    shifts = np.arange(per - 1, -1, -1) * depth
+    return (flat << shifts).sum(-1).astype(np.uint8)
+
+
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def write_test_png(path, samples, ctype, depth, palette=None, trns=None,
+                   interlace=False):
+    """A PNG of (H, W, C) samples (indices for a palette), its rows
+    cycling through the five filters; with ``interlace`` Adam7, each pass
+    filtered as an image of its own and empty passes left out."""
+    H, W = samples.shape[:2]
     chans = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     bpp = max(1, chans * depth // 8)
-    raw, prior = b'', bytes(rows.shape[1])
-    for y in range(H):
-        row = rows[y].tobytes()
-        raw += _filter_row(y % 5, row, prior, bpp)
-        prior = row
+    passes = ([samples[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+              if interlace else [samples])
+    raw = b''
+    for sub in passes:
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        rows = _sample_rows(sub, depth)
+        prior = bytes(rows.shape[1])
+        for y in range(rows.shape[0]):
+            row = rows[y].tobytes()
+            raw += _filter_row(y % 5, row, prior, bpp)
+            prior = row
 
     def chunk(tag, body):
         return struct.pack('>I', len(body)) + tag + body + struct.pack(
             '>I', zlib.crc32(tag + body) & 0xFFFFFFFF)
     data = b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
-        '>IIBBBBB', W, H, depth, ctype, 0, 0, 0))
+        '>IIBBBBB', W, H, depth, ctype, 0, 0, int(interlace)))
     if palette is not None:
         data += chunk(b'PLTE', palette.astype(np.uint8).tobytes())
     if trns is not None:
@@ -96,23 +115,25 @@ PNG_KINDS = {
     'grey4': (0, 4, False, False), 'grey1': (0, 1, False, False),
     'rgb8': (2, 8, False, False), 'rgb16': (2, 16, False, False),
     'palette8': (3, 8, True, False), 'palette4_trns': (3, 4, True, True),
+    'palette8_trns': (3, 8, True, True),
     'grey_alpha8': (4, 8, False, False), 'grey_alpha16': (4, 16, False,
                                                           False),
     'rgba8': (6, 8, False, False), 'rgba16': (6, 16, False, False),
 }
 
 
-def _png(tmp_path, kind, seed=0):
+def _png(tmp_path, kind, seed=0, size=(13, 29), interlace=False,
+         name=None):
     ctype, depth, pal, trns = PNG_KINDS[kind]
     rng = np.random.default_rng(seed)
-    H, W = 13, 29          # odd sizes: sub-byte rows end mid-byte
+    H, W = size          # odd sizes: sub-byte rows end mid-byte
     chans = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     hi = (1 << depth) - 1 if ctype != 3 else (1 << depth) - 1
     samples = rng.integers(0, hi + 1, (H, W, chans))
     palette = rng.integers(0, 256, (1 << depth, 3)) if pal else None
     alpha = rng.integers(0, 256, (1 << depth) - 3) if trns else None
-    path = str(tmp_path / f'{kind}.png')
-    write_test_png(path, samples, ctype, depth, palette, alpha)
+    path = str(tmp_path / f'{name or kind}.png')
+    write_test_png(path, samples, ctype, depth, palette, alpha, interlace)
     return path
 
 
@@ -146,6 +167,29 @@ def test_load_bitmap_png_matches_reference(kind, raw, tmp_path):
     ref = jtex.load_bitmap(path, gamma=not raw)
     assert got.dtype == ref.dtype == np.float32
     assert got.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize('interlace', [False, True])
+@pytest.mark.parametrize('size', [(1, 1), (3, 5), (9, 17)])
+@pytest.mark.parametrize('kind', ['rgb8', 'rgb16', 'rgba8', 'rgba16',
+                                  'grey8', 'grey_alpha8', 'palette8_trns',
+                                  'palette4_trns'])
+def test_load_bitmap_adam7_png_matches_reference(kind, size, interlace,
+                                                 tmp_path):
+    """Adam7-interlaced and plain files of the same samples: the port's
+    load_bitmap equals the reference's (PIL's decode) on each, and the
+    port reads both to the same samples. At 1x1 and 3x5 some of the
+    seven passes hold no pixel."""
+    path = _png(tmp_path, kind, seed=3, size=size, interlace=interlace)
+    got = ptex.load_bitmap(path)
+    ref = jtex.load_bitmap(path)
+    assert got.dtype == ref.dtype == np.float32
+    assert got.shape == (*size, 3)
+    assert got.tobytes() == ref.tobytes()
+    plain = _png(tmp_path, kind, seed=3, size=size, name='plain')
+    samples = read_png(path)
+    assert samples.dtype == read_png(plain).dtype
+    assert np.array_equal(samples, read_png(plain))
 
 
 def test_load_bitmap_exr_matches_reference(tmp_path):

@@ -189,7 +189,8 @@ def test_spectrum_emitters_pack_the_references_rgb(name):
 def test_spectral_transport_still_raises():
     """Spectral transport renders on ``path``; on the other integrators,
     where the reference renders its RGB transport, the port renders the
-    same (tests/test_torch_spectral.py::test_spectral_refusals_name_item_10
+    same (tests/test_torch_spectral.py::
+    test_spectral_request_renders_rgb_transport
     holds the images to the reference's)."""
     desc = pscenes.cornell_box(radiance=SPECTRA['blackbody'], spp=1, res=8)
     desc['spectral'] = True
