@@ -112,6 +112,18 @@ adds the materials box at 64x64 (every microfacet and plastic BSDF: the
 gradient of bsdfs.params finite on both devices and within the CPU
 tests' tolerance); and ``integrator_keyword`` renders a ``path`` box
 with ``integrator='depth'`` on the card.
+Then slice 12, the sharded paths through NCCL at world size 1 (a file
+store in a temporary directory; the process group is left in the
+script's ``finally``): ``render_distributed`` on the 512x512 Cornell box
+(every kernel call of one dispatch bit for bit and timed; the 16 spp
+render with its launches, all-reduces and their device time beside
+``render``'s wall; a 64x64 render against the CPU's), ``measure_fold``
+on a 256x128 film at 8 folds, ``dp_fold_proxy``, the weak-scaling sweep
+that sets ``render_dist.SATURATION_LANES`` and ``measure_scaling``, each
+rate under its plausibility bound, one ``cbox_nlvrl`` camera pass
+through ``make_sharded_vrl_render`` on a 1x1 mesh (every kernel call bit
+for bit, the radiance equal in bits to the unsharded pass's) and
+``train_step`` on the card against the CPU.
 The CPU halves of the two-pass checks against the CPU run in one
 spawned worker process beside the card's phases, which the script ends
 on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -415,11 +427,12 @@ def kernel_check(torch, kern, dev, scene, meta):
     return out, worst, box, cam_rays
 
 
-def record_calls(mnt, scene, meta, mark=None) -> list:
-    """One pass (spp 1) of a render, keeping a copy of the triangles and
-    rays of every intersection call it makes: [(tris, rays, any_hit)] in
-    the order of the calls. ``mark`` (module, function name, list): the
-    indices of the calls made inside that function go to the list."""
+def record_calls(mnt, scene, meta, mark=None, run=None) -> list:
+    """One pass (spp 1) of a render, or ``run()`` where it is given,
+    keeping a copy of the triangles and rays of every intersection call
+    it makes: [(tris, rays, any_hit)] in the order of the calls. ``mark``
+    (module, function name, list): the indices of the calls made inside
+    that function go to the list."""
     from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
     real, calls, inside = pisect.intersect_tris, [], [0]
 
@@ -442,7 +455,10 @@ def record_calls(mnt, scene, meta, mark=None) -> list:
                 inside[0] -= 1
         setattr(mod, attr, marked)
     try:
-        mnt.render(scene, meta, seed=0, spp=1)
+        if run is None:
+            mnt.render(scene, meta, seed=0, spp=1)
+        else:
+            run()
     finally:
         pisect.intersect_tris = real
         if mark is not None:
@@ -2127,11 +2143,343 @@ def integrator_keyword_check(torch, mnt, kern) -> dict:
     return rec
 
 
+# slice 12's sizes (PERF.md §4): measure_fold's film, the reference's
+# per-chip shard (32,768 pixels), and its folds; the weak-scaling sweep's
+# wavefronts (32,768 lanes times each factor), which set
+# render_dist.SATURATION_LANES
+FOLD_FILM = (256, 128)
+FOLD_FOLDS = 8
+WEAK_BASE = 32768
+WEAK_FACTORS = (1, 2, 4, 8, 16, 32, 64, 128)
+# the share of the sweep's best rate at which a wavefront counts as
+# saturating the card
+SATURATION_SHARE = 0.9
+_DIST_STORE = []
+
+
+def dist_init_phase(torch):
+    """``dist_init``: the process group on NCCL at world size 1, joined
+    through a file store in a temporary directory, and a ``dp`` mesh over
+    it. NCCL bootstraps over a socket even alone, so the script names the
+    loopback interface (NCCL_SOCKET_IFNAME=lo) unless the caller set
+    one: it then needs no network. One all-reduce checks the group.
+    There is no gloo stand-in: if NCCL fails, the script fails."""
+    import torch.distributed as dist
+    from mitsuba_nlvrl_tpu_torch.parallel import (collectives, render_dist,
+                                                  scaling)
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    store = tempfile.mkdtemp(prefix='chip_smoke_dist_')
+    _DIST_STORE.append(store)
+    t0 = time.time()
+    rank = scaling.init_distributed(f'file://{store}/store', 1, 0)
+    mesh = render_dist.make_mesh()
+    x = torch.arange(8, dtype=torch.float32, device='cuda')
+    y = collectives.all_reduce_sum(x, mesh.get_group('dp'))
+    torch.cuda.synchronize()
+    rec = {'backend': str(dist.get_backend()),
+           'nccl_version': '.'.join(str(v) for v in torch.cuda.nccl.version()),
+           'world_size': dist.get_world_size(), 'rank': rank,
+           'nccl_socket_ifname': os.environ['NCCL_SOCKET_IFNAME'],
+           'seconds': time.time() - t0, 'all_reduce_ok': bool(torch.equal(
+               x, y))}
+    emit({'phase': 'dist_init', **rec})
+    assert rec['backend'] == 'nccl' and rec['all_reduce_ok'], rec
+    return mesh
+
+
+def end_distributed() -> None:
+    """Leave the process group (the script's ``finally``) and remove its
+    store."""
+    if 'torch.distributed' in sys.modules:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+    while _DIST_STORE:
+        shutil.rmtree(_DIST_STORE.pop(), ignore_errors=True)
+
+
+def dist_render_phases(torch, mnt, kern, compare, bw, fl, mesh, scene, meta,
+                       render_wall) -> dict:
+    """``dist_render_rays``: every kernel call of one dispatch of
+    ``render_distributed`` on cbox_path (512x512, the fold that
+    ``dp_fold_for`` picks) against the plain version, bit for bit, and
+    timed; ``dist_render``: the 16 spp render through the NCCL mesh of
+    one rank (wall, the all-reduced rays, launches: 16 a dispatch,
+    all-reduces and their device time from CUDA events) beside the
+    ``render`` phase's wall; ``dist_card_vs_cpu``: a 64x64, 4 spp
+    ``render_distributed`` on the card against the CPU's (no group),
+    ``compare.check`` (the z-test's variance from the CPU's passes of
+    ``render``: the same estimator a pixel)."""
+    from mitsuba_nlvrl_tpu_torch.parallel import collectives
+    from mitsuba_nlvrl_tpu_torch.parallel import render_dist as rd
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    fold = rd.dp_fold_for(meta, mesh, 16)
+    calls = record_calls(mnt, scene, meta, run=lambda: rd.render_distributed(
+        scene, meta, mesh, seed=0, spp=fold, fold=fold))
+    assert [c[2] for c in calls] == [False, True] * 8, len(calls)
+    own = render_rays(torch, kern, calls, bw, fl)
+    lanes = calls[0][1][0].shape[0]
+    del calls
+    emit({'phase': 'dist_render_rays', 'fold': fold, 'lanes': lanes, **own})
+
+    torch.cuda.synchronize()
+    kern.launches = 0
+    collectives.reset()
+    info = {}
+    t0 = time.time()
+    with collectives.timed() as events:
+        img = rd.render_distributed(scene, meta, mesh, seed=0, spp=16,
+                                    info=info)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = kern.launches
+    rays = float(info['rays'])
+    img_np = img.cpu().numpy()
+    rec = {'res': 512, 'spp': 16, 'max_depth': 8, 'fold': info['fold'],
+           'dispatches': info['dispatches'], 'wall_s': wall, 'rays': rays,
+           'mrays_per_s': rays / wall / 1e6, 'launches': launches,
+           'all_reduces': info['all_reduces'],
+           'nccl_s': collectives.elapsed_s(events),
+           'render_wall_s': render_wall,
+           'finite': bool(img.isfinite().all()),
+           'mean': float(img_np.mean())}
+    emit({'phase': 'dist_render', **rec})
+    assert info['dispatches'] == -(-16 // fold), rec
+    assert launches == 16 * info['dispatches'], rec
+    assert rec['all_reduces'] == info['dispatches'] + 1, rec
+    assert rec['finite'] and 0.01 < rec['mean'] < 10.0, rec
+
+    desc = cornell_box(spp=4, res=64, integrator={'type': 'path',
+                                                  'max_depth': 8})
+    sg, mg = mnt.build_scene(desc)
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    ig, ic = {}, {}
+    img_g = rd.render_distributed(sg, mg, mesh, seed=0, spp=4, info=ig)
+    img_c = rd.render_distributed(sc, mc, None, seed=0, spp=4, info=ic)
+    _, passes_c, _ = compare.render_with_passes(sc, mc, 0, 4)
+    agree = compare.agreement(img_g.cpu().numpy(), img_c.numpy(), passes_c,
+                              float(ig['rays']), float(ic['rays']))
+    emit({'phase': 'dist_card_vs_cpu', 'res': 64, 'spp': 4,
+          'fold': ig['fold'], **agree})
+    compare.check(agree)
+    return {'launches': launches, 'rays': own}
+
+
+def fold_and_scaling_phases(torch, mnt, mesh, scene, meta) -> dict:
+    """``measure_fold`` at the reference's per-chip shard (a 256x128 film
+    of cbox_path, folds 8, reps 3, through the NCCL mesh of one rank);
+    then on cbox_path itself the steady render rate that bounds every
+    rate (``scaling.PLAUSIBLE_FACTOR`` times it, scaled by a wavefront's
+    lanes over the film's pixels: ``scaling.lane_bound``),
+    ``dp_fold_proxy``,
+    ``weak_scaling_proxy`` over WEAK_BASE x WEAK_FACTORS lanes (the
+    smallest wavefront within SATURATION_SHARE of the sweep's best rate
+    is the card's saturation, ``render_dist.SATURATION_LANES``) and
+    ``measure_scaling`` at n = 1. A rate outside its bound raises."""
+    from mitsuba_nlvrl_tpu_torch.parallel import render_dist as rd
+    from mitsuba_nlvrl_tpu_torch.parallel import scaling
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_light_spd,
+                                                        cornell_box)
+    desc = cornell_box(spp=FOLD_FOLDS, res=FOLD_FILM[0],
+                       integrator={'type': 'path', 'max_depth': 8},
+                       radiance=cbox_light_spd())
+    desc['sensor']['film']['height'] = FOLD_FILM[1]
+    fs, fm = mnt.build_scene(desc)
+    rec = rd.measure_fold(fs, fm, folds=FOLD_FOLDS, reps=3, mesh=mesh)
+    emit({'phase': 'measure_fold', **rec})
+    assert rec['pixels'] == FOLD_FILM[0] * FOLD_FILM[1], rec
+    assert all(rec[k] > 0 for k in ('latency_fold_s', 'wall_fold_s',
+                                    'wall_nofold_s', 'kernel_s', 'ratio',
+                                    'speedup')), rec
+
+    t0 = time.time()
+    steady = scaling.steady_render_rate(scene, meta)
+    ceiling = scaling.PLAUSIBLE_FACTOR * steady
+    fp = scaling.dp_fold_proxy(scene, meta, ceiling=ceiling)
+    emit({'phase': 'dp_fold_proxy', 'steady_mrays': steady / 1e6, **fp,
+          'seconds': time.time() - t0})
+    t0 = time.time()
+    ws = scaling.weak_scaling_proxy(scene, meta, base=WEAK_BASE,
+                                    factors=WEAK_FACTORS, ceiling=ceiling)
+    best = max(ws['rays_per_s'])
+    sat = min(n for n, r in zip(ws['sizes'], ws['rays_per_s'])
+              if r >= SATURATION_SHARE * best)
+    emit({'phase': 'weak_scaling_proxy', 'steady_mrays': steady / 1e6, **ws,
+          'saturation_lanes': sat,
+          'saturation_lanes_in_code': rd.SATURATION_LANES,
+          'seconds': time.time() - t0})
+    t0 = time.time()
+    ms = scaling.measure_scaling(scene, meta, n_devices=1, ceiling=ceiling)
+    emit({'phase': 'measure_scaling', **ms, 'seconds': time.time() - t0})
+    assert ms['hardware_valid'] and ms['n'] == 1, ms
+    assert ms['checksum_rel_diff'] < 1e-5, ms
+    return {'saturation_lanes': sat}
+
+
+def sharded_vrl_phase(torch, mnt, kern, bw, fl, nscene, nmeta,
+                      nmaps) -> dict:
+    """``sharded_vrl_pass``: one camera pass of cbox_nlvrl (512x256, the
+    ``nlvrl`` phase's maps) through ``make_sharded_vrl_render`` on a 1x1
+    (dp x mp) NCCL mesh, its kernel calls kept: each against the plain
+    version, bit for bit (every k-th timed alone); its radiance equal in
+    bits to the same pass run unsharded on the localized maps with the
+    same key (at one rank the all-reduce is the identity); its
+    all-reduces and their device time (CUDA events), launches and wall
+    (the copies of the calls' rays included) beside the unsharded
+    pass's."""
+    from mitsuba_nlvrl_tpu_torch import sensor as sensor_mod
+    from mitsuba_nlvrl_tpu_torch.core import rng
+    from mitsuba_nlvrl_tpu_torch.core.rng import Sampler
+    from mitsuba_nlvrl_tpu_torch.integrators import vrl as vrl_mod
+    from mitsuba_nlvrl_tpu_torch.integrators.common import (
+        film_sample_positions)
+    from mitsuba_nlvrl_tpu_torch.parallel import collectives
+    from mitsuba_nlvrl_tpu_torch.parallel import render_dist as rd
+    from mitsuba_nlvrl_tpu_torch.parallel import sharded_maps as sm
+    dev = nscene.device
+    mesh = rd.make_mesh('cuda', (1, 1), ('dp', 'mp'))
+    key = rng.PRNGKey(0)
+    pos_key = rng.fold_in(key, 7)
+    _, pos01 = film_sample_positions(nmeta, pos_key, 0, dev)
+    N = pos01.shape[0]
+    ray, _ = sensor_mod.sample_ray(nscene, nmeta, pos01, rng.uniform(
+        rng.fold_in(pos_key, 1), (N, 2), dev))
+    fn = sm.make_sharded_vrl_render(nmeta, mesh)
+    shard = sm.shard_photon_axis(nmaps, mesh)
+
+    # the pass itself, timed, its calls kept (also the warm-up)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    collectives.reset()
+    info, out = {}, []
+    t0 = time.time()
+    with collectives.timed() as events:
+        calls = record_calls(mnt, nscene, nmeta, run=lambda: out.append(
+            fn(nscene, shard, ray, key, info=info)))
+        torch.cuda.synchronize()
+    wall_sh = time.time() - t0
+    launches = kern.launches
+    nccl_s = collectives.elapsed_s(events)
+    L_sh = out[0]
+    stride = max(1, len(calls) // 32)
+    own = render_rays(torch, kern, calls, bw, fl, stride=stride)
+    n_calls = len(calls)
+    del calls
+
+    n_cl = int(nmeta.iprop('vrl_clusters', 1024))
+    t0 = time.time()
+    with torch.no_grad():
+        local = sm.localize_maps(nscene, nmaps._replace(clusters=None))
+        if bool(nmeta.iprop('use_light_cut', True)):
+            local = local._replace(clusters=vrl_mod.build_vrl_clusters(
+                nscene, local, n_cl))
+        L_un, _, _ = vrl_mod.sample(nscene, nmeta, Sampler.make(
+            rng.fold_in(key, 0), N, dev), ray, aux=local)
+        L_un = torch.where(torch.isfinite(L_un), L_un, 0.0)
+        torch.cuda.synchronize()
+    wall_un = time.time() - t0
+    rec = {'res': [512, 256], 'lanes': N, 'calls': n_calls,
+           'all_reduces': info['all_reduces'], 'nccl_s': nccl_s,
+           'nccl_ms_per_all_reduce': 1e3 * nccl_s / max(
+               info['all_reduces'], 1),
+           'wall_s': wall_sh, 'unsharded_wall_s': wall_un,
+           'launches': launches, 'rays': float(info['rays']),
+           'sampler_dim': info['sampler_dim'],
+           'equal_to_unsharded': bool(torch.equal(L_sh, L_un)),
+           'mean': float(L_sh.mean()), **own}
+    emit({'phase': 'sharded_vrl_pass', **rec})
+    assert rec['equal_to_unsharded'], rec
+    assert rec['all_reduces'] > 0 and launches == n_calls > 0, rec
+    assert rec['mean'] > 0, rec
+    return {'launches': launches, 'rays': own}
+
+
+def dist_train_step_phase(torch, mnt, kern) -> dict:
+    """``dist_train_step``: ``render_dist.train_step`` (the L2 loss of a
+    1 spp render against a grey target and its gradient with respect to
+    bsdfs.params) on the 64x64 Cornell box (``path`` max_depth 8), every
+    kernel call of it held in bits as it is made (the recompute's too),
+    and the card's loss and gradient against the CPU's: the loss within
+    1e-5 relative, the gradient to ``autodiff_checks``'s rule (1e-6 plus
+    1e-4 relative, one entry in a thousand excepted)."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.core import rng
+    from mitsuba_nlvrl_tpu_torch.parallel import render_dist as rd
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    desc = cornell_box(spp=1, res=64, integrator={'type': 'path',
+                                                  'max_depth': 8})
+
+    def merge(s, p):
+        return s._replace(bsdfs=s.bsdfs._replace(params=p))
+
+    out, secs = {}, {}
+    for device in ('cuda', 'cpu'):
+        s, m = mnt.build_scene(desc, device=device)
+        target = torch.full((64, 64, 3), 0.2, device=device)
+        t0 = time.time()
+        if device == 'cuda':
+            kern.launches = kern.launches_recompute = 0
+            with diff_step_check(torch, kern) as chk:
+                loss, g = rd.train_step(s, m, s.bsdfs.params, target,
+                                        rng.PRNGKey(4), merge)
+                torch.cuda.synchronize()
+            check = chk.done()
+            launches = kern.launches + kern.launches_recompute
+        else:
+            loss, g = rd.train_step(s, m, s.bsdfs.params, target,
+                                    rng.PRNGKey(4), merge)
+        secs[device] = time.time() - t0
+        out[device] = (float(loss), g.cpu().numpy())
+    (lg, gg), (lc, gc) = out['cuda'], out['cpu']
+    err = np.abs(gg - gc)
+    outside = err > 1e-6 + 1e-4 * np.abs(gc)
+    rec = {'res': 64, 'spp': 1, 'card_s': secs['cuda'], 'cpu_s': secs['cpu'],
+           'loss': lg, 'cpu_loss': lc, 'loss_rel': abs(lg - lc) / abs(lc),
+           'grad_max_abs_err': float(err.max()),
+           'grad_abs_sum': float(np.abs(gc).sum()), 'entries': int(err.size),
+           'outside_tolerance': int(outside.sum()),
+           'outside_err_sum': float(err[outside].sum()),
+           'finite': bool(np.isfinite(gg).all()), 'launches': launches,
+           'check': check}
+    emit({'phase': 'dist_train_step', **rec})
+    assert rec['finite'] and rec['grad_abs_sum'] > 0, rec
+    assert rec['loss_rel'] <= 1e-5, rec
+    assert rec['outside_tolerance'] <= max(1, rec['entries'] // 1000), rec
+    assert rec['outside_err_sum'] <= 1e-4 * rec['grad_abs_sum'], rec
+    return {'launches': launches}
+
+
+def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
+                  render_wall, nscene, nmeta, nmaps) -> dict:
+    """Slice 12: the sharded paths on the card at world size 1, NCCL."""
+    t0 = time.time()
+    mesh = dist_init_phase(torch)
+    dr = dist_render_phases(torch, mnt, kern, compare, bw, fl, mesh, scene,
+                            meta, render_wall)
+    sc = fold_and_scaling_phases(torch, mnt, mesh, scene, meta)
+    sv = sharded_vrl_phase(torch, mnt, kern, bw, fl, nscene, nmeta, nmaps)
+    ts = dist_train_step_phase(torch, mnt, kern)
+    emit({'phase': 'item12_done', 'seconds': time.time() - t0})
+    return {'launches_dist_render': dr['launches'],
+            'launches_sharded_vrl_pass': sv['launches'],
+            'launches_dist_train_step': ts['launches'],
+            'max_abs_err': max(dr['rays']['max_abs_err'],
+                               sv['rays']['max_abs_err']),
+            'dist_ms': dr['rays']['ms_per_launch'],
+            'dist_plain_ms': dr['rays']['plain_ms_per_launch'],
+            'dist_bound_ms': dr['rays']['bound_ms_per_launch'],
+            'sharded_vrl_ms': sv['rays']['ms_per_launch'],
+            'sharded_vrl_plain_ms': sv['rays']['plain_ms_per_launch'],
+            'sharded_vrl_bound_ms': sv['rays']['bound_ms_per_launch'],
+            'saturation_lanes': sc['saturation_lanes']}
+
+
 def main() -> int:
     try:
         return _main()
     finally:
         stop_cpu_halves()
+        end_distributed()
 
 
 def _main() -> int:
@@ -2407,6 +2755,9 @@ def _main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     # --- slice 11: the integrator= keyword -----------------------------
     integrator_keyword_check(torch, mnt, kern)
+    # --- slice 12: the sharded paths at world size 1, NCCL --------------
+    it12 = item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
+                         wall, nscene, nmeta, nmaps)
     left = stop_cpu_halves()
     assert not left, f"{len(left)} CPU halves submitted and not taken"
     ad_launches = (pgrad['launches'] + pgrad['launches_recompute']
@@ -2414,7 +2765,7 @@ def _main() -> int:
     worst = max(worst, mat['max_abs_err'],
                 opt['nlvrl_aniso_rays']['max_abs_err'],
                 opt['long_vrl']['max_abs_err'], it7['max_abs_err'],
-                it8['max_abs_err'], it10['max_abs_err'])
+                it8['max_abs_err'], it10['max_abs_err'], it12['max_abs_err'])
     new_launches = (mat['launches_materials'] + mat['launches_materials_pm']
                     + opt['launches_nlvrl_aniso']
                     + opt['launches_nlvrl_ris_bre']
@@ -2426,7 +2777,10 @@ def _main() -> int:
                     + it8['launches_regen'] + ad_launches
                     + it10['launches_measured']
                     + it10['launches_measured_cli']
-                    + it10['launches_measured_polarized'])
+                    + it10['launches_measured_polarized']
+                    + it12['launches_dist_render']
+                    + it12['launches_sharded_vrl_pass']
+                    + it12['launches_dist_train_step'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -2484,7 +2838,10 @@ def _main() -> int:
             'measured_plain_ms', 'measured_bound_ms', 'measured_bound_by',
             'launches_measured_polarized', 'measured_polarized_ms',
             'measured_polarized_plain_ms', 'measured_polarized_bound_ms',
-            'measured_polarized_bound_by')}}, {
+            'measured_polarized_bound_by')},
+        **{k: v for k, v in it12.items() if k not in ('max_abs_err',
+                                                     'saturation_lanes')}},
+        {
         'name': 'intersect_tris_f64', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect_f64.cu',
         'replaces': 'mitsuba_nlvrl_tpu/ops/pallas/intersect_tpu.py:26',

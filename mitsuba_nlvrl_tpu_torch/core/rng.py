@@ -13,10 +13,16 @@ shift; the same code runs on the card. Keys are ``(2,)`` int64 tensors on
 the host: deriving a key is a handful of scalar operations, and only the
 bulk ``uniform`` draws run on the wavefront's device. There is no global
 torch RNG state anywhere in the port.
+
+A draw can also be taken at given lanes of a larger, global wavefront
+(``Lanes``): the elements of those lanes get the counters they have in
+the draw of the whole wavefront, so a rank that renders a shard of the
+wavefront draws exactly the numbers of its lanes in the reference's
+global draw.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,18 +82,51 @@ def split(key, n: int = 2) -> Tuple[torch.Tensor, ...]:
     return tuple(_key(a[i], b[i]) for i in range(n))
 
 
-def _threefry_words(key, shape, device):
-    """The two threefry output words of each element, row-major
-    counters."""
-    k1, k2 = _key_ints(key)
+class Lanes(NamedTuple):
+    """Lanes ``ids`` (n,) int64 of a global wavefront of ``total`` lanes:
+    a draw at these lanes takes the counters that their elements have in
+    the draw of all ``total`` lanes."""
+    ids: torch.Tensor
+    total: int
+
+
+def _prod(shape) -> int:
     n = 1
     for s in shape:
         n *= int(s)
-    if n >= 1 << 32:
+    return n
+
+
+def _counters(shape, device, lanes: Optional[Lanes], axis: int):
+    """The row-major counters of the elements of ``shape``. With
+    ``lanes``, ``shape[axis]`` counts the given lanes and the counters
+    are those of the same elements in the global shape, whose ``axis``
+    holds ``lanes.total`` lanes."""
+    shape = tuple(int(s) for s in shape)
+    if lanes is None:
+        if _prod(shape) >= 1 << 32:
+            raise NotImplementedError("random bits beyond 2**32 elements")
+        return torch.arange(_prod(shape), dtype=torch.int64,
+                            device=device).reshape(shape)
+    if shape[axis] != lanes.ids.shape[0]:
+        raise ValueError(f"shape {shape} has {shape[axis]} lanes on axis "
+                         f"{axis}, the lane ids {lanes.ids.shape[0]}")
+    outer, inner = _prod(shape[:axis]), _prod(shape[axis + 1:])
+    if outer * lanes.total * inner >= 1 << 32:
         raise NotImplementedError("random bits beyond 2**32 elements")
-    counts = torch.arange(n, dtype=torch.int64, device=device)
-    a, b = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return a.reshape(shape), b.reshape(shape)
+    ids = lanes.ids.to(device=device, dtype=torch.int64)
+    c = (torch.arange(outer, dtype=torch.int64, device=device)[:, None, None]
+         * (lanes.total * inner) + ids[None, :, None] * inner
+         + torch.arange(inner, dtype=torch.int64, device=device)[None, None])
+    return c.reshape(shape)
+
+
+def _threefry_words(key, shape, device, lanes=None, axis=0):
+    """The two threefry output words of each element, row-major
+    counters (of the global shape, where ``lanes`` are given)."""
+    k1, k2 = _key_ints(key)
+    counts = _counters(shape, device, lanes, axis)
+    return threefry2x32(k1, k2, torch.zeros_like(counts), counts)
 
 
 def random_bits(key, shape, device=None) -> torch.Tensor:
@@ -96,16 +135,20 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
     return a ^ b
 
 
-def uniform(key, shape, device=None, dtype=torch.float32) -> torch.Tensor:
+def uniform(key, shape, device=None, dtype=torch.float32,
+            lanes: Optional[Lanes] = None, axis: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype)`` in [0, 1): the top
     mantissa bits of the element's random bits as a float in [1, 2),
     minus one. float32 takes 23 of the 32 bits ``a ^ b``; float64 (the
-    reference's default float under x64) 52 of the 64 bits ``a:b``."""
+    reference's default float under x64) 52 of the 64 bits ``a:b``.
+
+    ``lanes``: ``shape[axis]`` holds these lanes of a wavefront of
+    ``lanes.total``; the result is the slice at ``lanes.ids`` (on
+    ``axis``) of the draw of the global shape."""
+    a, b = _threefry_words(key, shape, device, lanes, axis)
     if dtype == torch.float64:
-        a, b = _threefry_words(key, shape, device)
         return ((a << 20) | (b >> 12)).to(torch.float64) * 2.0 ** -52
-    bits = random_bits(key, shape, device)
-    return (bits >> 9).to(torch.float32) * (1.0 / (1 << 23))
+    return ((a ^ b) >> 9).to(torch.float32) * (1.0 / (1 << 23))
 
 
 class Sampler(NamedTuple):
@@ -115,35 +158,40 @@ class Sampler(NamedTuple):
     and returns a new sampler with the next dimension, so every (lane,
     dimension) pair sees its own deterministic stream. ``rays`` counts the
     rays traced (live lanes at every intersection site) as a device scalar,
-    so counting never waits on the device."""
+    so counting never waits on the device. ``at``: the lanes' places in a
+    global wavefront (``Lanes``), where the sampler draws for a shard of
+    it; None for a wavefront of its own."""
     key: torch.Tensor
     dim: int
     lanes: int
     rays: torch.Tensor
     device: object
+    at: Optional[Lanes] = None
 
     @staticmethod
-    def make(key, lanes: int, device=None) -> "Sampler":
+    def make(key, lanes: int, device=None,
+             at: Optional[Lanes] = None) -> "Sampler":
         rays = torch.zeros((), dtype=torch.float32, device=device)
-        return Sampler(key, 0, lanes, rays, device)
+        return Sampler(key, 0, lanes, rays, device, at)
 
     def count_rays(self, mask) -> "Sampler":
         """Record ``sum(mask)`` rays traced."""
         return self._replace(rays=self.rays + mask.sum(dtype=torch.float32))
 
     def next_1d(self) -> Tuple[torch.Tensor, "Sampler"]:
-        u = uniform(fold_in(self.key, self.dim), (self.lanes,), self.device)
+        u = uniform(fold_in(self.key, self.dim), (self.lanes,), self.device,
+                    lanes=self.at)
         return u, self._replace(dim=self.dim + 1)
 
     def next_2d(self) -> Tuple[torch.Tensor, "Sampler"]:
         u = uniform(fold_in(self.key, self.dim), (self.lanes, 2),
-                    self.device)
+                    self.device, lanes=self.at)
         return u, self._replace(dim=self.dim + 1)
 
     def fork(self, salt: int) -> "Sampler":
-        """Independent sampler for a sub-pass."""
+        """Independent sampler for a sub-pass (on the same lanes)."""
         return Sampler.make(fold_in(self.key, (0x9e3779b9 + salt) & _MASK),
-                            self.lanes, self.device)
+                            self.lanes, self.device, self.at)
 
 
 def seed_for(base_key, *indices) -> torch.Tensor:

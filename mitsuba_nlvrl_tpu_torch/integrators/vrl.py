@@ -27,8 +27,9 @@ the VRL query over the live segment count read the device once a trip
 (``core/sync.py``); the volume gather and the beam estimate run the trips
 some lane needs (one read), and in a scene with a heterogeneous medium
 advance the sampler past the skipped trips' draws, so every later draw
-keeps its dimension. ``map_psum_axis`` (the map all-reduce across
-devices) raises at scene build (``scene.types.check_meta``).
+keeps its dimension. ``map_psum_axis`` names a mesh axis over which
+every map estimate is all-reduced (``_map_psum``): the camera pass of
+maps sharded over ranks (``parallel/sharded_maps.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from ..core import rng
 from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..core.sync import any_on_host, int_on_host
+from ..parallel import collectives
 from .. import bsdf as bsdf_mod
 from .. import emitter as emitter_mod
 from .. import medium as medium_mod
@@ -736,6 +738,20 @@ def maps_from_numpy(arrays: dict, device=None) -> lighttrace.PhotonMaps:
     return lighttrace.PhotonMaps(**kw)
 
 
+def _map_psum(x, meta):
+    """All-reduce a photon or VRL map estimate over the map axis
+    ``map_psum_axis`` (the group ``collectives.bind`` bound to it); the
+    identity without the property. Under ``parallel.sharded_maps`` each
+    rank holds a shard of the maps, so every estimate is a partial sum.
+    The calls are unconditional at their sites: each rank of the axis
+    makes the same all-reduces in the same order, as their trip counts
+    read only ray state."""
+    ax = meta.iprop('map_psum_axis', None)
+    if not ax:
+        return x
+    return collectives.all_reduce_sum(x, collectives.group_of(ax))
+
+
 def _skip_segment_tr(meta, sampler, n: int) -> Sampler:
     """The sampler after ``n`` skipped ``medium.segment_tr`` calls: each
     draws one dimension in a scene with a heterogeneous medium, none
@@ -886,10 +902,10 @@ def make_sample(use_vrls: bool):
 
             flags = bsdf_mod.flags_of(scene, si)
             gather_here = active_surface & ((flags & F_SMOOTH) > 0)
-            est_c = photon_est.estimate_surface(scene, meta, maps, si,
-                                                gather_here, r_caustic, True)
-            est_g = photon_est.estimate_surface(scene, meta, maps, si,
-                                                gather_here, r_global, False)
+            est_c = _map_psum(photon_est.estimate_surface(
+                scene, meta, maps, si, gather_here, r_caustic, True), meta)
+            est_g = _map_psum(photon_est.estimate_surface(
+                scene, meta, maps, si, gather_here, r_global, False), meta)
             result = result + torch.where(gather_here[:, None],
                                           throughput * (est_c + est_g), 0.0)
             # smooth surfaces end the path
@@ -947,8 +963,9 @@ def _gather_volume(scene, meta, maps, bent, st, in_medium, radius, g_cap,
             scene, meta, smp, bent.at(last_t), st.ray.d, t_g - last_t,
             st.medium_idx, channel, ok)
         tr_run = torch.where(ok[:, None], tr_run * step_tr, tr_run)
-        est = photon_est.estimate_volume(scene, meta, maps, p_g, -st.ray.d,
-                                         st.medium_idx, ok, radius)
+        est = _map_psum(photon_est.estimate_volume(
+            scene, meta, maps, p_g, -st.ray.d, st.medium_idx, ok, radius),
+            meta)
         acc = acc + torch.where(ok[:, None], tr_run * est, 0.0)
         last_t = torch.where(ok, t_g, last_t)
     return acc, _skip_segment_tr(meta, smp, g_cap - n_g)
@@ -969,8 +986,9 @@ def _beam_segments(scene, meta, maps, bent, st, in_medium, radius, g_cap,
         sd = bent.seg_d[:, s_i].contiguous()
         sl = bent.seg_len[:, s_i].contiguous()
         ok = in_medium & (s_i < bent.count) & (sl > 0)
-        est = photon_est.estimate_beam(scene, meta, maps, so, sd, sl, -sd,
-                                       st.medium_idx, ok, radius, g_cap)
+        est = _map_psum(photon_est.estimate_beam(
+            scene, meta, maps, so, sd, sl, -sd, st.medium_idx, ok, radius,
+            g_cap), meta)
         acc = acc + torch.where(ok[:, None], seg_tr * est, 0.0)
         tr_s, smp = medium_mod.segment_tr(scene, meta, smp, so, sd, sl,
                                           st.medium_idx, channel, ok)
@@ -994,6 +1012,7 @@ def _query_segments(scene, meta, maps, bent, st, in_medium, spq, strategy,
         seg_ok = in_medium & (s_i < bent.count) & (sl > 0)
         q, smp = query_vrls(scene, meta, maps, so, sd, sl, st.medium_idx,
                             channel, smp, seg_ok, spq, strategy=strategy)
+        q = _map_psum(q, meta)
         vrl_acc = vrl_acc + torch.where(seg_ok[:, None], seg_tr * q, 0.0)
         tr_s, smp = medium_mod.segment_tr(scene, meta, smp, so, sd, sl,
                                           st.medium_idx, channel, seg_ok)

@@ -424,7 +424,7 @@ class _Walk(NamedTuple):
 
 def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
                    mint, maxt, walking, track: bool, max_steps: int,
-                   diff: bool = False):
+                   diff: bool = False, lanes=None):
     """Null-collision walk over [mint, maxt] against supervoxel-local
     majorants, with one row gather a tracking event: at the collision
     point (collision events) or at the midpoint of the next DDA interval
@@ -444,6 +444,9 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
 
     Under ``diff`` the walk runs at most ``ceil(min(max_steps, 192) /
     WALK_UNROLL)`` trips, each checkpointed (the reference's scan).
+
+    ``lanes``: the sampler's places in a global wavefront
+    (``rng.Lanes``), where it draws for a shard of one.
 
     Returns (t, w, found, dens_col, maj_vec, still_walking, events)."""
     N = ray.o.shape[0]
@@ -598,7 +601,8 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
     t0 = torch.where(walking, mint, 0.0)
     if track:
         t_ctrl0 = ctrl_draw(t0, c_vec0, rng.uniform(
-            rng.fold_in(key, _CTRL0_FOLD), (N,), dev, scene.dtype))
+            rng.fold_in(key, _CTRL0_FOLD), (N,), dev, scene.dtype,
+            lanes=lanes))
     else:
         t_ctrl0 = torch.full((N,), m.Infinity, device=dev)
     s = _Walk(t0, torch.ones((N, 3), device=dev), walking,
@@ -609,7 +613,7 @@ def _majorant_walk(scene, meta, ray: Ray, key, channel, medium_idx,
 
     def trip(s: _Walk, it: int) -> _Walk:
         us = rng.uniform(rng.fold_in(key, it), (WALK_UNROLL, N, n_u), dev,
-                         scene.dtype)
+                         scene.dtype, lanes=lanes, axis=1)
         for k in range(WALK_UNROLL):
             s = sub_step(s, us[k])
         return s
@@ -658,7 +662,7 @@ def segment_tr(scene, meta, sampler, o, d, seg_len, medium_idx, channel,
     walking = is_het & hit_bb & (maxt > mint)
     _, tr_het, _, _, _, still, _ = _majorant_walk(
         scene, meta, ray, key, channel, medium_idx, mint, maxt, walking,
-        track=False, max_steps=1024, diff=diff)
+        track=False, max_steps=1024, diff=diff, lanes=sampler.at)
     tr_het = torch.where(still[:, None], 0.0, tr_het)   # hit the cap
     tr = torch.where(is_het[:, None], tr_het, tr_homo)
     return torch.where(active[:, None], tr, 1.0), sampler
@@ -691,7 +695,7 @@ def sample_real_interaction(scene, meta, ray: Ray, sampler, channel,
 
     t, w, found, dens_col, maj_col, _, _ = _majorant_walk(
         scene, meta, ray, key, channel, medium_idx, mint, maxt, walking,
-        track=True, max_steps=max_steps, diff=diff)
+        track=True, max_steps=max_steps, diff=diff, lanes=sampler.at)
 
     # lanes whose hero majorant is zero never walk: they leave the segment
     # with the exact Beer-Lambert ratio of the other channels; the finite

@@ -93,10 +93,6 @@ SLICE_BSDFS = ('diffuse', 'conductor', 'dielectric', 'thindielectric',
 # integrators that wrap another (its ``integrator`` property)
 WRAPPER_INTEGRATORS = ('aov', 'moment', 'stokes')
 SLICE_MEDIA = ('homogeneous', 'heterogeneous', 'nonlinear')
-# options of the two-pass integrators that a later slice ports: each
-# raises when a scene turns it on (the map all-reduce over a mesh axis
-# comes with torch.distributed)
-DEFERRED_PROPS = ('map_psum_axis',)
 SLICE_PHASES = ('isotropic', 'hg')
 
 
@@ -357,12 +353,6 @@ def check_meta(meta: SceneMeta) -> None:
     inner = unwrap(meta)
     for name in (meta.integrator, inner.integrator):
         get_integrator(name)    # KeyError for a name it does not hold
-    if inner.integrator in ('vrl', 'photonmapper', 'photonmap'):
-        for name in DEFERRED_PROPS:
-            value = inner.iprop(name)
-            if value:
-                raise not_in_slice(f"integrator property {name}={value!r}",
-                                   "item 12 (multi-GPU)")
     if meta.film.rfilter not in RFILTER_TYPES:
         raise ValueError(f"unknown reconstruction filter "
                          f"'{meta.film.rfilter}'")

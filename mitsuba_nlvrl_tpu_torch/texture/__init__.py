@@ -8,9 +8,10 @@ wrapping in u); checkerboards and constants evaluate procedurally;
 interpolates the per-corner colours of the hit triangle. ``pack`` (host
 side) makes a texture's row and loads its bitmap or volume.
 
-Bitmaps load without PIL: PNG through ``utils/io.read_png``, EXR through
-``utils/io.read_exr``; a JPEG or any other format raises, naming its
-ROADMAP entry. Lanes whose row is not a bitmap or a volume read a
+Bitmaps load without PIL: PNG through ``utils/io.read_png``, baseline
+JPEG through ``utils/io.read_jpeg``, EXR through ``utils/io.read_exr``; a
+JPEG beyond baseline or any other format raises, naming its ROADMAP
+entry. Lanes whose row is not a bitmap or a volume read a
 clamped, valid index (the reference relies on JAX clamping there); their
 value is masked out.
 """
@@ -47,12 +48,16 @@ def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
         return np.ascontiguousarray(img[:, :, :3], np.float32)
     with open(path, 'rb') as f:
         magic = f.read(8)
-    if magic != b'\x89PNG\r\n\x1a\n':
-        kind = 'JPEG' if magic[:3] == b'\xff\xd8\xff' else 'non-PNG'
-        raise not_in_slice(f"{kind} bitmap '{path}'",
-                           "item 12 (utilities: JPEG and other bitmaps)")
-    from ..utils.io import read_png
-    img = np.asarray(_pil_rgb(read_png(path)), np.float32) / 255.0
+    if magic[:2] == b'\xff\xd8':
+        from ..utils.io import read_jpeg
+        rgb8 = read_jpeg(path)
+    elif magic == b'\x89PNG\r\n\x1a\n':
+        from ..utils.io import read_png
+        rgb8 = _pil_rgb(read_png(path))
+    else:
+        raise not_in_slice(f"bitmap '{path}' (neither PNG, JPEG nor EXR)",
+                           "item 12.7 (other bitmap formats)")
+    img = np.asarray(rgb8, np.float32) / 255.0
     if gamma:  # sRGB -> linear
         img = np.where(img <= 0.04045, img / 12.92,
                        ((img + 0.055) / 1.055) ** 2.4)

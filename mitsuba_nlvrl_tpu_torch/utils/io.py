@@ -1,5 +1,6 @@
 """Image IO: OpenEXR (float32; read: none, zip, zips and PIZ), PNG
-(read and write, without PIL), PFM, PPM and RGBE, and image resampling.
+(read and write, without PIL), baseline JPEG (read, without PIL:
+``utils/jpeg.py``), PFM, PPM and RGBE, and image resampling.
 
 Port of ``mitsuba_nlvrl_tpu/utils/io.py`` (pure python, numpy and zlib, so
 the port keeps its own copy). The writers and ``resample_image`` take a
@@ -14,6 +15,8 @@ import zlib
 from typing import Dict, Tuple
 
 import numpy as np
+
+from .jpeg import read_jpeg  # noqa: F401
 
 
 def host_array(image) -> np.ndarray:

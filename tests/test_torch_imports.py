@@ -403,3 +403,72 @@ def test_cpu_slice10_loads_no_jax(tmp_path):
                 'utils.profiler', 'viewer'):
         assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
     assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_cpu_parallel_and_jpeg_load_no_jax(tmp_path):
+    """Slice 12 (a gloo world of one rank joined through a file store:
+    ``parallel.render_dist``'s sharded render, ``measure_fold`` and
+    ``train_step``, ``parallel.sharded_maps``' map-sharded camera pass,
+    ``parallel.scaling``'s proxies; a baseline JPEG bitmap through
+    ``utils/jpeg.py``) runs on the CPU without JAX, the reference package
+    or PIL loaded. The JPEG is written here, by PIL."""
+    from PIL import Image
+    jpg = str(tmp_path / 'wall.jpg')
+    Image.fromarray(np.random.default_rng(0).integers(
+        0, 256, (9, 13, 3), dtype=np.uint8)).save(jpg, quality=90,
+                                                  subsampling=2)
+    code = (
+        "import sys, torch\n"
+        "import torch.distributed as dist\n"
+        "import mitsuba_nlvrl_tpu_torch as P\n"
+        "from mitsuba_nlvrl_tpu_torch.core import rng\n"
+        "from mitsuba_nlvrl_tpu_torch.core.ray import Ray\n"
+        "from mitsuba_nlvrl_tpu_torch.parallel import (render_dist,\n"
+        "    scaling, sharded_maps)\n"
+        "from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_nlvrl,\n"
+        "    cornell_box)\n"
+        "from mitsuba_nlvrl_tpu_torch.texture import load_bitmap\n"
+        "assert load_bitmap(sys.argv[1]).shape == (9, 13, 3)\n"
+        "scaling.init_distributed('file://' + sys.argv[2], 1, 0,\n"
+        "                         device='cpu')\n"
+        "try:\n"
+        "    s, m = P.build_scene(cornell_box(spp=2, res=8), device='cpu')\n"
+        "    mesh = render_dist.make_mesh('cpu')\n"
+        "    img = render_dist.render_distributed(s, m, mesh, spp=2)\n"
+        "    assert bool(img.isfinite().all())\n"
+        "    assert render_dist.measure_fold(s, m, 2, reps=1,\n"
+        "                                    mesh=mesh)['speedup'] > 0\n"
+        "    loss, g = render_dist.train_step(\n"
+        "        s, m, s.bsdfs.params, img, rng.PRNGKey(0),\n"
+        "        lambda sc, p: sc._replace(bsdfs=sc.bsdfs._replace(\n"
+        "            params=p)))\n"
+        "    assert bool(g.isfinite().all())\n"
+        "    rec = scaling.weak_scaling_proxy(s, m, base=16, factors=(1,),\n"
+        "                                     passes=1)\n"
+        "    assert rec['per_ray_flat'] > 0\n"
+        "    d = cbox_nlvrl(8, 4, spp=1, target_vrls=64, light_depth_cap=4,\n"
+        "                   max_nl_bends=4, gather_points_cap=4,\n"
+        "                   max_cam_iters=2, global_photons=512)\n"
+        "    s, m = P.build_scene(d, device='cpu')\n"
+        "    maps = P.preprocess(s, m, 0)\n"
+        "    mesh = render_dist.make_mesh('cpu', (1, 1), ('dp', 'mp'))\n"
+        "    fn = sharded_maps.make_sharded_vrl_render(m, mesh)\n"
+        "    o = torch.zeros((4, 3)); o[:, 2] = 1.0\n"
+        "    d3 = torch.zeros((4, 3)); d3[:, 2] = -1.0\n"
+        "    ray = Ray(o, d3, torch.zeros(4), torch.full((4,), 1e30))\n"
+        "    L = fn(s, sharded_maps.shard_photon_axis(maps, mesh), ray,\n"
+        "           rng.PRNGKey(0))\n"
+        "    assert L.shape == (4, 3) and bool(L.isfinite().all())\n"
+        "finally:\n"
+        "    dist.destroy_process_group()\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code, jpg,
+                          str(tmp_path / 'store')], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for mod in ('parallel.render_dist', 'parallel.sharded_maps',
+                'parallel.scaling', 'parallel.collectives', 'utils.jpeg'):
+        assert f'mitsuba_nlvrl_tpu_torch.{mod}' in loaded, mod
+    assert not [m for m in loaded if _forbidden(m)]

@@ -394,22 +394,22 @@ def test_null_bsdf_matches_reference(cube_in_box):
 
 
 def test_nonlinear_media_are_not_in_the_slice():
-    """Nonlinear media build now (tests/test_torch_nonlinear.py), with the
-    beam radiance estimate too (tests/test_torch_vrl_options.py); what is
-    still outside the slice raises, from the port's builder and from a
-    reference scene carried over: here the map all-reduce across devices
-    of a nonlinear box (ROADMAP item 12)."""
+    """Nonlinear media build (tests/test_torch_nonlinear.py), with the
+    beam radiance estimate (tests/test_torch_vrl_options.py) and, since
+    slice 12, the map all-reduce across ranks (``map_psum_axis``,
+    tests/test_torch_sharded_maps.py): from the port's builder and from
+    a reference scene carried over, nothing of a nonlinear box raises."""
     integ = {'type': 'vrl', 'map_psum_axis': 'mp'}
     desc = pscenes.cornell_box(medium={'type': 'nonlinear'},
                                integrator=integ)
-    with pytest.raises(NotImplementedError, match='item 12'):
-        P.build_scene(desc, device='cpu')
+    _, mp = P.build_scene(desc, device='cpu')
+    assert mp.iprop('map_psum_axis') == 'mp'
     sj, mj = J.build_scene(scenes.cornell_box(medium={'type': 'nonlinear'},
                                               integrator=integ))
     from torch_parity import jax_meta_dict, scene_arrays
-    with pytest.raises(NotImplementedError, match='item 12'):
-        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
-                           device='cpu')
+    _, mc = P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
+                               device='cpu')
+    assert mc.iprop('map_psum_axis') == mj.iprop('map_psum_axis') == 'mp'
     P.build_scene(pscenes.cornell_box(medium={'type': 'nonlinear'},
                                       integrator={'type': 'vrl',
                                                   'use_bre': True}),

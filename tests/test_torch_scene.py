@@ -110,10 +110,11 @@ def _change(desc, what, value):
 
 
 def _jpeg(directory) -> str:
-    """A file with a JPEG's signature (its decoder is never reached)."""
+    """A baseline JPEG (4:2:0, written by PIL)."""
+    from PIL import Image
     path = os.path.join(str(directory), 'slide.jpg')
-    with open(path, 'wb') as f:
-        f.write(b'\xff\xd8\xff\xe0' + bytes(60))
+    Image.fromarray(np.random.default_rng(5).integers(
+        0, 256, (11, 14, 3), dtype=np.uint8)).save(path, quality=90)
     return path
 
 
@@ -129,23 +130,20 @@ def _jpeg(directory) -> str:
     ('spectral', 'volpathmis'),
 ])
 def test_later_types_build_like_the_reference_or_raise(change, tmp_path):
-    """What the port does not render yet raises, naming its ROADMAP item:
-    JPEG bitmaps (item 12). The double variant, the measured BSDFs and a
-    spectral request on the integrators other than ``path`` (where the
-    reference renders its RGB transport) build since slice 10, in the
-    port's builder as in the reference's: the same arrays and meta
-    (float64 under the double variant)."""
+    """The types of slices 10 and 12 build in the port's builder as in the
+    reference's: the same arrays and meta (float64 under the double
+    variant). The double variant, the measured BSDFs and a spectral
+    request on the integrators other than ``path`` (where the reference
+    renders its RGB transport) since slice 10; a baseline JPEG bitmap,
+    which raised before slice 12, decoded to the same texels as the
+    reference's PIL decodes."""
     from mitsuba_nlvrl_tpu_torch.bsdf.measured import write_tensor_file
     what, value = change
     if what == 'bsdf' and value.get('reflectance', {}).get('filename') \
             == 'JPEG':
         value = dict(value, reflectance=dict(value['reflectance'],
                                              filename=_jpeg(tmp_path)))
-        desc = _change(port_scenes.cornell_box(light='area'), what, value)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            P.build_scene(desc, device='cpu')
-        return
-    if what == 'bsdf':
+    elif what == 'bsdf':
         write_tensor_file(str(tmp_path / 'm.bsdf'),
                           port_scenes.measured_fields(res=8, n_theta=3))
         write_tensor_file(str(tmp_path / 'm.pbsdf'),

@@ -1,7 +1,7 @@
 """The port's textures against the reference's: ``pack`` rows, ``eval``
 of the six types, ``vertex_attr`` on mesh hits, the port's PNG reader
 against PIL (the reference's decoder) and ``load_bitmap`` against the
-reference's on PNG and EXR.
+reference's on PNG and EXR (JPEG: ``tests/test_torch_jpeg.py``).
 
 Tolerances: rows, decoded samples and loaded bitmaps equal; ``eval``
 1e-6 relative with an absolute floor of 1e-6 (a grid3d lookup maps the
@@ -202,11 +202,13 @@ def test_load_bitmap_exr_matches_reference(tmp_path):
     assert got.tobytes() == img.tobytes()
 
 
-def test_jpeg_bitmap_raises_naming_its_roadmap_entry(tmp_path):
+def test_progressive_jpeg_bitmap_raises_naming_its_roadmap_entry(tmp_path):
+    """A baseline JPEG loads (``tests/test_torch_jpeg.py``); a progressive
+    one still raises, naming its ROADMAP entry."""
     path = str(tmp_path / 'a.jpg')
-    with open(path, 'wb') as f:
-        f.write(b'\xff\xd8\xff\xe0' + bytes(40))
-    with pytest.raises(NotImplementedError, match=r'item 12 .*JPEG'):
+    Image.fromarray(np.zeros((9, 10, 3), np.uint8)).save(
+        path, progressive=True)
+    with pytest.raises(NotImplementedError, match=r'item 12\.6 .*JPEG'):
         ptex.load_bitmap(path)
 
 

@@ -42,7 +42,6 @@ from mitsuba_nlvrl_tpu_torch.core.rng import Sampler as PSampler
 from mitsuba_nlvrl_tpu_torch.integrators import photon_est as pest
 from mitsuba_nlvrl_tpu_torch.integrators import vrl as pvrl
 from mitsuba_nlvrl_tpu_torch.ops import intersect as pisect
-from mitsuba_nlvrl_tpu_torch.scene.types import DEFERRED_PROPS
 from mitsuba_nlvrl_tpu_torch.testing import scenes as pscenes
 
 import scenes
@@ -214,9 +213,9 @@ ITEM9_VALUES = {'vrl_ris': True, 'rr_vrl': True, 'vrl_aniso_cdf': True,
 @pytest.mark.parametrize('integrator', ['vrl', 'photonmapper'])
 @pytest.mark.parametrize('prop', list(ITEM9_VALUES))
 def test_deferred_properties_raise(prop, integrator):
-    """The options of ROADMAP item 9 build now, from the port's builder
-    and from a reference scene carried over; ``map_psum_axis`` (the map
-    all-reduce across devices, item 12) still raises from both."""
+    """The options of ROADMAP item 9 and ``map_psum_axis`` (the map
+    all-reduce across ranks, item 12) build, from the port's builder and
+    from a reference scene carried over; none raises any more."""
     def desc(pkg):
         d = pscenes.cornell_box(spp=1, res=8, medium=dict(
             pscenes.NLVRL_MEDIUM)) if pkg is pscenes else \
@@ -225,16 +224,11 @@ def test_deferred_properties_raise(prop, integrator):
         d['integrator'] = {'type': integrator, prop: ITEM9_VALUES[prop]}
         return d
     sj, mj = J.build_scene(desc(scenes))
-    if prop in DEFERRED_PROPS:
-        with pytest.raises(NotImplementedError, match='item 12'):
-            P.build_scene(desc(pscenes), device='cpu')
-        with pytest.raises(NotImplementedError, match='item 12'):
-            P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
+    _, mp = P.build_scene(desc(pscenes), device='cpu')
+    assert mp.iprop(prop) == ITEM9_VALUES[prop]
+    _, mc = P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj),
                                device='cpu')
-    else:
-        _, mp = P.build_scene(desc(pscenes), device='cpu')
-        assert mp.iprop(prop) == ITEM9_VALUES[prop]
-        P.scene_from_numpy(scene_arrays(sj), jax_meta_dict(mj), device='cpu')
+    assert mc.iprop(prop) == mj.iprop(prop) == ITEM9_VALUES[prop]
     # the option at its default builds
     d = desc(pscenes)
     d['integrator'][prop] = None if prop == 'map_psum_axis' else \
