@@ -124,6 +124,13 @@ rate under its plausibility bound, one ``cbox_nlvrl`` camera pass
 through ``make_sharded_vrl_render`` on a 1x1 mesh (every kernel call bit
 for bit, the radiance equal in bits to the unsharded pass's) and
 ``train_step`` on the card against the CPU.
+Then slice 13, the bitmap formats: ``bitmap_decode`` decodes every
+fixture of ``tests/data/bitmaps`` (JPEG sequential, progressive, CMYK and
+YCCK; BMP, TGA, PNM, GIF and TIFF layouts) with the port's decoders on
+this machine, which has no PIL, each equal to PIL's stored bytes, and
+``textured_formats`` renders ``cbox_textured`` at 64x64, 4 spp on the
+card with one 64x64 picture as every bitmap, once in each of six
+lossless formats, each render equal in bits to the PNG copy's.
 The CPU halves of the two-pass checks against the CPU run in one
 spawned worker process beside the card's phases, which the script ends
 on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -2473,6 +2480,71 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
             'sharded_vrl_bound_ms': sv['rays']['bound_ms_per_launch'],
             'saturation_lanes': sc['saturation_lanes']}
 
+# the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
+# port's decoders read, PIL's convert('RGB') bytes of each in
+# ``pil_rgb.npz``, and one 64x64 picture in six lossless formats
+BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                       'data', 'bitmaps')
+PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif')
+
+
+def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
+    """Slice 13, the bitmap formats: ``bitmap_decode`` decodes every
+    fixture on this machine (which has no PIL) and holds it to PIL's
+    stored bytes, each decode's host milliseconds beside it;
+    ``textured_formats`` renders ``cbox_textured`` (64x64, 4 spp,
+    ``path`` at ``CUT_DEPTH``: each render is paced by its launches, about
+    3 s at depth 8) on the card once for each lossless copy of the 64x64
+    picture as its bitmaps, each image and its rays equal in bits to the
+    PNG copy's. A decode failure raises. Returns the renders' launches."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import texture
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
+    t0 = time.time()
+    want = np.load(os.path.join(BITMAPS, 'pil_rgb.npz'))
+    host_ms = {}
+    for name in want.files:
+        t = time.perf_counter()
+        got = texture.read_rgb8(os.path.join(BITMAPS, name))
+        host_ms[name] = (time.perf_counter() - t) * 1e3
+        assert got.dtype == np.uint8 and \
+            got.tobytes() == want[name].tobytes(), \
+            f"{name}: the port's decode differs from PIL's bytes"
+    emit({'phase': 'bitmap_decode', 'files': len(host_ms),
+          'all_equal_to_pil': True, 'host_ms': host_ms,
+          'host_ms_total': sum(host_ms.values()),
+          'seconds': time.time() - t0})
+
+    t0 = time.time()
+    renders, launches = {}, 0
+    for ext in PICTURE_FORMATS:
+        path = cbox_textured(
+            os.path.join(workdir, f'formats_{ext}'), spp=4, res=64,
+            max_depth=CUT_DEPTH,
+            bitmap=os.path.join(BITMAPS, f'picture64.{ext}'))
+        scene, meta = mnt.build_scene(load_file(path))
+        # every bitmap of the scene is the 64x64 picture
+        assert tuple(scene.textures.data.shape[1:3]) == (64, 64), ext
+        rec, img = timed_render(torch, mnt, kern, sync, scene, meta, 4)
+        assert rec['launches'] > 0 and rec['finite'], (ext, rec)
+        launches += rec['launches']
+        renders[ext] = (rec, img)
+    ref_rec, ref_img = renders['png']
+    same = {ext: img.tobytes() == ref_img.tobytes() and
+            rec['rays'] == ref_rec['rays'] for ext, (rec, img)
+            in renders.items()}
+    emit({'phase': 'textured_formats', 'res': 64, 'spp': 4,
+          'max_depth': CUT_DEPTH, 'scene': 'cbox_textured',
+          'formats': list(PICTURE_FORMATS),
+          'equal_to_png_render': same, 'launches': launches,
+          'rays': ref_rec['rays'], 'mean': ref_rec['mean'],
+          'wall_s': {ext: rec['wall_s'] for ext, (rec, _) in
+                     renders.items()},
+          'seconds': time.time() - t0})
+    assert all(same.values()), same
+    return {'launches_textured_formats': launches}
+
 
 def main() -> int:
     try:
@@ -2758,6 +2830,12 @@ def _main() -> int:
     # --- slice 12: the sharded paths at world size 1, NCCL --------------
     it12 = item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
                          wall, nscene, nmeta, nmaps)
+    # --- slice 13: the bitmap formats, decoded here and rendered --------
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_item13_')
+    try:
+        it13 = item13_phases(torch, mnt, kern, sync, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     left = stop_cpu_halves()
     assert not left, f"{len(left)} CPU halves submitted and not taken"
     ad_launches = (pgrad['launches'] + pgrad['launches_recompute']
@@ -2780,7 +2858,8 @@ def _main() -> int:
                     + it10['launches_measured_polarized']
                     + it12['launches_dist_render']
                     + it12['launches_sharded_vrl_pass']
-                    + it12['launches_dist_train_step'])
+                    + it12['launches_dist_train_step']
+                    + it13['launches_textured_formats'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',
@@ -2840,7 +2919,8 @@ def _main() -> int:
             'measured_polarized_plain_ms', 'measured_polarized_bound_ms',
             'measured_polarized_bound_by')},
         **{k: v for k, v in it12.items() if k not in ('max_abs_err',
-                                                     'saturation_lanes')}},
+                                                     'saturation_lanes')},
+        **it13},
         {
         'name': 'intersect_tris_f64', 'route': 'cuda',
         'source': 'mitsuba_nlvrl_tpu_torch/csrc/intersect_f64.cu',

@@ -586,7 +586,8 @@ _WALLS = (('floor', [('rotate', (1, 0, 0), -90), ('translate', (0, -1, 0))]),
 
 
 def cbox_textured(directory: str, spp: int = 16, res: int = 512,
-                  max_depth: int = 8, seed: int = 0) -> str:
+                  max_depth: int = 8, seed: int = 0,
+                  bitmap: str = None) -> str:
     """Writes ``cbox_textured.xml`` with its PNGs (``textured_bitmaps``)
     and a uv-mapped cube OBJ into ``directory``; returns its path. The
     Cornell box under a ``multijitter`` sampler and a ``thinlens``
@@ -597,9 +598,12 @@ def cbox_textured(directory: str, spp: int = 16, res: int = 512,
     ``blendbsdf`` sphere with a bitmap weight, a ``mask`` pane with a
     bitmap opacity, two spheres placed by one ``shapegroup`` and two
     ``instance``s, the ceiling light and a ``spot``. 38 triangles and 3
-    analytic spheres."""
+    analytic spheres. With ``bitmap`` (a file path) every bitmap texture
+    reads that one file instead."""
     os.makedirs(directory, exist_ok=True)
     tex = textured_bitmaps(directory, seed)
+    if bitmap is not None:
+        tex = {role: os.path.abspath(bitmap) for role in tex}
     _write_obj(os.path.join(directory, 'block.obj'), *uv_cube())
 
     def bitmap(name, role, raw=True):

@@ -8,15 +8,17 @@ wrapping in u); checkerboards and constants evaluate procedurally;
 interpolates the per-corner colours of the hit triangle. ``pack`` (host
 side) makes a texture's row and loads its bitmap or volume.
 
-Bitmaps load without PIL: PNG through ``utils/io.read_png``, baseline
-JPEG through ``utils/io.read_jpeg``, EXR through ``utils/io.read_exr``; a
-JPEG beyond baseline or any other format raises, naming its ROADMAP
-entry. Lanes whose row is not a bitmap or a volume read a
-clamped, valid index (the reference relies on JAX clamping there); their
-value is masked out.
+Bitmaps load without PIL: EXR by suffix through ``utils/io.read_exr``;
+any other file identified by content in PIL's order (``identify``) and
+decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM and TGA readers
+(``utils/``) to the bytes of PIL's ``convert('RGB')``. A format PIL
+opens that the port does not read raises, naming its ROADMAP entry.
+Lanes whose row is not a bitmap or a volume read a clamped, valid index
+(the reference relies on JAX clamping there); their value is masked out.
 """
 from __future__ import annotations
 
+import importlib
 from typing import Tuple
 
 import numpy as np
@@ -25,39 +27,169 @@ import torch
 from ..scene.types import TEXTURE_TYPES, TEX_NPARAM, not_in_slice
 
 
-def _pil_rgb(img: np.ndarray) -> np.ndarray:
-    """The 8-bit RGB that the reference's ``Image.convert('RGB')`` makes
-    of a PNG's samples: alpha dropped, grey replicated; 16-bit colour and
-    grey-alpha keep their high byte, and 16-bit grey clips at 255 (PIL
-    opens it as 32-bit integers)."""
+def _pil_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
+    """The 8-bit RGB that PIL's ``Image.convert('RGB')`` makes of an
+    image PIL holds in ``mode`` (the decoders return it so): grey (``1``,
+    ``L``, ``LA``) replicated; ``P`` and ``PA`` through the palette (an
+    index past its end reads black, as in PIL); the integer modes (``I``,
+    ``I;16``, ``I;16B``) clipped to 0..255; ``F`` clipped, then
+    truncated; alpha and padding dropped; ``CMYK`` by PIL's integer
+    formula (each of C, M, Y times 255 - K, over 255)."""
+    if mode in ('P', 'PA'):
+        idx = px if px.ndim == 2 else px[..., 0]
+        pal = np.zeros((256, 3), np.uint8)
+        n = min(len(palette), 256)
+        pal[:n] = palette[:n, :3]
+        return pal[idx]
+    if mode == 'CMYK':
+        c = px.astype(np.int64)
+        nk = 255 - c[..., 3:]
+        t = c[..., :3] * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    if mode in ('I', 'I;16', 'I;16B'):
+        grey = np.clip(px, 0, 255).astype(np.uint8)
+    elif mode == 'F':
+        grey = np.clip(np.nan_to_num(px, nan=0.0), 0, 255).astype(np.uint8)
+    elif mode in ('1', 'L', 'LA'):
+        grey = px if px.ndim == 2 else px[..., 0]
+    else:                                        # RGB, RGBA, RGBX
+        return np.ascontiguousarray(px[..., :3], np.uint8)
+    return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=-1)
+
+
+def _png_mode(img: np.ndarray):
+    """A PNG's samples (``utils/io.read_png``) as PIL opens them: 16-bit
+    grey as ``I`` (32-bit integers), 16-bit colour and grey-alpha cut to
+    their high byte."""
     c = img.shape[-1]
-    col = img[..., :1] if c <= 2 else img[..., :3]
     if img.dtype == np.uint16:
-        col = np.minimum(col, 255) if c == 1 else col >> 8
-    col = col.astype(np.uint8)
-    return np.repeat(col, 3, axis=-1) if col.shape[-1] == 1 else col
+        if c == 1:
+            return 'I', img[..., 0].astype(np.int32)
+        img = (img >> 8).astype(np.uint8)
+    return {1: 'L', 2: 'LA', 3: 'RGB', 4: 'RGBA'}[c], \
+        img[..., 0] if c == 1 else img
+
+
+# The formats PIL's ``Image.open`` tries, in its order: the five plugins
+# it loads first, then the rest as PIL registers them. Each row: name and
+# its test on the file's first 16 bytes (PIL's ``_accept``; ``None``: the
+# plugin has no test, and its header check stands in). PIL's DIB is a BMP
+# without its file header.
+def _u32(p: bytes, big: bool = False) -> int:
+    return int.from_bytes(p[:4].ljust(4, b'\0'), 'big' if big else 'little')
+
+
+_OPEN_ORDER = [
+    ('BMP', lambda p: p[:2] == b'BM'),
+    ('DIB', lambda p: _u32(p) in (12, 40, 52, 56, 64, 108, 124)),
+    ('GIF', lambda p: p[:6] in (b'GIF87a', b'GIF89a')),
+    ('JPEG', lambda p: p[:3] == b'\xff\xd8\xff'),
+    ('PPM', lambda p: p[:1] == b'P' and p[1:2] != b'' and
+     p[1] in b'0123456fy'),
+    ('PNG', lambda p: p[:8] == b'\x89PNG\r\n\x1a\n'),
+    ('AVIF', lambda p: p[4:8] == b'ftyp' and p[8:12] in (
+        b'avif', b'avis', b'mif1', b'msf1')),
+    ('BLP', lambda p: p[:4] in (b'BLP1', b'BLP2')),
+    ('BUFR', lambda p: p[:4] in (b'BUFR', b'ZCZC')),
+    ('CUR', lambda p: p[:4] == b'\0\0\2\0' and
+     int.from_bytes(p[4:6], 'little') > 0),
+    ('PCX', lambda p: p[:1] == b'\n' and p[1:2] in
+     (b'\0', b'\2', b'\3', b'\5')),
+    ('DCX', lambda p: _u32(p) == 987654321),
+    ('DDS', lambda p: p[:4] == b'DDS '),
+    ('EPS', lambda p: p[:4] == b'%!PS' or _u32(p) == 0xC6D3D0C5),
+    ('FITS', lambda p: p[:6] == b'SIMPLE'),
+    ('FLI', lambda p: len(p) >= 16 and int.from_bytes(p[4:6], 'little') in
+     (0xAF11, 0xAF12) and int.from_bytes(p[14:16], 'little') in (0, 3)),
+    ('FTEX', lambda p: p[:4] == b'FTEX'),
+    ('GBR', lambda p: len(p) >= 8 and _u32(p, True) >= 20 and
+     _u32(p[4:], True) in (1, 2)),
+    ('GRIB', lambda p: p[:4] == b'GRIB' and p[7:8] == b'\1'),
+    ('HDF5', lambda p: p[:8] == b'\x89HDF\r\n\x1a\n'),
+    ('JPEG2000', lambda p: p[:4] == b'\xffO\xffQ' or
+     p[:12] == b'\0\0\0\x0cjP  \r\n\x87\n'),
+    ('ICNS', lambda p: p[:4] == b'icns'),
+    ('ICO', lambda p: p[:4] == b'\0\0\1\0'),
+    ('IPTC', lambda p: p[:1] == b'\x1c' and p[1:2] != b'' and
+     p[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)),
+    ('MCIDAS', lambda p: p[:8] == b'\0\0\0\0\0\0\0\4'),
+    ('MPEG', lambda p: p[:4] == b'\0\0\1\xb3'),
+    ('TIFF', lambda p: p[:4] in (b'MM\0*', b'II*\0', b'MM*\0', b'II\0*',
+                                 b'MM\0+', b'II+\0')),
+    ('MSP', lambda p: p[:4] in (b'DanM', b'LinS')),
+    ('PIXAR', lambda p: p[:4] == b'\x80\xe8\0\0'),
+    ('PSD', lambda p: p[:4] == b'8BPS'),
+    ('QOI', lambda p: p[:4] == b'qoif'),
+    ('SGI', lambda p: p[:2] == b'\x01\xda'),
+    ('SUN', lambda p: _u32(p, True) == 0x59A66A95),
+    ('TGA', None),
+    ('WEBP', lambda p: p[:4] == b'RIFF' and p[8:12] == b'WEBP' and
+     p[12:16] in (b'VP8 ', b'VP8X', b'VP8L')),
+    ('WMF', lambda p: p[:6] == b'\xd7\xcd\xc6\x9a\0\0' or
+     p[:4] == b'\1\0\0\0'),
+    ('XBM', lambda p: p.lstrip()[:7] == b'#define'),
+    ('XPM', lambda p: p[:9] == b'/* XPM */'),
+    ('XVTHUMB', lambda p: p[:9] == b'P7 332'),
+]
+
+
+def identify(path: str) -> str:
+    """The format PIL's ``Image.open`` finds for the file, by content:
+    the first plugin in PIL's order whose test passes. Raises ``OSError``
+    (PIL's ``UnidentifiedImageError`` is one) when none does. TGA, which
+    has no signature, is tried where PIL tries it, by its header checks.
+    PIL also tries a few formats by opening them (IM, IMT, PCD, SPIDER);
+    a file of those is unidentified here."""
+    from ..utils.tga import is_tga
+    with open(path, 'rb') as f:
+        head = f.read(18)
+    prefix = head[:16]
+    for name, accept in _OPEN_ORDER:
+        if accept(prefix) if accept else is_tga(head):
+            return name
+    raise OSError(f"cannot identify image file '{path}'")
+
+
+# the port's decoder of each format it reads: (module of utils, function),
+# each returning (mode, pixels, palette) as PIL opens the file
+_READERS = {'JPEG': ('jpeg', 'read_jpeg_mode'), 'BMP': ('bmp', 'read_bmp'),
+            'DIB': ('bmp', 'read_bmp'), 'GIF': ('gif', 'read_gif'),
+            'PPM': ('pnm', 'read_pnm'), 'TIFF': ('tiff', 'read_tiff'),
+            'TGA': ('tga', 'read_tga')}
+
+
+def _decode(path: str):
+    """(mode, pixels, palette) of a bitmap file as PIL opens it."""
+    fmt = identify(path)
+    if fmt == 'PNG':
+        from ..utils.io import read_png
+        return _png_mode(read_png(path)) + (None,)
+    if fmt not in _READERS:
+        raise not_in_slice(f"bitmap '{path}' ({fmt})",
+                           "item 12.7 (other bitmap formats)")
+    module, fn = _READERS[fmt]
+    return getattr(importlib.import_module(f'..utils.{module}',
+                                           __package__), fn)(path)
+
+
+def read_rgb8(path: str) -> np.ndarray:
+    """A bitmap file as PIL's ``Image.open(path).convert('RGB')`` gives
+    it: (H, W, 3) uint8."""
+    return _pil_rgb(*_decode(path))
 
 
 def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
-    """Load an image file to linear float32 (H, W, 3)."""
+    """Load an image file to linear float32 (H, W, 3). EXR by its suffix;
+    any other file by its content, as PIL identifies it (PNG, JPEG, BMP,
+    GIF, TIFF, PNM and TGA decode here; another format PIL opens raises
+    ``NotImplementedError``, and a file PIL does not open ``OSError``)."""
     if path.lower().endswith('.exr'):
         from ..utils.io import read_exr
         img, names = read_exr(path)
         if set('RGB') <= set(names):
             img = img[:, :, [names.index(c) for c in 'RGB']]
         return np.ascontiguousarray(img[:, :, :3], np.float32)
-    with open(path, 'rb') as f:
-        magic = f.read(8)
-    if magic[:2] == b'\xff\xd8':
-        from ..utils.io import read_jpeg
-        rgb8 = read_jpeg(path)
-    elif magic == b'\x89PNG\r\n\x1a\n':
-        from ..utils.io import read_png
-        rgb8 = _pil_rgb(read_png(path))
-    else:
-        raise not_in_slice(f"bitmap '{path}' (neither PNG, JPEG nor EXR)",
-                           "item 12.7 (other bitmap formats)")
-    img = np.asarray(rgb8, np.float32) / 255.0
+    img = np.asarray(read_rgb8(path), np.float32) / 255.0
     if gamma:  # sRGB -> linear
         img = np.where(img <= 0.04045, img / 12.92,
                        ((img + 0.055) / 1.055) ** 2.4)

@@ -1,11 +1,17 @@
-"""A baseline JPEG decoder in numpy (no PIL).
+"""A JPEG decoder in numpy (no PIL).
 
-Decodes sequential Huffman-coded JPEG (SOF0 and SOF1) with 8-bit samples,
-one component (grey) or three (YCbCr, or RGB where the file says so),
-integer sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0 and the rest),
-interleaved or single-component scans, and restart intervals. It decodes
-as libjpeg does by default, so the result equals PIL's
-``Image.open(path).convert('RGB')`` to the byte:
+Decodes Huffman-coded JPEG: sequential (SOF0 and SOF1), progressive
+(SOF2: spectral selection, successive approximation of DC and AC, first
+and refinement scans, EOB runs) and lossless (SOF3: predictors 1-7, the
+point transform, unsubsampled components). Samples are 8-bit; one
+component (grey), three (YCbCr, or RGB where the file says so; a
+lossless file with ids 1-3 and no JFIF or Adobe marker is RGB, as libjpeg
+takes it) or four (Adobe CMYK, stored inverted, or YCCK); integer
+sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0 and the rest), interleaved
+or single-component scans, and restart intervals. A progressive file's
+coefficients are buffered whole, as libjpeg absorbs a multi-scan file
+before its output pass. It decodes as libjpeg does by default, so the
+result equals PIL's ``Image.open(path).convert('RGB')`` to the byte:
 
   * the integer "islow" inverse DCT (``jidctint.c``): 13-bit fixed-point
     constants, two passes with 2 bits of extra precision between them,
@@ -15,11 +21,16 @@ as libjpeg does by default, so the result equals PIL's
     rounding biases, the edge rows and columns replicated, and box
     replication where a component is at most two samples wide;
   * the integer YCbCr -> RGB tables of ``jdcolor.c`` (16-bit fixed
-    point).
+    point), also behind YCCK -> CMYK;
+  * libjpeg's block smoothing of progressive output (``jdcoefct.c``)
+    runs only while one of the first nine AC coefficients is incomplete;
+    a complete file ends every coefficient at Al = 0, so it never runs
+    there (a file where it would raises).
 
-Progressive (SOF2), lossless, hierarchical and arithmetic-coded files,
-12-bit samples and four-component (CMYK, YCCK) files raise
-``NotImplementedError`` naming their ROADMAP entry.
+What PIL does not open (12-bit samples, 2 or 5+ components) and what its
+libjpeg refuses (hierarchical SOF5-7 and SOF13-15) raise ``OSError`` as
+there. Arithmetic-coded files raise ``NotImplementedError`` naming their
+ROADMAP entry: no encoder of them is at hand to test a decoder against.
 """
 from __future__ import annotations
 
@@ -27,7 +38,7 @@ import struct
 
 import numpy as np
 
-ROADMAP_JPEG = "item 12.6 (JPEG beyond baseline Huffman)"
+ROADMAP_JPEG = "item 12.6 (the JPEG kinds left: arithmetic coding)"
 
 # the zig-zag scan: natural index of the k-th coefficient in file order
 _ZIGZAG = np.array([
@@ -207,11 +218,13 @@ def _segments(scan: bytes):
     return [s.replace(b'\xff\x00', b'\xff') for s in out]
 
 
-def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy):
-    """Huffman-decode one sequential scan into the components' quantized
-    coefficient arrays. ``sel``: [(component index, dc table, ac table)];
-    a scan of one component walks its own block grid, a scan of several
-    the MCUs of the frame."""
+def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
+    """Huffman-decode one scan into the components' quantized coefficient
+    arrays (``jdhuff.c`` for a sequential scan, ``jdphuff.c`` for a
+    progressive one). ``sel``: [(component index, dc table, ac table)];
+    ``spec``: (Ss, Se, Ah, Al). A scan of one component walks its own
+    block grid, a scan of several the MCUs of the frame."""
+    ss, se, ah, al = spec
     single = len(sel) == 1
     if single:
         c = comps[sel[0][0]]
@@ -226,6 +239,7 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy):
     segs = _segments(scan)
     per_seg = restart if restart else n_mcu
     zz = _ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
     mcu = 0
     for seg in segs:
         if mcu >= n_mcu:
@@ -233,33 +247,49 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy):
         w = _windows(seg)
         pos = 0
         pred = {s[0]: 0 for s in sel}
+        eobrun = 0
         for _ in range(min(per_seg, n_mcu - mcu)):
             my, mx = divmod(mcu, per_row)
             for (ci, td, ta), v, h in blocks:
                 c = comps[ci]
-                dl, ds = tables[(0, td)]
-                al, as_ = tables[(1, ta)]
                 by, bx = (my, mx) if single else \
                     (my * c['v'] + v, mx * c['h'] + h)
                 blk = c['coef'][by, bx]
-                win = w[pos]
-                n = dl[win]
-                if n == 0:
-                    raise ValueError("corrupt JPEG: bad Huffman code")
-                s = ds[win]
-                pos += n
-                diff = 0
-                if s:
-                    diff = w[pos] >> (16 - s)
-                    pos += s
-                    if diff < 1 << (s - 1):
-                        diff -= (1 << s) - 1
-                pred[ci] += diff
-                blk[0] = pred[ci]
-                k = 1
-                while k < 64:
+                if ss == 0 and ah:                       # DC refinement
+                    if w[pos] >> 15:
+                        blk[0] |= p1
+                    pos += 1
+                    continue
+                if ss == 0:                              # DC first
+                    dl, ds = tables[(0, td)]
                     win = w[pos]
-                    n = al[win]
+                    n = dl[win]
+                    if n == 0:
+                        raise ValueError("corrupt JPEG: bad Huffman code")
+                    s = ds[win]
+                    pos += n
+                    diff = 0
+                    if s:
+                        diff = w[pos] >> (16 - s)
+                        pos += s
+                        if diff < 1 << (s - 1):
+                            diff -= (1 << s) - 1
+                    pred[ci] += diff
+                    blk[0] = pred[ci] << al
+                    if se == 0:
+                        continue
+                al_, as_ = tables[(1, ta)]
+                if ah:                                   # AC refinement
+                    pos, eobrun = _ac_refine(blk, w, pos, al_, as_, zz,
+                                             ss, se, p1, m1, eobrun)
+                    continue
+                if eobrun:                               # AC first
+                    eobrun -= 1
+                    continue
+                k = max(ss, 1)
+                while k <= se:
+                    win = w[pos]
+                    n = al_[win]
                     if n == 0:
                         raise ValueError("corrupt JPEG: bad Huffman code")
                     rs = as_[win]
@@ -267,6 +297,12 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy):
                     r, s = rs >> 4, rs & 15
                     if s == 0:
                         if r != 15:
+                            if ss:                       # an EOB run
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += w[pos] >> (16 - r)
+                                    pos += r
+                                eobrun -= 1
                             break
                         k += 16
                         continue
@@ -275,20 +311,154 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy):
                     pos += s
                     if val < 1 << (s - 1):
                         val -= (1 << s) - 1
-                    blk[zz[k]] = val
+                    blk[zz[k]] = val << al
                     k += 1
             mcu += 1
 
 
-def read_jpeg(path: str) -> np.ndarray:
-    """Read a baseline JPEG to (H, W, 3) uint8 RGB (a grey file's one
-    channel repeated), as PIL's ``convert('RGB')`` gives it."""
+def _ac_refine(blk, w, pos, al_, as_, zz, ss, se, p1, m1, eobrun):
+    """``jdphuff.c``'s ``decode_mcu_AC_refine`` on one block: a
+    correction bit for every coefficient already nonzero, new
+    coefficients of magnitude 1 << Al placed past ``r`` zero ones; returns
+    the bit position and the EOB run left."""
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            win = w[pos]
+            n = al_[win]
+            if n == 0:
+                raise ValueError("corrupt JPEG: bad Huffman code")
+            rs = as_[win]
+            pos += n
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if w[pos] >> 15 else m1
+                pos += 1
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += w[pos] >> (16 - r)
+                    pos += r
+                break
+            while k <= se:
+                z = zz[k]
+                c = blk[z]
+                if c:
+                    if w[pos] >> 15 and not c & p1:
+                        blk[z] = c + (p1 if c >= 0 else m1)
+                    pos += 1
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                blk[zz[k]] = s
+            k += 1
+    if eobrun > 0:
+        while k <= se:
+            z = zz[k]
+            c = blk[z]
+            if c:
+                if w[pos] >> 15 and not c & p1:
+                    blk[z] = c + (p1 if c >= 0 else m1)
+                pos += 1
+            k += 1
+        eobrun -= 1
+    return pos, eobrun
+
+
+def _decode_lossless(scan, comps, sel, tables, restart, W, H, psv, pt,
+                     path):
+    """Decode a lossless (SOF3) scan into each component's samples
+    (``c['samples']``, (H, W) uint8): Huffman-coded differences (DC
+    categories 0-16, 16 meaning 32768) added mod 2^16 to predictor
+    ``psv`` (1-7) of the neighbours left (a), above (b) and above-left
+    (c); the first row predicts from the left, the first column from
+    above, the first sample 2^(7 - Pt); each restart interval (whole
+    rows) starts as the image does. Samples are shifted left by Pt."""
+    if restart and restart % W:
+        raise _unsupported("lossless JPEG with a restart interval that "
+                           "is not whole rows", path)
+    n = len(sel)
+    diff = np.zeros((H, W, n), np.int64)
+    per_seg = restart or W * H
+    segs = _segments(scan)
+    k = 0
+    for seg in segs:
+        if k >= W * H:
+            break
+        w = _windows(seg)
+        pos = 0
+        for _ in range(min(per_seg, W * H - k)):
+            y, x = divmod(k, W)
+            for j, (_, td, _) in enumerate(sel):
+                dl, ds = tables[(0, td)]
+                win = w[pos]
+                m = dl[win]
+                if m == 0:
+                    raise ValueError("corrupt JPEG: bad Huffman code")
+                s = ds[win]
+                pos += m
+                d = 0
+                if s == 16:
+                    d = 32768
+                elif s:
+                    d = w[pos] >> (16 - s)
+                    pos += s
+                    if d < 1 << (s - 1):
+                        d -= (1 << s) - 1
+                diff[y, x, j] = d
+            k += 1
+    rows_per = per_seg // W
+    for j, (ci, _, _) in enumerate(sel):
+        out = np.zeros((H, W), np.int64)
+        d = diff[..., j].tolist()
+        for y in range(H):
+            first = y % rows_per == 0
+            row, up = out[y], out[y - 1] if y else None
+            r = [0] * W
+            for x in range(W):
+                if first:
+                    p = r[x - 1] if x else 1 << (7 - pt)
+                elif x == 0:
+                    p = up[0]
+                else:
+                    a, b, c = r[x - 1], up[x], up[x - 1]
+                    p = (a, b, c, a + b - c, a + ((b - c) >> 1),
+                         b + ((a - c) >> 1), (a + b) >> 1)[psv - 1]
+                r[x] = (p + d[y][x]) & 0xFFFF
+            row[:] = r
+        comps[ci]['samples'] = ((out << pt) & 0xFF).astype(np.uint8)
+
+
+def _smoothing_applies(comps, coef_bits) -> bool:
+    """libjpeg's ``smoothing_ok`` after the whole file: block smoothing
+    runs on a progressive file's output when every component's DC is
+    known and some component's first nine AC coefficients are not
+    complete (their ``coef_bits`` not 0), quantizers nonzero. Never so
+    for a file whose scans end every coefficient at Al = 0."""
+    for c, bits in zip(comps, coef_bits):
+        q = c['q'].reshape(-1)[_ZIGZAG[:10]]
+        if (q == 0).any() or bits[0] < 0:
+            return False
+    return any(b != 0 for bits in coef_bits for b in bits[1:10])
+
+
+def read_jpeg_mode(path: str):
+    """Read a JPEG to ``(mode, pixels, None)`` as PIL opens it: ``L``
+    ((H, W)), ``RGB`` ((H, W, 3)) or ``CMYK`` ((H, W, 4), the samples
+    inverted as PIL's ``CMYK;I`` raw mode leaves them; a YCCK file
+    converted to CMYK first, as libjpeg does). A file PIL does not open
+    (12-bit samples, 2 or more than 4 components) and a kind libjpeg
+    cannot decode (hierarchical) raise ``OSError``, as in PIL."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:2] != b'\xff\xd8':
         raise ValueError(f"{path}: not a JPEG file")
     pos, qt, tables, restart = 2, {}, {}, 0
     comps, frame, jfif, adobe = [], None, False, None
+    progressive, lossless, coef_bits = False, False, None
     while pos < len(data):
         if data[pos] != 0xFF:
             raise ValueError(f"{path}: corrupt JPEG (no marker at {pos})")
@@ -303,25 +473,29 @@ def read_jpeg(path: str) -> np.ndarray:
         n = struct.unpack('>H', data[pos:pos + 2])[0]
         body = data[pos + 2:pos + n]
         pos += n
-        if marker in (0xC0, 0xC1):                             # SOF0/1
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             prec, H, W, nf = struct.unpack('>BHHB', body[:6])
-            if prec != 8:
-                raise _unsupported(f"{prec}-bit JPEG", path)
-            if nf not in (1, 3):
-                raise _unsupported(f"{nf}-component (CMYK or YCCK) JPEG",
-                                   path)
+            if prec != 8:            # PIL's SOF refuses: no plugin opens it
+                raise OSError(f"cannot identify image file '{path}' "
+                              f"({prec}-bit JPEG)")
+            if nf not in (1, 3, 4):
+                raise OSError(f"cannot identify image file '{path}' "
+                              f"({nf}-component JPEG)")
+            if marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+                raise OSError(f"{path}: unsupported JPEG process: "
+                              f"hierarchical (SOF{marker - 0xC0})")
+            if marker >= 0xC9:
+                raise _unsupported(f"arithmetic-coded JPEG "
+                                   f"(SOF{marker - 0xC0})", path)
             for i in range(nf):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 comps.append({'id': cid, 'h': hv >> 4, 'v': hv & 15,
                               'tq': tq})
-            frame = (W, H)
-        elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            kind = {0xC2: 'progressive', 0xC3: 'lossless',
-                    0xC6: 'progressive', 0xCA: 'progressive'}.get(
-                        marker, 'hierarchical or arithmetic-coded')
-            if marker in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
-                kind = 'arithmetic-coded'
-            raise _unsupported(f"{kind} JPEG (SOF{marker - 0xC0})", path)
+            frame, progressive = (W, H), marker == 0xC2
+            lossless = marker == 0xC3
+            if lossless and any(c['h'] != 1 or c['v'] != 1 for c in comps):
+                raise _unsupported("subsampled lossless JPEG", path)
+            coef_bits = [[-1] * 64 for _ in range(nf)]
         elif marker == 0xCC:                                   # DAC
             raise _unsupported("arithmetic-coded JPEG", path)
         elif marker == 0xC4:                                   # DHT
@@ -356,6 +530,17 @@ def read_jpeg(path: str) -> np.ndarray:
             if frame is None:
                 raise ValueError(f"{path}: scan before the frame header")
             W, H = frame
+            ns = body[0]
+            ids = [c['id'] for c in comps]
+            sel = [(ids.index(body[1 + 2 * i]), body[2 + 2 * i] >> 4,
+                    body[2 + 2 * i] & 15) for i in range(ns)]
+            ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
+            end = _scan_end(data, pos)
+            if lossless:
+                _decode_lossless(data[pos:end], comps, sel, tables, restart,
+                                 W, H, ss, ahal & 15, path)
+                pos = end
+                continue
             hmax = max(c['h'] for c in comps)
             vmax = max(c['v'] for c in comps)
             mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
@@ -366,20 +551,27 @@ def read_jpeg(path: str) -> np.ndarray:
                     c['coef'] = np.zeros((mcuy * c['v'], mcux * c['h'], 64),
                                          np.int64)
                     c['q'] = qt[c['tq']]
-            ns = body[0]
-            ids = [c['id'] for c in comps]
-            sel = [(ids.index(body[1 + 2 * i]), body[2 + 2 * i] >> 4,
-                    body[2 + 2 * i] & 15) for i in range(ns)]
-            ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
-            if (ss, se, ahal) != (0, 63, 0):
-                raise _unsupported("progressive JPEG (spectral selection)",
-                                   path)
-            end = _scan_end(data, pos)
+            for ci, _, _ in sel:
+                coef_bits[ci][ss:se + 1] = [ahal & 15] * (se + 1 - ss)
             _decode_scan(data[pos:end], comps, sel, tables, restart, mcux,
-                         mcuy)
+                         mcuy, (ss, se, ahal >> 4, ahal & 15))
             pos = end
-    if frame is None or not comps or 'coef' not in comps[0]:
+    if frame is None or not comps or not {'coef', 'samples'} & set(comps[0]):
         raise ValueError(f"{path}: no image data")
+    cid = [c['id'] for c in comps]
+    if lossless:
+        planes = [c['samples'] for c in comps]
+        if len(planes) == 1:
+            return 'L', planes[0], None
+        # libjpeg takes a lossless file without JFIF or Adobe markers
+        # and with component ids 1, 2, 3 for RGB
+        if jfif or adobe not in (None, 0) or len(planes) != 3:
+            raise _unsupported("lossless JPEG in YCbCr or CMYK", path)
+        return 'RGB', np.stack(planes, axis=-1), None
+    if progressive and _smoothing_applies(comps, coef_bits):
+        raise _unsupported("progressive JPEG whose scans leave low AC "
+                           "coefficients incomplete (libjpeg's block "
+                           "smoothing)", path)
     W, H = frame
     hmax = max(c['h'] for c in comps)
     vmax = max(c['v'] for c in comps)
@@ -394,10 +586,23 @@ def read_jpeg(path: str) -> np.ndarray:
         planes.append(_upsample(samples, hmax // c['h'], vmax // c['v'],
                                 W, H))
     if len(planes) == 1:
-        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=-1)
-    cid = [c['id'] for c in comps]
+        return 'L', planes[0].astype(np.uint8), None
+    if len(planes) == 4:
+        if adobe not in (None, 0):          # YCCK (transform 2, or unknown)
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+            planes[:3] = [cmy[..., i] for i in range(3)]
+        cmyk = np.stack(planes, axis=-1).astype(np.int64)
+        return 'CMYK', (255 - cmyk).astype(np.uint8), None
     rgb = (not jfif and adobe == 0) or (not jfif and adobe is None
                                          and cid == [82, 71, 66])
     if rgb:
-        return np.stack(planes, axis=-1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+        return 'RGB', np.stack(planes, axis=-1).astype(np.uint8), None
+    return 'RGB', _ycc_to_rgb(*planes), None
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """Read a JPEG to (H, W, 3) uint8 RGB, as PIL's ``convert('RGB')``
+    gives it (a grey file's one channel repeated, CMYK through PIL's
+    integer formula)."""
+    from ..texture import _pil_rgb
+    return _pil_rgb(*read_jpeg_mode(path))

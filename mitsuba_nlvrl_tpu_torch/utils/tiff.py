@@ -1,0 +1,347 @@
+"""A TIFF decoder in numpy and zlib (no PIL): the first image (IFD).
+
+Reads what PIL's ``TiffImagePlugin`` (and libtiff under it) reads, to the
+same mode and samples, for the layouts of PIL's ``OPEN_INFO`` table that
+are listed in ``_LAYOUTS``:
+
+  * either byte order, classic TIFF and BigTIFF; strips and tiles (edge
+    tiles cut); planar configuration 1 and 2; fill order 2;
+  * compression none (1), LZW (5), Deflate (8 and 32946) and PackBits
+    (32773); predictor 2 (horizontal differencing at 8, 16 and 32 bits)
+    and 3 (libtiff's floating-point predictor);
+  * photometric 0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8 and 16
+    bits and 32-bit integer or float samples; 2 (RGB, 8 or 16 bits, with
+    unspecified, associated or unassociated alpha); 3 (palette, the
+    16-bit colour map cut to its high byte as PIL does) and 5 (CMYK).
+
+A layout missing from PIL's table raises ``OSError``, as ``Image.open``
+does; JPEG-in-TIFF, CCITT, YCbCr, CIELab and the table's 12-bit grey
+raise ``NotImplementedError`` naming their ROADMAP entry.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+ROADMAP_TIFF = "item 12.7 (other bitmap formats: TIFF)"
+
+# (photometric, sample format, bits a sample, extra samples) -> PIL mode;
+# layouts PIL opens only in one byte order carry it as a fifth entry
+_LAYOUTS = {}
+for _ph in (0, 1):
+    for _b in (1, 2, 4, 8):
+        _LAYOUTS[(_ph, (1,), (_b,), ())] = '1' if _b == 1 else 'L'
+_LAYOUTS.update({
+    (1, (2,), (8,), ()): 'L',
+    (0, (1,), (16,), (), 'II'): 'I;16',
+    (1, (1,), (16,), (), 'II'): 'I;16',
+    (1, (1,), (16,), (), 'MM'): 'I;16B',
+    (1, (2,), (16,), ()): 'I',
+    (0, (3,), (32,), ()): 'F',
+    (1, (3,), (32,), ()): 'F',
+    (1, (1,), (32,), (), 'II'): 'I',
+    (1, (2,), (32,), ()): 'I',
+    (1, (1,), (8, 8), (2,)): 'LA',
+    (2, (1,), (8, 8, 8), ()): 'RGB',
+    (2, (1,), (8, 8, 8, 8), ()): 'RGBA',
+    (2, (1,), (16, 16, 16), ()): 'RGB',
+    (2, (1,), (16, 16, 16, 16), ()): 'RGBA',
+    (3, (1,), (1,), ()): 'P',
+    (3, (1,), (2,), ()): 'P',
+    (3, (1,), (4,), ()): 'P',
+    (3, (1,), (8,), ()): 'P',
+    (3, (1,), (8, 8), (0,)): 'P',
+    (3, (1,), (8, 8), (2,)): 'PA',
+    (5, (1,), (8, 8, 8, 8), ()): 'CMYK',
+    (5, (1,), (8, 8, 8, 8, 8), (0,)): 'CMYK',
+    (5, (1,), (8, 8, 8, 8, 8, 8), (0, 0)): 'CMYK',
+    (5, (1,), (16, 16, 16, 16), ()): 'CMYK',
+})
+for _ex in ((0,), (0, 0), (0, 0, 0), (1,), (1, 0), (1, 0, 0), (2,), (2, 0),
+            (2, 0, 0), (999,)):
+    _LAYOUTS[(2, (1,), (8,) * (3 + len(_ex)), _ex)] = \
+        'RGB' if _ex[0] == 0 else 'RGBA'
+for _ex in ((0,), (1,), (2,)):
+    _LAYOUTS[(2, (1,), (16,) * 4, _ex)] = 'RGB' if _ex[0] == 0 else 'RGBA'
+# the layouts PIL's table also holds with fill order 2 (bits reversed)
+_FILL2 = {(_ph, (1,), (_b,), ()) for _ph in (0, 1, 3) for _b in (1, 2, 4, 8)}
+_FILL2 |= {(2, (1,), (8, 8, 8), ()), (1, (1,), (16,), (), 'II')}
+# photometric interpretations PIL opens that the port leaves for later
+_PORT_LATER = {6: 'YCbCr', 8: 'CIELab'}
+
+_TYPES = {1: 'B', 2: 's', 3: 'H', 4: 'I', 5: 'II', 6: 'b', 7: 'B',
+          8: 'h', 9: 'i', 10: 'ii', 11: 'f', 12: 'd', 16: 'Q', 17: 'q',
+          18: 'Q'}
+
+
+def _ifd(data: bytes):
+    """The first IFD's tags as {tag: tuple of values}, and the byte
+    order ('<' or '>')."""
+    bo = '<' if data[:2] == b'II' else '>'
+    big = struct.unpack_from(bo + 'H', data, 2)[0] == 43
+    if big and bo == '>':
+        # PIL tests byte 2 of the header for BigTIFF, which holds 43 only
+        # in the little-endian form: it opens no big-endian BigTIFF
+        raise OSError("cannot identify image file (big-endian BigTIFF)")
+    if big:
+        pos = struct.unpack_from(bo + 'Q', data, 8)[0]
+        n = struct.unpack_from(bo + 'Q', data, pos)[0]
+        pos, esize, head, inline = pos + 8, 20, 'HHQ', 8
+    else:
+        pos = struct.unpack_from(bo + 'I', data, 4)[0]
+        n = struct.unpack_from(bo + 'H', data, pos)[0]
+        pos, esize, head, inline = pos + 2, 12, 'HHI', 4
+    tags = {}
+    for k in range(n):
+        e = pos + k * esize
+        tag, typ, count = struct.unpack_from(bo + head, data, e)
+        if typ not in _TYPES:
+            continue
+        fmt = _TYPES[typ]
+        size = struct.calcsize('<' + fmt) * count
+        off = e + 4 + (8 if big else 4)
+        if size > inline:
+            off = struct.unpack_from(bo + ('Q' if big else 'I'), data,
+                                     e + 4 + (8 if big else 4))[0]
+        if typ == 2:
+            tags[tag] = (data[off:off + count].split(b'\0')[0],)
+            continue
+        vals = struct.unpack_from(f'{bo}{count * len(fmt)}{fmt[0]}', data, off)
+        if len(fmt) == 2:                      # rationals
+            vals = tuple(a / b if b else 0.0
+                         for a, b in zip(vals[::2], vals[1::2]))
+        tags[tag] = vals
+    return tags, bo
+
+
+def _lzw(src: bytes, expect: int) -> bytes:
+    """TIFF LZW (MSB-first codes from 9 to 12 bits, the width growing
+    one code early, clear 256, end 257)."""
+    if src[:1] == b'\0' and len(src) > 1 and src[1] & 1:
+        raise OSError("old-style (LSB-first) TIFF LZW")
+    table = [bytes([i]) for i in range(256)] + [b'', b'']
+    out = bytearray()
+    width, acc, nacc, pos, prev = 9, 0, 0, 0, None
+    n = len(src)
+    while len(out) < expect:
+        while nacc < width and pos < n:
+            acc = (acc << 8) | src[pos]
+            nacc += 8
+            pos += 1
+        if nacc < width:
+            break
+        nacc -= width
+        code = (acc >> nacc) & ((1 << width) - 1)
+        acc &= (1 << nacc) - 1
+        if code == 256:
+            table = table[:258]
+            width, prev = 9, None
+            continue
+        if code == 257:
+            break
+        if prev is None:
+            s = table[code]
+        elif code < len(table):
+            s = table[code]
+            table.append(prev + s[:1])
+        else:
+            s = prev + prev[:1]
+            table.append(s)
+        out += s
+        prev = s
+        if len(table) >= (1 << width) - 1 and width < 12:
+            width += 1
+    return bytes(out)
+
+
+def _packbits(src: bytes, expect: int) -> bytes:
+    out, pos = bytearray(), 0
+    while pos < len(src) and len(out) < expect:
+        h = src[pos]
+        pos += 1
+        if h < 128:
+            out += src[pos:pos + h + 1]
+            pos += h + 1
+        elif h > 128:
+            out += src[pos:pos + 1] * (257 - h)
+            pos += 1
+    return bytes(out)
+
+
+def _decompress(comp: int, src: bytes, expect: int, path: str) -> bytes:
+    if comp == 1:
+        return src
+    if comp == 5:
+        return _lzw(src, expect)
+    if comp in (8, 32946):
+        return zlib.decompressobj().decompress(src)
+    if comp == 32773:
+        return _packbits(src, expect)
+    from ..scene.types import not_in_slice
+    kind = {2: 'CCITT RLE', 3: 'CCITT G3', 4: 'CCITT G4', 6: 'old JPEG',
+            7: 'JPEG'}.get(comp, f'compression {comp}')
+    raise not_in_slice(f"{kind} TIFF '{path}'", ROADMAP_TIFF)
+
+
+def _unpredict(block: np.ndarray, pred: int, spp: int, bps: int,
+               bo: str) -> np.ndarray:
+    """A decompressed block (rows, row bytes) with its predictor undone:
+    (rows, samples) in native order for 16 and 32 bits."""
+    rows = block.shape[0]
+    if pred == 3:                             # floating point
+        nb = bps // 8
+        acc = block.reshape(rows, -1, spp).astype(np.uint64)
+        acc = (np.cumsum(acc, axis=1) & 0xFF).astype(np.uint8)
+        planes = acc.reshape(rows, nb, -1)    # most significant first
+        return np.ascontiguousarray(planes.transpose(0, 2, 1)).view(
+            f'>f{nb}').astype(f'=f{nb}')
+    dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bps]
+    vals = block.view(np.dtype(dt).newbyteorder(bo)).astype(dt)
+    if pred == 2:
+        v = vals.reshape(rows, -1, spp)
+        vals = np.cumsum(v, axis=1, dtype=dt).reshape(rows, -1)
+    return vals
+
+
+def read_tiff(path: str):
+    """Read a TIFF's first image to ``(mode, pixels, palette)``: ``1``,
+    ``L``, ``I;16``, ``I;16B``, ``I``, ``F`` ((H, W)), ``LA``, ``PA``,
+    ``RGB``, ``RGBA``, ``CMYK`` ((H, W, C), 8-bit; 16-bit colour cut to
+    its high byte and associated alpha divided out, as PIL unpacks them)
+    or ``P`` ((H, W) indices and an (N, 3) palette)."""
+    from ..scene.types import not_in_slice
+    with open(path, 'rb') as f:
+        data = f.read()
+    tags, bo = _ifd(data)
+    order = 'II' if bo == '<' else 'MM'
+    W, H = tags[256][0], tags[257][0]
+    comp = tags.get(259, (1,))[0]
+    photo = tags.get(262, (0,))[0]
+    if comp in (6, 7):
+        photo = 6
+    fill = tags.get(266, (1,))[0]
+    planar = tags.get(284, (1,))[0]
+    pred = tags.get(317, (1,))[0]
+    sfmt = tags.get(339, (1,))
+    if len(sfmt) > 1 and max(sfmt) == min(sfmt) == 1:
+        sfmt = (1,)
+    bps = tags.get(258, (1,))
+    extra = tags.get(338, ())
+    spp = tags.get(277, (1,))[0]
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise OSError(f"{path}: unknown TIFF data organization")
+    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
+        raise not_in_slice(f"TIFF with a transposing orientation '{path}'",
+                           ROADMAP_TIFF)
+    if photo in _PORT_LATER:
+        raise not_in_slice(f"{_PORT_LATER[photo]} TIFF '{path}'",
+                           ROADMAP_TIFF)
+    key = (photo, tuple(sfmt), tuple(bps), tuple(extra))
+    mode = _LAYOUTS.get(key, _LAYOUTS.get(key + (order,)))
+    if key == (1, (1,), (12,), ()) and order == 'II':
+        raise not_in_slice(f"12-bit TIFF '{path}'", ROADMAP_TIFF)
+    if mode is None or fill == 2 and not {key, key + (order,)} & _FILL2:
+        raise OSError(f"{path}: TIFF layout PIL does not open {key}")
+    b = bps[0]                  # every layout of the table has one width
+    if comp not in (5, 8, 32946):
+        pred = 1                # libtiff's predictor rides on these codecs
+    if pred not in (1, 2, 3) or pred > 1 and b < 8:
+        raise OSError(f"{path}: TIFF predictor {pred} at {b} bits")
+    if comp == 1 and (fill == 2 and key == (0, (1,), (8,), ()) or
+                      planar == 2 and extra and extra[0] in (0, 1)):
+        # PIL's own reader (uncompressed files) has no unpacker for these
+        raise ValueError(f"{path}: unknown raw mode for this TIFF layout")
+    if comp != 1 and planar == 2 and extra[:1] == (0,):
+        raise OSError(f"{path}: PIL's libtiff reader refuses planar "
+                      "unspecified extra samples")
+    if comp != 1 and planar == 2 and key == (2, (1,), (8,) * 4, ()):
+        extra = (1,)      # libtiff's planar path takes it as associated
+    if 322 in tags:
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags[324], tags.get(325)
+    else:
+        tw, th = W, tags.get(278, (H,))[0]
+        th = min(th, H) if th else H
+        offsets, counts = tags[273], tags.get(279)
+    planes = spp if planar == 2 else 1
+    cps = 1 if planar == 2 else spp             # samples in a chunk pixel
+    row_bytes = (tw * cps * b + 7) // 8
+    across = -(-W // tw)
+    per_plane = across * -(-H // th)
+    nat = {(16, 1): np.uint16, (16, 2): np.int16, (32, 1): np.uint32,
+           (32, 2): np.int32, (32, 3): np.float32}.get((b, sfmt[0]),
+                                                      np.uint8)
+    samples = np.zeros((planes, H, W, cps), nat)
+    for k, off in enumerate(offsets):
+        plane, t = divmod(k, per_plane)
+        if plane >= planes:
+            break
+        ty, tx = divmod(t, across)
+        nrows = th if 322 in tags else min(th, H - ty * th)
+        expect = row_bytes * nrows
+        src = data[off:off + counts[k]] if counts else data[off:off + expect]
+        if fill == 2:                           # bits of the coded bytes
+            src = np.packbits(np.unpackbits(np.frombuffer(src, np.uint8),
+                                            bitorder='little')).tobytes()
+        raw = np.frombuffer(_decompress(comp, src, expect, path)[:expect],
+                            np.uint8)
+        if raw.size < expect:
+            raise OSError(f"{path}: truncated TIFF strip or tile")
+        raw = raw.reshape(nrows, row_bytes)
+        if b < 8:
+            v = np.unpackbits(raw, axis=1)
+            if b > 1:
+                v = v[:, :v.shape[1] // b * b].reshape(nrows, -1, b)
+                v = (v * (1 << np.arange(b - 1, -1, -1))).sum(-1)
+            v = v[:, :tw * cps].astype(np.uint8)
+        else:
+            v = _unpredict(raw, pred, cps, b, bo)
+        v = v.reshape(nrows, -1)[:, :tw * cps].reshape(nrows, tw, cps)
+        y, x = ty * th, tx * tw
+        h, w = min(nrows, H - y), min(tw, W - x)
+        samples[plane, y:y + h, x:x + w] = v[:h, :w].view(nat) \
+            if v.dtype.itemsize == np.dtype(nat).itemsize else v[:h, :w]
+    s = samples[..., 0].transpose(1, 2, 0) if planar == 2 else samples[0]
+    if comp != 1 and bo == '>' and b == 32:
+        # libtiff hands PIL native-order words, which PIL's big-endian
+        # 32-bit unpackers then swap
+        s = s.byteswap()
+    return _to_mode(mode, s, photo, b, extra, tags, bo)
+
+
+def _to_mode(mode, s, photo, b, extra, tags, bo):
+    """The decoded samples (H, W, spp) as PIL's unpacker leaves them in
+    ``mode``."""
+    if mode in ('1', 'L'):
+        v = s[..., 0].astype(np.int64) * (255 // ((1 << b) - 1))
+        if photo == 0:
+            v = 255 - v
+        return mode, v.astype(np.uint8), None
+    if mode in ('I;16', 'I;16B'):
+        return mode, s[..., 0].astype(np.uint16), None
+    if mode == 'I':
+        return 'I', s[..., 0].astype(np.int32), None
+    if mode == 'F':
+        return 'F', s[..., 0].astype(np.float32), None
+    if mode in ('P', 'PA'):
+        cmap = np.asarray(tags[320], np.int64).reshape(3, -1).T // 256
+        return mode, s[..., 0].astype(np.uint8), cmap.astype(np.uint8)
+    if b == 16:
+        s = (s >> 8).astype(np.uint8)
+    s = s.astype(np.uint8)
+    if mode == 'LA':
+        return 'LA', s[..., :2], None
+    if mode == 'CMYK':
+        return 'CMYK', np.ascontiguousarray(s[..., :4]), None
+    rgb = s[..., :3]
+    if extra and extra[0] == 1:                  # associated alpha
+        a = s[..., 3:4].astype(np.int64)
+        un = np.minimum(rgb.astype(np.int64) * 255 // np.maximum(a, 1), 255)
+        rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un))
+    return 'RGB', np.ascontiguousarray(rgb.astype(np.uint8)), None

@@ -203,11 +203,19 @@ def test_load_bitmap_exr_matches_reference(tmp_path):
 
 
 def test_progressive_jpeg_bitmap_raises_naming_its_roadmap_entry(tmp_path):
-    """A baseline JPEG loads (``tests/test_torch_jpeg.py``); a progressive
-    one still raises, naming its ROADMAP entry."""
+    """A progressive JPEG loads as the reference loads it (more kinds:
+    ``tests/test_torch_jpeg.py``); a kind still left out, an
+    arithmetic-coded frame, raises naming its ROADMAP entry."""
     path = str(tmp_path / 'a.jpg')
-    Image.fromarray(np.zeros((9, 10, 3), np.uint8)).save(
-        path, progressive=True)
+    Image.fromarray(np.random.default_rng(5).integers(
+        0, 256, (9, 10, 3), dtype=np.uint8)).save(path, progressive=True)
+    assert ptex.load_bitmap(path).tobytes() == \
+        jtex.load_bitmap(path).tobytes()
+    with open(path, 'rb') as f:
+        data = bytearray(f.read())
+    data[data.find(b'\xff\xc2') + 1] = 0xCA          # SOF10
+    with open(path, 'wb') as f:
+        f.write(data)
     with pytest.raises(NotImplementedError, match=r'item 12\.6 .*JPEG'):
         ptex.load_bitmap(path)
 
