@@ -124,16 +124,19 @@ rate under its plausibility bound, one ``cbox_nlvrl`` camera pass
 through ``make_sharded_vrl_render`` on a 1x1 mesh (every kernel call bit
 for bit, the radiance equal in bits to the unsharded pass's) and
 ``train_step`` on the card against the CPU.
-Then slice 13, the bitmap formats: ``bitmap_decode`` decodes every
-fixture of ``tests/data/bitmaps`` (JPEG sequential, progressive, CMYK and
-YCCK; BMP, TGA, PNM, GIF and TIFF layouts) with the port's decoders on
+Then slices 13 and 14, the bitmap formats: ``bitmap_decode`` decodes
+every fixture of ``tests/data/bitmaps`` (JPEG sequential, progressive,
+CMYK and YCCK; BMP, TGA, PNM, GIF, TIFF and WebP layouts: lossless,
+lossy, with ALPH, an animation's first frame) with the port's decoders on
 this machine, which has no PIL, each equal to PIL's stored bytes, and
-``textured_formats`` renders ``cbox_textured`` at 64x64, 4 spp on the
-card with one 64x64 picture as every bitmap, once in each of six
+the 512x512 lossless and lossy WebP files of ``tests/data/webp_large`` to
+the digests of PIL's bytes, with host milliseconds per megapixel; and
+``textured_formats`` renders ``cbox_textured`` at 64x64, 1 spp on the
+card with one 64x64 picture as every bitmap, once in each of seven
 lossless formats, each render equal in bits to the PNG copy's.
-The CPU halves of the two-pass checks against the CPU run in one
-spawned worker process beside the card's phases, which the script ends
-on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+The CPU halves of the two-pass checks against the CPU, and of the two
+volumetric ones, run in one spawned worker process beside the card's
+phases, which the script ends on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
 the JAX package.
@@ -516,14 +519,18 @@ def render_rays(torch, kern, calls, bw, fl, stride: int = 1,
             'max_abs_err': worst, 'timed_every': stride, 'calls': recs}
 
 
-def card_vs_cpu(mnt, compare, desc, spp, scale=None) -> tuple:
+def card_vs_cpu(mnt, compare, desc, spp, scale=None, half=None) -> tuple:
     """One scene rendered on the card and on the CPU from one seed: (the
     numbers of ``compare.agreement``, gated against ``scale`` where it is
-    given, the CPU's image)."""
+    given, the CPU's image). The CPU's render comes from the worker where
+    it was submitted (``start_cpu_halves``); ``half``, where given, gets
+    whether it did and the seconds spent waiting for it."""
     sg, mg = mnt.build_scene(desc)
-    sc, mc = mnt.build_scene(desc, device='cpu')
     img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
-    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp)
+    (img_c, passes_c, rays_c), info = take_cpu_half(cpu_render_half, desc,
+                                                    spp)
+    if half is not None:
+        half.update(info)
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c,
                              scale=scale), img_c
 
@@ -560,11 +567,12 @@ def double_card_vs_cpu(mnt, compare, desc, spp) -> dict:
 
 
 # The CPU halves of the two-pass checks against the CPU (their light pass
-# and camera passes on the CPU, 12-46 s each, PERF.md §4) run in one
-# spawned worker process beside the card's phases: ``start_cpu_halves``
-# submits them, ``nlvrl_card_vs_cpu`` takes its half from there by the
-# pickled (description, spp), and computes one in process that was not
-# submitted. ``stop_cpu_halves`` ends the worker.
+# and camera passes on the CPU, 12-46 s each, PERF.md §4) and of the two
+# volumetric checks (their CPU renders) run in one spawned worker process
+# beside the card's phases: ``start_cpu_halves`` submits them,
+# ``take_cpu_half`` takes one from there by the pickled (function,
+# description, spp), and computes one in process that was not submitted.
+# ``stop_cpu_halves`` ends the worker.
 _cpu_pool = None
 _cpu_jobs = {}
 CPU_WORKER_THREADS = 6      # of the card machine's 8 cores
@@ -589,16 +597,36 @@ def nlvrl_cpu_half(desc, spp) -> tuple:
             passes_c, rays_c)
 
 
+def cpu_render_half(desc, spp) -> tuple:
+    """The CPU's half of ``card_vs_cpu``: (the image, the per-pass images,
+    the rays)."""
+    import mitsuba_nlvrl_tpu_torch as mnt
+    from mitsuba_nlvrl_tpu_torch.testing import compare
+    sc, mc = mnt.build_scene(desc, device='cpu')
+    return compare.render_with_passes(sc, mc, 0, spp)
+
+
 def start_cpu_halves(jobs) -> None:
-    """Submit the CPU halves of ``jobs`` ((description, spp) pairs, in the
-    order the phases reach them) to one spawned worker process."""
+    """Submit ``jobs`` ((function, description, spp), in the order the
+    phases reach them) to one spawned worker process."""
     global _cpu_pool
     import multiprocessing
     _cpu_pool = multiprocessing.get_context('spawn').Pool(
         1, initializer=_cpu_worker_init)
-    for desc, spp in jobs:
-        _cpu_jobs[pickle.dumps((desc, spp))] = _cpu_pool.apply_async(
-            nlvrl_cpu_half, (desc, spp))
+    for fn, desc, spp in jobs:
+        _cpu_jobs[pickle.dumps((fn.__name__, desc, spp))] = \
+            _cpu_pool.apply_async(fn, (desc, spp))
+
+
+def take_cpu_half(fn, desc, spp) -> tuple:
+    """(``fn(desc, spp)``, taken from the worker where it was submitted
+    and computed here otherwise, and {'cpu_half_in_worker': whether it
+    was submitted, 'cpu_half_wait_s': the seconds spent here for it})."""
+    t0 = time.time()
+    job = _cpu_jobs.pop(pickle.dumps((fn.__name__, desc, spp)), None)
+    out = fn(desc, spp) if job is None else job.get()
+    return out, {'cpu_half_in_worker': job is not None,
+                 'cpu_half_wait_s': time.time() - t0}
 
 
 def stop_cpu_halves() -> list:
@@ -620,9 +648,8 @@ def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     counts and image means)."""
     import numpy as np
     from mitsuba_nlvrl_tpu_torch.integrators import lighttrace
-    job = _cpu_jobs.pop(pickle.dumps((desc, spp)), None)
-    maps_np, cpu_maps, img_c, passes_c, rays_c = (
-        nlvrl_cpu_half(desc, spp) if job is None else job.get())
+    (maps_np, cpu_maps, img_c, passes_c, rays_c), half = take_cpu_half(
+        nlvrl_cpu_half, desc, spp)
     sg, mg = mnt.build_scene(desc)
     maps_g = mnt.preprocess(sg, mg, 0)
     carried = mnt.maps_from_numpy(maps_np, device='cuda')
@@ -631,8 +658,7 @@ def nlvrl_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     own = {'card_maps': lighttrace.map_stats(maps_g),
            'cpu_maps': cpu_maps,
            'card_mean': float(own_g.mean()), 'cpu_mean': float(img_c.mean()),
-           'card_finite': bool(np.isfinite(own_g).all()),
-           'cpu_half_in_worker': job is not None}
+           'card_finite': bool(np.isfinite(own_g).all()), **half}
     own['mean_rel'] = abs(own['card_mean'] - own['cpu_mean']) \
         / max(abs(own['cpu_mean']), 1e-12)
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c), own
@@ -670,15 +696,33 @@ def option_desc(opts, hg, caps, w, h, tv) -> dict:
     return hg_phase(d) if hg else d
 
 
+def vol_check_cases() -> list:
+    """The volumetric checks against the CPU: (name, description, spp) of
+    the heterogeneous and the homogeneous box at 64x64."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (cornell_box,
+                                                        hetvol_box)
+    return [('hetvol_volpath', hetvol_box(64, 64, spp=HETVOL_CHECK_SPP,
+                                          grid_res=32, seed=0, scale=100.0,
+                                          max_depth=CUT_DEPTH),
+             HETVOL_CHECK_SPP),
+            ('homogeneous_volpathmis', cornell_box(
+                spp=4, res=64,
+                integrator={'type': 'volpathmis', 'max_depth': CUT_DEPTH},
+                medium={'type': 'homogeneous', 'sigma_t': 0.5,
+                        'albedo': 0.8}), 4)]
+
+
 def cpu_half_jobs() -> list:
-    """The two-pass checks against the CPU, in the order the phases reach
-    them, each at 2 spp."""
-    return [(d, 2) for d in (
-        nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'),
-        materials_pm_check_desc(),
-        *(option_desc(o, hg, c, 64, 32, 1000)
-          for _, o, hg, c in option_cases()),
-        nlvrl_check_desc('vrl', spectral=True))]
+    """The worker's jobs, in the order the phases reach them: the CPU
+    renders of the volumetric checks, then the two-pass checks against the
+    CPU, each at 2 spp."""
+    return [*((cpu_render_half, d, spp) for _, d, spp in vol_check_cases()),
+            *((nlvrl_cpu_half, d, 2) for d in (
+                nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'),
+                materials_pm_check_desc(),
+                *(option_desc(o, hg, c, 64, 32, 1000)
+                  for _, o, hg, c in option_cases()),
+                nlvrl_check_desc('vrl', spectral=True)))]
 
 
 def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
@@ -2482,25 +2526,24 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 
 # the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
 # port's decoders read, PIL's convert('RGB') bytes of each in
-# ``pil_rgb.npz``, and one 64x64 picture in six lossless formats
+# ``pil_rgb.npz``, one 64x64 picture in seven lossless formats, and two
+# 512x512 WebP files (a texture's size) with the SHA-256 digests of PIL's
+# bytes
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
                        'data', 'bitmaps')
-PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif')
+WEBP_LARGE = os.path.join(os.path.dirname(BITMAPS), 'webp_large')
+PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp')
 
 
-def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
-    """Slice 13, the bitmap formats: ``bitmap_decode`` decodes every
-    fixture on this machine (which has no PIL) and holds it to PIL's
-    stored bytes, each decode's host milliseconds beside it;
-    ``textured_formats`` renders ``cbox_textured`` (64x64, 4 spp,
-    ``path`` at ``CUT_DEPTH``: each render is paced by its launches, about
-    3 s at depth 8) on the card once for each lossless copy of the 64x64
-    picture as its bitmaps, each image and its rays equal in bits to the
-    PNG copy's. A decode failure raises. Returns the renders' launches."""
+def bitmap_decode_phase() -> None:
+    """``bitmap_decode``: every fixture decoded on this machine (which has
+    no PIL) and held to PIL's stored bytes, and the two 512x512 WebP
+    files to the digests of PIL's, each decode's host milliseconds beside
+    it (and per megapixel for the large files). A decode failure
+    raises."""
+    import hashlib
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import texture
-    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
     t0 = time.time()
     want = np.load(os.path.join(BITMAPS, 'pil_rgb.npz'))
     host_ms = {}
@@ -2511,22 +2554,50 @@ def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
         assert got.dtype == np.uint8 and \
             got.tobytes() == want[name].tobytes(), \
             f"{name}: the port's decode differs from PIL's bytes"
+    with open(os.path.join(WEBP_LARGE, 'pil_rgb_sha256.json')) as f:
+        digests = json.load(f)
+    large = {}
+    for name, d in sorted(digests.items()):
+        t = time.perf_counter()
+        got = texture.read_rgb8(os.path.join(WEBP_LARGE, name))
+        ms = (time.perf_counter() - t) * 1e3
+        assert list(got.shape) == d['shape'] and \
+            hashlib.sha256(got.tobytes()).hexdigest() == d['sha256'], \
+            f"{name}: the port's decode differs from PIL's digest"
+        large[name] = {'shape': d['shape'], 'host_ms': ms,
+                       'host_ms_per_mpix': ms / (got.shape[0] * got.shape[1]
+                                                 / 1e6)}
+    webp_ms = {k: v for k, v in host_ms.items() if k.endswith('.webp')}
     emit({'phase': 'bitmap_decode', 'files': len(host_ms),
           'all_equal_to_pil': True, 'host_ms': host_ms,
           'host_ms_total': sum(host_ms.values()),
+          'webp_files': len(webp_ms), 'webp_host_ms_total':
+          sum(webp_ms.values()), 'webp_large': large,
+          'large_equal_to_pil_digests': True,
           'seconds': time.time() - t0})
 
+
+def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
+    """Slices 13 and 14, the bitmap formats: ``bitmap_decode`` (above);
+    ``textured_formats`` renders ``cbox_textured`` (64x64, 1 spp,
+    ``path`` at ``CUT_DEPTH``: each render is paced by its launches) on
+    the card once for each lossless copy of the 64x64 picture as its
+    bitmaps, each image and its rays equal in bits to the PNG copy's.
+    Returns the renders' launches."""
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
+    bitmap_decode_phase()
     t0 = time.time()
     renders, launches = {}, 0
     for ext in PICTURE_FORMATS:
         path = cbox_textured(
-            os.path.join(workdir, f'formats_{ext}'), spp=4, res=64,
+            os.path.join(workdir, f'formats_{ext}'), spp=1, res=64,
             max_depth=CUT_DEPTH,
             bitmap=os.path.join(BITMAPS, f'picture64.{ext}'))
         scene, meta = mnt.build_scene(load_file(path))
         # every bitmap of the scene is the 64x64 picture
         assert tuple(scene.textures.data.shape[1:3]) == (64, 64), ext
-        rec, img = timed_render(torch, mnt, kern, sync, scene, meta, 4)
+        rec, img = timed_render(torch, mnt, kern, sync, scene, meta, 1)
         assert rec['launches'] > 0 and rec['finite'], (ext, rec)
         launches += rec['launches']
         renders[ext] = (rec, img)
@@ -2534,14 +2605,14 @@ def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
     same = {ext: img.tobytes() == ref_img.tobytes() and
             rec['rays'] == ref_rec['rays'] for ext, (rec, img)
             in renders.items()}
-    emit({'phase': 'textured_formats', 'res': 64, 'spp': 4,
+    emit({'phase': 'textured_formats', 'res': 64, 'spp': 1,
           'max_depth': CUT_DEPTH, 'scene': 'cbox_textured',
           'formats': list(PICTURE_FORMATS),
           'equal_to_png_render': same, 'launches': launches,
           'rays': ref_rec['rays'], 'mean': ref_rec['mean'],
           'wall_s': {ext: rec['wall_s'] for ext, (rec, _) in
                      renders.items()},
-          'seconds': time.time() - t0})
+          'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
     assert all(same.values()), same
     return {'launches_textured_formats': launches}
 
@@ -2717,19 +2788,11 @@ def _main() -> int:
     assert 0.01 < float(vimg_np.mean()) < 10.0, vimg_np.mean()
 
     # --- the volumetric card path against the CPU path, 64x64 ----------
-    for scene_name, desc, spp in (
-            ('hetvol_volpath', hetvol_box(64, 64, spp=HETVOL_CHECK_SPP,
-                                          grid_res=32, seed=0, scale=100.0,
-                                          max_depth=CUT_DEPTH),
-             HETVOL_CHECK_SPP),
-            ('homogeneous_volpathmis', cornell_box(
-                spp=4, res=64,
-                integrator={'type': 'volpathmis', 'max_depth': CUT_DEPTH},
-                medium={'type': 'homogeneous', 'sigma_t': 0.5,
-                        'albedo': 0.8}), 4)):
-        agree, _ = card_vs_cpu(mnt, compare, desc, spp)
+    for scene_name, desc, spp in vol_check_cases():
+        half = {}
+        agree, _ = card_vs_cpu(mnt, compare, desc, spp, half=half)
         emit({'phase': 'vol_card_vs_cpu', 'scene': scene_name, 'spp': spp,
-              **agree})
+              **agree, **half})
         compare.check(agree)
 
     # --- the NLVRL slice: cbox_nlvrl at full width ---------------------
@@ -2830,7 +2893,7 @@ def _main() -> int:
     # --- slice 12: the sharded paths at world size 1, NCCL --------------
     it12 = item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
                          wall, nscene, nmeta, nmaps)
-    # --- slice 13: the bitmap formats, decoded here and rendered --------
+    # --- slices 13 and 14: the bitmap formats, decoded and rendered ----
     workdir = tempfile.mkdtemp(prefix='chip_smoke_item13_')
     try:
         it13 = item13_phases(torch, mnt, kern, sync, workdir)

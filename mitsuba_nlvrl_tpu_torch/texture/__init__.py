@@ -10,8 +10,8 @@ side) makes a texture's row and loads its bitmap or volume.
 
 Bitmaps load without PIL: EXR by suffix through ``utils/io.read_exr``;
 any other file identified by content in PIL's order (``identify``) and
-decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM and TGA readers
-(``utils/``) to the bytes of PIL's ``convert('RGB')``. A format PIL
+decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM, TGA and WebP
+readers (``utils/``) to the bytes of PIL's ``convert('RGB')``. A format PIL
 opens that the port does not read raises, naming its ROADMAP entry.
 Lanes whose row is not a bitmap or a volume read a clamped, valid index
 (the reference relies on JAX clamping there); their value is masked out.
@@ -155,7 +155,7 @@ def identify(path: str) -> str:
 _READERS = {'JPEG': ('jpeg', 'read_jpeg_mode'), 'BMP': ('bmp', 'read_bmp'),
             'DIB': ('bmp', 'read_bmp'), 'GIF': ('gif', 'read_gif'),
             'PPM': ('pnm', 'read_pnm'), 'TIFF': ('tiff', 'read_tiff'),
-            'TGA': ('tga', 'read_tga')}
+            'TGA': ('tga', 'read_tga'), 'WEBP': ('webp', 'read_webp')}
 
 
 def _decode(path: str):
@@ -181,8 +181,9 @@ def read_rgb8(path: str) -> np.ndarray:
 def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
     """Load an image file to linear float32 (H, W, 3). EXR by its suffix;
     any other file by its content, as PIL identifies it (PNG, JPEG, BMP,
-    GIF, TIFF, PNM and TGA decode here; another format PIL opens raises
-    ``NotImplementedError``, and a file PIL does not open ``OSError``)."""
+    GIF, TIFF, PNM, TGA and WebP decode here; another format PIL opens
+    raises ``NotImplementedError``, and a file PIL does not open
+    ``OSError``)."""
     if path.lower().endswith('.exr'):
         from ..utils.io import read_exr
         img, names = read_exr(path)

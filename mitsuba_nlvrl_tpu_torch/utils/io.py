@@ -2,8 +2,8 @@
 (read and write, without PIL), JPEG (read, without PIL:
 ``utils/jpeg.py``), PFM, PPM and RGBE, and image resampling. The other
 bitmap formats a texture may name are read in ``utils/bmp.py``,
-``tga.py``, ``pnm.py``, ``gif.py`` and ``tiff.py``, behind
-``texture.read_rgb8``.
+``tga.py``, ``pnm.py``, ``gif.py``, ``tiff.py`` and ``webp.py`` (with
+``vp8.py`` and ``vp8l.py``), behind ``texture.read_rgb8``.
 
 Port of ``mitsuba_nlvrl_tpu/utils/io.py`` (pure python, numpy and zlib, so
 the port keeps its own copy). The writers and ``resample_image`` take a

@@ -3,23 +3,34 @@
     python scripts/port_make_bitmaps.py [--out tests/data/bitmaps]
 
 Needs PIL, so it runs where PIL is installed (the card's machine has
-none, which is why the files are committed). It writes:
+none, which is why the files are committed), and libwebp's shared
+library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
 
-  * ``picture64.{png,bmp,tga,ppm,gif,tif}``: one 64x64 picture of at most
-    256 colours, written losslessly in six formats (PNG, BMP and TGA
-    with its palette, GIF, PPM and LZW TIFF as RGB), so that all six hold
-    the same pixels; ``chip_smoke.py``'s ``textured_formats`` phase
-    renders ``cbox_textured`` with each as its bitmaps;
+  * ``picture64.{png,bmp,tga,ppm,gif,tif,webp}``: one 64x64 picture of at
+    most 256 colours, written losslessly in seven formats (PNG, BMP and
+    TGA with its palette, GIF, PPM, LZW TIFF and lossless WebP as RGB),
+    so that all seven hold the same pixels; ``chip_smoke.py``'s
+    ``textured_formats`` phase renders ``cbox_textured`` with each as its
+    bitmaps;
   * one 37x23 file per layout that ``chip_smoke.py``'s ``bitmap_decode``
     phase checks (sequential, progressive, grey, CMYK and YCCK JPEG; BMP,
-    TGA, PNM, GIF and TIFF layouts), each under 16 KiB;
+    TGA, PNM, GIF, TIFF and WebP layouts), each under 16 KiB;
   * ``pil_rgb.npz``: PIL's ``Image.open(f).convert('RGB')`` bytes of
-    every file, keyed by file name.
+    every file, keyed by file name;
+  * in ``../webp_large``, a 512x512 lossless and a 512x512 lossy WebP and
+    ``pil_rgb_sha256.json``, the SHA-256 digest of PIL's RGB bytes of
+    each (the decoders at a texture's size).
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
+import ctypes.util
+import hashlib
+import io
+import json
 import os
+import struct
 
 import numpy as np
 from PIL import Image
@@ -56,6 +67,206 @@ def _ycck(src: str, dst: str) -> None:
     data[i + 11] = 2
     with open(dst, 'wb') as f:
         f.write(data)
+
+
+# --- WebP layouts through libwebp's encoder API (ctypes) -------------------
+_CONFIG_FIELDS = (
+    'lossless', 'quality', 'method', 'image_hint', 'target_size',
+    'target_PSNR', 'segments', 'sns_strength', 'filter_strength',
+    'filter_sharpness', 'filter_type', 'autofilter', 'alpha_compression',
+    'alpha_filtering', 'alpha_quality', 'pass', 'show_compressed',
+    'preprocessing', 'partitions', 'partition_limit', 'emulate_jpeg_size',
+    'thread_level', 'low_memory', 'near_lossless', 'exact',
+    'use_delta_palette', 'use_sharp_yuv', 'qmin', 'qmax')
+_ENCODER_ABI = 0x020F                   # WEBP_ENCODER_ABI_VERSION of 1.2
+
+
+class _Config(ctypes.Structure):
+    """libwebp's ``WebPConfig``."""
+    _fields_ = [(n, ctypes.c_float if n in ('quality', 'target_PSNR')
+                 else ctypes.c_int) for n in _CONFIG_FIELDS] + [
+        ('pad', ctypes.c_uint32 * 8)]
+
+
+class _Picture(ctypes.Structure):
+    """libwebp's ``WebPPicture`` (64-bit layout)."""
+    _fields_ = [
+        ('use_argb', ctypes.c_int), ('colorspace', ctypes.c_int),
+        ('width', ctypes.c_int), ('height', ctypes.c_int),
+        ('y', ctypes.c_void_p), ('u', ctypes.c_void_p),
+        ('v', ctypes.c_void_p), ('y_stride', ctypes.c_int),
+        ('uv_stride', ctypes.c_int), ('a', ctypes.c_void_p),
+        ('a_stride', ctypes.c_int), ('pad1', ctypes.c_uint32 * 2),
+        ('argb', ctypes.c_void_p), ('argb_stride', ctypes.c_int),
+        ('pad2', ctypes.c_uint32 * 3), ('writer', ctypes.c_void_p),
+        ('custom_ptr', ctypes.c_void_p), ('extra_info_type', ctypes.c_int),
+        ('extra_info', ctypes.c_void_p), ('stats', ctypes.c_void_p),
+        ('error_code', ctypes.c_int), ('progress_hook', ctypes.c_void_p),
+        ('user_data', ctypes.c_void_p), ('pad3', ctypes.c_uint32 * 3),
+        ('pad4', ctypes.c_void_p), ('pad5', ctypes.c_void_p),
+        ('pad6', ctypes.c_uint32 * 8), ('memory_', ctypes.c_void_p),
+        ('memory_argb_', ctypes.c_void_p), ('pad7', ctypes.c_void_p * 2)]
+
+
+class _Writer(ctypes.Structure):
+    """libwebp's ``WebPMemoryWriter``."""
+    _fields_ = [('mem', ctypes.POINTER(ctypes.c_uint8)),
+                ('size', ctypes.c_size_t), ('max_size', ctypes.c_size_t),
+                ('pad', ctypes.c_uint32)]
+
+
+def _libwebp_encode(rgba: np.ndarray, **settings) -> bytes:
+    """A WebP file of an (H, W, 4) image through ``WebPEncode`` with the
+    given ``WebPConfig`` settings (the default preset at quality 75)."""
+    lib = ctypes.CDLL(ctypes.util.find_library('webp'))
+    ref = ctypes.byref
+    for fn in ('WebPConfigInitInternal', 'WebPValidateConfig',
+               'WebPPictureInitInternal', 'WebPPictureImportRGBA',
+               'WebPEncode'):
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.WebPConfigInitInternal.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_int]
+    lib.WebPPictureImportRGBA.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int]
+    cfg = _Config()
+    if not lib.WebPConfigInitInternal(ref(cfg), 0, 75.0, _ENCODER_ABI):
+        raise RuntimeError("libwebp: WebPConfigInit failed")
+    for k, v in settings.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ref(cfg)):
+        raise RuntimeError(f"libwebp: invalid config {settings}")
+    pic = _Picture()
+    if not lib.WebPPictureInitInternal(ref(pic), _ENCODER_ABI):
+        raise RuntimeError("libwebp: WebPPictureInit failed")
+    h, w = rgba.shape[:2]
+    pic.width, pic.height, pic.use_argb = w, h, cfg.lossless
+    buf = np.ascontiguousarray(rgba, np.uint8)
+    writer = _Writer()
+    lib.WebPMemoryWriterInit(ref(writer))
+    try:
+        if not lib.WebPPictureImportRGBA(ref(pic), buf.ctypes.data, 4 * w):
+            raise RuntimeError("libwebp: WebPPictureImportRGBA failed")
+        pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+        pic.custom_ptr = ctypes.cast(ref(writer), ctypes.c_void_p)
+        if not lib.WebPEncode(ref(cfg), ref(pic)):
+            raise RuntimeError(f"libwebp: WebPEncode error {pic.error_code}")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ref(pic))
+        lib.WebPMemoryWriterClear(ref(writer))
+
+
+def _riff(chunks) -> bytes:
+    """A WebP file of (tag, payload) chunks, each padded to even size."""
+    body = b'WEBP' + b''.join(
+        tag + struct.pack('<I', len(p)) + p + b'\0' * (len(p) & 1)
+        for tag, p in chunks)
+    return b'RIFF' + struct.pack('<I', len(body)) + body
+
+
+def _webp_chunks(data: bytes) -> list:
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = int.from_bytes(data[pos + 4:pos + 8], 'little')
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _alph_variants(data: bytes, stem: str) -> dict:
+    """Copies of a lossy RGBA file with its ALPH chunk's filter bits set
+    to each of none, horizontal, vertical and gradient (each a valid
+    stream that unfilters to another alpha plane)."""
+    out = {}
+    for f, name in enumerate(('none', 'horizontal', 'vertical',
+                              'gradient')):
+        chunks = [(t, bytes([p[0] & ~0x0C | f << 2]) + p[1:])
+                  if t == b'ALPH' else (t, p) for t, p in _webp_chunks(data)]
+        out[f'{stem}_{name}.webp'] = _riff(chunks)
+    return out
+
+
+def _webp_layouts(rgb: np.ndarray, pic: Image.Image) -> dict:
+    """The WebP fixtures: file name -> bytes."""
+    h, w = rgb.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = ((xx * 9 + yy * 5) % 256).astype(np.uint8)
+    alpha[::3, ::4] = 0
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    opaque = np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1)
+    colour = Image.fromarray(rgb)
+
+    def pil(im, **kw):
+        b = io.BytesIO()
+        im.save(b, 'WEBP', **kw)
+        return b.getvalue()
+    out = {
+        'picture64.webp': pil(pic.convert('RGB'), lossless=True),
+        'webp_lossless_m0.webp': pil(colour, lossless=True, method=0),
+        'webp_lossless_m6_rgba.webp': pil(Image.fromarray(rgba, 'RGBA'),
+                                          lossless=True, method=6,
+                                          quality=100),
+        'webp_grey_lossless.webp': pil(colour.convert('L'), lossless=True),
+        'webp_lossy_q10.webp': pil(colour, quality=10),
+        'webp_lossy_q50.webp': pil(colour, quality=50, method=6),
+        'webp_lossy_q95.webp': pil(colour, quality=95, method=0),
+        'webp_1x1_lossy.webp': pil(colour.crop((5, 5, 6, 6)), quality=80),
+        'webp_vp8_simple_filter.webp': _libwebp_encode(
+            opaque, filter_type=0, filter_strength=60),
+        'webp_vp8_4_partitions.webp': _libwebp_encode(
+            opaque, partitions=2, method=2),
+        'webp_vp8_1_segment.webp': _libwebp_encode(opaque, segments=1),
+        'webp_vp8_sharpness7.webp': _libwebp_encode(
+            opaque, filter_sharpness=7, filter_strength=80),
+        'webp_vp8_filter_off.webp': _libwebp_encode(
+            opaque, filter_strength=0),
+    }
+    for n in (2, 4, 16, 200):
+        out[f'webp_palette_{n}.webp'] = pil(colour.quantize(n),
+                                            lossless=True)
+    for comp in (0, 1):
+        out.update(_alph_variants(_libwebp_encode(
+            rgba, quality=60, alpha_compression=comp, alpha_filtering=0),
+            f'webp_alph_{("raw", "lossless")[comp]}'))
+    frames = [Image.fromarray(rgba, 'RGBA'),
+              Image.fromarray(np.roll(rgba, 7, axis=1), 'RGBA')]
+    b = io.BytesIO()
+    frames[0].save(b, 'WEBP', save_all=True, append_images=frames[1:],
+                   quality=70, duration=100)
+    out['webp_animation_2_frames.webp'] = b.getvalue()
+    return out
+
+
+def _webp_large(out: str) -> None:
+    """A 512x512 lossless and lossy WebP of one picture (smooth colour
+    waves under sharp-edged discs and stripes, the top quarter lightly
+    noisy), and the SHA-256 digest of PIL's RGB bytes of each."""
+    rng = np.random.default_rng(512)
+    yy, xx = np.mgrid[0:512, 0:512] / 512.0
+    img = 235 * (0.5 + 0.5 * np.sin(2 * np.pi * np.stack(
+        [3 * xx + yy, 2 * yy - xx, 4 * (xx + yy) * (1 + 0.5 * xx)], -1)))
+    for _ in range(40):
+        cy, cx, r = rng.uniform(0, 1, 3)
+        r = 0.02 + 0.08 * r
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.uniform(0, 255, 3)
+    stripes = ((xx * 64).astype(int) % 2 == 0) & (yy > 0.75)
+    img[stripes] *= 0.5
+    img += rng.integers(0, 2, (512, 512, 3)) * (yy[..., None] < 0.25)
+    im = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+    os.makedirs(out, exist_ok=True)
+    digests, total = {}, 0
+    for name, kw in (('lossless_512.webp', {'lossless': True}),
+                     ('lossy_512.webp', {'quality': 90})):
+        path = os.path.join(out, name)
+        im.save(path, 'WEBP', **kw)
+        total += os.path.getsize(path)
+        rgb = np.asarray(Image.open(path).convert('RGB'))
+        digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
+                         'shape': list(rgb.shape)}
+    assert total <= 256 * 1024, total
+    with open(os.path.join(out, 'pil_rgb_sha256.json'), 'w') as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write('\n')
 
 
 def main() -> None:
@@ -113,6 +324,10 @@ def main() -> None:
         im.save(os.path.join(out, name), **kw)
     _ycck(os.path.join(out, 'jpeg_cmyk.jpg'),
           os.path.join(out, 'jpeg_ycck.jpg'))
+    for name, data in _webp_layouts(rgb, pic).items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    _webp_large(os.path.join(os.path.dirname(out), 'webp_large'))
     ref = {}
     for name in sorted(os.listdir(out)):
         if name.endswith('.npz'):
@@ -122,7 +337,7 @@ def main() -> None:
         assert size <= 16 * 1024, (name, size)
         ref[name] = np.asarray(Image.open(path).convert('RGB'))
     first = ref['picture64.png']
-    for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif'):
+    for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif', 'webp'):
         assert (ref[f'picture64.{ext}'] == first).all(), ext
     np.savez_compressed(os.path.join(out, 'pil_rgb.npz'), **ref)
     total = sum(os.path.getsize(os.path.join(out, n))

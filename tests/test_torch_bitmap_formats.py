@@ -745,12 +745,12 @@ def test_unidentified_file_raises_oserror_in_both(tmp_path):
             ptex.load_bitmap(path)
 
 
-@pytest.mark.parametrize('fmt,kw', [('WEBP', {'lossless': True}),
+@pytest.mark.parametrize('fmt,kw', [('SGI', {}),
                                     ('QOI', {}),
                                     ('TIFF', {'compression': 'jpeg'})])
 def test_formats_outside_the_slice_name_their_roadmap_entry(tmp_path, fmt,
                                                             kw):
-    """The remaining gap: the reference decodes these (lossless WebP, QOI,
+    """The remaining gap: the reference decodes these (SGI, QOI,
     JPEG-in-TIFF), the port raises."""
     path = str(tmp_path / f'img.{fmt.lower()}')
     _pil('RGB').save(path, fmt, **kw)
@@ -819,13 +819,13 @@ def test_fixtures_decode_to_pils_stored_bytes():
 def test_textured_render_equal_across_lossless_formats(tmp_path):
     """``cbox_textured`` (16x16, 1 spp, on the CPU) with the 64x64
     picture as every bitmap renders the same image in every bit from each
-    of its six lossless copies (the card's ``textured_formats`` phase at
+    of its seven lossless copies (the card's ``textured_formats`` phase at
     a smaller size)."""
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
     imgs = {}
-    for ext in ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif'):
+    for ext in ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp'):
         path = cbox_textured(str(tmp_path / ext), spp=1, res=16,
                              bitmap=os.path.join(FIXTURES,
                                                  f'picture64.{ext}'))
