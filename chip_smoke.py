@@ -127,13 +127,21 @@ for bit, the radiance equal in bits to the unsharded pass's) and
 Then slices 13 and 14, the bitmap formats: ``bitmap_decode`` decodes
 every fixture of ``tests/data/bitmaps`` (JPEG sequential, progressive,
 CMYK and YCCK; BMP, TGA, PNM, GIF, TIFF and WebP layouts: lossless,
-lossy, with ALPH, an animation's first frame) with the port's decoders on
-this machine, which has no PIL, each equal to PIL's stored bytes, and
+lossy, with ALPH, an animation's first frame) with the port's decoders,
+which use no PIL, each equal to PIL's stored bytes, and
 the 512x512 lossless and lossy WebP files of ``tests/data/webp_large`` to
 the digests of PIL's bytes, with host milliseconds per megapixel; and
 ``textured_formats`` renders ``cbox_textured`` at 64x64, 1 spp on the
 card with one 64x64 picture as every bitmap, once in each of seven
 lossless formats, each render equal in bits to the PNG copy's.
+Slice 15 (the decoders' sequential stages in host C++, built with g++ at
+first use): ``bitmap_decode`` also decodes every file of
+``tests/data/bitmaps_large`` (JPEG and WebP at 2,048^2 and 4,096^2) to
+PIL's digests and a 4,096^2 PNG it writes with every row Paeth-filtered
+to its pixels, each 4,096^2 decode under 3 s of host time; and
+``textured_large`` builds ``cbox_textured`` with the 2,048^2 baseline
+JPEG as every bitmap and with its pixels as a Paeth PNG (build and
+decode seconds), the two renders on the card equal in bits and rays.
 The CPU halves of the two-pass checks against the CPU, and of the two
 volumetric ones, run in one spawned worker process beside the card's
 phases, which the script ends on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -712,17 +720,47 @@ def vol_check_cases() -> list:
                         'albedo': 0.8}), 4)]
 
 
+def materials_check_desc() -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_materials
+    return cbox_materials(64, 64, 4)
+
+
+def albedo_grid_desc() -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (albedo_grid_medium,
+                                                        cornell_box)
+    return cornell_box(spp=2, res=64,
+                       medium=albedo_grid_medium(16, scale=5.0),
+                       integrator={'type': 'volpath', 'max_depth': CUT_DEPTH})
+
+
+def hetvol_spectral_desc() -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import hetvol_box
+    desc = hetvol_box(64, 32, spp=HETVOL_CHECK_SPP, grid_res=32, seed=0,
+                      scale=100.0, max_depth=CUT_DEPTH)
+    desc['spectral'] = True
+    return desc
+
+
 def cpu_half_jobs() -> list:
     """The worker's jobs, in the order the phases reach them: the CPU
-    renders of the volumetric checks, then the two-pass checks against the
-    CPU, each at 2 spp."""
+    renders of the volumetric checks, the two-pass checks against the
+    CPU (each at 2 spp) and of the materials, albedo-grid and spectral
+    volumetric checks, and the CPU gradients of ``autodiff_checks``. Each
+    scene is procedural: it needs no file or variable of the
+    environment that a phase makes."""
     return [*((cpu_render_half, d, spp) for _, d, spp in vol_check_cases()),
             *((nlvrl_cpu_half, d, 2) for d in (
-                nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'),
+                nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'))),
+            (cpu_render_half, materials_check_desc(), 4),
+            *((nlvrl_cpu_half, d, 2) for d in (
                 materials_pm_check_desc(),
                 *(option_desc(o, hg, c, 64, 32, 1000)
-                  for _, o, hg, c in option_cases()),
-                nlvrl_check_desc('vrl', spectral=True)))]
+                  for _, o, hg, c in option_cases()))),
+            (cpu_render_half, albedo_grid_desc(), 2),
+            *((cpu_grad_half, (desc, keys), 1)
+              for _, desc, keys, _ in autodiff_cases()),
+            (cpu_render_half, hetvol_spectral_desc(), HETVOL_CHECK_SPP),
+            (nlvrl_cpu_half, nlvrl_check_desc('vrl', spectral=True), 2)]
 
 
 def two_pass_render(torch, mnt, sync, kern, scene, meta, spp):
@@ -804,7 +842,7 @@ def materials_phases(torch, mnt, kern, compare, sync, bw, fl) -> dict:
     assert 0 < launches <= 16 * 8 * 2, launches
     assert np.isfinite(img_np).all() and img_np.shape == (512, 512, 3)
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
-    agree, _ = card_vs_cpu(mnt, compare, cbox_materials(64, 64, 4), 4)
+    agree, _ = card_vs_cpu(mnt, compare, materials_check_desc(), 4)
     emit({'phase': 'materials_card_vs_cpu', 'res': 64, 'spp': 4, **agree})
     compare.check(agree)
 
@@ -1215,8 +1253,8 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
     from mitsuba_nlvrl_tpu_torch.integrators import regen as regen_mod
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        SPECTRAL_CONDUCTOR, albedo_grid_medium, cbox_polarized,
-        cbox_spectral, cornell_box, hetvol_box)
+        SPECTRAL_CONDUCTOR, cbox_polarized, cbox_spectral, cornell_box,
+        hetvol_box)
 
     def gate(name, desc, spp, scale=None):
         agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
@@ -1244,9 +1282,7 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
     gate('moment_path', cornell_box(spp=4, res=64, integrator={
         'type': 'moment', 'integrator': {'type': 'path', 'max_depth': 8}}),
         4)
-    gate('albedo_grid', cornell_box(
-        spp=2, res=64, medium=albedo_grid_medium(16, scale=5.0),
-        integrator={'type': 'volpath', 'max_depth': CUT_DEPTH}), 2)
+    gate('albedo_grid', albedo_grid_desc(), 2)
     fog = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.9}
     os.environ['MNT_REGEN'] = '1'
     try:
@@ -1519,6 +1555,51 @@ def hetvol_grad_phase(torch, mnt, kern, sync) -> dict:
     return rec
 
 
+def autodiff_cases() -> tuple:
+    """``autodiff_checks``' cases: (name, description, parameter keys,
+    absolute tolerance)."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cornell_box, dress_materials, hetvol_box)
+    return (
+        ('cbox_path_64', cornell_box(spp=1, res=64, integrator={
+            'type': 'path', 'max_depth': 8}),
+         ('bsdfs.params', 'emitters.params'), 1e-6),
+        ('cbox_materials_64', dress_materials(cornell_box(
+            spp=1, res=64, integrator={'type': 'path', 'max_depth': 3})),
+         ('bsdfs.params',), 1e-6),
+        ('hetvol_24', hetvol_box(24, 24, spp=1, grid_res=16, seed=0,
+                                 scale=20.0, max_depth=AD_CHECK_DEPTH),
+         ('media.params', 'media.grid_sigma_t'), 1e-5))
+
+
+def scene_gradient(torch, mnt, desc, keys, device) -> tuple:
+    """(the image, the gradient of sum(image * W) for a seeded W with
+    respect to each of ``keys``) of ``desc`` rendered at 1 spp on
+    ``device``, as numpy."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch import autodiff as ad
+    scene, meta = mnt.build_scene(desc, device=device)
+    pm = ad.traverse(scene).keep(keys)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in pm.to_dict().items()}
+    img = ad.render(scene, meta, params=params, pmap=pm, spp=1, seed=0)
+    W = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        tuple(img.shape)).astype(np.float32), device=device)
+    (img * W).sum().backward()
+    return (img.detach().cpu().numpy(),
+            {k: v.grad.cpu().numpy() for k, v in params.items()})
+
+
+def cpu_grad_half(case, spp) -> tuple:
+    """The CPU's half of an ``autodiff_checks`` case ((description,
+    keys); ``spp`` is 1): ``scene_gradient`` on the CPU."""
+    import torch
+    import mitsuba_nlvrl_tpu_torch as mnt
+    desc, keys = case
+    assert spp == 1, spp
+    return scene_gradient(torch, mnt, desc, keys, 'cpu')
+
+
 def autodiff_checks(torch, mnt) -> None:
     """The card's gradients against the CPU's on reduced scenes: the
     Cornell box at 64x64 (``path`` max_depth 8: bsdfs.params and
@@ -1537,40 +1618,14 @@ def autodiff_checks(torch, mnt) -> None:
     may fall outside, their error summing to 1e-4 of the gradient's
     absolute sum at most."""
     import numpy as np
-    from mitsuba_nlvrl_tpu_torch import autodiff as ad
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        cornell_box, dress_materials, hetvol_box)
-
-    cases = (
-        ('cbox_path_64', cornell_box(spp=1, res=64, integrator={
-            'type': 'path', 'max_depth': 8}),
-         ('bsdfs.params', 'emitters.params'), 1e-6),
-        ('cbox_materials_64', dress_materials(cornell_box(
-            spp=1, res=64, integrator={'type': 'path', 'max_depth': 3})),
-         ('bsdfs.params',), 1e-6),
-        ('hetvol_24', hetvol_box(24, 24, spp=1, grid_res=16, seed=0,
-                                 scale=20.0, max_depth=AD_CHECK_DEPTH),
-         ('media.params', 'media.grid_sigma_t'), 1e-5))
-    for name, desc, keys, atol in cases:
-        out, secs = {}, {}
-        for device in ('cuda', 'cpu'):
-            t0 = time.time()
-            scene, meta = mnt.build_scene(desc, device=device)
-            pm = ad.traverse(scene).keep(keys)
-            params = {k: v.detach().clone().requires_grad_(True)
-                      for k, v in pm.to_dict().items()}
-            img = ad.render(scene, meta, params=params, pmap=pm, spp=1,
-                            seed=0)
-            W = torch.as_tensor(np.random.default_rng(0).standard_normal(
-                tuple(img.shape)).astype(np.float32), device=device)
-            (img * W).sum().backward()
-            out[device] = (img.detach().cpu().numpy(),
-                           {k: v.grad.cpu().numpy()
-                            for k, v in params.items()})
-            secs[device] = time.time() - t0
+    for name, desc, keys, atol in autodiff_cases():
+        t0 = time.time()
+        out = {'cuda': scene_gradient(torch, mnt, desc, keys, 'cuda')}
+        card_s = time.time() - t0
+        out['cpu'], half = take_cpu_half(cpu_grad_half, (desc, keys), 1)
         img_g, g_g = out['cuda']
         img_c, g_c = out['cpu']
-        rec = {'check': name, 'card_s': secs['cuda'], 'cpu_s': secs['cpu'],
+        rec = {'check': name, 'card_s': card_s, **half,
                'image_max_abs_err': float(np.abs(img_g - img_c).max())}
         for k in keys:
             err = np.abs(g_g[k] - g_c[k])
@@ -2118,7 +2173,7 @@ def item10_checks(torch, mnt, compare, workdir) -> None:
     the means within 5% on each device's own)."""
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        cbox_measured, cbox_measured_polarized, cornell_box, hetvol_box)
+        cbox_measured, cbox_measured_polarized, cornell_box)
 
     def gate(name, desc, spp, scale=None):
         agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
@@ -2146,10 +2201,7 @@ def item10_checks(torch, mnt, compare, workdir) -> None:
     assert agree['mean_rel'] <= DOUBLE_MEAN_RTOL, agree
     assert agree['float32_pixels_within_rtol'] < DOUBLE_PIXEL_FRACTION, agree
     assert agree['float32_mean_rel'] > DOUBLE_MEAN_RTOL, agree
-    desc = hetvol_box(64, 32, spp=HETVOL_CHECK_SPP, grid_res=32, seed=0,
-                      scale=100.0, max_depth=CUT_DEPTH)
-    desc['spectral'] = True
-    gate('hetvol_volpath_spectral', desc, HETVOL_CHECK_SPP)
+    gate('hetvol_volpath_spectral', hetvol_spectral_desc(), HETVOL_CHECK_SPP)
     agree, own_maps = nlvrl_card_vs_cpu(
         mnt, compare, nlvrl_check_desc('vrl', spectral=True), 2)
     emit({'phase': 'item10_checks', 'check': 'cbox_nlvrl_vrl_spectral',
@@ -2532,18 +2584,40 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
                        'data', 'bitmaps')
 WEBP_LARGE = os.path.join(os.path.dirname(BITMAPS), 'webp_large')
+# JPEG and WebP at 2,048^2 and 4,096^2 with the digests of PIL's bytes
+BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
 PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp')
+# a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
+LARGE_DECODE_LIMIT_S = 3.0
 
 
-def bitmap_decode_phase() -> None:
-    """``bitmap_decode``: every fixture decoded on this machine (which has
-    no PIL) and held to PIL's stored bytes, and the two 512x512 WebP
-    files to the digests of PIL's, each decode's host milliseconds beside
-    it (and per megapixel for the large files). A decode failure
-    raises."""
+def _large_decode(texture, path, check) -> dict:
+    """Decode one large file through the native path, check it, and time
+    it: host milliseconds and per megapixel."""
+    t = time.perf_counter()
+    got = texture.read_rgb8(path)
+    ms = (time.perf_counter() - t) * 1e3
+    assert check(got), f"{path}: the port's decode differs from PIL's"
+    mpix = got.shape[0] * got.shape[1] / 1e6
+    assert got.shape[0] < 4096 or ms < LARGE_DECODE_LIMIT_S * 1e3, \
+        f"{path}: {ms:.1f} ms for a 4,096^2 decode"
+    return {'shape': list(got.shape), 'host_ms': ms,
+            'host_ms_per_mpix': ms / mpix}
+
+
+def bitmap_decode_phase(workdir) -> None:
+    """``bitmap_decode``: every fixture decoded by the port (which uses no
+    PIL) and held to PIL's stored bytes, the two 512x512 WebP files and
+    every file of ``tests/data/bitmaps_large`` (2,048^2 and 4,096^2 JPEG
+    and WebP) to the digests of PIL's, and a 4,096^2 PNG written here by
+    numpy with every row Paeth-filtered to its known pixels (the 4,096^2
+    JPEG's), each decode's host milliseconds beside it (and per megapixel
+    for the large files). A decode failure, or a 4,096^2 decode of 3 s or
+    more, raises."""
     import hashlib
     import numpy as np
-    from mitsuba_nlvrl_tpu_torch import texture
+    from mitsuba_nlvrl_tpu_torch import native, texture
+    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import png_filtered
     t0 = time.time()
     want = np.load(os.path.join(BITMAPS, 'pil_rgb.npz'))
     host_ms = {}
@@ -2554,39 +2628,108 @@ def bitmap_decode_phase() -> None:
         assert got.dtype == np.uint8 and \
             got.tobytes() == want[name].tobytes(), \
             f"{name}: the port's decode differs from PIL's bytes"
-    with open(os.path.join(WEBP_LARGE, 'pil_rgb_sha256.json')) as f:
-        digests = json.load(f)
-    large = {}
-    for name, d in sorted(digests.items()):
-        t = time.perf_counter()
-        got = texture.read_rgb8(os.path.join(WEBP_LARGE, name))
-        ms = (time.perf_counter() - t) * 1e3
-        assert list(got.shape) == d['shape'] and \
-            hashlib.sha256(got.tobytes()).hexdigest() == d['sha256'], \
-            f"{name}: the port's decode differs from PIL's digest"
-        large[name] = {'shape': d['shape'], 'host_ms': ms,
-                       'host_ms_per_mpix': ms / (got.shape[0] * got.shape[1]
-                                                 / 1e6)}
+
+    def digest_check(d):
+        return lambda rgb: list(rgb.shape) == d['shape'] and hashlib.sha256(
+            rgb.tobytes()).hexdigest() == d['sha256']
+    decoded = {}
+    for folder in (WEBP_LARGE, BITMAPS_LARGE):
+        with open(os.path.join(folder, 'pil_rgb_sha256.json')) as f:
+            digests = json.load(f)
+        decoded[folder] = {name: _large_decode(
+            texture, os.path.join(folder, name), digest_check(d))
+            for name, d in sorted(digests.items())}
+    # the 4,096^2 PNG: the baseline JPEG's pixels, every row Paeth
+    pixels = texture.read_rgb8(os.path.join(BITMAPS_LARGE,
+                                            'jpeg_baseline_4096.jpg'))
+    png = os.path.join(workdir, 'png_paeth_4096.png')
+    t = time.perf_counter()
+    with open(png, 'wb') as f:
+        f.write(png_filtered(pixels, filters=(4,)))
+    write_s = time.perf_counter() - t
+    decoded[BITMAPS_LARGE]['png_paeth_4096.png'] = _large_decode(
+        texture, png, lambda rgb: np.array_equal(rgb, pixels))
+    os.remove(png)
     webp_ms = {k: v for k, v in host_ms.items() if k.endswith('.webp')}
     emit({'phase': 'bitmap_decode', 'files': len(host_ms),
           'all_equal_to_pil': True, 'host_ms': host_ms,
           'host_ms_total': sum(host_ms.values()),
           'webp_files': len(webp_ms), 'webp_host_ms_total':
-          sum(webp_ms.values()), 'webp_large': large,
+          sum(webp_ms.values()), 'webp_large': decoded[WEBP_LARGE],
           'large_equal_to_pil_digests': True,
-          'seconds': time.time() - t0})
+          'bitmaps_large': decoded[BITMAPS_LARGE],
+          'png_paeth_4096_write_s': write_s,
+          'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
+          'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
+
+
+def textured_large_phase(torch, mnt, kern, sync, workdir) -> int:
+    """``textured_large``: ``cbox_textured`` (64x64, 1 spp, ``path`` at
+    ``CUT_DEPTH``) built with the 2,048^2 baseline JPEG as every bitmap,
+    then with the same pixels as a PNG whose every row is Paeth-filtered,
+    each rendered on the card: build seconds with the decodes' seconds
+    apart, and the two images and ray counts equal in bits. Returns the
+    renders' launches."""
+    from mitsuba_nlvrl_tpu_torch import texture
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import png_filtered
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
+    t0 = time.time()
+    jpg = os.path.join(BITMAPS_LARGE, 'jpeg_baseline_2048.jpg')
+    png = os.path.join(workdir, 'large_paeth.png')
+    with open(png, 'wb') as f:
+        f.write(png_filtered(texture.read_rgb8(jpg), filters=(4,)))
+    read_rgb8, decode_s = texture.read_rgb8, []
+
+    def timed_read(path):
+        t = time.perf_counter()
+        out = read_rgb8(path)
+        decode_s.append(time.perf_counter() - t)
+        return out
+    renders, builds, launches = {}, {}, 0
+    for fmt, bitmap in (('jpeg', jpg), ('png', png)):
+        path = cbox_textured(os.path.join(workdir, f'large_{fmt}'), spp=1,
+                             res=64, max_depth=CUT_DEPTH, bitmap=bitmap)
+        decode_s.clear()
+        texture.read_rgb8 = timed_read
+        try:
+            t = time.time()
+            scene, meta = mnt.build_scene(load_file(path))
+            build_s = time.time() - t
+        finally:
+            texture.read_rgb8 = read_rgb8
+        assert tuple(scene.textures.data.shape[1:3]) == (2048, 2048), fmt
+        builds[fmt] = {'build_s': build_s, 'decode_s': sum(decode_s),
+                       'decodes': len(decode_s)}
+        rec, img = timed_render(torch, mnt, kern, sync, scene, meta, 1)
+        assert rec['launches'] > 0 and rec['finite'], (fmt, rec)
+        launches += rec['launches']
+        renders[fmt] = (rec, img)
+        del scene, meta
+    (jrec, jimg), (prec, pimg) = renders['jpeg'], renders['png']
+    same = jimg.tobytes() == pimg.tobytes() and jrec['rays'] == prec['rays']
+    emit({'phase': 'textured_large', 'res': 64, 'spp': 1,
+          'max_depth': CUT_DEPTH, 'scene': 'cbox_textured',
+          'bitmap': [2048, 2048], 'builds': builds,
+          'equal_jpeg_png_render': same, 'launches': launches,
+          'rays': jrec['rays'], 'mean': jrec['mean'],
+          'wall_s': {fmt: rec['wall_s'] for fmt, (rec, _) in
+                     renders.items()},
+          'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
+    assert same, (jrec, prec)
+    return launches
 
 
 def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
-    """Slices 13 and 14, the bitmap formats: ``bitmap_decode`` (above);
+    """Slices 13 to 15, the bitmap formats: ``bitmap_decode`` (above);
     ``textured_formats`` renders ``cbox_textured`` (64x64, 1 spp,
     ``path`` at ``CUT_DEPTH``: each render is paced by its launches) on
     the card once for each lossless copy of the 64x64 picture as its
-    bitmaps, each image and its rays equal in bits to the PNG copy's.
-    Returns the renders' launches."""
+    bitmaps, each image and its rays equal in bits to the PNG copy's;
+    then ``textured_large`` (above). Returns the renders' launches."""
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
-    bitmap_decode_phase()
+    bitmap_decode_phase(workdir)
     t0 = time.time()
     renders, launches = {}, 0
     for ext in PICTURE_FORMATS:
@@ -2614,7 +2757,9 @@ def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
                      renders.items()},
           'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
     assert all(same.values()), same
-    return {'launches_textured_formats': launches}
+    return {'launches_textured_formats': launches,
+            'launches_textured_large': textured_large_phase(
+                torch, mnt, kern, sync, workdir)}
 
 
 def main() -> int:
@@ -2893,7 +3038,7 @@ def _main() -> int:
     # --- slice 12: the sharded paths at world size 1, NCCL --------------
     it12 = item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
                          wall, nscene, nmeta, nmaps)
-    # --- slices 13 and 14: the bitmap formats, decoded and rendered ----
+    # --- slices 13-15: the bitmap formats, decoded and rendered --------
     workdir = tempfile.mkdtemp(prefix='chip_smoke_item13_')
     try:
         it13 = item13_phases(torch, mnt, kern, sync, workdir)
@@ -2922,7 +3067,8 @@ def _main() -> int:
                     + it12['launches_dist_render']
                     + it12['launches_sharded_vrl_pass']
                     + it12['launches_dist_train_step']
-                    + it13['launches_textured_formats'])
+                    + it13['launches_textured_formats']
+                    + it13['launches_textured_large'])
 
     emit({'kernels': [{
         'name': 'intersect_tris', 'route': 'cuda',

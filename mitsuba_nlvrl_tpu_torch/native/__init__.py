@@ -1,14 +1,24 @@
 """Native (C++) host code, built with ``g++`` at first use and loaded with
 ``ctypes``.
 
-Port of ``mitsuba_nlvrl_tpu/native/__init__.py`` for the BVH builder
-(``bvh_native.cpp``, the reference's own source, copied). The library is
-compiled with the reference's flags into ``mitsuba_nlvrl_tpu_torch/_build/``
-under a name that carries a hash of the source and flags. Unlike the
-reference there is no numpy fallback: the tree, and so the triangle order
-of every scene from 1,024 triangles, must not depend on whether a compiler
-happened to be found, so a failed compile raises with the compiler's
-message.
+Two libraries, each built by ``build`` from its sources:
+
+  * the BVH builder (``bvh_native.cpp``), the port of
+    ``mitsuba_nlvrl_tpu/native/__init__.py`` (the reference's own source,
+    copied);
+  * the bitmap decoders' sequential stages (``bitmap_png.cpp``,
+    ``bitmap_jpeg.cpp``, ``bitmap_vp8l.cpp``, ``bitmap_vp8.cpp``): PNG
+    unfiltering, JPEG entropy decoding and IDCT, WebP's lossless pixels
+    and predictor, and the lossy frame's modes, tokens, reconstruction
+    and loop filter. ``utils/io.py``, ``jpeg.py``, ``vp8l.py`` and
+    ``vp8.py`` bind them (``bitmap_library``).
+
+Each is compiled with the reference's flags into
+``mitsuba_nlvrl_tpu_torch/_build/`` under a name that carries a hash of its
+sources, the flags and the CPU model. Unlike the reference there is no
+numpy fallback: a scene's triangle order and its bitmaps' pixels must not
+depend on whether a compiler happened to be found, so a failed compile
+raises with the compiler's message.
 """
 from __future__ import annotations
 
@@ -22,13 +32,16 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_DIR, 'bvh_native.cpp')
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), '_build')
 # the reference's flags (mitsuba_nlvrl_tpu/native/__init__.py)
 CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-march=native']
+BVH_SOURCES = ('bvh_native.cpp',)
+BITMAP_SOURCES = ('bitmap_png.cpp', 'bitmap_jpeg.cpp', 'bitmap_vp8l.cpp',
+                  'bitmap_vp8.cpp')
 
 _lock = threading.Lock()
 _fn = None
+_bitmap = None
 
 
 def _cpu_model() -> str:
@@ -44,35 +57,112 @@ def _cpu_model() -> str:
     return platform.machine()
 
 
-def library_path() -> str:
+def library_path(sources=BVH_SOURCES, stem: str = 'bvh') -> str:
+    """Where the library ``libmnt_<stem>_<hash>.so`` of ``sources`` (file
+    names in this directory) is built."""
     h = hashlib.sha256()
-    with open(SOURCE, 'rb') as f:
-        h.update(f.read())
+    for name in sources:
+        with open(os.path.join(_DIR, name), 'rb') as f:
+            h.update(f.read())
     h.update(' '.join(CXX_FLAGS).encode())
     h.update(_cpu_model().encode())
-    return os.path.join(BUILD_DIR, f'libmnt_bvh_{h.hexdigest()[:16]}.so')
+    return os.path.join(BUILD_DIR, f'libmnt_{stem}_{h.hexdigest()[:16]}.so')
 
 
-def build() -> str:
-    """Compile the builder if its library is missing; returns its path.
-    Raises RuntimeError carrying the compiler's message on failure."""
-    path = library_path()
+def build(sources=BVH_SOURCES, stem: str = 'bvh',
+          what: str = 'the BVH builder') -> str:
+    """Compile ``sources`` (``what``, for the error) into one library if
+    it is missing; returns its path. One compiler a source, started
+    together, then one link. Concurrent first builds (test workers) each
+    write files of their own and rename the library into place. Raises
+    RuntimeError carrying the compiler's message on failure."""
+    path = library_path(sources, stem)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [os.environ.get('CXX', 'g++'), *CXX_FLAGS, SOURCE, '-o', tmp]
+    tag = f'{os.getpid()}.{threading.get_ident()}'
+    tmp = f'{path}.{tag}.tmp'
+    cxx = os.environ.get('CXX', 'g++')
+    objs = [f'{path}.{i}.{tag}.o' for i in range(len(sources))]
+    compile_flags = [f for f in CXX_FLAGS if f != '-shared']
+    steps = [[[cxx, *compile_flags, '-c', os.path.join(_DIR, s), '-o', o]
+              for s, o in zip(sources, objs)],
+             [[cxx, *CXX_FLAGS, *objs, '-o', tmp]]]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=300)
+        for cmds in steps:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for c in cmds]
+            for cmd, proc in zip(cmds, procs):
+                try:
+                    _, err = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    for p in procs:
+                        p.kill()
+                        p.communicate()
+                    raise
+                if proc.returncode != 0:
+                    for p in procs:
+                        p.communicate()
+                    raise RuntimeError(
+                        f"building {what} failed ({proc.returncode}): "
+                        f"{' '.join(cmd)}\n{err}")
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building the BVH builder failed: {e}") from e
-    if res.returncode != 0:
-        raise RuntimeError(f"building the BVH builder failed "
-                           f"({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stderr}")
+        raise RuntimeError(f"building {what} failed: {e}") from e
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)
     return path
+
+
+_P = ctypes.c_void_p
+_I64, _I32 = ctypes.c_int64, ctypes.c_int
+# each function's argtypes, as the sources declare them (restype int but
+# for the void functions of _BITMAP_VOID)
+_BITMAP_ABI = {
+    'mnt_png_unfilter': [_P, _I64, _I64, _I64, _I64, _P, _P],
+    'mnt_jpeg_scan': [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                      _I32, _I32, _I32, _I32, _P],
+    'mnt_jpeg_idct': [_P, _I64, _I64, _P, _P],
+    'mnt_jpeg_upsample': [_P, _I64, _I64, _I32, _I32, _I64, _I64, _P],
+    'mnt_jpeg_ycc_rgb': [_P, _P, _P, _I64, _P],
+    'mnt_vp8l_pixels': [_P, _I64, _P, _I64, _I64, _I32, _P, _P, _P, _I64,
+                        _I32, _I64, _P, _I64, _P],
+    'mnt_vp8l_unpredict': [_P, _I64, _I64, _I32, _P, _I64, _P],
+    'mnt_vp8l_uncross': [_P, _I64, _I64, _I32, _P, _I64, _P],
+    'mnt_vp8_frame': [_P, _I64, _P, _P, _P, _I32, _I64, _I64, _I32, _P,
+                      _I32, _P, _P, _P, _I32, _P, _P, _P, _P],
+    'mnt_vp8_yuv_rgb': [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+}
+
+_BITMAP_VOID = ('mnt_jpeg_idct', 'mnt_jpeg_upsample', 'mnt_jpeg_ycc_rgb',
+                'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb')
+
+
+def bitmap_library() -> ctypes.CDLL:
+    """The bitmap decoders' library, built at first use and loaded once a
+    process, its functions' argtypes declared."""
+    global _bitmap
+    with _lock:
+        if _bitmap is None:
+            lib = ctypes.CDLL(build(BITMAP_SOURCES, 'bitmap',
+                                    'the bitmap decoders'))
+            for name, args in _BITMAP_ABI.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = None if name in _BITMAP_VOID else ctypes.c_int
+            _bitmap = lib
+    return _bitmap
+
+
+def ptr(a: np.ndarray) -> int:
+    """The address of a C-contiguous array's data, for a ``c_void_p``
+    argument (the caller keeps the array alive across the call)."""
+    if not a.flags['C_CONTIGUOUS']:
+        raise ValueError("a native call needs C-contiguous arrays")
+    return a.ctypes.data
 
 
 def _bound():

@@ -1,6 +1,7 @@
 """Image IO: OpenEXR (float32; read: none, zip, zips and PIZ), PNG
-(read and write, without PIL), JPEG (read, without PIL:
-``utils/jpeg.py``), PFM, PPM and RGBE, and image resampling. The other
+(read and write, without PIL; the rows unfiltered in host C++,
+``native/bitmap_png.cpp``), JPEG (read, without PIL: ``utils/jpeg.py``),
+PFM, PPM and RGBE, and image resampling. The other
 bitmap formats a texture may name are read in ``utils/bmp.py``,
 ``tga.py``, ``pnm.py``, ``gif.py``, ``tiff.py`` and ``webp.py`` (with
 ``vp8.py`` and ``vp8l.py``), behind ``texture.read_rgb8``.
@@ -214,7 +215,28 @@ def write_png(path: str, image: np.ndarray, gamma: bool = True) -> None:
 def _png_unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row filters (none, sub, up, average, paeth) of a
     non-interlaced PNG, or of one pass of an interlaced one: (H, stride)
-    uint8."""
+    uint8, in ``native/bitmap_png.cpp``. Fails as ``_png_unfilter_plain``
+    does."""
+    from ..native import bitmap_library, ptr
+    out = np.empty((H, stride), np.uint8)
+    buf = np.frombuffer(raw, np.uint8)
+    bad = np.zeros(1, np.int64)
+    err = bitmap_library().mnt_png_unfilter(ptr(buf), buf.size, H, stride,
+                                            bpp, ptr(out), ptr(bad))
+    if err == 1:
+        raise IndexError("index out of range")
+    if err == 2:
+        raise ValueError("buffer is smaller than requested size")
+    if err == 3:
+        raise ValueError(f"PNG row filter {int(bad[0])}")
+    return out
+
+
+def _png_unfilter_plain(raw: bytes, H: int, stride: int,
+                        bpp: int) -> np.ndarray:
+    """``_png_unfilter`` in numpy and Python, the plain version the tests
+    hold it to (a row that averages or Paeth-predicts is walked byte by
+    byte)."""
     out = np.zeros((H, stride), np.uint8)
     prior = np.zeros(stride, np.int64)
     pos = 0
@@ -284,8 +306,8 @@ def read_png(path: str) -> np.ndarray:
     4 bits widen to 8. An Adam7-interlaced file is decoded pass by pass:
     each pass unfiltered with its own row stride (a pass that holds no
     pixel of a small image has no rows) and its pixels scattered into the
-    image (a plain file is one pass of the whole image). Needs zlib and
-    numpy only."""
+    image (a plain file is one pass of the whole image). Needs zlib,
+    numpy and the native bitmap library (``_png_unfilter``)."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != b'\x89PNG\r\n\x1a\n':

@@ -1,4 +1,9 @@
-"""A JPEG decoder in numpy (no PIL).
+"""A JPEG decoder without PIL: headers in Python, the entropy decoding of
+each scan, the IDCT, the upsampling and the colour conversion in host C++
+(``native/bitmap_jpeg.cpp``), each stage beside its numpy twin
+(``_decode_scan_plain``, ``_idct_plane_plain``, ``_upsample_plain``,
+``_ycc_to_rgb_plain``), which the tests hold it to. Lossless scans stay
+in Python (``_decode_lossless``).
 
 Decodes Huffman-coded JPEG: sequential (SOF0 and SOF1), progressive
 (SOF2: spectral selection, successive approximation of DC and AC, first
@@ -61,11 +66,11 @@ def _unsupported(what: str, path: str) -> NotImplementedError:
 
 
 def _huffman_lut(counts, symbols):
-    """(length, symbol) of every 16-bit window, as lists: a window whose
-    leading bits are a code maps to that code's length and symbol;
+    """(length, symbol) of every 16-bit window, uint8 arrays: a window
+    whose leading bits are a code maps to that code's length and symbol;
     length 0 marks no code."""
-    length = np.zeros(1 << 16, np.int64)
-    symbol = np.zeros(1 << 16, np.int64)
+    length = np.zeros(1 << 16, np.uint8)
+    symbol = np.zeros(1 << 16, np.uint8)
     code, k = 0, 0
     for n in range(1, 17):
         for _ in range(counts[n - 1]):
@@ -76,7 +81,13 @@ def _huffman_lut(counts, symbols):
             code += 1
             k += 1
         code <<= 1
-    return length.tolist(), symbol.tolist()
+    return length, symbol
+
+
+def _lut_lists(tables: dict) -> dict:
+    """The Huffman tables as lists, for the plain decoders' lookups."""
+    return {k: (length.tolist(), symbol.tolist())
+            for k, (length, symbol) in tables.items()}
 
 
 def _windows(segment: bytes):
@@ -124,6 +135,28 @@ def _idct_1d(c, final: bool):
     return np.stack([(x + (1 << (n - 1))) >> n for x in out], axis=-2)
 
 
+def _idct_plane(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """A component's quantized blocks (rows, cols, 64) int16 dequantized
+    by ``q`` (8, 8) and inverse-transformed (``_idct_islow``) into its
+    samples, (8 rows, 8 cols) uint8, in ``native/bitmap_jpeg.cpp``."""
+    from ..native import bitmap_library, ptr
+    rows, cols = coef.shape[:2]
+    coef = np.ascontiguousarray(coef, np.int16)
+    q = np.ascontiguousarray(q, np.int64).reshape(64)
+    out = np.empty((8 * rows, 8 * cols), np.uint8)
+    bitmap_library().mnt_jpeg_idct(ptr(coef), rows, cols, ptr(q), ptr(out))
+    return out
+
+
+def _idct_plane_plain(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """``_idct_plane`` in numpy, the plain version the tests hold it to
+    (it widens the int16 coefficients to int64 for numpy's products)."""
+    rows, cols = coef.shape[:2]
+    blocks = coef.reshape(rows, cols, 8, 8).astype(np.int64) * q
+    return _idct_islow(blocks).transpose(0, 2, 1, 3).reshape(8 * rows,
+                                                             8 * cols)
+
+
 def _idct_islow(coef: np.ndarray) -> np.ndarray:
     """Dequantized blocks (..., 8, 8) int64 in natural order -> samples
     (..., 8, 8) uint8: columns first, then rows, then the range limit of
@@ -137,6 +170,19 @@ def _idct_islow(coef: np.ndarray) -> np.ndarray:
 
 
 def _upsample(plane: np.ndarray, rh: int, rv: int, W: int, H: int):
+    """``_upsample_plain`` of uint8 samples, in ``native/bitmap_jpeg.cpp``:
+    (H, W) uint8."""
+    from ..native import bitmap_library, ptr
+    plane = np.ascontiguousarray(plane, np.uint8)
+    if H > plane.shape[0] * rv or W > plane.shape[1] * rh:
+        raise ValueError("JPEG component smaller than its frame")
+    out = np.empty((H, W), np.uint8)
+    bitmap_library().mnt_jpeg_upsample(ptr(plane), *plane.shape, rh, rv, W,
+                                       H, ptr(out))
+    return out
+
+
+def _upsample_plain(plane: np.ndarray, rh: int, rv: int, W: int, H: int):
     """A component's (dh, dw) samples upsampled by (rh, rv) as libjpeg's
     defaults do: h2v1, h1v2 and h2v2 by the fancy (triangular) filters
     (h2v1 and h2v2 only where the component is over two samples wide,
@@ -174,6 +220,19 @@ def _upsample(plane: np.ndarray, rh: int, rv: int, W: int, H: int):
 
 
 def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """``_ycc_to_rgb_plain`` of uint8 planes, in ``native/bitmap_jpeg.cpp``:
+    (..., 3) uint8."""
+    from ..native import bitmap_library, ptr
+    y, cb, cr = (np.ascontiguousarray(a, np.uint8) for a in (y, cb, cr))
+    if not y.shape == cb.shape == cr.shape:
+        raise ValueError("JPEG colour planes of different sizes")
+    out = np.empty(y.shape + (3,), np.uint8)
+    bitmap_library().mnt_jpeg_ycc_rgb(ptr(y), ptr(cb), ptr(cr), y.size,
+                                      ptr(out))
+    return out
+
+
+def _ycc_to_rgb_plain(y, cb, cr) -> np.ndarray:
     """jdcolor.c's ycc_rgb_convert with its 16-bit fixed-point tables."""
     one_half = 1 << 15
     cb = cb.astype(np.int64) - 128
@@ -218,24 +277,85 @@ def _segments(scan: bytes):
     return [s.replace(b'\xff\x00', b'\xff') for s in out]
 
 
-def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
-    """Huffman-decode one scan into the components' quantized coefficient
-    arrays (``jdhuff.c`` for a sequential scan, ``jdphuff.c`` for a
-    progressive one). ``sel``: [(component index, dc table, ac table)];
-    ``spec``: (Ss, Se, Ah, Al). A scan of one component walks its own
+# mnt_jpeg_scan's failures as the plain version raises them (5, a missing
+# table, is its KeyError)
+_SCAN_ERRORS = {1: (ValueError, "corrupt JPEG: bad Huffman code"),
+                2: (IndexError, "list index out of range"),
+                3: (ValueError, "negative shift count"),
+                4: (IndexError, "list index out of range"),
+                6: (IndexError, "index out of bounds")}
+
+
+def _jcoef(v: int) -> int:
+    """A coefficient as libjpeg's 16-bit ``JCOEF`` holds it."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _scan_grid(comps, sel, mcux, mcuy) -> tuple:
+    """(units a row, units) a scan walks: a one-component scan its own
     block grid, a scan of several the MCUs of the frame."""
-    ss, se, ah, al = spec
-    single = len(sel) == 1
-    if single:
+    if len(sel) == 1:
         c = comps[sel[0][0]]
         bw, bh = -(-c['dw'] // 8), -(-c['dh'] // 8)
-        units = [[(sel[0], 0, 0)]]
-        n_mcu, per_row = bw * bh, bw
-    else:
-        units = [[(s, v, h) for v in range(comps[s[0]]['v'])
-                  for h in range(comps[s[0]]['h'])] for s in sel]
-        n_mcu, per_row = mcux * mcuy, mcux
-    blocks = [b for u in units for b in u]
+        return bw, bw * bh
+    return mcux, mcux * mcuy
+
+
+def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
+    """Huffman-decode one scan into the components' quantized coefficient
+    arrays (int16), in ``native/bitmap_jpeg.cpp``: ``_decode_scan_plain``'s
+    arguments, results and failures."""
+    import ctypes
+    from ..native import bitmap_library, ptr
+    ss, se, ah, al = spec
+    ns = len(sel)
+    per_row, n_mcu = _scan_grid(comps, sel, mcux, mcuy)
+    coefs = (ctypes.c_void_p * max(ns, 1))()
+    luts = (ctypes.c_void_p * (4 * max(ns, 1)))()
+    geo = np.zeros((max(ns, 1), 4), np.int64)
+    idx = np.zeros(max(ns, 1), np.int32)
+    tid = np.zeros((max(ns, 1), 2), np.int32)
+    for i, (ci, td, ta) in enumerate(sel):
+        c = comps[ci]
+        if c['coef'].dtype != np.int16 or \
+                not c['coef'].flags['C_CONTIGUOUS']:
+            raise ValueError("JPEG coefficients must be C-ordered int16")
+        coefs[i] = ptr(c['coef'])
+        geo[i] = (*c['coef'].shape[:2], c['h'], c['v'])
+        idx[i], tid[i] = ci, (td, ta)
+        for j, key in enumerate(((0, td), (1, ta))):
+            if key in tables:
+                luts[4 * i + 2 * j] = ptr(tables[key][0])
+                luts[4 * i + 2 * j + 1] = ptr(tables[key][1])
+    data = np.frombuffer(scan, np.uint8)
+    info = np.zeros(2, np.int64)
+    err = bitmap_library().mnt_jpeg_scan(
+        ptr(data), data.size, ns, ctypes.addressof(coefs), ptr(geo),
+        ptr(idx), ctypes.addressof(luts), ptr(tid), restart, per_row,
+        n_mcu, ss, se, ah, al, ptr(info))
+    if err == 5:
+        raise KeyError((int(info[0]), int(info[1])))
+    if err:
+        kind, message = _SCAN_ERRORS[err]
+        raise kind(message)
+
+
+def _decode_scan_plain(scan, comps, sel, tables, restart, mcux, mcuy,
+                       spec):
+    """Huffman-decode one scan into the components' quantized coefficient
+    arrays (``jdhuff.c`` for a sequential scan, ``jdphuff.c`` for a
+    progressive one), in Python: the plain version of ``_decode_scan``.
+    ``sel``: [(component index, dc table, ac table)]; ``spec``: (Ss, Se,
+    Ah, Al). A scan of one component walks its own block grid, a scan of
+    several the MCUs of the frame. Coefficients wrap to 16 bits as
+    libjpeg's do."""
+    ss, se, ah, al = spec
+    tables = _lut_lists(tables)
+    single = len(sel) == 1
+    per_row, n_mcu = _scan_grid(comps, sel, mcux, mcuy)
+    blocks = [(sel[0], 0, 0)] if single else [
+        (s, v, h) for s in sel for v in range(comps[s[0]]['v'])
+        for h in range(comps[s[0]]['h'])]
     segs = _segments(scan)
     per_seg = restart if restart else n_mcu
     zz = _ZIGZAG.tolist()
@@ -257,7 +377,7 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
                 blk = c['coef'][by, bx]
                 if ss == 0 and ah:                       # DC refinement
                     if w[pos] >> 15:
-                        blk[0] |= p1
+                        blk[0] = _jcoef(int(blk[0]) | p1)
                     pos += 1
                     continue
                 if ss == 0:                              # DC first
@@ -275,7 +395,7 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
                         if diff < 1 << (s - 1):
                             diff -= (1 << s) - 1
                     pred[ci] += diff
-                    blk[0] = pred[ci] << al
+                    blk[0] = _jcoef(pred[ci] << al)
                     if se == 0:
                         continue
                 al_, as_ = tables[(1, ta)]
@@ -311,7 +431,7 @@ def _decode_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec):
                     pos += s
                     if val < 1 << (s - 1):
                         val -= (1 << s) - 1
-                    blk[zz[k]] = val << al
+                    blk[zz[k]] = _jcoef(val << al)
                     k += 1
             mcu += 1
 
@@ -342,10 +462,10 @@ def _ac_refine(blk, w, pos, al_, as_, zz, ss, se, p1, m1, eobrun):
                 break
             while k <= se:
                 z = zz[k]
-                c = blk[z]
+                c = int(blk[z])
                 if c:
                     if w[pos] >> 15 and not c & p1:
-                        blk[z] = c + (p1 if c >= 0 else m1)
+                        blk[z] = _jcoef(c + (p1 if c >= 0 else m1))
                     pos += 1
                 else:
                     r -= 1
@@ -353,15 +473,15 @@ def _ac_refine(blk, w, pos, al_, as_, zz, ss, se, p1, m1, eobrun):
                         break
                 k += 1
             if s:
-                blk[zz[k]] = s
+                blk[zz[k]] = _jcoef(s)
             k += 1
     if eobrun > 0:
         while k <= se:
             z = zz[k]
-            c = blk[z]
+            c = int(blk[z])
             if c:
                 if w[pos] >> 15 and not c & p1:
-                    blk[z] = c + (p1 if c >= 0 else m1)
+                    blk[z] = _jcoef(c + (p1 if c >= 0 else m1))
                 pos += 1
             k += 1
         eobrun -= 1
@@ -380,6 +500,7 @@ def _decode_lossless(scan, comps, sel, tables, restart, W, H, psv, pt,
     if restart and restart % W:
         raise _unsupported("lossless JPEG with a restart interval that "
                            "is not whole rows", path)
+    tables = _lut_lists(tables)
     n = len(sel)
     diff = np.zeros((H, W, n), np.int64)
     per_seg = restart or W * H
@@ -548,8 +669,9 @@ def read_jpeg_mode(path: str):
                 if 'coef' not in c:
                     c['dw'] = -(-W * c['h'] // hmax)
                     c['dh'] = -(-H * c['v'] // vmax)
+                    # libjpeg's JCOEF: two bytes a coefficient
                     c['coef'] = np.zeros((mcuy * c['v'], mcux * c['h'], 64),
-                                         np.int64)
+                                         np.int16)
                     c['q'] = qt[c['tq']]
             for ci, _, _ in sel:
                 coef_bits[ci][ss:se + 1] = [ahal & 15] * (se + 1 - ss)
@@ -579,10 +701,7 @@ def read_jpeg_mode(path: str):
     for c in comps:
         if hmax % c['h'] or vmax % c['v']:
             raise _unsupported("JPEG with non-integer sampling ratios", path)
-        by, bx = c['coef'].shape[:2]
-        blocks = c['coef'].reshape(by, bx, 8, 8) * c['q']
-        samples = _idct_islow(blocks).transpose(0, 2, 1, 3).reshape(
-            by * 8, bx * 8)[:c['dh'], :c['dw']]
+        samples = _idct_plane(c['coef'], c['q'])[:c['dh'], :c['dw']]
         planes.append(_upsample(samples, hmax // c['h'], vmax // c['v'],
                                 W, H))
     if len(planes) == 1:

@@ -1,4 +1,9 @@
-"""A WebP lossy (VP8 key frame, RFC 6386) decoder in numpy (no PIL).
+"""A WebP lossy (VP8 key frame, RFC 6386) decoder without PIL: the frame
+header in Python; every macroblock's modes, tokens, reconstruction and
+loop filter (``_macroblocks``), then the upsampling and YUV to RGB
+(``yuv_to_rgb``), in host C++ (``native/bitmap_vp8.cpp``), each beside
+its numpy twin (``_macroblocks_plain``, ``yuv_to_rgb_plain``), which the
+tests hold it to.
 
 Decodes a ``VP8 `` chunk as libwebp does, to the same RGB bytes that
 libwebp hands PIL: the boolean decoder; the frame header (segmentation
@@ -158,10 +163,12 @@ class BoolDecoder:
     """RFC 6386's boolean entropy decoder, in libwebp's form: the range is
     kept less one; loading past the last byte is the premature end
     libwebp reports, and raises ``OSError``. ``bit(prob)`` reads one
-    bool (a closure, for speed)."""
+    bool (a closure, for speed); ``state()`` is (value, bits, range - 1,
+    the next byte), where the native decoder takes over."""
 
     def __init__(self, data: bytes):
         value, bits, rng, pos, end = 0, -8, 254, 0, len(data)
+        self.data = data
 
         def bit(prob: int) -> int:
             nonlocal value, bits, rng, pos
@@ -187,6 +194,7 @@ class BoolDecoder:
             bits -= s
             return 0
         self.bit = bit
+        self.state = lambda: (value, bits, rng, pos)
 
     def value_bits(self, n: int) -> int:
         v = 0
@@ -903,6 +911,19 @@ def _clip8(v: np.ndarray) -> np.ndarray:
 
 
 def yuv_to_rgb(w: int, h: int, Y, U, V) -> np.ndarray:
+    """``yuv_to_rgb_plain`` in ``native/bitmap_vp8.cpp``."""
+    from ..native import bitmap_library, ptr
+    Y, U, V = (np.ascontiguousarray(p, np.uint8) for p in (Y, U, V))
+    if Y.shape[0] < h or Y.shape[1] < w or U.shape != V.shape or \
+            U.shape[0] < (h + 1) >> 1 or U.shape[1] < (w + 1) >> 1:
+        raise ValueError("VP8 planes smaller than the frame")
+    out = np.empty((h, w, 3), np.uint8)
+    bitmap_library().mnt_vp8_yuv_rgb(ptr(Y), ptr(U), ptr(V), Y.shape[1],
+                                     U.shape[1], w, h, ptr(out))
+    return out
+
+
+def yuv_to_rgb_plain(w: int, h: int, Y, U, V) -> np.ndarray:
     """(h, w, 3) uint8 RGB of the planes, as libwebp's fancy upsampler
     and ``VP8YUVToR/G/B`` make it (14-bit fixed point, then clipped)."""
     y = Y[:h, :w].astype(np.int32)
@@ -914,12 +935,40 @@ def yuv_to_rgb(w: int, h: int, Y, U, V) -> np.ndarray:
     return np.stack([r, g, b], -1).astype(np.uint8)
 
 
-def decode_yuv(data: bytes):
-    """A VP8 key frame (a ``VP8 `` chunk's payload) to its width, height
-    and loop-filtered Y, U and V planes (uint8, padded to whole
-    macroblocks)."""
-    w, h, br, parts, seg, quant, probas, skip_p, filt, fstr = _frame(data)
-    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+def _macroblocks(br: BoolDecoder, parts: list, mbw: int, mbh: int, seg,
+                 quant, probas, skip_p: int, filt: int, fstr):
+    """``_macroblocks_plain`` in ``native/bitmap_vp8.cpp``: the frame's
+    loop-filtered (Y, U, V) planes, uint8, from partition 0's decoder past
+    the header and the token partitions; ``OSError`` where a partition
+    runs out."""
+    from ..native import bitmap_library, ptr
+    p0 = np.frombuffer(br.data, np.uint8)
+    state = np.array(br.state(), np.int64)
+    body = np.frombuffer(b''.join(parts), np.uint8)
+    part_off = np.concatenate([[0], np.cumsum([len(p) for p in parts])]
+                              ).astype(np.int64)
+    Y = np.empty((16 * mbh, 16 * mbw), np.uint8)
+    U = np.empty((8 * mbh, 8 * mbw), np.uint8)
+    V = np.empty_like(U)
+    seg_probs = np.array(seg['probs'], np.int32)
+    bmodes = np.frombuffer(_BMODES_PROBA, np.uint8)
+    probas = np.array(probas, np.uint8)
+    quant = np.array(quant, np.int32)
+    fstr = np.array(fstr if filt else np.zeros((4, 2, 3)), np.int32)
+    err = bitmap_library().mnt_vp8_frame(
+        ptr(p0), p0.size, ptr(state), ptr(body), ptr(part_off), len(parts),
+        mbw, mbh, seg['map'], ptr(seg_probs), skip_p, ptr(bmodes),
+        ptr(probas), ptr(quant), filt, ptr(fstr), ptr(Y), ptr(U), ptr(V))
+    if err:
+        raise OSError("premature end of a VP8 partition")
+    return Y, U, V
+
+
+def _macroblocks_plain(br: BoolDecoder, parts: list, mbw: int, mbh: int,
+                       seg, quant, probas, skip_p: int, filt: int, fstr):
+    """The frame's macroblocks in Python and numpy, the plain version of
+    ``_macroblocks``: every macroblock's modes (partition 0), then its
+    tokens (its row's partition), reconstruction and the loop filter."""
     modes = _modes(br, mbw, mbh, seg, skip_p)
     coefs = np.zeros((mbw * mbh, 24, 16), np.int64)
     finfo = np.zeros((mbw * mbh, 4), np.int64)   # limit, ilevel, hev, inner
@@ -949,6 +998,17 @@ def decode_yuv(data: bytes):
         modes, coefs, mbw, mbh))
     if filt:
         _loop_filter(Y, U, V, mbw, mbh, finfo, filt == 1)
+    return Y, U, V
+
+
+def decode_yuv(data: bytes):
+    """A VP8 key frame (a ``VP8 `` chunk's payload) to its width, height
+    and loop-filtered Y, U and V planes (uint8, padded to whole
+    macroblocks)."""
+    w, h, br, parts, seg, quant, probas, skip_p, filt, fstr = _frame(data)
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    Y, U, V = _macroblocks(br, parts, mbw, mbh, seg, quant, probas, skip_p,
+                           filt, fstr)
     return w, h, Y, U, V
 
 

@@ -1,4 +1,10 @@
-"""A WebP lossless (VP8L) decoder in numpy (no PIL).
+"""A WebP lossless (VP8L) decoder without PIL: headers, prefix codes and
+the colour transforms that vectorise in Python and numpy; each image's
+entropy-coded pixels (``_pixels``) and the predictor and cross-colour
+transforms (``_unpredict``, ``_uncross``) in host C++
+(``native/bitmap_vp8l.cpp``), each beside its twin in Python and numpy
+(``_pixels_plain``, ``_unpredict_plain``, ``_uncross_plain``), which the
+tests hold it to.
 
 Decodes what libwebp's lossless decoder decodes, to the same ARGB words:
 the 5-byte header (signature 0x2f, 14-bit width and height less one, the
@@ -71,11 +77,22 @@ class BitReader:
         self.nb -= n
         return v
 
+    @property
+    def bitpos(self) -> int:
+        """The position of the next unread bit in the stream (``pos`` may
+        run past the end where ``_pixels_plain`` loaded its last bytes)."""
+        return 8 * min(self.pos, len(self.data)) - self.nb
+
+    def seek(self, bitpos: int) -> None:
+        """Continue reading at bit ``bitpos``."""
+        self.pos, self.val, self.nb = bitpos >> 3, 0, 0
+        self.read(bitpos & 7)
+
     def symbol(self, code) -> int:
         tab, mask = code
         if self.nb < 15:
             self.fill()
-        e = tab[self.val & mask]
+        e = int(tab[self.val & mask])
         n = e & 15
         if n > self.nb:
             raise OSError("truncated WebP lossless bitstream")
@@ -85,7 +102,8 @@ class BitReader:
 
 
 def _code(lengths) -> tuple:
-    """The decoding table of a canonical prefix code: (entries, mask);
+    """The decoding table of a canonical prefix code: (entries as an
+    int32 array, mask);
     entry ``e`` at the next ``mask + 1`` bits' index codes symbol
     ``e >> 4`` in ``e & 15`` bits. One used symbol takes no bits; a code
     that is over-subscribed or incomplete raises, as in libwebp."""
@@ -94,7 +112,7 @@ def _code(lengths) -> tuple:
     if syms.size == 0:
         raise OSError("WebP lossless prefix code with no symbol")
     if syms.size == 1:
-        return [int(syms[0]) << 4], 0
+        return np.array([int(syms[0]) << 4], np.int32), 0
     lens = lengths[syms]
     if lens.max() > 15 or int((1 << (15 - lens)).sum()) != 1 << 15:
         raise OSError("WebP lossless prefix code is not complete")
@@ -114,9 +132,9 @@ def _code(lengths) -> tuple:
     reps = 1 << (top - lens)
     idx = np.repeat(rev, reps) + (np.arange(reps.sum()) - np.repeat(
         np.cumsum(reps) - reps, reps)) * np.repeat(1 << lens, reps)
-    tab = np.empty(1 << top, np.int64)
+    tab = np.empty(1 << top, np.int32)
     tab[idx] = np.repeat((syms << 4) | lens, reps)
-    return tab.tolist(), (1 << top) - 1
+    return tab, (1 << top) - 1
 
 
 def _read_code(br: BitReader, size: int) -> tuple:
@@ -170,11 +188,51 @@ def _plane_distance(code: int, xsize: int) -> int:
     return max(dy * xsize + dx, 1)
 
 
+# mnt_vp8l_pixels's failures, each an OSError as in the plain version
+_PIXEL_ERRORS = {1: "truncated WebP lossless bitstream",
+                 2: "WebP lossless back-reference out of range",
+                 3: "WebP lossless colour cache code out of range",
+                 4: "WebP lossless tile group out of range"}
+
+
 def _pixels(br: BitReader, w: int, h: int, cache_bits: int, groups: list,
-            meta) -> list:
+            meta) -> np.ndarray:
+    """``_pixels_plain`` in ``native/bitmap_vp8l.cpp``: the w * h ARGB
+    words (uint32), ``br`` left after them; fails as the plain version
+    does."""
+    from ..native import bitmap_library, ptr
+    codes = [code for group in groups for code in group]
+    sizes = np.array([len(tab) for tab, _ in codes], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    tables = np.concatenate([tab for tab, _ in codes]).astype(np.int32)
+    masks = np.array([mask for _, mask in codes], np.int32)
+    if (sizes != masks.astype(np.int64) + 1).any():
+        raise ValueError("a prefix code table does not match its mask")
+    mbits, mxs, ent = meta if meta is not None else (30, 1, [0])
+    ent = np.ascontiguousarray(ent, np.int32).reshape(-1)
+    data = np.frombuffer(br.data, np.uint8)
+    pos = np.array([br.bitpos], np.int64)
+    out = np.empty(w * h, np.uint32)
+    err = bitmap_library().mnt_vp8l_pixels(
+        ptr(data), data.size, ptr(pos), w, h, cache_bits, ptr(tables),
+        ptr(offsets), ptr(masks), len(groups), mbits, mxs, ptr(ent),
+        ent.size, ptr(out))
+    if err:
+        raise OSError(_PIXEL_ERRORS[err])
+    br.seek(int(pos[0]))
+    return out
+
+
+def _pixels_plain(br: BitReader, w: int, h: int, cache_bits: int,
+                  groups: list, meta) -> list:
     """The w x h ARGB words of the entropy-coded image (before any
-    transform). ``groups``: five codes each; ``meta``: None or (bits,
-    tiles a row, the group of each tile)."""
+    transform), in Python: the plain version of ``_pixels``. ``groups``:
+    five codes each; ``meta``: None or (bits, tiles a row, the group of
+    each tile)."""
+    groups = [[(tab.tolist(), mask) for tab, mask in group]
+              for group in groups]
+    if meta is not None:
+        meta = (meta[0], meta[1], np.asarray(meta[2]).reshape(-1).tolist())
     n = w * h
     out = [0] * n
     data, pos, val, nb = br.data, br.pos, br.val, br.nb
@@ -304,12 +362,12 @@ def _image(br: BitReader, w: int, h: int, top: bool) -> np.ndarray:
         xs = _sub(w, bits)
         ent = (_image(br, xs, _sub(h, bits), False) >> 8) & 0xFFFF
         ngroups = int(ent.max()) + 1
-        meta = (bits, xs, ent.reshape(-1).tolist())
+        meta = (bits, xs, ent.reshape(-1))
     sizes = list(_ALPHABETS)
     sizes[0] += (1 << cache_bits) if cache_bits else 0
     groups = [[_read_code(br, s) for s in sizes] for _ in range(ngroups)]
-    return np.array(_pixels(br, w, h, cache_bits, groups, meta),
-                    np.uint32).reshape(h, w)
+    return np.asarray(_pixels(br, w, h, cache_bits, groups, meta),
+                      np.uint32).reshape(h, w)
 
 
 def _add(a, b):
@@ -345,7 +403,30 @@ def _clamp_half(a: int, tl: int) -> int:
 _LEFT_MODES = (1, 5, 6, 7, 10, 11, 12, 13)
 
 
+def _tiled(fn: str, px: np.ndarray, bits: int,
+           tiles: np.ndarray) -> np.ndarray:
+    """A tiled transform of ``native/bitmap_vp8l.cpp`` (``fn``) undone on
+    the (h, w) pixels ``px``, each pixel's tile of ``tiles`` giving its
+    parameters."""
+    from ..native import bitmap_library, ptr
+    h, w = px.shape
+    if tiles.shape[0] < _sub(h, bits) or tiles.shape[1] < _sub(w, bits):
+        raise IndexError("WebP lossless transform image too small")
+    px = np.ascontiguousarray(px, np.uint32)
+    tiles = np.ascontiguousarray(tiles, np.uint32)
+    out = np.empty_like(px)
+    getattr(bitmap_library(), fn)(ptr(px), w, h, bits, ptr(tiles),
+                                  tiles.shape[1], ptr(out))
+    return out
+
+
 def _unpredict(res: np.ndarray, bits: int, tiles: np.ndarray) -> np.ndarray:
+    """``_unpredict_plain`` in ``native/bitmap_vp8l.cpp``."""
+    return _tiled('mnt_vp8l_unpredict', res, bits, tiles)
+
+
+def _unpredict_plain(res: np.ndarray, bits: int,
+                     tiles: np.ndarray) -> np.ndarray:
     """Undo the predictor transform: the top-left pixel predicted by
     opaque black, the rest of the top row by L, the left column by T,
     every other pixel by its tile's mode (the green byte's low 4 bits;
@@ -429,6 +510,12 @@ def _tile_map(tiles: np.ndarray, bits: int, h: int, w: int) -> np.ndarray:
 
 
 def _uncross(px: np.ndarray, bits: int, tiles: np.ndarray) -> np.ndarray:
+    """``_uncross_plain`` in ``native/bitmap_vp8l.cpp``."""
+    return _tiled('mnt_vp8l_uncross', px, bits, tiles)
+
+
+def _uncross_plain(px: np.ndarray, bits: int,
+                   tiles: np.ndarray) -> np.ndarray:
     """Undo the cross-colour transform (green to red, green to blue and
     red to blue, each a signed 3.5 fixed-point factor of its tile)."""
     m = _tile_map(tiles, bits, *px.shape)

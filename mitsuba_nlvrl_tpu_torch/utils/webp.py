@@ -1,5 +1,6 @@
-"""A WebP reader in numpy (no PIL): the image, or an animation's first
-frame, as PIL's ``Image.open`` gives it.
+"""A WebP reader without PIL: the image, or an animation's first frame,
+as PIL's ``Image.open`` gives it (the bitstreams' decoders run their
+sequential stages in host C++, see ``vp8.py`` and ``vp8l.py``).
 
 PIL opens every WebP through libwebp's animation decoder: the container
 is checked as libwebp's demuxer checks it, the first frame is decoded
@@ -121,9 +122,10 @@ def _alpha(payload: bytes, w: int, h: int) -> np.ndarray:
 def _rgba(alph, tag: bytes, payload: bytes) -> np.ndarray:
     """A frame's (H, W, 4) RGBA bytes."""
     if tag == b'VP8L':
-        argb = vp8l.decode(payload)
-        return np.stack([(argb >> 16) & 255, (argb >> 8) & 255, argb & 255,
-                         argb >> 24], -1).astype(np.uint8)
+        argb = vp8l.decode(payload)         # bytes B, G, R, A in memory
+        bgra = np.ascontiguousarray(argb, '<u4').view(np.uint8).reshape(
+            argb.shape + (4,))
+        return bgra[..., [2, 1, 0, 3]]
     rgb = vp8.decode(payload)
     h, w = rgb.shape[:2]
     a = np.full((h, w, 1), 255, np.uint8) if alph is None else \

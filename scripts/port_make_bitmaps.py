@@ -19,7 +19,16 @@ library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
     every file, keyed by file name;
   * in ``../webp_large``, a 512x512 lossless and a 512x512 lossy WebP and
     ``pil_rgb_sha256.json``, the SHA-256 digest of PIL's RGB bytes of
-    each (the decoders at a texture's size).
+    each (the decoders at a texture's size);
+  * in ``../bitmaps_large``, with ``--large`` alone, the files at
+    textures' sizes (``testing/bitmap_stages.picture``): baseline and
+    progressive 4:2:0 JPEG and lossy and lossless WebP at 2,048x2,048,
+    baseline JPEG and lossy WebP at 4,096x4,096, a baseline JPEG at
+    512x512 (the small end of the decode-speed table), and their
+    ``pil_rgb_sha256.json``. No PNG is committed: a large one is written
+    at run time by numpy (``testing/bitmap_stages.png_filtered``).
+
+    python scripts/port_make_bitmaps.py --large
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ import struct
 
 import numpy as np
 from PIL import Image
+
+from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import picture
 
 H, W = 23, 37
 
@@ -269,12 +280,53 @@ def _webp_large(out: str) -> None:
         f.write('\n')
 
 
+# the files at textures' sizes: name -> (side, PIL's save arguments, the
+# picture's noisy share of rows)
+LARGE = {
+    'jpeg_baseline_512.jpg': (512, {'quality': 85, 'subsampling': 2}, 1),
+    'jpeg_baseline_2048.jpg': (2048, {'quality': 85, 'subsampling': 2}, 1),
+    'jpeg_progressive_2048.jpg': (2048, {'quality': 85, 'subsampling': 2,
+                                         'progressive': True}, 1),
+    'jpeg_baseline_4096.jpg': (4096, {'quality': 85, 'subsampling': 2}, 1),
+    'webp_lossy_2048.webp': (2048, {'quality': 80}, 1),
+    'webp_lossy_4096.webp': (4096, {'quality': 80}, 1),
+    'webp_lossless_2048.webp': (2048, {'lossless': True}, 1 / 32),
+}
+
+
+def _bitmaps_large(out: str) -> None:
+    """The files of ``LARGE`` and the SHA-256 digests of PIL's RGB bytes
+    of each; no file over 1.5 MB, 6 MB together."""
+    os.makedirs(out, exist_ok=True)
+    digests, total = {}, 0
+    for name, (n, kw, noisy) in LARGE.items():
+        path = os.path.join(out, name)
+        Image.fromarray(picture(n, n, noisy)).save(path, **kw)
+        size = os.path.getsize(path)
+        assert size <= 1_500_000, (name, size)
+        total += size
+        rgb = np.asarray(Image.open(path).convert('RGB'))
+        digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
+                         'shape': list(rgb.shape), 'bytes': size}
+        print(f"{name}: {size} bytes")
+    assert total <= 6_000_000, total
+    with open(os.path.join(out, 'pil_rgb_sha256.json'), 'w') as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write('\n')
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--out', default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), '..', 'tests', 'data',
         'bitmaps'))
-    out = os.path.normpath(ap.parse_args().out)
+    ap.add_argument('--large', action='store_true',
+                    help="write only ../bitmaps_large")
+    args = ap.parse_args()
+    out = os.path.normpath(args.out)
+    if args.large:
+        _bitmaps_large(os.path.join(os.path.dirname(out), 'bitmaps_large'))
+        return
     os.makedirs(out, exist_ok=True)
     pic = _picture64()
     rgb = _layout_picture()

@@ -1,0 +1,269 @@
+"""The bitmap decoders' native stages (``native/bitmap_*.cpp``, built with
+g++ at first use) against their plain twins, PIL and the reference.
+
+(a) Each native stage equals its plain twin (``<stage>_plain``, numpy and
+Python) on the same inputs: PNG unfiltering of seeded rows of every
+filter at every pixel size; the JPEG coefficient arrays after every scan
+of each fixture, then its IDCT, upsampling and colour conversion; WebP
+lossless pixels (with the bit position after them), predictor and
+cross-colour transforms; the lossy frame's Y, U and V planes and their
+RGB. (b) Every fixture decodes to PIL's stored bytes with every plain
+twin made to raise. (c) Files at a texture's size (1,024 x 1,024, written
+at test time by PIL or, for PNG, by numpy with the five filters cycling
+by row) load equal in bits to the reference's ``load_bitmap``. (d) Seeded
+truncations and byte flips of fixtures fail with the plain path's
+exception type or decode to what it decodes, in a process of their own
+(``torch_bitmap_corrupt_worker.py``), so a crash fails one test. A
+failed compile raises with the compiler's message: there is no fallback.
+"""
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from mitsuba_nlvrl_tpu import texture as jtex
+from mitsuba_nlvrl_tpu_torch import native, texture as ptex
+from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
+from mitsuba_nlvrl_tpu_torch.utils import io as pio, jpeg, vp8, vp8l, webp
+
+torch.set_num_threads(1)   # one intra-op thread a test worker
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(HERE, 'data', 'bitmaps')
+LARGE = os.path.join(HERE, 'data', 'webp_large')
+WANT = np.load(os.path.join(FIXTURES, 'pil_rgb.npz'))
+JPEG_FIXTURES = sorted(n for n in WANT.files if n.endswith('.jpg'))
+WEBP_FILES = [os.path.join(FIXTURES, n) for n in sorted(WANT.files)
+              if n.endswith('.webp')] + [
+    os.path.join(LARGE, n) for n in ('lossless_512.webp', 'lossy_512.webp')]
+
+
+def _pil_rgb(path):
+    return np.asarray(Image.open(path).convert('RGB'))
+
+
+# --- (a) each native stage against its plain twin -------------------------
+
+@pytest.mark.parametrize('bpp', (1, 2, 3, 4, 6, 8))
+def test_png_unfilter_matches_plain(bpp):
+    rng = np.random.default_rng(bpp)
+    H, stride = 25, 7 * bpp + 3
+    raw = b''.join(bytes([y % 5]) + rng.integers(
+        0, 256, stride, dtype=np.uint8).tobytes() for y in range(H))
+    got = pio._png_unfilter(raw, H, stride, bpp)
+    want = pio._png_unfilter_plain(raw, H, stride, bpp)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    # the plain version's failures: a missing filter byte, a short row, an
+    # unknown filter
+    for bad in (raw[:stride + 1], raw[:-1], raw[:stride + 1] + b'\x05'
+                + raw[stride + 2:]):
+        kinds = []
+        for fn in (pio._png_unfilter, pio._png_unfilter_plain):
+            with pytest.raises((IndexError, ValueError)) as e:
+                fn(bad, H, stride, bpp)
+            kinds.append((type(e.value), str(e.value)))
+        assert kinds[0] == kinds[1]
+
+
+def _paired(monkeypatch, module, stage, seen):
+    """Run ``stage`` of ``module`` and its plain twin on the same inputs
+    at every call, assert equal results, and return the native one."""
+    native_fn = getattr(module, stage)
+    plain_fn = getattr(module, stage + '_plain')
+
+    def both(*args):
+        want = plain_fn(*args)
+        got = native_fn(*args)
+        _equal(got, want)
+        seen.append(stage)
+        return got
+    monkeypatch.setattr(module, stage, both)
+
+
+def _equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert (got.astype(np.int64) == want.astype(np.int64)).all()
+
+
+@pytest.mark.parametrize('name', JPEG_FIXTURES)
+def test_jpeg_stages_match_plain(name, monkeypatch):
+    """The coefficients after every scan, then the samples of the IDCT,
+    the upsampling and the colour conversion."""
+    seen = []
+    native_scan = jpeg._decode_scan
+
+    def scan_both(scan, comps, sel, tables, restart, mcux, mcuy, spec):
+        twin = [dict(c, coef=c['coef'].copy()) for c in comps]
+        jpeg._decode_scan_plain(scan, twin, sel, tables, restart, mcux, mcuy,
+                                spec)
+        native_scan(scan, comps, sel, tables, restart, mcux, mcuy, spec)
+        for c, t in zip(comps, twin):
+            assert c['coef'].dtype == t['coef'].dtype == np.int16
+            assert c['coef'].tobytes() == t['coef'].tobytes(), spec
+        seen.append('_decode_scan')
+    monkeypatch.setattr(jpeg, '_decode_scan', scan_both)
+    for stage in ('_idct_plane', '_upsample', '_ycc_to_rgb'):
+        _paired(monkeypatch, jpeg, stage, seen)
+    got = ptex._pil_rgb(*jpeg.read_jpeg_mode(os.path.join(FIXTURES, name)))
+    assert got.tobytes() == WANT[name].tobytes()
+    scans = seen.count('_decode_scan')
+    assert scans >= (2 if 'progressive' in name else 1), seen
+    assert '_idct_plane' in seen and '_upsample' in seen
+
+
+@pytest.mark.parametrize('path', WEBP_FILES, ids=os.path.basename)
+def test_webp_stages_match_plain(path, monkeypatch):
+    """VP8L: the ARGB words of every entropy-coded image and the bit
+    position after them, the predictor and cross-colour transforms
+    undone; VP8: the filtered Y, U and V planes and their RGB."""
+    seen = []
+    native_pixels = vp8l._pixels
+
+    def pixels_both(br, w, h, cache_bits, groups, meta):
+        start = br.pos, br.val, br.nb
+        want = np.asarray(vp8l._pixels_plain(br, w, h, cache_bits, groups,
+                                             meta), np.uint32)
+        end = br.bitpos
+        br.pos, br.val, br.nb = start
+        got = native_pixels(br, w, h, cache_bits, groups, meta)
+        assert got.tobytes() == want.tobytes() and br.bitpos == end
+        seen.append('_pixels')
+        return got
+
+    def yuv_both(data):
+        w, h, br, *rest = vp8._frame(data)
+        mb = ((w + 15) >> 4, (h + 15) >> 4)
+        got = vp8._macroblocks(br, rest[0], *mb, *rest[1:])
+        _, _, br, *rest = vp8._frame(data)
+        want = vp8._macroblocks_plain(br, rest[0], *mb, *rest[1:])
+        for g, p in zip(got, want):
+            assert g.tobytes() == p.tobytes()
+        seen.append('_macroblocks')
+        return (w, h) + tuple(got)
+    monkeypatch.setattr(vp8l, '_pixels', pixels_both)
+    monkeypatch.setattr(vp8, 'decode_yuv', yuv_both)
+    for module, stage in ((vp8l, '_unpredict'), (vp8l, '_uncross'),
+                          (vp8, 'yuv_to_rgb')):
+        _paired(monkeypatch, module, stage, seen)
+    mode, px, _ = webp.read_webp(path)
+    assert ptex._pil_rgb(mode, px).tobytes() == _pil_rgb(path).tobytes()
+    assert seen and set(seen) <= {'_pixels', '_macroblocks', '_unpredict',
+                                  '_uncross', 'yuv_to_rgb'}
+
+
+# --- (b) every fixture, native stages only --------------------------------
+
+@pytest.mark.parametrize('name', WANT.files)
+def test_fixture_decodes_to_pil_bytes_natively(name):
+    with bitmap_stages.forbid_plain():
+        got = ptex.read_rgb8(os.path.join(FIXTURES, name))
+    assert got.dtype == np.uint8 and got.tobytes() == WANT[name].tobytes()
+
+
+def _digests(folder):
+    with open(os.path.join(HERE, 'data', folder, 'pil_rgb_sha256.json')) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize('folder,name', [
+    (folder, name) for folder in ('webp_large', 'bitmaps_large')
+    for name in sorted(_digests(folder))])
+def test_large_file_decodes_to_pil_digest(folder, name):
+    """The files at textures' sizes that ``chip_smoke.py`` decodes on the
+    card's host (512^2 to 4,096^2)."""
+    want = _digests(folder)[name]
+    with bitmap_stages.forbid_plain():
+        got = ptex.read_rgb8(os.path.join(HERE, 'data', folder, name))
+    assert list(got.shape) == want['shape']
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want['sha256']
+
+
+# --- (c) a texture's size, against the reference --------------------------
+
+# case -> (PIL format or None for numpy's PNG, save arguments, alpha,
+# noisy share of the picture's rows)
+SIZE_CASES = {
+    'jpeg_baseline_420': ('JPEG', {'quality': 90, 'subsampling': 2}, 0, 1),
+    'jpeg_baseline_444': ('JPEG', {'quality': 90, 'subsampling': 0}, 0, 1),
+    'jpeg_progressive_420': ('JPEG', {'quality': 90, 'subsampling': 2,
+                                      'progressive': True}, 0, 1),
+    'jpeg_progressive_444': ('JPEG', {'quality': 90, 'subsampling': 0,
+                                      'progressive': True}, 0, 1),
+    'webp_lossy': ('WEBP', {'quality': 80}, 0, 1),
+    'webp_lossy_alph': ('WEBP', {'quality': 80}, 1, 1),
+    'webp_lossless': ('WEBP', {'lossless': True}, 0, 1 / 32),
+    'png_five_filters': (None, {}, 0, 1),
+}
+
+
+@pytest.mark.parametrize('case', SIZE_CASES)
+def test_texture_size_matches_reference(case, tmp_path):
+    fmt, kw, alpha, noisy = SIZE_CASES[case]
+    img = bitmap_stages.picture(1024, list(SIZE_CASES).index(case), noisy)
+    if alpha:
+        yy, xx = np.mgrid[0:1024, 0:1024]
+        img = np.concatenate([img, ((xx ^ yy) & 255).astype(np.uint8)[
+            ..., None]], -1)
+    path = str(tmp_path / case)
+    if fmt is None:
+        with open(path, 'wb') as f:
+            f.write(bitmap_stages.png_filtered(img))
+    else:
+        Image.fromarray(img).save(path, fmt, **kw)
+    with bitmap_stages.forbid_plain():
+        got = ptex.load_bitmap(path)
+        mode, px, _ = ptex._decode(path)
+    want = jtex.load_bitmap(path)
+    assert got.dtype == want.dtype and got.shape == want.shape == (1024,
+                                                                   1024, 3)
+    assert got.tobytes() == want.tobytes()
+    if alpha:
+        assert mode == 'RGBA' and \
+            px.tobytes() == np.asarray(Image.open(path)).tobytes()
+
+
+# --- (d) corrupt input, in a process of its own ---------------------------
+
+@pytest.mark.parametrize('group', ('png', 'jpeg', 'webp_lossless',
+                                   'webp_lossy'))
+def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, 'torch_bitmap_corrupt_worker.py'),
+         group, str(tmp_path)], capture_output=True, text=True, timeout=120,
+        env=env)
+    assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
+    cases = json.loads(res.stdout)
+    assert len(cases) == 40
+    assert [c for c in cases if c[1] != c[2]] == []
+    # the cases reach the decoders: some fail, some decode
+    assert any(len(c[2]) == 64 for c in cases)
+    assert any(len(c[2]) < 64 for c in cases)
+
+
+# --- no fallback ----------------------------------------------------------
+
+def test_bitmap_library_raises_with_the_compilers_message(monkeypatch,
+                                                          tmp_path):
+    fake = tmp_path / 'fake-cxx'
+    fake.write_text('#!/bin/sh\necho "fake-cxx: cannot compile" >&2\n'
+                    'exit 3\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv('CXX', str(fake))
+    monkeypatch.setattr(native, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(native, '_bitmap', None)
+    path = str(tmp_path / 'p.png')
+    with open(path, 'wb') as f:
+        f.write(bitmap_stages.png_filtered(bitmap_stages.picture(8, 0)))
+    with pytest.raises(RuntimeError, match='fake-cxx: cannot compile'):
+        ptex.read_rgb8(path)
+    with pytest.raises(RuntimeError, match='bitmap decoders'):
+        ptex.read_rgb8(os.path.join(FIXTURES, 'jpeg_420.jpg'))

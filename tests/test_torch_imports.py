@@ -53,10 +53,10 @@ def _sources():
             yield os.path.join(scripts, f)
 
 
-# scripts that write the decoders' fixtures with PIL, where PIL is
-# installed; no module of the port imports them, and they import nothing
-# else forbidden
-PIL_WRITERS = ('port_make_bitmaps.py',)
+# scripts that use PIL where it is installed (to write the decoders'
+# fixtures, and to time PIL's decode beside the port's); no module of the
+# port imports them, and they import nothing else forbidden
+PIL_WRITERS = ('port_make_bitmaps.py', 'port_bitmap_speed.py')
 
 
 def test_fixture_writers_import_pil_only():

@@ -1,0 +1,146 @@
+"""Decode seeded corruptions of bitmap fixtures through the port's native
+decoder stages and through their plain twins, in a process of its own:
+a decoder that crashed would end this process, not a test worker.
+
+    python tests/torch_bitmap_corrupt_worker.py GROUP WORKDIR [CASES [LIB]]
+
+GROUP is a key of ``GROUPS``. Each of its CASES cases (40) is one of the
+group's fixtures cut short (even cases) or with one to three bytes
+flipped (odd cases), seeded. A PNG's cut or flips are made in its image
+data inside the zlib stream, which is compressed again: cut or flipped in
+the file, nearly every case would stop at zlib's checksum, before the row
+filters. The decoders are loaded without the port's renderer (no torch),
+so the process starts in a fraction of a second. Prints one JSON list:
+[case, native outcome, plain outcome] for each case, an outcome being
+the exception's type name or a digest of what the decode returned.
+LIB loads another build of the native sources in place of the one built
+at first use, such as one compiled with ``-fsanitize=address,undefined``
+(run then with the sanitizers' runtimes in ``LD_PRELOAD``).
+"""
+import hashlib
+import json
+import os
+import struct
+import sys
+import types
+import zlib
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, 'tests', 'data', 'bitmaps')
+CASES = 40
+# group -> (decoder: utils module and function, fixtures)
+GROUPS = {
+    'png': (('io', 'read_png'), ('picture64.png', 'filters.png')),
+    'jpeg': (('jpeg', 'read_jpeg_mode'), (
+        'jpeg_420.jpg', 'jpeg_progressive_420.jpg',
+        'jpeg_progressive_grey_restart.jpg', 'jpeg_cmyk.jpg')),
+    'webp_lossless': (('webp', 'read_webp'), (
+        'webp_lossless_m0.webp', 'webp_lossless_m6_rgba.webp',
+        'webp_palette_16.webp', 'picture64.webp')),
+    'webp_lossy': (('webp', 'read_webp'), (
+        'webp_lossy_q50.webp', 'webp_vp8_4_partitions.webp',
+        'webp_vp8_simple_filter.webp', 'webp_alph_lossless_gradient.webp')),
+}
+
+
+def _load_decoders(library):
+    """The port's package as a bare namespace, so that importing its
+    decoders does not import its renderer; ``library`` (a path, or None)
+    stands in for the native build."""
+    pkg = types.ModuleType('mitsuba_nlvrl_tpu_torch')
+    pkg.__path__ = [os.path.join(ROOT, 'mitsuba_nlvrl_tpu_torch')]
+    sys.modules['mitsuba_nlvrl_tpu_torch'] = pkg
+    import importlib
+    if library:
+        native = importlib.import_module('mitsuba_nlvrl_tpu_torch.native')
+        native.build = lambda *args, **kwargs: library
+    return importlib.import_module, importlib.import_module(
+        'mitsuba_nlvrl_tpu_torch.testing.bitmap_stages')
+
+
+def _outcome(fn, path) -> str:
+    try:
+        out = fn(path)
+    except Exception as e:  # noqa: BLE001 - the outcome is the type
+        return type(e).__name__
+    h = hashlib.sha256()
+    for part in out if isinstance(out, tuple) else (out,):
+        if isinstance(part, np.ndarray):
+            h.update(f'{part.dtype}{part.shape}'.encode())
+            h.update(np.ascontiguousarray(part).tobytes())
+        else:
+            h.update(repr(part).encode())
+    return h.hexdigest()
+
+
+def _png_with_data(png: bytes, data: bytes) -> bytes:
+    """A PNG file's chunks with its IDAT chunks replaced by one holding
+    ``data`` compressed."""
+    out, pos, idat = [png[:8]], 8, True
+    while pos < len(png):
+        n, tag = struct.unpack('>I4s', png[pos:pos + 8])
+        if tag != b'IDAT':
+            out.append(png[pos:pos + 12 + n])
+        elif idat:
+            body = zlib.compress(data)
+            out.append(struct.pack('>I', len(body)) + b'IDAT' + body +
+                       struct.pack('>I', zlib.crc32(b'IDAT' + body)))
+            idat = False
+        pos += 12 + n
+    return b''.join(out)
+
+
+def _png_data(png: bytes) -> bytes:
+    """A PNG file's image data, decompressed."""
+    pos, parts = 8, []
+    while pos < len(png):
+        n, tag = struct.unpack('>I4s', png[pos:pos + 8])
+        if tag == b'IDAT':
+            parts.append(png[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return zlib.decompress(b''.join(parts))
+
+
+def main(group: str, workdir: str, cases: int = CASES,
+         library: str = None) -> None:
+    import_module, stages = _load_decoders(library)
+    (module, name), fixtures = GROUPS[group]
+    fn = getattr(import_module(f'mitsuba_nlvrl_tpu_torch.utils.{module}'),
+                 name)
+    sources = []
+    for f in fixtures:
+        if f == 'filters.png':          # every row filter, RGBA
+            img = stages.picture(24, 3)
+            sources.append(stages.png_filtered(
+                np.concatenate([img, img[..., :1]], -1)))
+        else:
+            with open(os.path.join(FIXTURES, f), 'rb') as fh:
+                sources.append(fh.read())
+    rng = np.random.default_rng(sum(map(ord, group)))
+    results = []
+    for case in range(cases):
+        source = sources[case % len(sources)]
+        data = bytearray(_png_data(source) if group == 'png' else source)
+        if case % 2 == 0:
+            data = data[:int(rng.integers(0, len(data)))]
+        else:
+            for _ in range(int(rng.integers(1, 4))):
+                data[int(rng.integers(0, len(data)))] ^= int(
+                    rng.integers(1, 256))
+        if group == 'png':
+            data = _png_with_data(source, bytes(data))
+        path = os.path.join(workdir, f'{group}_{case}')
+        with open(path, 'wb') as fh:
+            fh.write(data)
+        native = _outcome(fn, path)
+        with stages.plain():
+            plain = _outcome(fn, path)
+        results.append([case, native, plain])
+    print(json.dumps(results))
+
+
+if __name__ == '__main__':
+    main(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:4]),
+         *sys.argv[4:5])
