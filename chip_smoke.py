@@ -142,6 +142,15 @@ to its pixels, each 4,096^2 decode under 3 s of host time; and
 ``textured_large`` builds ``cbox_textured`` with the 2,048^2 baseline
 JPEG as every bitmap and with its pixels as a Paeth PNG (build and
 decode seconds), the two renders on the card equal in bits and rays.
+Slice 16 (JPEG-in-TIFF and YCbCr TIFF; TIFF's and GIF's LZW, WebP's alpha
+gradient and lossless JPEG in host C++; the RNG's counters past 2^32):
+``bitmap_decode`` also holds the new TIFF layouts to PIL's bytes and the
+2,048^2 LZW TIFF, GIF and JPEG-in-TIFF to PIL's digests, the LZW TIFF and
+the GIF each under 1 s of host time; ``textured_large`` renders the JPEG's
+pixels a third time, as an LZW TIFF written here, equal in bits and rays
+to the JPEG's render; and ``rng_wide`` draws at lanes of a wavefront past
+2^32 elements on the card, equal in bits to the CPU's draw, in float32
+and float64.
 The CPU halves of the two-pass checks against the CPU, and of the two
 volumetric ones, run in one spawned worker process beside the card's
 phases, which the script ends on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -2589,6 +2598,9 @@ BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
 PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp')
 # a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
 LARGE_DECODE_LIMIT_S = 3.0
+# and a 2,048^2 LZW TIFF's or GIF's (ROADMAP A 12.9)
+LZW_DECODE_LIMIT_S = 1.0
+LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif')
 
 
 def _large_decode(texture, path, check) -> dict:
@@ -2601,6 +2613,8 @@ def _large_decode(texture, path, check) -> dict:
     mpix = got.shape[0] * got.shape[1] / 1e6
     assert got.shape[0] < 4096 or ms < LARGE_DECODE_LIMIT_S * 1e3, \
         f"{path}: {ms:.1f} ms for a 4,096^2 decode"
+    assert os.path.basename(path) not in LZW_LARGE or \
+        ms < LZW_DECODE_LIMIT_S * 1e3, f"{path}: {ms:.1f} ms"
     return {'shape': list(got.shape), 'host_ms': ms,
             'host_ms_per_mpix': ms / mpix}
 
@@ -2609,11 +2623,12 @@ def bitmap_decode_phase(workdir) -> None:
     """``bitmap_decode``: every fixture decoded by the port (which uses no
     PIL) and held to PIL's stored bytes, the two 512x512 WebP files and
     every file of ``tests/data/bitmaps_large`` (2,048^2 and 4,096^2 JPEG
-    and WebP) to the digests of PIL's, and a 4,096^2 PNG written here by
-    numpy with every row Paeth-filtered to its known pixels (the 4,096^2
-    JPEG's), each decode's host milliseconds beside it (and per megapixel
-    for the large files). A decode failure, or a 4,096^2 decode of 3 s or
-    more, raises."""
+    and WebP; 2,048^2 LZW TIFF, GIF and JPEG-in-TIFF) to the digests of
+    PIL's, and a 4,096^2 PNG written here by numpy with every row
+    Paeth-filtered to its known pixels (the 4,096^2 JPEG's), each decode's
+    host milliseconds beside it (and per megapixel for the large files).
+    A decode failure, a 4,096^2 decode of 3 s or more, or a 2,048^2 LZW
+    TIFF or GIF decode of 1 s or more, raises."""
     import hashlib
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import native, texture
@@ -2666,19 +2681,26 @@ def bitmap_decode_phase(workdir) -> None:
 def textured_large_phase(torch, mnt, kern, sync, workdir) -> int:
     """``textured_large``: ``cbox_textured`` (64x64, 1 spp, ``path`` at
     ``CUT_DEPTH``) built with the 2,048^2 baseline JPEG as every bitmap,
-    then with the same pixels as a PNG whose every row is Paeth-filtered,
-    each rendered on the card: build seconds with the decodes' seconds
-    apart, and the two images and ray counts equal in bits. Returns the
-    renders' launches."""
+    then with the same pixels as a PNG whose every row is Paeth-filtered
+    and as an LZW TIFF with predictor 2 (both written here: the JPEG's
+    pixels take 4.5 MB as a compact LZW file), each rendered on the card:
+    build seconds with the decodes' seconds apart, and the three images
+    and ray counts equal in bits. Returns the renders' launches."""
     from mitsuba_nlvrl_tpu_torch import texture
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
-    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import png_filtered
+    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import (png_filtered,
+                                                               tiff_lzw)
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
     t0 = time.time()
     jpg = os.path.join(BITMAPS_LARGE, 'jpeg_baseline_2048.jpg')
     png = os.path.join(workdir, 'large_paeth.png')
+    tif = os.path.join(workdir, 'large_lzw.tif')
+    pixels = texture.read_rgb8(jpg)
     with open(png, 'wb') as f:
-        f.write(png_filtered(texture.read_rgb8(jpg), filters=(4,)))
+        f.write(png_filtered(pixels, filters=(4,)))
+    with open(tif, 'wb') as f:
+        f.write(tiff_lzw(pixels))
+    del pixels
     read_rgb8, decode_s = texture.read_rgb8, []
 
     def timed_read(path):
@@ -2687,7 +2709,7 @@ def textured_large_phase(torch, mnt, kern, sync, workdir) -> int:
         decode_s.append(time.perf_counter() - t)
         return out
     renders, builds, launches = {}, {}, 0
-    for fmt, bitmap in (('jpeg', jpg), ('png', png)):
+    for fmt, bitmap in (('jpeg', jpg), ('png', png), ('tiff_lzw', tif)):
         path = cbox_textured(os.path.join(workdir, f'large_{fmt}'), spp=1,
                              res=64, max_depth=CUT_DEPTH, bitmap=bitmap)
         decode_s.clear()
@@ -2706,18 +2728,50 @@ def textured_large_phase(torch, mnt, kern, sync, workdir) -> int:
         launches += rec['launches']
         renders[fmt] = (rec, img)
         del scene, meta
-    (jrec, jimg), (prec, pimg) = renders['jpeg'], renders['png']
-    same = jimg.tobytes() == pimg.tobytes() and jrec['rays'] == prec['rays']
+    jrec, jimg = renders['jpeg']
+    same = {fmt: img.tobytes() == jimg.tobytes() and rec['rays'] ==
+            jrec['rays'] for fmt, (rec, img) in renders.items()
+            if fmt != 'jpeg'}
     emit({'phase': 'textured_large', 'res': 64, 'spp': 1,
           'max_depth': CUT_DEPTH, 'scene': 'cbox_textured',
           'bitmap': [2048, 2048], 'builds': builds,
-          'equal_jpeg_png_render': same, 'launches': launches,
+          'equal_jpeg_png_render': same['png'],
+          'equal_jpeg_tiff_lzw_render': same['tiff_lzw'],
+          'tiff_lzw_bytes': os.path.getsize(tif), 'launches': launches,
           'rays': jrec['rays'], 'mean': jrec['mean'],
           'wall_s': {fmt: rec['wall_s'] for fmt, (rec, _) in
                      renders.items()},
           'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
-    assert same, (jrec, prec)
+    assert all(same.values()), same
     return launches
+
+
+def rng_wide_check(torch) -> None:
+    """``rng_wide``: uniform draws at lanes of a wavefront whose draw
+    holds more than 2^32 elements ((8, 2^28, 3): counters up to
+    6,442,450,943, hashed as their high and low words), on the card and on
+    the CPU, in float32 and float64: equal in bits. 262,144 lanes spread
+    over the wavefront, its first, second and last among them."""
+    from mitsuba_nlvrl_tpu_torch.core import rng
+    t0 = time.time()
+    total = 1 << 28
+    spread = torch.arange(3, 1 << 18, dtype=torch.int64) * 1024 + 7
+    ids = torch.cat([torch.tensor([0, 1, total - 1]), spread])
+    key = rng.fold_in(rng.PRNGKey(7), 3)
+    rec = {}
+    for dtype in (torch.float32, torch.float64):
+        draws = [rng.uniform(key, (8, ids.numel(), 3), device=dev,
+                             dtype=dtype, lanes=rng.Lanes(ids, total),
+                             axis=1).cpu() for dev in ('cuda', 'cpu')]
+        same = draws[0].numpy().tobytes() == draws[1].numpy().tobytes()
+        rec[str(dtype).split('.')[1]] = {
+            'equal_in_bits': same, 'mean': float(draws[0].mean()),
+            'min': float(draws[0].min()), 'max': float(draws[0].max())}
+        assert same, dtype
+        assert 0 <= float(draws[0].min()) and float(draws[0].max()) < 1
+    emit({'phase': 'rng_wide', 'global_shape': [8, total, 3],
+          'lanes': ids.numel(), 'max_counter': 24 * total - 1, **rec,
+          'started_at_s': t0 - _T0, 'seconds': time.time() - t0})
 
 
 def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
@@ -3038,12 +3092,14 @@ def _main() -> int:
     # --- slice 12: the sharded paths at world size 1, NCCL --------------
     it12 = item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
                          wall, nscene, nmeta, nmaps)
-    # --- slices 13-15: the bitmap formats, decoded and rendered --------
+    # --- slices 13-16: the bitmap formats, decoded and rendered --------
     workdir = tempfile.mkdtemp(prefix='chip_smoke_item13_')
     try:
         it13 = item13_phases(torch, mnt, kern, sync, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # --- slice 16: the RNG's counters past 2^32 ------------------------
+    rng_wide_check(torch)
     left = stop_cpu_halves()
     assert not left, f"{len(left)} CPU halves submitted and not taken"
     ad_launches = (pgrad['launches'] + pgrad['launches_recompute']

@@ -104,16 +104,12 @@ def _counters(shape, device, lanes: Optional[Lanes], axis: int):
     holds ``lanes.total`` lanes."""
     shape = tuple(int(s) for s in shape)
     if lanes is None:
-        if _prod(shape) >= 1 << 32:
-            raise NotImplementedError("random bits beyond 2**32 elements")
         return torch.arange(_prod(shape), dtype=torch.int64,
                             device=device).reshape(shape)
     if shape[axis] != lanes.ids.shape[0]:
         raise ValueError(f"shape {shape} has {shape[axis]} lanes on axis "
                          f"{axis}, the lane ids {lanes.ids.shape[0]}")
     outer, inner = _prod(shape[:axis]), _prod(shape[axis + 1:])
-    if outer * lanes.total * inner >= 1 << 32:
-        raise NotImplementedError("random bits beyond 2**32 elements")
     ids = lanes.ids.to(device=device, dtype=torch.int64)
     c = (torch.arange(outer, dtype=torch.int64, device=device)[:, None, None]
          * (lanes.total * inner) + ids[None, :, None] * inner
@@ -123,10 +119,12 @@ def _counters(shape, device, lanes: Optional[Lanes], axis: int):
 
 def _threefry_words(key, shape, device, lanes=None, axis=0):
     """The two threefry output words of each element, row-major
-    counters (of the global shape, where ``lanes`` are given)."""
+    counters (of the global shape, where ``lanes`` are given). A 64-bit
+    counter is hashed as its (high, low) words, as the partitionable
+    threefry splits its element index: below 2^32 the high word is 0."""
     k1, k2 = _key_ints(key)
     counts = _counters(shape, device, lanes, axis)
-    return threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+    return threefry2x32(k1, k2, counts >> 32, counts & _MASK)
 
 
 def random_bits(key, shape, device=None) -> torch.Tensor:

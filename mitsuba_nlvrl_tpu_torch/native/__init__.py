@@ -7,11 +7,13 @@ Two libraries, each built by ``build`` from its sources:
     ``mitsuba_nlvrl_tpu/native/__init__.py`` (the reference's own source,
     copied);
   * the bitmap decoders' sequential stages (``bitmap_png.cpp``,
-    ``bitmap_jpeg.cpp``, ``bitmap_vp8l.cpp``, ``bitmap_vp8.cpp``): PNG
-    unfiltering, JPEG entropy decoding and IDCT, WebP's lossless pixels
-    and predictor, and the lossy frame's modes, tokens, reconstruction
-    and loop filter. ``utils/io.py``, ``jpeg.py``, ``vp8l.py`` and
-    ``vp8.py`` bind them (``bitmap_library``).
+    ``bitmap_jpeg.cpp``, ``bitmap_vp8l.cpp``, ``bitmap_vp8.cpp``,
+    ``bitmap_lzw.cpp``): PNG unfiltering, JPEG entropy decoding, IDCT and
+    lossless scans, WebP's lossless pixels and predictor, its alpha
+    plane's gradient filter, the lossy frame's modes, tokens,
+    reconstruction and loop filter, and TIFF's and GIF's LZW.
+    ``utils/io.py``, ``jpeg.py``, ``vp8l.py``, ``vp8.py``, ``webp.py``,
+    ``tiff.py`` and ``gif.py`` bind them (``bitmap_library``).
 
 Each is compiled with the reference's flags into
 ``mitsuba_nlvrl_tpu_torch/_build/`` under a name that carries a hash of its
@@ -37,7 +39,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), '_build')
 CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-march=native']
 BVH_SOURCES = ('bvh_native.cpp',)
 BITMAP_SOURCES = ('bitmap_png.cpp', 'bitmap_jpeg.cpp', 'bitmap_vp8l.cpp',
-                  'bitmap_vp8.cpp')
+                  'bitmap_vp8.cpp', 'bitmap_lzw.cpp')
 
 _lock = threading.Lock()
 _fn = None
@@ -120,7 +122,7 @@ def build(sources=BVH_SOURCES, stem: str = 'bvh',
 _P = ctypes.c_void_p
 _I64, _I32 = ctypes.c_int64, ctypes.c_int
 # each function's argtypes, as the sources declare them (restype int but
-# for the void functions of _BITMAP_VOID)
+# for the void functions of _BITMAP_VOID and the counts of _BITMAP_COUNT)
 _BITMAP_ABI = {
     'mnt_png_unfilter': [_P, _I64, _I64, _I64, _I64, _P, _P],
     'mnt_jpeg_scan': [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
@@ -135,10 +137,18 @@ _BITMAP_ABI = {
     'mnt_vp8_frame': [_P, _I64, _P, _P, _P, _I32, _I64, _I64, _I32, _P,
                       _I32, _P, _P, _P, _I32, _P, _P, _P, _P],
     'mnt_vp8_yuv_rgb': [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    'mnt_jpeg_lossless': [_P, _I64, _I32, _P, _P, _I64, _I64, _I64, _I32,
+                          _I32, _P, _P],
+    'mnt_alpha_ungradient': [_P, _I64, _I64, _P],
+    'mnt_tiff_lzw': [_P, _I64, _P, _I64],
+    'mnt_gif_lzw': [_P, _I64, _I32, _P, _I64],
 }
+# functions that return a count (int64) rather than an error code
+_BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw')
 
 _BITMAP_VOID = ('mnt_jpeg_idct', 'mnt_jpeg_upsample', 'mnt_jpeg_ycc_rgb',
-                'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb')
+                'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb',
+                'mnt_alpha_ungradient')
 
 
 def bitmap_library() -> ctypes.CDLL:
@@ -152,7 +162,8 @@ def bitmap_library() -> ctypes.CDLL:
             for name, args in _BITMAP_ABI.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
-                fn.restype = None if name in _BITMAP_VOID else ctypes.c_int
+                fn.restype = None if name in _BITMAP_VOID else \
+                    ctypes.c_int64 if name in _BITMAP_COUNT else ctypes.c_int
             _bitmap = lib
     return _bitmap
 

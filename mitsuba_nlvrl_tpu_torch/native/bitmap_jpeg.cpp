@@ -20,6 +20,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -66,6 +67,30 @@ struct Segment {
         return (w << (pos & 7)) >> 16;
     }
 };
+
+// Load the entropy segment of `scan` that starts at byte `i` into `seg`:
+// up to a restart marker (FF D0-D7), `i` moving past it, or to the scan's
+// end; returns whether it was the last.
+bool next_segment(const uint8_t *scan, int64_t len, int64_t &i,
+                  Segment &seg) {
+    const int64_t start = i;
+    int64_t end = len;
+    bool last = true;
+    while (true) {
+        int64_t j = i;
+        while (j < len && scan[j] != 0xFF) ++j;
+        if (j >= len || j + 1 >= len) break;
+        if (scan[j + 1] >= 0xD0 && scan[j + 1] <= 0xD7) {
+            end = j;
+            i = j + 2;
+            last = false;
+            break;
+        }
+        i = j + 2;
+    }
+    seg.load(scan + start, end - start);
+    return last;
+}
 
 struct Entry {          // one component of the scan
     int16_t *coef;      // (rows, cols, 64) natural order
@@ -279,26 +304,10 @@ extern "C" int mnt_jpeg_scan(const uint8_t *scan, int64_t len, int ns,
     Segment seg;
     Scan sc{&seg, 0, ss, se, ah, al, 0, info};
     int64_t pred[256];
-    int64_t mcu = 0, start = 0, i = 0;
+    int64_t mcu = 0, i = 0;
     bool last = false;
     while (!last && mcu < n_mcu) {
-        // the next segment: up to a restart marker (FF D0-D7)
-        int64_t end = len;
-        last = true;
-        while (true) {
-            int64_t j = i;
-            while (j < len && scan[j] != 0xFF) ++j;
-            if (j >= len || j + 1 >= len) break;
-            if (scan[j + 1] >= 0xD0 && scan[j + 1] <= 0xD7) {
-                end = j;
-                i = j + 2;
-                last = false;
-                break;
-            }
-            i = j + 2;
-        }
-        seg.load(scan + start, end - start);
-        start = i;
+        last = next_segment(scan, len, i, seg);
         sc.pos = 0;
         sc.eobrun = 0;
         for (int k = 0; k < 256; ++k) pred[k] = 0;
@@ -440,4 +449,97 @@ extern "C" void mnt_jpeg_ycc_rgb(const uint8_t *y, const uint8_t *cb,
         out[3 * k + 1] = clip(Y + ((-22554 * b + 32768 - 46802 * r) >> 16));
         out[3 * k + 2] = clip(Y + ((116130 * b + 32768) >> 16));
     }
+}
+
+// A lossless (SOF3) scan of `ns` components, each of W x H samples:
+// Huffman-coded differences (categories 0-16, 16 meaning 32768; luts: a
+// length and a symbol table a component, null where the table is
+// missing), added mod 2^16 to predictor `psv` of the neighbours left (a),
+// above (b) and above-left (c) (0 acts as 7, as the plain version's
+// tuple index -1 does); the first row of each restart interval (`restart`
+// samples, whole rows; 0: none) predicts from the left, the first column
+// from above, the first sample from 2^(7 - pt). out: ns planes of
+// ((sample << pt) & 255). Fails as _decode_lossless_plain: first in the
+// differences (codes 1-5 of mnt_jpeg_scan, info[1] the missing table's
+// id), then code 3 for pt > 7, then 7 (IndexError) for psv > 7.
+extern "C" int mnt_jpeg_lossless(const uint8_t *scan, int64_t len, int ns,
+                                 const uint8_t *const *luts,
+                                 const int32_t *td, int64_t restart,
+                                 int64_t W, int64_t H, int psv, int pt,
+                                 uint8_t *out, int64_t *info) {
+    const int64_t n = W * H, per_seg = restart ? restart : n;
+    std::vector<int32_t> diff(size_t(n) * ns, 0);
+    Segment seg;
+    int64_t k = 0, i = 0;
+    bool last = false;
+    while (!last && k < n) {
+        last = next_segment(scan, len, i, seg);
+        int64_t pos = 0;
+        const int64_t todo = per_seg < n - k ? per_seg : n - k;
+        for (int64_t t = 0; t < todo; ++t, ++k) {
+            for (int j = 0; j < ns; ++j) {
+                const uint8_t *dl = luts[2 * j], *ds = luts[2 * j + 1];
+                if (!dl) {
+                    info[0] = 0;
+                    info[1] = td[j];
+                    return NO_TABLE;
+                }
+                if (pos >= seg.windows) return PAST_END;
+                const uint32_t win = seg.at(pos);
+                const int m = dl[win];
+                if (m == 0) return BAD_CODE;
+                const int s = ds[win];
+                pos += m;
+                int64_t d = 0;
+                if (s == 16) {
+                    d = 32768;
+                } else if (s) {
+                    if (pos >= seg.windows) return PAST_END;
+                    const uint32_t w2 = seg.at(pos);
+                    if (s > 16) return BAD_SHIFT;
+                    d = w2 >> (16 - s);
+                    pos += s;
+                    if (d < (int64_t(1) << (s - 1))) d -= (int64_t(1) << s) - 1;
+                }
+                diff[size_t(k) * ns + j] = int32_t(d);
+            }
+        }
+    }
+    if (ns > 0 && pt > 7) return BAD_SHIFT;
+    const int64_t rows_per = per_seg / W;
+    const int p = psv == 0 ? 7 : psv;
+    if (ns > 0 && p > 7 && W > 1 && rows_per > 1 && H > 1) return 7;
+    std::vector<int64_t> prior(static_cast<size_t>(W)),
+        cur(static_cast<size_t>(W));
+    for (int j = 0; j < ns; ++j) {
+        uint8_t *o = out + size_t(j) * size_t(n);
+        for (int64_t y = 0; y < H; ++y) {
+            const bool first = y % rows_per == 0;
+            const int32_t *d = diff.data() + size_t(y) * W * ns + j;
+            for (int64_t x = 0; x < W; ++x) {
+                int64_t pred;
+                if (first) {
+                    pred = x ? cur[x - 1] : int64_t(1) << (7 - pt);
+                } else if (x == 0) {
+                    pred = prior[0];
+                } else {
+                    const int64_t a = cur[x - 1], b = prior[x],
+                                  c = prior[x - 1];
+                    switch (p) {
+                    case 1: pred = a; break;
+                    case 2: pred = b; break;
+                    case 3: pred = c; break;
+                    case 4: pred = a + b - c; break;
+                    case 5: pred = a + ((b - c) >> 1); break;
+                    case 6: pred = b + ((a - c) >> 1); break;
+                    default: pred = (a + b) >> 1; break;
+                    }
+                }
+                cur[x] = (pred + d[size_t(x) * ns]) & 0xFFFF;
+                o[y * W + x] = uint8_t((cur[x] << pt) & 0xFF);
+            }
+            std::swap(prior, cur);
+        }
+    }
+    return OK;
 }

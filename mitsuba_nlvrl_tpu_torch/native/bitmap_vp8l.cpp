@@ -1,5 +1,6 @@
 // WebP lossless (VP8L): the entropy-coded pixels of one image, and the
-// predictor transform undone.
+// predictor transform undone; and the gradient filter of an alpha plane
+// (the ALPH chunk, utils/webp.py) undone.
 //
 // The native stages of utils/vp8l.py; _pixels_plain and _unpredict_plain
 // there are their plain versions, which the tests hold them to.
@@ -258,6 +259,28 @@ extern "C" void mnt_vp8l_uncross(const uint32_t *px, int64_t w, int64_t h,
                               ((r2b * int8_t(red)) >> 5)) & 255;
             out[y * w + x] = (p & 0xFF00FF00u) | uint32_t(red) << 16 |
                              uint32_t(blue);
+        }
+    }
+}
+
+// Undo the gradient filter of an h x w alpha plane a (h >= 1) into out,
+// mod 256: the top row predicted from the left (its first pixel from 0),
+// the left column from above, the rest from left + top - top-left clipped
+// to 0..255 (utils/webp.py's _unfilter_gradient_plain).
+extern "C" void mnt_alpha_ungradient(const uint8_t *a, int64_t h, int64_t w,
+                                     uint8_t *out) {
+    int left = 0;
+    for (int64_t x = 0; x < w; ++x) out[x] = uint8_t(left += a[x]);
+    for (int64_t y = 1; y < h; ++y) {
+        const uint8_t *top = out + (y - 1) * w, *row = a + y * w;
+        uint8_t *cur = out + y * w;
+        int tl = w ? top[0] : 0;
+        left = tl;
+        for (int64_t x = 0; x < w; ++x) {
+            const int t = top[x], g = left + t - tl;
+            left = (row[x] + (g < 0 ? 0 : g > 255 ? 255 : g)) & 255;
+            tl = t;
+            cur[x] = uint8_t(left);
         }
     }
 }

@@ -5,8 +5,10 @@ Each stage that ``native/bitmap_*.cpp`` computes for the decoders of
 numpy and Python, named ``<stage>_plain`` beside it. The load path calls
 the native stages only; the tests and ``scripts/port_bitmap_speed.py``
 swap the plain twins in with ``plain()`` to hold one against the other.
-``png_filtered`` writes the PNG files that exercise the row filters, and
-``picture`` the smooth seeded pictures the large files are made of.
+``png_filtered`` writes the PNG files that exercise the row filters,
+``tiff_lzw`` LZW TIFF files of given pixels at a texture's size,
+``jpeg_lossless`` lossless JPEG files, and ``picture`` the smooth seeded
+pictures the large files are made of.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ STAGES = (('io', '_png_unfilter'), ('jpeg', '_decode_scan'),
           ('jpeg', '_idct_plane'), ('jpeg', '_upsample'),
           ('jpeg', '_ycc_to_rgb'), ('vp8l', '_pixels'),
           ('vp8l', '_unpredict'), ('vp8l', '_uncross'),
-          ('vp8', '_macroblocks'), ('vp8', 'yuv_to_rgb'))
+          ('vp8', '_macroblocks'), ('vp8', 'yuv_to_rgb'),
+          ('jpeg', '_decode_lossless'), ('webp', '_unfilter_gradient'),
+          ('tiff', '_lzw'), ('gif', '_lzw'))
 
 
 def _module(name: str):
@@ -111,3 +115,111 @@ def picture(n: int, seed: int, noisy: float = 1.0) -> np.ndarray:
     rows = int(round(noisy * n))
     img[:rows] += rng.normal(0.0, 2.0, (rows, n, 3))
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def tiff_lzw(img: np.ndarray, rows: int = 64) -> bytes:
+    """A little-endian TIFF of an (H, W, 3) uint8 image: LZW with
+    predictor 2, in strips of ``rows`` rows. Each strip's LZW stream holds
+    every byte as a 9-bit literal code, a clear code first and after each
+    253 codes (before the decoder's table reaches 511 entries and widens
+    its codes) and the end code last: a valid stream written fast in
+    numpy, not a compact one."""
+    H, W, _ = img.shape
+    diff = img.astype(np.int16)
+    diff[:, 1:] -= img[:, :-1].astype(np.int16)
+    diff = (diff & 0xFF).astype(np.uint16).reshape(H, W * 3)
+    strips = []
+    for y in range(0, H, rows):
+        data = diff[y:y + rows].reshape(-1)
+        groups = -(-data.size // 253)
+        codes = np.full(groups * 254 + 1, 256, np.uint16)   # clear codes
+        lit = np.arange(groups * 254).reshape(groups, 254)[:, 1:].reshape(-1)
+        codes[lit[:data.size]] = data
+        codes = np.delete(codes, lit[data.size:])
+        codes[-1] = 257                                     # end
+        bits = np.unpackbits(codes.astype('>u2').view(np.uint8)).reshape(
+            -1, 16)[:, 7:]
+        strips.append(np.packbits(bits.reshape(-1)).tobytes())
+    n_strips = len(strips)
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8, 8, 8]),
+            (259, 3, [5]), (262, 3, [2]), (273, 4, [0] * n_strips),
+            (277, 3, [3]), (278, 4, [rows]),
+            (279, 4, [len(s) for s in strips]), (284, 3, [1]),
+            (317, 3, [2])]
+    ifd_size = 2 + 12 * len(tags) + 4
+    extra = 8 + ifd_size                 # arrays that do not fit inline
+    layout = {}
+    for tag, typ, vals in tags:
+        size = (2 if typ == 3 else 4) * len(vals)
+        if size > 4:
+            layout[tag] = extra
+            extra += size
+    offsets = np.cumsum([extra] + [len(s) for s in strips])[:-1]
+    tags[5] = (273, 4, [int(o) for o in offsets])
+    head = b'II*\x00' + struct.pack('<I', 8) + struct.pack('<H', len(tags))
+    arrays = b''
+    for tag, typ, vals in tags:
+        fmt = '<%d%s' % (len(vals), 'H' if typ == 3 else 'I')
+        packed = struct.pack(fmt, *vals)
+        if tag in layout:
+            head += struct.pack('<HHII', tag, typ, len(vals), layout[tag])
+            arrays += packed
+        else:
+            head += struct.pack('<HHI', tag, typ, len(vals)) + \
+                packed.ljust(4, b'\0')
+    return head + struct.pack('<I', 0) + arrays + b''.join(strips)
+
+
+def jpeg_lossless(img: np.ndarray, psv: int = 1, restart_rows: int = 0,
+                  pt: int = 0) -> bytes:
+    """A lossless (SOF3) JPEG of an (H, W) or (H, W, C) uint8 image:
+    predictor ``psv`` (1-7), point transform ``pt``, one interleaved scan,
+    every difference category coded in 5 bits, a restart marker every
+    ``restart_rows`` rows (0: none). The differences are taken from the
+    image's own (shifted) samples, so the whole file is written in numpy."""
+    x = (img if img.ndim == 3 else img[..., None]).astype(np.int64) >> pt
+    H, W, C = x.shape
+    a = np.zeros_like(x)
+    b = np.zeros_like(x)
+    c = np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pred = (a, b, c, a + b - c, a + ((b - c) >> 1), b + ((a - c) >> 1),
+            (a + b) >> 1)[psv - 1].copy()
+    first = np.zeros(H, bool)
+    first[::restart_rows or H] = True
+    pred[:, 0] = b[:, 0]
+    pred[first] = a[first]
+    pred[first, 0] = 1 << (7 - pt)
+    d = (x - pred) & 0xFFFF
+    d = np.where(d >= 32768, d - 65536, d)
+    n = np.zeros(d.shape, np.int64)
+    nz = d != 0
+    n[nz] = np.floor(np.log2(np.abs(d[nz]))).astype(np.int64) + 1
+    v = np.where(d > 0, d, d + (1 << n) - 1) & ((1 << n) - 1)
+    code, length = (n << n) | v, 5 + n          # category, then the bits
+    rows_per = restart_rows or H
+    scan = b''
+    for y0 in range(0, H, rows_per):
+        cd = code[y0:y0 + rows_per].reshape(-1)
+        ln = length[y0:y0 + rows_per].reshape(-1)
+        ends = np.cumsum(ln)
+        bits = np.ones(-(-int(ends[-1]) // 8) * 8, np.uint8)   # 1-fill
+        for k in range(21):                     # bit k from each code's end
+            sel = ln > k
+            bits[ends[sel] - 1 - k] = (cd[sel] >> k) & 1
+        seg = np.packbits(bits).tobytes().replace(b'\xff', b'\xff\x00')
+        if y0:
+            scan += bytes([0xFF, 0xD0 + (y0 // rows_per - 1) % 8])
+        scan += seg
+    sof = struct.pack('>BHHB', 8, H, W, C) + b''.join(
+        bytes([i + 1, 0x11, 0]) for i in range(C))
+    dht = bytes([0, 0, 0, 0, 0, 17] + [0] * 11) + bytes(range(17))
+    sos = bytes([C]) + b''.join(bytes([i + 1, 0]) for i in range(C)) + \
+        bytes([psv, 0, pt])
+
+    def seg_(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack('>H', len(body) + 2) + body
+    dri = seg_(0xDD, struct.pack('>H', restart_rows * W)) \
+        if restart_rows else b''
+    return (b'\xff\xd8' + seg_(0xC3, sof) + seg_(0xC4, dht) + dri +
+            seg_(0xDA, sos) + scan + b'\xff\xd9')

@@ -180,10 +180,14 @@ def read_rgb8(path: str) -> np.ndarray:
 
 def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
     """Load an image file to linear float32 (H, W, 3). EXR by its suffix;
-    any other file by its content, as PIL identifies it (PNG, JPEG, BMP,
-    GIF, TIFF, PNM, TGA and WebP decode here; another format PIL opens
-    raises ``NotImplementedError``, and a file PIL does not open
-    ``OSError``)."""
+    any other file by its content, as PIL identifies it. PNG, JPEG
+    (baseline, progressive, lossless; grey, YCbCr, RGB, CMYK, YCCK), BMP,
+    GIF, PNM, TGA, WebP and TIFF (strips and tiles; none, LZW, Deflate,
+    PackBits and JPEG; grey, palette, RGB, CMYK and YCbCr) decode here.
+    Another format PIL opens (SGI, QOI, PCX, ...), and the TIFF layouts
+    left (old JPEG, CCITT, CIELab, 12-bit grey, orientations 5-8), raise
+    ``NotImplementedError`` naming ROADMAP 12.7; a file PIL does not open
+    raises ``OSError``."""
     if path.lower().endswith('.exr'):
         from ..utils.io import read_exr
         img, names = read_exr(path)

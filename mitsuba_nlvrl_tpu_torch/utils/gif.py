@@ -19,7 +19,27 @@ import numpy as np
 
 def _lzw(codes: bytes, bits: int, npix: int) -> np.ndarray:
     """GIF LZW: the first ``npix`` indices of the code stream (fewer if
-    it ends early). ``bits`` is the stream's minimum code size."""
+    it ends early), in ``native/bitmap_lzw.cpp``. ``bits`` is the stream's
+    minimum code size. Fails as ``_lzw_plain`` does."""
+    from ..native import bitmap_library, ptr
+    if not 0 <= bits <= 12:
+        raise OSError(f"bad GIF LZW code size {bits}")
+    buf = np.frombuffer(codes, np.uint8)
+    out = np.empty(max(npix, 0), np.uint8)
+    n = bitmap_library().mnt_gif_lzw(ptr(buf), buf.size, bits, ptr(out),
+                                     out.size)
+    if n == -1:
+        raise OSError("broken GIF data stream")
+    if n == -2:
+        raise ValueError("byte must be in range(0, 256)")
+    if n == -3:
+        raise IndexError("list index out of range")
+    return out[:n]
+
+
+def _lzw_plain(codes: bytes, bits: int, npix: int) -> np.ndarray:
+    """``_lzw`` in Python, the plain version the tests hold it to: LSB-first
+    codes, the table held at 4,096 entries until a clear."""
     if not 0 <= bits <= 12:
         raise OSError(f"bad GIF LZW code size {bits}")
     clear, eoi = 1 << bits, (1 << bits) + 1
@@ -79,7 +99,7 @@ def _lzw(codes: bytes, bits: int, npix: int) -> np.ndarray:
                 size += 1
             nxt += 1
         prev = code
-    return np.frombuffer(bytes(out[:npix]), np.uint8)
+    return np.frombuffer(bytes(out[:max(npix, 0)]), np.uint8)
 
 
 def _table(data: bytes, pos: int, flags: int):

@@ -2,8 +2,8 @@
 each scan, the IDCT, the upsampling and the colour conversion in host C++
 (``native/bitmap_jpeg.cpp``), each stage beside its numpy twin
 (``_decode_scan_plain``, ``_idct_plane_plain``, ``_upsample_plain``,
-``_ycc_to_rgb_plain``), which the tests hold it to. Lossless scans stay
-in Python (``_decode_lossless``).
+``_ycc_to_rgb_plain``, ``_decode_lossless_plain``), which the tests hold
+it to.
 
 Decodes Huffman-coded JPEG: sequential (SOF0 and SOF1), progressive
 (SOF2: spectral selection, successive approximation of DC and AC, first
@@ -491,8 +491,48 @@ def _ac_refine(blk, w, pos, al_, as_, zz, ss, se, p1, m1, eobrun):
 def _decode_lossless(scan, comps, sel, tables, restart, W, H, psv, pt,
                      path):
     """Decode a lossless (SOF3) scan into each component's samples
-    (``c['samples']``, (H, W) uint8): Huffman-coded differences (DC
-    categories 0-16, 16 meaning 32768) added mod 2^16 to predictor
+    (``c['samples']``, (H, W) uint8), in ``native/bitmap_jpeg.cpp``:
+    ``_decode_lossless_plain``'s arguments, results and failures (an
+    empty frame goes to it)."""
+    import ctypes
+    from ..native import bitmap_library, ptr
+    if restart and restart % W:
+        raise _unsupported("lossless JPEG with a restart interval that "
+                           "is not whole rows", path)
+    if not W or not H:
+        return _decode_lossless_plain(scan, comps, sel, tables, restart, W,
+                                      H, psv, pt, path)
+    ns = len(sel)
+    luts = (ctypes.c_void_p * (2 * max(ns, 1)))()
+    td = np.zeros(max(ns, 1), np.int32)
+    for j, (_, t, _) in enumerate(sel):
+        td[j] = t
+        if (0, t) in tables:
+            luts[2 * j], luts[2 * j + 1] = (ptr(x) for x in tables[(0, t)])
+    data = np.frombuffer(scan, np.uint8)
+    out = np.empty((max(ns, 1), H, W), np.uint8)
+    info = np.zeros(2, np.int64)
+    err = bitmap_library().mnt_jpeg_lossless(
+        ptr(data), data.size, ns, ctypes.addressof(luts), ptr(td), restart,
+        W, H, psv, pt, ptr(out), ptr(info))
+    if err == 5:
+        raise KeyError((int(info[0]), int(info[1])))
+    if err == 7:
+        raise IndexError("tuple index out of range")
+    if err:
+        kind, message = _SCAN_ERRORS[err]
+        raise kind(message)
+    for j, (ci, _, _) in enumerate(sel):
+        comps[ci]['samples'] = out[j]
+
+
+def _decode_lossless_plain(scan, comps, sel, tables, restart, W, H, psv,
+                           pt, path):
+    """``_decode_lossless`` in numpy and Python, the plain version the
+    tests hold it to. It decodes a lossless (SOF3) scan into each
+    component's samples (``c['samples']``, (H, W) uint8): Huffman-coded
+    differences (DC categories 0-16, 16 meaning 32768) added mod 2^16 to
+    predictor
     ``psv`` (1-7) of the neighbours left (a), above (b) and above-left
     (c); the first row predicts from the left, the first column from
     above, the first sample 2^(7 - Pt); each restart interval (whole
@@ -574,7 +614,15 @@ def read_jpeg_mode(path: str):
     (12-bit samples, 2 or more than 4 components) and a kind libjpeg
     cannot decode (hierarchical) raise ``OSError``, as in PIL."""
     with open(path, 'rb') as f:
-        data = f.read()
+        return decode(f.read(), path)
+
+
+def decode(data: bytes, path: str, colour=None):
+    """``read_jpeg_mode`` of a JPEG stream held in memory (``path`` names
+    it in errors). ``colour`` overrides what the markers say of a
+    three-component stream, as libtiff sets libjpeg's colour space for a
+    TIFF's strips and tiles: ``'YCbCr'`` converts to RGB, ``'RGB'``
+    takes the samples as they are."""
     if data[:2] != b'\xff\xd8':
         raise ValueError(f"{path}: not a JPEG file")
     pos, qt, tables, restart = 2, {}, {}, 0
@@ -714,6 +762,8 @@ def read_jpeg_mode(path: str):
         return 'CMYK', (255 - cmyk).astype(np.uint8), None
     rgb = (not jfif and adobe == 0) or (not jfif and adobe is None
                                          and cid == [82, 71, 66])
+    if colour is not None:
+        rgb = colour == 'RGB'
     if rgb:
         return 'RGB', np.stack(planes, axis=-1).astype(np.uint8), None
     return 'RGB', _ycc_to_rgb(*planes), None

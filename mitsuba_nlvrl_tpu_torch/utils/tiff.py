@@ -1,4 +1,5 @@
-"""A TIFF decoder in numpy and zlib (no PIL): the first image (IFD).
+"""A TIFF decoder in numpy, zlib and the bitmap library (no PIL): the
+first image (IFD).
 
 Reads what PIL's ``TiffImagePlugin`` (and libtiff under it) reads, to the
 same mode and samples, for the layouts of PIL's ``OPEN_INFO`` table that
@@ -6,17 +7,32 @@ are listed in ``_LAYOUTS``:
 
   * either byte order, classic TIFF and BigTIFF; strips and tiles (edge
     tiles cut); planar configuration 1 and 2; fill order 2;
-  * compression none (1), LZW (5), Deflate (8 and 32946) and PackBits
-    (32773); predictor 2 (horizontal differencing at 8, 16 and 32 bits)
-    and 3 (libtiff's floating-point predictor);
+  * compression none (1), LZW (5, in ``native/bitmap_lzw.cpp``), Deflate
+    (8 and 32946) and PackBits (32773); predictor 2 (horizontal
+    differencing at 8, 16 and 32 bits) and 3 (libtiff's floating-point
+    predictor);
   * photometric 0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8 and 16
     bits and 32-bit integer or float samples; 2 (RGB, 8 or 16 bits, with
     unspecified, associated or unassociated alpha); 3 (palette, the
-    16-bit colour map cut to its high byte as PIL does) and 5 (CMYK).
+    16-bit colour map cut to its high byte as PIL does) and 5 (CMYK);
+  * JPEG (compression 7) of photometric 1, 2 and 6 in one plane, strips
+    or tiles, each a JPEG stream after the shared ``JPEGTables``
+    (``utils/jpeg.py``): YCbCr converted by libjpeg's tables and fancy
+    upsampling, as libtiff's ``JPEGCOLORMODE_RGB`` asks under PIL; RGB
+    samples taken as they are;
+  * YCbCr (photometric 6) without JPEG, 8 bits in one plane, subsampling
+    1x1, 1x2, 2x1, 2x2, 4x1, 4x2 and 4x4 (1x4 and 2x4, which libtiff
+    refuses, raise ``OSError``), as libtiff's RGBA reader under PIL
+    converts it: each pixel takes its block's Cb and Cr whatever
+    ``YCbCrPositioning`` says, through the integer tables that libtiff
+    builds from ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` in
+    float32; uncompressed, as PIL's own reader unpacks it (as RGBX).
 
 A layout missing from PIL's table raises ``OSError``, as ``Image.open``
-does; JPEG-in-TIFF, CCITT, YCbCr, CIELab and the table's 12-bit grey
-raise ``NotImplementedError`` naming their ROADMAP entry.
+does; old-style JPEG (6), CCITT (2-4), CIELab, the table's 12-bit grey,
+orientations 5-8 (transposing), one-sample YCbCr and the JPEG, YCbCr and
+predictor combinations not listed above raise ``NotImplementedError``
+naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -58,6 +74,8 @@ _LAYOUTS.update({
     (5, (1,), (8, 8, 8, 8, 8), (0,)): 'CMYK',
     (5, (1,), (8, 8, 8, 8, 8, 8), (0, 0)): 'CMYK',
     (5, (1,), (16, 16, 16, 16), ()): 'CMYK',
+    # YCbCr: libtiff's RGBA reader, or libjpeg's conversion under JPEG
+    (6, (1,), (8, 8, 8), ()): 'RGB',
 })
 for _ex in ((0,), (0, 0), (0, 0, 0), (1,), (1, 0), (1, 0, 0), (2,), (2, 0),
             (2, 0, 0), (999,)):
@@ -69,7 +87,12 @@ for _ex in ((0,), (1,), (2,)):
 _FILL2 = {(_ph, (1,), (_b,), ()) for _ph in (0, 1, 3) for _b in (1, 2, 4, 8)}
 _FILL2 |= {(2, (1,), (8, 8, 8), ()), (1, (1,), (16,), (), 'II')}
 # photometric interpretations PIL opens that the port leaves for later
-_PORT_LATER = {6: 'YCbCr', 8: 'CIELab'}
+_PORT_LATER = {8: 'CIELab'}
+# libtiff's defaults: YCbCrCoefficients, and ReferenceBlackWhite of YCbCr
+_LUMA = (0.299, 0.587, 0.114)
+_YCC_BLACK_WHITE = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
+# the subsamplings of libtiff's RGBA reader (putcontig8bitYCbCr*tile)
+_YCC_SUBSAMPLING = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 _TYPES = {1: 'B', 2: 's', 3: 'H', 4: 'I', 5: 'II', 6: 'b', 7: 'B',
           8: 'h', 9: 'i', 10: 'ii', 11: 'f', 12: 'd', 16: 'Q', 17: 'q',
@@ -117,8 +140,25 @@ def _ifd(data: bytes):
 
 
 def _lzw(src: bytes, expect: int) -> bytes:
-    """TIFF LZW (MSB-first codes from 9 to 12 bits, the width growing
-    one code early, clear 256, end 257)."""
+    """TIFF LZW: the first ``expect`` bytes of the stream (fewer where it
+    ends first), in ``native/bitmap_lzw.cpp``. Fails as ``_lzw_plain``
+    does."""
+    from ..native import bitmap_library, ptr
+    if src[:1] == b'\0' and len(src) > 1 and src[1] & 1:
+        raise OSError("old-style (LSB-first) TIFF LZW")
+    buf = np.frombuffer(src, np.uint8)
+    out = np.empty(max(expect, 0), np.uint8)
+    n = bitmap_library().mnt_tiff_lzw(ptr(buf), buf.size, ptr(out),
+                                      out.size)
+    if n < 0:
+        raise IndexError("list index out of range")
+    return out[:min(n, out.size)].tobytes()
+
+
+def _lzw_plain(src: bytes, expect: int) -> bytes:
+    """``_lzw`` in Python, the plain version the tests hold it to: MSB-first
+    codes from 9 to 12 bits, the width growing one code early, clear 256,
+    end 257."""
     if src[:1] == b'\0' and len(src) > 1 and src[1] & 1:
         raise OSError("old-style (LSB-first) TIFF LZW")
     table = [bytes([i]) for i in range(256)] + [b'', b'']
@@ -153,7 +193,7 @@ def _lzw(src: bytes, expect: int) -> bytes:
         prev = s
         if len(table) >= (1 << width) - 1 and width < 12:
             width += 1
-    return bytes(out)
+    return bytes(out[:max(expect, 0)])
 
 
 def _packbits(src: bytes, expect: int) -> bytes:
@@ -205,6 +245,71 @@ def _unpredict(block: np.ndarray, pred: int, spp: int, bps: int,
     return vals
 
 
+def _ycbcr_tables(luma, black_white):
+    """libtiff's ``TIFFYCbCrToRGBInit`` (``tif_color.c``): the integer
+    tables of its YCbCr -> RGB conversion, built in float32 as there."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+
+    def fix(v):                  # FIX(CLAMP(v, 0, 2)): v * 2^16 + 0.5
+        v = min(max(v, f32(0)), f32(2))
+        return int(np.trunc(float(v * f32(65536)) + 0.5))
+
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+
+    def code2v(c, rb, rw, cr):   # Code2V, then CLAMP to +-4096, truncated
+        den = f32(rw) - f32(rb)
+        v = (c - int(np.trunc(f32(rb)))).astype(f32) * f32(cr) / \
+            (den if den != 0 else f32(1))
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+    x = np.arange(-128, 128)
+    bw = [f32(v) for v in black_white]
+    cr = code2v(x, bw[4] - f32(128), bw[5] - f32(128), 127)
+    cb = code2v(x, bw[2] - f32(128), bw[3] - f32(128), 127)
+    y = code2v(x + 128, bw[0], bw[1], 255)
+    return (y, (d1 * cr + 32768) >> 16, d2 * cr, d4 * cb + 32768,
+            (d3 * cb + 32768) >> 16)
+
+
+def _ycbcr_to_rgb(units: np.ndarray, hs: int, vs: int, tables):
+    """Decompressed YCbCr data units (block rows, blocks, hs * vs + 2) as
+    (block rows * vs, blocks * hs, 3) RGB: each pixel of a block takes its
+    block's Cb and Cr (libtiff's ``putcontig8bitYCbCr*tile``, which ignore
+    ``YCbCrPositioning``) through ``TIFFYCbCrtoRGB``."""
+    rows, cols = units.shape[:2]
+    y = units[..., :hs * vs].reshape(rows, cols, vs, hs).transpose(
+        0, 2, 1, 3).reshape(rows * vs, cols * hs).astype(np.int64)
+    cb = np.repeat(np.repeat(units[..., -2], vs, 0), hs, 1).astype(np.int64)
+    cr = np.repeat(np.repeat(units[..., -1], vs, 0), hs, 1).astype(np.int64)
+    y_tab, cr_r, cr_g, cb_g, cb_b = tables
+    yv = y_tab[y]
+    rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16),
+                    yv + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ycbcr_raw_strips(data: bytes, W: int, H: int, rps: int, offsets,
+                      path: str) -> np.ndarray:
+    """An uncompressed YCbCr TIFF as PIL's own raw reader leaves it: its
+    table unpacks the layout as ``RGBX``, four bytes a pixel, so each strip
+    reads W * 4 bytes a row from its offset on, and a read past the file's
+    end raises ``OSError`` as ``ImageFile.load`` does."""
+    out = np.zeros((H, W, 3), np.uint8)
+    for k, off in enumerate(offsets):
+        y = k * rps
+        if y >= H:
+            break
+        n = min(rps, H - y)
+        if off + n * W * 4 > len(data):
+            raise OSError(f"{path}: image file is truncated")
+        out[y:y + n] = np.frombuffer(data, np.uint8, n * W * 4, off) \
+            .reshape(n, W, 4)[..., :3]
+    return out
+
+
 def read_tiff(path: str):
     """Read a TIFF's first image to ``(mode, pixels, palette)``: ``1``,
     ``L``, ``I;16``, ``I;16B``, ``I``, ``F`` ((H, W)), ``LA``, ``PA``,
@@ -212,6 +317,7 @@ def read_tiff(path: str):
     its high byte and associated alpha divided out, as PIL unpacks them)
     or ``P`` ((H, W) indices and an (N, 3) palette)."""
     from ..scene.types import not_in_slice
+    from . import jpeg
     with open(path, 'rb') as f:
         data = f.read()
     tags, bo = _ifd(data)
@@ -219,7 +325,7 @@ def read_tiff(path: str):
     W, H = tags[256][0], tags[257][0]
     comp = tags.get(259, (1,))[0]
     photo = tags.get(262, (0,))[0]
-    if comp in (6, 7):
+    if comp == 6:                       # PIL: old JPEG is always YCbCr
         photo = 6
     fill = tags.get(266, (1,))[0]
     planar = tags.get(284, (1,))[0]
@@ -246,8 +352,16 @@ def read_tiff(path: str):
     mode = _LAYOUTS.get(key, _LAYOUTS.get(key + (order,)))
     if key == (1, (1,), (12,), ()) and order == 'II':
         raise not_in_slice(f"12-bit TIFF '{path}'", ROADMAP_TIFF)
+    if key == (6, (1,), (8,), ()):
+        raise not_in_slice(f"one-sample YCbCr TIFF '{path}'", ROADMAP_TIFF)
     if mode is None or fill == 2 and not {key, key + (order,)} & _FILL2:
         raise OSError(f"{path}: TIFF layout PIL does not open {key}")
+    is_jpeg, ycbcr = comp == 7, photo == 6
+    if is_jpeg and (planar == 2 or key not in (
+            (1, (1,), (8,), ()), (2, (1,), (8, 8, 8), ()),
+            (6, (1,), (8, 8, 8), ()))):
+        raise not_in_slice(f"JPEG TIFF of layout {key}, planar {planar} "
+                           f"'{path}'", ROADMAP_TIFF)
     b = bps[0]                  # every layout of the table has one width
     if comp not in (5, 8, 32946):
         pred = 1                # libtiff's predictor rides on these codecs
@@ -269,6 +383,27 @@ def read_tiff(path: str):
         tw, th = W, tags.get(278, (H,))[0]
         th = min(th, H) if th else H
         offsets, counts = tags[273], tags.get(279)
+    hs, vs = 1, 1
+    if ycbcr and not is_jpeg:
+        hs, vs = tags.get(530, (2, 2))[:2]
+        if (hs, vs) in ((1, 4), (2, 4)):
+            # libtiff's RGBA reader has no routine for these
+            raise OSError(f"{path}: YCbCr subsampling {hs}x{vs}: decoder "
+                          "error")
+        if planar == 2 or (hs, vs) not in _YCC_SUBSAMPLING \
+                or pred > 1 and hs * vs > 1 or comp == 1 and 322 in tags:
+            raise not_in_slice(f"YCbCr TIFF with subsampling {hs}x{vs}, "
+                               f"planar {planar}, predictor {pred}"
+                               f"{', tiled' if 322 in tags else ''} "
+                               f"'{path}'", ROADMAP_TIFF)
+        if comp == 1:
+            return 'RGB', _ycbcr_raw_strips(data, W, H, th, offsets,
+                                            path), None
+        tables = _ycbcr_tables(tags.get(529, _LUMA),
+                               tags.get(532, _YCC_BLACK_WHITE))
+    jpeg_tables = bytes(tags.get(347, ()))
+    if jpeg_tables[-2:] == b'\xff\xd9':
+        jpeg_tables = jpeg_tables[:-2]      # tables, then each stream
     planes = spp if planar == 2 else 1
     cps = 1 if planar == 2 else spp             # samples in a chunk pixel
     row_bytes = (tw * cps * b + 7) // 8
@@ -283,16 +418,38 @@ def read_tiff(path: str):
         if plane >= planes:
             break
         ty, tx = divmod(t, across)
-        nrows = th if 322 in tags else min(th, H - ty * th)
+        y, x = ty * th, tx * tw
+        nrows = th if 322 in tags else min(th, H - y)
         expect = row_bytes * nrows
+        if ycbcr and not is_jpeg:
+            units = (hs * vs + 2) * -(-tw // hs)
+            expect = units * -(-nrows // vs)
         src = data[off:off + counts[k]] if counts else data[off:off + expect]
         if fill == 2:                           # bits of the coded bytes
             src = np.packbits(np.unpackbits(np.frombuffer(src, np.uint8),
                                             bitorder='little')).tobytes()
+        h, w = min(nrows, H - y), min(tw, W - x)
+        if is_jpeg:
+            if jpeg_tables and src[:2] == b'\xff\xd8':
+                src = jpeg_tables + src[2:]
+            _, v, _ = jpeg.decode(src, path, {2: 'RGB', 6: 'YCbCr'}.get(
+                photo))
+            v = v.reshape(v.shape[0], v.shape[1], cps)
+            if v.shape[0] < h or v.shape[1] < w:
+                raise OSError(f"{path}: JPEG strip or tile smaller than "
+                              "its place")
+            samples[0, y:y + h, x:x + w] = v[:h, :w]
+            continue
         raw = np.frombuffer(_decompress(comp, src, expect, path)[:expect],
                             np.uint8)
         if raw.size < expect:
             raise OSError(f"{path}: truncated TIFF strip or tile")
+        if ycbcr:
+            v = _ycbcr_to_rgb(_unpredict(raw.reshape(-(-nrows // vs), -1),
+                                         pred, 3, 8, bo).reshape(
+                -(-nrows // vs), -(-tw // hs), hs * vs + 2), hs, vs, tables)
+            samples[0, y:y + h, x:x + w] = v[:h, :w]
+            continue
         raw = raw.reshape(nrows, row_bytes)
         if b < 8:
             v = np.unpackbits(raw, axis=1)
@@ -303,8 +460,6 @@ def read_tiff(path: str):
         else:
             v = _unpredict(raw, pred, cps, b, bo)
         v = v.reshape(nrows, -1)[:, :tw * cps].reshape(nrows, tw, cps)
-        y, x = ty * th, tx * tw
-        h, w = min(nrows, H - y), min(tw, W - x)
         samples[plane, y:y + h, x:x + w] = v[:h, :w].view(nat) \
             if v.dtype.itemsize == np.dtype(nat).itemsize else v[:h, :w]
     s = samples[..., 0].transpose(1, 2, 0) if planar == 2 else samples[0]
@@ -312,6 +467,8 @@ def read_tiff(path: str):
         # libtiff hands PIL native-order words, which PIL's big-endian
         # 32-bit unpackers then swap
         s = s.byteswap()
+    if ycbcr:
+        return 'RGB', np.ascontiguousarray(s), None
     return _to_mode(mode, s, photo, b, extra, tags, bo)
 
 

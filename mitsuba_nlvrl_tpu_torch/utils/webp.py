@@ -75,30 +75,54 @@ def _size(tag: bytes, payload: bytes) -> tuple:
 
 def _unfilter(a: np.ndarray, method: int) -> np.ndarray:
     """Undo an alpha plane's prediction: 1 horizontal, 2 vertical, 3
-    gradient (the top row is predicted from the left, the left column
-    from above, the first pixel from 0)."""
+    gradient (``_unfilter_gradient``)."""
     if method == 0:
         return a
+    if method == 3:
+        return _unfilter_gradient(a)
+    a = a.astype(np.int64)
+    out = np.empty_like(a)
+    out[0] = np.cumsum(a[0]) & 255
+    for y in range(1, a.shape[0]):
+        if method == 1:
+            out[y] = (np.cumsum(a[y]) + out[y - 1, 0]) & 255
+        else:
+            out[y] = (a[y] + out[y - 1]) & 255
+    return out.astype(np.uint8)
+
+
+def _unfilter_gradient(a: np.ndarray) -> np.ndarray:
+    """Undo an alpha plane's gradient filter (the top row predicted from
+    the left, the left column from above, the first pixel from 0), in
+    ``native/bitmap_vp8l.cpp``. Fails as ``_unfilter_gradient_plain``
+    does."""
+    from ..native import bitmap_library, ptr
+    a = np.ascontiguousarray(a, np.uint8)
+    h, w = a.shape
+    if h == 0:
+        raise IndexError("index 0 is out of bounds for axis 0 with size 0")
+    out = np.empty_like(a)
+    bitmap_library().mnt_alpha_ungradient(ptr(a), h, w, ptr(out))
+    return out
+
+
+def _unfilter_gradient_plain(a: np.ndarray) -> np.ndarray:
+    """``_unfilter_gradient`` in numpy and Python, the plain version the
+    tests hold it to (each row walked pixel by pixel)."""
     a = a.astype(np.int64)
     h, w = a.shape
     out = np.empty_like(a)
     out[0] = np.cumsum(a[0]) & 255
     for y in range(1, h):
-        if method == 1:
-            out[y] = (np.cumsum(a[y]) + out[y - 1, 0]) & 255
-        elif method == 2:
-            out[y] = (a[y] + out[y - 1]) & 255
-        else:
-            top, row, d = out[y - 1].tolist(), a[y].tolist(), [0] * w
-            left = tl = top[0]
-            for x in range(w):
-                t = top[x]
-                g = left + t - tl
-                left = (row[x] + (0 if g < 0 else 255 if g > 255 else g)) \
-                    & 255
-                tl = t
-                d[x] = left
-            out[y] = d
+        top, row, d = out[y - 1].tolist(), a[y].tolist(), [0] * w
+        left = tl = top[0]
+        for x in range(w):
+            t = top[x]
+            g = left + t - tl
+            left = (row[x] + (0 if g < 0 else 255 if g > 255 else g)) & 255
+            tl = t
+            d[x] = left
+        out[y] = d
     return out.astype(np.uint8)
 
 

@@ -5,7 +5,8 @@ plain twins and PIL, on one host.
 
 Decodes every file of ``tests/data/webp_large`` (WebP at 512 x 512) and
 ``tests/data/bitmaps_large`` (JPEG at 512 x 512, JPEG and WebP at 2,048 x
-2,048 and 4,096 x 4,096) and three PNG files written here by numpy with
+2,048 and 4,096 x 4,096, LZW TIFF, GIF and JPEG-in-TIFF at 2,048 x 2,048)
+and three PNG files written here by numpy with
 every row Paeth-filtered (512, 2,048 and 4,096 square; their pixels are
 known) through ``texture.read_rgb8``: the native stages (median of
 ``--reps``), the plain stages (``testing/bitmap_stages.plain``, once, the
@@ -15,10 +16,25 @@ PIL. Every decode is checked against PIL's digest or the known pixels.
 Prints the host's CPU model and count, then one JSON line a file:
 milliseconds and milliseconds per megapixel of each, and plain over
 native.
+
+With ``--stages`` (a host with PIL) it also prints one line a stage for
+the stages moved into host C++ in slice 16, each timed on the arguments
+it takes while a 512 x 512 file decodes (native median of ``--reps``,
+plain once): TIFF LZW (predictor 2, the picture posterised to steps of
+8, written by PIL), GIF LZW (256 colours), WebP's alpha gradient filter
+(a seeded plane) and a lossless JPEG scan (predictor 1, three
+components); then the time inside TIFF's PackBits stage, still Python, of
+a 2,048 x 2,048 PackBits TIFF, and the time inside the numpy stages of
+the lossless WebP decoder (prefix-code reading, subtract-green, colour
+indexing) and the rest of the decode of two 4,096 x 4,096 lossless WebP
+files, one full-colour and one of 256 colours, written by PIL, and of
+subtract-green on a seeded 4,096 x 4,096 image.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -77,11 +93,114 @@ def files(workdir: str) -> list:
     return out
 
 
+@contextlib.contextmanager
+def clocked(module, names):
+    """Sum the milliseconds spent in ``module``'s functions ``names``
+    while the block runs, into the dict it yields."""
+    spent = dict.fromkeys(names, 0.0)
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += (time.perf_counter() - t) * 1e3
+        return run
+    try:
+        for n, fn in saved.items():
+            setattr(module, n, wrap(n, fn))
+        yield spent
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def captured(module, stage: str, path: str) -> list:
+    """The arguments of each call of ``module.stage`` while ``path``
+    decodes."""
+    calls, real = [], getattr(module, stage)
+
+    def record(*args):
+        calls.append(copy.deepcopy(args))
+        return real(*args)
+    setattr(module, stage, record)
+    try:
+        texture.read_rgb8(path)
+    finally:
+        setattr(module, stage, real)
+    return calls
+
+
+def stage_rows(workdir: str, reps: int) -> None:
+    """The slice 16 stages at 512^2, PackBits at 2,048^2, and the numpy
+    stages of the lossless WebP decoder at 4,096^2 (see the module's
+    docstring)."""
+    from mitsuba_nlvrl_tpu_torch.utils import gif, jpeg, tiff, vp8l, webp
+    pic = bitmap_stages.picture(512, 512)
+    files = {'tiff': os.path.join(workdir, 'lzw_512.tif'),
+             'gif': os.path.join(workdir, 'gif_512.gif'),
+             'jpeg': os.path.join(workdir, 'lossless_512.jpg')}
+    Image.fromarray(pic // 8 * 8).save(files['tiff'],
+                                       compression='tiff_lzw',
+                                       tiffinfo={317: 2})
+    Image.fromarray(pic).quantize(256).save(files['gif'])
+    with open(files['jpeg'], 'wb') as f:
+        f.write(bitmap_stages.jpeg_lossless(pic, 1))
+    alpha = np.random.default_rng(512).integers(0, 256, (512, 512),
+                                                np.uint8)
+    for name, module, stage, calls in (
+            ('tiff_lzw', tiff, '_lzw', captured(tiff, '_lzw',
+                                                files['tiff'])),
+            ('gif_lzw', gif, '_lzw', captured(gif, '_lzw', files['gif'])),
+            ('alpha_gradient', webp, '_unfilter_gradient', [(alpha,)]),
+            ('jpeg_lossless', jpeg, '_decode_lossless', captured(
+                jpeg, '_decode_lossless', files['jpeg']))):
+        def run(fn):
+            for args in calls:
+                fn(*copy.deepcopy(args))
+        native_ms, _ = timed(lambda: run(getattr(module, stage)), reps)
+        plain_ms, _ = timed(lambda: run(getattr(module, stage + '_plain')),
+                            1)
+        emit({'stage': name, 'side': 512, 'calls': len(calls),
+              'native_ms': native_ms, 'plain_ms': plain_ms,
+              'plain_over_native': plain_ms / native_ms})
+    path = os.path.join(workdir, 'packbits_2048.tif')
+    Image.fromarray(bitmap_stages.picture(2048, 2048)).save(
+        path, compression='packbits')
+    with clocked(tiff, ['_packbits']) as spent:
+        ms, _ = timed(lambda: texture.read_rgb8(path), 1)
+    emit({'stage': 'tiff_packbits', 'side': 2048, 'decode_ms': ms,
+          'packbits_ms': spent['_packbits']})
+    big = bitmap_stages.picture(4096, 4096, 1 / 32)
+    for kind, img in (('full_colour', Image.fromarray(big)),
+                      ('256_colours', Image.fromarray(big).quantize(256))):
+        path = os.path.join(workdir, f'lossless_4096_{kind}.webp')
+        img.save(path, 'WEBP', lossless=True)
+        numpy_stages = ['_read_code', '_add_green', '_unindex']
+        native_stages = ['_pixels', '_unpredict', '_uncross']
+        with clocked(vp8l, numpy_stages + native_stages) as spent:
+            ms, _ = timed(lambda: texture.read_rgb8(path), 1)
+        emit({'stage': 'webp_lossless_numpy_stages', 'side': 4096,
+              'file': kind, 'bytes': os.path.getsize(path),
+              'decode_ms': ms, **{f'{n[1:]}_ms': spent[n]
+                                  for n in numpy_stages + native_stages},
+              'rest_ms': ms - sum(spent.values())})
+    # subtract-green alone, as libwebp may leave it out of a file
+    argb = np.random.default_rng(4096).integers(0, 2 ** 32, (4096, 4096),
+                                                np.uint32)
+    ms, _ = timed(lambda: vp8l._add_green(argb), reps)
+    emit({'stage': 'webp_subtract_green', 'side': 4096, 'ms': ms})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--reps', type=int, default=3)
     ap.add_argument('--no-plain', action='store_true',
                     help="skip the plain stages (minutes at 2,048^2)")
+    ap.add_argument('--stages', action='store_true',
+                    help="also time slice 16's stages (needs PIL)")
     args = ap.parse_args()
     emit({'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
           'pil': Image is not None,
@@ -113,6 +232,8 @@ def main() -> None:
                                plain_ms_per_mpix=plain_ms / mpix,
                                plain_over_native=plain_ms / ms)
             emit(rec)
+        if args.stages and Image is not None:
+            stage_rows(workdir, args.reps)
 
 
 if __name__ == '__main__':

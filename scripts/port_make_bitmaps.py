@@ -15,6 +15,12 @@ library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
   * one 37x23 file per layout that ``chip_smoke.py``'s ``bitmap_decode``
     phase checks (sequential, progressive, grey, CMYK and YCCK JPEG; BMP,
     TGA, PNM, GIF, TIFF and WebP layouts), each under 16 KiB;
+  * the JPEG-in-TIFF (photometric RGB and YCbCr, strips and tiles) and
+    YCbCr TIFF layouts (LZW, Deflate, PackBits; subsampling 1x1, 2x1 and
+    2x2; ReferenceBlackWhite and YCbCrCoefficients), written through the
+    libtiff that PIL bundles (``libtiff_write``, ctypes), as PIL's
+    ``save`` asks for none of strips of a given height, tiles, YCbCr
+    subsampling or YCbCr samples given as they are;
   * ``pil_rgb.npz``: PIL's ``Image.open(f).convert('RGB')`` bytes of
     every file, keyed by file name;
   * in ``../webp_large``, a 512x512 lossless and a 512x512 lossy WebP and
@@ -24,9 +30,13 @@ library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
     textures' sizes (``testing/bitmap_stages.picture``): baseline and
     progressive 4:2:0 JPEG and lossy and lossless WebP at 2,048x2,048,
     baseline JPEG and lossy WebP at 4,096x4,096, a baseline JPEG at
-    512x512 (the small end of the decode-speed table), and their
+    512x512 (the small end of the decode-speed table); at 2,048x2,048 an
+    LZW TIFF with predictor 2 (the picture posterised to steps of 8: the
+    JPEG's own pixels take 4.5 MB in LZW), a 256-colour GIF of the
+    baseline JPEG's pixels and a JPEG-in-TIFF in YCbCr 4:2:0; and their
     ``pil_rgb_sha256.json``. No PNG is committed: a large one is written
-    at run time by numpy (``testing/bitmap_stages.png_filtered``).
+    at run time by numpy (``testing/bitmap_stages.png_filtered``), as is
+    an LZW TIFF of the JPEG's pixels (``testing/bitmap_stages.tiff_lzw``).
 
     python scripts/port_make_bitmaps.py --large
 """
@@ -35,6 +45,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import ctypes.util
+import glob
 import hashlib
 import io
 import json
@@ -280,6 +291,162 @@ def _webp_large(out: str) -> None:
         f.write('\n')
 
 
+# --- TIFF layouts through PIL's bundled libtiff (ctypes) --------------------
+_libtiff = None
+
+
+def _libtiff_lib() -> ctypes.CDLL:
+    global _libtiff
+    if _libtiff is None:
+        site = os.path.dirname(os.path.dirname(Image.__file__))
+        libs = os.path.join(site, 'pillow.libs')
+        found = glob.glob(os.path.join(libs, 'libtiff*.so*')) or \
+            [ctypes.util.find_library('tiff')]
+        lib = ctypes.CDLL(found[0])
+        lib.TIFFOpen.restype = ctypes.c_void_p
+        lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.TIFFClose.argtypes = [ctypes.c_void_p]
+        for name in ('TIFFWriteEncodedStrip', 'TIFFWriteEncodedTile'):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_char_p,
+                           ctypes.c_ssize_t]
+            fn.restype = ctypes.c_ssize_t
+        _libtiff = lib
+    return _libtiff
+
+
+def _ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """A block of full-resolution YCbCr samples (h, w, 3) as TIFF's data
+    units: hs x vs luma samples, then the block's mean Cb and Cr (edge
+    samples repeated into the blocks that pass the edge)."""
+    h, w = ycc.shape[:2]
+    rows = np.minimum(np.arange(-(-h // vs) * vs), h - 1)
+    cols = np.minimum(np.arange(-(-w // hs) * hs), w - 1)
+    full = ycc[rows][:, cols].astype(np.float64)
+    bh, bw = full.shape[0] // vs, full.shape[1] // hs
+    blocks = full.reshape(bh, vs, bw, hs, 3).transpose(0, 2, 1, 3, 4)
+    luma = blocks[..., 0].reshape(bh, bw, vs * hs)
+    chroma = np.round(blocks[..., 1:].mean(axis=(2, 3)))
+    return np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()
+
+
+def libtiff_write(path: str, pixels: np.ndarray, photometric: int,
+                  compression: int, strip: int = None, tile=None,
+                  subsampling=None, tags=(), jpeg_quality: int = 90) -> None:
+    """A TIFF of (H, W, C) uint8 ``pixels`` written by libtiff: strips of
+    ``strip`` rows (all rows by default) or ``tile`` (w, h) tiles.
+    Compression 7 (JPEG) takes RGB or grey pixels: libjpeg converts them to
+    YCbCr for photometric 6 (JPEGCOLORMODE_RGB) at ``subsampling``.
+    Otherwise photometric 6 takes full-resolution YCbCr, packed here into
+    data units. ``tags``: (tag, value, ...) set as they are (a list value
+    is a float array)."""
+    lib = _libtiff_lib()
+    H, W, C = pixels.shape
+    t = lib.TIFFOpen(path.encode(), b'w')
+    assert t, path
+
+    def put(tag, *vals):
+        args = [(ctypes.c_float * len(v))(*v) if isinstance(v, list)
+                else ctypes.c_uint32(v) for v in vals]
+        assert lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag),
+                                *args) == 1, (tag, vals)
+    for tag, *vals in ((256, W), (257, H), (258, 8), (277, C),
+                       (259, compression), (262, photometric), (284, 1)):
+        put(tag, *vals)
+    hs, vs = subsampling or (1, 1)
+    if photometric == 6:
+        put(530, hs, vs)
+    if compression == 7:
+        put(65537, jpeg_quality)
+        if photometric == 6:
+            put(65538, 1)                       # JPEGCOLORMODE_RGB
+    for tag, *vals in tags:
+        put(tag, *vals)
+    raw = compression != 7 and photometric == 6
+    tw, th = tile or (W, strip or H)
+    if tile:
+        put(322, tw)
+        put(323, th)
+    else:
+        put(278, th)
+    k = 0
+    for y in range(0, H, th):
+        for x in range(0, W, tw):
+            h = th if tile else min(th, H - y)
+            block = np.zeros((h, tw, C), np.uint8)
+            part = pixels[y:y + h, x:x + tw]
+            block[:part.shape[0], :part.shape[1]] = part
+            if tile:                            # repeat the edge samples
+                block[part.shape[0]:] = block[part.shape[0] - 1]
+                block[:, part.shape[1]:] = block[:, part.shape[1] - 1:
+                                                 part.shape[1]]
+            data = _ycbcr_units(block, hs, vs) if raw else block.tobytes()
+            write = lib.TIFFWriteEncodedTile if tile else \
+                lib.TIFFWriteEncodedStrip
+            assert write(t, k, data, len(data)) >= 0, (path, k)
+            k += 1
+    lib.TIFFClose(t)
+
+
+def _tiff_layouts(rgb: np.ndarray, out: str) -> list:
+    """The 37x23 JPEG-in-TIFF and YCbCr TIFF layouts; their names."""
+    ycc = np.asarray(Image.fromarray(rgb).convert('YCbCr'))
+    grey = rgb[..., 1:2]
+    made = {
+        'tiff_jpeg_rgb_strips.tif': (rgb, 2, 7, {'strip': 16}),
+        'tiff_jpeg_rgb_tiles.tif': (rgb, 2, 7, {'tile': (16, 16)}),
+        'tiff_jpeg_grey.tif': (grey, 1, 7, {'strip': 8}),
+        'tiff_jpeg_ycbcr420_strips.tif': (rgb, 6, 7, {
+            'strip': 16, 'subsampling': (2, 2)}),
+        'tiff_jpeg_ycbcr420_tiles.tif': (rgb, 6, 7, {
+            'tile': (16, 16), 'subsampling': (2, 2)}),
+        'tiff_jpeg_ycbcr422_strips.tif': (rgb, 6, 7, {
+            'strip': 8, 'subsampling': (2, 1)}),
+        'tiff_ycbcr11_lzw_pred2.tif': (ycc, 6, 5, {
+            'strip': 8, 'subsampling': (1, 1), 'tags': ((317, 2),)}),
+        'tiff_ycbcr21_packbits.tif': (ycc, 6, 32773, {
+            'strip': 8, 'subsampling': (2, 1)}),
+        'tiff_ycbcr22_deflate_tiles.tif': (ycc, 6, 8, {
+            'tile': (16, 16), 'subsampling': (2, 2)}),
+        'tiff_ycbcr22_lzw_blackwhite.tif': (ycc, 6, 5, {
+            'strip': 6, 'subsampling': (2, 2), 'tags': (
+                (532, [16.0, 235.0, 128.0, 240.0, 128.0, 240.0]),
+                (529, [0.2126, 0.7152, 0.0722]))}),
+    }
+    for name, (px, photo, comp, kw) in made.items():
+        libtiff_write(os.path.join(out, name), px, photo, comp, **kw)
+    return list(made)
+
+
+def _lzw_tiff_large(path: str, n: int) -> None:
+    """An n x n LZW TIFF, predictor 2, of the picture posterised to steps
+    of 8 (``picture``'s waves and discs, no noise)."""
+    Image.fromarray(picture(n, n, 0.0) // 8 * 8).save(
+        path, compression='tiff_lzw', tiffinfo={317: 2})
+
+
+def _gif_large(path: str, n: int) -> None:
+    """An n x n 256-colour GIF of the n x n baseline JPEG's pixels."""
+    jpg = os.path.join(os.path.dirname(path), f'jpeg_baseline_{n}.jpg')
+    Image.open(jpg).convert('RGB').quantize(256).save(path)
+
+
+def _jpeg_tiff_large(path: str, n: int) -> None:
+    """An n x n JPEG-in-TIFF, YCbCr 4:2:0 at quality 85, in strips of 64
+    rows, of the picture of the n x n baseline JPEG."""
+    libtiff_write(path, picture(n, n, 1), 6, 7, strip=64,
+                  subsampling=(2, 2), jpeg_quality=85)
+
+
+# the files at textures' sizes written by a function of (path, side),
+# after those of LARGE
+LARGE_MADE = {
+    'tiff_lzw_2048.tif': (_lzw_tiff_large, 2048),
+    'gif_256_2048.gif': (_gif_large, 2048),
+    'tiff_jpeg_ycbcr_2048.tif': (_jpeg_tiff_large, 2048),
+}
+
+
 # the files at textures' sizes: name -> (side, PIL's save arguments, the
 # picture's noisy share of rows)
 LARGE = {
@@ -299,9 +466,14 @@ def _bitmaps_large(out: str) -> None:
     of each; no file over 1.5 MB, 6 MB together."""
     os.makedirs(out, exist_ok=True)
     digests, total = {}, 0
-    for name, (n, kw, noisy) in LARGE.items():
+    for name in [*LARGE, *LARGE_MADE]:
         path = os.path.join(out, name)
-        Image.fromarray(picture(n, n, noisy)).save(path, **kw)
+        if name in LARGE:
+            n, kw, noisy = LARGE[name]
+            Image.fromarray(picture(n, n, noisy)).save(path, **kw)
+        else:
+            make, n = LARGE_MADE[name]
+            make(path, n)
         size = os.path.getsize(path)
         assert size <= 1_500_000, (name, size)
         total += size
@@ -371,11 +543,17 @@ def main() -> None:
             'compression': 'tiff_deflate', 'tiffinfo': {317: 3}}),
         'tiff_lzw_palette.tif': (colour.quantize(50), {
             'compression': 'tiff_lzw'}),
+        'tiff_pil_jpeg_rgb.tif': (colour, {'compression': 'jpeg'}),
+        'tiff_pil_jpeg_ycbcr.tif': (colour.convert('YCbCr'), {
+            'compression': 'jpeg'}),
+        'tiff_pil_lzw_ycbcr.tif': (colour.convert('YCbCr'), {
+            'compression': 'tiff_lzw'}),
     }
     for name, (im, kw) in writes.items():
         im.save(os.path.join(out, name), **kw)
     _ycck(os.path.join(out, 'jpeg_cmyk.jpg'),
           os.path.join(out, 'jpeg_ycck.jpg'))
+    _tiff_layouts(rgb, out)
     for name, data in _webp_layouts(rgb, pic).items():
         with open(os.path.join(out, name), 'wb') as f:
             f.write(data)
@@ -394,7 +572,7 @@ def main() -> None:
     np.savez_compressed(os.path.join(out, 'pil_rgb.npz'), **ref)
     total = sum(os.path.getsize(os.path.join(out, n))
                 for n in os.listdir(out))
-    assert total <= 256 * 1024, total
+    assert total <= 384 * 1024, total
     print(f"{len(ref)} files and pil_rgb.npz in {out}: {total} bytes")
 
 

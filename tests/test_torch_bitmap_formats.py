@@ -11,13 +11,16 @@ packets across rows, plain PNM with comments and odd maxvals, PFM, a GIF
 whose LZW table fills to 4,096 entries, local tables and frame offsets,
 TIFF in big-endian order, tiles, planar configuration 2, associated alpha,
 fill order 2, BigTIFF and 2/4-bit grey and palettes) are written here with
-numpy. Every file: the port's ``load_bitmap`` equals the reference's byte
-for byte with ``gamma`` True and False, and ``identify`` names the format
-PIL opens it as. Files PIL refuses raise ``OSError`` (or PIL's own error)
-in both; a format PIL opens that the port does not read raises
-``NotImplementedError`` naming ROADMAP 12.7."""
+numpy; JPEG-in-TIFF in strips and tiles and YCbCr TIFF at each
+subsampling through the libtiff PIL bundles (``libtiff_write`` of
+``scripts/port_make_bitmaps.py``). Every file: the port's ``load_bitmap``
+equals the reference's byte for byte with ``gamma`` True and False, and
+``identify`` names the format PIL opens it as. Files PIL refuses raise ``OSError`` (or PIL's own error)
+in both; a format or TIFF layout PIL opens that the port does not read
+raises ``NotImplementedError`` naming ROADMAP 12.7."""
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -27,6 +30,10 @@ from PIL import Image
 
 from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import texture as ptex
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'scripts'))
+from port_make_bitmaps import libtiff_write  # noqa: E402
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -668,6 +675,49 @@ def _(p):
         f.write(data[14:])
 
 
+# JPEG-in-TIFF and YCbCr TIFF through the libtiff that PIL bundles (PIL's
+# save asks for no strip height, tiles or YCbCr subsampling): name ->
+# (pixels: RGB or grey for JPEG, full-resolution YCbCr otherwise,
+# photometric, compression, libtiff_write's arguments)
+_YCC = np.asarray(Image.fromarray(RGB).convert('YCbCr'))
+_LIBTIFF = {
+    'jpeg-rgb-strips': (RGB, 2, 7, {'strip': 16}),
+    'jpeg-rgb-tiles': (RGB, 2, 7, {'tile': (16, 16)}),
+    'jpeg-grey-strips': (GREY[..., None], 1, 7, {'strip': 8}),
+    'jpeg-ycbcr22-strips': (RGB, 6, 7, {'strip': 16, 'subsampling': (2, 2)}),
+    'jpeg-ycbcr22-tiles': (RGB, 6, 7, {'tile': (32, 16),
+                                       'subsampling': (2, 2)}),
+    'jpeg-ycbcr21-strips': (RGB, 6, 7, {'strip': 8, 'subsampling': (2, 1)}),
+    'jpeg-ycbcr11-tiles': (RGB, 6, 7, {'tile': (16, 16),
+                                       'subsampling': (1, 1)}),
+    'ycbcr22-lzw-tiles': (_YCC, 6, 5, {'tile': (16, 16),
+                                       'subsampling': (2, 2)}),
+    'ycbcr11-deflate-pred2': (_YCC, 6, 8, {
+        'strip': 8, 'subsampling': (1, 1), 'tags': ((317, 2),)}),
+    'ycbcr22-lzw-black-white': (_YCC, 6, 5, {
+        'strip': 6, 'subsampling': (2, 2),
+        'tags': ((532, [16.0, 235.0, 128.0, 240.0, 128.0, 240.0]),)}),
+    'ycbcr11-lzw-coefficients': (_YCC, 6, 5, {
+        'strip': 8, 'subsampling': (1, 1),
+        'tags': ((529, [0.2126, 0.7152, 0.0722]),)}),
+    'ycbcr21-packbits-cosited': (_YCC, 6, 32773, {
+        'strip': 8, 'subsampling': (2, 1), 'tags': ((531, 2),)}),
+}
+for _hs, _vs in ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1), (4, 2), (4, 4)):
+    for _comp in (5, 8, 32773):
+        _LIBTIFF[f'ycbcr{_hs}{_vs}-{_comp}'] = (_YCC, 6, _comp, {
+            'strip': 8, 'subsampling': (_hs, _vs)})
+for _name, (_px, _photo, _comp, _kw) in _LIBTIFF.items():
+    CASES[f'tiff-libtiff-{_name}'] = (
+        lambda p, a=(_px, _photo, _comp), kw=_kw: libtiff_write(p, *a, **kw),
+        'tif')
+for _c in ('jpeg', 'tiff_lzw', 'tiff_deflate', 'packbits'):
+    CASES[f'tiff-pil-YCbCr-{_c}'] = (
+        lambda p, c=_c: _pil('RGB').convert('YCbCr').save(p, compression=c),
+        'tif')
+for _m in ('RGB', 'L'):
+    CASES[f'tiff-pil-{_m}-jpeg'] = _save(_m, 'tif', compression='jpeg')
+
 CASES['tiff-np-bigtiff'] = (lambda p: _tiff(p, RGB, 2, 8, big=True,
                                             comp=8, tile=(16, 16)), 'tif')
 CASES['tiff-np-strips-of-5'] = (lambda p: _tiff(p, RGB, 2, 8, comp=32773,
@@ -718,6 +768,12 @@ REFUSED = {
                                                 big=True), 'tif', OSError),
     'tiff-planar-associated-alpha-uncompressed': (lambda p: _tiff(
         p, RGBA, 2, 8, planar=2, extra=(1,)), 'tif', ValueError),
+    # PIL's own reader unpacks uncompressed YCbCr as RGBX, 4 bytes a pixel,
+    # and runs past the file's end
+    'tiff-ycbcr-uncompressed': (lambda p: libtiff_write(
+        p, _YCC, 6, 1, strip=8, subsampling=(2, 2)), 'tif', OSError),
+    'tiff-ycbcr-subsampling-2x4': (lambda p: libtiff_write(
+        p, _YCC, 6, 5, strip=8, subsampling=(2, 4)), 'tif', OSError),
 }
 
 
@@ -747,15 +803,48 @@ def test_unidentified_file_raises_oserror_in_both(tmp_path):
 
 @pytest.mark.parametrize('fmt,kw', [('SGI', {}),
                                     ('QOI', {}),
-                                    ('TIFF', {'compression': 'jpeg'})])
+                                    ('PCX', {})])
 def test_formats_outside_the_slice_name_their_roadmap_entry(tmp_path, fmt,
                                                             kw):
-    """The remaining gap: the reference decodes these (SGI, QOI,
-    JPEG-in-TIFF), the port raises."""
+    """The remaining gap: the reference decodes these (SGI, QOI, PCX), the
+    port raises."""
     path = str(tmp_path / f'img.{fmt.lower()}')
     _pil('RGB').save(path, fmt, **kw)
     assert jtex.load_bitmap(path).shape == (H, W, 3)
     assert ptex.identify(path) == fmt
+    with pytest.raises(NotImplementedError, match=r'item 12\.7'):
+        ptex.load_bitmap(path)
+
+
+def _old_jpeg(path):
+    """A JPEG-in-TIFF whose compression tag says old-style JPEG (6)."""
+    _pil('RGB').save(path, compression='jpeg')
+    with open(path, 'r+b') as f:
+        data = f.read()
+        pos = struct.unpack_from('<I', data, 4)[0]
+        for k in range(struct.unpack_from('<H', data, pos)[0]):
+            e = pos + 2 + 12 * k
+            if struct.unpack_from('<H', data, e)[0] == 259:
+                f.seek(e + 8)
+                f.write(struct.pack('<H', 6))
+
+
+# TIFF layouts the reference opens through PIL that the port leaves
+LEFT = {
+    'old-jpeg': _old_jpeg,
+    'ccitt-group4': lambda p: _pil('1').save(p, compression='group4'),
+    'ccitt-group3': lambda p: _pil('1').save(p, compression='group3'),
+    'cielab': lambda p: _pil('RGB').convert('LAB').save(p),
+    'grey-12-bit': lambda p: _tiff(p, GREY[..., None], 1, 12),
+    'orientation-6': lambda p: _pil('RGB').save(p, tiffinfo={274: 6}),
+}
+
+
+@pytest.mark.parametrize('name', list(LEFT))
+def test_tiff_layouts_left_name_their_roadmap_entry(tmp_path, name):
+    path = str(tmp_path / f'{name}.tif')
+    LEFT[name](path)
+    assert ptex.identify(path) == Image.open(path).format == 'TIFF'
     with pytest.raises(NotImplementedError, match=r'item 12\.7'):
         ptex.load_bitmap(path)
 

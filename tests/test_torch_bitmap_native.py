@@ -3,7 +3,9 @@ g++ at first use) against their plain twins, PIL and the reference.
 
 (a) Each native stage equals its plain twin (``<stage>_plain``, numpy and
 Python) on the same inputs: PNG unfiltering of seeded rows of every
-filter at every pixel size; the JPEG coefficient arrays after every scan
+filter at every pixel size; TIFF's and GIF's LZW of seeded pictures, with
+and without a clear at a full table; WebP's alpha gradient filter; lossless
+JPEG scans at predictors 1-7; the JPEG coefficient arrays after every scan
 of each fixture, then its IDCT, upsampling and colour conversion; WebP
 lossless pixels (with the bit position after them), predictor and
 cross-colour transforms; the lossy frame's Y, U and V planes and their
@@ -13,8 +15,10 @@ at test time by PIL or, for PNG, by numpy with the five filters cycling
 by row) load equal in bits to the reference's ``load_bitmap``. (d) Seeded
 truncations and byte flips of fixtures fail with the plain path's
 exception type or decode to what it decodes, in a process of their own
-(``torch_bitmap_corrupt_worker.py``), so a crash fails one test. A
-failed compile raises with the compiler's message: there is no fallback.
+(``torch_bitmap_corrupt_worker.py``), so a crash fails one test; so do
+seeded cuts and flips of the LZW streams, alpha planes and lossless scans
+that the stages of slice 16 take. A failed compile raises with the
+compiler's message: there is no fallback.
 """
 import hashlib
 import json
@@ -30,7 +34,8 @@ from PIL import Image
 from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import native, texture as ptex
 from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
-from mitsuba_nlvrl_tpu_torch.utils import io as pio, jpeg, vp8, vp8l, webp
+from mitsuba_nlvrl_tpu_torch.utils import (gif, io as pio, jpeg, tiff, vp8,
+                                           vp8l, webp)
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -158,6 +163,123 @@ def test_webp_stages_match_plain(path, monkeypatch):
                                   '_uncross', 'yuv_to_rgb'}
 
 
+def _lzw_tiff(data: bytes, clear_when_full: bool = True) -> bytes:
+    """TIFF LZW codes of ``data``, packed MSB first, the width following
+    the decoder's table as it grows (one code early). With
+    ``clear_when_full`` False no clear is sent once 4,096 entries are
+    defined: coding goes on at 12 bits while the decoder's table grows."""
+    table = {bytes([i]): i for i in range(256)}
+    codes, width, nxt, dsize, first = [(256, 9)], 9, 258, 258, True
+    cur = b''
+
+    def emit(code):
+        nonlocal width, dsize, first
+        codes.append((code, width))
+        dsize += 0 if first else 1
+        first = False
+        if dsize >= (1 << width) - 1 and width < 12:
+            width += 1
+    for v in data:
+        s = cur + bytes([v])
+        if s in table:
+            cur = s
+            continue
+        emit(table[cur])
+        if nxt < 4096:
+            table[s] = nxt
+            nxt += 1
+        if clear_when_full and nxt == 4094:
+            codes.append((256, width))
+            table = {bytes([i]): i for i in range(256)}
+            width, nxt, dsize, first = 9, 258, 258, True
+        cur = bytes([v])
+    emit(table[cur])
+    codes.append((257, width))
+    acc = nacc = 0
+    out = bytearray()
+    for c, n in codes:
+        acc = (acc << n) | c
+        nacc += n
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+@pytest.mark.parametrize('n,full', [(128, True), (256, True), (128, False)])
+def test_tiff_lzw_matches_plain(n, full):
+    """Seeded pictures' LZW streams, clearing at a full table or coding on
+    past it; the stream cut short of, or longer than, what is asked."""
+    data = bitmap_stages.picture(n, n).tobytes()
+    src = _lzw_tiff(data, full)
+    for expect in (len(data), len(data) - 7, len(data) + 100):
+        got = tiff._lzw(src, expect)
+        want = tiff._lzw_plain(src, expect)
+        assert got == want and got == data[:expect]
+    assert tiff._lzw(src[:len(src) // 3], len(data)) == \
+        tiff._lzw_plain(src[:len(src) // 3], len(data))
+
+
+@pytest.mark.parametrize('bits,full', [(8, True), (8, False), (2, True),
+                                       (5, False)])
+def test_gif_lzw_matches_plain(bits, full):
+    from test_torch_bitmap_formats import _lzw_gif
+    n = 160
+    idx = bitmap_stages.picture(n, bits)[..., 0] >> (8 - bits)
+    src = _lzw_gif(idx.reshape(-1), bits, full)
+    for npix in (n * n, n * n - 5, n * n + 9):
+        got = gif._lzw(src, bits, npix)
+        want = gif._lzw_plain(src, bits, npix)
+        assert got.tobytes() == want.tobytes()
+        assert got.tobytes() == idx.astype(np.uint8).tobytes()[:npix]
+
+
+@pytest.mark.parametrize('shape', [(1, 1), (1, 9), (9, 1), (64, 48),
+                                   (256, 256)])
+def test_alpha_gradient_matches_plain(shape):
+    a = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+    got = webp._unfilter_gradient(a)
+    want = webp._unfilter_gradient_plain(a)
+    assert got.dtype == want.dtype == np.uint8
+    assert got.tobytes() == want.tobytes()
+    assert webp._unfilter(a, 3).tobytes() == want.tobytes()
+    for fn in (webp._unfilter_gradient, webp._unfilter_gradient_plain):
+        with pytest.raises(IndexError):
+            fn(a[:0])
+
+
+@pytest.mark.parametrize('psv,rows,pt,chans', [
+    (1, 0, 0, 1), (2, 4, 0, 3), (3, 0, 2, 3), (4, 16, 0, 1), (5, 0, 0, 3),
+    (6, 8, 1, 3), (7, 0, 0, 3)])
+def test_lossless_jpeg_matches_plain(psv, rows, pt, chans, tmp_path,
+                                     monkeypatch):
+    """Predictors 1-7, restart intervals of whole rows, point transforms:
+    the samples of the native scan decoder equal the plain one's, and the
+    file decodes to PIL's bytes."""
+    img = bitmap_stages.picture(128, psv)[:96, :, :chans]
+    path = str(tmp_path / 'lossless.jpg')
+    with open(path, 'wb') as f:
+        f.write(bitmap_stages.jpeg_lossless(
+            img if chans == 3 else img[..., 0], psv, rows, pt))
+    native_fn = jpeg._decode_lossless
+    seen = []
+
+    def both(scan, comps, sel, *rest):
+        twin = [dict(c) for c in comps]
+        jpeg._decode_lossless_plain(scan, twin, sel, *rest)
+        native_fn(scan, comps, sel, *rest)
+        for c, t in zip(comps, twin):
+            assert c['samples'].tobytes() == t['samples'].tobytes()
+        seen.append(len(sel))
+    monkeypatch.setattr(jpeg, '_decode_lossless', both)
+    got = ptex.read_rgb8(path)
+    assert seen == [chans]
+    assert got.tobytes() == _pil_rgb(path).tobytes()
+
+
 # --- (b) every fixture, native stages only --------------------------------
 
 @pytest.mark.parametrize('name', WANT.files)
@@ -200,6 +322,10 @@ SIZE_CASES = {
     'webp_lossy_alph': ('WEBP', {'quality': 80}, 1, 1),
     'webp_lossless': ('WEBP', {'lossless': True}, 0, 1 / 32),
     'png_five_filters': (None, {}, 0, 1),
+    'tiff_lzw_pred2': ('TIFF', {'compression': 'tiff_lzw',
+                                'tiffinfo': {317: 2}}, 0, 1),
+    'gif_adaptive': ('GIF', {}, 0, 1),
+    'tiff_jpeg': ('TIFF', {'compression': 'jpeg', 'quality': 90}, 0, 1),
 }
 
 
@@ -231,9 +357,7 @@ def test_texture_size_matches_reference(case, tmp_path):
 
 # --- (d) corrupt input, in a process of its own ---------------------------
 
-@pytest.mark.parametrize('group', ('png', 'jpeg', 'webp_lossless',
-                                   'webp_lossy'))
-def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
+def _corrupt_cases(group, tmp_path):
     env = dict(os.environ)
     env.pop('PYTHONPATH', None)
     res = subprocess.run(
@@ -241,12 +365,30 @@ def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
          group, str(tmp_path)], capture_output=True, text=True, timeout=120,
         env=env)
     assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
-    cases = json.loads(res.stdout)
+    return json.loads(res.stdout)
+
+
+@pytest.mark.parametrize('group', ('png', 'jpeg', 'webp_lossless',
+                                   'webp_lossy'))
+def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
+    cases = _corrupt_cases(group, tmp_path)
     assert len(cases) == 40
     assert [c for c in cases if c[1] != c[2]] == []
     # the cases reach the decoders: some fail, some decode
     assert any(len(c[2]) == 64 for c in cases)
     assert any(len(c[2]) < 64 for c in cases)
+
+
+@pytest.mark.parametrize('group', ('tiff_lzw', 'gif_lzw', 'alpha_gradient',
+                                   'jpeg_lossless'))
+def test_corrupt_stage_input_fails_as_the_plain_path(group, tmp_path):
+    """An LZW stream, an alpha plane or a lossless scan cut short or with
+    bytes flipped: the native stage raises the plain twin's exception type
+    or returns its bytes."""
+    cases = _corrupt_cases(group, tmp_path)
+    assert len(cases) == 40
+    assert [c for c in cases if c[1] != c[2]] == []
+    assert any(len(c[2]) == 64 for c in cases)
 
 
 # --- no fallback ----------------------------------------------------------
@@ -267,3 +409,29 @@ def test_bitmap_library_raises_with_the_compilers_message(monkeypatch,
         ptex.read_rgb8(path)
     with pytest.raises(RuntimeError, match='bitmap decoders'):
         ptex.read_rgb8(os.path.join(FIXTURES, 'jpeg_420.jpg'))
+
+
+def test_lzw_tiff_of_jpeg_pixels_renders_as_the_jpeg(tmp_path):
+    """``bitmap_stages.tiff_lzw`` writes a JPEG's pixels as an LZW TIFF
+    that PIL and the port read back exactly, and ``cbox_textured`` (16x16,
+    1 spp, on the CPU) renders the same image in every bit from either
+    (the card's ``textured_large`` phase at a smaller size)."""
+    import mitsuba_nlvrl_tpu_torch as P
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
+    jpg = os.path.join(HERE, 'data', 'bitmaps_large', 'jpeg_baseline_512.jpg')
+    pixels = ptex.read_rgb8(jpg)
+    tif = str(tmp_path / 'lzw.tif')
+    with open(tif, 'wb') as f:
+        f.write(bitmap_stages.tiff_lzw(pixels, rows=48))
+    with bitmap_stages.forbid_plain():
+        assert ptex.read_rgb8(tif).tobytes() == pixels.tobytes()
+    assert _pil_rgb(tif).tobytes() == pixels.tobytes()
+    imgs = []
+    for name, bitmap in (('jpeg', jpg), ('tiff', tif)):
+        path = cbox_textured(str(tmp_path / name), spp=1, res=16,
+                             bitmap=bitmap)
+        scene, meta = P.build_scene(load_file(path), device='cpu')
+        assert scene.textures.data.shape[1:3] == (512, 512)
+        imgs.append(P.render(scene, meta, seed=0))
+    assert torch.equal(imgs[0], imgs[1])

@@ -448,14 +448,14 @@ def test_cpu_parallel_and_jpeg_load_no_jax(steps):
 
 
 def test_cpu_bitmap_formats_load_no_pil(steps):
-    """Slices 13 and 14 (the BMP, TGA, PNM, GIF, TIFF, progressive and
-    CMYK JPEG and WebP decoders behind ``texture.read_rgb8``) decode every
-    committed fixture to PIL's stored bytes without PIL, JAX or the
-    reference package loaded."""
+    """Slices 13, 14 and 16 (the BMP, TGA, PNM, GIF, TIFF with JPEG-in-TIFF
+    and YCbCr, progressive and CMYK JPEG and WebP decoders behind
+    ``texture.read_rgb8``) decode every committed fixture to PIL's stored
+    bytes without PIL, JAX or the reference package loaded."""
     rec = _step(steps, 'bitmap_formats', (
         'utils.bmp', 'utils.tga', 'utils.pnm', 'utils.gif', 'utils.tiff',
         'utils.jpeg', 'utils.webp', 'utils.vp8', 'utils.vp8l'))
-    assert rec['out']['files'] >= 54
+    assert rec['out']['files'] >= 67
 
 
 def test_bvh_builder_raises_with_the_compilers_message(monkeypatch,

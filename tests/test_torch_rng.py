@@ -59,3 +59,50 @@ def test_sampler_stream_matches():
     uj, _ = fj.next_1d()
     ut, _ = ft.next_1d()
     assert np.asarray(uj).tobytes() == ut.numpy().tobytes()
+
+
+def _reference_words(key, counters):
+    """The reference's threefry words of 64-bit element counters: the
+    partitionable threefry hashes each counter as its (high, low) words."""
+    from jax.extend.random import threefry_2x32
+    c = counters.reshape(-1).astype(np.uint64)
+    hi, lo = (c >> np.uint64(32)).astype(np.uint32), c.astype(np.uint32)
+    k = jnp.asarray(key.numpy().astype(np.uint32))
+    out = np.asarray(threefry_2x32((k[0], k[1]), jnp.concatenate(
+        [jnp.asarray(hi), jnp.asarray(lo)]))).astype(np.uint64)
+    return out[:c.size], out[c.size:]
+
+
+def _uniform_from_words(a, b, dtype):
+    """jax.random.uniform's float of an element's two threefry words."""
+    if dtype == torch.float64:
+        m = ((a << np.uint64(32)) | b) >> np.uint64(12)
+        return (m | np.uint64(0x3FF0000000000000)).view(np.float64) - 1.0
+    m = ((a ^ b) >> np.uint64(9)).astype(np.uint32)
+    return (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_draws_past_2_32_elements_match_threefry(dtype):
+    """A draw at lanes of a wavefront whose draw holds more than 2^32
+    elements ((8, 2^28, 3): counters up to 6,442,450,943) takes the
+    reference's bits; below 2^32 the same words give jax's own draw."""
+    total, ids = 2 ** 28, np.array([0, 1, 2 ** 28 - 1], np.int64)
+    key = rng.fold_in(rng.PRNGKey(7), 3)
+    got = rng.uniform(key, (8, ids.size, 3), dtype=dtype, axis=1,
+                      lanes=rng.Lanes(torch.as_tensor(ids), total)).numpy()
+    counters = (np.arange(8)[:, None, None] * (total * 3)
+                + ids[None, :, None] * 3 + np.arange(3)[None, None])
+    assert counters.max() == 24 * 2 ** 28 - 1 > 2 ** 32
+    want = _uniform_from_words(*_reference_words(key, counters), dtype)
+    assert got.dtype == want.dtype
+    assert got.tobytes() == want.reshape(got.shape).tobytes()
+    with jax.enable_x64(dtype == torch.float64):
+        small = np.asarray(jax.random.uniform(
+            jax.random.PRNGKey(5), (4, 5),
+            jnp.float64 if dtype == torch.float64 else jnp.float32))
+    ref = _uniform_from_words(*_reference_words(rng.PRNGKey(5),
+                                                np.arange(20)), dtype)
+    assert small.reshape(-1).tobytes() == ref.tobytes()
+    assert rng.uniform(rng.PRNGKey(5), (4, 5), dtype=dtype).numpy() \
+        .tobytes() == small.tobytes()

@@ -4,12 +4,15 @@ a decoder that crashed would end this process, not a test worker.
 
     python tests/torch_bitmap_corrupt_worker.py GROUP WORKDIR [CASES [LIB]]
 
-GROUP is a key of ``GROUPS``. Each of its CASES cases (40) is one of the
-group's fixtures cut short (even cases) or with one to three bytes
-flipped (odd cases), seeded. A PNG's cut or flips are made in its image
-data inside the zlib stream, which is compressed again: cut or flipped in
-the file, nearly every case would stop at zlib's checksum, before the row
-filters. The decoders are loaded without the port's renderer (no torch),
+GROUP is a key of ``GROUPS`` or ``STAGE_GROUPS``. Each of its CASES cases
+(40) is one of the group's fixtures cut short (even cases) or with one to
+three bytes flipped (odd cases), seeded. A stage group cuts or flips the
+input of one native stage instead (an LZW stream, a lossless JPEG scan, an
+alpha plane's rows), as the decode of its fixtures hands it over, and
+calls the stage and its plain twin on it. A PNG's cut or flips are made
+in its image data inside the zlib stream, which is compressed again: cut
+or flipped in the file, nearly every case would stop at zlib's checksum,
+before the row filters. The decoders are loaded without the port's renderer (no torch),
 so the process starts in a fraction of a second. Prints one JSON list:
 [case, native outcome, plain outcome] for each case, an outcome being
 the exception's type name or a digest of what the decode returned.
@@ -17,6 +20,7 @@ LIB loads another build of the native sources in place of the one built
 at first use, such as one compiled with ``-fsanitize=address,undefined``
 (run then with the sanitizers' runtimes in ``LD_PRELOAD``).
 """
+import copy
 import hashlib
 import json
 import os
@@ -45,6 +49,22 @@ GROUPS = {
 }
 
 
+# group -> (utils module, stage, decoder of the fixtures, fixtures: file
+# names, or (psv, restart rows, point transform, channels) of a lossless
+# JPEG written here)
+STAGE_GROUPS = {
+    'tiff_lzw': ('tiff', '_lzw', 'read_tiff', (
+        'picture64.tif', 'tiff_lzw_pred2_rgb.tif', 'tiff_lzw_palette.tif',
+        'tiff_ycbcr22_lzw_blackwhite.tif')),
+    'gif_lzw': ('gif', '_lzw', 'read_gif', (
+        'picture64.gif', 'gif_interlaced_transparent.gif')),
+    'alpha_gradient': ('webp', '_unfilter_gradient', 'read_webp', (
+        'webp_alph_lossless_gradient.webp', 'webp_alph_raw_gradient.webp')),
+    'jpeg_lossless': ('jpeg', '_decode_lossless', 'read_jpeg_mode', (
+        (1, 2, 0, 1), (4, 0, 0, 3), (7, 3, 1, 3), (5, 0, 0, 1))),
+}
+
+
 def _load_decoders(library):
     """The port's package as a bare namespace, so that importing its
     decoders does not import its renderer; ``library`` (a path, or None)
@@ -65,14 +85,94 @@ def _outcome(fn, path) -> str:
         out = fn(path)
     except Exception as e:  # noqa: BLE001 - the outcome is the type
         return type(e).__name__
+    return _digest(out)
+
+
+def _digest(out) -> str:
     h = hashlib.sha256()
-    for part in out if isinstance(out, tuple) else (out,):
+    for part in out if isinstance(out, (tuple, list)) else (out,):
         if isinstance(part, np.ndarray):
             h.update(f'{part.dtype}{part.shape}'.encode())
             h.update(np.ascontiguousarray(part).tobytes())
         else:
             h.update(repr(part).encode())
     return h.hexdigest()
+
+
+def _stage_inputs(import_module, stages, group, workdir) -> tuple:
+    """The arguments of each call of the group's stage while its fixtures
+    decode, the stage and its plain twin."""
+    module, stage, decoder, fixtures = STAGE_GROUPS[group]
+    mod = import_module(f'mitsuba_nlvrl_tpu_torch.utils.{module}')
+    calls, real = [], getattr(mod, stage)
+
+    def record(*args):
+        calls.append(copy.deepcopy(args))
+        return real(*args)
+    setattr(mod, stage, record)
+    try:
+        for k, f in enumerate(fixtures):
+            if isinstance(f, tuple):
+                psv, rows, pt, chans = f
+                img = stages.picture(24, k)[:17, :, :chans]
+                path = os.path.join(workdir, f'lossless_{k}.jpg')
+                with open(path, 'wb') as fh:
+                    fh.write(stages.jpeg_lossless(
+                        img if chans == 3 else img[..., 0], psv, rows, pt))
+            else:
+                path = os.path.join(FIXTURES, f)
+            getattr(import_module(
+                f'mitsuba_nlvrl_tpu_torch.utils.{module}'), decoder)(path)
+    finally:
+        setattr(mod, stage, real)
+    return calls, getattr(mod, stage), getattr(mod, stage + '_plain')
+
+
+def _corrupt(arg, case: int, rng):
+    """An LZW stream or scan cut short or with bytes flipped; an alpha
+    plane's rows cut or its values flipped."""
+    if isinstance(arg, np.ndarray):
+        a = arg.copy()
+        if case % 2 == 0:
+            return a[:int(rng.integers(0, a.shape[0]))]
+        for _ in range(int(rng.integers(1, 4))):
+            a.reshape(-1)[int(rng.integers(0, a.size))] ^= np.uint8(
+                rng.integers(1, 256))
+        return a
+    data = bytearray(arg)
+    if case % 2 == 0:
+        return bytes(data[:int(rng.integers(0, len(data)))])
+    for _ in range(int(rng.integers(1, 4))):
+        data[int(rng.integers(0, len(data)))] ^= int(rng.integers(1, 256))
+    return bytes(data)
+
+
+def _stage_outcome(fn, args) -> str:
+    """The exception's type name, or a digest of the stage's result (of
+    the samples it stores in the components, for a lossless scan)."""
+    args = copy.deepcopy(args)
+    try:
+        out = fn(*args)
+    except Exception as e:  # noqa: BLE001 - the outcome is the type
+        return type(e).__name__
+    if out is None:                     # _decode_lossless fills comps
+        out = [c.get('samples') for c in args[1]]
+    return _digest(out)
+
+
+def stage_main(group: str, workdir: str, cases: int = CASES,
+               library: str = None) -> None:
+    import_module, stages = _load_decoders(library)
+    calls, native, plain = _stage_inputs(import_module, stages, group,
+                                         workdir)
+    rng = np.random.default_rng(sum(map(ord, group)))
+    results = []
+    for case in range(cases):
+        args = list(calls[case % len(calls)])
+        args[0] = _corrupt(args[0], case, rng)
+        results.append([case, _stage_outcome(native, args),
+                        _stage_outcome(plain, args)])
+    print(json.dumps(results))
 
 
 def _png_with_data(png: bytes, data: bytes) -> bytes:
@@ -142,5 +242,6 @@ def main(group: str, workdir: str, cases: int = CASES,
 
 
 if __name__ == '__main__':
-    main(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:4]),
-         *sys.argv[4:5])
+    run = stage_main if sys.argv[1] in STAGE_GROUPS else main
+    run(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:4]),
+        *sys.argv[4:5])
