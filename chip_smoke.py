@@ -151,15 +151,27 @@ pixels a third time, as an LZW TIFF written here, equal in bits and rays
 to the JPEG's render; and ``rng_wide`` draws at lanes of a wavefront past
 2^32 elements on the card, equal in bits to the CPU's draw, in float32
 and float64.
-The CPU halves of the two-pass checks against the CPU, and of the two
-volumetric ones, run in one spawned worker process beside the card's
-phases, which the script ends on every exit. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
+Slice 17 (the rest of TIFF: CCITT, old-style JPEG, CIELab, 12-bit grey,
+every orientation, the last YCbCr layouts; DDS, QOI, SGI and PCX):
+``bitmap_decode`` also holds their fixtures to PIL's bytes and a 2,048^2
+G4 TIFF and two 2,048^2 DDS files of seeded random BC1 and BC7 blocks
+(written here) to PIL's digests, with host milliseconds per megapixel;
+``textured_formats`` adds QOI, SGI, PCX and uncompressed DDS copies of the
+picture.
+The CPU halves of every check against the CPU run in two spawned worker
+processes beside the card's phases (their scene files written before
+they start), the CLI renders in subprocesses beside the phases after each
+slice's last timed kernel calls, and the regeneration check's card
+renders in a spawned process of their own; the script ends them all on
+every exit. Each phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero. Without a CUDA device it
 exits non-zero at once and prints no result. It imports neither JAX nor
 the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -536,16 +548,18 @@ def render_rays(torch, kern, calls, bw, fl, stride: int = 1,
             'max_abs_err': worst, 'timed_every': stride, 'calls': recs}
 
 
-def card_vs_cpu(mnt, compare, desc, spp, scale=None, half=None) -> tuple:
+def card_vs_cpu(mnt, compare, desc, spp, scale=None, half=None,
+                env=()) -> tuple:
     """One scene rendered on the card and on the CPU from one seed: (the
     numbers of ``compare.agreement``, gated against ``scale`` where it is
-    given, the CPU's image). The CPU's render comes from the worker where
-    it was submitted (``start_cpu_halves``); ``half``, where given, gets
-    whether it did and the seconds spent waiting for it."""
+    given, the CPU's image). The CPU's render comes from a worker where
+    it was submitted (``start_cpu_halves``, under ``env``); ``half``,
+    where given, gets whether it did and the seconds spent waiting for
+    it."""
+    take = claim_cpu_half(cpu_render_half, desc, spp, env)
     sg, mg = mnt.build_scene(desc)
     img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
-    (img_c, passes_c, rays_c), info = take_cpu_half(cpu_render_half, desc,
-                                                    spp)
+    (img_c, passes_c, rays_c), info = take()
     if half is not None:
         half.update(info)
     return compare.agreement(img_g, img_c, passes_c, rays_g, rays_c,
@@ -559,10 +573,9 @@ def double_card_vs_cpu(mnt, compare, desc, spp) -> dict:
     the same two and the means' relative difference for the card's
     float32 render of the same scene against the CPU's float64 one."""
     import numpy as np
+    take = claim_cpu_half(cpu_render_half, desc, spp)
     sg, mg = mnt.build_scene(desc)
-    sc, mc = mnt.build_scene(desc, device='cpu')
     img_g, _, rays_g = compare.render_with_passes(sg, mg, 0, spp)
-    img_c, passes_c, rays_c = compare.render_with_passes(sc, mc, 0, spp)
     s32, m32 = mnt.build_scene({**desc, 'double': False})
     img_32, _, _ = compare.render_with_passes(s32, m32, 0, spp)
 
@@ -571,8 +584,10 @@ def double_card_vs_cpu(mnt, compare, desc, spp) -> dict:
                                                         + 1e-12)
         return rel.max(axis=-1)
 
+    (img_c, passes_c, rays_c), half = take()
     rel_g, rel_32 = pixel_rel(img_g), pixel_rel(img_32)
     return {**compare.agreement(img_g, img_c, passes_c, rays_g, rays_c),
+            **half,
             'dtype': str(img_g.dtype), 'cpu_dtype': str(img_c.dtype),
             'pixels_within_rtol': float((rel_g <= DOUBLE_RTOL).mean()),
             'max_pixel_rel': float(rel_g.max()),
@@ -583,21 +598,56 @@ def double_card_vs_cpu(mnt, compare, desc, spp) -> dict:
                                       / abs(img_c.mean()))}
 
 
-# The CPU halves of the two-pass checks against the CPU (their light pass
-# and camera passes on the CPU, 12-46 s each, PERF.md §4) and of the two
-# volumetric checks (their CPU renders) run in one spawned worker process
-# beside the card's phases: ``start_cpu_halves`` submits them,
-# ``take_cpu_half`` takes one from there by the pickled (function,
-# description, spp), and computes one in process that was not submitted.
-# ``stop_cpu_halves`` ends the worker.
+# The CPU halves of the checks against the CPU (every render, light pass
+# and gradient that a check computes on the CPU, 12-46 s for the largest,
+# PERF.md §4) run in spawned worker processes beside the card's phases:
+# ``start_cpu_halves`` submits them, ``claim_cpu_half`` takes one from
+# there by the pickled (function, description, spp, environment), and
+# computes one in process that was not submitted. ``stop_cpu_halves`` ends
+# the workers. Scenes that read files (scene files, meshes, bitmaps,
+# measured BSDFs, conductor curves) are written into one directory before
+# the workers start (``prepare_check_files``), and the phases check those
+# same descriptions.
 _cpu_pool = None
 _cpu_jobs = {}
-CPU_WORKER_THREADS = 6      # of the card machine's 8 cores
+_PREP = {}
+CPU_WORKERS = 2
 
 
-def _cpu_worker_init() -> None:
+def cpu_worker_threads() -> int:
+    """Torch threads a worker: the host's cores but one (the main
+    process's) shared between the workers, oversubscribing none."""
+    return max(1, ((os.cpu_count() or 2) - 1) // CPU_WORKERS)
+
+
+def _cpu_worker_init(threads: int) -> None:
+    """A worker's torch threads, and a lower priority than the main
+    process's host work, which paces the card."""
     import torch
-    torch.set_num_threads(CPU_WORKER_THREADS)
+    os.nice(10)
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def environ(env):
+    """The variables ``env`` ((name, value) pairs) set in the environment
+    for the block, then restored."""
+    saved = {k: os.environ.get(k) for k, _ in env}
+    os.environ.update(dict(env))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _in_env(fn, desc, spp, env) -> tuple:
+    """``fn(desc, spp)`` under ``environ(env)``."""
+    with environ(env):
+        return fn(desc, spp)
 
 
 def nlvrl_cpu_half(desc, spp) -> tuple:
@@ -623,31 +673,90 @@ def cpu_render_half(desc, spp) -> tuple:
     return compare.render_with_passes(sc, mc, 0, spp)
 
 
+def _job_key(fn, desc, spp, env) -> bytes:
+    return pickle.dumps((fn.__name__, desc, spp, tuple(env)))
+
+
 def start_cpu_halves(jobs) -> None:
-    """Submit ``jobs`` ((function, description, spp), in the order the
-    phases reach them) to one spawned worker process."""
+    """Submit ``jobs`` ((function, description, spp[, environment]), in
+    the order the phases reach them) to ``CPU_WORKERS`` spawned worker
+    processes of ``cpu_worker_threads`` torch threads each."""
     global _cpu_pool
     import multiprocessing
     _cpu_pool = multiprocessing.get_context('spawn').Pool(
-        1, initializer=_cpu_worker_init)
-    for fn, desc, spp in jobs:
-        _cpu_jobs[pickle.dumps((fn.__name__, desc, spp))] = \
-            _cpu_pool.apply_async(fn, (desc, spp))
+        CPU_WORKERS, initializer=_cpu_worker_init,
+        initargs=(cpu_worker_threads(),))
+    for fn, desc, spp, *env in jobs:
+        env = tuple(env[0]) if env else ()
+        _cpu_jobs[_job_key(fn, desc, spp, env)] = _cpu_pool.apply_async(
+            _in_env, (fn, desc, spp, env))
 
 
-def take_cpu_half(fn, desc, spp) -> tuple:
-    """(``fn(desc, spp)``, taken from the worker where it was submitted
-    and computed here otherwise, and {'cpu_half_in_worker': whether it
-    was submitted, 'cpu_half_wait_s': the seconds spent here for it})."""
+def claim_cpu_half(fn, desc, spp, env=()):
+    """Claim ``fn(desc, spp)`` (under ``env``) before the card's half
+    runs: returns a function that gives (the result, taken from the
+    worker where it was submitted and computed here otherwise, and
+    {'cpu_half_in_worker': whether it was submitted, 'cpu_half_wait_s':
+    the seconds spent here for it})."""
+    job = _cpu_jobs.pop(_job_key(fn, desc, spp, env), None)
+
+    def take():
+        t0 = time.time()
+        out = _in_env(fn, desc, spp, env) if job is None else job.get()
+        return out, {'cpu_half_in_worker': job is not None,
+                     'cpu_half_wait_s': time.time() - t0}
+    return take
+
+
+def take_cpu_half(fn, desc, spp, env=()) -> tuple:
+    """``claim_cpu_half(...)()``: the result and where it came from."""
+    return claim_cpu_half(fn, desc, spp, env)()
+
+
+# Card checks that need nothing of the phases before them run in one
+# spawned process of their own beside the phases (started once the phases
+# that time the kernel, which they would share the card with, are past):
+# ``start_card_job`` submits one by name, ``take_card_job`` waits for it.
+_card_pool = None
+_card_jobs = {}
+
+
+def _card_job(name: str):
+    return globals()[name]()
+
+
+def start_card_job(name: str) -> None:
+    global _card_pool
+    import concurrent.futures
+    import multiprocessing
+    if _card_pool is None:
+        _card_pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context('spawn'))
+    _card_jobs[name] = (_card_pool.submit(_card_job, name), time.time())
+
+
+def take_card_job(name: str) -> tuple:
+    """(the job's result, {'card_job_s': seconds since it was submitted,
+    'card_job_wait_s': the seconds spent here for it})."""
+    future, t_submit = _card_jobs.pop(name)
     t0 = time.time()
-    job = _cpu_jobs.pop(pickle.dumps((fn.__name__, desc, spp)), None)
-    out = fn(desc, spp) if job is None else job.get()
-    return out, {'cpu_half_in_worker': job is not None,
-                 'cpu_half_wait_s': time.time() - t0}
+    out = future.result()
+    return out, {'card_job_s': time.time() - t_submit,
+                 'card_job_wait_s': time.time() - t0}
+
+
+def stop_card_jobs() -> None:
+    global _card_pool
+    if _card_pool is not None:
+        for proc in list(getattr(_card_pool, '_processes', {}).values()):
+            proc.terminate()
+        _card_pool.shutdown(wait=False, cancel_futures=True)
+        _card_pool = None
+    _card_jobs.clear()
 
 
 def stop_cpu_halves() -> list:
-    """End the worker; returns the submitted halves no check took."""
+    """End the workers; returns the submitted halves no check took."""
     global _cpu_pool
     if _cpu_pool is not None:
         _cpu_pool.terminate()
@@ -750,14 +859,142 @@ def hetvol_spectral_desc() -> dict:
     return desc
 
 
+def cbox_check_desc() -> dict:
+    """The 64x64 Cornell box of ``card_vs_cpu`` (4 spp, ``path``)."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    return cornell_box(spp=4, res=64,
+                       integrator={'type': 'path', 'max_depth': 8})
+
+
+def meter_desc(kind) -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    d = cornell_box(spp=64, res=1)
+    d['sensor'] = dict(d['sensor'], type=kind)
+    return d
+
+
+def prepare_check_files(prep: str) -> None:
+    """Write the files of the checks against the CPU that read files into
+    ``prep`` and keep their descriptions in ``_PREP``: ``cbox_mesh`` cut
+    to 64x64, 2 spp, ``CUT_DEPTH``; ``cbox_textured`` and ``env_spheres``
+    at 64x64, 4 spp; ``cbox_spectral`` at 64x64, 4 spp (its conductor's
+    curves, which the polarized checks read too, in ``ior_dir``);
+    ``cbox_measured`` at 64x64, 2 spp, and ``cbox_measured_polarized``'s
+    components 0 and 1."""
+    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        cbox_measured, cbox_measured_polarized, cbox_mesh, cbox_spectral,
+        cbox_textured, env_spheres)
+    mesh = load_file(cbox_mesh(os.path.join(prep, 'mesh'), subdiv=5,
+                               spp=MESH_SPP, res=512, max_depth=8))
+    mesh['sensor']['film'].update(width=64, height=64)
+    mesh['sensor']['sampler']['sample_count'] = 2
+    mesh['integrator']['max_depth'] = CUT_DEPTH
+    sdir = os.path.join(prep, 'spectral64')
+    spectral = load_file(cbox_spectral(sdir, spp=4, res=64, max_depth=8))
+    spectral['spectral'] = True
+    pdir = os.path.join(prep, 'pol64')
+    _PREP.update(
+        mesh64=mesh, spectral64=spectral, ior_dir=sdir,
+        textured64=load_file(cbox_textured(
+            os.path.join(prep, 'textured64'), spp=4, res=64)),
+        env64=env_spheres(os.path.join(prep, 'env64'), 64, 64, 4),
+        measured64=load_file(cbox_measured(
+            os.path.join(prep, 'measured64'), spp=2, res=64, max_depth=8)),
+        **{f'measured_pol64_s{c}': cbox_measured_polarized(
+            pdir, 64, 2, c, max_depth=CUT_DEPTH) for c in (0, 1)})
+
+
+def ior_env() -> tuple:
+    """The environment of the checks that read the named conductor."""
+    return (('MNT_IOR_DIR', _PREP['ior_dir']),)
+
+
+REGEN_ENV = (('MNT_REGEN', '1'),)
+
+
+def item7_check_cases() -> tuple:
+    """``item7_checks``' renders against the CPU: (name, description,
+    spp)."""
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cornell_box
+    return (
+        ('cbox_textured', _PREP['textured64'], 4),
+        ('env_spheres', _PREP['env64'], 4),
+        ('direct', cornell_box(spp=4, res=64,
+                               integrator={'type': 'direct'}), 4),
+        ('depth', cornell_box(spp=2, res=64,
+                              integrator={'type': 'depth'}), 2),
+        ('radiancemeter', meter_desc('radiancemeter'), 64),
+        ('irradiancemeter', meter_desc('irradiancemeter'), 64))
+
+
+def spot_directional_desc() -> dict:
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_spot_directional
+    return cbox_spot_directional(64, 32, 2)
+
+
+def item8_check_cases() -> tuple:
+    """``item8_checks``' renders against the CPU: (name, description,
+    spp, the name of the check whose CPU image scales its gates or None,
+    environment)."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
+        SPECTRAL_CONDUCTOR, cbox_polarized, cornell_box)
+    ior = ior_env()
+    return (
+        ('cbox_spectral', _PREP['spectral64'], 4, None, ior),
+        ('cbox_polarized_s0', cbox_polarized(
+            64, 2, 0, conductor=SPECTRAL_CONDUCTOR), 2, None, ior),
+        ('cbox_polarized_s1', cbox_polarized(
+            64, 2, 1, conductor=SPECTRAL_CONDUCTOR), 2,
+         'cbox_polarized_s0', ior),
+        ('cbox_spectral_polarized_s0', cbox_polarized(
+            64, 2, 0, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2, None,
+         ior),
+        ('cbox_spectral_polarized_s3', cbox_polarized(
+            64, 2, 3, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2,
+         'cbox_spectral_polarized_s0', ior),
+        *((f'aov_{kind}', cornell_box(spp=2, res=64, integrator={
+            'type': 'aov', 'aovs': f'x:{kind}'}), 2, np.ones((64, 64, 3)),
+           ()) for kind in ('sh_normal', 'position', 'uv')),
+        ('moment_path', cornell_box(spp=4, res=64, integrator={
+            'type': 'moment', 'integrator': {'type': 'path',
+                                             'max_depth': 8}}), 4, None, ()),
+        ('albedo_grid', albedo_grid_desc(), 2, None, ()),
+        ('regen_fog', cornell_box(
+            spp=2, res=64, medium={'type': 'homogeneous', 'sigma_t': 0.5,
+                                   'albedo': 0.9},
+            integrator={'type': 'volpath', 'max_depth': 8}), 2, None,
+         REGEN_ENV))
+
+
+def item10_check_cases() -> tuple:
+    """``item10_checks``' renders against the CPU from files: (name,
+    description, spp, the name of the check whose CPU image scales its
+    gates or None)."""
+    return (('cbox_measured', _PREP['measured64'], 2, None),
+            ('cbox_measured_polarized_s0', _PREP['measured_pol64_s0'], 2,
+             None),
+            ('cbox_measured_polarized_s1', _PREP['measured_pol64_s1'], 2,
+             'cbox_measured_polarized_s0'))
+
+
+def double_check_desc() -> dict:
+    desc = cbox_check_desc()
+    desc['double'] = True
+    return desc
+
+
 def cpu_half_jobs() -> list:
-    """The worker's jobs, in the order the phases reach them: the CPU
-    renders of the volumetric checks, the two-pass checks against the
-    CPU (each at 2 spp) and of the materials, albedo-grid and spectral
-    volumetric checks, and the CPU gradients of ``autodiff_checks``. Each
-    scene is procedural: it needs no file or variable of the
-    environment that a phase makes."""
-    return [*((cpu_render_half, d, spp) for _, d, spp in vol_check_cases()),
+    """The workers' jobs, in the order the phases reach them: the CPU
+    halves of ``card_vs_cpu`` and ``mesh_card_vs_cpu``, of the volumetric
+    checks, the two-pass checks (each at 2 spp), the materials checks,
+    slice 7's, 8's and 10's checks and the CPU gradients of
+    ``autodiff_checks``. A scene that reads files reads them from
+    ``prepare_check_files``' directory."""
+    return [(cpu_render_half, cbox_check_desc(), 4),
+            (cpu_render_half, _PREP['mesh64'], 2),
+            *((cpu_render_half, d, spp) for _, d, spp in vol_check_cases()),
             *((nlvrl_cpu_half, d, 2) for d in (
                 nlvrl_check_desc('vrl'), nlvrl_check_desc('photonmapper'))),
             (cpu_render_half, materials_check_desc(), 4),
@@ -765,9 +1002,15 @@ def cpu_half_jobs() -> list:
                 materials_pm_check_desc(),
                 *(option_desc(o, hg, c, 64, 32, 1000)
                   for _, o, hg, c in option_cases()))),
-            (cpu_render_half, albedo_grid_desc(), 2),
+            *((cpu_render_half, d, spp) for _, d, spp in item7_check_cases()),
+            (nlvrl_cpu_half, spot_directional_desc(), 2),
+            *((cpu_render_half, d, spp, env)
+              for _, d, spp, _, env in item8_check_cases()),
             *((cpu_grad_half, (desc, keys), 1)
               for _, desc, keys, _ in autodiff_cases()),
+            *((cpu_render_half, d, spp)
+              for _, d, spp, _ in item10_check_cases()),
+            (cpu_render_half, double_check_desc(), 4),
             (cpu_render_half, hetvol_spectral_desc(), HETVOL_CHECK_SPP),
             (nlvrl_cpu_half, nlvrl_check_desc('vrl', spectral=True), 2)]
 
@@ -966,7 +1209,6 @@ def item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir) -> dict:
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (cbox_textured,
                                                         env_spheres)
-    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
     out = {}
 
     # --- cbox_textured: a scene file with bitmaps, 512x512, 16 spp ------
@@ -992,30 +1234,12 @@ def item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir) -> dict:
           'max_depth': 8, 'scene': 'cbox_textured', **rec})
     assert rec['launches'] > 0 and rec['finite'], rec
     assert img_np.shape == (512, 512, 3) and 0.01 < rec['mean'] < 10.0
-    exr = os.path.join(workdir, 'textured.exr')
-    wall, cli_out = run_cli([path, '-o', exr, '-v'], timeout=400)
-    stats = json.loads([x for x in cli_out.splitlines()
-                        if x.startswith('[stats] ')][0][len('[stats] '):])
-    im, names = read_exr(exr)
-    cli_img = im[..., [names.index(c) for c in 'RGB']]
-    emit({'phase': 'textured_cli', 'process_wall_s': wall,
-          'render_s': stats['render_s'], 'rays': stats['rays'],
-          'mrays_per_s': stats['mrays_per_s'],
-          'launches': stats['kernel_launches'],
-          'host_syncs': stats['host_syncs'],
-          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes(),
-          'finite': bool(np.isfinite(cli_img).all()),
-          'mean': float(cli_img.mean())})
-    # the same scene file, seed and device: the same image in every bit
-    assert cli_img.tobytes() == img_np.tobytes(), \
-        "the CLI's EXR differs from the in-process render"
-    assert stats['rays'] == rec['rays']
     out.update(launches_textured=rec['launches'],
-               launches_textured_cli=stats['kernel_launches'],
                textured_ms=own['ms_per_launch'],
                textured_plain_ms=own['plain_ms_per_launch'],
                textured_bound_ms=own['bound_ms_per_launch'],
                max_abs_err=own['max_abs_err'])
+    textured_img, textured_rays = img_np, rec['rays']
     del scene
 
     # --- env_spheres: built in process, 512x512, 16 spp ---------------
@@ -1030,6 +1254,10 @@ def item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir) -> dict:
           'n_tris': emeta.n_tris, 'env_map': list(
               escene.emitters.env_map.shape),
           'warp_levels': len(escene.emitters.env_warp.levels), **eown})
+    # the CLI on the textured file renders beside the phases below (after
+    # the kernel's timed calls, which it would share the card with)
+    exr = os.path.join(workdir, 'textured.exr')
+    textured_cli = start_cli([path, '-o', exr, '-v'], timeout=400)
     del calls
     rec, eimg = timed_render(torch, mnt, kern, sync, escene, emeta, 16)
     emit({'phase': 'env_render', 'res': 512, 'spp': 16, 'max_depth': 8,
@@ -1043,6 +1271,9 @@ def item7_phases(torch, mnt, kern, compare, sync, bw, fl, workdir) -> dict:
     del escene
 
     item7_checks(torch, mnt, compare, workdir)
+    stats = cli_check('textured_cli', textured_cli, exr, textured_img,
+                      textured_rays)
+    out['launches_textured_cli'] = stats['kernel_launches']
     return out
 
 
@@ -1055,31 +1286,15 @@ def item7_checks(torch, mnt, compare, workdir) -> None:
     equal in bits, with the card's host reads of the cycle walk."""
     from mitsuba_nlvrl_tpu_torch.core import rng, sync
     from mitsuba_nlvrl_tpu_torch.sampler import film_jitter
-    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        cbox_spot_directional, cbox_textured, cornell_box, env_spheres)
 
-    def meter(kind):
-        d = cornell_box(spp=64, res=1)
-        d['sensor'] = dict(d['sensor'], type=kind)
-        return d
-    checks = (
-        ('cbox_textured', load_file(cbox_textured(
-            os.path.join(workdir, 'textured64'), spp=4, res=64)), 4),
-        ('env_spheres', env_spheres(os.path.join(workdir, 'env64'), 64, 64,
-                                    4), 4),
-        ('direct', cornell_box(spp=4, res=64,
-                               integrator={'type': 'direct'}), 4),
-        ('depth', cornell_box(spp=2, res=64,
-                              integrator={'type': 'depth'}), 2),
-        ('radiancemeter', meter('radiancemeter'), 64),
-        ('irradiancemeter', meter('irradiancemeter'), 64))
-    for name, desc, spp in checks:
-        agree, _ = card_vs_cpu(mnt, compare, desc, spp)
-        emit({'phase': 'item7_checks', 'check': name, 'spp': spp, **agree})
+    for name, desc, spp in item7_check_cases():
+        half = {}
+        agree, _ = card_vs_cpu(mnt, compare, desc, spp, half=half)
+        emit({'phase': 'item7_checks', 'check': name, 'spp': spp, **agree,
+              **half})
         compare.check(agree)
     agree, own_maps = nlvrl_card_vs_cpu(mnt, compare,
-                                        cbox_spot_directional(64, 32, 2), 2)
+                                        spot_directional_desc(), 2)
     emit({'phase': 'item7_checks', 'check': 'photonmapper_spot_directional',
           'res': [64, 32], 'spp': 2, **agree, 'own_maps': own_maps})
     compare.check(agree)
@@ -1127,7 +1342,6 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (
         SPECTRAL_CONDUCTOR, cbox_polarized, cbox_spectral, hetvol_box,
         with_component)
-    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
     out = {'max_abs_err': 0.0}
 
     def kernel_numbers(tag, own):
@@ -1159,25 +1373,8 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
           'scene': 'cbox_spectral', **rec})
     assert rec['launches'] > 0 and rec['finite'], rec
     assert img_np.shape == (512, 512, 3) and 0.01 < rec['mean'] < 10.0
-    exr = os.path.join(workdir, 'spectral.exr')
-    wall, cli_out = run_cli([path, '-o', exr, '--spectral', '-v'],
-                            timeout=400)
-    stats = json.loads([x for x in cli_out.splitlines()
-                        if x.startswith('[stats] ')][0][len('[stats] '):])
-    im, names = read_exr(exr)
-    cli_img = im[..., [names.index(c) for c in 'RGB']]
-    emit({'phase': 'spectral_cli', 'process_wall_s': wall,
-          'render_s': stats['render_s'], 'rays': stats['rays'],
-          'mrays_per_s': stats['mrays_per_s'],
-          'launches': stats['kernel_launches'],
-          'host_syncs': stats['host_syncs'],
-          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes(),
-          'mean': float(cli_img.mean())})
-    assert cli_img.tobytes() == img_np.tobytes(), \
-        "the CLI's spectral EXR differs from the in-process render"
-    assert stats['rays'] == rec['rays']
-    out.update(launches_spectral=rec['launches'],
-               launches_spectral_cli=stats['kernel_launches'])
+    out['launches_spectral'] = rec['launches']
+    spectral_img, spectral_rays = img_np, rec['rays']
     del scene
 
     # --- cbox_polarized: stokes, 512x512, 16 spp ------------------------
@@ -1228,6 +1425,13 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
         own = render_rays(torch, kern, calls, bw, fl,
                           stride=max(1, len(calls) // 64))
         emit({'phase': 'regen_render_rays', **own})
+        # the last timed kernel calls of the slice: the CLI's --spectral
+        # render and the regeneration check start beside what follows
+        exr = os.path.join(workdir, 'spectral.exr')
+        with environ((('MNT_REGEN', '0'),)):
+            spectral_cli = start_cli([path, '-o', exr, '--spectral', '-v'],
+                                     timeout=400)
+        start_card_job('regen_vs_pass_loop')
         del calls
         kernel_numbers('regen', own)
         rec, _ = timed_render(torch, mnt, kern, sync, vscene, vmeta, 2)
@@ -1243,6 +1447,9 @@ def item8_phases(torch, mnt, kern, compare, sync, bw, fl, workdir,
         del os.environ['MNT_REGEN']
 
     item8_checks(torch, mnt, compare, workdir)
+    stats = cli_check('spectral_cli', spectral_cli, exr, spectral_img,
+                      spectral_rays)
+    out['launches_spectral_cli'] = stats['kernel_launches']
     return out
 
 
@@ -1252,52 +1459,50 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
     spectral component 3 (S1 and S3 gated against S0); ``aov`` with
     sh_normal, position and uv; ``moment`` around ``path``; a
     heterogeneous box with an albedo gridvolume; regeneration on a
-    homogeneous-fog box (card regen against CPU regen). Then regeneration
-    against the pass loop on the card (a 64x64 heterogeneous box, 4 spp):
-    on two seeds the reference's noise rule (the gap between the
-    schedulers' images under 1.5 times the seed-to-seed noise, the means
-    within 8%); on four, with the regeneration's film jitter salted by
-    the seed, the means within 6 standard errors over seeds."""
-    import numpy as np
-    from mitsuba_nlvrl_tpu_torch.integrators import regen as regen_mod
-    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        SPECTRAL_CONDUCTOR, cbox_polarized, cbox_spectral, cornell_box,
-        hetvol_box)
-
-    def gate(name, desc, spp, scale=None):
-        agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
-        emit({'phase': 'item8_checks', 'check': name, 'spp': spp, **agree})
+    homogeneous-fog box (card regen against CPU regen). Regeneration
+    against the pass loop runs beside the phases (``regen_check``)."""
+    images = {}
+    for name, desc, spp, scale, env in item8_check_cases():
+        half = {}
+        with environ(env):
+            agree, images[name] = card_vs_cpu(
+                mnt, compare, desc, spp,
+                images[scale] if isinstance(scale, str) else scale, half,
+                env)
+        emit({'phase': 'item8_checks', 'check': name, 'spp': spp, **agree,
+              **half})
         compare.check(agree)
-        return img_c
 
-    desc = load_file(cbox_spectral(os.path.join(workdir, 'spectral64'),
-                                   spp=4, res=64, max_depth=8))
-    desc['spectral'] = True
-    gate('cbox_spectral', desc, 4)
-    s0 = gate('cbox_polarized_s0', cbox_polarized(
-        64, 2, 0, conductor=SPECTRAL_CONDUCTOR), 2)
-    gate('cbox_polarized_s1', cbox_polarized(
-        64, 2, 1, conductor=SPECTRAL_CONDUCTOR), 2, scale=s0)
-    s0 = gate('cbox_spectral_polarized_s0', cbox_polarized(
-        64, 2, 0, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2)
-    gate('cbox_spectral_polarized_s3', cbox_polarized(
-        64, 2, 3, spectral=True, conductor=SPECTRAL_CONDUCTOR), 2,
-        scale=s0)
-    for kind in ('sh_normal', 'position', 'uv'):
-        gate(f'aov_{kind}', cornell_box(spp=2, res=64, integrator={
-            'type': 'aov', 'aovs': f'x:{kind}'}), 2,
-            scale=np.ones((64, 64, 3)))
-    gate('moment_path', cornell_box(spp=4, res=64, integrator={
-        'type': 'moment', 'integrator': {'type': 'path', 'max_depth': 8}}),
-        4)
-    gate('albedo_grid', albedo_grid_desc(), 2)
-    fog = {'type': 'homogeneous', 'sigma_t': 0.5, 'albedo': 0.9}
+
+def regen_check() -> None:
+    """``item8_checks``' regeneration against the pass loop on the card
+    (a 64x64 heterogeneous box, 4 spp), computed in a process of its own
+    beside the phases since ``regen_render`` (``regen_vs_pass_loop``): on
+    two seeds the reference's noise rule (the gap between the schedulers'
+    images under 1.5 times the seed-to-seed noise, the means within 8%);
+    on four, with the regeneration's film jitter salted by the seed, the
+    means within 6 standard errors over seeds."""
+    rec, job = take_card_job('regen_vs_pass_loop')
+    emit({'phase': 'item8_checks', 'check': 'regen_vs_pass_loop',
+          'scene': 'hetvol_box 64x64, sigma_t x5', 'spp': 4, **rec, **job})
+    assert rec['regen_finite'] and rec['cross'] < 1.5 * rec['noise'], rec
+    assert rec['mean_rel'] < 0.08, rec
+    assert rec['salted_finite'] and \
+        abs(rec['salted_gap']) < 6 * rec['salted_se'], rec
+
+
+def regen_vs_pass_loop() -> dict:
+    """Regeneration against the pass loop on the card (a 64x64
+    heterogeneous box, 4 spp): the numbers of ``item8_checks``' noise rule
+    (two seeds) and salted-seed rule (four), and whether the images are
+    finite. It needs nothing of the phases before it, so it runs in a
+    process of its own beside them (``start_card_job``)."""
+    import numpy as np
+    import mitsuba_nlvrl_tpu_torch as mnt
+    from mitsuba_nlvrl_tpu_torch.integrators import regen as regen_mod
+    from mitsuba_nlvrl_tpu_torch.testing.scenes import hetvol_box
     os.environ['MNT_REGEN'] = '1'
     try:
-        gate('regen_fog', cornell_box(
-            spp=2, res=64, medium=fog,
-            integrator={'type': 'volpath', 'max_depth': 8}), 2)
         # regeneration against the pass loop on the card (the noise rule
         # of the reference's tests/test_regen.py), on a thinner medium:
         # the pass loop's small passes drain to their slowest walk (156 s
@@ -1342,16 +1547,13 @@ def item8_checks(torch, mnt, compare, workdir) -> None:
     se = float(np.sqrt(m_loop.var(ddof=1) / len(seeds)
                        + m_salt.var(ddof=1) / len(seeds)))
     gap = float(m_salt.mean() - m_loop.mean())
-    emit({'phase': 'item8_checks', 'check': 'regen_vs_pass_loop',
-          'scene': 'hetvol_box 64x64, sigma_t x5', 'spp': 4,
-          'seeds': list(seeds[:2]),
-          'noise': noise, 'cross': cross, 'mean_rel': rel,
-          'salted_seeds': list(seeds), 'salted_gap': gap,
-          'salted_rel': gap / float(m_loop.mean()), 'salted_se': se,
-          'salted_z': gap / se})
-    assert np.isfinite(regen).all() and cross < 1.5 * noise, (cross, noise)
-    assert rel < 0.08, rel
-    assert np.isfinite(salted).all() and abs(gap) < 6 * se, (gap, se)
+    return {'seeds': list(seeds[:2]), 'noise': noise, 'cross': cross,
+            'mean_rel': rel, 'regen_finite': bool(np.isfinite(regen).all()),
+            'salted_seeds': list(seeds), 'salted_gap': gap,
+            'salted_rel': gap / float(m_loop.mean()), 'salted_se': se,
+            'salted_z': gap / se,
+            'salted_finite': bool(np.isfinite(salted).all())}
+
 
 
 # slice 9: the inverse-rendering loop's Adam steps, and the grid of the
@@ -1657,20 +1859,69 @@ def autodiff_checks(torch, mnt) -> None:
             assert r['outside_err_sum'] <= 1e-4 * r['abs_sum'], (k, rec)
 
 
-def run_cli(args, timeout: float):
-    """``python -m mitsuba_nlvrl_tpu_torch`` in a subprocess from this
-    checkout; (wall s, stdout). Fails on a non-zero exit."""
+def start_cli(args, timeout: float):
+    """Start ``python -m mitsuba_nlvrl_tpu_torch`` in a subprocess from
+    this checkout, under this process's environment as it stands; the
+    phases go on beside it. Returns a function that waits for it and
+    gives (wall s, stdout), failing on a non-zero exit or the timeout."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env['PYTHONPATH'] = root + os.pathsep + env.get('PYTHONPATH', '')
     t0 = time.time()
-    res = subprocess.run([sys.executable, '-m', 'mitsuba_nlvrl_tpu_torch',
-                          *args], cwd=root, env=env, capture_output=True,
-                         text=True, timeout=timeout)
-    wall = time.time() - t0
-    assert res.returncode == 0, (res.returncode, res.stdout[-2000:],
-                                 res.stderr[-4000:])
-    return wall, res.stdout
+    proc = subprocess.Popen([sys.executable, '-m', 'mitsuba_nlvrl_tpu_torch',
+                             *args], cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    _children.append(proc)
+
+    def finish():
+        try:
+            out, err = proc.communicate(timeout=max(1.0, t0 + timeout
+                                                    - time.time()))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, (proc.returncode, out[-2000:],
+                                      err[-4000:])
+        return time.time() - t0, out
+    return finish
+
+
+def cli_check(phase: str, finish, exr: str, img_np, rays) -> dict:
+    """Wait for a CLI render (``start_cli``) and hold its EXR to the
+    in-process render of the same scene file, seed and device: the same
+    image in every bit and the same rays. Returns the CLI's stats."""
+    import numpy as np
+    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
+    wall, cli_out = finish()
+    stats = json.loads([x for x in cli_out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    im, names = read_exr(exr)
+    cli_img = im[..., [names.index(c) for c in 'RGB']]
+    emit({'phase': phase, 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'],
+          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes(),
+          'finite': bool(np.isfinite(cli_img).all()),
+          'mean': float(cli_img.mean())})
+    assert cli_img.tobytes() == img_np.tobytes(), \
+        f"{phase}: the CLI's EXR differs from the in-process render"
+    assert stats['rays'] == rays, (stats['rays'], rays)
+    return stats
+
+
+_children = []
+
+
+def stop_children() -> None:
+    """Kill the CLI subprocesses still running (a phase failed)."""
+    for proc in _children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    _children.clear()
 
 
 def bvh_shape(bvh) -> dict:
@@ -1725,30 +1976,11 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
         radiance=cbox_light_spd())).build()
     same = m_x == m_d and set(a_x) == set(a_d) and all(
         np.array_equal(np.asarray(a_x[k]), np.asarray(a_d[k])) for k in a_d)
+    # the CLI renders beside the mesh phases; it is checked after them
     exr = os.path.join(workdir, 'cbox.exr')
-    wall, out = run_cli([path, '-o', exr, '-v'], timeout=300)
-    stats = json.loads([x for x in out.splitlines()
-                        if x.startswith('[stats] ')][0][len('[stats] '):])
-    cli_img = rgb(exr)
+    scene_cli = start_cli([path, '-o', exr, '-v'], timeout=300)
     # the render phase's scene again, pass by pass, for the z-test
     ref, ref_passes, ref_rays = compare.render_with_passes(scene, meta, 0, 16)
-    agree = compare.agreement(cli_img, ref, ref_passes, stats['rays'],
-                              ref_rays)
-    emit({'phase': 'scene_file', 'scene': 'cbox_xml', 'res': 512, 'spp': 16,
-          'max_depth': 8, 'process_wall_s': wall,
-          'render_s': stats['render_s'], 'rays': stats['rays'],
-          'mrays_per_s': stats['mrays_per_s'],
-          'launches': stats['kernel_launches'],
-          'host_syncs': stats['host_syncs'], 'bvh_calls': stats['bvh_calls'],
-          'arrays_equal_dict_route': same,
-          'bit_equal_render_phase': cli_img.tobytes() == img_np.tobytes(),
-          'render_phase_rays': rays, **agree})
-    assert same, "cbox_xml built other arrays than the dict route"
-    assert stats['rays'] == ref_rays == rays, (stats['rays'], ref_rays, rays)
-    assert stats['kernel_launches'] == 16 * 8 * 2 and not stats['bvh_calls']
-    assert cli_img.shape == (512, 512, 3)
-    compare.check(agree)
-    cli_launches = stats['kernel_launches']
 
     # --- mesh_build: cbox_mesh at subdivision 5 ------------------------
     mpath = cbox_mesh(os.path.join(workdir, 'mesh'), subdiv=5, spp=MESH_SPP,
@@ -1825,12 +2057,11 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
     assert mimg_np.shape == (512, 512, 3) and 0.01 < mimg_np.mean() < 10.0
 
     # --- mesh_card_vs_cpu: cbox_mesh at 64x64, 2 spp -------------------
-    sdesc = load_file(mpath)
-    sdesc['sensor']['film'].update(width=64, height=64)
-    sdesc['sensor']['sampler']['sample_count'] = 2
-    sdesc['integrator']['max_depth'] = CUT_DEPTH
-    agree, _ = card_vs_cpu(mnt, compare, sdesc, 2)
-    emit({'phase': 'mesh_card_vs_cpu', 'res': 64, 'spp': 2, **agree})
+    # (the same scene, written before the CPU workers started)
+    half = {}
+    agree, _ = card_vs_cpu(mnt, compare, _PREP['mesh64'], 2, half=half)
+    emit({'phase': 'mesh_card_vs_cpu', 'res': 64, 'spp': 2, **agree,
+          **half})
     compare.check(agree)
 
     # --- bvh_vs_dense: one pass's camera rays, BVH against the kernel --
@@ -1873,7 +2104,29 @@ def scene_file_phases(torch, mnt, kern, compare, sync, scene, meta, img_np,
            'bvh_steps': bvh_mod.stats['max_steps']}
     emit(rec)
     assert rec['hit_or_miss_differ'] == 0, rec
-    return cli_launches, c['kernel_launches']
+
+    # --- scene_file: the CLI's EXR against the render phase's scene ----
+    wall, out = scene_cli()
+    stats = json.loads([x for x in out.splitlines()
+                        if x.startswith('[stats] ')][0][len('[stats] '):])
+    cli_img = rgb(exr)
+    agree = compare.agreement(cli_img, ref, ref_passes, stats['rays'],
+                              ref_rays)
+    emit({'phase': 'scene_file', 'scene': 'cbox_xml', 'res': 512, 'spp': 16,
+          'max_depth': 8, 'process_wall_s': wall,
+          'render_s': stats['render_s'], 'rays': stats['rays'],
+          'mrays_per_s': stats['mrays_per_s'],
+          'launches': stats['kernel_launches'],
+          'host_syncs': stats['host_syncs'], 'bvh_calls': stats['bvh_calls'],
+          'arrays_equal_dict_route': same,
+          'bit_equal_render_phase': cli_img.tobytes() == img_np.tobytes(),
+          'render_phase_rays': rays, **agree})
+    assert same, "cbox_xml built other arrays than the dict route"
+    assert stats['rays'] == ref_rays == rays, (stats['rays'], ref_rays, rays)
+    assert stats['kernel_launches'] == 16 * 8 * 2 and not stats['bvh_calls']
+    assert cli_img.shape == (512, 512, 3)
+    compare.check(agree)
+    return stats['kernel_launches'], c['kernel_launches']
 
 
 # triangles the float64 kernel keeps whole in shared memory
@@ -2036,7 +2289,6 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import (
         cbox_light_spd, cbox_measured, cbox_measured_polarized, cornell_box)
-    from mitsuba_nlvrl_tpu_torch.utils.io import read_exr
     out = {'max_abs_err': 0.0}
 
     def kernel_numbers(tag, own):
@@ -2049,6 +2301,7 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
     # --- cbox_measured: a scene file with two .bsdf files --------------
     mdir = os.path.join(workdir, 'measured')
     path = cbox_measured(mdir, spp=16, res=512, max_depth=8)
+    measured_path = path
     t0 = time.time()
     scene, meta = mnt.build_scene(load_file(path))
     torch.cuda.synchronize()
@@ -2066,23 +2319,8 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
           'scene': 'cbox_measured', **rec})
     assert rec['launches'] > 0 and rec['finite'], rec
     assert 0.01 < rec['mean'] < 10.0, rec
-    exr = os.path.join(workdir, 'measured.exr')
-    wall, cli_out = run_cli([path, '-o', exr, '-v'], timeout=400)
-    stats = json.loads([x for x in cli_out.splitlines()
-                        if x.startswith('[stats] ')][0][len('[stats] '):])
-    im, names = read_exr(exr)
-    cli_img = im[..., [names.index(c) for c in 'RGB']]
-    emit({'phase': 'measured_cli', 'process_wall_s': wall,
-          'render_s': stats['render_s'], 'rays': stats['rays'],
-          'mrays_per_s': stats['mrays_per_s'],
-          'launches': stats['kernel_launches'],
-          'host_syncs': stats['host_syncs'],
-          'bit_equal_in_process': cli_img.tobytes() == img_np.tobytes()})
-    assert cli_img.tobytes() == img_np.tobytes(), \
-        "the CLI's measured EXR differs from the in-process render"
-    assert stats['rays'] == rec['rays']
-    out.update(launches_measured=rec['launches'],
-               launches_measured_cli=stats['kernel_launches'])
+    out['launches_measured'] = rec['launches']
+    measured_img, measured_rays = img_np, rec['rays']
     del scene
 
     # --- cbox_measured_polarized: stokes, 512x512, 16 spp --------------
@@ -2121,6 +2359,10 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
                for r in rays)
     own64 = render_rays(torch, kern, calls, bw, fl, fl64=fl64)
     emit({'phase': 'double_render_rays', **own64})
+    # the last timed kernel calls of the slice: the CLI on the measured
+    # file renders beside what follows
+    exr = os.path.join(workdir, 'measured.exr')
+    measured_cli = start_cli([measured_path, '-o', exr, '-v'], timeout=400)
     del calls
     out['max_abs_err_f64'] = max(out['max_abs_err_f64'],
                                  own64['max_abs_err'])
@@ -2168,6 +2410,9 @@ def item10_phases(torch, mnt, kern, compare, sync, bw, fl, fl64, workdir,
     del dscene
 
     item10_checks(torch, mnt, compare, workdir)
+    stats = cli_check('measured_cli', measured_cli, exr, measured_img,
+                      measured_rays)
+    out['launches_measured_cli'] = stats['kernel_launches']
     return out
 
 
@@ -2180,27 +2425,19 @@ def item10_checks(torch, mnt, compare, workdir) -> None:
     ``volpath`` render of hetvol_box at 64x32 and a spectral ``vrl``
     render of cbox_nlvrl at 64x32 (the strict gate on the CPU's maps and
     the means within 5% on each device's own)."""
-    from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
-    from mitsuba_nlvrl_tpu_torch.testing.scenes import (
-        cbox_measured, cbox_measured_polarized, cornell_box)
+    images = {}
 
     def gate(name, desc, spp, scale=None):
-        agree, img_c = card_vs_cpu(mnt, compare, desc, spp, scale)
-        emit({'phase': 'item10_checks', 'check': name, 'spp': spp, **agree})
+        half = {}
+        agree, images[name] = card_vs_cpu(mnt, compare, desc, spp,
+                                          images.get(scale), half)
+        emit({'phase': 'item10_checks', 'check': name, 'spp': spp, **agree,
+              **half})
         compare.check(agree)
-        return img_c
 
-    gate('cbox_measured', load_file(cbox_measured(
-        os.path.join(workdir, 'measured64'), spp=2, res=64, max_depth=8)), 2)
-    pdir = os.path.join(workdir, 'pol64')
-    s0 = gate('cbox_measured_polarized_s0', cbox_measured_polarized(
-        pdir, 64, 2, 0, max_depth=CUT_DEPTH), 2)
-    gate('cbox_measured_polarized_s1', cbox_measured_polarized(
-        pdir, 64, 2, 1, max_depth=CUT_DEPTH), 2, scale=s0)
-    desc = cornell_box(spp=4, res=64,
-                       integrator={'type': 'path', 'max_depth': 8})
-    desc['double'] = True
-    agree = double_card_vs_cpu(mnt, compare, desc, 4)
+    for name, desc, spp, scale in item10_check_cases():
+        gate(name, desc, spp, scale)
+    agree = double_card_vs_cpu(mnt, compare, double_check_desc(), 4)
     emit({'phase': 'item10_checks', 'check': 'cbox_path_double', 'spp': 4,
           'rtol': DOUBLE_RTOL, 'pixel_fraction': DOUBLE_PIXEL_FRACTION,
           'mean_rtol': DOUBLE_MEAN_RTOL, **agree})
@@ -2587,7 +2824,7 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 
 # the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
 # port's decoders read, PIL's convert('RGB') bytes of each in
-# ``pil_rgb.npz``, one 64x64 picture in seven lossless formats, and two
+# ``pil_rgb.npz``, one 64x64 picture in eleven lossless formats, and two
 # 512x512 WebP files (a texture's size) with the SHA-256 digests of PIL's
 # bytes
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
@@ -2595,7 +2832,8 @@ BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
 WEBP_LARGE = os.path.join(os.path.dirname(BITMAPS), 'webp_large')
 # JPEG and WebP at 2,048^2 and 4,096^2 with the digests of PIL's bytes
 BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
-PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp')
+PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'qoi',
+                   'sgi', 'pcx', 'dds')
 # a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
 LARGE_DECODE_LIMIT_S = 3.0
 # and a 2,048^2 LZW TIFF's or GIF's (ROADMAP A 12.9)
@@ -2623,16 +2861,19 @@ def bitmap_decode_phase(workdir) -> None:
     """``bitmap_decode``: every fixture decoded by the port (which uses no
     PIL) and held to PIL's stored bytes, the two 512x512 WebP files and
     every file of ``tests/data/bitmaps_large`` (2,048^2 and 4,096^2 JPEG
-    and WebP; 2,048^2 LZW TIFF, GIF and JPEG-in-TIFF) to the digests of
-    PIL's, and a 4,096^2 PNG written here by numpy with every row
-    Paeth-filtered to its known pixels (the 4,096^2 JPEG's), each decode's
-    host milliseconds beside it (and per megapixel for the large files).
+    and WebP; 2,048^2 LZW TIFF, GIF, JPEG-in-TIFF and G4 TIFF; 2,048^2
+    DDS of seeded random BC1 and BC7 blocks, written into ``workdir``) to
+    the digests of PIL's, and a 4,096^2 PNG written here by numpy with
+    every row Paeth-filtered to its known pixels (the 4,096^2 JPEG's),
+    each decode's host milliseconds beside it (and per megapixel for the
+    large files).
     A decode failure, a 4,096^2 decode of 3 s or more, or a 2,048^2 LZW
     TIFF or GIF decode of 1 s or more, raises."""
     import hashlib
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import native, texture
-    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import png_filtered
+    from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import (large_file,
+                                                               png_filtered)
     t0 = time.time()
     want = np.load(os.path.join(BITMAPS, 'pil_rgb.npz'))
     host_ms = {}
@@ -2651,8 +2892,9 @@ def bitmap_decode_phase(workdir) -> None:
     for folder in (WEBP_LARGE, BITMAPS_LARGE):
         with open(os.path.join(folder, 'pil_rgb_sha256.json')) as f:
             digests = json.load(f)
+        # the seeded random-block DDS files are written into workdir
         decoded[folder] = {name: _large_decode(
-            texture, os.path.join(folder, name), digest_check(d))
+            texture, large_file(folder, name, d, workdir), digest_check(d))
             for name, d in sorted(digests.items())}
     # the 4,096^2 PNG: the baseline JPEG's pixels, every row Paeth
     pixels = texture.read_rgb8(os.path.join(BITMAPS_LARGE,
@@ -2816,12 +3058,20 @@ def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
                 torch, mnt, kern, sync, workdir)}
 
 
+_PREP_DIR = None
+
+
 def main() -> int:
+    global _PREP_DIR
+    _PREP_DIR = tempfile.mkdtemp(prefix='chip_smoke_prep_')
     try:
         return _main()
     finally:
+        stop_children()
+        stop_card_jobs()
         stop_cpu_halves()
         end_distributed()
+        shutil.rmtree(_PREP_DIR, ignore_errors=True)
 
 
 def _main() -> int:
@@ -2856,7 +3106,16 @@ def _main() -> int:
     kern.build(verbose=True)
     emit({'phase': 'build', 'seconds': time.time() - t0,
           'library': kern.library_path()})
+    t0 = time.time()
+    prepare_check_files(_PREP_DIR)
     start_cpu_halves(cpu_half_jobs())
+    # the main process's torch threads: the cores the workers leave
+    torch.set_num_threads(max(1, (os.cpu_count() or 2)
+                              - CPU_WORKERS * cpu_worker_threads()))
+    emit({'phase': 'cpu_workers', 'workers': CPU_WORKERS,
+          'threads_each': cpu_worker_threads(), 'cpus': os.cpu_count(),
+          'affinity': len(os.sched_getaffinity(0)), 'jobs': len(_cpu_jobs),
+          'prepare_s': time.time() - t0})
 
     # --- the launch geometry and the kernel against its plain version ---
     emit({'phase': 'geometry_check', **geometry_check(torch, kern)})
@@ -2924,9 +3183,9 @@ def _main() -> int:
     assert 0.01 < float(img_np.mean()) < 10.0, img_np.mean()
 
     # --- the card path against the CPU path, 64x64 at 4 spp -----------
-    agree, _ = card_vs_cpu(mnt, compare, cornell_box(
-        spp=4, res=64, integrator={'type': 'path', 'max_depth': 8}), 4)
-    emit({'phase': 'card_vs_cpu', **agree})
+    half = {}
+    agree, _ = card_vs_cpu(mnt, compare, cbox_check_desc(), 4, half=half)
+    emit({'phase': 'card_vs_cpu', **agree, **half})
     compare.check(agree)
 
     # --- the scene-file path: the CLI on cbox_xml, then the mesh scene --
@@ -3080,6 +3339,7 @@ def _main() -> int:
     pgrad = path_grad_phase(torch, mnt, kern, sync)
     hgrad = hetvol_grad_phase(torch, mnt, kern, sync)
     autodiff_checks(torch, mnt)
+    regen_check()
     # --- slice 10: measured BSDFs, float64, the spectral fallback -------
     workdir = tempfile.mkdtemp(prefix='chip_smoke_item10_')
     try:

@@ -8,12 +8,15 @@ Two libraries, each built by ``build`` from its sources:
     copied);
   * the bitmap decoders' sequential stages (``bitmap_png.cpp``,
     ``bitmap_jpeg.cpp``, ``bitmap_vp8l.cpp``, ``bitmap_vp8.cpp``,
-    ``bitmap_lzw.cpp``): PNG unfiltering, JPEG entropy decoding, IDCT and
-    lossless scans, WebP's lossless pixels and predictor, its alpha
+    ``bitmap_lzw.cpp``, ``bitmap_ccitt.cpp``, ``bitmap_bcn.cpp``,
+    ``bitmap_raster.cpp``): PNG unfiltering, JPEG entropy decoding, IDCT
+    and lossless scans, WebP's lossless pixels and predictor, its alpha
     plane's gradient filter, the lossy frame's modes, tokens,
-    reconstruction and loop filter, and TIFF's and GIF's LZW.
+    reconstruction and loop filter, TIFF's and GIF's LZW, TIFF's CCITT
+    coding, DDS's BCn blocks, and QOI's ops and SGI's and PCX's RLE.
     ``utils/io.py``, ``jpeg.py``, ``vp8l.py``, ``vp8.py``, ``webp.py``,
-    ``tiff.py`` and ``gif.py`` bind them (``bitmap_library``).
+    ``tiff.py``, ``gif.py``, ``ccitt.py``, ``dds.py``, ``qoi.py``,
+    ``sgi.py`` and ``pcx.py`` bind them (``bitmap_library``).
 
 Each is compiled with the reference's flags into
 ``mitsuba_nlvrl_tpu_torch/_build/`` under a name that carries a hash of its
@@ -39,7 +42,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), '_build')
 CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-march=native']
 BVH_SOURCES = ('bvh_native.cpp',)
 BITMAP_SOURCES = ('bitmap_png.cpp', 'bitmap_jpeg.cpp', 'bitmap_vp8l.cpp',
-                  'bitmap_vp8.cpp', 'bitmap_lzw.cpp')
+                  'bitmap_vp8.cpp', 'bitmap_lzw.cpp', 'bitmap_ccitt.cpp',
+                  'bitmap_bcn.cpp', 'bitmap_raster.cpp')
 
 _lock = threading.Lock()
 _fn = None
@@ -142,6 +146,11 @@ _BITMAP_ABI = {
     'mnt_alpha_ungradient': [_P, _I64, _I64, _P],
     'mnt_tiff_lzw': [_P, _I64, _P, _I64],
     'mnt_gif_lzw': [_P, _I64, _I32, _P, _I64],
+    'mnt_ccitt_decode': [_P, _I64, _I32, _I64, _I64, _I32, _I32, _P],
+    'mnt_bcn_decode': [_P, _I64, _I64, _I64, _I32, _I32, _P],
+    'mnt_qoi_decode': [_P, _I64, _I64, _I32, _P],
+    'mnt_sgi_rle_rows': [_P, _I64, _P, _P, _I64, _I64, _I32, _P],
+    'mnt_pcx_rle': [_P, _I64, _I64, _I64, _P, _P],
 }
 # functions that return a count (int64) rather than an error code
 _BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw')

@@ -1,0 +1,160 @@
+// The sequential loops of three small raster formats, as PIL decodes them:
+// QOI's ops (utils/qoi.py, _qoi), SGI's RLE rows (utils/sgi.py, _sgi_rle)
+// and PCX's RLE (utils/pcx.py, _pcx_rle). The `_plain` function beside
+// each wrapper is its plain version, which the tests hold it to, failures
+// included. Every read lands inside `src` (`len` bytes) and every write
+// inside `out`.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+// QOI: the `npix` pixels (`channels` 3 or 4 bytes each) of the ops in
+// src[0, len) into out. PIL's decoder: the previous pixel starts opaque
+// black, the 64-entry index (hashed on RGBA) is written by every op but a
+// run, and an entry never written reads transparent black; a run past the
+// image is cut. Returns 0, -1 where an op byte (or LUMA's second byte) is
+// missing (IndexError) or -2 where an RGB or RGBA op is cut short
+// (ValueError).
+extern "C" int mnt_qoi_decode(const uint8_t *src, int64_t len, int64_t npix,
+                              int channels, uint8_t *out) {
+    uint8_t seen[64][4];
+    std::memset(seen, 0, sizeof seen);
+    uint8_t prev[4] = {0, 0, 0, 255};
+    const int64_t need = npix * channels;
+    int64_t n = 0, pos = 0;
+    while (n < need) {
+        if (pos >= len) return -1;
+        const uint8_t b = src[pos++];
+        uint8_t v[4];
+        if (b == 0xFE) {
+            if (pos + 3 > len) return -2;
+            v[0] = src[pos];
+            v[1] = src[pos + 1];
+            v[2] = src[pos + 2];
+            v[3] = prev[3];
+            pos += 3;
+        } else if (b == 0xFF) {
+            if (pos + 4 > len) return -2;
+            std::memcpy(v, src + pos, 4);
+            pos += 4;
+        } else if ((b >> 6) == 0) {
+            std::memcpy(v, seen[b & 63], 4);
+        } else if ((b >> 6) == 1) {
+            v[0] = uint8_t(prev[0] + ((b >> 4) & 3) - 2);
+            v[1] = uint8_t(prev[1] + ((b >> 2) & 3) - 2);
+            v[2] = uint8_t(prev[2] + (b & 3) - 2);
+            v[3] = prev[3];
+        } else if ((b >> 6) == 2) {
+            if (pos >= len) return -1;
+            const uint8_t b2 = src[pos++];
+            const int dg = (b & 63) - 32;
+            v[0] = uint8_t(prev[0] + dg + (b2 >> 4) - 8);
+            v[1] = uint8_t(prev[1] + dg);
+            v[2] = uint8_t(prev[2] + dg + (b2 & 15) - 8);
+            v[3] = prev[3];
+        } else {
+            for (int r = (b & 63) + 1; r > 0 && n < need; --r)
+                for (int c = 0; c < channels && n < need; ++c) out[n++] = prev[c];
+            continue;
+        }
+        std::memcpy(prev, v, 4);
+        std::memcpy(seen[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v, 4);
+        for (int c = 0; c < channels && n < need; ++c) out[n++] = v[c];
+    }
+    return 0;
+}
+
+namespace {
+
+// PIL's expandrow (bpc 1) and expandrow2 (bpc 2), one channel of one row
+// into row (w pixels of z samples): 0 at the row's end, 1 where the image
+// ends quietly, -1 on overrun. `end` is the last byte's index.
+int expand_row(const uint8_t *body, int64_t end, int64_t pos, int64_t n,
+               uint8_t *row, int ch, int z, int64_t w, int bpc) {
+    int64_t x = 0;
+    while (n > 0) {
+        if (pos + bpc - 1 > end) return -1;
+        const uint8_t op = body[pos + bpc - 1];
+        pos += bpc;
+        if (n == 1 && op != 0) return 1;
+        const int count = op & 0x7F;
+        if (!count) return 0;
+        if (x + count > w) return -1;
+        if (op & 0x80) {
+            if (pos + int64_t(bpc) * count > end) return -1;
+            for (int k = 0; k < count; ++k) row[(x + k) * z + ch] = body[pos + k * bpc];
+            pos += int64_t(bpc) * count;
+        } else {
+            if (pos + (bpc == 1 ? 0 : 2) > end) return -1;
+            for (int k = 0; k < count; ++k) row[(x + k) * z + ch] = body[pos];
+            pos += bpc;
+        }
+        x += count;
+        --n;
+    }
+    return 0;
+}
+
+}  // namespace
+
+// SGI RLE: the rows of an image (w x h, z channels of bpc bytes: `zb` is
+// z | bpc << 8) from body[0, len), the data after the 512-byte header,
+// through the offset and length tables `start` and `length` (h * z each,
+// offsets from the file's start), into out (h x w x z, top row first; the
+// file's first row is the bottom). The row buffer is kept across rows.
+// Returns 0 (also where a row's length runs out on a nonzero opcode, which
+// ends the image), or -1 on an overrun (OSError).
+extern "C" int mnt_sgi_rle_rows(const uint8_t *body, int64_t len,
+                                const int64_t *start, const int64_t *length,
+                                int64_t w, int64_t h, int zb, uint8_t *out) {
+    const int z = zb & 0xFF, bpc = zb >> 8;
+    if (z < 1 || (bpc != 1 && bpc != 2) || w < 0 || h < 0) return -1;
+    std::vector<uint8_t> row(size_t(w) * z, 0);
+    for (int64_t r = 0; r < h; ++r) {
+        for (int c = 0; c < z; ++c) {
+            const int64_t off = start[r + c * h] - 512, n = length[r + c * h];
+            if (off < 0 || off + n > len) return -1;
+            const int st = expand_row(body, len - 1, off, n, row.data(), c, z, w, bpc);
+            if (st < 0) return -1;
+            if (st == 1) return 0;
+        }
+        std::memcpy(out + (h - 1 - r) * w * z, row.data(), row.size());
+    }
+    return 0;
+}
+
+// PCX RLE: h rows of nbytes bytes from src[0, len) into out. Returns 0, or
+// -1 where the data ends before the last row (OSError: truncated); a run
+// past a row's end is cut there and sets *overrun (OSError once decoded).
+extern "C" int mnt_pcx_rle(const uint8_t *src, int64_t len, int64_t nbytes,
+                           int64_t h, uint8_t *out, int64_t *overrun) {
+    int64_t x = 0, y = 0, pos = 0;
+    *overrun = 0;
+    if (nbytes <= 0) return h > 0 ? -1 : 0;
+    uint8_t *row = out;
+    while (y < h) {
+        if (pos >= len) return -1;
+        const uint8_t b = src[pos];
+        if ((b & 0xC0) == 0xC0) {
+            if (pos + 1 >= len) return -1;
+            int64_t count = b & 0x3F;
+            if (x + count > nbytes) {
+                *overrun = 1;
+                count = nbytes - x;
+            }
+            std::memset(row + x, src[pos + 1], size_t(count));
+            x += count;
+            pos += 2;
+        } else {
+            row[x++] = b;
+            ++pos;
+        }
+        if (x >= nbytes) {
+            x = 0;
+            row += nbytes;
+            ++y;
+        }
+    }
+    return 0;
+}

@@ -7,13 +7,17 @@ the native stages only; the tests and ``scripts/port_bitmap_speed.py``
 swap the plain twins in with ``plain()`` to hold one against the other.
 ``png_filtered`` writes the PNG files that exercise the row filters,
 ``tiff_lzw`` LZW TIFF files of given pixels at a texture's size,
-``jpeg_lossless`` lossless JPEG files, and ``picture`` the smooth seeded
-pictures the large files are made of.
+``jpeg_lossless`` lossless JPEG files, ``picture`` the smooth seeded
+pictures the large files are made of, ``dds_file`` DDS files of given
+headers and data, ``bcn_random_dds`` DDS files of seeded random blocks
+(every bit pattern is a block PIL decodes), and ``large_file`` the path
+of a large fixture, writing the seeded ones it names.
 """
 from __future__ import annotations
 
 import contextlib
 import importlib
+import os
 import struct
 import zlib
 
@@ -26,7 +30,9 @@ STAGES = (('io', '_png_unfilter'), ('jpeg', '_decode_scan'),
           ('vp8l', '_unpredict'), ('vp8l', '_uncross'),
           ('vp8', '_macroblocks'), ('vp8', 'yuv_to_rgb'),
           ('jpeg', '_decode_lossless'), ('webp', '_unfilter_gradient'),
-          ('tiff', '_lzw'), ('gif', '_lzw'))
+          ('tiff', '_lzw'), ('gif', '_lzw'), ('ccitt', 'decode'),
+          ('dds', '_bcn'), ('qoi', '_qoi'), ('sgi', '_sgi_rle'),
+          ('pcx', '_pcx_rle'))
 
 
 def _module(name: str):
@@ -223,3 +229,55 @@ def jpeg_lossless(img: np.ndarray, psv: int = 1, restart_rows: int = 0,
         if restart_rows else b''
     return (b'\xff\xd8' + seg_(0xC3, sof) + seg_(0xC4, dht) + dri +
             seg_(0xDA, sos) + scan + b'\xff\xd9')
+
+
+def dds_file(w: int, h: int, data: bytes, *, fourcc: bytes = None,
+             dxgi: int = None, pfflags: int = 0, bitcount: int = 0,
+             masks=(), mipmaps: int = 1) -> bytes:
+    """A DDS file of a ``w`` x ``h`` surface: ``data`` after the 124-byte
+    header, behind a DX10 header where ``dxgi`` is given (FourCC
+    ``DX10``), else with ``fourcc`` or the pixel format flags, bit count
+    and masks given."""
+    head = bytearray(128)
+    head[:4] = b'DDS '
+    struct.pack_into('<7I', head, 4, 124, 0x1007 | 0x20000, h, w, 0, 0,
+                     mipmaps)
+    if dxgi is not None:
+        fourcc = b'DX10'
+    if fourcc is not None:
+        pfflags |= 0x4
+    struct.pack_into('<4I', head, 76, 32, pfflags,
+                     struct.unpack('<I', fourcc)[0] if fourcc else 0,
+                     bitcount)
+    struct.pack_into(f'<{len(masks)}I', head, 92, *masks)
+    struct.pack_into('<I', head, 108, 0x1000)
+    dx10 = struct.pack('<5I', dxgi, 3, 0, 1, 0) if dxgi is not None else b''
+    return bytes(head) + dx10 + data
+
+
+# DXGI formats of the BCn blocks: number (1-7) and bytes a block
+BCN_DXGI = {71: (1, 8), 74: (2, 16), 77: (3, 16), 80: (4, 8), 83: (5, 16),
+            84: (5, 16), 95: (6, 16), 96: (6, 16), 98: (7, 16)}
+
+
+def bcn_random_dds(w: int, h: int, dxgi: int, seed: int) -> bytes:
+    """A DX10 DDS file of ``dxgi`` BCn blocks drawn uniformly from a
+    seeded generator, enough for a ``w`` x ``h`` surface."""
+    blocks = -(-w // 4) * -(-h // 4) * BCN_DXGI[dxgi][1]
+    data = np.random.default_rng(seed).integers(0, 256, blocks,
+                                                dtype=np.uint8)
+    return dds_file(w, h, data.tobytes(), dxgi=dxgi)
+
+
+def large_file(folder: str, name: str, entry: dict, workdir: str) -> str:
+    """The path of the large fixture ``name`` of ``folder``'s digests
+    (``entry`` its record): the file there, or, for an entry that names
+    its ``seeded`` random blocks, the file written into ``workdir``."""
+    seeded = entry.get('seeded')
+    if not seeded:
+        return os.path.join(folder, name)
+    path = os.path.join(workdir, name)
+    with open(path, 'wb') as f:
+        f.write(bcn_random_dds(seeded['side'], seeded['side'],
+                               seeded['dxgi'], seeded['seed']))
+    return path

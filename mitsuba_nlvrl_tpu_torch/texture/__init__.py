@@ -10,8 +10,9 @@ side) makes a texture's row and loads its bitmap or volume.
 
 Bitmaps load without PIL: EXR by suffix through ``utils/io.read_exr``;
 any other file identified by content in PIL's order (``identify``) and
-decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM, TGA and WebP
-readers (``utils/``) to the bytes of PIL's ``convert('RGB')``. A format PIL
+decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM, TGA, WebP, DDS,
+QOI, SGI and PCX readers (``utils/``) to the bytes of PIL's
+``convert('RGB')``. A format PIL
 opens that the port does not read raises, naming its ROADMAP entry.
 Lanes whose row is not a bitmap or a volume read a clamped, valid index
 (the reference relies on JAX clamping there); their value is masked out.
@@ -34,7 +35,12 @@ def _pil_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
     index past its end reads black, as in PIL); the integer modes (``I``,
     ``I;16``, ``I;16B``) clipped to 0..255; ``F`` clipped, then
     truncated; alpha and padding dropped; ``CMYK`` by PIL's integer
-    formula (each of C, M, Y times 255 - K, over 255)."""
+    formula (each of C, M, Y times 255 - K, over 255); ``LAB`` (PIL's
+    bytes: L, then a* and b* offset by 128) as PIL's LittleCMS transform
+    from its Lab profile to sRGB converts it (``utils/lab.py``)."""
+    if mode == 'LAB':
+        from ..utils.lab import lab_to_rgb
+        return lab_to_rgb(px)
     if mode in ('P', 'PA'):
         idx = px if px.ndim == 2 else px[..., 0]
         pal = np.zeros((256, 3), np.uint8)
@@ -79,6 +85,18 @@ def _u32(p: bytes, big: bool = False) -> int:
     return int.from_bytes(p[:4].ljust(4, b'\0'), 'big' if big else 'little')
 
 
+def _gbr_opens(p: bytes) -> bool:
+    """PIL's GBR test and then its header checks (PIL tries the plugin's
+    open, and a file that fails them goes on to the plugins after it, as
+    a 1- or 2-pixel-wide QOI file does)."""
+    if len(p) < 20 or _u32(p, True) < 20 or _u32(p[4:], True) not in (1, 2):
+        return False
+    if _u32(p[8:], True) == 0 or _u32(p[12:], True) == 0 or \
+            _u32(p[16:], True) not in (1, 4):
+        return False
+    return _u32(p[4:], True) == 1 or (p[20:24] == b'GIMP' and len(p) >= 28)
+
+
 _OPEN_ORDER = [
     ('BMP', lambda p: p[:2] == b'BM'),
     ('DIB', lambda p: _u32(p) in (12, 40, 52, 56, 64, 108, 124)),
@@ -102,8 +120,7 @@ _OPEN_ORDER = [
     ('FLI', lambda p: len(p) >= 16 and int.from_bytes(p[4:6], 'little') in
      (0xAF11, 0xAF12) and int.from_bytes(p[14:16], 'little') in (0, 3)),
     ('FTEX', lambda p: p[:4] == b'FTEX'),
-    ('GBR', lambda p: len(p) >= 8 and _u32(p, True) >= 20 and
-     _u32(p[4:], True) in (1, 2)),
+    ('GBR', lambda p: _gbr_opens(p)),
     ('GRIB', lambda p: p[:4] == b'GRIB' and p[7:8] == b'\1'),
     ('HDF5', lambda p: p[:8] == b'\x89HDF\r\n\x1a\n'),
     ('JPEG2000', lambda p: p[:4] == b'\xffO\xffQ' or
@@ -135,17 +152,17 @@ _OPEN_ORDER = [
 
 def identify(path: str) -> str:
     """The format PIL's ``Image.open`` finds for the file, by content:
-    the first plugin in PIL's order whose test passes. Raises ``OSError``
+    the first plugin in PIL's order whose test passes (for GBR, also the
+    header checks its open makes before PIL moves on). Raises ``OSError``
     (PIL's ``UnidentifiedImageError`` is one) when none does. TGA, which
     has no signature, is tried where PIL tries it, by its header checks.
     PIL also tries a few formats by opening them (IM, IMT, PCD, SPIDER);
     a file of those is unidentified here."""
     from ..utils.tga import is_tga
     with open(path, 'rb') as f:
-        head = f.read(18)
-    prefix = head[:16]
+        head = f.read(28)
     for name, accept in _OPEN_ORDER:
-        if accept(prefix) if accept else is_tga(head):
+        if accept(head) if accept else is_tga(head):
             return name
     raise OSError(f"cannot identify image file '{path}'")
 
@@ -155,7 +172,9 @@ def identify(path: str) -> str:
 _READERS = {'JPEG': ('jpeg', 'read_jpeg_mode'), 'BMP': ('bmp', 'read_bmp'),
             'DIB': ('bmp', 'read_bmp'), 'GIF': ('gif', 'read_gif'),
             'PPM': ('pnm', 'read_pnm'), 'TIFF': ('tiff', 'read_tiff'),
-            'TGA': ('tga', 'read_tga'), 'WEBP': ('webp', 'read_webp')}
+            'TGA': ('tga', 'read_tga'), 'WEBP': ('webp', 'read_webp'),
+            'DDS': ('dds', 'read_dds'), 'QOI': ('qoi', 'read_qoi'),
+            'SGI': ('sgi', 'read_sgi'), 'PCX': ('pcx', 'read_pcx')}
 
 
 def _decode(path: str):
@@ -182,10 +201,11 @@ def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
     """Load an image file to linear float32 (H, W, 3). EXR by its suffix;
     any other file by its content, as PIL identifies it. PNG, JPEG
     (baseline, progressive, lossless; grey, YCbCr, RGB, CMYK, YCCK), BMP,
-    GIF, PNM, TGA, WebP and TIFF (strips and tiles; none, LZW, Deflate,
-    PackBits and JPEG; grey, palette, RGB, CMYK and YCbCr) decode here.
-    Another format PIL opens (SGI, QOI, PCX, ...), and the TIFF layouts
-    left (old JPEG, CCITT, CIELab, 12-bit grey, orientations 5-8), raise
+    GIF, PNM, TGA, WebP, TIFF (strips and tiles, every orientation; none,
+    LZW, Deflate, PackBits, CCITT RLE, G3 and G4, JPEG and old-style
+    JPEG; bilevel, grey to 32 bits and 12-bit, palette, RGB, CMYK, CIELab
+    and YCbCr), DDS (uncompressed, BC1-BC7), QOI, SGI and PCX decode here.
+    Another format PIL opens (ICO/CUR, PSD, JPEG 2000, AVIF, ...) raises
     ``NotImplementedError`` naming ROADMAP 12.7; a file PIL does not open
     raises ``OSError``."""
     if path.lower().endswith('.exr'):

@@ -622,7 +622,9 @@ def decode(data: bytes, path: str, colour=None):
     it in errors). ``colour`` overrides what the markers say of a
     three-component stream, as libtiff sets libjpeg's colour space for a
     TIFF's strips and tiles: ``'YCbCr'`` converts to RGB, ``'RGB'``
-    takes the samples as they are."""
+    takes the samples as they are, and ``'raw'`` returns ``('raw', each
+    component's samples at its own resolution in whole MCUs, the
+    components)``."""
     if data[:2] != b'\xff\xd8':
         raise ValueError(f"{path}: not a JPEG file")
     pos, qt, tables, restart = 2, {}, {}, 0
@@ -720,6 +722,9 @@ def decode(data: bytes, path: str, colour=None):
                     # libjpeg's JCOEF: two bytes a coefficient
                     c['coef'] = np.zeros((mcuy * c['v'], mcux * c['h'], 64),
                                          np.int16)
+                    if c['tq'] not in qt:     # libjpeg refuses it so
+                        raise OSError(f"{path}: quantization table "
+                                      f"{c['tq']} was not defined")
                     c['q'] = qt[c['tq']]
             for ci, _, _ in sel:
                 coef_bits[ci][ss:se + 1] = [ahal & 15] * (se + 1 - ss)
@@ -743,6 +748,10 @@ def decode(data: bytes, path: str, colour=None):
                            "coefficients incomplete (libjpeg's block "
                            "smoothing)", path)
     W, H = frame
+    if colour == 'raw':
+        # libjpeg's raw output (libtiff's old-JPEG codec reads it): each
+        # component at its own resolution, whole MCUs, no upsampling
+        return 'raw', [_idct_plane(c['coef'], c['q']) for c in comps], comps
     hmax = max(c['h'] for c in comps)
     vmax = max(c['v'] for c in comps)
     planes = []

@@ -11,10 +11,15 @@ are listed in ``_LAYOUTS``:
     (8 and 32946) and PackBits (32773); predictor 2 (horizontal
     differencing at 8, 16 and 32 bits) and 3 (libtiff's floating-point
     predictor);
-  * photometric 0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8 and 16
-    bits and 32-bit integer or float samples; 2 (RGB, 8 or 16 bits, with
+  * CCITT: modified Huffman (2), T.4 (3: 1-D and 2-D, ``T4Options``) and
+    T.6 (4), in ``native/bitmap_ccitt.cpp`` (``utils/ccitt.py``);
+  * photometric 0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 12
+    (as ``I;16``, little-endian only, as PIL's table has it) and 16 bits
+    and 32-bit integer or float samples; 2 (RGB, 8 or 16 bits, with
     unspecified, associated or unassociated alpha); 3 (palette, the
-    16-bit colour map cut to its high byte as PIL does) and 5 (CMYK);
+    16-bit colour map cut to its high byte as PIL does); 5 (CMYK) and 8
+    (CIELab, as ``LAB``: its a* and b* offset by 128 as PIL unpacks them,
+    converted to RGB by ``utils/lab.py``);
   * JPEG (compression 7) of photometric 1, 2 and 6 in one plane, strips
     or tiles, each a JPEG stream after the shared ``JPEGTables``
     (``utils/jpeg.py``): YCbCr converted by libjpeg's tables and fancy
@@ -27,12 +32,23 @@ are listed in ``_LAYOUTS``:
     ``YCbCrPositioning`` says, through the integer tables that libtiff
     builds from ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` in
     float32; uncompressed, as PIL's own reader unpacks it (as RGBX).
+    Predictor 2 above 1x1 runs as libtiff runs it, over its "scanlines"
+    of data units at a stride of 3 bytes, or not at all where those do
+    not divide (the strip then converted undifferenced, as under PIL).
+    In planes: uncompressed, the planes taken as RGB as PIL's reader
+    takes them; compressed, converted at 1x1 and refused above. One
+    sample: grey uncompressed, refused compressed (``OSError``);
+  * old-style JPEG (6) as libtiff's OJPEG codec reads it: the stream
+    ``JPEGInterchangeFormat`` points at, a stream held in the strips, or
+    strips of entropy-coded data with the ``JPEGProc`` tables, each strip
+    a restart interval; the components at their own resolution, through
+    the YCbCr tables above;
+  * every orientation, turned as PIL's ``exif_transpose`` turns the image
+    at load (5-8 swap width and height).
 
 A layout missing from PIL's table raises ``OSError``, as ``Image.open``
-does; old-style JPEG (6), CCITT (2-4), CIELab, the table's 12-bit grey,
-orientations 5-8 (transposing), one-sample YCbCr and the JPEG, YCbCr and
-predictor combinations not listed above raise ``NotImplementedError``
-naming their ROADMAP entry.
+does; the compressions and the JPEG-in-TIFF and YCbCr layouts not listed
+above raise ``NotImplementedError`` naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -76,6 +92,9 @@ _LAYOUTS.update({
     (5, (1,), (16, 16, 16, 16), ()): 'CMYK',
     # YCbCr: libtiff's RGBA reader, or libjpeg's conversion under JPEG
     (6, (1,), (8, 8, 8), ()): 'RGB',
+    (6, (1,), (8,), ()): 'L',
+    (8, (1,), (8, 8, 8), ()): 'LAB',
+    (1, (1,), (12,), (), 'II'): 'I;16',
 })
 for _ex in ((0,), (0, 0), (0, 0, 0), (1,), (1, 0), (1, 0, 0), (2,), (2, 0),
             (2, 0, 0), (999,)):
@@ -86,8 +105,6 @@ for _ex in ((0,), (1,), (2,)):
 # the layouts PIL's table also holds with fill order 2 (bits reversed)
 _FILL2 = {(_ph, (1,), (_b,), ()) for _ph in (0, 1, 3) for _b in (1, 2, 4, 8)}
 _FILL2 |= {(2, (1,), (8, 8, 8), ()), (1, (1,), (16,), (), 'II')}
-# photometric interpretations PIL opens that the port leaves for later
-_PORT_LATER = {8: 'CIELab'}
 # libtiff's defaults: YCbCrCoefficients, and ReferenceBlackWhite of YCbCr
 _LUMA = (0.299, 0.587, 0.114)
 _YCC_BLACK_WHITE = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
@@ -220,9 +237,7 @@ def _decompress(comp: int, src: bytes, expect: int, path: str) -> bytes:
     if comp == 32773:
         return _packbits(src, expect)
     from ..scene.types import not_in_slice
-    kind = {2: 'CCITT RLE', 3: 'CCITT G3', 4: 'CCITT G4', 6: 'old JPEG',
-            7: 'JPEG'}.get(comp, f'compression {comp}')
-    raise not_in_slice(f"{kind} TIFF '{path}'", ROADMAP_TIFF)
+    raise not_in_slice(f"compression {comp} TIFF '{path}'", ROADMAP_TIFF)
 
 
 def _unpredict(block: np.ndarray, pred: int, spp: int, bps: int,
@@ -310,17 +325,80 @@ def _ycbcr_raw_strips(data: bytes, W: int, H: int, rps: int, offsets,
     return out
 
 
+# PIL's load-time transposition of each orientation (ImageOps.exif_transpose)
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+           4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
+           6: lambda a: np.rot90(a, -1),
+           7: lambda a: np.rot90(a, 2).swapaxes(0, 1),
+           8: lambda a: np.rot90(a, 1)}
+
+
 def read_tiff(path: str):
     """Read a TIFF's first image to ``(mode, pixels, palette)``: ``1``,
     ``L``, ``I;16``, ``I;16B``, ``I``, ``F`` ((H, W)), ``LA``, ``PA``,
-    ``RGB``, ``RGBA``, ``CMYK`` ((H, W, C), 8-bit; 16-bit colour cut to
-    its high byte and associated alpha divided out, as PIL unpacks them)
-    or ``P`` ((H, W) indices and an (N, 3) palette)."""
-    from ..scene.types import not_in_slice
-    from . import jpeg
+    ``RGB``, ``RGBA``, ``CMYK``, ``LAB`` ((H, W, C), 8-bit; 16-bit colour
+    cut to its high byte and associated alpha divided out, as PIL unpacks
+    them) or ``P`` ((H, W) indices and an (N, 3) palette), turned as its
+    orientation says (PIL transposes at load)."""
     with open(path, 'rb') as f:
         data = f.read()
     tags, bo = _ifd(data)
+    mode, px, pal = _read_image(data, tags, bo, path)
+    turn = _ORIENT.get(tags.get(274, (1,))[0])
+    return mode, px if turn is None else np.ascontiguousarray(turn(px)), pal
+
+
+def _unpack12(raw: np.ndarray, nrows: int, width: int) -> np.ndarray:
+    """Rows of 12-bit samples packed MSB first (PIL's ``I;12``), each row
+    from a byte boundary: (nrows, width) uint16."""
+    bits = np.unpackbits(raw.reshape(nrows, -1), axis=1)[:, :12 * width]
+    return (bits.reshape(nrows, width, 12).astype(np.uint16)
+            << np.arange(11, -1, -1, dtype=np.uint16)).sum(-1,
+                                                           dtype=np.uint16)
+
+
+def _ycbcr_unpredict(raw: np.ndarray, line: int):
+    """libtiff's horizontal predictor over subsampled YCbCr data units:
+    it runs over "rows" of ``line`` bytes (``TIFFScanlineSize``: a block
+    row over its height, for strips; ``TIFFTileRowSize``: the tile width
+    times 3, for tiles) at a stride of 3 bytes. Where the data is no
+    whole number of rows, or a row no whole number of strides, it fails
+    the strip, and the RGBA reader under PIL converts the data as it was
+    decoded, undifferenced."""
+    if line == 0 or raw.size % line or line % 3:
+        return raw
+    v = raw.reshape(-1, line // 3, 3)
+    return np.cumsum(v, axis=1, dtype=np.uint8).reshape(-1)
+
+
+def _ojpeg_units(stream: bytes, W: int, H: int, path: str):
+    """An old-style JPEG stream's samples as libtiff's OJPEG codec hands
+    them to its RGBA reader: the components' own resolution (libjpeg's raw
+    output, no upsampling or colour conversion), as data units of hs x vs
+    luma samples and one Cb and Cr; returns them (block rows, blocks,
+    hs * vs + 2) with (hs, vs) from the stream's sampling factors."""
+    from . import jpeg
+    _, planes, comps = jpeg.decode(stream, path, 'raw')
+    if len(planes) != 3:
+        raise OSError(f"{path}: old-style JPEG of {len(planes)} components")
+    hs, vs = comps[0]['h'] // comps[1]['h'], comps[0]['v'] // comps[1]['v']
+    if any(c['h'] != 1 or c['v'] != 1 for c in comps[1:]) or \
+            (hs, vs) not in _YCC_SUBSAMPLING:
+        raise OSError(f"{path}: old-style JPEG sampling not supported")
+    bh, bw = -(-H // vs), -(-W // hs)
+    y = planes[0]
+    if y.shape[0] < bh * vs or y.shape[1] < bw * hs or \
+            planes[1].shape[0] < bh or planes[1].shape[1] < bw:
+        raise OSError(f"{path}: old-style JPEG smaller than the image")
+    luma = y[:bh * vs, :bw * hs].reshape(bh, vs, bw, hs).transpose(
+        0, 2, 1, 3).reshape(bh, bw, vs * hs)
+    return np.concatenate([luma, planes[1][:bh, :bw, None],
+                           planes[2][:bh, :bw, None]], -1), hs, vs
+
+
+def _read_image(data: bytes, tags: dict, bo: str, path: str):
+    from ..scene.types import not_in_slice
+    from . import ccitt, jpeg
     order = 'II' if bo == '<' else 'MM'
     W, H = tags[256][0], tags[257][0]
     comp = tags.get(259, (1,))[0]
@@ -335,37 +413,34 @@ def read_tiff(path: str):
         sfmt = (1,)
     bps = tags.get(258, (1,))
     extra = tags.get(338, ())
-    spp = tags.get(277, (1,))[0]
+    spp = tags.get(277, (3,) if comp == 6 and photo in (2, 6) else (1,))[0]
     if spp < len(bps):
         bps = bps[:spp]
     elif spp > len(bps) and len(bps) == 1:
         bps = bps * spp
     if len(bps) != spp:
         raise OSError(f"{path}: unknown TIFF data organization")
-    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
-        raise not_in_slice(f"TIFF with a transposing orientation '{path}'",
-                           ROADMAP_TIFF)
-    if photo in _PORT_LATER:
-        raise not_in_slice(f"{_PORT_LATER[photo]} TIFF '{path}'",
-                           ROADMAP_TIFF)
     key = (photo, tuple(sfmt), tuple(bps), tuple(extra))
     mode = _LAYOUTS.get(key, _LAYOUTS.get(key + (order,)))
-    if key == (1, (1,), (12,), ()) and order == 'II':
-        raise not_in_slice(f"12-bit TIFF '{path}'", ROADMAP_TIFF)
-    if key == (6, (1,), (8,), ()):
-        raise not_in_slice(f"one-sample YCbCr TIFF '{path}'", ROADMAP_TIFF)
     if mode is None or fill == 2 and not {key, key + (order,)} & _FILL2:
         raise OSError(f"{path}: TIFF layout PIL does not open {key}")
-    is_jpeg, ycbcr = comp == 7, photo == 6
+    is_jpeg, ycbcr = comp == 7, photo == 6 and mode == 'RGB'
     if is_jpeg and (planar == 2 or key not in (
             (1, (1,), (8,), ()), (2, (1,), (8, 8, 8), ()),
             (6, (1,), (8, 8, 8), ()))):
         raise not_in_slice(f"JPEG TIFF of layout {key}, planar {planar} "
                            f"'{path}'", ROADMAP_TIFF)
+    if comp in (2, 3, 4) and bps != (1,):
+        raise OSError(f"{path}: CCITT TIFF with {bps} bits a sample "
+                      "(libtiff: bits/sample must be 1)")
+    if photo == 6 and mode == 'L' and comp != 1:
+        # libtiff's RGBA reader, which PIL's libtiff path takes for
+        # YCbCr, has no routine for one sample
+        raise OSError(f"{path}: one-sample YCbCr: decoder error -2")
     b = bps[0]                  # every layout of the table has one width
     if comp not in (5, 8, 32946):
         pred = 1                # libtiff's predictor rides on these codecs
-    if pred not in (1, 2, 3) or pred > 1 and b < 8:
+    if pred not in (1, 2, 3) or pred > 1 and b not in (8, 16, 32, 64):
         raise OSError(f"{path}: TIFF predictor {pred} at {b} bits")
     if comp == 1 and (fill == 2 and key == (0, (1,), (8,), ()) or
                       planar == 2 and extra and extra[0] in (0, 1)):
@@ -386,21 +461,26 @@ def read_tiff(path: str):
     hs, vs = 1, 1
     if ycbcr and not is_jpeg:
         hs, vs = tags.get(530, (2, 2))[:2]
-        if (hs, vs) in ((1, 4), (2, 4)):
-            # libtiff's RGBA reader has no routine for these
-            raise OSError(f"{path}: YCbCr subsampling {hs}x{vs}: decoder "
-                          "error")
-        if planar == 2 or (hs, vs) not in _YCC_SUBSAMPLING \
-                or pred > 1 and hs * vs > 1 or comp == 1 and 322 in tags:
-            raise not_in_slice(f"YCbCr TIFF with subsampling {hs}x{vs}, "
-                               f"planar {planar}, predictor {pred}"
-                               f"{', tiled' if 322 in tags else ''} "
-                               f"'{path}'", ROADMAP_TIFF)
-        if comp == 1:
+        if comp != 6 and ((hs, vs) in ((1, 4), (2, 4)) or comp != 1 and (
+                (hs, vs) not in _YCC_SUBSAMPLING or
+                planar == 2 and (hs, vs) != (1, 1))):
+            # libtiff's RGBA reader has no routine for these (the stream
+            # of an old JPEG sets its own)
+            raise OSError(f"{path}: YCbCr subsampling {hs}x{vs}, planar "
+                          f"{planar}: decoder error")
+        if comp == 1 and planar == 1:
+            if 322 in tags:
+                raise not_in_slice(f"uncompressed tiled YCbCr TIFF "
+                                   f"'{path}'", ROADMAP_TIFF)
             return 'RGB', _ycbcr_raw_strips(data, W, H, th, offsets,
                                             path), None
         tables = _ycbcr_tables(tags.get(529, _LUMA),
                                tags.get(532, _YCC_BLACK_WHITE))
+        if comp == 6:
+            return 'RGB', _ojpeg(data, tags, W, H, th, offsets, counts,
+                                 tables, path), None
+        if planar == 2:
+            hs = vs = 1                 # full-resolution planes
     jpeg_tables = bytes(tags.get(347, ()))
     if jpeg_tables[-2:] == b'\xff\xd9':
         jpeg_tables = jpeg_tables[:-2]      # tables, then each stream
@@ -410,9 +490,10 @@ def read_tiff(path: str):
     across = -(-W // tw)
     per_plane = across * -(-H // th)
     nat = {(16, 1): np.uint16, (16, 2): np.int16, (32, 1): np.uint32,
-           (32, 2): np.int32, (32, 3): np.float32}.get((b, sfmt[0]),
-                                                      np.uint8)
+           (32, 2): np.int32, (32, 3): np.float32, (12, 1): np.uint16}.get(
+        (b, sfmt[0]), np.uint8)
     samples = np.zeros((planes, H, W, cps), nat)
+    units_layout = ycbcr and not is_jpeg and planar == 1
     for k, off in enumerate(offsets):
         plane, t = divmod(k, per_plane)
         if plane >= planes:
@@ -421,9 +502,9 @@ def read_tiff(path: str):
         y, x = ty * th, tx * tw
         nrows = th if 322 in tags else min(th, H - y)
         expect = row_bytes * nrows
-        if ycbcr and not is_jpeg:
-            units = (hs * vs + 2) * -(-tw // hs)
-            expect = units * -(-nrows // vs)
+        if units_layout:
+            block_row = (hs * vs + 2) * -(-tw // hs)
+            expect = block_row * -(-nrows // vs)
         src = data[off:off + counts[k]] if counts else data[off:off + expect]
         if fill == 2:                           # bits of the coded bytes
             src = np.packbits(np.unpackbits(np.frombuffer(src, np.uint8),
@@ -440,18 +521,29 @@ def read_tiff(path: str):
                               "its place")
             samples[0, y:y + h, x:x + w] = v[:h, :w]
             continue
-        raw = np.frombuffer(_decompress(comp, src, expect, path)[:expect],
-                            np.uint8)
+        if comp in (2, 3, 4):
+            raw = np.frombuffer(ccitt.decode(
+                src, comp, tw, nrows, tags.get(292, (0,))[0]), np.uint8)
+        else:
+            raw = np.frombuffer(_decompress(comp, src, expect, path)[:expect],
+                                np.uint8)
         if raw.size < expect:
             raise OSError(f"{path}: truncated TIFF strip or tile")
-        if ycbcr:
-            v = _ycbcr_to_rgb(_unpredict(raw.reshape(-(-nrows // vs), -1),
-                                         pred, 3, 8, bo).reshape(
-                -(-nrows // vs), -(-tw // hs), hs * vs + 2), hs, vs, tables)
+        if units_layout:
+            if pred == 2 and hs * vs > 1:
+                raw = _ycbcr_unpredict(raw, 3 * tw if 322 in tags else
+                                       block_row // vs)
+            else:
+                raw = _unpredict(raw.reshape(-(-nrows // vs), -1), pred, 3,
+                                 8, bo)
+            v = _ycbcr_to_rgb(raw.reshape(-(-nrows // vs), -(-tw // hs),
+                                          hs * vs + 2), hs, vs, tables)
             samples[0, y:y + h, x:x + w] = v[:h, :w]
             continue
         raw = raw.reshape(nrows, row_bytes)
-        if b < 8:
+        if b == 12:
+            v = _unpack12(raw, nrows, tw * cps)
+        elif b < 8:
             v = np.unpackbits(raw, axis=1)
             if b > 1:
                 v = v[:, :v.shape[1] // b * b].reshape(nrows, -1, b)
@@ -467,9 +559,81 @@ def read_tiff(path: str):
         # libtiff hands PIL native-order words, which PIL's big-endian
         # 32-bit unpackers then swap
         s = s.byteswap()
+    if ycbcr and planar == 2 and comp != 1:
+        return 'RGB', _ycbcr_to_rgb(s[..., :3], 1, 1, tables), None
     if ycbcr:
-        return 'RGB', np.ascontiguousarray(s), None
+        # uncompressed planes are read as they are, as PIL's own reader
+        # reads them
+        return 'RGB', np.ascontiguousarray(s[..., :3]), None
     return _to_mode(mode, s, photo, b, extra, tags, bo)
+
+
+def _ojpeg_stream(data, tags, W, H, rps, offsets, counts, path) -> bytes:
+    """The JPEG stream libtiff's OJPEG codec builds for strips without an
+    interchange format: a baseline frame of three components, each with
+    its quantisation table (``JPEGQTables``, 64 bytes in zig-zag order)
+    and its DC and AC Huffman tables (``JPEGDCTables``, ``JPEGACTables``:
+    16 counts, then the symbols), luma sampled as ``YCbCrSubsampling``
+    says; the strips' entropy-coded data one after the other, a restart
+    marker between two, every ``JPEGRestartInterval`` MCUs (by default
+    the MCUs of a strip)."""
+    if tags.get(512, (1,))[0] != 1:
+        raise OSError(f"{path}: old-style JPEG process "
+                      f"{tags[512][0]} (libtiff reads baseline only)")
+    hs, vs = tags.get(530, (2, 2))[:2]
+    try:
+        qs = [data[o:o + 64] for o in tags[519]]
+        hts = []
+        for tag in (520, 521):
+            hts.append([])
+            for o in tags[tag]:
+                n = sum(data[o:o + 16])
+                hts[-1].append(data[o:o + 16 + n])
+    except KeyError as e:
+        raise OSError(f"{path}: old-style JPEG without tag {e}") from e
+    if min(len(qs), len(hts[0]), len(hts[1])) < 3 or \
+            any(len(q) < 64 for q in qs):
+        raise OSError(f"{path}: old-style JPEG tables missing")
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack('>H', len(body) + 2) + body
+    out = bytearray(b'\xff\xd8')
+    for k in range(3):
+        out += seg(0xDB, bytes([k]) + qs[k])
+        out += seg(0xC4, bytes([k]) + hts[0][k])
+        out += seg(0xC4, bytes([0x10 | k]) + hts[1][k])
+    mcus_across = -(-W // (8 * hs))
+    interval = tags.get(515, (rps // (8 * vs) * mcus_across,))[0]
+    if len(offsets) > 1:
+        out += seg(0xDD, struct.pack('>H', interval))
+    out += seg(0xC0, struct.pack('>BHHB', 8, H, W, 3) + bytes(
+        [1, (hs << 4) | vs, 0, 2, 0x11, 1, 3, 0x11, 2]))
+    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x22, 0, 63, 0]))
+    for k, off in enumerate(offsets):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        out += data[off:off + counts[k]] if counts else data[off:]
+    return bytes(out + b'\xff\xd9')
+
+
+def _ojpeg(data, tags, W, H, rps, offsets, counts, tables, path):
+    """An old-style JPEG (compression 6) TIFF as libtiff's OJPEG codec
+    and RGBA reader give it: the whole image from the JPEG stream that
+    ``JPEGInterchangeFormat`` points at, or a stream built from the
+    ``JPEGProc`` tables and the strips (each strip a restart interval),
+    converted through libtiff's YCbCr tables."""
+    if 513 in tags:
+        off = tags[513][0]
+        n = tags.get(514, (len(data) - off,))[0]
+        stream = data[off:off + n]
+    elif 519 not in tags and data[offsets[0]:offsets[0] + 2] == b'\xff\xd8':
+        # no tables: the strips hold the stream, markers and all
+        stream = b''.join(data[o:o + c] for o, c in zip(
+            offsets, counts or [len(data)] * len(offsets)))
+    else:
+        stream = _ojpeg_stream(data, tags, W, H, rps, offsets, counts, path)
+    units, hs, vs = _ojpeg_units(stream, W, H, path)
+    return _ycbcr_to_rgb(units, hs, vs, tables)[:H, :W]
 
 
 def _to_mode(mode, s, photo, b, extra, tags, bo):
@@ -486,6 +650,10 @@ def _to_mode(mode, s, photo, b, extra, tags, bo):
         return 'I', s[..., 0].astype(np.int32), None
     if mode == 'F':
         return 'F', s[..., 0].astype(np.float32), None
+    if mode == 'LAB':
+        # PIL's LAB unpacker: a* and b* from signed to offset bytes
+        return 'LAB', np.ascontiguousarray(
+            s[..., :3].astype(np.uint8) ^ np.uint8([0, 128, 128])), None
     if mode in ('P', 'PA'):
         cmap = np.asarray(tags[320], np.int64).reshape(3, -1).T // 256
         return mode, s[..., 0].astype(np.uint8), cmap.astype(np.uint8)

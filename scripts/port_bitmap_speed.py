@@ -5,8 +5,9 @@ plain twins and PIL, on one host.
 
 Decodes every file of ``tests/data/webp_large`` (WebP at 512 x 512) and
 ``tests/data/bitmaps_large`` (JPEG at 512 x 512, JPEG and WebP at 2,048 x
-2,048 and 4,096 x 4,096, LZW TIFF, GIF and JPEG-in-TIFF at 2,048 x 2,048)
-and three PNG files written here by numpy with
+2,048 and 4,096 x 4,096, LZW TIFF, GIF, JPEG-in-TIFF and G4 TIFF at 2,048
+x 2,048, and two DDS files of seeded random BC1 and BC7 blocks at 2,048 x
+2,048, written here) and three PNG files written here by numpy with
 every row Paeth-filtered (512, 2,048 and 4,096 square; their pixels are
 known) through ``texture.read_rgb8``: the native stages (median of
 ``--reps``), the plain stages (``testing/bitmap_stages.plain``, once, the
@@ -28,7 +29,9 @@ a 2,048 x 2,048 PackBits TIFF, and the time inside the numpy stages of
 the lossless WebP decoder (prefix-code reading, subtract-green, colour
 indexing) and the rest of the decode of two 4,096 x 4,096 lossless WebP
 files, one full-colour and one of 256 colours, written by PIL, and of
-subtract-green on a seeded 4,096 x 4,096 image.
+subtract-green on a seeded 4,096 x 4,096 image; then slice 17's stages:
+CCITT G4 and BC7 and BC6H blocks at 512 x 512, and the QOI, SGI RLE and
+PCX RLE loops at 2,048 x 2,048 (``slice17_rows``).
 """
 from __future__ import annotations
 
@@ -82,7 +85,9 @@ def files(workdir: str) -> list:
         with open(os.path.join(DATA, folder, 'pil_rgb_sha256.json')) as f:
             digests = json.load(f)
         for name, d in sorted(digests.items()):
-            out.append((os.path.join(DATA, folder, name), lambda rgb, d=d: (
+            path = bitmap_stages.large_file(os.path.join(DATA, folder), name,
+                                            d, workdir)
+            out.append((path, lambda rgb, d=d: (
                 hashlib.sha256(rgb.tobytes()).hexdigest() == d['sha256'])))
     for n in (512, 2048, 4096):
         img = bitmap_stages.picture(n, n)
@@ -192,6 +197,53 @@ def stage_rows(workdir: str, reps: int) -> None:
                                                 np.uint32)
     ms, _ = timed(lambda: vp8l._add_green(argb), reps)
     emit({'stage': 'webp_subtract_green', 'side': 4096, 'ms': ms})
+    slice17_rows(workdir, reps)
+
+
+def slice17_rows(workdir: str, reps: int) -> None:
+    """Slice 17's stages, each on the arguments its decode hands it:
+    CCITT G4 of a 512^2 bilevel picture and BC7 and BC6H blocks of a
+    512^2 surface (native median of ``reps``, plain once), and the QOI,
+    SGI RLE and PCX RLE loops at 2,048^2 (their plain twins, Python loops,
+    once), the loops that the 1 s rule at 2,048^2 moved into the
+    library."""
+    from mitsuba_nlvrl_tpu_torch.utils import ccitt, dds, pcx, qoi, sgi
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from port_make_bitmaps import _sgi_rle
+    pic = bitmap_stages.picture(512, 512)
+    g4 = os.path.join(workdir, 'g4_512.tif')
+    Image.fromarray(pic[..., 1] >= 128).save(g4, compression='group4')
+    bc = {}
+    for name, dxgi in (('bc7', 98), ('bc6h', 95)):
+        bc[name] = os.path.join(workdir, f'{name}_512.dds')
+        with open(bc[name], 'wb') as f:
+            f.write(bitmap_stages.bcn_random_dds(512, 512, dxgi, 512))
+    big = bitmap_stages.picture(2048, 2048)
+    for fmt, kw in (('QOI', {}), ('PCX', {})):
+        Image.fromarray(big).save(os.path.join(workdir, f'big.{fmt}'), fmt,
+                                  **kw)
+    with open(os.path.join(workdir, 'big.sgi'), 'wb') as f:
+        f.write(_sgi_rle(big, 1))
+    rows = [('ccitt_g4', 512, ccitt, 'decode', g4),
+            ('bcn_bc7', 512, dds, '_bcn', bc['bc7']),
+            ('bcn_bc6h', 512, dds, '_bcn', bc['bc6h']),
+            ('qoi', 2048, qoi, '_qoi', os.path.join(workdir, 'big.QOI')),
+            ('sgi_rle', 2048, sgi, '_sgi_rle',
+             os.path.join(workdir, 'big.sgi')),
+            ('pcx_rle', 2048, pcx, '_pcx_rle',
+             os.path.join(workdir, 'big.PCX'))]
+    for name, side, module, stage, path in rows:
+        calls = captured(module, stage, path)
+
+        def run(fn):
+            for args in calls:
+                fn(*copy.deepcopy(args))
+        native_ms, _ = timed(lambda: run(getattr(module, stage)), reps)
+        plain_ms, _ = timed(lambda: run(getattr(module, stage + '_plain')),
+                            1)
+        emit({'stage': name, 'side': side, 'calls': len(calls),
+              'native_ms': native_ms, 'plain_ms': plain_ms,
+              'plain_over_native': plain_ms / native_ms})
 
 
 def main() -> None:
@@ -200,7 +252,8 @@ def main() -> None:
     ap.add_argument('--no-plain', action='store_true',
                     help="skip the plain stages (minutes at 2,048^2)")
     ap.add_argument('--stages', action='store_true',
-                    help="also time slice 16's stages (needs PIL)")
+                    help="also time slice 16's and 17's stages (needs "
+                    "PIL)")
     args = ap.parse_args()
     emit({'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
           'pil': Image is not None,

@@ -55,6 +55,7 @@ import struct
 import numpy as np
 from PIL import Image
 
+from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
 from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import picture
 
 H, W = 23, 37
@@ -330,19 +331,35 @@ def _ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> bytes:
     return np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()
 
 
+def _pack_rows(block: np.ndarray, bits: int) -> bytes:
+    """(h, w, C) samples as libtiff takes them: 8-bit bytes, or rows of
+    1- or 12-bit samples packed MSB first, each row from a byte
+    boundary."""
+    if bits == 8:
+        return block.astype(np.uint8).tobytes()
+    h = block.shape[0]
+    flat = block.reshape(h, -1).astype(np.uint16)
+    b = (flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+    return np.packbits(b.reshape(h, -1).astype(np.uint8), axis=1).tobytes()
+
+
 def libtiff_write(path: str, pixels: np.ndarray, photometric: int,
                   compression: int, strip: int = None, tile=None,
-                  subsampling=None, tags=(), jpeg_quality: int = 90) -> None:
-    """A TIFF of (H, W, C) uint8 ``pixels`` written by libtiff: strips of
-    ``strip`` rows (all rows by default) or ``tile`` (w, h) tiles.
-    Compression 7 (JPEG) takes RGB or grey pixels: libjpeg converts them to
-    YCbCr for photometric 6 (JPEGCOLORMODE_RGB) at ``subsampling``.
+                  subsampling=None, tags=(), jpeg_quality: int = 90,
+                  bits: int = 8, order: str = 'II') -> None:
+    """A TIFF of (H, W, C) ``pixels`` written by libtiff: strips of
+    ``strip`` rows (all rows by default) or ``tile`` (w, h) tiles, ``bits``
+    a sample (8; 1 or 12 packed MSB first), in byte ``order`` 'II' or
+    'MM'. Compression 7 (JPEG) takes RGB or grey pixels: libjpeg converts
+    them to YCbCr for photometric 6 (JPEGCOLORMODE_RGB) at ``subsampling``.
     Otherwise photometric 6 takes full-resolution YCbCr, packed here into
     data units. ``tags``: (tag, value, ...) set as they are (a list value
-    is a float array)."""
+    is a float array); libtiff codes CCITT data (compression 2-4, 1-bit
+    samples: 1 black) with the ``T4Options`` and ``FillOrder`` given
+    there."""
     lib = _libtiff_lib()
     H, W, C = pixels.shape
-    t = lib.TIFFOpen(path.encode(), b'w')
+    t = lib.TIFFOpen(path.encode(), b'w' if order == 'II' else b'wb')
     assert t, path
 
     def put(tag, *vals):
@@ -350,7 +367,7 @@ def libtiff_write(path: str, pixels: np.ndarray, photometric: int,
                 else ctypes.c_uint32(v) for v in vals]
         assert lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag),
                                 *args) == 1, (tag, vals)
-    for tag, *vals in ((256, W), (257, H), (258, 8), (277, C),
+    for tag, *vals in ((256, W), (257, H), (258, bits), (277, C),
                        (259, compression), (262, photometric), (284, 1)):
         put(tag, *vals)
     hs, vs = subsampling or (1, 1)
@@ -362,7 +379,7 @@ def libtiff_write(path: str, pixels: np.ndarray, photometric: int,
             put(65538, 1)                       # JPEGCOLORMODE_RGB
     for tag, *vals in tags:
         put(tag, *vals)
-    raw = compression != 7 and photometric == 6
+    raw = compression != 7 and photometric == 6 and C == 3
     tw, th = tile or (W, strip or H)
     if tile:
         put(322, tw)
@@ -380,7 +397,8 @@ def libtiff_write(path: str, pixels: np.ndarray, photometric: int,
                 block[part.shape[0]:] = block[part.shape[0] - 1]
                 block[:, part.shape[1]:] = block[:, part.shape[1] - 1:
                                                  part.shape[1]]
-            data = _ycbcr_units(block, hs, vs) if raw else block.tobytes()
+            data = _ycbcr_units(block, hs, vs) if raw else \
+                _pack_rows(block, bits)
             write = lib.TIFFWriteEncodedTile if tile else \
                 lib.TIFFWriteEncodedStrip
             assert write(t, k, data, len(data)) >= 0, (path, k)
@@ -418,6 +436,395 @@ def _tiff_layouts(rgb: np.ndarray, out: str) -> list:
     return list(made)
 
 
+def tiff_by_hand(tags: dict, blobs=()) -> bytes:
+    """A little-endian classic TIFF of one IFD: ``tags`` {tag: (type,
+    values)} (type 2 takes one bytes value; a value ``('blob', i)`` is
+    the offset of ``blobs[i]``, which follow the IFD)."""
+    fmt = {1: 'B', 2: 's', 3: 'H', 4: 'I'}
+    pos = 8 + 2 + 12 * len(tags) + 4
+    body, where = bytearray(), []
+    for b in blobs:
+        where.append(pos + len(body))
+        body += b + b'\0' * (len(b) & 1)
+    extra, entries = bytearray(), []
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        vals = [where[v[1]] if isinstance(v, tuple) else v for v in vals]
+        data = vals[0] if typ == 2 else b''.join(
+            struct.pack('<' + fmt[typ], v) for v in vals)
+        count = len(data) if typ == 2 else len(vals)
+        if len(data) <= 4:
+            entries.append(struct.pack('<HHI', tag, typ, count)
+                           + data.ljust(4, b'\0'))
+        else:
+            entries.append(struct.pack('<HHII', tag, typ, count,
+                                       pos + len(body) + len(extra)))
+            extra += data + b'\0' * (len(data) & 1)
+    return b'II*\0' + struct.pack('<IH', 8, len(tags)) + b''.join(entries) \
+        + b'\0' * 4 + bytes(body) + bytes(extra)
+
+
+def _jpeg_segments(jp: bytes):
+    """A baseline JPEG's tables and its scan split at restart markers:
+    ({table id: 64 bytes}, {class << 4 | id: counts and symbols}, the
+    components' quantisation table ids, the scan's pieces)."""
+    pos, q, dht, tq = 2, {}, {}, []
+    while True:
+        marker, n = jp[pos + 1], struct.unpack('>H', jp[pos + 2:pos + 4])[0]
+        body = jp[pos + 4:pos + 2 + n]
+        pos += 2 + n
+        if marker == 0xDB:
+            for i in range(0, len(body), 65):
+                q[body[i] & 15] = body[i + 1:i + 65]
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                m = sum(body[i + 1:i + 17])
+                dht[body[i]] = body[i + 1:i + 17 + m]
+                i += 17 + m
+        elif marker == 0xC0:
+            tq = [body[8 + 3 * k] for k in range(body[5])]
+        elif marker == 0xDA:
+            break
+    scan, pieces, cur, i = jp[pos:-2], [], bytearray(), 0
+    while i < len(scan):
+        if scan[i] == 0xFF and i + 1 < len(scan) and \
+                0xD0 <= scan[i + 1] <= 0xD7:
+            pieces.append(bytes(cur))
+            cur = bytearray()
+            i += 2
+            continue
+        cur.append(scan[i])
+        i += 1
+    return q, dht, tq, pieces + [bytes(cur)]
+
+
+def _ojpeg_files(rgb: np.ndarray) -> dict:
+    """Old-style JPEG TIFFs (compression 6), written by hand: one whose
+    ``JPEGInterchangeFormat`` points at a whole 4:2:0 JPEG PIL wrote, one
+    whose strip holds such a stream, and two in strips of entropy-coded
+    data with ``JPEGProc`` tables (4:2:0 in 16-row strips, 4:4:4 in
+    8-row strips), each strip a restart interval of PIL's JPEG."""
+    H, W = rgb.shape[:2]
+    base = {256: (3, [W]), 257: (3, [H]), 258: (3, [8, 8, 8]),
+            259: (3, [6]), 262: (3, [6]), 277: (3, [3])}
+    out = {}
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, 'JPEG', quality=85, subsampling=2)
+    jp = buf.getvalue()
+    out['tiff_ojpeg_interchange.tif'] = tiff_by_hand({
+        **base, 273: (4, [('blob', 0)]), 278: (3, [H]),
+        279: (4, [len(jp)]), 513: (4, [('blob', 0)]), 514: (4, [len(jp)]),
+        530: (3, [2, 2])}, [jp])
+    out['tiff_ojpeg_stream_strip.tif'] = tiff_by_hand({
+        **base, 273: (4, [('blob', 0)]), 278: (3, [H]),
+        279: (4, [len(jp)])}, [jp])
+    for name, sub, (hs, vs), rps in (
+            ('tiff_ojpeg_tables_420.tif', 2, (2, 2), 16),
+            ('tiff_ojpeg_tables_444.tif', 0, (1, 1), 8)):
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, 'JPEG', quality=85, subsampling=sub,
+                                  restart_marker_rows=rps // (8 * vs))
+        q, dht, tq, strips = _jpeg_segments(buf.getvalue())
+        n = len(strips)
+        assert n == -(-H // rps), (name, n)
+        blobs = strips + [q[tq[k]] for k in range(3)] + \
+            [dht[min(k, 1)] for k in range(3)] + \
+            [dht[0x10 | min(k, 1)] for k in range(3)]
+        out[name] = tiff_by_hand({
+            **base, 273: (4, [('blob', i) for i in range(n)]),
+            278: (3, [rps]), 279: (4, [len(x) for x in strips]),
+            512: (3, [1]), 515: (3, [rps // (8 * vs) * -(-W // (8 * hs))]),
+            519: (4, [('blob', n + k) for k in range(3)]),
+            520: (4, [('blob', n + 3 + k) for k in range(3)]),
+            521: (4, [('blob', n + 6 + k) for k in range(3)]),
+            530: (3, [hs, vs])}, blobs)
+    return out
+
+
+def _bilevel(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 1) 0/1 samples (1 black) of an RGB picture: its green
+    channel thresholded, with a row of solid black, one of solid white
+    and one of noise among them."""
+    b = (rgb[..., 1:2] < 128).astype(np.uint8)
+    b[3] = 1
+    b[4] = 0
+    b[9, :, 0] = np.random.default_rng(7).integers(0, 2, b.shape[1])
+    return b
+
+
+def _libtiff_planar(path: str, pixels: np.ndarray, photometric: int,
+                    compression: int) -> None:
+    """A TIFF of (H, W, 3) 8-bit samples in three planes (planar
+    configuration 2), one strip a plane, 1x1 YCbCr subsampling."""
+    lib = _libtiff_lib()
+    H, W, C = pixels.shape
+    t = lib.TIFFOpen(path.encode(), b'w')
+    for tag, *vals in ((256, W), (257, H), (258, 8), (277, C),
+                       (259, compression), (262, photometric), (284, 2),
+                       (278, H), (530, 1, 1)):
+        assert lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag),
+                                *[ctypes.c_uint32(v) for v in vals]) == 1
+    for k in range(C):
+        data = np.ascontiguousarray(pixels[..., k]).tobytes()
+        assert lib.TIFFWriteEncodedStrip(t, k, data, len(data)) >= 0
+    lib.TIFFClose(t)
+
+
+def _tiff_rest(rgb: np.ndarray, out: str) -> list:
+    """Slice 17's TIFF layouts: orientations 2-8 (strips, tiles,
+    JPEG-in-TIFF, YCbCr, G4), CCITT (RLE; G3 1-D and 2-D, with and
+    without fill bits, the uncompressed-mode bit; G4; fill order 2,
+    tiles, photometric 1), old-style JPEG, CIELab, 12-bit grey,
+    one-sample and planar YCbCr, and YCbCr with predictor 2 above 1x1;
+    their names."""
+    colour = Image.fromarray(rgb)
+    ycc = np.asarray(colour.convert('YCbCr'))
+    bits = _bilevel(rgb)
+    grey12 = (rgb[..., :1].astype(np.uint16) * 16 + rgb[..., 2:3] // 16)
+    grey12[0, :6, 0] = (0, 1, 255, 256, 4094, 4095)
+    writes = {f'tiff_orient{o}_lzw.tif': (colour, {
+        'compression': 'tiff_lzw', 'tiffinfo': {274: o}})
+        for o in range(2, 9)}
+    writes.update({
+        'tiff_orient5_jpeg.tif': (colour, {'compression': 'jpeg',
+                                           'tiffinfo': {274: 5}}),
+        'tiff_orient8_g4.tif': (colour.convert('1'), {
+            'compression': 'group4', 'tiffinfo': {274: 8}}),
+        'tiff_pil_ccitt.tif': (colour.convert('1'), {
+            'compression': 'tiff_ccitt'}),
+        'tiff_pil_group3.tif': (colour.convert('1'), {'compression':
+                                                      'group3'}),
+        'tiff_pil_group4.tif': (colour.convert('1'), {'compression':
+                                                      'group4'}),
+        'tiff_lab.tif': (colour.convert('LAB'), {}),
+        'tiff_lab_lzw.tif': (colour.convert('LAB'), {
+            'compression': 'tiff_lzw'}),
+    })
+    for name, (im, kw) in writes.items():
+        im.save(os.path.join(out, name), **kw)
+    made = {
+        'tiff_orient6_tiles.tif': (rgb, 2, 8, {'tile': (16, 16),
+                                               'tags': ((274, 6),)}),
+        'tiff_orient7_ycbcr22.tif': (ycc, 6, 5, {
+            'strip': 8, 'subsampling': (2, 2), 'tags': ((274, 7),)}),
+        'tiff_ccitt_rle.tif': (bits, 0, 2, {'strip': 8, 'bits': 1}),
+        'tiff_g3_1d.tif': (bits, 0, 3, {'strip': 8, 'bits': 1}),
+        'tiff_g3_2d.tif': (bits, 0, 3, {'strip': 8, 'bits': 1,
+                                        'tags': ((292, 1),)}),
+        'tiff_g3_1d_fill.tif': (bits, 0, 3, {'strip': 16, 'bits': 1,
+                                             'tags': ((292, 4),)}),
+        'tiff_g3_2d_fill.tif': (bits, 0, 3, {'bits': 1,
+                                             'tags': ((292, 5),)}),
+        'tiff_g3_uncompressed_bit.tif': (bits, 0, 3, {
+            'strip': 8, 'bits': 1, 'tags': ((292, 3),)}),
+        'tiff_g3_2d_fillorder2.tif': (bits, 0, 3, {
+            'strip': 8, 'bits': 1, 'tags': ((292, 1), (266, 2))}),
+        'tiff_g4_fillorder2.tif': (bits, 0, 4, {'bits': 1,
+                                                'tags': ((266, 2),)}),
+        'tiff_g4_tiles.tif': (bits, 0, 4, {'tile': (16, 16), 'bits': 1}),
+        'tiff_g4_min_is_black.tif': (bits, 1, 4, {'strip': 8, 'bits': 1}),
+        'tiff_g3_2d_tiles_min_is_black.tif': (bits, 1, 3, {
+            'tile': (32, 16), 'bits': 1, 'tags': ((292, 1),)}),
+        'tiff_lab_mm_lzw.tif': (np.asarray(colour.convert('LAB')) ^
+                                np.uint8([0, 128, 128]), 8, 5, {
+            'strip': 8, 'order': 'MM'}),
+        'tiff_grey12_raw.tif': (grey12, 1, 1, {'strip': 8, 'bits': 12}),
+        'tiff_grey12_lzw.tif': (grey12, 1, 5, {'strip': 8, 'bits': 12}),
+        'tiff_grey12_deflate.tif': (grey12, 1, 8, {'bits': 12}),
+        'tiff_ycbcr_one_sample.tif': (ycc[..., :1], 6, 1, {
+            'strip': 8, 'subsampling': (1, 1)}),
+        'tiff_ycbcr22_lzw_pred2.tif': (ycc, 6, 5, {
+            'strip': 8, 'subsampling': (2, 2), 'tags': ((317, 2),)}),
+        'tiff_ycbcr21_lzw_pred2.tif': (ycc, 6, 5, {
+            'strip': 8, 'subsampling': (2, 1), 'tags': ((317, 2),)}),
+        'tiff_ycbcr44_deflate_pred2.tif': (ycc, 6, 8, {
+            'strip': 8, 'subsampling': (4, 4), 'tags': ((317, 2),)}),
+        'tiff_ycbcr22_deflate_pred2_tiles.tif': (ycc, 6, 8, {
+            'tile': (16, 16), 'subsampling': (2, 2), 'tags': ((317, 2),)}),
+    }
+    for name, (px, photo, comp, kw) in made.items():
+        libtiff_write(os.path.join(out, name), px, photo, comp, **kw)
+    planar = ('tiff_ycbcr_planar_raw.tif', 'tiff_ycbcr_planar_lzw.tif')
+    for name, comp in zip(planar, (1, 5)):
+        _libtiff_planar(os.path.join(out, name), ycc, 6, comp)
+    ojpeg = _ojpeg_files(rgb)
+    for name, data in ojpeg.items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    return [*writes, *made, *planar, *ojpeg]
+
+
+def _sgi_rle(img: np.ndarray, bpc: int) -> bytes:
+    """An RLE SGI file of an (H, W, Z) image (``bpc`` 2: 16-bit samples,
+    the value times 257): each channel's row as runs of one value and
+    copies of up to 127 samples, a zero to end it, rows bottom-up."""
+    H, W, Z = img.shape
+    vals = img.astype(np.uint16) * (257 if bpc == 2 else 1)
+
+    def word(v):
+        return struct.pack('>H', v) if bpc == 2 else bytes([v])
+    rows = {}
+    for c in range(Z):
+        for r in range(H):
+            row, out, x = vals[H - 1 - r, :, c], bytearray(), 0
+            while x < W:
+                run = 1
+                while x + run < W and run < 127 and row[x + run] == row[x]:
+                    run += 1
+                if run > 1:
+                    out += word(run) + word(int(row[x]))
+                    x += run
+                    continue
+                end = x + 1
+                while end < W and end - x < 127 and row[end] != row[end - 1]:
+                    end += 1
+                if end < W and row[end] == row[end - 1]:
+                    end -= 1
+                out += word(0x80 | (end - x)) + b''.join(
+                    word(int(v)) for v in row[x:end])
+                x = end
+            rows[(r, c)] = bytes(out + word(0))
+    head = bytearray(512)
+    struct.pack_into('>HBBHHHH', head, 0, 474, 1, bpc, 3 if Z > 1 else 2,
+                     W, H, Z)
+    struct.pack_into('>II', head, 12, 0, 255 * (257 if bpc == 2 else 1))
+    order = [(r, c) for c in range(Z) for r in range(H)]
+    start, data, offs = 512 + 8 * len(order), bytearray(), []
+    for key in order:
+        offs.append(start + len(data))
+        data += rows[key]
+    table = struct.pack(f'>{len(order)}I', *offs) + struct.pack(
+        f'>{len(order)}I', *[len(rows[k]) for k in order])
+    return bytes(head) + table + bytes(data)
+
+
+def _pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX RLE of (H, N) row bytes: runs of up to 63 within a row, a
+    byte of its own where it is below 0xC0."""
+    out = bytearray()
+    for row in rows:
+        x, n = 0, len(row)
+        while x < n:
+            run = 1
+            while x + run < n and run < 63 and row[x + run] == row[x]:
+                run += 1
+            if run > 1 or row[x] >= 0xC0:
+                out += bytes([0xC0 | run, row[x]])
+            else:
+                out.append(row[x])
+            x += run
+    return bytes(out)
+
+
+def _pcx(idx: np.ndarray, planes: int, bits: int, stride: int,
+         palette16=None) -> bytes:
+    """A version 5 PCX file of (H, W) indices (bits 1: ``planes`` bit
+    planes of the indices) or (H, W, planes) bytes (bits 8), each plane
+    of a row ``stride`` bytes (the header says so)."""
+    H, W = idx.shape[:2]
+    rows = np.zeros((H, planes, stride), np.uint8)
+    for p in range(planes):
+        if bits == 1:
+            plane = np.packbits((idx >> p) & 1, axis=1)
+        else:
+            plane = idx[..., p] if idx.ndim == 3 else idx
+        rows[:, p, :plane.shape[1]] = plane
+    head = bytearray(128)
+    struct.pack_into('<BBBBHHHHHH', head, 0, 10, 5, 1, bits, 0, 0,
+                     W - 1, H - 1, 72, 72)
+    if palette16 is not None:
+        head[16:64] = palette16.astype(np.uint8).tobytes()
+    head[65] = planes
+    struct.pack_into('<HH', head, 66, stride, 1)
+    return bytes(head) + _pcx_rle(rows.reshape(H, -1))
+
+
+def _raster_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
+    """Slice 17's DDS, QOI, SGI and PCX layouts and the picture's
+    lossless copies in the four formats; their names."""
+    H, W = rgb.shape[:2]
+    rng = np.random.default_rng(17)
+    colour = Image.fromarray(rgb)
+    rgba = Image.fromarray(np.concatenate([rgb, rgb[..., 2:]], -1), 'RGBA')
+    grey = Image.fromarray(rgb[..., 1])
+    la = Image.fromarray(np.stack([rgb[..., 1], rgb[..., 0]], -1), 'LA')
+    p64 = pic.convert('RGB')
+    writes = {
+        'picture64.qoi': (p64, 'QOI', {}),
+        'picture64.sgi': (p64, 'SGI', {}),
+        'picture64.pcx': (p64, 'PCX', {}),
+        'picture64.dds': (p64, 'DDS', {}),
+        'qoi_rgb.qoi': (colour, 'QOI', {}),
+        'qoi_rgba.qoi': (rgba, 'QOI', {}),
+        'sgi_rgb.sgi': (colour, 'SGI', {}),
+        'sgi_rgba.sgi': (rgba, 'SGI', {}),
+        'sgi_l.sgi': (grey, 'SGI', {}),
+        'sgi_rgb16.sgi': (colour, 'SGI', {'bpc': 2}),
+        'pcx_rgb.pcx': (colour, 'PCX', {}),
+        'pcx_l.pcx': (grey, 'PCX', {}),
+        'pcx_palette.pcx': (colour.quantize(64), 'PCX', {}),
+        'pcx_1.pcx': (grey.convert('1'), 'PCX', {}),
+        'dds_dxt1.dds': (rgba, 'DDS', {'pixel_format': 'DXT1'}),
+        'dds_dxt3.dds': (rgba, 'DDS', {'pixel_format': 'DXT3'}),
+        'dds_dxt5.dds': (rgba, 'DDS', {'pixel_format': 'DXT5'}),
+        'dds_bc5.dds': (colour, 'DDS', {'pixel_format': 'BC5'}),
+        'dds_rgb.dds': (colour, 'DDS', {}),
+        'dds_rgba.dds': (rgba, 'DDS', {}),
+        'dds_l.dds': (grey, 'DDS', {}),
+        'dds_la.dds': (la, 'DDS', {}),
+    }
+    for name, (im, fmt, kw) in writes.items():
+        im.save(os.path.join(out, name), fmt, **kw)
+    made = {}
+    for z, bpc in ((3, 1), (4, 1), (1, 2)):
+        img = np.concatenate([rgb, rgb[..., :1]], -1)[..., :z].copy()
+        img[2, 5:30] = 77                    # a long run in one row
+        made[f'sgi_rle_{z}ch_{8 * bpc}bit.sgi'] = _sgi_rle(img, bpc)
+    idx16 = (rgb[..., 0] // 16).astype(np.uint8)
+    pal16 = rng.integers(0, 256, (16, 3))
+    made['pcx_4bit_planar.pcx'] = _pcx(idx16, 4, 1, 6, pal16)
+    made['pcx_2bit_planar.pcx'] = _pcx(idx16 & 3, 2, 1, 5, pal16)
+    made['pcx_rgb_odd_stride.pcx'] = _pcx(rgb, 3, 8, W)
+    made['pcx_l_padded.pcx'] = _pcx(rgb[..., 2], 1, 8, W + 1) + b'\x0c' + \
+        bytes(np.repeat(np.arange(256), 3).astype(np.uint8))
+    pal = rng.integers(0, 256, (256, 4)).astype(np.uint8)
+    made['dds_p.dds'] = bitmap_stages.dds_file(
+        W, H, pal.tobytes() + rng.integers(0, 256, W * H).astype(
+            np.uint8).tobytes(), pfflags=0x20, bitcount=8)
+    px = rgb.astype(np.uint32)
+    w565 = ((px[..., 0] >> 3) << 11) | ((px[..., 1] >> 2) << 5) | \
+        (px[..., 2] >> 3)
+    made['dds_rgb565.dds'] = bitmap_stages.dds_file(
+        W, H, w565.astype('<u2').tobytes(), pfflags=0x40, bitcount=16,
+        masks=(0xF800, 0x07E0, 0x001F))
+    w4444 = ((px[..., 0] >> 4) << 8) | ((px[..., 1] >> 4) << 4) | \
+        (px[..., 2] >> 4) | ((px[..., 0] >> 4) << 12)
+    made['dds_argb4444.dds'] = bitmap_stages.dds_file(
+        W, H, w4444.astype('<u2').tobytes(), pfflags=0x41, bitcount=16,
+        masks=(0x0F00, 0x00F0, 0x000F, 0xF000))
+    made['dds_dx10_rgba8.dds'] = bitmap_stages.dds_file(
+        W, H, np.asarray(rgba).tobytes(), dxgi=28)
+    blocks = -(-W // 4) * -(-H // 4)
+    for cc, n in ((b'ATI1', 8), (b'BC4U', 8), (b'ATI2', 16), (b'BC5U', 16),
+                  (b'BC5S', 16)):
+        made[f'dds_{cc.decode().lower()}.dds'] = bitmap_stages.dds_file(
+            W, H, rng.integers(0, 256, blocks * n).astype(
+                np.uint8).tobytes(), fourcc=cc)
+    for dxgi, tag in ((71, 'bc1'), (74, 'bc2'), (77, 'bc3'), (80, 'bc4'),
+                      (84, 'bc5s'), (95, 'bc6h_uf16'), (96, 'bc6h_sf16'),
+                      (98, 'bc7')):
+        made[f'dds_dx10_{tag}.dds'] = bitmap_stages.bcn_random_dds(
+            W, H, dxgi, 100 + dxgi)
+    first = rng.integers(0, 256, blocks * 8).astype(np.uint8).tobytes()
+    made['dds_dxt1_mipmaps.dds'] = bitmap_stages.dds_file(
+        W, H, first + bytes(range(256)) * 2, fourcc=b'DXT1', mipmaps=6)
+    for name, data in made.items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    return [*writes, *made]
+
+
 def _lzw_tiff_large(path: str, n: int) -> None:
     """An n x n LZW TIFF, predictor 2, of the picture posterised to steps
     of 8 (``picture``'s waves and discs, no noise)."""
@@ -438,12 +845,28 @@ def _jpeg_tiff_large(path: str, n: int) -> None:
                   subsampling=(2, 2), jpeg_quality=85)
 
 
+def _g4_tiff_large(path: str, n: int) -> None:
+    """An n x n CCITT G4 TIFF of the picture's green channel
+    thresholded at 128 (waves and discs; the noise speckles their
+    edges)."""
+    Image.fromarray(picture(n, n, 1.0)[..., 1] >= 128).save(
+        path, compression='group4')
+
+
 # the files at textures' sizes written by a function of (path, side),
 # after those of LARGE
 LARGE_MADE = {
     'tiff_lzw_2048.tif': (_lzw_tiff_large, 2048),
     'gif_256_2048.gif': (_gif_large, 2048),
     'tiff_jpeg_ycbcr_2048.tif': (_jpeg_tiff_large, 2048),
+    'tiff_g4_2048.tif': (_g4_tiff_large, 2048),
+}
+# DDS files of seeded random blocks at a texture's size: not committed,
+# their digests are (``bitmap_stages.large_file`` writes them from the
+# entry's ``seeded`` record): name -> (DXGI format, side, seed)
+LARGE_SEEDED = {
+    'dds_bc1_random_2048.dds': (71, 2048, 1),
+    'dds_bc7_random_2048.dds': (98, 2048, 7),
 }
 
 
@@ -462,13 +885,22 @@ LARGE = {
 
 
 def _bitmaps_large(out: str) -> None:
-    """The files of ``LARGE`` and the SHA-256 digests of PIL's RGB bytes
-    of each; no file over 1.5 MB, 6 MB together."""
+    """The files of ``LARGE`` and ``LARGE_MADE`` (each written where it
+    is missing) and the SHA-256 digests of PIL's RGB bytes of each and of
+    the ``LARGE_SEEDED`` files; no file over 1.5 MB, 6 MB together."""
     os.makedirs(out, exist_ok=True)
     digests, total = {}, 0
+    for name, (dxgi, n, seed) in LARGE_SEEDED.items():
+        rgb = np.asarray(Image.open(io.BytesIO(bitmap_stages.bcn_random_dds(
+            n, n, dxgi, seed))).convert('RGB'))
+        digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
+                         'shape': list(rgb.shape), 'seeded': {
+                             'dxgi': dxgi, 'side': n, 'seed': seed}}
     for name in [*LARGE, *LARGE_MADE]:
         path = os.path.join(out, name)
-        if name in LARGE:
+        if os.path.exists(path):
+            pass
+        elif name in LARGE:
             n, kw, noisy = LARGE[name]
             Image.fromarray(picture(n, n, noisy)).save(path, **kw)
         else:
@@ -554,6 +986,8 @@ def main() -> None:
     _ycck(os.path.join(out, 'jpeg_cmyk.jpg'),
           os.path.join(out, 'jpeg_ycck.jpg'))
     _tiff_layouts(rgb, out)
+    _tiff_rest(rgb, out)
+    _raster_files(rgb, pic, out)
     for name, data in _webp_layouts(rgb, pic).items():
         with open(os.path.join(out, name), 'wb') as f:
             f.write(data)
@@ -567,12 +1001,13 @@ def main() -> None:
         assert size <= 16 * 1024, (name, size)
         ref[name] = np.asarray(Image.open(path).convert('RGB'))
     first = ref['picture64.png']
-    for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif', 'webp'):
+    for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif', 'webp', 'qoi', 'sgi',
+                'pcx', 'dds'):
         assert (ref[f'picture64.{ext}'] == first).all(), ext
     np.savez_compressed(os.path.join(out, 'pil_rgb.npz'), **ref)
     total = sum(os.path.getsize(os.path.join(out, n))
                 for n in os.listdir(out))
-    assert total <= 384 * 1024, total
+    assert total <= 1024 * 1024, total
     print(f"{len(ref)} files and pil_rgb.npz in {out}: {total} bytes")
 
 

@@ -16,8 +16,11 @@ subsampling through the libtiff PIL bundles (``libtiff_write`` of
 ``scripts/port_make_bitmaps.py``). Every file: the port's ``load_bitmap``
 equals the reference's byte for byte with ``gamma`` True and False, and
 ``identify`` names the format PIL opens it as. Files PIL refuses raise ``OSError`` (or PIL's own error)
-in both; a format or TIFF layout PIL opens that the port does not read
-raises ``NotImplementedError`` naming ROADMAP 12.7."""
+in both; a format PIL opens that the port does not read raises
+``NotImplementedError`` naming ROADMAP 12.7. The layouts and formats of
+slice 17 (the TIFF remainder, DDS, QOI, SGI, PCX) have files of their own:
+``test_torch_tiff_rest.py``, ``test_torch_dds.py`` and
+``test_torch_qoi_sgi_pcx.py``."""
 import os
 import struct
 import sys
@@ -806,14 +809,21 @@ def test_unidentified_file_raises_oserror_in_both(tmp_path):
                                     ('PCX', {})])
 def test_formats_outside_the_slice_name_their_roadmap_entry(tmp_path, fmt,
                                                             kw):
-    """The remaining gap: the reference decodes these (SGI, QOI, PCX), the
-    port raises."""
+    """SGI, QOI and PCX, outside the port until slice 17, now decode as
+    the reference does; a format still outside (ICO, ROADMAP 12.7's
+    remainder) raises naming its entry."""
     path = str(tmp_path / f'img.{fmt.lower()}')
     _pil('RGB').save(path, fmt, **kw)
-    assert jtex.load_bitmap(path).shape == (H, W, 3)
     assert ptex.identify(path) == fmt
+    ref = _reference(path)
+    assert not isinstance(ref, type), ref
+    for g, want in zip((True, False), ref):
+        assert ptex.load_bitmap(path, gamma=g).tobytes() == want.tobytes()
+    ico = str(tmp_path / 'img.ico')
+    _pil('RGB').save(ico, 'ICO')
+    assert jtex.load_bitmap(ico).shape[2] == 3
     with pytest.raises(NotImplementedError, match=r'item 12\.7'):
-        ptex.load_bitmap(path)
+        ptex.load_bitmap(ico)
 
 
 def _old_jpeg(path):
@@ -829,7 +839,10 @@ def _old_jpeg(path):
                 f.write(struct.pack('<H', 6))
 
 
-# TIFF layouts the reference opens through PIL that the port leaves
+# TIFF layouts the port left until slice 17 (the reference opens them
+# through PIL; a PIL JPEG-in-TIFF marked old-style JPEG, whose strips lack
+# their tables, and the 12-bit file ``_tiff`` writes with a byte a sample,
+# whose strip falls short, fail in both)
 LEFT = {
     'old-jpeg': _old_jpeg,
     'ccitt-group4': lambda p: _pil('1').save(p, compression='group4'),
@@ -842,11 +855,20 @@ LEFT = {
 
 @pytest.mark.parametrize('name', list(LEFT))
 def test_tiff_layouts_left_name_their_roadmap_entry(tmp_path, name):
+    """Slice 17 ported these: each decodes as the reference does, or
+    raises the reference's error type."""
     path = str(tmp_path / f'{name}.tif')
     LEFT[name](path)
     assert ptex.identify(path) == Image.open(path).format == 'TIFF'
-    with pytest.raises(NotImplementedError, match=r'item 12\.7'):
-        ptex.load_bitmap(path)
+    ref = _reference(path)
+    if isinstance(ref, type):
+        assert name in ('old-jpeg', 'grey-12-bit') and \
+            issubclass(ref, OSError), ref
+        with pytest.raises(ref):
+            ptex.load_bitmap(path)
+        return
+    for g, want in zip((True, False), ref):
+        assert ptex.load_bitmap(path, gamma=g).tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize('mode', ['1', 'L', 'LA', 'P', 'PA', 'I', 'I;16',

@@ -34,8 +34,8 @@ from PIL import Image
 from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import native, texture as ptex
 from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
-from mitsuba_nlvrl_tpu_torch.utils import (gif, io as pio, jpeg, tiff, vp8,
-                                           vp8l, webp)
+from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, gif, io as pio, jpeg,
+                                           tiff, vp8, vp8l, webp)
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -237,6 +237,61 @@ def test_gif_lzw_matches_plain(bits, full):
         assert got.tobytes() == idx.astype(np.uint8).tobytes()[:npix]
 
 
+@pytest.mark.parametrize('comp,options', [(2, 0), (3, 0), (3, 1), (3, 5),
+                                          (4, 0)])
+def test_ccitt_matches_plain(comp, options, tmp_path):
+    """Seeded bilevel pictures (runs from 1 pixel to the row) coded by
+    libtiff in each CCITT scheme: every strip through the native stage
+    and its plain twin, equal to each other and to the picture, and the
+    strips cut short or overlong."""
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), 'scripts'))
+    from port_make_bitmaps import libtiff_write
+    rng = np.random.default_rng(comp * 10 + options)
+    w = 300
+    bits = np.zeros((48, w, 1), np.uint8)
+    for y in range(48):
+        edges = np.cumsum(rng.geometric(rng.uniform(0.005, 0.5), 64))
+        for a, b in zip(edges[::2], edges[1::2]):
+            bits[y, a:b] = 1
+    path = str(tmp_path / 'c.tif')
+    libtiff_write(path, bits, 0, comp, bits=1, strip=16,
+                  tags=((292, options),) if comp == 3 else ())
+    data = open(path, 'rb').read()
+    tags, _ = tiff._ifd(data)
+    rows = np.packbits(bits[..., 0], axis=1)
+    for k, (off, n) in enumerate(zip(tags[273], tags[279])):
+        src = data[off:off + n]
+        got = ccitt.decode(src, comp, w, 16, options)
+        assert got == ccitt.decode_plain(src, comp, w, 16, options)
+        assert got == rows[16 * k:16 * (k + 1)].tobytes()
+        for cut in (src[:n // 2], src + bytes(9)):
+            try:
+                want = ccitt.decode_plain(cut, comp, w, 16, options)
+            except OSError:
+                with pytest.raises(OSError):
+                    ccitt.decode(cut, comp, w, 16, options)
+                continue
+            assert ccitt.decode(cut, comp, w, 16, options) == want
+
+
+@pytest.mark.parametrize('n,signed', [(1, 0), (2, 0), (3, 0), (4, 0),
+                                      (5, 0), (5, 1), (6, 0), (6, 1),
+                                      (7, 0)])
+@pytest.mark.parametrize('w,h', [(1, 1), (5, 3), (37, 23), (64, 64)])
+def test_bcn_matches_plain(n, signed, w, h):
+    """Seeded random BCn blocks (every bit pattern a block) at sizes that
+    are and are not multiples of 4; cut short, both raise OSError."""
+    rng = np.random.default_rng(n * 10 + signed + w)
+    size = dds._BLOCK_BYTES[n]
+    src = rng.integers(0, 256, -(-w // 4) * -(-h // 4) * size,
+                       dtype=np.uint8).tobytes()
+    assert dds._bcn(src, w, h, n, bool(signed)).tobytes() == \
+        dds._bcn_plain(src, w, h, n, bool(signed)).tobytes()
+    for fn in (dds._bcn, dds._bcn_plain):
+        with pytest.raises(OSError):
+            fn(src[:-1], w, h, n, bool(signed))
+
+
 @pytest.mark.parametrize('shape', [(1, 1), (1, 9), (9, 1), (64, 48),
                                    (256, 256)])
 def test_alpha_gradient_matches_plain(shape):
@@ -297,12 +352,15 @@ def _digests(folder):
 @pytest.mark.parametrize('folder,name', [
     (folder, name) for folder in ('webp_large', 'bitmaps_large')
     for name in sorted(_digests(folder))])
-def test_large_file_decodes_to_pil_digest(folder, name):
+def test_large_file_decodes_to_pil_digest(folder, name, tmp_path):
     """The files at textures' sizes that ``chip_smoke.py`` decodes on the
-    card's host (512^2 to 4,096^2)."""
+    card's host (512^2 to 4,096^2; the seeded random-block DDS files are
+    written here)."""
     want = _digests(folder)[name]
+    path = bitmap_stages.large_file(os.path.join(HERE, 'data', folder),
+                                    name, want, str(tmp_path))
     with bitmap_stages.forbid_plain():
-        got = ptex.read_rgb8(os.path.join(HERE, 'data', folder, name))
+        got = ptex.read_rgb8(path)
     assert list(got.shape) == want['shape']
     assert hashlib.sha256(got.tobytes()).hexdigest() == want['sha256']
 
@@ -380,11 +438,13 @@ def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
 
 
 @pytest.mark.parametrize('group', ('tiff_lzw', 'gif_lzw', 'alpha_gradient',
-                                   'jpeg_lossless'))
+                                   'jpeg_lossless', 'ccitt', 'bcn', 'qoi',
+                                   'sgi_rle', 'pcx_rle'))
 def test_corrupt_stage_input_fails_as_the_plain_path(group, tmp_path):
-    """An LZW stream, an alpha plane or a lossless scan cut short or with
-    bytes flipped: the native stage raises the plain twin's exception type
-    or returns its bytes."""
+    """An LZW stream, an alpha plane, a lossless scan, a CCITT strip, BCn
+    blocks or QOI, SGI or PCX RLE data cut short or with bytes flipped:
+    the native stage raises the plain twin's exception type or returns
+    its bytes."""
     cases = _corrupt_cases(group, tmp_path)
     assert len(cases) == 40
     assert [c for c in cases if c[1] != c[2]] == []

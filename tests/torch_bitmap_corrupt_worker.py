@@ -62,6 +62,17 @@ STAGE_GROUPS = {
         'webp_alph_lossless_gradient.webp', 'webp_alph_raw_gradient.webp')),
     'jpeg_lossless': ('jpeg', '_decode_lossless', 'read_jpeg_mode', (
         (1, 2, 0, 1), (4, 0, 0, 3), (7, 3, 1, 3), (5, 0, 0, 1))),
+    'ccitt': ('ccitt', 'decode', 'tiff.read_tiff', (
+        'tiff_g3_2d.tif', 'tiff_g4_tiles.tif', 'tiff_ccitt_rle.tif',
+        'tiff_g3_1d_fill.tif')),
+    'bcn': ('dds', '_bcn', 'read_dds', (
+        'dds_dx10_bc7.dds', 'dds_dx10_bc6h_sf16.dds', 'dds_dxt5.dds',
+        'dds_bc5s.dds')),
+    'qoi': ('qoi', '_qoi', 'read_qoi', ('qoi_rgb.qoi', 'qoi_rgba.qoi')),
+    'sgi_rle': ('sgi', '_sgi_rle', 'read_sgi', (
+        'sgi_rle_3ch_8bit.sgi', 'sgi_rle_1ch_16bit.sgi')),
+    'pcx_rle': ('pcx', '_pcx_rle', 'read_pcx', (
+        'pcx_rgb.pcx', 'pcx_4bit_planar.pcx')),
 }
 
 
@@ -104,6 +115,9 @@ def _stage_inputs(import_module, stages, group, workdir) -> tuple:
     decode, the stage and its plain twin."""
     module, stage, decoder, fixtures = STAGE_GROUPS[group]
     mod = import_module(f'mitsuba_nlvrl_tpu_torch.utils.{module}')
+    # the decoder may sit in another module than its stage
+    dmodule, decoder = decoder.split('.') if '.' in decoder else \
+        (module, decoder)
     calls, real = [], getattr(mod, stage)
 
     def record(*args):
@@ -122,15 +136,16 @@ def _stage_inputs(import_module, stages, group, workdir) -> tuple:
             else:
                 path = os.path.join(FIXTURES, f)
             getattr(import_module(
-                f'mitsuba_nlvrl_tpu_torch.utils.{module}'), decoder)(path)
+                f'mitsuba_nlvrl_tpu_torch.utils.{dmodule}'), decoder)(path)
     finally:
         setattr(mod, stage, real)
     return calls, getattr(mod, stage), getattr(mod, stage + '_plain')
 
 
 def _corrupt(arg, case: int, rng):
-    """An LZW stream or scan cut short or with bytes flipped; an alpha
-    plane's rows cut or its values flipped."""
+    """An LZW stream, scan, CCITT strip, BCn blocks or RLE data cut short
+    or with bytes flipped; an alpha plane's rows cut or its values
+    flipped."""
     if isinstance(arg, np.ndarray):
         a = arg.copy()
         if case % 2 == 0:
