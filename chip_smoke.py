@@ -158,6 +158,12 @@ G4 TIFF and two 2,048^2 DDS files of seeded random BC1 and BC7 blocks
 (written here) to PIL's digests, with host milliseconds per megapixel;
 ``textured_formats`` adds QOI, SGI, PCX and uncompressed DDS copies of the
 picture.
+Slice 18 (JPEG 2000, JP2 and raw codestreams, tier 1 and the inverse
+wavelets in host C++; ICO, CUR and ICNS): ``bitmap_decode`` also holds
+their fixtures to PIL's bytes, and a 2,048^2 irreversible and a 2,048^2
+reversible JP2 and PIL's 1,024^2 ICNS to PIL's digests, the irreversible
+JP2 under 2 s of host time; ``textured_formats`` adds the reversible JP2
+and the ICO (a PNG icon) copies of the picture (thirteen renders).
 The CPU halves of every check against the CPU run in two spawned worker
 processes beside the card's phases (their scene files written before
 they start), the CLI renders in subprocesses beside the phases after each
@@ -2824,21 +2830,24 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 
 # the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
 # port's decoders read, PIL's convert('RGB') bytes of each in
-# ``pil_rgb.npz``, one 64x64 picture in eleven lossless formats, and two
-# 512x512 WebP files (a texture's size) with the SHA-256 digests of PIL's
-# bytes
+# ``pil_rgb.npz``, one 64x64 picture in thirteen lossless formats, and
+# two 512x512 WebP files (a texture's size) with the SHA-256 digests of
+# PIL's bytes
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
                        'data', 'bitmaps')
 WEBP_LARGE = os.path.join(os.path.dirname(BITMAPS), 'webp_large')
 # JPEG and WebP at 2,048^2 and 4,096^2 with the digests of PIL's bytes
 BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
 PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'qoi',
-                   'sgi', 'pcx', 'dds')
+                   'sgi', 'pcx', 'dds', 'jp2', 'ico')
 # a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
 LARGE_DECODE_LIMIT_S = 3.0
 # and a 2,048^2 LZW TIFF's or GIF's (ROADMAP A 12.9)
 LZW_DECODE_LIMIT_S = 1.0
 LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif')
+# and a 2,048^2 irreversible (9/7) JPEG 2000 file's
+J2K_DECODE_LIMIT_S = 2.0
+J2K_LARGE = ('jp2_irreversible_2048.jp2',)
 
 
 def _large_decode(texture, path, check) -> dict:
@@ -2853,6 +2862,8 @@ def _large_decode(texture, path, check) -> dict:
         f"{path}: {ms:.1f} ms for a 4,096^2 decode"
     assert os.path.basename(path) not in LZW_LARGE or \
         ms < LZW_DECODE_LIMIT_S * 1e3, f"{path}: {ms:.1f} ms"
+    assert os.path.basename(path) not in J2K_LARGE or \
+        ms < J2K_DECODE_LIMIT_S * 1e3, f"{path}: {ms:.1f} ms"
     return {'shape': list(got.shape), 'host_ms': ms,
             'host_ms_per_mpix': ms / mpix}
 
@@ -2862,13 +2873,15 @@ def bitmap_decode_phase(workdir) -> None:
     PIL) and held to PIL's stored bytes, the two 512x512 WebP files and
     every file of ``tests/data/bitmaps_large`` (2,048^2 and 4,096^2 JPEG
     and WebP; 2,048^2 LZW TIFF, GIF, JPEG-in-TIFF and G4 TIFF; 2,048^2
-    DDS of seeded random BC1 and BC7 blocks, written into ``workdir``) to
+    DDS of seeded random BC1 and BC7 blocks, written into ``workdir``;
+    2,048^2 irreversible and reversible JPEG 2000; PIL's 1,024^2 ICNS) to
     the digests of PIL's, and a 4,096^2 PNG written here by numpy with
     every row Paeth-filtered to its known pixels (the 4,096^2 JPEG's),
     each decode's host milliseconds beside it (and per megapixel for the
     large files).
-    A decode failure, a 4,096^2 decode of 3 s or more, or a 2,048^2 LZW
-    TIFF or GIF decode of 1 s or more, raises."""
+    A decode failure, a 4,096^2 decode of 3 s or more, a 2,048^2 LZW
+    TIFF or GIF decode of 1 s or more, or a 2,048^2 irreversible JPEG 2000
+    decode of 2 s or more, raises."""
     import hashlib
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import native, texture
@@ -3017,11 +3030,13 @@ def rng_wide_check(torch) -> None:
 
 
 def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
-    """Slices 13 to 15, the bitmap formats: ``bitmap_decode`` (above);
+    """Slices 13 to 18, the bitmap formats: ``bitmap_decode`` (above);
     ``textured_formats`` renders ``cbox_textured`` (64x64, 1 spp,
     ``path`` at ``CUT_DEPTH``: each render is paced by its launches) on
     the card once for each lossless copy of the 64x64 picture as its
-    bitmaps, each image and its rays equal in bits to the PNG copy's;
+    bitmaps (PNG, BMP, TGA, PPM, GIF, TIFF, WebP, QOI, SGI, PCX, DDS,
+    reversible JPEG 2000 and a PNG icon in ICO), each image and its rays
+    equal in bits to the PNG copy's;
     then ``textured_large`` (above). Returns the renders' launches."""
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured

@@ -76,6 +76,7 @@ UNIT_SECONDS = {
     "tests/test_torch_regen.py": 49.5,
     "tests/test_torch_measured.py": 47.7,
     "tests/test_torch_imports.py": 45.1,
+    "tests/test_torch_bitmap_native.py": 99.6,
 }
 
 

@@ -9,14 +9,16 @@ Two libraries, each built by ``build`` from its sources:
   * the bitmap decoders' sequential stages (``bitmap_png.cpp``,
     ``bitmap_jpeg.cpp``, ``bitmap_vp8l.cpp``, ``bitmap_vp8.cpp``,
     ``bitmap_lzw.cpp``, ``bitmap_ccitt.cpp``, ``bitmap_bcn.cpp``,
-    ``bitmap_raster.cpp``): PNG unfiltering, JPEG entropy decoding, IDCT
+    ``bitmap_raster.cpp``, ``bitmap_j2k.cpp``): PNG unfiltering, JPEG
+    entropy decoding, IDCT
     and lossless scans, WebP's lossless pixels and predictor, its alpha
     plane's gradient filter, the lossy frame's modes, tokens,
     reconstruction and loop filter, TIFF's and GIF's LZW, TIFF's CCITT
-    coding, DDS's BCn blocks, and QOI's ops and SGI's and PCX's RLE.
+    coding, DDS's BCn blocks, QOI's ops and SGI's and PCX's RLE, and
+    JPEG 2000's tier 1, inverse wavelets and colour transforms.
     ``utils/io.py``, ``jpeg.py``, ``vp8l.py``, ``vp8.py``, ``webp.py``,
     ``tiff.py``, ``gif.py``, ``ccitt.py``, ``dds.py``, ``qoi.py``,
-    ``sgi.py`` and ``pcx.py`` bind them (``bitmap_library``).
+    ``sgi.py``, ``pcx.py`` and ``j2k.py`` bind them (``bitmap_library``).
 
 Each is compiled with the reference's flags into
 ``mitsuba_nlvrl_tpu_torch/_build/`` under a name that carries a hash of its
@@ -43,7 +45,7 @@ CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-march=native']
 BVH_SOURCES = ('bvh_native.cpp',)
 BITMAP_SOURCES = ('bitmap_png.cpp', 'bitmap_jpeg.cpp', 'bitmap_vp8l.cpp',
                   'bitmap_vp8.cpp', 'bitmap_lzw.cpp', 'bitmap_ccitt.cpp',
-                  'bitmap_bcn.cpp', 'bitmap_raster.cpp')
+                  'bitmap_bcn.cpp', 'bitmap_raster.cpp', 'bitmap_j2k.cpp')
 
 _lock = threading.Lock()
 _fn = None
@@ -151,13 +153,19 @@ _BITMAP_ABI = {
     'mnt_qoi_decode': [_P, _I64, _I64, _I32, _P],
     'mnt_sgi_rle_rows': [_P, _I64, _P, _P, _I64, _I64, _I32, _P],
     'mnt_pcx_rle': [_P, _I64, _I64, _I64, _P, _P],
+    'mnt_j2k_t1': [_P, _P, _I64, _P, _P],
+    'mnt_j2k_idwt53': [_P, _I64, _P, _I64],
+    'mnt_j2k_idwt97': [_P, _I64, _P, _I64],
+    'mnt_j2k_mct': [_P, _P, _P, _I64, _I32],
+    'mnt_j2k_level': [_P, _I64, _I32, _I64, _I64, _I64, _P],
 }
 # functions that return a count (int64) rather than an error code
 _BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw')
 
 _BITMAP_VOID = ('mnt_jpeg_idct', 'mnt_jpeg_upsample', 'mnt_jpeg_ycc_rgb',
                 'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb',
-                'mnt_alpha_ungradient')
+                'mnt_alpha_ungradient', 'mnt_j2k_idwt53', 'mnt_j2k_idwt97',
+                'mnt_j2k_mct', 'mnt_j2k_level')
 
 
 def bitmap_library() -> ctypes.CDLL:

@@ -10,8 +10,12 @@ swap the plain twins in with ``plain()`` to hold one against the other.
 ``jpeg_lossless`` lossless JPEG files, ``picture`` the smooth seeded
 pictures the large files are made of, ``dds_file`` DDS files of given
 headers and data, ``bcn_random_dds`` DDS files of seeded random blocks
-(every bit pattern is a block PIL decodes), and ``large_file`` the path
-of a large fixture, writing the seeded ones it names.
+(every bit pattern is a block PIL decodes), ``large_file`` the path of a
+large fixture, writing the seeded ones it names, and the JPEG 2000 and
+icon writers: ``j2k_segments`` and ``j2k_join`` split and rejoin a
+codestream's marker segments, ``jp2_file`` wraps a codestream in JP2
+boxes, ``dib`` and ``icon_file`` write ICO and CUR files of DIB or PNG
+icons, ``icns_rle`` and ``icns_file`` ICNS files.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ STAGES = (('io', '_png_unfilter'), ('jpeg', '_decode_scan'),
           ('jpeg', '_decode_lossless'), ('webp', '_unfilter_gradient'),
           ('tiff', '_lzw'), ('gif', '_lzw'), ('ccitt', 'decode'),
           ('dds', '_bcn'), ('qoi', '_qoi'), ('sgi', '_sgi_rle'),
-          ('pcx', '_pcx_rle'))
+          ('pcx', '_pcx_rle'), ('j2k', '_t1'), ('j2k', '_idwt53'),
+          ('j2k', '_idwt97'), ('j2k', '_finish'))
 
 
 def _module(name: str):
@@ -281,3 +286,157 @@ def large_file(folder: str, name: str, entry: dict, workdir: str) -> str:
         f.write(bcn_random_dds(seeded['side'], seeded['side'],
                                seeded['dxgi'], seeded['seed']))
     return path
+
+
+# --- JPEG 2000 ---------------------------------------------------------------
+
+def j2k_segments(cs: bytes) -> list:
+    """A codestream's parts in order: ``(marker, body)`` of each marker
+    segment of the main header and of each tile part's header (SOC, SOD
+    and EOC with empty bodies), and ``(0, data)`` for each tile part's
+    data after its SOD."""
+    out, pos = [(0xFF4F, b'')], 2
+    while pos < len(cs):
+        m = struct.unpack_from('>H', cs, pos)[0]
+        if m == 0xFFD9:
+            out.append((m, b''))
+            break
+        n = struct.unpack_from('>H', cs, pos + 2)[0]
+        out.append((m, cs[pos + 4:pos + 2 + n]))
+        if m != 0xFF90:
+            pos += 2 + n
+            continue
+        psot = struct.unpack_from('>I', cs, pos + 6)[0]
+        end = pos + psot if psot else len(cs) - 2
+        pos += 2 + n
+        while struct.unpack_from('>H', cs, pos)[0] != 0xFF93:
+            m = struct.unpack_from('>H', cs, pos)[0]
+            n = struct.unpack_from('>H', cs, pos + 2)[0]
+            out.append((m, cs[pos + 4:pos + 2 + n]))
+            pos += 2 + n
+        out += [(0xFF93, b''), (0, cs[pos + 2:end])]
+        pos = end
+    return out
+
+
+def j2k_join(parts: list) -> bytes:
+    """``j2k_segments``' inverse: each SOT's Psot set to its part's
+    length, where it is not 0 (a last part running to EOC)."""
+    out, sots = bytearray(), []
+    for m, body in parts:
+        if m == 0:
+            out += body
+        elif m in (0xFF4F, 0xFF93, 0xFFD9):
+            if m == 0xFFD9:
+                sots.append(len(out))
+            out += struct.pack('>H', m)
+        else:
+            if m == 0xFF90:
+                sots.append(len(out))
+            out += struct.pack('>HH', m, len(body) + 2) + body
+    for start, end in zip(sots, sots[1:]):
+        if struct.unpack_from('>I', out, start + 6)[0]:
+            struct.pack_into('>I', out, start + 6, end - start)
+    return bytes(out)
+
+
+def jp2_box(tag: bytes, body: bytes) -> bytes:
+    return struct.pack('>I', 8 + len(body)) + tag + body
+
+
+def jp2_file(cs: bytes, nc: int, bpc: int, w: int, h: int, enumcs: int = 16,
+             extra: bytes = b'') -> bytes:
+    """A JP2 file of the codestream ``cs``: signature, ``ftyp``, a
+    ``jp2h`` of ``ihdr`` (``nc`` components, depth field ``bpc``),
+    ``colr`` (enumerated space ``enumcs``) and the boxes ``extra``, then
+    ``jp2c``."""
+    ihdr = jp2_box(b'ihdr', struct.pack('>IIHBBBB', h, w, nc, bpc, 7, 0, 0))
+    colr = jp2_box(b'colr', struct.pack('>BBBI', 1, 0, 0, enumcs))
+    return (jp2_box(b'jP  ', b'\r\n\x87\n') +
+            jp2_box(b'ftyp', b'jp2 \0\0\0\0jp2 ') +
+            jp2_box(b'jp2h', ihdr + colr + extra) + jp2_box(b'jp2c', cs))
+
+
+# --- ICO, CUR and ICNS -------------------------------------------------------
+
+def dib(index: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """An icon's DIB: a 40-byte info header of twice the height, the
+    palette (``bits`` 1, 4 or 8), the colour rows bottom up (``index``:
+    (H, W) indices, or (H, W, 3) RGB for 24 bits, (H, W, 4) RGBA for 32,
+    stored BGR(A)), then the AND mask's rows (``mask`` (H, W) of 0 and 1,
+    1 transparent; none where None), 32-bit padded."""
+    H, W = index.shape[:2]
+    if bits <= 8:
+        pal = np.zeros((1 << bits, 4), np.uint8)
+        pal[:len(palette), :3] = np.asarray(palette, np.uint8)[:, ::-1]
+        ppr = 8 // bits
+        idx = np.zeros((H, -(-W // ppr) * ppr), np.uint8)
+        idx[:, :W] = index
+        packed = np.zeros((H, idx.shape[1] // ppr), np.uint8)
+        for k in range(ppr):
+            packed |= idx[:, k::ppr] << (8 - bits * (k + 1))
+        rows, head = packed, pal.tobytes()
+    else:
+        c = index.shape[2]
+        rows, head = index[..., [2, 1, 0, 3][:c]].reshape(H, W * c), b''
+    stride = -(-rows.shape[1] // 4) * 4
+    colour = np.zeros((H, stride), np.uint8)
+    colour[:, :rows.shape[1]] = rows
+    body = colour[::-1].tobytes()
+    if mask is not None:
+        mstride = -(-W // 32) * 4
+        m = np.zeros((H, mstride * 8), np.uint8)
+        m[:, :W] = mask
+        body += np.packbits(m, axis=1)[::-1].tobytes()
+    info = struct.pack('<IiiHHIIiiII', 40, W, 2 * H, 1, bits, 0,
+                       len(body), 0, 0, 0, 0)
+    return info + head + body
+
+
+def icon_file(entries, cursor: bool = False) -> bytes:
+    """An ICO (or CUR) file of ``entries``: (width, height, colour count,
+    bits, payload) each, the payload a DIB or a PNG file's bytes, stored
+    in order after the directory."""
+    out = struct.pack('<HHH', 0, 2 if cursor else 1, len(entries))
+    offset = 6 + 16 * len(entries)
+    data = b''
+    for w, h, ncol, bits, payload in entries:
+        out += struct.pack('<BBBBHHII', w & 255, h & 255, ncol, 0,
+                           1 if not cursor else 0, bits, len(payload),
+                           offset + len(data))
+        data += payload
+    return out + data
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """One plane in the run-length code of ICNS's legacy icons: a run of
+    3-130 equal bytes as 0x80 + (n - 3) and the byte, else literals of up
+    to 128 bytes as n - 1 and the bytes."""
+    b = bytes(np.asarray(plane, np.uint8).reshape(-1))
+    out, i, lit = bytearray(), 0, bytearray()
+
+    def flush():
+        while lit:
+            out.append(min(len(lit), 128) - 1)
+            out.extend(lit[:128])
+            del lit[:128]
+    while i < len(b):
+        j = i
+        while j < len(b) and j - i < 130 and b[j] == b[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out += bytes([0x80 + j - i - 3, b[i]])
+            i = j
+        else:
+            lit.append(b[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def icns_file(entries) -> bytes:
+    """An ICNS file of ``entries``: (four-byte type, payload) each."""
+    body = b''.join(t + struct.pack('>I', 8 + len(p)) + p
+                    for t, p in entries)
+    return b'icns' + struct.pack('>I', 8 + len(body)) + body

@@ -121,8 +121,32 @@ def read_bmp(path: str):
     ``P`` (pixels (H, W) uint8, ``1`` as 0/255, ``P`` with an (N, 3)
     palette) or ``RGB``/``RGBA`` ((H, W, C) uint8)."""
     with open(path, 'rb') as f:
-        data = f.read()
-    if data[:2] == b'BM':
+        return decode_bmp(f.read(), path)
+
+
+def decode_bmp(data: bytes, path: str = '<bytes>'):
+    """``read_bmp`` of a file's bytes (``path`` names them in errors)."""
+    return _decode(data, path)[:3]
+
+
+def decode_dib(data: bytes, pos: int, path: str = '<bytes>', alpha=None):
+    """The DIB at ``pos`` of an ICO or CUR file (its info header first, no
+    file header), as PIL's icon and cursor plugins open it: the header's
+    height halved (the AND mask's rows follow the colour rows); a 32-bit
+    DIB at offset 22 (a cursor file's only entry) in ``RGBA``, as PIL's
+    BMP plugin reads it there. ``alpha``, where given, is called as
+    ``alpha(offset, width, height)`` (``offset`` where the pixel rows
+    start) once the header is read and before the rows are, as PIL reads
+    an icon's mask. Returns ``(mode, pixels, palette, alpha's result)``."""
+    return _decode(data, path, pos, alpha)
+
+
+def _decode(data: bytes, path: str, dib: int = None, alpha=None):
+    """(mode, pixels, palette, ``alpha``'s result) of a BMP file, or of
+    the DIB at ``dib`` inside an icon or cursor file."""
+    if dib is not None:
+        offset, pos = 0, dib
+    elif data[:2] == b'BM':
         offset, pos = struct.unpack_from('<I', data, 10)[0], 14
     else:
         offset, pos = 0, 0
@@ -154,12 +178,16 @@ def read_bmp(path: str):
             masks = tuple(masks) + (0,) * (4 - len(masks))
     else:
         raise OSError(f"Unsupported BMP header type ({hsize})")
+    if dib is not None:
+        height //= 2
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
     if bits not in (1, 4, 8, 16, 24, 32):
         raise OSError(f"Unsupported BMP pixel depth ({bits})")
     layout = {1: 'P', 4: 'P', 8: 'P', 16: 555, 24: 'BGR', 32: 'BGRX'}[bits]
+    if bits == 32 and comp == 0 and dib == 22:
+        layout = 'BGRA'          # PIL: "32-bit .cur offset" (header 22)
     if comp == 3:
         if bits == 32 and masks in _MASK32:
             layout = _MASK32[masks]
@@ -184,6 +212,7 @@ def read_bmp(path: str):
             (palette == ramp[:, None]).all())
         mode = ('1' if colors == 2 else 'L') if grey else 'P'
     start = offset or pos
+    extra = alpha(start, width, height) if alpha else None
     if comp in (1, 2):
         idx = _rle(data, start, width, height, rle4=comp == 2)
         pixels = idx if direction == 1 else idx[::-1]
@@ -208,4 +237,4 @@ def read_bmp(path: str):
             pixels = px[..., order]
     if mode == '1':
         pixels = np.where(pixels != 0, 255, 0).astype(np.uint8)
-    return mode, np.ascontiguousarray(pixels), palette
+    return mode, np.ascontiguousarray(pixels), palette, extra

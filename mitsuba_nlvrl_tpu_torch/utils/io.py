@@ -300,16 +300,21 @@ def _png_samples(rows: np.ndarray, W: int, depth: int, ctype: int,
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG to its samples, (H, W, C) uint8 or uint16 (C: 1 grey, 2
-    grey and alpha, 3 RGB, 4 RGBA). Palette images expand to RGB, or to
-    RGBA when they carry transparency; grey and palette images of 1, 2 or
-    4 bits widen to 8. An Adam7-interlaced file is decoded pass by pass:
-    each pass unfiltered with its own row stride (a pass that holds no
-    pixel of a small image has no rows) and its pixels scattered into the
-    image (a plain file is one pass of the whole image). Needs zlib,
-    numpy and the native bitmap library (``_png_unfilter``)."""
+    """Read a PNG file to its samples (``decode_png``)."""
     with open(path, 'rb') as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = '<bytes>') -> np.ndarray:
+    """A PNG's bytes (a file's, or an icon's inside ICO or ICNS; ``path``
+    names them in errors) to its samples, (H, W, C) uint8 or uint16 (C: 1
+    grey, 2 grey and alpha, 3 RGB, 4 RGBA). Palette images expand to RGB,
+    or to RGBA when they carry transparency; grey and palette images of 1,
+    2 or 4 bits widen to 8. An Adam7-interlaced file is decoded pass by
+    pass: each pass unfiltered with its own row stride (a pass that holds
+    no pixel of a small image has no rows) and its pixels scattered into
+    the image (a plain file is one pass of the whole image). Needs zlib,
+    numpy and the native bitmap library (``_png_unfilter``)."""
     if data[:8] != b'\x89PNG\r\n\x1a\n':
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, plte, trns = 8, [], None, None

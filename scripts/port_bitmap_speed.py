@@ -18,7 +18,8 @@ Prints the host's CPU model and count, then one JSON line a file:
 milliseconds and milliseconds per megapixel of each, and plain over
 native.
 
-With ``--stages`` (a host with PIL) it also prints one line a stage for
+With ``--stages`` (on a host without PIL: JPEG 2000's rows of the
+committed 2,048 x 2,048 pair alone) it also prints one line a stage for
 the stages moved into host C++ in slice 16, each timed on the arguments
 it takes while a 512 x 512 file decodes (native median of ``--reps``,
 plain once): TIFF LZW (predictor 2, the picture posterised to steps of
@@ -31,7 +32,16 @@ indexing) and the rest of the decode of two 4,096 x 4,096 lossless WebP
 files, one full-colour and one of 256 colours, written by PIL, and of
 subtract-green on a seeded 4,096 x 4,096 image; then slice 17's stages:
 CCITT G4 and BC7 and BC6H blocks at 512 x 512, and the QOI, SGI RLE and
-PCX RLE loops at 2,048 x 2,048 (``slice17_rows``).
+PCX RLE loops at 2,048 x 2,048 (``slice17_rows``); then slice 18's JPEG
+2000 stages (``slice18_rows``): tier 1, the inverse 5/3 or 9/7 and the
+colour transform with level shift, each on the calls a reversible and an
+irreversible JP2 of the picture hand it at 512 x 512 and 2,048 x 2,048
+(native median of ``--reps``, plain once; the plain tier 1, a Python loop
+a symbol, at 512 x 512 only), beside the whole decode's native and PIL
+milliseconds and the rest of it (headers and tier 2, in Python).
+
+The JPEG 2000 files are decoded through the plain stages by ``--stages``
+alone: their plain tier 1 takes minutes at 2,048 x 2,048.
 """
 from __future__ import annotations
 
@@ -198,6 +208,7 @@ def stage_rows(workdir: str, reps: int) -> None:
     ms, _ = timed(lambda: vp8l._add_green(argb), reps)
     emit({'stage': 'webp_subtract_green', 'side': 4096, 'ms': ms})
     slice17_rows(workdir, reps)
+    slice18_rows(workdir, reps)
 
 
 def slice17_rows(workdir: str, reps: int) -> None:
@@ -246,14 +257,66 @@ def slice17_rows(workdir: str, reps: int) -> None:
               'plain_over_native': plain_ms / native_ms})
 
 
+def slice18_rows(workdir: str, reps: int) -> None:
+    """JPEG 2000's stages on the calls that a reversible (5/3, one
+    lossless layer) and an irreversible (9/7, one layer at rate 20) JP2
+    of the picture hand them, at 512^2 and 2,048^2 (the 2,048^2 pair is
+    the committed ``bitmaps_large`` pair): native median of ``reps``,
+    plain once (tier 1's plain twin at 512^2 only), and the whole decode,
+    native and PIL, median of ``reps``. On a host without PIL: the
+    2,048^2 pair alone, without PIL's time."""
+    from mitsuba_nlvrl_tpu_torch.utils import j2k
+    pairs = {2048: {'reversible': os.path.join(
+        DATA, 'bitmaps_large', 'jp2_reversible_2048.jp2'),
+        'irreversible': os.path.join(DATA, 'bitmaps_large',
+                                     'jp2_irreversible_2048.jp2')}}
+    for kind, kw, noisy in () if Image is None else (('reversible', {}, 0),
+                            ('irreversible', {'irreversible': True,
+                                              'quality_mode': 'rates',
+                                              'quality_layers': [20]}, 1)):
+        path = os.path.join(workdir, f'{kind}_512.jp2')
+        Image.fromarray(bitmap_stages.picture(512, 512, noisy)).save(
+            path, 'JPEG2000', **kw)
+        pairs.setdefault(512, {})[kind] = path
+    for side in sorted(pairs):
+        for kind, path in pairs[side].items():
+            whole_ms, _ = timed(lambda: texture.read_rgb8(path), reps)
+            pil_ms = None if Image is None else timed(lambda: np.asarray(
+                Image.open(path).convert('RGB')), reps)[0]
+            wavelet = '_idwt53' if kind == 'reversible' else '_idwt97'
+            stage_ms = 0.0
+            for stage in ('_t1', wavelet, '_finish'):
+                calls = captured(j2k, stage, path)
+
+                def run(fn):
+                    for args in calls:
+                        fn(*copy.deepcopy(args))
+                native_ms, _ = timed(lambda: run(getattr(j2k, stage)), reps)
+                stage_ms += native_ms
+                rec = {'stage': f'j2k{stage}', 'side': side, 'kind': kind,
+                       'calls': len(calls), 'native_ms': native_ms}
+                if stage != '_t1' or side <= 512:
+                    plain_ms, _ = timed(lambda: run(getattr(
+                        j2k, stage + '_plain')), 1)
+                    rec.update(plain_ms=plain_ms,
+                               plain_over_native=plain_ms / native_ms)
+                emit(rec)
+            emit({'stage': 'j2k_whole_decode', 'side': side, 'kind': kind,
+                  'file': os.path.basename(path),
+                  'bytes': os.path.getsize(path), 'native_ms': whole_ms,
+                  'stages_ms': stage_ms, 'rest_ms': whole_ms - stage_ms,
+                  'pil_ms': pil_ms, 'native_over_pil':
+                  pil_ms and whole_ms / pil_ms})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--reps', type=int, default=3)
     ap.add_argument('--no-plain', action='store_true',
                     help="skip the plain stages (minutes at 2,048^2)")
     ap.add_argument('--stages', action='store_true',
-                    help="also time slice 16's and 17's stages (needs "
-                    "PIL)")
+                    help="also time slice 16's, 17's and 18's stages "
+                    "(needs PIL)")
     args = ap.parse_args()
     emit({'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
           'pil': Image is not None,
@@ -275,7 +338,8 @@ def main() -> None:
                     raise SystemExit(f"{path}: PIL's decode differs")
                 rec.update(pil_ms=pil_ms, pil_ms_per_mpix=pil_ms / mpix,
                            native_over_pil=ms / pil_ms)
-                if not args.no_plain and rgb.shape[0] <= 2048:
+                if not args.no_plain and rgb.shape[0] <= 2048 and \
+                        not path.endswith('.jp2'):
                     with bitmap_stages.plain():
                         plain_ms, out = timed(
                             lambda: texture.read_rgb8(path), 1)
@@ -287,6 +351,8 @@ def main() -> None:
             emit(rec)
         if args.stages and Image is not None:
             stage_rows(workdir, args.reps)
+        elif args.stages:          # the card's host: JPEG 2000's stages
+            slice18_rows(workdir, args.reps)
 
 
 if __name__ == '__main__':

@@ -824,6 +824,480 @@ def _raster_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
             f.write(data)
     return [*writes, *made]
 
+def _j2k(im: Image.Image, **kw) -> bytes:
+    """PIL's raw JPEG 2000 codestream of ``im``."""
+    b = io.BytesIO()
+    im.save(b, 'JPEG2000', no_jp2=True, **kw)
+    return b.getvalue()
+
+
+def _j2k_rewrite(cs: bytes, edit) -> bytes:
+    """The codestream with its parts (``bitmap_stages.j2k_segments``)
+    passed through ``edit``."""
+    return bitmap_stages.j2k_join(edit(bitmap_stages.j2k_segments(cs)))
+
+
+def _derived(parts):
+    """The QCD of an irreversible stream as scalar derived: its LL band's
+    step alone."""
+    out = []
+    for m, body in parts:
+        if m == 0xFF5C:
+            body = bytes([(body[0] & 0xE0) | 1]) + body[1:3]
+        out.append((m, body))
+    return out
+
+
+def _wrong_cod(body: bytes) -> bytes:
+    """A COD whose code-blocks are 32 x 32 (xcb, ycb of 3)."""
+    return body[:6] + bytes([3, 3]) + body[8:]
+
+
+def _wrong_qcd(body: bytes) -> bytes:
+    """A QCD with one guard bit more."""
+    return bytes([body[0] + 0x20]) + body[1:]
+
+
+def _coc_qcc(parts):
+    """The main header's COD and QCD made wrong, and a COC and QCC for
+    each component carrying the right ones: decodes only where a COC or
+    QCC outranks the COD or QCD."""
+    out = []
+    for m, body in parts:
+        if m == 0xFF52:
+            out.append((m, _wrong_cod(body)))
+            for c in range(3):
+                out.append((0xFF53, bytes([c, body[0] & 1]) + body[5:]))
+        elif m == 0xFF5C:
+            out.append((m, _wrong_qcd(body)))
+            for c in range(3):
+                out.append((0xFF5D, bytes([c]) + body))
+        else:
+            out.append((m, body))
+    return out
+
+
+def _tile_cod_qcd(parts):
+    """The main header's COD and QCD made wrong (and a wrong COC for
+    component 1), the right COD and QCD in the first part of each tile:
+    a tile's COD outranks the main header's COD and COC."""
+    cod = [b for m, b in parts if m == 0xFF52][0]
+    qcd = [b for m, b in parts if m == 0xFF5C][0]
+    out = []
+    for m, body in parts:
+        if m == 0xFF52:
+            out += [(m, _wrong_cod(body)),
+                    (0xFF53, bytes([1, body[0] & 1]) + _wrong_cod(body)[5:])]
+        elif m == 0xFF5C:
+            out.append((m, _wrong_qcd(body)))
+        elif m == 0xFF93:
+            out += [(0xFF52, cod), (0xFF5C, qcd), (m, body)]
+        else:
+            out.append((m, body))
+    return out
+
+
+def _tile_parts(cs: bytes) -> bytes:
+    """A tiled two-layer LRCP stream with each tile cut into two parts at
+    its second layer's first packet, every tile's first part before any
+    second part, the second parts in reverse tile order, the last one's
+    Psot 0 (it runs to EOC); TLM, PLM and CRG markers in the main
+    header."""
+    from mitsuba_nlvrl_tpu_torch.utils import j2k
+    siz, params, tiles = j2k.parse(cs)
+    parts = bitmap_stages.j2k_segments(cs)
+    head = [p for p in parts if p[0] not in (0xFF90, 0xFF93, 0, 0xFFD9)]
+    cuts = {}
+    for t, (tp, data) in tiles.items():
+        tcs = [j2k._tilecomp(siz, t, c, tp.cod_c[c], tp.qcd[c])
+               for c in range(len(siz['comps']))]
+        pos = 0
+        for lay, r, c, k in j2k._progression(0, tp.cod['layers'], tcs):
+            if lay == 1 and t not in cuts:
+                cuts[t] = pos
+            pos = j2k._packet(data, pos, tcs[c]['res'][r], k, lay,
+                              tp.cod_c[c]['style'], tp.cod['sop'],
+                              tp.cod['eph'])
+    order = [(t, 0) for t in sorted(tiles)] + \
+        [(t, 1) for t in sorted(tiles, reverse=True)]
+    body, tlm = [], b''
+    for n, (t, half) in enumerate(order):
+        data = tiles[t][1]
+        piece = data[:cuts[t]] if half == 0 else data[cuts[t]:]
+        last = n == len(order) - 1
+        body += [(0xFF90, struct.pack('>HIBB', t, 0 if last else 1, half,
+                                      2)),
+                 (0xFF93, b''), (0, piece)]
+        tlm += struct.pack('>HI', t, 14 + len(piece))
+    head = head[:2] + [(0xFF63, bytes(4 * len(siz['comps'])))] + head[2:]
+    head.append((0xFF55, bytes([0, 0x60]) + tlm))
+    head.append((0xFF57, bytes([0, 0])))
+    return bitmap_stages.j2k_join(head + body + [(0xFFD9, b'')])
+
+
+# opj_cparameters_t of openjpeg 2.5 on a 64-bit host: the byte offset of
+# each field set here (``_openjpeg_params`` checks the defaults that
+# ``opj_set_default_encoder_parameters`` writes at some of them)
+_OPJ = dict(tile_size_on=0, cp_tx0=4, cp_ty0=8, cp_tdx=12, cp_tdy=16,
+            cp_disto_alloc=20, csty=48, prog_order=52, poc=56, numpocs=4792,
+            tcp_numlayers=4796, tcp_rates=4800, numresolution=5600,
+            cblockw_init=5604, cblockh_init=5608, mode=5612,
+            irreversible=5616, roi_compno=5620, roi_shift=5624,
+            res_spec=5628, prcw_init=5632, prch_init=5764,
+            image_offset_x0=18188, image_offset_y0=18192,
+            subsampling_dx=18196, subsampling_dy=18200, tp_on=18696,
+            tp_flag=18697, tcp_mct=18698)
+_OPJ_POC_SIZE = 148                      # sizeof(opj_poc_t)
+
+
+_openjpeg = None
+
+
+def _openjpeg_lib() -> ctypes.CDLL:
+    """The libopenjp2 that PIL bundles, its encoder's functions typed."""
+    global _openjpeg
+    if _openjpeg is not None:
+        return _openjpeg
+    path = glob.glob(os.path.join(os.path.dirname(Image.__file__), '..',
+                                  'pillow.libs', 'libopenjp2*.so*'))[0]
+    lib = ctypes.CDLL(path)
+    p = ctypes.c_void_p
+    for name, res, args in (
+            ('opj_image_create', p, [ctypes.c_uint32, p, ctypes.c_int]),
+            ('opj_create_compress', p, [ctypes.c_int]),
+            ('opj_setup_encoder', ctypes.c_int, [p, p, p]),
+            ('opj_stream_create_default_file_stream', p,
+             [ctypes.c_char_p, ctypes.c_int]),
+            ('opj_start_compress', ctypes.c_int, [p, p, p]),
+            ('opj_encode', ctypes.c_int, [p, p]),
+            ('opj_end_compress', ctypes.c_int, [p, p]),
+            ('opj_stream_destroy', None, [p]),
+            ('opj_destroy_codec', None, [p]),
+            ('opj_image_destroy', None, [p]),
+            ('opj_set_default_encoder_parameters', None, [p])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    _openjpeg = lib
+    return lib
+
+
+def openjpeg_write(path: str, pixels: np.ndarray, prec=8, sgnd=False,
+                   space: int = 1, **params) -> None:
+    """A raw JPEG 2000 codestream of ``pixels`` ((H, W, C) integers),
+    written by PIL's bundled libopenjp2 through ctypes with the encoder
+    settings PIL's ``save`` hides: ``prec`` one precision or one a
+    component, ``space`` openjpeg's colour space (1 sRGB, 2 grey), and
+    in ``params`` fields of ``_OPJ`` (``mode``: the code-block style;
+    ``csty``: 2 SOP, 4 EPH; ``roi_compno`` and ``roi_shift``; ``tp_on``
+    and ``tp_flag``: tile parts) or ``rates`` (a layer each, lossless
+    0), ``pocs`` ((first resolution, first component, layers,
+    resolutions, components, order) each) and ``precincts`` ((width,
+    height) exponents' sizes from the highest resolution down)."""
+    lib = _openjpeg_lib()
+    H, W, C = pixels.shape
+    buf = ctypes.create_string_buffer(1 << 15)
+    lib.opj_set_default_encoder_parameters(buf)
+    want = {'numresolution': 6, 'cblockw_init': 64, 'cblockh_init': 64,
+            'roi_compno': -1, 'subsampling_dx': 1, 'subsampling_dy': 1}
+    for name, v in want.items():
+        assert struct.unpack_from('<i', buf, _OPJ[name])[0] == v, name
+
+    def put(name, v, fmt='<i', at=0):
+        struct.pack_into(fmt, buf, _OPJ[name] + at, v)
+    put('numresolution', 5)
+    rates = params.pop('rates', [0.0])
+    put('tcp_numlayers', len(rates))
+    put('cp_disto_alloc', 1)
+    for i, r in enumerate(rates):
+        put('tcp_rates', r, '<f', 4 * i)
+    for i, poc in enumerate(params.pop('pocs', ())):
+        at = _OPJ['poc'] + _OPJ_POC_SIZE * i
+        struct.pack_into('<6I', buf, at, *poc[:5], 0)
+        struct.pack_into('<i', buf, at + 32, poc[5])
+        struct.pack_into('<I', buf, at + 48, 1)          # tile 1 (0)
+        put('numpocs', i + 1)
+    prc = params.pop('precincts', ())
+    if prc:
+        params['csty'] = params.get('csty', 0) | 1
+        put('res_spec', len(prc))
+        for i, (pw, ph) in enumerate(prc):
+            put('prcw_init', pw, at=4 * i)
+            put('prch_init', ph, at=4 * i)
+    for name, v in params.items():
+        put(name, v, '<b' if name in ('tp_on', 'tp_flag', 'tcp_mct') else
+            '<i')
+
+    class Comp(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_uint32) for n in
+                    ('dx', 'dy', 'w', 'h', 'x0', 'y0', 'prec', 'bpp', 'sgnd')]
+    precs = prec if isinstance(prec, (list, tuple)) else [prec] * C
+    comps = (Comp * C)(*[Comp(1, 1, W, H, 0, 0, precs[c], precs[c],
+                              int(sgnd)) for c in range(C)])
+    image = lib.opj_image_create(C, comps, space)
+    # opj_image_t: x0, y0, x1, y1, numcomps, color_space, then comps; each
+    # opj_image_comp_t 64 bytes, its data pointer at 48
+    struct.pack_into('<IIII', (ctypes.c_char * 16).from_address(image), 0,
+                     0, 0, W, H)
+    first = ctypes.c_void_p.from_address(image + 24).value
+    for c in range(C):
+        data = ctypes.c_void_p.from_address(first + 64 * c + 48).value
+        plane = np.ascontiguousarray(pixels[..., c], np.int32)
+        ctypes.memmove(data, plane.ctypes.data, plane.nbytes)
+    codec = lib.opj_create_compress(0)                  # OPJ_CODEC_J2K
+    ok = lib.opj_setup_encoder(codec, buf, image)
+    stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+    ok = ok and lib.opj_start_compress(codec, image, stream) and \
+        lib.opj_encode(codec, stream) and lib.opj_end_compress(codec, stream)
+    lib.opj_stream_destroy(stream)
+    lib.opj_destroy_codec(codec)
+    lib.opj_image_destroy(image)
+    assert ok, f"openjpeg could not write {path}"
+
+
+def _openjpeg_files(rgb: np.ndarray, out: str) -> list:
+    """Slice 18's codestreams that only openjpeg's own settings write:
+    each code-block style alone and all six, SOP and EPH markers, tile
+    parts by resolution, RGN, POC, and components of other precisions
+    (QCC); their names."""
+    rgb = rgb.astype(np.int64)
+    writes = {f'j2k_style_{tag}.j2k': (rgb, {'mode': bit}) for tag, bit in (
+        ('bypass', 1), ('reset', 2), ('termall', 4), ('vcausal', 8),
+        ('pterm', 16), ('segsym', 32), ('all', 63))}
+    writes.update({
+        'j2k_style_all_irreversible.j2k': (rgb, {'mode': 63,
+                                                 'irreversible': 1}),
+        'j2k_style_bypass_layers.j2k': (rgb, {'mode': 1, 'rates': [40, 10]}),
+        'j2k_sop_eph.j2k': (rgb, {'csty': 6, 'rates': [40, 10]}),
+        'j2k_tile_parts_by_resolution.j2k': (rgb, {
+            'tp_on': 1, 'tp_flag': ord('R'), 'tile_size_on': 1,
+            'cp_tdx': 16, 'cp_tdy': 16}),
+        'j2k_rgn.j2k': (rgb, {'roi_compno': 0, 'roi_shift': 5}),
+        'j2k_rgn_irreversible.j2k': (rgb, {'roi_compno': 2, 'roi_shift': 9,
+                                           'irreversible': 1}),
+        'j2k_poc.j2k': (rgb, {'pocs': [(0, 0, 1, 3, 3, 1),
+                                       (3, 0, 1, 5, 3, 4)]}),
+        'j2k_poc_layers_precincts.j2k': (rgb, {
+            'pocs': [(0, 0, 2, 2, 2, 0), (0, 2, 2, 5, 3, 2),
+                     (2, 0, 2, 5, 2, 3)],
+            'rates': [30, 8], 'precincts': [(4, 4)] * 5}),
+    })
+    for name, (px, kw) in writes.items():
+        openjpeg_write(os.path.join(out, name), px, **kw)
+    shifted = np.stack([rgb[..., 0], rgb[..., 1] * 16 + rgb[..., 2] % 16,
+                        rgb[..., 2] // 16], -1)
+    made = {'j2k_precisions.j2k': (shifted, {'prec': [8, 12, 4]}),
+            'j2k_l12.j2k': (shifted[..., 1:2], {'prec': 12, 'space': 2}),
+            'j2k_l4_irreversible.j2k': (shifted[..., 2:], {
+                'prec': 4, 'space': 2, 'irreversible': 1}),
+            'j2k_la_signed.j2k': (rgb[..., :2] - 128, {
+                'sgnd': True, 'space': 2, 'prec': 8})}
+    for name, (px, kw) in made.items():
+        openjpeg_write(os.path.join(out, name), px, **kw)
+    return [*writes, *made]
+
+
+def _jpeg2000_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
+    """Slice 18's JPEG 2000 layouts: every option PIL's writer has, in
+    each mode it writes, and the files written here around PIL's
+    codestreams (palettes, channel definitions, colour spaces, derived
+    quantisation, COC and QCC, tile-part headers, tile parts in any
+    order); their names."""
+    H, W = rgb.shape[:2]
+    a = rgb.astype(np.uint16)
+    modes = {
+        'l': Image.fromarray(rgb[..., 1]),
+        'la': Image.fromarray(np.stack([rgb[..., 1], rgb[..., 0]], -1),
+                              'LA'),
+        'rgb': Image.fromarray(rgb),
+        'rgba': Image.fromarray(np.concatenate([rgb, rgb[..., 2:]], -1),
+                                'RGBA'),
+        'i16': Image.fromarray(((a[..., 0] << 8) | a[..., 1]).astype('<u2')),
+        'cmyk': Image.fromarray(np.concatenate([rgb, rgb[..., :1]], -1),
+                                'CMYK'),
+    }
+    writes = {'picture64.jp2': (pic.convert('RGB'), {})}
+    for tag, im in modes.items():
+        writes[f'jp2_{tag}.jp2'] = (im, {})
+        writes[f'jp2_{tag}_irreversible.jp2'] = (im, {'irreversible': True})
+        writes[f'j2k_{tag}.j2k'] = (im, {'no_jp2': True})
+    colour = modes['rgb']
+    for name, kw in {
+            'jp2_layers_rates.jp2': {'quality_mode': 'rates',
+                                     'quality_layers': [40, 20, 10]},
+            'jp2_layers_db_irreversible.jp2': {
+                'quality_mode': 'dB', 'quality_layers': [30, 40, 50],
+                'irreversible': True},
+            'jp2_tiles.jp2': {'tile_size': (16, 8)},
+            'jp2_tiles_irreversible_mct.jp2': {
+                'tile_size': (16, 8), 'irreversible': True, 'mct': 1},
+            'jp2_offset.jp2': {'offset': (3, 5), 'tile_offset': (2, 4),
+                               'tile_size': (40, 28)},
+            'jp2_offset_tiles.jp2': {'offset': (3, 5), 'tile_offset': (1, 2),
+                                     'tile_size': (8, 8)},
+            'jp2_resolutions_1.jp2': {'num_resolutions': 1},
+            'jp2_resolutions_3_irreversible.jp2': {'num_resolutions': 3,
+                                                   'irreversible': True},
+            'jp2_codeblock_4x4.jp2': {'codeblock_size': (4, 4)},
+            'jp2_codeblock_16x8_irreversible.jp2': {
+                'codeblock_size': (16, 8), 'irreversible': True},
+            'jp2_precinct_16x8.jp2': {'precinct_size': (16, 8),
+                                      'codeblock_size': (4, 4),
+                                      'num_resolutions': 3},
+            'jp2_precinct_offset_tiles.jp2': {
+                'precinct_size': (4, 4), 'num_resolutions': 2,
+                'offset': (3, 5), 'tile_offset': (1, 2), 'tile_size': (9, 11)},
+            'jp2_rlcp.jp2': {'progression': 'RLCP', 'quality_mode': 'rates',
+                             'quality_layers': [40, 20]},
+            'jp2_rpcl.jp2': {'progression': 'RPCL', 'precinct_size': (16, 16),
+                             'codeblock_size': (4, 4)},
+            'jp2_pcrl.jp2': {'progression': 'PCRL', 'precinct_size': (16, 16),
+                             'codeblock_size': (4, 4)},
+            'jp2_cprl.jp2': {'progression': 'CPRL', 'precinct_size': (16, 16),
+                             'codeblock_size': (4, 4)},
+            'jp2_rpcl_offset_tiles.jp2': {
+                'progression': 'RPCL', 'precinct_size': (8, 8),
+                'num_resolutions': 3, 'offset': (3, 5),
+                'tile_offset': (1, 2), 'tile_size': (13, 9)},
+            'jp2_pcrl_offset_layers.jp2': {
+                'progression': 'PCRL', 'precinct_size': (16, 16),
+                'codeblock_size': (4, 4), 'offset': (3, 5),
+                'tile_offset': (1, 2), 'tile_size': (16, 16),
+                'quality_mode': 'rates', 'quality_layers': [30, 10]},
+            'jp2_cprl_offset_tiles.jp2': {
+                'progression': 'CPRL', 'precinct_size': (16, 16),
+                'codeblock_size': (4, 4), 'offset': (5, 1),
+                'tile_offset': (3, 0), 'tile_size': (20, 20)},
+            'jp2_mct.jp2': {'mct': 1},
+            'jp2_mct_irreversible.jp2': {'mct': 1, 'irreversible': True},
+            'jp2_signed.jp2': {'signed': True},
+            'jp2_signed_irreversible.jp2': {'signed': True,
+                                            'irreversible': True},
+            'j2k_plt.j2k': {'no_jp2': True, 'plt': True},
+            'jp2_comment.jp2': {'comment': 'a texture'}}.items():
+        writes[name] = (colour, kw)
+    writes['jp2_i16_signed.jp2'] = (modes['i16'], {'signed': True})
+    writes['jp2_l_signed_irreversible.jp2'] = (modes['l'], {
+        'signed': True, 'irreversible': True})
+    for name, (im, kw) in writes.items():
+        im.save(os.path.join(out, name), 'JPEG2000', **kw)
+    made = {}
+    box, jp2 = bitmap_stages.jp2_box, bitmap_stages.jp2_file
+    idx = (rgb[..., 0] % 12).astype(np.uint8)
+    pal = np.random.default_rng(18).integers(0, 256, (12, 3), dtype=np.uint8)
+    pal[7] = pal[2]                      # a repeat: PIL keeps the first
+    pclr = box(b'pclr', struct.pack('>HB', 12, 3) + bytes([7, 7, 7]) +
+               pal.tobytes())
+    cmap = box(b'cmap', bytes([0, 0, 1, 0, 0, 0, 1, 1, 0, 0, 1, 2]))
+    made['jp2_pclr.jp2'] = jp2(_j2k(Image.fromarray(idx)), 1, 7, W, H, 16,
+                               pclr + cmap)
+    made['jp2_pclr_alpha.jp2'] = jp2(_j2k(Image.fromarray(
+        np.stack([idx, rgb[..., 2]], -1), 'LA')), 2, 7, W, H, 16,
+        pclr + box(b'cmap', bytes([0, 0, 1, 0, 0, 0, 1, 1, 0, 0, 1, 2, 0, 1,
+                                   0, 0])))
+    cdef = box(b'cdef', struct.pack('>H9H', 3, 0, 0, 3, 1, 0, 2, 2, 0, 1))
+    made['jp2_cdef.jp2'] = jp2(_j2k(colour), 3, 7, W, H, 16, cdef)
+    made['jp2_colr_unknown.jp2'] = jp2(_j2k(colour), 3, 7, W, H, 20)
+    made['j2k_derived.j2k'] = _j2k_rewrite(_j2k(colour, irreversible=True),
+                                           _derived)
+    made['j2k_coc_qcc.j2k'] = _j2k_rewrite(_j2k(colour), _coc_qcc)
+    made['j2k_coc_qcc_irreversible.j2k'] = _j2k_rewrite(
+        _j2k(colour, irreversible=True, mct=1), _coc_qcc)
+    made['j2k_tile_cod_qcd.j2k'] = _j2k_rewrite(
+        _j2k(colour, tile_size=(16, 16)), _tile_cod_qcd)
+    made['j2k_tile_parts.j2k'] = _tile_parts(_j2k(
+        colour, tile_size=(16, 8), quality_mode='rates',
+        quality_layers=[40, 10]))
+    for name, data in made.items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    return [*writes, *made]
+
+
+def _icon_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
+    """Slice 18's ICO, CUR and ICNS files: PIL's own ICO (PNG and BMP
+    icons), ICO and CUR files of DIB icons at each depth with their AND
+    masks, ICNS files of JPEG 2000 icons and of the legacy RLE icons with
+    their masks; their names."""
+    H, W = rgb.shape[:2]
+    rng = np.random.default_rng(180)
+    rgba = Image.fromarray(np.concatenate([rgb, rgb[..., 2:]], -1), 'RGBA')
+    writes = {
+        'picture64.ico': (pic.convert('RGB'), {'sizes': [(64, 64)]}),
+        'ico_png_rgba.ico': (rgba, {'sizes': [(16, 16), (37, 23)]}),
+        'ico_bmp_pil.ico': (rgba, {'sizes': [(16, 16), (37, 23)],
+                                   'bitmap_format': 'bmp'}),
+    }
+    for name, (im, kw) in writes.items():
+        im.save(os.path.join(out, name), 'ICO', **kw)
+    mask = ((np.add.outer(np.arange(H), np.arange(W)) // 5) % 2).astype(
+        np.uint8)
+    entries = {}
+    for bits in (1, 4, 8):
+        n = 1 << bits
+        idx = (rgb[..., 0].astype(int) * n // 256).astype(np.uint8)
+        pal = rng.integers(0, 256, (n, 3))
+        entries[bits] = (W, H, n & 255, bits,
+                         bitmap_stages.dib(idx, bits, pal, mask))
+    entries[24] = (W, H, 0, 24, bitmap_stages.dib(rgb, 24, mask=mask))
+    rgba32 = np.concatenate([rgb, (rgb[..., 1:2] // 2) + 64], -1)
+    entries[32] = (W, H, 0, 32, bitmap_stages.dib(rgba32, 32, mask=mask))
+    made = {}
+    for bits, e in entries.items():
+        made[f'ico_bmp_{bits}.ico'] = bitmap_stages.icon_file([e])
+        made[f'cur_{bits}.cur'] = bitmap_stages.icon_file([e], cursor=True)
+    # a 32-bit DIB that the directory calls 0 bits: its alpha from the
+    # AND mask
+    made['ico_bmp_32_bpp0.ico'] = bitmap_stages.icon_file(
+        [entries[32][:3] + (0,) + entries[32][4:]])
+    small = rgb[:16, :16]
+    tile = (small[..., 1] // 16).astype(np.uint8)
+    pal = rng.integers(0, 256, (16, 3))
+    # PIL opens the largest, of the equal ones the shallowest
+    made['ico_sorted.ico'] = bitmap_stages.icon_file([
+        (16, 16, 0, 8, bitmap_stages.dib(tile, 8, pal, mask[:16, :16])),
+        (24, 8, 0, 24, bitmap_stages.dib(rgb[:8, :24], 24,
+                                         mask=mask[:8, :24])),
+        (16, 16, 16, 4, bitmap_stages.dib(tile, 4, pal, mask[:16, :16]))])
+    # the first cursor, replaced by each later one larger in both sizes
+    made['cur_largest.cur'] = bitmap_stages.icon_file([
+        (16, 16, 0, 24, bitmap_stages.dib(small, 24, mask=mask[:16, :16])),
+        (W, H, 0, 24, entries[24][4]),
+        (16, 20, 0, 24, bitmap_stages.dib(rgb[:20, :16], 24,
+                                          mask=mask[:20, :16]))],
+        cursor=True)
+    # ICNS: a JP2 icon of the 64x64 picture, a raw codestream, and the
+    # legacy 24-bit icons, run-length coded or raw, with and without masks
+    b = io.BytesIO()
+    pic.convert('RGB').save(b, 'JPEG2000')
+    made['icns_jp2.icns'] = bitmap_stages.icns_file([(b'icp6', b.getvalue())])
+    made['icns_j2k_l.icns'] = bitmap_stages.icns_file(
+        [(b'icp5', _j2k(Image.fromarray(rgb[..., 1]).resize((32, 32))))])
+
+    def icon(n, k=0):
+        yy, xx = np.mgrid[0:n, 0:n]
+        return np.stack([(xx // 4 * 40 + k) % 256, (yy // 4 * 30) % 256,
+                         ((xx + yy) // 8 * 50) % 256], -1).astype(np.uint8)
+
+    def rle(img):
+        return b''.join(bitmap_stages.icns_rle(img[..., c]) for c in range(3))
+
+    def alpha(n):
+        return ((np.add.outer(np.arange(n), np.arange(n)) * 7) % 256).astype(
+            np.uint8).tobytes()
+    made['icns_is32.icns'] = bitmap_stages.icns_file(
+        [(b'is32', rle(icon(16))), (b's8mk', alpha(16))])
+    made['icns_il32_raw.icns'] = bitmap_stages.icns_file(
+        [(b'il32', icon(32, 9).tobytes()), (b'l8mk', alpha(32)),
+         (b'is32', rle(icon(16)))])
+    made['icns_ih32.icns'] = bitmap_stages.icns_file(
+        [(b'ih32', rle(icon(48, 3)))])
+    made['icns_it32.icns'] = bitmap_stages.icns_file(
+        [(b'it32', bytes(4) + rle(icon(128, 5))), (b'ih32', rle(icon(48)))])
+    for name, data in made.items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    return [*writes, *made]
+
 
 def _lzw_tiff_large(path: str, n: int) -> None:
     """An n x n LZW TIFF, predictor 2, of the picture posterised to steps
@@ -845,6 +1319,17 @@ def _jpeg_tiff_large(path: str, n: int) -> None:
                   subsampling=(2, 2), jpeg_quality=85)
 
 
+def _icns_large(path: str, n: int) -> None:
+    """PIL's own ICNS file: PNG icons up to ``n`` x ``n``, resized by PIL
+    from one 64x64 picture of colour blocks (a picture of detail would
+    take megabytes at 1,024^2)."""
+    blocks = np.kron((np.indices((8, 8)).sum(0) % 3 * 100).astype(np.uint8),
+                     np.ones((8, 8), np.uint8))
+    Image.fromarray(np.stack([blocks, blocks[::-1], blocks.T], -1)).save(
+        path, 'ICNS')
+    assert Image.open(path).size == (n, n)
+
+
 def _g4_tiff_large(path: str, n: int) -> None:
     """An n x n CCITT G4 TIFF of the picture's green channel
     thresholded at 128 (waves and discs; the noise speckles their
@@ -860,6 +1345,7 @@ LARGE_MADE = {
     'gif_256_2048.gif': (_gif_large, 2048),
     'tiff_jpeg_ycbcr_2048.tif': (_jpeg_tiff_large, 2048),
     'tiff_g4_2048.tif': (_g4_tiff_large, 2048),
+    'icns_pil_1024.icns': (_icns_large, 1024),
 }
 # DDS files of seeded random blocks at a texture's size: not committed,
 # their digests are (``bitmap_stages.large_file`` writes them from the
@@ -881,13 +1367,17 @@ LARGE = {
     'webp_lossy_2048.webp': (2048, {'quality': 80}, 1),
     'webp_lossy_4096.webp': (4096, {'quality': 80}, 1),
     'webp_lossless_2048.webp': (2048, {'lossless': True}, 1 / 32),
+    'jp2_irreversible_2048.jp2': (2048, {
+        'irreversible': True, 'quality_mode': 'rates',
+        'quality_layers': [20]}, 1),
+    'jp2_reversible_2048.jp2': (2048, {}, 0),
 }
 
 
 def _bitmaps_large(out: str) -> None:
     """The files of ``LARGE`` and ``LARGE_MADE`` (each written where it
     is missing) and the SHA-256 digests of PIL's RGB bytes of each and of
-    the ``LARGE_SEEDED`` files; no file over 1.5 MB, 6 MB together."""
+    the ``LARGE_SEEDED`` files; no file over 1.5 MB, 8 MB together."""
     os.makedirs(out, exist_ok=True)
     digests, total = {}, 0
     for name, (dxgi, n, seed) in LARGE_SEEDED.items():
@@ -913,7 +1403,7 @@ def _bitmaps_large(out: str) -> None:
         digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
                          'shape': list(rgb.shape), 'bytes': size}
         print(f"{name}: {size} bytes")
-    assert total <= 6_000_000, total
+    assert total <= 8_000_000, total
     with open(os.path.join(out, 'pil_rgb_sha256.json'), 'w') as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write('\n')
@@ -988,6 +1478,9 @@ def main() -> None:
     _tiff_layouts(rgb, out)
     _tiff_rest(rgb, out)
     _raster_files(rgb, pic, out)
+    _jpeg2000_files(rgb, pic, out)
+    _openjpeg_files(rgb, out)
+    _icon_files(rgb, pic, out)
     for name, data in _webp_layouts(rgb, pic).items():
         with open(os.path.join(out, name), 'wb') as f:
             f.write(data)
@@ -1002,12 +1495,12 @@ def main() -> None:
         ref[name] = np.asarray(Image.open(path).convert('RGB'))
     first = ref['picture64.png']
     for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif', 'webp', 'qoi', 'sgi',
-                'pcx', 'dds'):
+                'pcx', 'dds', 'jp2', 'ico'):
         assert (ref[f'picture64.{ext}'] == first).all(), ext
     np.savez_compressed(os.path.join(out, 'pil_rgb.npz'), **ref)
     total = sum(os.path.getsize(os.path.join(out, n))
                 for n in os.listdir(out))
-    assert total <= 1024 * 1024, total
+    assert total <= 1536 * 1024, total
     print(f"{len(ref)} files and pil_rgb.npz in {out}: {total} bytes")
 
 

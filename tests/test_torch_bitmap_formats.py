@@ -810,7 +810,7 @@ def test_unidentified_file_raises_oserror_in_both(tmp_path):
 def test_formats_outside_the_slice_name_their_roadmap_entry(tmp_path, fmt,
                                                             kw):
     """SGI, QOI and PCX, outside the port until slice 17, now decode as
-    the reference does; a format still outside (ICO, ROADMAP 12.7's
+    the reference does; a format still outside (AVIF, ROADMAP 12.7's
     remainder) raises naming its entry."""
     path = str(tmp_path / f'img.{fmt.lower()}')
     _pil('RGB').save(path, fmt, **kw)
@@ -819,11 +819,12 @@ def test_formats_outside_the_slice_name_their_roadmap_entry(tmp_path, fmt,
     assert not isinstance(ref, type), ref
     for g, want in zip((True, False), ref):
         assert ptex.load_bitmap(path, gamma=g).tobytes() == want.tobytes()
-    ico = str(tmp_path / 'img.ico')
-    _pil('RGB').save(ico, 'ICO')
-    assert jtex.load_bitmap(ico).shape[2] == 3
+    avif = str(tmp_path / 'img.avif')
+    _pil('RGB').save(avif, 'AVIF')
+    assert ptex.identify(avif) == 'AVIF'
+    assert jtex.load_bitmap(avif).shape[2] == 3
     with pytest.raises(NotImplementedError, match=r'item 12\.7'):
-        ptex.load_bitmap(ico)
+        ptex.load_bitmap(avif)
 
 
 def _old_jpeg(path):
@@ -930,13 +931,15 @@ def test_fixtures_decode_to_pils_stored_bytes():
 def test_textured_render_equal_across_lossless_formats(tmp_path):
     """``cbox_textured`` (16x16, 1 spp, on the CPU) with the 64x64
     picture as every bitmap renders the same image in every bit from each
-    of its seven lossless copies (the card's ``textured_formats`` phase at
-    a smaller size)."""
+    of its nine lossless copies, the reversible JP2 and the ICO (a PNG
+    icon) among them (the card's ``textured_formats`` phase at a smaller
+    size)."""
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
     imgs = {}
-    for ext in ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp'):
+    for ext in ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'jp2',
+                'ico'):
         path = cbox_textured(str(tmp_path / ext), spp=1, res=16,
                              bitmap=os.path.join(FIXTURES,
                                                  f'picture64.{ext}'))

@@ -17,8 +17,12 @@ truncations and byte flips of fixtures fail with the plain path's
 exception type or decode to what it decodes, in a process of their own
 (``torch_bitmap_corrupt_worker.py``), so a crash fails one test; so do
 seeded cuts and flips of the LZW streams, alpha planes and lossless scans
-that the stages of slice 16 take. A failed compile raises with the
-compiler's message: there is no fallback.
+that the stages of slice 16 take, and of the code-block data and wavelet
+coefficients that JPEG 2000's stages take (slice 18: tier 1, the 5/3 and
+the 9/7 each equal to its twin on every fixture's calls and on seeded
+random inputs, the colour transforms and level shift on seeded planes
+with the float path's edges). A failed compile raises with the compiler's
+message: there is no fallback.
 """
 import hashlib
 import json
@@ -34,8 +38,8 @@ from PIL import Image
 from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import native, texture as ptex
 from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
-from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, gif, io as pio, jpeg,
-                                           tiff, vp8, vp8l, webp)
+from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, gif, io as pio, j2k,
+                                           jpeg, tiff, vp8, vp8l, webp)
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -335,6 +339,137 @@ def test_lossless_jpeg_matches_plain(psv, rows, pt, chans, tmp_path,
     assert got.tobytes() == _pil_rgb(path).tobytes()
 
 
+@pytest.mark.parametrize('name', ['jp2_rgb.jp2', 'jp2_layers_rates.jp2',
+                                  'jp2_codeblock_4x4.jp2',
+                                  'j2k_style_all.j2k',
+                                  'j2k_style_bypass_layers.j2k',
+                                  'j2k_style_vcausal.j2k',
+                                  'j2k_rgn_irreversible.j2k',
+                                  'j2k_tile_parts.j2k'])
+def test_j2k_stages_match_plain(name, monkeypatch):
+    """Every call of JPEG 2000's four stages while a fixture decodes: tier
+    1 (each tile's code-blocks), the inverse 5/3 or 9/7 of each
+    tile-component and the colour transform and level shift, each equal
+    to its plain twin in every bit."""
+    seen = []
+    for stage in ('_t1', '_idwt53', '_idwt97', '_finish'):
+        _paired(monkeypatch, j2k, stage, seen)
+    got = ptex.read_rgb8(os.path.join(FIXTURES, name))
+    assert got.tobytes() == WANT[name].tobytes()
+    assert '_t1' in seen and '_finish' in seen
+    assert '_idwt53' in seen or '_idwt97' in seen
+
+
+def _random_blocks(rng, n):
+    """Seeded code-blocks: each of 1-16 x 1-16 samples, any orientation,
+    bit planes and code-block style, two to four segments of random bytes
+    (the bypass ones read raw, the rest MQ-decoded)."""
+    data, blocks, segs, off = b'', [], [], 0
+    for _ in range(n):
+        w, h = (int(v) for v in rng.integers(1, 17, 2))
+        nseg = int(rng.integers(1, 5))
+        blocks.append((w, h, int(rng.integers(0, 4)),
+                       int(rng.integers(0, 13)), int(rng.integers(0, 64)),
+                       len(segs), nseg, off))
+        for _ in range(nseg):
+            chunk = rng.integers(0, 256, int(rng.integers(0, 40)),
+                                 dtype=np.uint8).tobytes()
+            segs.append((len(data), len(data) + len(chunk),
+                         int(rng.integers(1, 12))))
+            data += chunk
+        off += w * h
+    return data, np.asarray(blocks, np.int64), np.asarray(segs, np.int64)
+
+
+@pytest.mark.parametrize('seed', range(6))
+def test_j2k_t1_matches_plain_on_random_blocks(seed):
+    """Tier 1 of seeded random code-blocks (every style, orientation and
+    bit-plane count, bytes of no encoder) equals its twin; a descriptor
+    past its segments or data fails with ValueError, 31 bit planes with
+    OSError, in both."""
+    rng = np.random.default_rng(seed)
+    data, blocks, segs = _random_blocks(rng, 12)
+    got = j2k._t1(data, blocks, segs)
+    want = j2k._t1_plain(data, blocks, segs)
+    assert got.dtype == want.dtype == np.int32
+    assert got.tobytes() == want.tobytes()
+    bad_seg, bad_planes = blocks.copy(), blocks.copy()
+    bad_seg[0, 6] = len(segs) + 1
+    bad_planes[0, 3] = 31
+    for bad, exc in ((bad_seg, ValueError), (bad_planes, OSError)):
+        for fn in (j2k._t1, j2k._t1_plain):
+            with pytest.raises(exc):
+                fn(data, bad, segs)
+    for fn in (j2k._t1, j2k._t1_plain):
+        with pytest.raises(ValueError):
+            fn(data[:-1] if data else b'', blocks, segs + (len(data) > 0))
+
+
+def _random_geometry(rng):
+    """A tile-component's resolutions (x0, y0, x1, y1), each level
+    halving its origin, at a seeded odd or even origin and size (widths
+    and heights of 1 among them)."""
+    levels = int(rng.integers(1, 6))
+    x0, y0 = (int(v) for v in rng.integers(0, 9, 2))
+    w, h = (int(v) for v in rng.integers(1, 70, 2))
+    geom = []
+    for k in range(levels):
+        s = levels - 1 - k
+        geom.append((-(-x0 >> s), -(-y0 >> s), -(-(x0 + w) >> s),
+                     -(-(y0 + h) >> s)))
+    return geom, h, w
+
+
+@pytest.mark.parametrize('seed', range(10))
+def test_j2k_wavelets_match_plain(seed):
+    """The inverse 5/3 (int32) and 9/7 (float32, no fused multiply-add)
+    of seeded coefficients at seeded geometries equal their twins in every
+    bit; a geometry larger than the plane fails with ValueError in
+    both."""
+    rng = np.random.default_rng(seed)
+    geom, h, w = _random_geometry(rng)
+    ints = rng.integers(-3000, 3000, (h, w)).astype(np.int32)
+    floats = (rng.standard_normal((h, w)) * 200).astype(np.float32)
+    for fn, plane in ((j2k._idwt53, ints), (j2k._idwt97, floats)):
+        got = fn(plane, geom)
+        want = getattr(j2k, fn.__name__ + '_plain')(plane, geom)
+        assert got.dtype == want.dtype == plane.dtype
+        assert got.tobytes() == want.tobytes(), fn.__name__
+        for f in (fn, getattr(j2k, fn.__name__ + '_plain')):
+            with pytest.raises(ValueError):
+                f(plane[:h - 1], [(0, 0, w, h)] * 2)
+
+
+@pytest.mark.parametrize('reversible', [True, False])
+@pytest.mark.parametrize('mct', [True, False])
+def test_j2k_finish_matches_plain(reversible, mct):
+    """The inverse RCT or ICT and each component's level shift, rounding
+    half to even and clamp on seeded planes, the float path's edges among
+    them (halves, 2^31, past +-2^31, infinities, NaN), equal their twin;
+    planes of other shapes fail with ValueError in both."""
+    rng = np.random.default_rng(int(reversible) * 2 + int(mct))
+    if reversible:
+        planes = [rng.integers(-600, 600, (9, 13)).astype(np.int32)
+                  for _ in range(4)]
+    else:
+        planes = [(rng.standard_normal((9, 13)) * 300).astype(np.float32)
+                  for _ in range(4)]
+        edges = np.array([0.5, 1.5, -0.5, -2.5, 2.0 ** 31, 2.0 ** 32,
+                          -2.0 ** 32, np.inf, -np.inf, np.nan, 127.5,
+                          -128.5, 4.5], np.float32)
+        planes[0].reshape(-1)[:13] = edges
+        planes[3].reshape(-1)[13:26] = edges
+    ranges = [(128, 0, 255), (0, -128, 127), (2048, 0, 4095), (1, 0, 1)]
+    got = j2k._finish(planes, mct, ranges)
+    want = j2k._finish_plain(planes, mct, ranges)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int32
+        assert g.tobytes() == w.tobytes()
+    for fn in (j2k._finish, j2k._finish_plain):
+        with pytest.raises(ValueError):
+            fn(planes[:2] + [planes[2][:4]], True, ranges[:3])
+
+
 # --- (b) every fixture, native stages only --------------------------------
 
 @pytest.mark.parametrize('name', WANT.files)
@@ -439,10 +574,12 @@ def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
 
 @pytest.mark.parametrize('group', ('tiff_lzw', 'gif_lzw', 'alpha_gradient',
                                    'jpeg_lossless', 'ccitt', 'bcn', 'qoi',
-                                   'sgi_rle', 'pcx_rle'))
+                                   'sgi_rle', 'pcx_rle', 'j2k_t1',
+                                   'j2k_idwt53', 'j2k_idwt97'))
 def test_corrupt_stage_input_fails_as_the_plain_path(group, tmp_path):
     """An LZW stream, an alpha plane, a lossless scan, a CCITT strip, BCn
-    blocks or QOI, SGI or PCX RLE data cut short or with bytes flipped:
+    blocks, QOI, SGI or PCX RLE data, JPEG 2000 code-block data or a
+    tile-component's wavelet coefficients cut short or with bytes flipped:
     the native stage raises the plain twin's exception type or returns
     its bytes."""
     cases = _corrupt_cases(group, tmp_path)

@@ -448,17 +448,18 @@ def test_cpu_parallel_and_jpeg_load_no_jax(steps):
 
 
 def test_cpu_bitmap_formats_load_no_pil(steps):
-    """Slices 13, 14, 16 and 17 (the BMP, TGA, PNM, GIF, TIFF with
+    """Slices 13, 14, 16, 17 and 18 (the BMP, TGA, PNM, GIF, TIFF with
     JPEG-in-TIFF, YCbCr, CCITT, old-style JPEG and CIELab, progressive and
-    CMYK JPEG, WebP, DDS, QOI, SGI and PCX decoders behind
-    ``texture.read_rgb8``) decode every committed fixture to PIL's stored
-    bytes without PIL, JAX or the reference package loaded."""
+    CMYK JPEG, WebP, DDS, QOI, SGI, PCX, JPEG 2000, ICO, CUR and ICNS
+    decoders behind ``texture.read_rgb8``) decode every committed fixture
+    to PIL's stored bytes without PIL, JAX or the reference package
+    loaded."""
     rec = _step(steps, 'bitmap_formats', (
         'utils.bmp', 'utils.tga', 'utils.pnm', 'utils.gif', 'utils.tiff',
         'utils.jpeg', 'utils.webp', 'utils.vp8', 'utils.vp8l',
         'utils.ccitt', 'utils.lab', 'utils.dds', 'utils.qoi', 'utils.sgi',
-        'utils.pcx'))
-    assert rec['out']['files'] >= 156
+        'utils.pcx', 'utils.j2k', 'utils.jp2', 'utils.ico', 'utils.icns'))
+    assert rec['out']['files'] >= 252
 
 
 def test_bvh_builder_raises_with_the_compilers_message(monkeypatch,

@@ -73,6 +73,12 @@ STAGE_GROUPS = {
         'sgi_rle_3ch_8bit.sgi', 'sgi_rle_1ch_16bit.sgi')),
     'pcx_rle': ('pcx', '_pcx_rle', 'read_pcx', (
         'pcx_rgb.pcx', 'pcx_4bit_planar.pcx')),
+    'j2k_t1': ('j2k', '_t1', 'jp2.read_jpeg2000', (
+        'jp2_l.jp2', 'j2k_style_all.j2k', 'jp2_tiles.jp2')),
+    'j2k_idwt53': ('j2k', '_idwt53', 'jp2.read_jpeg2000', (
+        'jp2_rgb.jp2', 'jp2_offset_tiles.jp2')),
+    'j2k_idwt97': ('j2k', '_idwt97', 'jp2.read_jpeg2000', (
+        'jp2_rgb_irreversible.jp2', 'jp2_tiles_irreversible_mct.jp2')),
 }
 
 
@@ -143,16 +149,17 @@ def _stage_inputs(import_module, stages, group, workdir) -> tuple:
 
 
 def _corrupt(arg, case: int, rng):
-    """An LZW stream, scan, CCITT strip, BCn blocks or RLE data cut short
-    or with bytes flipped; an alpha plane's rows cut or its values
+    """An LZW stream, scan, CCITT strip, BCn blocks, RLE data or JPEG
+    2000 code-block data cut short or with bytes flipped; an alpha plane's
+    or a tile-component's wavelet coefficients' rows cut or their bytes
     flipped."""
     if isinstance(arg, np.ndarray):
         a = arg.copy()
         if case % 2 == 0:
             return a[:int(rng.integers(0, a.shape[0]))]
+        b = a.reshape(-1).view(np.uint8)
         for _ in range(int(rng.integers(1, 4))):
-            a.reshape(-1)[int(rng.integers(0, a.size))] ^= np.uint8(
-                rng.integers(1, 256))
+            b[int(rng.integers(0, b.size))] ^= np.uint8(rng.integers(1, 256))
         return a
     data = bytearray(arg)
     if case % 2 == 0:
