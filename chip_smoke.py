@@ -164,6 +164,13 @@ their fixtures to PIL's bytes, and a 2,048^2 irreversible and a 2,048^2
 reversible JP2 and PIL's 1,024^2 ICNS to PIL's digests, the irreversible
 JP2 under 2 s of host time; ``textured_formats`` adds the reversible JP2
 and the ICO (a PNG icon) copies of the picture (thirteen renders).
+Slice 19 (the rest of TIFF: a Zstandard decoder in host C++, LZMA,
+word-aligned CCITT RLE, ThunderScan, JPEG in planes and CMYK, tiled
+YCbCr; PSD): ``bitmap_decode`` also holds their fixtures to PIL's bytes,
+the files PIL refuses (SGILog, WebP TIFF, PSD depths) to PIL's exception
+class, and a 2,048^2 Zstandard TIFF to PIL's digest under 1 s of host
+time, and reports whether ``lzma`` imported; ``textured_formats`` adds
+the PSD and the Zstandard TIFF copies of the picture (fifteen renders).
 The CPU halves of every check against the CPU run in two spawned worker
 processes beside the card's phases (their scene files written before
 they start), the CLI renders in subprocesses beside the phases after each
@@ -2830,7 +2837,7 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 
 # the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
 # port's decoders read, PIL's convert('RGB') bytes of each in
-# ``pil_rgb.npz``, one 64x64 picture in thirteen lossless formats, and
+# ``pil_rgb.npz``, one 64x64 picture in fifteen lossless formats, and
 # two 512x512 WebP files (a texture's size) with the SHA-256 digests of
 # PIL's bytes
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
@@ -2838,13 +2845,15 @@ BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
 WEBP_LARGE = os.path.join(os.path.dirname(BITMAPS), 'webp_large')
 # JPEG and WebP at 2,048^2 and 4,096^2 with the digests of PIL's bytes
 BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
+# files PIL refuses, with the exception class it raises (pil_errors.json)
+BITMAPS_REFUSED = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_refused')
 PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'qoi',
-                   'sgi', 'pcx', 'dds', 'jp2', 'ico')
+                   'sgi', 'pcx', 'dds', 'jp2', 'ico', 'psd', 'zstd.tif')
 # a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
 LARGE_DECODE_LIMIT_S = 3.0
 # and a 2,048^2 LZW TIFF's or GIF's (ROADMAP A 12.9)
 LZW_DECODE_LIMIT_S = 1.0
-LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif')
+LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif', 'tiff_zstd_2048.tif')
 # and a 2,048^2 irreversible (9/7) JPEG 2000 file's
 J2K_DECODE_LIMIT_S = 2.0
 J2K_LARGE = ('jp2_irreversible_2048.jp2',)
@@ -2878,16 +2887,28 @@ def bitmap_decode_phase(workdir) -> None:
     the digests of PIL's, and a 4,096^2 PNG written here by numpy with
     every row Paeth-filtered to its known pixels (the 4,096^2 JPEG's),
     each decode's host milliseconds beside it (and per megapixel for the
-    large files).
+    large files). Every file of ``tests/data/bitmaps_refused`` (SGILog,
+    WebP and 8-bit ThunderScan TIFFs, an unknown TIFF compression, the
+    PSD files PIL refuses) raises the class PIL raised (its
+    UnidentifiedImageError an OSError). It reports whether the standard
+    library's ``lzma`` imported (LZMA TIFF needs it; there is no
+    fallback).
     A decode failure, a 4,096^2 decode of 3 s or more, a 2,048^2 LZW
-    TIFF or GIF decode of 1 s or more, or a 2,048^2 irreversible JPEG 2000
-    decode of 2 s or more, raises."""
+    TIFF, Zstandard TIFF or GIF decode of 1 s or more, or a 2,048^2
+    irreversible JPEG 2000 decode of 2 s or more, raises."""
+    import builtins
     import hashlib
     import numpy as np
     from mitsuba_nlvrl_tpu_torch import native, texture
     from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import (large_file,
                                                                png_filtered)
     t0 = time.time()
+    try:
+        import lzma  # noqa: F401 - LZMA TIFF needs it; no fallback
+    except ImportError as e:
+        emit({'phase': 'bitmap_decode', 'lzma_imported': False,
+              'error': str(e)})
+        raise
     want = np.load(os.path.join(BITMAPS, 'pil_rgb.npz'))
     host_ms = {}
     for name in want.files:
@@ -2920,10 +2941,35 @@ def bitmap_decode_phase(workdir) -> None:
     decoded[BITMAPS_LARGE]['png_paeth_4096.png'] = _large_decode(
         texture, png, lambda rgb: np.array_equal(rgb, pixels))
     os.remove(png)
+    with open(os.path.join(BITMAPS_REFUSED, 'pil_errors.json')) as f:
+        refusals = json.load(f)
+    refused = {}
+    for name, pil in sorted(refusals.items()):
+        # PIL's UnidentifiedImageError, not a builtin, is an OSError
+        want_cls = getattr(builtins, pil['error'], OSError)
+        try:
+            texture.read_rgb8(os.path.join(BITMAPS_REFUSED, name))
+        except want_cls as e:
+            refused[name] = type(e).__name__
+        else:
+            raise AssertionError(f"{name}: decoded where PIL raises "
+                                 f"{pil['error']}")
+    # slice 19's fixtures: LZMA, Zstandard, word-aligned RLE, ThunderScan,
+    # JPEG in planes and CMYK, tiled YCbCr, PSD
+    new19 = {k: v for k, v in host_ms.items() if k.startswith((
+        'tiff_zstd', 'tiff_lzma', 'tiff_rlew', 'tiff_thunderscan',
+        'tiff_jpeg_planar', 'tiff_jpeg_cmyk', 'tiff_jpeg_rgba',
+        'tiff_jpeg_la', 'tiff_jpeg_min', 'tiff_ycbcr22_raw_tiles',
+        'tiff_ycbcr11_raw_tiles', 'psd_', 'picture64.psd',
+        'picture64.zstd'))}
     webp_ms = {k: v for k, v in host_ms.items() if k.endswith('.webp')}
     emit({'phase': 'bitmap_decode', 'files': len(host_ms),
           'all_equal_to_pil': True, 'host_ms': host_ms,
           'host_ms_total': sum(host_ms.values()),
+          'lzma_imported': True,
+          'slice19_files': len(new19),
+          'slice19_host_ms_total': sum(new19.values()),
+          'refused_as_pil': refused,
           'webp_files': len(webp_ms), 'webp_host_ms_total':
           sum(webp_ms.values()), 'webp_large': decoded[WEBP_LARGE],
           'large_equal_to_pil_digests': True,
@@ -3030,13 +3076,13 @@ def rng_wide_check(torch) -> None:
 
 
 def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
-    """Slices 13 to 18, the bitmap formats: ``bitmap_decode`` (above);
+    """Slices 13 to 19, the bitmap formats: ``bitmap_decode`` (above);
     ``textured_formats`` renders ``cbox_textured`` (64x64, 1 spp,
     ``path`` at ``CUT_DEPTH``: each render is paced by its launches) on
     the card once for each lossless copy of the 64x64 picture as its
     bitmaps (PNG, BMP, TGA, PPM, GIF, TIFF, WebP, QOI, SGI, PCX, DDS,
-    reversible JPEG 2000 and a PNG icon in ICO), each image and its rays
-    equal in bits to the PNG copy's;
+    reversible JPEG 2000, a PNG icon in ICO, an RLE PSD and a Zstandard
+    TIFF), each image and its rays equal in bits to the PNG copy's;
     then ``textured_large`` (above). Returns the renders' launches."""
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured

@@ -77,6 +77,7 @@ UNIT_SECONDS = {
     "tests/test_torch_measured.py": 47.7,
     "tests/test_torch_imports.py": 45.1,
     "tests/test_torch_bitmap_native.py": 99.6,
+    "tests/test_torch_tiff_corners.py": 13.9,
 }
 
 

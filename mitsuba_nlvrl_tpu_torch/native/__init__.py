@@ -45,7 +45,8 @@ CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-march=native']
 BVH_SOURCES = ('bvh_native.cpp',)
 BITMAP_SOURCES = ('bitmap_png.cpp', 'bitmap_jpeg.cpp', 'bitmap_vp8l.cpp',
                   'bitmap_vp8.cpp', 'bitmap_lzw.cpp', 'bitmap_ccitt.cpp',
-                  'bitmap_bcn.cpp', 'bitmap_raster.cpp', 'bitmap_j2k.cpp')
+                  'bitmap_bcn.cpp', 'bitmap_raster.cpp', 'bitmap_j2k.cpp',
+                  'bitmap_zstd.cpp')
 
 _lock = threading.Lock()
 _fn = None
@@ -153,14 +154,16 @@ _BITMAP_ABI = {
     'mnt_qoi_decode': [_P, _I64, _I64, _I32, _P],
     'mnt_sgi_rle_rows': [_P, _I64, _P, _P, _I64, _I64, _I32, _P],
     'mnt_pcx_rle': [_P, _I64, _I64, _I64, _P, _P],
+    'mnt_thunderscan': [_P, _I64, _I64, _I64, _P],
     'mnt_j2k_t1': [_P, _P, _I64, _P, _P],
     'mnt_j2k_idwt53': [_P, _I64, _P, _I64],
     'mnt_j2k_idwt97': [_P, _I64, _P, _I64],
     'mnt_j2k_mct': [_P, _P, _P, _I64, _I32],
     'mnt_j2k_level': [_P, _I64, _I32, _I64, _I64, _I64, _P],
+    'mnt_zstd_decompress': [_P, _I64, _P, _I64, _I64, _I64],
 }
 # functions that return a count (int64) rather than an error code
-_BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw')
+_BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw', 'mnt_zstd_decompress')
 
 _BITMAP_VOID = ('mnt_jpeg_idct', 'mnt_jpeg_upsample', 'mnt_jpeg_ycc_rgb',
                 'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb',

@@ -116,6 +116,10 @@ struct Eof {};
 struct Reader {
     const uint8_t *src;
     int64_t nbits, pos = 0;
+    // the bytes libtiff's bit accumulator has taken in: it loads a byte
+    // at a time until it holds the 12 bits of a white code or the 13 of
+    // a black one, as far as the data goes
+    int64_t loaded = 0;
     Reader(const uint8_t *s, int64_t len) : src(s), nbits(len * 8) {}
     int bit_at(int64_t p) const { return (src[p >> 3] >> (7 - (p & 7))) & 1; }
     // the value of the next code of `t`
@@ -155,6 +159,8 @@ int64_t run(Reader &rd, int colour) {
     const Table &t = colour ? tables().black : tables().white;
     int64_t total = 0;
     for (;;) {
+        const int64_t want = (rd.pos + (colour ? 13 : 12) + 7) / 8, len = rd.nbits / 8;
+        if (want > rd.loaded) rd.loaded = want < len ? want : len;
         const int v = rd.code(t);
         if (v == EOL_RUN) throw BadCode();
         total += v;
@@ -211,9 +217,13 @@ void row_2d(Reader &rd, int64_t width, const std::vector<int64_t> &ref,
 
 // `rows` rows of `width` pixels from the CCITT data src[0, len) into out,
 // each row packed MSB first from a byte boundary, 1 where the run is
-// black: comp 2 (each row from a byte boundary, 1-D), 3 (each row after an
-// EOL; with options bit 0, a tag bit after it: 1 for 1-D, 0 for 2-D) or 4
-// (2-D, no EOL). `reserved` is 0. A 2-D extension code (uncompressed mode)
+// black: comp 2 (each row from a byte boundary, 1-D), 32771 (1-D, each
+// row after the word alignment of libtiff's reader: the bits left in its
+// accumulator cut to a multiple of 16, and where none are left and the
+// next byte's address is odd, that byte skipped; options bit 0 says the
+// data starts at an odd address), 3 (each row after an EOL; with options
+// bit 0, a tag bit after it: 1 for 1-D, 0 for 2-D) or 4 (2-D, no EOL).
+// `reserved` is 0. A 2-D extension code (uncompressed mode)
 // ends its row in the current colour. Returns 0, -1 where the data ends
 // inside a row, or -2 for a bad code (one not in its table, an EOL or a
 // run past the row's end inside a row).
@@ -221,7 +231,7 @@ extern "C" int mnt_ccitt_decode(const uint8_t *src, int64_t len, int comp,
                                 int64_t width, int64_t rows, int options,
                                 int reserved, uint8_t *out) {
     (void)reserved;
-    if (width < 0 || rows < 0 || comp < 2 || comp > 4) return -2;
+    if (width < 0 || rows < 0 || ((comp < 2 || comp > 4) && comp != 32771)) return -2;
     static std::once_flag once;
     std::call_once(once, [] { tables(); });
     const int64_t stride = (width + 7) / 8;
@@ -233,6 +243,13 @@ extern "C" int mnt_ccitt_decode(const uint8_t *src, int64_t len, int comp,
             changes.clear();
             if (comp == 2) {
                 rd.pos = (rd.pos + 7) / 8 * 8;
+                row_1d(rd, width, changes);
+            } else if (comp == 32771) {
+                if (y) {
+                    const int64_t held = (rd.loaded * 8 - rd.pos) & ~int64_t(15);
+                    rd.pos = rd.loaded * 8 - held;
+                    if (held == 0 && ((rd.loaded + options) & 1)) rd.pos = ++rd.loaded * 8;
+                }
                 row_1d(rd, width, changes);
             } else if (comp == 3) {
                 rd.sync_eol();

@@ -1,9 +1,10 @@
-// The sequential loops of three small raster formats, as PIL decodes them:
-// QOI's ops (utils/qoi.py, _qoi), SGI's RLE rows (utils/sgi.py, _sgi_rle)
-// and PCX's RLE (utils/pcx.py, _pcx_rle). The `_plain` function beside
-// each wrapper is its plain version, which the tests hold it to, failures
-// included. Every read lands inside `src` (`len` bytes) and every write
-// inside `out`.
+// The sequential loops of small raster codings, as PIL decodes them: QOI's
+// ops (utils/qoi.py, _qoi), SGI's RLE rows (utils/sgi.py, _sgi_rle), PCX's
+// RLE (utils/pcx.py, _pcx_rle) and TIFF's ThunderScan coding (utils/tiff.py,
+// _thunderscan), as libtiff's tif_thunder.c decodes it. The `_plain`
+// function beside each wrapper is its plain version, which the tests hold
+// it to, failures included. Every read lands inside `src` (`len` bytes)
+// and every write inside `out`.
 
 #include <cstdint>
 #include <cstring>
@@ -155,6 +156,76 @@ extern "C" int mnt_pcx_rle(const uint8_t *src, int64_t len, int64_t nbytes,
             row += nbytes;
             ++y;
         }
+    }
+    return 0;
+}
+
+// ThunderScan (TIFF compression 32809): `rows` rows of `width` 4-bit
+// pixels from src[0, len) into out, each row packed high nibble first in
+// ceil(width / 2) bytes, as libtiff's ThunderDecode writes them. Each row
+// starts with the last pixel 0 and takes codes until it is full: a run
+// (0x00 | n) repeats the last pixel n times, 2-bit (0x40) and 3-bit
+// (0x80) deltas add to it (skip codes 2 and 4), a raw pixel (0xC0 | v)
+// sets it. A run that reaches or passes the row's end writes nothing, as
+// there. Returns 0, -1 where the data ends inside a row ("Not enough
+// data") or -2 where a run passes the row's end ("Too much data").
+extern "C" int mnt_thunderscan(const uint8_t *src, int64_t len, int64_t width, int64_t rows,
+                               uint8_t *out) {
+    static const int two[4] = {0, 1, 0, -1};
+    static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+    const int64_t stride = (width + 1) / 2;
+    int64_t pos = 0;
+    std::memset(out, 0, size_t(stride * rows));
+    for (int64_t r = 0; r < rows; ++r) {
+        uint8_t *op = out + r * stride;
+        unsigned last = 0;
+        int64_t n = 0;
+        auto set = [&](unsigned v) {
+            last = v & 0xF;
+            if (n < width) {
+                if (n++ & 1)
+                    *op++ |= uint8_t(last);
+                else
+                    op[0] = uint8_t(last << 4);
+            }
+        };
+        while (pos < len && n < width) {
+            int c = src[pos++];
+            switch (c & 0xC0) {
+                case 0x00: {  // run
+                    c &= 0x3F;
+                    if (n & 1) {
+                        op[0] |= uint8_t(last);
+                        last = *op++;
+                        ++n;
+                        --c;
+                    } else {
+                        last |= last << 4;
+                    }
+                    n += c;
+                    if (n < width)
+                        for (; c > 0; c -= 2) *op++ = uint8_t(last);
+                    if (c == -1) *--op &= 0xF0;
+                    last &= 0xF;
+                    break;
+                }
+                case 0x40:  // 2-bit deltas
+                    for (int sh = 4; sh >= 0; sh -= 2) {
+                        const int d = (c >> sh) & 3;
+                        if (d != 2) set(unsigned(int(last) + two[d]));
+                    }
+                    break;
+                case 0x80:  // 3-bit deltas
+                    for (int sh = 3; sh >= 0; sh -= 3) {
+                        const int d = (c >> sh) & 7;
+                        if (d != 4) set(unsigned(int(last) + three[d]));
+                    }
+                    break;
+                default:  // raw
+                    set(unsigned(c));
+            }
+        }
+        if (n != width) return n < width ? -1 : -2;
     }
     return 0;
 }

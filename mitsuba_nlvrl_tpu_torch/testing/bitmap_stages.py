@@ -15,7 +15,10 @@ large fixture, writing the seeded ones it names, and the JPEG 2000 and
 icon writers: ``j2k_segments`` and ``j2k_join`` split and rejoin a
 codestream's marker segments, ``jp2_file`` wraps a codestream in JP2
 boxes, ``dib`` and ``icon_file`` write ICO and CUR files of DIB or PNG
-icons, ``icns_rle`` and ``icns_file`` ICNS files.
+icons, ``icns_rle`` and ``icns_file`` ICNS files; ``thunderscan`` and
+``ccitt_rlew`` code the strips of ThunderScan and word-aligned CCITT RLE
+TIFF files (libtiff has no encoder of either), ``packbits`` and
+``psd_file`` write PSD files.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ STAGES = (('io', '_png_unfilter'), ('jpeg', '_decode_scan'),
           ('tiff', '_lzw'), ('gif', '_lzw'), ('ccitt', 'decode'),
           ('dds', '_bcn'), ('qoi', '_qoi'), ('sgi', '_sgi_rle'),
           ('pcx', '_pcx_rle'), ('j2k', '_t1'), ('j2k', '_idwt53'),
-          ('j2k', '_idwt97'), ('j2k', '_finish'))
+          ('j2k', '_idwt97'), ('j2k', '_finish'), ('zstd', 'decompress'),
+          ('tiff', '_thunderscan'))
 
 
 def _module(name: str):
@@ -412,7 +416,20 @@ def icns_rle(plane: np.ndarray) -> bytes:
     """One plane in the run-length code of ICNS's legacy icons: a run of
     3-130 equal bytes as 0x80 + (n - 3) and the byte, else literals of up
     to 128 bytes as n - 1 and the bytes."""
-    b = bytes(np.asarray(plane, np.uint8).reshape(-1))
+    return _run_coded(bytes(np.asarray(plane, np.uint8).reshape(-1)), 130,
+                      lambda n: 0x80 + n - 3)
+
+
+def packbits(row: bytes) -> bytes:
+    """PackBits of one row: runs of 3-128 equal bytes as 257 - n and the
+    byte, else literals of up to 128 bytes as n - 1 and the bytes."""
+    return _run_coded(bytes(row), 128, lambda n: 257 - n)
+
+
+def _run_coded(b: bytes, longest: int, run_head) -> bytes:
+    """Runs of 3 to ``longest`` equal bytes as ``run_head(n)`` and the
+    byte, the bytes between them as literals of up to 128 bytes (n - 1,
+    then the bytes)."""
     out, i, lit = bytearray(), 0, bytearray()
 
     def flush():
@@ -422,11 +439,11 @@ def icns_rle(plane: np.ndarray) -> bytes:
             del lit[:128]
     while i < len(b):
         j = i
-        while j < len(b) and j - i < 130 and b[j] == b[i]:
+        while j < len(b) and j - i < longest and b[j] == b[i]:
             j += 1
         if j - i >= 3:
             flush()
-            out += bytes([0x80 + j - i - 3, b[i]])
+            out += bytes([run_head(j - i), b[i]])
             i = j
         else:
             lit.append(b[i])
@@ -440,3 +457,154 @@ def icns_file(entries) -> bytes:
     body = b''.join(t + struct.pack('>I', 8 + len(p)) + p
                     for t, p in entries)
     return b'icns' + struct.pack('>I', 8 + len(body)) + body
+
+
+def thunderscan(img: np.ndarray, seed: int = 0) -> bytes:
+    """ThunderScan data of (rows, width) 4-bit pixels (0-15), each row
+    coded from the last pixel 0 by a seeded choice among the codes that
+    fit: runs of the last pixel (none reaching the row's end, where
+    libtiff writes nothing), three 2-bit deltas (the skip code 2 where
+    fewer fit), two 3-bit deltas (skip code 4) and raw pixels. Deltas
+    wrap modulo 16, as libtiff keeps the low four bits."""
+    rng = np.random.default_rng(seed)
+    two = {0: 0, 1: 1, 15: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out = bytearray()
+    for row in np.asarray(img, np.int64):
+        last, x, w = 0, 0, len(row)
+        while x < w:
+            opts = ['raw']
+            run = 0
+            while x + run < w and row[x + run] == last and run < 63:
+                run += 1
+            if run and x + run < w:
+                opts.append('run')
+            d = [(int(v) - last) % 16 for v in row[x:x + 3]]
+            k2 = 0
+            prev = last
+            for v in row[x:x + 3]:
+                if (int(v) - prev) % 16 not in two:
+                    break
+                prev, k2 = int(v), k2 + 1
+            if k2:
+                opts.append('two')
+            if d and d[0] in three:
+                opts.append('three')
+            pick = opts[rng.integers(len(opts))]
+            if pick == 'run':
+                out.append(run)
+                x += run
+            elif pick == 'two':
+                codes, prev = [], last
+                for v in row[x:x + k2]:
+                    codes.append(two[(int(v) - prev) % 16])
+                    prev = int(v)
+                codes += [2] * (3 - k2)
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                last, x = prev, x + k2
+            elif pick == 'three':
+                codes, prev = [], last
+                for v in row[x:x + 2]:
+                    if (int(v) - prev) % 16 not in three:
+                        break
+                    codes.append(three[(int(v) - prev) % 16])
+                    prev = int(v)
+                x += len(codes)
+                codes += [4] * (2 - len(codes))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                last = prev
+            else:
+                last = int(row[x])
+                out.append(0xC0 | last)
+                x += 1
+    return bytes(out)
+
+
+def _mh_codes():
+    from ..utils import ccitt
+    out = []
+    for term, makeup in ((ccitt.W_TERM, ccitt.W_MAKEUP),
+                         (ccitt.B_TERM, ccitt.B_MAKEUP)):
+        out.append((term.split(), makeup.split(), ccitt.EXT_MAKEUP.split()))
+    return out
+
+
+def ccitt_rlew(bits: np.ndarray, odd: int = 0) -> bytes:
+    """Word-aligned CCITT RLE (TIFF compression 32771) of (rows, width)
+    0/1 pixels (1 black): each row's modified Huffman runs, white first,
+    then zero bits up to where libtiff's reader starts the next row
+    (``utils/ccitt.py``: its accumulator's bits cut to a multiple of 16,
+    and a byte skipped at an odd address; ``odd`` is the parity of the
+    data's offset in the file), and two zero bytes at the end (the
+    reader's look-ahead past the last row)."""
+    tables = _mh_codes()
+    out, pos, loaded = [], 0, 0
+    for y, row in enumerate(np.asarray(bits, np.uint8)):
+        if y:
+            held = (loaded * 8 - pos) & ~15
+            target = loaded * 8 - held
+            if held == 0 and (loaded + odd) & 1:
+                loaded += 1
+                target = loaded * 8
+            out += [0] * (target - pos)
+            pos = target
+        edges = np.flatnonzero(np.diff(np.concatenate([[0], row, [2]])))
+        # a change at 0 where the row starts black: a white run of 0
+        runs = np.diff(np.concatenate([[0], edges])).tolist()
+        for colour, r in enumerate(runs):
+            term, makeup, ext = tables[colour % 2]
+            codes = []
+            while r >= 2560:
+                codes.append(ext[-1])
+                r -= 2560
+            if r >= 1792:
+                codes.append(ext[(r - 1792) // 64])
+                r %= 64
+            elif r >= 64:
+                codes.append(makeup[r // 64 - 1])
+                r %= 64
+            codes.append(term[r])
+            for c in codes:
+                loaded = max(loaded, -(-(pos + 12 + colour % 2) // 8))
+                out += [int(b) for b in c]
+                pos += len(c)
+    out += [0] * (-len(out) % 8 + 16)
+    return np.packbits(np.asarray(out, np.uint8)).tobytes()
+
+
+def psd_file(planes: np.ndarray, mode: int, *, bits: int = 8,
+             compression: int = 0, colour: bytes = b'', resources=(),
+             layers: bytes = b'', version: int = 1) -> bytes:
+    """A PSD file of ``planes`` (C, H, W) uint8 channels, each written as
+    it is (``bits`` 1: 0/1 pixels, packed a row at a time MSB first;
+    16: each value times 257, big-endian), Photoshop ``mode``
+    (0 bitmap ... 9 Lab), ``compression`` 0 (raw) or 1 (RLE: every
+    channel's row byte counts, then the PackBits rows); ``colour`` the
+    colour mode data, ``resources`` (id, data) image resources and
+    ``layers`` the layer and mask section's body."""
+    planes = np.asarray(planes)
+    C, H, W = planes.shape
+    if bits == 1:
+        rows = [np.packbits(p.astype(np.uint8), axis=1) for p in planes]
+    elif bits == 16:
+        rows = [(p.astype('>u2') * 257).view(np.uint8).reshape(H, -1)
+                for p in planes]
+    else:
+        rows = [p.astype(np.uint8) for p in planes]
+    res = bytearray()
+    for rid, data in resources:
+        res += b'8BIM' + struct.pack('>HBxI', rid, 0, len(data)) + data + \
+            b'\0' * (len(data) & 1)
+    out = bytearray(b'8BPS' + struct.pack('>H6xHIIHH', version, C, H, W,
+                                          bits, mode))
+    out += struct.pack('>I', len(colour)) + colour
+    out += struct.pack('>I', len(res)) + res
+    out += struct.pack('>I', len(layers)) + layers
+    out += struct.pack('>H', compression)
+    if compression == 1:
+        coded = [[packbits(r.tobytes()) for r in ch] for ch in rows]
+        out += b''.join(struct.pack('>H', len(r)) for ch in coded for r in ch)
+        out += b''.join(r for ch in coded for r in ch)
+    else:
+        out += b''.join(ch.tobytes() for ch in rows)
+    return bytes(out)

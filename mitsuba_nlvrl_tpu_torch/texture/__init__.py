@@ -11,8 +11,8 @@ side) makes a texture's row and loads its bitmap or volume.
 Bitmaps load without PIL: EXR by suffix through ``utils/io.read_exr``;
 any other file identified by content in PIL's order (``identify``) and
 decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM, TGA, WebP, DDS,
-QOI, SGI, PCX, JPEG 2000, ICO, CUR and ICNS readers (``utils/``) to the
-bytes of PIL's ``convert('RGB')``. A format PIL
+QOI, SGI, PCX, JPEG 2000, ICO, CUR, ICNS and PSD readers (``utils/``) to
+the bytes of PIL's ``convert('RGB')``. A format PIL
 opens that the port does not read raises, naming its ROADMAP entry.
 Lanes whose row is not a bitmap or a volume read a clamped, valid index
 (the reference relies on JAX clamping there); their value is masked out.
@@ -160,7 +160,7 @@ def identify(path: str) -> str:
     a file of those is unidentified here. The names are PIL's formats:
     ``_READERS`` maps those the port decodes besides PNG (``JPEG2000``
     for JP2 files and raw codestreams, ``ICO``, ``CUR``, ``ICNS`` among
-    them)."""
+    them; ``PSD`` for Photoshop files)."""
     from ..utils.tga import is_tga
     with open(path, 'rb') as f:
         head = f.read(28)
@@ -179,7 +179,8 @@ _READERS = {'JPEG': ('jpeg', 'read_jpeg_mode'), 'BMP': ('bmp', 'read_bmp'),
             'DDS': ('dds', 'read_dds'), 'QOI': ('qoi', 'read_qoi'),
             'SGI': ('sgi', 'read_sgi'), 'PCX': ('pcx', 'read_pcx'),
             'JPEG2000': ('jp2', 'read_jpeg2000'), 'ICO': ('ico', 'read_ico'),
-            'CUR': ('ico', 'read_cur'), 'ICNS': ('icns', 'read_icns')}
+            'CUR': ('ico', 'read_cur'), 'ICNS': ('icns', 'read_icns'),
+            'PSD': ('psd', 'read_psd')}
 
 
 def _decode(path: str):
@@ -206,16 +207,21 @@ def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
     """Load an image file to linear float32 (H, W, 3). EXR by its suffix;
     any other file by its content, as PIL identifies it. PNG, JPEG
     (baseline, progressive, lossless; grey, YCbCr, RGB, CMYK, YCCK), BMP,
-    GIF, PNM, TGA, WebP, TIFF (strips and tiles, every orientation; none,
-    LZW, Deflate, PackBits, CCITT RLE, G3 and G4, JPEG and old-style
-    JPEG; bilevel, grey to 32 bits and 12-bit, palette, RGB, CMYK, CIELab
-    and YCbCr), DDS (uncompressed, BC1-BC7), QOI, SGI, PCX, JPEG 2000 (JP2
-    and raw codestreams: both wavelets, layers, tiles, offsets, every
+    GIF, PNM, TGA, WebP, TIFF (strips and tiles, every orientation; every
+    compression of PIL's table: none, LZW, Deflate, PackBits, LZMA,
+    Zstandard, CCITT RLE and its word-aligned form, G3 and G4,
+    ThunderScan, JPEG in one plane or in planes and old-style JPEG, with
+    SGILog and WebP refused as PIL refuses them; bilevel, grey to 32 bits
+    and 12-bit, palette, RGB, CMYK, CIELab and YCbCr), DDS
+    (uncompressed, BC1-BC7), QOI, SGI, PCX, JPEG 2000 (JP2 and raw
+    codestreams: both wavelets, layers, tiles, offsets, every
     progression, the colour transforms, 1 to 16 bits, palettes), ICO and
-    CUR (PNG and BMP icons) and ICNS (PNG, JPEG 2000 and the RLE icons)
-    decode here. Another format PIL opens (PSD, AVIF, ...), or a JPEG 2000
+    CUR (PNG and BMP icons), ICNS (PNG, JPEG 2000 and the RLE icons) and
+    PSD (the composite image of every mode PIL opens, raw and RLE)
+    decode here. Another format PIL opens (AVIF, ...), or a JPEG 2000
     feature outside the port, raises ``NotImplementedError`` naming
-    ROADMAP 12.7; a file PIL does not open raises ``OSError``."""
+    ROADMAP 12.7; a file PIL does not open raises ``OSError``, and what
+    PIL refuses otherwise raises PIL's exception class."""
     if path.lower().endswith('.exr'):
         from ..utils.io import read_exr
         img, names = read_exr(path)

@@ -1,10 +1,12 @@
-"""CCITT bilevel coding for TIFF (compression 2, 3 and 4), as libtiff
-decodes it under PIL: modified Huffman rows (compression 2: 1-D, each
-row from a byte boundary, no EOL), T.4 (compression 3: every row after
-an EOL, fill bits before it skipped; 1-D, or with ``T4Options`` bit 0 a
-tag bit after each EOL choosing 1-D or 2-D) and T.6 (compression 4:
-every row 2-D, no EOL). The reference line of a strip or tile's first
-2-D row is white. A decoded pixel is 1 where its run is black.
+"""CCITT bilevel coding for TIFF (compression 2, 32771, 3 and 4), as
+libtiff decodes it under PIL: modified Huffman rows (compression 2: 1-D,
+each row from a byte boundary, no EOL; 32771, libtiff's ``CCITTRLEW``:
+each row from a 16-bit boundary as libtiff's reader finds it, below),
+T.4 (compression 3: every row after an EOL, fill bits before it
+skipped; 1-D, or with ``T4Options`` bit 0 a tag bit after each EOL
+choosing 1-D or 2-D) and T.6 (compression 4: every row 2-D, no EOL).
+The reference line of a strip or tile's first 2-D row is white. A
+decoded pixel is 1 where its run is black.
 
 ``decode`` runs in ``native/bitmap_ccitt.cpp``; ``decode_plain`` is its
 plain version, which the tests hold it to, failures included: data that
@@ -14,6 +16,16 @@ row's end (where libtiff warns and pads the row). A 2-D extension code
 (uncompressed mode, which libtiff does not decode) ends its row in the
 current colour, as libtiff leaves it; a T.4 row after it starts at the
 next EOL.
+
+libtiff aligns a word-aligned row through its bit accumulator, which
+loads a byte at a time until it holds the 12 bits of a white code or the
+13 of a black one: at a row's end it keeps the accumulator's bits cut to
+a multiple of 16, and where none are left and the next byte's address
+is odd, it skips that byte. Where a row ends at an odd byte count with
+16 or more bits held, the next row starts at an odd byte, which no
+encoder that pads to words would write; a file's rows decode as libtiff
+reads them all the same. The data's own address counts (``odd``: the
+strip or tile starts at an odd offset in the file, which libtiff maps).
 """
 from __future__ import annotations
 
@@ -80,7 +92,9 @@ def _runs(colour: int) -> dict:
 def decode(src: bytes, comp: int, width: int, rows: int,
            options: int = 0) -> bytes:
     """``rows`` rows of ``width`` pixels from the CCITT data ``src``
-    (``comp`` 2, 3 or 4; ``options``: the T4Options of compression 3),
+    (``comp`` 2, 32771, 3 or 4; ``options``: the T4Options of
+    compression 3, or for 32771 1 where the data starts at an odd file
+    offset),
     packed MSB first, each row from a byte boundary; in
     ``native/bitmap_ccitt.cpp``. Fails as ``decode_plain`` does."""
     from ..native import bitmap_library, ptr
@@ -98,6 +112,7 @@ class _Reader:
     def __init__(self, src: bytes):
         self.bits = np.unpackbits(np.frombuffer(src, np.uint8))
         self.pos = 0
+        self.loaded = 0             # the bytes libtiff's accumulator took
 
     def code(self, table: dict, longest: int):
         """The value of the next code of ``table``; raises where the data
@@ -153,6 +168,8 @@ def _tables():
 def _run(rd: _Reader, colour: int) -> int:
     total = 0
     while True:
+        rd.loaded = max(rd.loaded, min(-(-(rd.pos + 12 + colour) // 8),
+                                       rd.bits.size // 8))
         v = rd.code(_tables()[colour], 13)
         if v == 'EOL':
             raise OSError("CCITT data: bad code")
@@ -222,6 +239,14 @@ def decode_plain(src: bytes, comp: int, width: int, rows: int,
     for y in range(rows):
         if comp == 2:
             rd.pos = -(-rd.pos // 8) * 8
+            changes = _row_1d(rd, width)
+        elif comp == 32771:
+            if y:
+                held = (rd.loaded * 8 - rd.pos) & ~15
+                rd.pos = rd.loaded * 8 - held
+                if held == 0 and (rd.loaded + options) & 1:
+                    rd.loaded += 1
+                    rd.pos = rd.loaded * 8
             changes = _row_1d(rd, width)
         elif comp == 3:
             rd.sync_eol()

@@ -619,12 +619,13 @@ def read_jpeg_mode(path: str):
 
 def decode(data: bytes, path: str, colour=None):
     """``read_jpeg_mode`` of a JPEG stream held in memory (``path`` names
-    it in errors). ``colour`` overrides what the markers say of a
-    three-component stream, as libtiff sets libjpeg's colour space for a
-    TIFF's strips and tiles: ``'YCbCr'`` converts to RGB, ``'RGB'``
-    takes the samples as they are, and ``'raw'`` returns ``('raw', each
-    component's samples at its own resolution in whole MCUs, the
-    components)``."""
+    it in errors). ``colour`` overrides what the markers say, as libtiff
+    sets libjpeg's colour space for a TIFF's strips and tiles:
+    ``'YCbCr'`` converts a three-component stream to RGB, ``'samples'``
+    returns ``('samples', (H, W, components), None)``: the components of
+    a stream of any number of them as they are (upsampled, not
+    converted), and ``'raw'`` returns ``('raw', each component's samples
+    at its own resolution in whole MCUs, the components)``."""
     if data[:2] != b'\xff\xd8':
         raise ValueError(f"{path}: not a JPEG file")
     pos, qt, tables, restart = 2, {}, {}, 0
@@ -649,7 +650,7 @@ def decode(data: bytes, path: str, colour=None):
             if prec != 8:            # PIL's SOF refuses: no plugin opens it
                 raise OSError(f"cannot identify image file '{path}' "
                               f"({prec}-bit JPEG)")
-            if nf not in (1, 3, 4):
+            if nf not in (1, 3, 4) and colour != 'samples':
                 raise OSError(f"cannot identify image file '{path}' "
                               f"({nf}-component JPEG)")
             if marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
@@ -761,6 +762,8 @@ def decode(data: bytes, path: str, colour=None):
         samples = _idct_plane(c['coef'], c['q'])[:c['dh'], :c['dw']]
         planes.append(_upsample(samples, hmax // c['h'], vmax // c['v'],
                                 W, H))
+    if colour == 'samples':
+        return 'samples', np.stack(planes, axis=-1).astype(np.uint8), None
     if len(planes) == 1:
         return 'L', planes[0].astype(np.uint8), None
     if len(planes) == 4:
@@ -771,8 +774,8 @@ def decode(data: bytes, path: str, colour=None):
         return 'CMYK', (255 - cmyk).astype(np.uint8), None
     rgb = (not jfif and adobe == 0) or (not jfif and adobe is None
                                          and cid == [82, 71, 66])
-    if colour is not None:
-        rgb = colour == 'RGB'
+    if colour == 'YCbCr':
+        rgb = False
     if rgb:
         return 'RGB', np.stack(planes, axis=-1).astype(np.uint8), None
     return 'RGB', _ycc_to_rgb(*planes), None

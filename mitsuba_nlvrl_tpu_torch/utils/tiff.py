@@ -8,11 +8,21 @@ are listed in ``_LAYOUTS``:
   * either byte order, classic TIFF and BigTIFF; strips and tiles (edge
     tiles cut); planar configuration 1 and 2; fill order 2;
   * compression none (1), LZW (5, in ``native/bitmap_lzw.cpp``), Deflate
-    (8 and 32946) and PackBits (32773); predictor 2 (horizontal
-    differencing at 8, 16 and 32 bits) and 3 (libtiff's floating-point
-    predictor);
-  * CCITT: modified Huffman (2), T.4 (3: 1-D and 2-D, ``T4Options``) and
-    T.6 (4), in ``native/bitmap_ccitt.cpp`` (``utils/ccitt.py``);
+    (8 and 32946), PackBits (32773), LZMA (34925: an xz stream a strip
+    or tile, through the standard library's ``lzma``) and Zstandard
+    (50000: a frame a strip or tile, ``utils/zstd.py``); predictor 2
+    (horizontal differencing at 8, 16 and 32 bits) and 3 (libtiff's
+    floating-point predictor) on LZW, Deflate, LZMA and Zstandard;
+  * CCITT: modified Huffman (2), its word-aligned form (32771), T.4 (3:
+    1-D and 2-D, ``T4Options``) and T.6 (4), in
+    ``native/bitmap_ccitt.cpp`` (``utils/ccitt.py``);
+  * ThunderScan (32809), 4-bit samples only, as libtiff's
+    ``tif_thunder.c`` decodes it (``_thunderscan``, in
+    ``native/bitmap_raster.cpp``), strips only;
+  * SGILog (34676, 34677) and WebP (50001) raise ``OSError`` as PIL's
+    load does: the photometrics SGILog needs are missing from PIL's
+    table (``Image.open`` fails), its codec refuses every other, and the
+    libtiff PIL bundles has no WebP codec;
   * photometric 0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 12
     (as ``I;16``, little-endian only, as PIL's table has it) and 16 bits
     and 32-bit integer or float samples; 2 (RGB, 8 or 16 bits, with
@@ -20,18 +30,21 @@ are listed in ``_LAYOUTS``:
     16-bit colour map cut to its high byte as PIL does); 5 (CMYK) and 8
     (CIELab, as ``LAB``: its a* and b* offset by 128 as PIL unpacks them,
     converted to RGB by ``utils/lab.py``);
-  * JPEG (compression 7) of photometric 1, 2 and 6 in one plane, strips
-    or tiles, each a JPEG stream after the shared ``JPEGTables``
-    (``utils/jpeg.py``): YCbCr converted by libjpeg's tables and fancy
-    upsampling, as libtiff's ``JPEGCOLORMODE_RGB`` asks under PIL; RGB
-    samples taken as they are;
+  * JPEG (compression 7) of every 8-bit layout, strips or tiles, each a
+    JPEG stream after the shared ``JPEGTables`` (``utils/jpeg.py``): in
+    one plane, YCbCr converted by libjpeg's tables and fancy upsampling,
+    as libtiff's ``JPEGCOLORMODE_RGB`` asks under PIL, and the samples
+    of any other photometric (grey, RGB, CMYK, with extra samples) taken
+    as they are; in planes, each plane a one-component stream, YCbCr
+    planes converted by libtiff's tables as PIL's RGBA reader does;
   * YCbCr (photometric 6) without JPEG, 8 bits in one plane, subsampling
     1x1, 1x2, 2x1, 2x2, 4x1, 4x2 and 4x4 (1x4 and 2x4, which libtiff
     refuses, raise ``OSError``), as libtiff's RGBA reader under PIL
     converts it: each pixel takes its block's Cb and Cr whatever
     ``YCbCrPositioning`` says, through the integer tables that libtiff
     builds from ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` in
-    float32; uncompressed, as PIL's own reader unpacks it (as RGBX).
+    float32; uncompressed, as PIL's own reader unpacks it (as RGBX, strip
+    by strip or tile by tile).
     Predictor 2 above 1x1 runs as libtiff runs it, over its "scanlines"
     of data units at a stride of 3 bytes, or not at all where those do
     not divide (the strip then converted undifferenced, as under PIL).
@@ -47,8 +60,7 @@ are listed in ``_LAYOUTS``:
     at load (5-8 swap width and height).
 
 A layout missing from PIL's table raises ``OSError``, as ``Image.open``
-does; the compressions and the JPEG-in-TIFF and YCbCr layouts not listed
-above raise ``NotImplementedError`` naming their ROADMAP entry.
+does, as does a compression missing from PIL's ``COMPRESSION_INFO``.
 """
 from __future__ import annotations
 
@@ -57,7 +69,11 @@ import zlib
 
 import numpy as np
 
-ROADMAP_TIFF = "item 12.7 (other bitmap formats: TIFF)"
+# PIL's COMPRESSION_INFO: the compressions its TIFF plugin opens
+COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676,
+                34677, 34925, 50000, 50001)
+# the codecs the libtiff PIL bundles refuses on these files at load
+_REFUSED = {34676: "SGILog", 34677: "SGILog", 50001: "WebP"}
 
 # (photometric, sample format, bits a sample, extra samples) -> PIL mode;
 # layouts PIL opens only in one byte order carry it as a fifth entry
@@ -228,6 +244,8 @@ def _packbits(src: bytes, expect: int) -> bytes:
 
 
 def _decompress(comp: int, src: bytes, expect: int, path: str) -> bytes:
+    """A strip or tile of a byte-oriented compression, at least its first
+    ``expect`` bytes where the data holds them."""
     if comp == 1:
         return src
     if comp == 5:
@@ -236,8 +254,97 @@ def _decompress(comp: int, src: bytes, expect: int, path: str) -> bytes:
         return zlib.decompressobj().decompress(src)
     if comp == 32773:
         return _packbits(src, expect)
-    from ..scene.types import not_in_slice
-    raise not_in_slice(f"compression {comp} TIFF '{path}'", ROADMAP_TIFF)
+    if comp == 34925:
+        # libtiff's LZMA codec: an xz stream, read until the strip is full
+        import lzma
+        try:
+            return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+                src, max_length=expect)
+        except lzma.LZMAError as e:
+            raise OSError(f"{path}: LZMA data: {e}") from e
+    # libtiff's Zstandard codec reads one frame until the strip is full
+    from . import zstd
+    return zstd.decompress(src, expect, 1)
+
+
+def _thunderscan(src: bytes, width: int, rows: int) -> bytes:
+    """``rows`` rows of ``width`` 4-bit pixels of ThunderScan data, each
+    row packed high nibble first, in ``native/bitmap_raster.cpp``. Fails
+    as ``_thunderscan_plain`` does."""
+    from ..native import bitmap_library, ptr
+    buf = np.frombuffer(src, np.uint8)
+    out = np.empty(rows * ((width + 1) // 2), np.uint8)
+    rc = bitmap_library().mnt_thunderscan(ptr(buf), buf.size, width, rows,
+                                          ptr(out))
+    if rc < 0:
+        raise OSError("ThunderScan data: " + ("not enough data" if rc == -1
+                                              else "too much data"))
+    return out.tobytes()
+
+
+_TWO_BIT = (0, 1, 0, -1)
+_THREE_BIT = (0, 1, 2, 3, 0, -3, -2, -1)
+
+
+def _thunderscan_plain(src: bytes, width: int, rows: int) -> bytes:
+    """``_thunderscan`` in Python: libtiff's ``ThunderDecode``, a row at a
+    time from the last pixel 0; a run that reaches or passes the row's
+    end writes nothing, one that passes it fails the row."""
+    stride = (width + 1) // 2
+    out = bytearray(rows * stride)
+    pos = 0
+    for r in range(rows):
+        op, last, n = r * stride, 0, 0
+
+        def put(v):
+            nonlocal op, last, n
+            last = v & 15
+            if n < width:
+                if n & 1:
+                    out[op] |= last
+                    op += 1
+                else:
+                    out[op] = last << 4
+                n += 1
+        while pos < len(src) and n < width:
+            c = src[pos]
+            pos += 1
+            kind = c & 0xC0
+            if kind == 0:                       # a run of the last pixel
+                c &= 0x3F
+                if n & 1:
+                    out[op] |= last
+                    last = out[op]
+                    op += 1
+                    n += 1
+                    c -= 1
+                else:
+                    last |= last << 4
+                n += c
+                if n < width:
+                    while c > 0:
+                        out[op] = last
+                        op += 1
+                        c -= 2
+                if c == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 15
+            elif kind == 0x40:
+                for sh in (4, 2, 0):
+                    if c >> sh & 3 != 2:
+                        put(last + _TWO_BIT[c >> sh & 3])
+            elif kind == 0x80:
+                for sh in (3, 0):
+                    if c >> sh & 7 != 4:
+                        put(last + _THREE_BIT[c >> sh & 7])
+            else:
+                put(c)
+        if n != width:
+            raise OSError("ThunderScan data: " + ("not enough data" if
+                                                  n < width else
+                                                  "too much data"))
+    return bytes(out)
 
 
 def _unpredict(block: np.ndarray, pred: int, spp: int, bps: int,
@@ -306,22 +413,33 @@ def _ycbcr_to_rgb(units: np.ndarray, hs: int, vs: int, tables):
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def _ycbcr_raw_strips(data: bytes, W: int, H: int, rps: int, offsets,
-                      path: str) -> np.ndarray:
+def _ycbcr_raw_chunks(data: bytes, W: int, H: int, tw: int, th: int,
+                      offsets, path: str) -> np.ndarray:
     """An uncompressed YCbCr TIFF as PIL's own raw reader leaves it: its
     table unpacks the layout as ``RGBX``, four bytes a pixel, so each strip
-    reads W * 4 bytes a row from its offset on, and a read past the file's
-    end raises ``OSError`` as ``ImageFile.load`` does."""
+    or tile (``tw`` x ``th``; a strip is the image's width), cut to the
+    image, reads 4 bytes a pixel of a row from its offset on. A tile past
+    the right edge steps its rows by the stride PIL gives it, 3 * tw
+    bytes (its three 8-bit samples a pixel), and fails where that is
+    shorter than the row it reads, as PIL's raw decoder does. A read past
+    the file's end raises ``OSError`` as ``ImageFile.load`` does."""
     out = np.zeros((H, W, 3), np.uint8)
+    across = -(-W // tw)
     for k, off in enumerate(offsets):
-        y = k * rps
+        ty, tx = divmod(k, across)
+        y, x = ty * th, tx * tw
         if y >= H:
             break
-        n = min(rps, H - y)
-        if off + n * W * 4 > len(data):
+        n, w = min(th, H - y), min(tw, W - x)
+        stride = 3 * tw if x + tw > W else 4 * w
+        if stride < 4 * w:
+            raise OSError(f"{path}: decoder error -8")
+        if off + (n - 1) * stride + 4 * w > len(data):
             raise OSError(f"{path}: image file is truncated")
-        out[y:y + n] = np.frombuffer(data, np.uint8, n * W * 4, off) \
-            .reshape(n, W, 4)[..., :3]
+        for r in range(n):
+            start = off + r * stride
+            out[y + r, x:x + w] = np.frombuffer(
+                data, np.uint8, 4 * w, start).reshape(w, 4)[:, :3]
     return out
 
 
@@ -397,11 +515,15 @@ def _ojpeg_units(stream: bytes, W: int, H: int, path: str):
 
 
 def _read_image(data: bytes, tags: dict, bo: str, path: str):
-    from ..scene.types import not_in_slice
     from . import ccitt, jpeg
     order = 'II' if bo == '<' else 'MM'
     W, H = tags[256][0], tags[257][0]
     comp = tags.get(259, (1,))[0]
+    if comp not in COMPRESSIONS:
+        # PIL's COMPRESSION_INFO lookup fails its open (a KeyError, which
+        # its ImageFile turns into a failed open)
+        raise OSError(f"cannot identify image file '{path}' (TIFF "
+                      f"compression {comp})")
     photo = tags.get(262, (0,))[0]
     if comp == 6:                       # PIL: old JPEG is always YCbCr
         photo = 6
@@ -424,21 +546,24 @@ def _read_image(data: bytes, tags: dict, bo: str, path: str):
     mode = _LAYOUTS.get(key, _LAYOUTS.get(key + (order,)))
     if mode is None or fill == 2 and not {key, key + (order,)} & _FILL2:
         raise OSError(f"{path}: TIFF layout PIL does not open {key}")
+    if comp in _REFUSED:
+        raise OSError(f"{path}: {_REFUSED[comp]} TIFF: decoder error -2")
     is_jpeg, ycbcr = comp == 7, photo == 6 and mode == 'RGB'
-    if is_jpeg and (planar == 2 or key not in (
-            (1, (1,), (8,), ()), (2, (1,), (8, 8, 8), ()),
-            (6, (1,), (8, 8, 8), ()))):
-        raise not_in_slice(f"JPEG TIFF of layout {key}, planar {planar} "
-                           f"'{path}'", ROADMAP_TIFF)
-    if comp in (2, 3, 4) and bps != (1,):
+    if is_jpeg and bps[0] != 8:
+        raise OSError(f"{path}: JPEG TIFF with {bps[0]}-bit samples "
+                      "(libtiff's JPEG codec reads 8 bits here)")
+    if comp in (2, 3, 4, 32771) and bps != (1,):
         raise OSError(f"{path}: CCITT TIFF with {bps} bits a sample "
                       "(libtiff: bits/sample must be 1)")
+    if comp == 32809 and (bps[0] != 4 or 322 in tags):
+        raise OSError(f"{path}: ThunderScan TIFF of {bps[0]}-bit samples "
+                      "or tiles (libtiff decodes 4-bit strips only)")
     if photo == 6 and mode == 'L' and comp != 1:
         # libtiff's RGBA reader, which PIL's libtiff path takes for
         # YCbCr, has no routine for one sample
         raise OSError(f"{path}: one-sample YCbCr: decoder error -2")
     b = bps[0]                  # every layout of the table has one width
-    if comp not in (5, 8, 32946):
+    if comp not in (5, 8, 32946, 34925, 50000):
         pred = 1                # libtiff's predictor rides on these codecs
     if pred not in (1, 2, 3) or pred > 1 and b not in (8, 16, 32, 64):
         raise OSError(f"{path}: TIFF predictor {pred} at {b} bits")
@@ -469,10 +594,7 @@ def _read_image(data: bytes, tags: dict, bo: str, path: str):
             raise OSError(f"{path}: YCbCr subsampling {hs}x{vs}, planar "
                           f"{planar}: decoder error")
         if comp == 1 and planar == 1:
-            if 322 in tags:
-                raise not_in_slice(f"uncompressed tiled YCbCr TIFF "
-                                   f"'{path}'", ROADMAP_TIFF)
-            return 'RGB', _ycbcr_raw_strips(data, W, H, th, offsets,
+            return 'RGB', _ycbcr_raw_chunks(data, W, H, tw, th, offsets,
                                             path), None
         tables = _ycbcr_tables(tags.get(529, _LUMA),
                                tags.get(532, _YCC_BLACK_WHITE))
@@ -513,17 +635,20 @@ def _read_image(data: bytes, tags: dict, bo: str, path: str):
         if is_jpeg:
             if jpeg_tables and src[:2] == b'\xff\xd8':
                 src = jpeg_tables + src[2:]
-            _, v, _ = jpeg.decode(src, path, {2: 'RGB', 6: 'YCbCr'}.get(
-                photo))
-            v = v.reshape(v.shape[0], v.shape[1], cps)
-            if v.shape[0] < h or v.shape[1] < w:
-                raise OSError(f"{path}: JPEG strip or tile smaller than "
-                              "its place")
-            samples[0, y:y + h, x:x + w] = v[:h, :w]
+            _, v, _ = jpeg.decode(src, path, 'YCbCr' if ycbcr and
+                                  planar == 1 else 'samples')
+            v = v.reshape(v.shape[0], v.shape[1], -1)
+            if v.shape[2] != cps or v.shape[0] < h or v.shape[1] < w:
+                raise OSError(f"{path}: JPEG strip or tile of another "
+                              "shape than its place")
+            samples[plane, y:y + h, x:x + w] = v[:h, :w]
             continue
-        if comp in (2, 3, 4):
+        if comp in (2, 3, 4, 32771):
             raw = np.frombuffer(ccitt.decode(
-                src, comp, tw, nrows, tags.get(292, (0,))[0]), np.uint8)
+                src, comp, tw, nrows, off & 1 if comp == 32771 else
+                tags.get(292, (0,))[0]), np.uint8)
+        elif comp == 32809:
+            raw = np.frombuffer(_thunderscan(src, tw, nrows), np.uint8)
         else:
             raw = np.frombuffer(_decompress(comp, src, expect, path)[:expect],
                                 np.uint8)
@@ -560,7 +685,8 @@ def _read_image(data: bytes, tags: dict, bo: str, path: str):
         # 32-bit unpackers then swap
         s = s.byteswap()
     if ycbcr and planar == 2 and comp != 1:
-        return 'RGB', _ycbcr_to_rgb(s[..., :3], 1, 1, tables), None
+        return 'RGB', _ycbcr_to_rgb(s[..., :3], 1, 1, _ycbcr_tables(
+            tags.get(529, _LUMA), tags.get(532, _YCC_BLACK_WHITE))), None
     if ycbcr:
         # uncompressed planes are read as they are, as PIL's own reader
         # reads them

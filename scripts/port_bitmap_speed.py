@@ -40,6 +40,11 @@ irreversible JP2 of the picture hand it at 512 x 512 and 2,048 x 2,048
 a symbol, at 512 x 512 only), beside the whole decode's native and PIL
 milliseconds and the rest of it (headers and tier 2, in Python).
 
+Then slice 19's Zstandard stage (``slice19_rows``) on the calls a
+Zstandard TIFF hands it at 512 x 512 and 2,048 x 2,048 (native median of
+``--reps``, plain once), beside the whole decode's native and PIL
+milliseconds.
+
 The JPEG 2000 files are decoded through the plain stages by ``--stages``
 alone: their plain tier 1 takes minutes at 2,048 x 2,048.
 """
@@ -309,14 +314,49 @@ def slice18_rows(workdir: str, reps: int) -> None:
                   pil_ms and whole_ms / pil_ms})
 
 
+def slice19_rows(workdir: str, reps: int) -> None:
+    """The Zstandard stage on the calls a Zstandard TIFF (predictor 2, in
+    strips of 64 rows, the picture posterised to steps of 8) hands it at
+    512^2 (written here by PIL's libtiff) and 2,048^2 (the committed
+    ``bitmaps_large`` file): native median of ``reps``, plain once, and
+    the whole decode, native and PIL, median of ``reps``. On a host
+    without PIL: the 2,048^2 file alone, without PIL's time."""
+    from mitsuba_nlvrl_tpu_torch.utils import zstd
+    files = {2048: os.path.join(DATA, 'bitmaps_large', 'tiff_zstd_2048.tif')}
+    if Image is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from port_make_bitmaps import libtiff_write
+        files[512] = os.path.join(workdir, 'zstd_512.tif')
+        libtiff_write(files[512], bitmap_stages.picture(512, 512, 0.0) // 8
+                      * 8, 2, 50000, strip=64, tags=((317, 2),))
+    for side, path in sorted(files.items()):
+        whole_ms, _ = timed(lambda: texture.read_rgb8(path), reps)
+        pil_ms = None if Image is None else timed(lambda: np.asarray(
+            Image.open(path).convert('RGB')), reps)[0]
+        calls = captured(zstd, 'decompress', path)
+
+        def run(fn):
+            for args in calls:
+                fn(*args)
+        native_ms, _ = timed(lambda: run(zstd.decompress), reps)
+        plain_ms, _ = timed(lambda: run(zstd.decompress_plain), 1)
+        emit({'stage': 'zstd_decompress', 'side': side, 'calls': len(calls),
+              'bytes_in': sum(len(a[0]) for a in calls),
+              'bytes_out': sum(a[1] for a in calls),
+              'native_ms': native_ms, 'plain_ms': plain_ms,
+              'plain_over_native': plain_ms / native_ms,
+              'whole_decode_native_ms': whole_ms, 'whole_decode_pil_ms':
+              pil_ms, 'native_over_pil': pil_ms and whole_ms / pil_ms})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--reps', type=int, default=3)
     ap.add_argument('--no-plain', action='store_true',
                     help="skip the plain stages (minutes at 2,048^2)")
     ap.add_argument('--stages', action='store_true',
-                    help="also time slice 16's, 17's and 18's stages "
-                    "(needs PIL)")
+                    help="also time slice 16's to 19's stages "
+                    "(slice 16's and 17's need PIL)")
     args = ap.parse_args()
     emit({'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
           'pil': Image is not None,
@@ -351,8 +391,10 @@ def main() -> None:
             emit(rec)
         if args.stages and Image is not None:
             stage_rows(workdir, args.reps)
-        elif args.stages:          # the card's host: JPEG 2000's stages
+        elif args.stages:          # the card's host: JPEG 2000, Zstandard
             slice18_rows(workdir, args.reps)
+        if args.stages:
+            slice19_rows(workdir, args.reps)
 
 
 if __name__ == '__main__':

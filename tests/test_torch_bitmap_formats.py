@@ -931,15 +931,15 @@ def test_fixtures_decode_to_pils_stored_bytes():
 def test_textured_render_equal_across_lossless_formats(tmp_path):
     """``cbox_textured`` (16x16, 1 spp, on the CPU) with the 64x64
     picture as every bitmap renders the same image in every bit from each
-    of its nine lossless copies, the reversible JP2 and the ICO (a PNG
-    icon) among them (the card's ``textured_formats`` phase at a smaller
-    size)."""
+    of its eleven lossless copies, the reversible JP2, the ICO (a PNG
+    icon), the RLE PSD and the Zstandard TIFF among them (the card's
+    ``textured_formats`` phase at a smaller size)."""
     import mitsuba_nlvrl_tpu_torch as P
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured
     imgs = {}
     for ext in ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'jp2',
-                'ico'):
+                'ico', 'psd', 'zstd.tif'):
         path = cbox_textured(str(tmp_path / ext), spp=1, res=16,
                              bitmap=os.path.join(FIXTURES,
                                                  f'picture64.{ext}'))

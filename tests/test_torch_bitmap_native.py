@@ -21,8 +21,11 @@ that the stages of slice 16 take, and of the code-block data and wavelet
 coefficients that JPEG 2000's stages take (slice 18: tier 1, the 5/3 and
 the 9/7 each equal to its twin on every fixture's calls and on seeded
 random inputs, the colour transforms and level shift on seeded planes
-with the float path's edges). A failed compile raises with the compiler's
-message: there is no fallback.
+with the float path's edges), and of the Zstandard frames, ThunderScan
+data and word-aligned CCITT RLE strips of slice 19 (each stage equal to
+its twin on seeded inputs: ``zstandard``'s frames, a test-only package,
+and the coders of ``testing/bitmap_stages``). A failed compile raises
+with the compiler's message: there is no fallback.
 """
 import hashlib
 import json
@@ -39,7 +42,7 @@ from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import native, texture as ptex
 from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
 from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, gif, io as pio, j2k,
-                                           jpeg, tiff, vp8, vp8l, webp)
+                                           jpeg, tiff, vp8, vp8l, webp, zstd)
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -276,6 +279,101 @@ def test_ccitt_matches_plain(comp, options, tmp_path):
                     ccitt.decode(cut, comp, w, 16, options)
                 continue
             assert ccitt.decode(cut, comp, w, 16, options) == want
+
+
+def _zstd_inputs(seed: int) -> list:
+    """Seeded inputs and ``zstandard``'s frames of them: (data, frame)."""
+    import zstandard
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8))
+             for _ in range(200)]
+    kinds = [
+        bitmap_stages.picture(64, seed).tobytes(),
+        b' '.join(words[i] for i in rng.integers(0, 200, 30_000)),
+        rng.integers(0, 12, 150_000, dtype=np.uint8).tobytes(),
+        rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
+        bytes(rng.integers(0, 5, 120, dtype=np.uint8)) * 2,
+        b''.join(b'x' * int(k) + b'abcdefgh' for k in
+                 rng.integers(1, 4, 20_000)),
+    ]
+    out = []
+    for k, data in enumerate(kinds):
+        level = (-3, 1, 3, 9, 19, 22)[(seed + k) % 6]
+        out.append((data, zstandard.ZstdCompressor(
+            level=level, write_checksum=bool(k & 1)).compress(data)))
+    return out
+
+
+@pytest.mark.parametrize('seed', range(3))
+def test_zstd_matches_plain(seed):
+    """Seeded inputs (pictures, text, a few symbols, noise, runs) coded by
+    ``zstandard`` at levels -3 to 22: the native decoder and its twin give
+    the input, whole and stopped at ``limit``; cut short, both raise."""
+    for data, frame in _zstd_inputs(seed):
+        assert zstd.decompress(frame) == data
+        assert zstd.decompress_plain(frame) == data
+        for limit in (0, 1, 70_000):
+            assert zstd.decompress(frame, limit, 1) == \
+                zstd.decompress_plain(frame, limit, 1)
+        for fn in (zstd.decompress, zstd.decompress_plain):
+            with pytest.raises(OSError):
+                fn(frame[:len(frame) // 2])
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_thunderscan_matches_plain(seed):
+    """Seeded 4-bit pictures coded by ``bitmap_stages.thunderscan`` at odd
+    and even widths: both equal the picture; seeded random code bytes:
+    both fail alike or give the same rows."""
+    rng = np.random.default_rng(seed)
+    w = 31 + seed * 17
+    img = bitmap_stages.picture(max(w, 40), seed)[:40, :w, 1] >> 4
+    img[5:9] = img[5, 0]
+    src = bitmap_stages.thunderscan(img, seed)
+    packed = np.zeros((40, (w + 1) // 2), np.uint8)
+    packed[:, :w // 2] = (img[:, 0:w - 1:2] << 4) | img[:, 1::2][:, :w // 2]
+    if w & 1:
+        packed[:, -1] = img[:, -1] << 4
+    assert tiff._thunderscan(src, w, 40) == packed.tobytes()
+    assert tiff._thunderscan_plain(src, w, 40) == packed.tobytes()
+    for k in range(20):
+        junk = rng.integers(0, 256, int(rng.integers(1, 400)),
+                            dtype=np.uint8).tobytes()
+        rows = int(rng.integers(1, 6))
+        outcome = []
+        for fn in (tiff._thunderscan, tiff._thunderscan_plain):
+            try:
+                outcome.append(fn(junk, w, rows))
+            except OSError as e:
+                outcome.append(str(e))
+        assert outcome[0] == outcome[1], k
+
+
+@pytest.mark.parametrize('width', [1, 37, 300, 1800, 2600])
+@pytest.mark.parametrize('odd', [0, 1])
+def test_ccitt_rlew_matches_plain(width, odd):
+    """Seeded bilevel rows coded as word-aligned RLE
+    (``bitmap_stages.ccitt_rlew``): native and plain give the rows, at an
+    even or odd data address; cut short or overlong, both fail alike or
+    give the same rows."""
+    rng = np.random.default_rng(width + odd)
+    bits = np.zeros((24, width), np.uint8)
+    for y in range(24):
+        edges = np.cumsum(rng.geometric(rng.uniform(0.002, 0.6), 80))
+        for a, b in zip(edges[::2], edges[1::2]):
+            bits[y, a:b] = 1
+    src = bitmap_stages.ccitt_rlew(bits, odd)
+    want = np.packbits(bits, axis=1).tobytes()
+    assert ccitt.decode(src, 32771, width, 24, odd) == want
+    assert ccitt.decode_plain(src, 32771, width, 24, odd) == want
+    for cut in (src[:len(src) // 2], src + bytes(9), src[:-3]):
+        outcome = []
+        for fn in (ccitt.decode, ccitt.decode_plain):
+            try:
+                outcome.append(fn(cut, 32771, width, 24, odd))
+            except OSError as e:
+                outcome.append(type(e))
+        assert outcome[0] == outcome[1]
 
 
 @pytest.mark.parametrize('n,signed', [(1, 0), (2, 0), (3, 0), (4, 0),
@@ -575,11 +673,13 @@ def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
 @pytest.mark.parametrize('group', ('tiff_lzw', 'gif_lzw', 'alpha_gradient',
                                    'jpeg_lossless', 'ccitt', 'bcn', 'qoi',
                                    'sgi_rle', 'pcx_rle', 'j2k_t1',
-                                   'j2k_idwt53', 'j2k_idwt97'))
+                                   'j2k_idwt53', 'j2k_idwt97', 'zstd',
+                                   'thunderscan', 'ccitt_rlew'))
 def test_corrupt_stage_input_fails_as_the_plain_path(group, tmp_path):
-    """An LZW stream, an alpha plane, a lossless scan, a CCITT strip, BCn
-    blocks, QOI, SGI or PCX RLE data, JPEG 2000 code-block data or a
-    tile-component's wavelet coefficients cut short or with bytes flipped:
+    """An LZW stream, an alpha plane, a lossless scan, a CCITT strip
+    (word-aligned RLE among them), BCn blocks, QOI, SGI or PCX RLE data,
+    JPEG 2000 code-block data, a tile-component's wavelet coefficients, a
+    Zstandard frame or ThunderScan data cut short or with bytes flipped:
     the native stage raises the plain twin's exception type or returns
     its bytes."""
     cases = _corrupt_cases(group, tmp_path)

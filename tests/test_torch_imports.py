@@ -22,7 +22,7 @@ torch.set_num_threads(1)   # one intra-op thread a test worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'mitsuba_nlvrl_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu', 'PIL')
+FORBIDDEN = ('jax', 'jaxlib', 'mitsuba_nlvrl_tpu', 'PIL', 'zstandard')
 
 
 def _forbidden(module: str) -> bool:
@@ -38,6 +38,7 @@ def test_name_guard_matches_whole_module_names():
     assert not _forbidden('mitsuba_nlvrl_tpu_torch.core.rng')
     assert not _forbidden('jaxtyping_like')
     assert _forbidden('PIL') and _forbidden('PIL.Image')
+    assert _forbidden('zstandard') and not _forbidden('zstandard_like')
 
 
 def _sources():
@@ -448,18 +449,20 @@ def test_cpu_parallel_and_jpeg_load_no_jax(steps):
 
 
 def test_cpu_bitmap_formats_load_no_pil(steps):
-    """Slices 13, 14, 16, 17 and 18 (the BMP, TGA, PNM, GIF, TIFF with
-    JPEG-in-TIFF, YCbCr, CCITT, old-style JPEG and CIELab, progressive and
-    CMYK JPEG, WebP, DDS, QOI, SGI, PCX, JPEG 2000, ICO, CUR and ICNS
-    decoders behind ``texture.read_rgb8``) decode every committed fixture
-    to PIL's stored bytes without PIL, JAX or the reference package
+    """Slices 13, 14 and 16-19 (the BMP, TGA, PNM, GIF, TIFF with
+    JPEG-in-TIFF, YCbCr, CCITT, old-style JPEG, CIELab, LZMA, Zstandard
+    and ThunderScan, progressive and CMYK JPEG, WebP, DDS, QOI, SGI, PCX,
+    JPEG 2000, ICO, CUR, ICNS and PSD decoders behind
+    ``texture.read_rgb8``) decode every committed fixture to PIL's stored
+    bytes without PIL, ``zstandard``, JAX or the reference package
     loaded."""
     rec = _step(steps, 'bitmap_formats', (
         'utils.bmp', 'utils.tga', 'utils.pnm', 'utils.gif', 'utils.tiff',
         'utils.jpeg', 'utils.webp', 'utils.vp8', 'utils.vp8l',
         'utils.ccitt', 'utils.lab', 'utils.dds', 'utils.qoi', 'utils.sgi',
-        'utils.pcx', 'utils.j2k', 'utils.jp2', 'utils.ico', 'utils.icns'))
-    assert rec['out']['files'] >= 252
+        'utils.pcx', 'utils.j2k', 'utils.jp2', 'utils.ico', 'utils.icns',
+        'utils.zstd', 'utils.psd'))
+    assert rec['out']['files'] >= 298
 
 
 def test_bvh_builder_raises_with_the_compilers_message(monkeypatch,

@@ -79,6 +79,13 @@ STAGE_GROUPS = {
         'jp2_rgb.jp2', 'jp2_offset_tiles.jp2')),
     'j2k_idwt97': ('j2k', '_idwt97', 'jp2.read_jpeg2000', (
         'jp2_rgb_irreversible.jp2', 'jp2_tiles_irreversible_mct.jp2')),
+    'zstd': ('zstd', 'decompress', 'tiff.read_tiff', (
+        'tiff_zstd_level19_pred2.tif', 'tiff_zstd_float_pred3.tif',
+        'tiff_zstd_level1_pred2_tiles_mm.tif', 'picture64.zstd.tif')),
+    'thunderscan': ('tiff', '_thunderscan', 'read_tiff', (
+        'tiff_thunderscan.tif', 'tiff_thunderscan_min_is_white.tif')),
+    'ccitt_rlew': ('ccitt', 'decode', 'tiff.read_tiff', (
+        'tiff_rlew.tif', 'tiff_rlew_odd_offset.tif')),
 }
 
 
@@ -149,8 +156,9 @@ def _stage_inputs(import_module, stages, group, workdir) -> tuple:
 
 
 def _corrupt(arg, case: int, rng):
-    """An LZW stream, scan, CCITT strip, BCn blocks, RLE data or JPEG
-    2000 code-block data cut short or with bytes flipped; an alpha plane's
+    """An LZW stream, scan, CCITT strip, BCn blocks, RLE, Zstandard or
+    ThunderScan data or JPEG 2000 code-block data cut short or with bytes
+    flipped; an alpha plane's
     or a tile-component's wavelet coefficients' rows cut or their bytes
     flipped."""
     if isinstance(arg, np.ndarray):
