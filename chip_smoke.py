@@ -171,6 +171,16 @@ the files PIL refuses (SGILog, WebP TIFF, PSD depths) to PIL's exception
 class, and a 2,048^2 Zstandard TIFF to PIL's digest under 1 s of host
 time, and reports whether ``lzma`` imported; ``textured_formats`` adds
 the PSD and the Zstandard TIFF copies of the picture (fifteen renders).
+Slice 20 (the rest of PIL's raster formats: SUN, BLP, FTEX, FITS, SPIDER,
+IM, IMT, MSP, FLI/FLC, XBM, XPM, GBR, McIDAS, PIXAR, XV thumbnails, PCD,
+DCX, IPTC; Sun's and MSP's RLE and FLI's chunks in host C++; the six
+formats PIL opens and cannot load refused as PIL refuses them):
+``bitmap_decode`` also holds their fixtures to PIL's bytes and their
+refused files to PIL's class, and a seeded 2,048^2 RLE Sun raster, a
+seeded 2,048^2 FLC of BRUN, LC and SS2 chunks and a seeded Photo CD file
+(written here) to PIL's digests, the Sun raster and the FLC each under
+1 s of host time; ``textured_formats`` adds a 24-bit RLE Sun raster and an
+RGB IM copy of the picture (seventeen renders).
 The CPU halves of every check against the CPU run in two spawned worker
 processes beside the card's phases (their scene files written before
 they start), the CLI renders in subprocesses beside the phases after each
@@ -2837,7 +2847,7 @@ def item12_phases(torch, mnt, kern, compare, bw, fl, scene, meta,
 
 # the bitmap fixtures (``scripts/port_make_bitmaps.py``): every layout the
 # port's decoders read, PIL's convert('RGB') bytes of each in
-# ``pil_rgb.npz``, one 64x64 picture in fifteen lossless formats, and
+# ``pil_rgb.npz``, one 64x64 picture in seventeen lossless formats, and
 # two 512x512 WebP files (a texture's size) with the SHA-256 digests of
 # PIL's bytes
 BITMAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
@@ -2848,12 +2858,14 @@ BITMAPS_LARGE = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_large')
 # files PIL refuses, with the exception class it raises (pil_errors.json)
 BITMAPS_REFUSED = os.path.join(os.path.dirname(BITMAPS), 'bitmaps_refused')
 PICTURE_FORMATS = ('png', 'bmp', 'tga', 'ppm', 'gif', 'tif', 'webp', 'qoi',
-                   'sgi', 'pcx', 'dds', 'jp2', 'ico', 'psd', 'zstd.tif')
+                   'sgi', 'pcx', 'dds', 'jp2', 'ico', 'psd', 'zstd.tif',
+                   'ras', 'im')
 # a 4,096^2 decode on the card's host must take less (ROADMAP A 12.8)
 LARGE_DECODE_LIMIT_S = 3.0
 # and a 2,048^2 LZW TIFF's or GIF's (ROADMAP A 12.9)
 LZW_DECODE_LIMIT_S = 1.0
-LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif', 'tiff_zstd_2048.tif')
+LZW_LARGE = ('tiff_lzw_2048.tif', 'gif_256_2048.gif', 'tiff_zstd_2048.tif',
+             'sun_rle_2048.ras', 'flc_brun_lc_ss2_2048.flc')
 # and a 2,048^2 irreversible (9/7) JPEG 2000 file's
 J2K_DECODE_LIMIT_S = 2.0
 J2K_LARGE = ('jp2_irreversible_2048.jp2',)
@@ -2887,15 +2899,19 @@ def bitmap_decode_phase(workdir) -> None:
     the digests of PIL's, and a 4,096^2 PNG written here by numpy with
     every row Paeth-filtered to its known pixels (the 4,096^2 JPEG's),
     each decode's host milliseconds beside it (and per megapixel for the
-    large files). Every file of ``tests/data/bitmaps_refused`` (SGILog,
-    WebP and 8-bit ThunderScan TIFFs, an unknown TIFF compression, the
-    PSD files PIL refuses) raises the class PIL raised (its
-    UnidentifiedImageError an OSError). It reports whether the standard
-    library's ``lzma`` imported (LZMA TIFF needs it; there is no
-    fallback).
+    large files; the seeded 2,048^2 RLE Sun raster and FLC and the
+    seeded Photo CD file are written into ``workdir`` too). Every file of
+    ``tests/data/bitmaps_refused`` (SGILog, WebP and 8-bit ThunderScan
+    TIFFs, an unknown TIFF compression, the PSD files PIL refuses, the
+    six formats PIL opens and cannot load and the refused files of the
+    rest of its raster formats) raises the class PIL raised (a class of
+    PIL's own: the builtin it derives from, and its name). It reports
+    whether the standard library's ``lzma`` imported (LZMA TIFF needs it;
+    there is no fallback).
     A decode failure, a 4,096^2 decode of 3 s or more, a 2,048^2 LZW
-    TIFF, Zstandard TIFF or GIF decode of 1 s or more, or a 2,048^2
-    irreversible JPEG 2000 decode of 2 s or more, raises."""
+    TIFF, Zstandard TIFF, GIF, RLE Sun raster or FLC decode of 1 s or
+    more, or a 2,048^2 irreversible JPEG 2000 decode of 2 s or more,
+    raises."""
     import builtins
     import hashlib
     import numpy as np
@@ -2926,7 +2942,8 @@ def bitmap_decode_phase(workdir) -> None:
     for folder in (WEBP_LARGE, BITMAPS_LARGE):
         with open(os.path.join(folder, 'pil_rgb_sha256.json')) as f:
             digests = json.load(f)
-        # the seeded random-block DDS files are written into workdir
+        # the seeded DDS, Sun raster, FLC and Photo CD files are written
+        # into workdir
         decoded[folder] = {name: _large_decode(
             texture, large_file(folder, name, d, workdir), digest_check(d))
             for name, d in sorted(digests.items())}
@@ -2945,11 +2962,14 @@ def bitmap_decode_phase(workdir) -> None:
         refusals = json.load(f)
     refused = {}
     for name, pil in sorted(refusals.items()):
-        # PIL's UnidentifiedImageError, not a builtin, is an OSError
-        want_cls = getattr(builtins, pil['error'], OSError)
+        # a class of PIL's own is held to the builtin it derives from
+        # (UnidentifiedImageError: OSError), and to its name
+        want_cls = getattr(builtins, pil.get('base', pil['error']), OSError)
         try:
             texture.read_rgb8(os.path.join(BITMAPS_REFUSED, name))
         except want_cls as e:
+            assert 'base' not in pil or pil['base'] == 'OSError' or \
+                type(e).__name__ == pil['error'], (name, e)
             refused[name] = type(e).__name__
         else:
             raise AssertionError(f"{name}: decoded where PIL raises "
@@ -2962,6 +2982,11 @@ def bitmap_decode_phase(workdir) -> None:
         'tiff_jpeg_la', 'tiff_jpeg_min', 'tiff_ycbcr22_raw_tiles',
         'tiff_ycbcr11_raw_tiles', 'psd_', 'picture64.psd',
         'picture64.zstd'))}
+    # slice 20's fixtures: the rest of PIL's raster formats
+    new20 = {k: v for k, v in host_ms.items() if k.endswith((
+        '.ras', '.blp', '.ftc', '.ftu', '.fits', '.spi', '.im', '.imt',
+        '.msp', '.fli', '.flc', '.xbm', '.xpm', '.gbr', '.area', '.pxr',
+        '.xv', '.dcx', '.iim'))}
     webp_ms = {k: v for k, v in host_ms.items() if k.endswith('.webp')}
     emit({'phase': 'bitmap_decode', 'files': len(host_ms),
           'all_equal_to_pil': True, 'host_ms': host_ms,
@@ -2969,6 +2994,8 @@ def bitmap_decode_phase(workdir) -> None:
           'lzma_imported': True,
           'slice19_files': len(new19),
           'slice19_host_ms_total': sum(new19.values()),
+          'slice20_files': len(new20),
+          'slice20_host_ms_total': sum(new20.values()),
           'refused_as_pil': refused,
           'webp_files': len(webp_ms), 'webp_host_ms_total':
           sum(webp_ms.values()), 'webp_large': decoded[WEBP_LARGE],
@@ -3076,13 +3103,14 @@ def rng_wide_check(torch) -> None:
 
 
 def item13_phases(torch, mnt, kern, sync, workdir) -> dict:
-    """Slices 13 to 19, the bitmap formats: ``bitmap_decode`` (above);
+    """Slices 13 to 20, the bitmap formats: ``bitmap_decode`` (above);
     ``textured_formats`` renders ``cbox_textured`` (64x64, 1 spp,
     ``path`` at ``CUT_DEPTH``: each render is paced by its launches) on
     the card once for each lossless copy of the 64x64 picture as its
     bitmaps (PNG, BMP, TGA, PPM, GIF, TIFF, WebP, QOI, SGI, PCX, DDS,
-    reversible JPEG 2000, a PNG icon in ICO, an RLE PSD and a Zstandard
-    TIFF), each image and its rays equal in bits to the PNG copy's;
+    reversible JPEG 2000, a PNG icon in ICO, an RLE PSD, a Zstandard
+    TIFF, a 24-bit RLE Sun raster and an RGB IM file), each image and its
+    rays equal in bits to the PNG copy's;
     then ``textured_large`` (above). Returns the renders' launches."""
     from mitsuba_nlvrl_tpu_torch.scene.xml import load_file
     from mitsuba_nlvrl_tpu_torch.testing.scenes import cbox_textured

@@ -14,11 +14,13 @@ Two libraries, each built by ``build`` from its sources:
     and lossless scans, WebP's lossless pixels and predictor, its alpha
     plane's gradient filter, the lossy frame's modes, tokens,
     reconstruction and loop filter, TIFF's and GIF's LZW, TIFF's CCITT
-    coding, DDS's BCn blocks, QOI's ops and SGI's and PCX's RLE, and
-    JPEG 2000's tier 1, inverse wavelets and colour transforms.
-    ``utils/io.py``, ``jpeg.py``, ``vp8l.py``, ``vp8.py``, ``webp.py``,
-    ``tiff.py``, ``gif.py``, ``ccitt.py``, ``dds.py``, ``qoi.py``,
-    ``sgi.py``, ``pcx.py`` and ``j2k.py`` bind them (``bitmap_library``).
+    coding, DDS's (and BLP's) BCn blocks, QOI's ops, SGI's, PCX's, Sun
+    raster's and MSP's RLE and FLI/FLC's frame chunks, and JPEG 2000's
+    tier 1, inverse wavelets and colour transforms. ``utils/io.py``,
+    ``jpeg.py``, ``vp8l.py``, ``vp8.py``, ``webp.py``, ``tiff.py``,
+    ``gif.py``, ``ccitt.py``, ``dds.py``, ``qoi.py``, ``sgi.py``,
+    ``pcx.py``, ``sun.py``, ``msp.py``, ``fli.py`` and ``j2k.py`` bind
+    them (``bitmap_library``).
 
 Each is compiled with the reference's flags into
 ``mitsuba_nlvrl_tpu_torch/_build/`` under a name that carries a hash of its
@@ -161,9 +163,13 @@ _BITMAP_ABI = {
     'mnt_j2k_mct': [_P, _P, _P, _I64, _I32],
     'mnt_j2k_level': [_P, _I64, _I32, _I64, _I64, _I64, _P],
     'mnt_zstd_decompress': [_P, _I64, _P, _I64, _I64, _I64],
+    'mnt_sun_rle': [_P, _I64, _I64, _I64, _P],
+    'mnt_msp_rle': [_P, _I64, _P, _I64, _I64, _P, _I64],
+    'mnt_fli_frame': [_P, _I64, _I64, _I64, _P],
 }
 # functions that return a count (int64) rather than an error code
-_BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw', 'mnt_zstd_decompress')
+_BITMAP_COUNT = ('mnt_tiff_lzw', 'mnt_gif_lzw', 'mnt_zstd_decompress',
+                 'mnt_msp_rle')
 
 _BITMAP_VOID = ('mnt_jpeg_idct', 'mnt_jpeg_upsample', 'mnt_jpeg_ycc_rgb',
                 'mnt_vp8l_unpredict', 'mnt_vp8l_uncross', 'mnt_vp8_yuv_rgb',

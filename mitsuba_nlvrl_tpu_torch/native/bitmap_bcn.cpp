@@ -89,18 +89,19 @@ bool is_anchor(int i, const int *anchors) {
 
 // --- BC1-BC5 ---------------------------------------------------------------
 
-void rgb565(uint32_t c, int *p) {
+// `blp`: PIL's BLP plugin expands 5 and 6 bits without replicating them
+void rgb565(uint32_t c, int *p, bool blp) {
     const int r = (c >> 11) & 31, g = (c >> 5) & 63, b = c & 31;
-    p[0] = (r << 3) | (r >> 2);
-    p[1] = (g << 2) | (g >> 4);
-    p[2] = (b << 3) | (b >> 2);
+    p[0] = blp ? r << 3 : (r << 3) | (r >> 2);
+    p[1] = blp ? g << 2 : (g << 2) | (g >> 4);
+    p[2] = blp ? b << 3 : (b << 3) | (b >> 2);
 }
 
-void bc1_colour(const uint8_t *s, bool four, uint8_t (*px)[4]) {
+void bc1_colour(const uint8_t *s, bool four, uint8_t (*px)[4], bool blp = false) {
     const uint32_t c0 = s[0] | (s[1] << 8), c1 = s[2] | (s[3] << 8);
     int p[4][4];
-    rgb565(c0, p[0]);
-    rgb565(c1, p[1]);
+    rgb565(c0, p[0], blp);
+    rgb565(c1, p[1], blp);
     const bool is4 = four || c0 > c1;
     for (int c = 0; c < 3; ++c) {
         p[2][c] = is4 ? (2 * p[0][c] + p[1][c]) / 3 : (p[0][c] + p[1][c]) / 2;
@@ -348,11 +349,13 @@ void bc6h_block(const uint8_t *s, bool sign, uint8_t (*px)[4]) {
 }  // namespace
 
 // The (h, w, 4) RGBA samples of the BCn (`n` 1-7) blocks in src[0, len)
-// into out; `sign`: BC5S or BC6H SF16. Returns 0, or -1 where src holds
-// fewer than the image's blocks (the caller raises as for a truncated
-// file) or `n` is not a BCn number.
+// into out; `flags` bit 0: BC5S or BC6H SF16, bit 1: BC1-BC3 colours as
+// PIL's BLP plugin expands them. Returns 0, or -1 where src holds fewer
+// than the image's blocks (the caller raises as for a truncated file) or
+// `n` is not a BCn number.
 extern "C" int mnt_bcn_decode(const uint8_t *src, int64_t len, int64_t w,
-                              int64_t h, int n, int sign, uint8_t *out) {
+                              int64_t h, int n, int flags, uint8_t *out) {
+    const bool sign = flags & 1, blp = flags & 2;
     if (n < 1 || n > 7 || w < 0 || h < 0) return -1;
     const int size = (n == 1 || n == 4) ? 8 : 16;
     const int64_t bw = (w + 3) / 4, bh = (h + 3) / 4;
@@ -363,14 +366,14 @@ extern "C" int mnt_bcn_decode(const uint8_t *src, int64_t len, int64_t w,
             const uint8_t *s = src + (by * bw + bx) * size;
             std::memset(px, 0, sizeof px);
             switch (n) {
-            case 1: bc1_colour(s, false, px); break;
+            case 1: bc1_colour(s, false, px, blp); break;
             case 2:
-                bc1_colour(s + 8, true, px);
+                bc1_colour(s + 8, true, px, blp);
                 for (int i = 0; i < 16; ++i)
                     px[i][3] = uint8_t(((s[i >> 1] >> (4 * (i & 1))) & 15) * 17);
                 break;
             case 3:
-                bc1_colour(s + 8, true, px);
+                bc1_colour(s + 8, true, px, blp);
                 bc3_alpha(s, false, px, 3);
                 break;
             case 4:

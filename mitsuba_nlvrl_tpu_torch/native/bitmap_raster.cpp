@@ -1,11 +1,14 @@
 // The sequential loops of small raster codings, as PIL decodes them: QOI's
 // ops (utils/qoi.py, _qoi), SGI's RLE rows (utils/sgi.py, _sgi_rle), PCX's
-// RLE (utils/pcx.py, _pcx_rle) and TIFF's ThunderScan coding (utils/tiff.py,
-// _thunderscan), as libtiff's tif_thunder.c decodes it. The `_plain`
+// RLE (utils/pcx.py, _pcx_rle), TIFF's ThunderScan coding (utils/tiff.py,
+// _thunderscan), as libtiff's tif_thunder.c decodes it, Sun raster's RLE
+// (utils/sun.py, _sun_rle), MSP's RLE rows (utils/msp.py, _msp_rle) and
+// an FLI/FLC frame's chunks (utils/fli.py, _fli_frame). The `_plain`
 // function beside each wrapper is its plain version, which the tests hold
 // it to, failures included. Every read lands inside `src` (`len` bytes)
 // and every write inside `out`.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -227,5 +230,239 @@ extern "C" int mnt_thunderscan(const uint8_t *src, int64_t len, int64_t width, i
         }
         if (n != width) return n < width ? -1 : -2;
     }
+    return 0;
+}
+
+// Sun raster RLE: h rows of nbytes bytes from src[0, len) into out, as
+// PIL's sun_rle decoder: 0x80 n v is n + 1 copies of v (a run past a row
+// goes on into the next rows), 0x80 0 one 0x80, any other byte itself.
+// Returns 0, or -1 where the data ends before the last row (OSError).
+extern "C" int mnt_sun_rle(const uint8_t *src, int64_t len, int64_t nbytes,
+                           int64_t h, uint8_t *out) {
+    const int64_t total = nbytes * h;
+    int64_t at = 0, pos = 0;
+    while (at < total) {
+        if (pos >= len) return -1;
+        const uint8_t b = src[pos];
+        if (b != 0x80) {
+            out[at++] = b;
+            ++pos;
+            continue;
+        }
+        if (pos + 1 >= len) return -1;
+        int64_t n = src[pos + 1];
+        if (n == 0) {
+            out[at++] = 0x80;
+            pos += 2;
+            continue;
+        }
+        if (pos + 2 >= len) return -1;
+        n = std::min(n + 1, total - at);
+        std::memset(out + at, src[pos + 2], size_t(n));
+        at += n;
+        pos += 3;
+    }
+    return 0;
+}
+
+// MSP version 2 rows, as PIL's MspDecoder: each of the `rows` entries of
+// rowmap is the bytes of a row in src (read one after another from its
+// start; 0: a row of nbytes 0xFF), whose runs (0 n v: n copies of v;
+// n > 0: the next n bytes, cut at the row's end) append to one stream.
+// The stream's first `need` bytes go to out. Returns the stream's length
+// (at most need), -1 where a row runs past the data (OSError: truncated)
+// or -2 where a run's count and value run past its row (OSError).
+extern "C" int64_t mnt_msp_rle(const uint8_t *src, int64_t len, const int64_t *rowmap,
+                               int64_t rows, int64_t nbytes, uint8_t *out, int64_t need) {
+    int64_t at = 0, pos = 0;
+    auto put = [&](const uint8_t *p, int64_t n, int v) {
+        const int64_t k = std::min(n, need - at);
+        if (k <= 0) return;
+        if (p)
+            std::memcpy(out + at, p, size_t(k));
+        else
+            std::memset(out + at, v, size_t(k));
+        at += k;
+    };
+    for (int64_t r = 0; r < rows; ++r) {
+        const int64_t rowlen = rowmap[r];
+        if (rowlen == 0) {
+            put(nullptr, nbytes, 0xFF);
+            continue;
+        }
+        if (pos + rowlen > len) return -1;
+        const uint8_t *row = src + pos;
+        pos += rowlen;
+        int64_t idx = 0;
+        while (idx < rowlen) {
+            const int type = row[idx++];
+            if (type == 0) {
+                if (idx + 2 > rowlen) return -2;
+                put(nullptr, row[idx], row[idx + 1]);
+                idx += 2;
+            } else {
+                put(row + idx, std::min<int64_t>(type, rowlen - idx), 0);
+                idx += type;
+            }
+        }
+    }
+    return at;
+}
+
+namespace {
+
+int i16(const uint8_t *p) { return p[0] | (p[1] << 8); }
+
+int32_t i32(const uint8_t *p) {
+    return int32_t(uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
+                   (uint32_t(p[3]) << 24));
+}
+
+}  // namespace
+
+// One FLI/FLC frame (src[0, len), from its size word) into out (h x w
+// indices, zero at the start), as PIL's fli decoder: the chunks SS2 (7),
+// LC (12), BLACK (13), BRUN (15) and COPY (16); the colour chunks (4, 11)
+// and PSTAMP (18) skipped. Returns 0, -1 where a COPY chunk runs past the
+// frame (OSError: truncated), -2 where a read or a row runs past its
+// bounds (overrun), -3 for a frame or chunk of another kind, -4 for a
+// chunk of size 0.
+extern "C" int mnt_fli_frame(const uint8_t *src, int64_t len, int64_t w, int64_t h,
+                             uint8_t *out) {
+    if (len < 8) return -2;
+    if (i16(src + 4) != 0xF1FA) return -3;
+    const int chunks = i16(src + 6);
+    int64_t ptr = 16, left = len - 16;
+#define OOB(k) \
+    if (d + (k) > ptr + left) return -2
+    for (int c = 0; c < chunks; ++c) {
+        if (left < 10) return -2;
+        int64_t d = ptr + 6;
+        switch (i16(src + ptr + 4)) {
+        case 4:
+        case 11:
+        case 18:
+            break;
+        case 7: {  // SS2: word deltas
+            const int lines = i16(src + d);
+            d += 2;
+            int64_t y = 0;
+            int l = 0;
+            for (; l < lines && y < h; ++l, ++y) {
+                OOB(2);
+                int packets = i16(src + d);
+                d += 2;
+                while (packets & 0x8000) {
+                    if (packets & 0x4000) {
+                        y += 65536 - packets;
+                        if (y >= h) return -2;
+                    } else {
+                        out[y * w + w - 1] = uint8_t(packets);
+                    }
+                    OOB(2);
+                    packets = i16(src + d);
+                    d += 2;
+                }
+                uint8_t *row = out + y * w;
+                int64_t x = 0;
+                int p = 0;
+                for (; p < packets; ++p) {
+                    OOB(2);
+                    x += src[d];
+                    if (src[d + 1] >= 128) {
+                        OOB(4);
+                        const int64_t i = 256 - src[d + 1];
+                        if (x + 2 * i > w) break;
+                        for (int64_t j = 0; j < i; ++j) {
+                            row[x++] = src[d + 2];
+                            row[x++] = src[d + 3];
+                        }
+                        d += 4;
+                    } else {
+                        const int64_t i = 2 * int64_t(src[d + 1]);
+                        if (x + i > w) break;
+                        OOB(2 + i);
+                        std::memcpy(row + x, src + d + 2, size_t(i));
+                        d += 2 + i;
+                        x += i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (l < lines) return -2;
+            break;
+        }
+        case 12: {  // LC: byte deltas
+            int64_t y = i16(src + d);
+            const int64_t ymax = y + i16(src + d + 2);
+            d += 4;
+            for (; y < ymax && y < h; ++y) {
+                uint8_t *row = out + y * w;
+                OOB(1);
+                const int packets = src[d++];
+                int64_t x = 0, i = 0;
+                int p = 0;
+                for (; p < packets; ++p, x += i) {
+                    OOB(2);
+                    x += src[d];
+                    if (src[d + 1] & 0x80) {
+                        i = 256 - src[d + 1];
+                        if (x + i > w) break;
+                        OOB(3);
+                        std::memset(row + x, src[d + 2], size_t(i));
+                        d += 3;
+                    } else {
+                        i = src[d + 1];
+                        if (x + i > w) break;
+                        OOB(2 + i);
+                        std::memcpy(row + x, src + d + 2, size_t(i));
+                        d += 2 + i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (y < ymax) return -2;
+            break;
+        }
+        case 13:  // BLACK
+            std::memset(out, 0, size_t(w * h));
+            break;
+        case 15:  // BRUN: byte runs, every row
+            for (int64_t y = 0; y < h; ++y) {
+                uint8_t *row = out + y * w;
+                d += 1;  // the row's packet count, unused
+                int64_t x = 0, i = 0;
+                for (; x < w; x += i) {
+                    OOB(2);
+                    if (src[d] & 0x80) {
+                        i = 256 - src[d];
+                        if (x + i > w) break;
+                        OOB(i + 1);
+                        std::memcpy(row + x, src + d + 1, size_t(i));
+                        d += i + 1;
+                    } else {
+                        i = src[d];
+                        if (x + i > w) break;
+                        std::memset(row + x, src[d + 1], size_t(i));
+                        d += 2;
+                    }
+                }
+                if (x != w) return -2;
+            }
+            break;
+        case 16:  // COPY
+            if (d + w * h > ptr + left) return -1;
+            std::memcpy(out, src + d, size_t(w * h));
+            break;
+        default:
+            return -3;
+        }
+        const int64_t advance = i32(src + ptr);
+        if (advance == 0) return -4;
+        if (advance < 0 || advance > left) return -2;
+        ptr += advance;
+        left -= advance;
+    }
+#undef OOB
     return 0;
 }

@@ -11,7 +11,8 @@ swap the plain twins in with ``plain()`` to hold one against the other.
 pictures the large files are made of, ``dds_file`` DDS files of given
 headers and data, ``bcn_random_dds`` DDS files of seeded random blocks
 (every bit pattern is a block PIL decodes), ``large_file`` the path of a
-large fixture, writing the seeded ones it names, and the JPEG 2000 and
+large fixture, writing the seeded ones it names (``raster_files`` writes
+the Sun raster, FLC and Photo CD ones), and the JPEG 2000 and
 icon writers: ``j2k_segments`` and ``j2k_join`` split and rejoin a
 codestream's marker segments, ``jp2_file`` wraps a codestream in JP2
 boxes, ``dib`` and ``icon_file`` write ICO and CUR files of DIB or PNG
@@ -41,7 +42,8 @@ STAGES = (('io', '_png_unfilter'), ('jpeg', '_decode_scan'),
           ('dds', '_bcn'), ('qoi', '_qoi'), ('sgi', '_sgi_rle'),
           ('pcx', '_pcx_rle'), ('j2k', '_t1'), ('j2k', '_idwt53'),
           ('j2k', '_idwt97'), ('j2k', '_finish'), ('zstd', 'decompress'),
-          ('tiff', '_thunderscan'))
+          ('tiff', '_thunderscan'), ('sun', '_sun_rle'), ('msp', '_msp_rle'),
+          ('fli', '_fli_frame'))
 
 
 def _module(name: str):
@@ -281,14 +283,20 @@ def bcn_random_dds(w: int, h: int, dxgi: int, seed: int) -> bytes:
 def large_file(folder: str, name: str, entry: dict, workdir: str) -> str:
     """The path of the large fixture ``name`` of ``folder``'s digests
     (``entry`` its record): the file there, or, for an entry that names
-    its ``seeded`` random blocks, the file written into ``workdir``."""
+    its ``seeded`` content (random BCn blocks, or a ``kind`` of
+    ``raster_files.large_raster``), the file written into ``workdir``."""
     seeded = entry.get('seeded')
     if not seeded:
         return os.path.join(folder, name)
     path = os.path.join(workdir, name)
+    if 'kind' in seeded:
+        from .raster_files import large_raster
+        data = large_raster(seeded['kind'], seeded['side'], seeded['seed'])
+    else:
+        data = bcn_random_dds(seeded['side'], seeded['side'],
+                              seeded['dxgi'], seeded['seed'])
     with open(path, 'wb') as f:
-        f.write(bcn_random_dds(seeded['side'], seeded['side'],
-                               seeded['dxgi'], seeded['seed']))
+        f.write(data)
     return path
 
 

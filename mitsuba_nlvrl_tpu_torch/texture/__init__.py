@@ -11,9 +11,12 @@ side) makes a texture's row and loads its bitmap or volume.
 Bitmaps load without PIL: EXR by suffix through ``utils/io.read_exr``;
 any other file identified by content in PIL's order (``identify``) and
 decoded by the port's own PNG, JPEG, BMP, GIF, TIFF, PNM, TGA, WebP, DDS,
-QOI, SGI, PCX, JPEG 2000, ICO, CUR, ICNS and PSD readers (``utils/``) to
-the bytes of PIL's ``convert('RGB')``. A format PIL
-opens that the port does not read raises, naming its ROADMAP entry.
+QOI, SGI, PCX, JPEG 2000, ICO, CUR, ICNS, PSD, Sun raster, BLP, FTEX,
+FITS, SPIDER, IM, IMT, MSP, FLI/FLC, XBM, XPM, GBR, McIDAS, PIXAR, XV
+thumbnail, Photo CD, DCX and IPTC readers (``utils/``) to the bytes of
+PIL's ``convert('RGB')``; BUFR, GRIB, HDF5, MPEG, EPS and WMF raise as PIL
+raises (it opens them and cannot load them). AVIF, the one format PIL
+opens that the port does not read, raises, naming its ROADMAP entry.
 Lanes whose row is not a bitmap or a volume read a clamped, valid index
 (the reference relies on JAX clamping there); their value is masked out.
 """
@@ -32,17 +35,24 @@ def _pil_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
     """The 8-bit RGB that PIL's ``Image.convert('RGB')`` makes of an
     image PIL holds in ``mode`` (the decoders return it so): grey (``1``,
     ``L``, ``LA``) replicated; ``P`` and ``PA`` through the palette (an
-    index past its end reads black, as in PIL); the integer modes (``I``,
-    ``I;16``, ``I;16B``) clipped to 0..255; ``F`` clipped, then
-    truncated; alpha and padding dropped; ``CMYK`` by PIL's integer
-    formula (each of C, M, Y times 255 - K, over 255); ``LAB`` (PIL's
-    bytes: L, then a* and b* offset by 128) as PIL's LittleCMS transform
-    from its Lab profile to sRGB converts it (``utils/lab.py``)."""
+    index past its end reads black, as in PIL, and every index of an
+    image without one); the integer modes (``I``, ``I;16``, ``I;16L``,
+    ``I;16B``) clipped to 0..255; ``F`` clipped, then truncated; alpha
+    and padding dropped; ``CMYK`` by PIL's integer formula (each of C, M,
+    Y times 255 - K, over 255); ``LAB`` (PIL's bytes: L, then a* and b*
+    offset by 128) as PIL's LittleCMS transform from its Lab profile to
+    sRGB converts it (``utils/lab.py``); ``YCbCr`` through PIL's integer
+    tables (``utils/ycbcr.py``)."""
     if mode == 'LAB':
         from ..utils.lab import lab_to_rgb
         return lab_to_rgb(px)
+    if mode == 'YCbCr':
+        from ..utils.ycbcr import ycbcr_to_rgb
+        return ycbcr_to_rgb(px)
     if mode in ('P', 'PA'):
         idx = px if px.ndim == 2 else px[..., 0]
+        if palette is None:                      # PIL's default: none
+            palette = np.zeros((0, 3), np.uint8)
         pal = np.zeros((256, 3), np.uint8)
         n = min(len(palette), 256)
         pal[:n] = palette[:n, :3]
@@ -52,7 +62,7 @@ def _pil_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
         nk = 255 - c[..., 3:]
         t = c[..., :3] * nk + 128
         return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
-    if mode in ('I', 'I;16', 'I;16B'):
+    if mode in ('I', 'I;16', 'I;16L', 'I;16B'):
         grey = np.clip(px, 0, 255).astype(np.uint8)
     elif mode == 'F':
         grey = np.clip(np.nan_to_num(px, nan=0.0), 0, 255).astype(np.uint8)
@@ -78,9 +88,10 @@ def _png_mode(img: np.ndarray):
 
 # The formats PIL's ``Image.open`` tries, in its order: the five plugins
 # it loads first, then the rest as PIL registers them. Each row: name and
-# its test on the file's first 16 bytes (PIL's ``_accept``; ``None``: the
-# plugin has no test, and its header check stands in). PIL's DIB is a BMP
-# without its file header.
+# its test on the file's head (PIL's ``_accept``; ``None``: TGA, which has
+# no test, and its header check stands in; an ``_Opens``: a plugin PIL
+# tries by opening the file, whose open's checks stand in). PIL's DIB is
+# a BMP without its file header.
 def _u32(p: bytes, big: bool = False) -> int:
     return int.from_bytes(p[:4].ljust(4, b'\0'), 'big' if big else 'little')
 
@@ -95,6 +106,27 @@ def _gbr_opens(p: bytes) -> bool:
             _u32(p[16:], True) not in (1, 4):
         return False
     return _u32(p[4:], True) == 1 or (p[20:24] == b'GIMP' and len(p) >= 28)
+
+
+class _Opens:
+    """A plugin PIL tries by opening the file: ``utils.<module>.opens``
+    (path, head) says whether its open gets past its checks."""
+
+    def __init__(self, module: str):
+        self.module = module
+
+    def __call__(self, path: str, head: bytes) -> bool:
+        return importlib.import_module(f'..utils.{self.module}',
+                                       __package__).opens(path, head)
+
+
+def _mpeg_opens(p: bytes) -> bool:
+    """PIL's MPEG test, then its open's: 12-bit width and height both
+    nonzero."""
+    if p[:4] != b'\0\0\1\xb3' or len(p) < 7:
+        return False
+    bits = int.from_bytes(p[4:7], 'big')
+    return bits >> 12 > 0 and bits & 0xFFF > 0
 
 
 _OPEN_ORDER = [
@@ -127,17 +159,20 @@ _OPEN_ORDER = [
      p[:12] == b'\0\0\0\x0cjP  \r\n\x87\n'),
     ('ICNS', lambda p: p[:4] == b'icns'),
     ('ICO', lambda p: p[:4] == b'\0\0\1\0'),
-    ('IPTC', lambda p: p[:1] == b'\x1c' and p[1:2] != b'' and
-     p[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)),
+    ('IM', _Opens('im')),
+    ('IMT', _Opens('imt')),
+    ('IPTC', _Opens('iptc')),
     ('MCIDAS', lambda p: p[:8] == b'\0\0\0\0\0\0\0\4'),
-    ('MPEG', lambda p: p[:4] == b'\0\0\1\xb3'),
+    ('MPEG', _mpeg_opens),
     ('TIFF', lambda p: p[:4] in (b'MM\0*', b'II*\0', b'MM*\0', b'II\0*',
                                  b'MM\0+', b'II+\0')),
     ('MSP', lambda p: p[:4] in (b'DanM', b'LinS')),
+    ('PCD', _Opens('pcd')),
     ('PIXAR', lambda p: p[:4] == b'\x80\xe8\0\0'),
     ('PSD', lambda p: p[:4] == b'8BPS'),
     ('QOI', lambda p: p[:4] == b'qoif'),
     ('SGI', lambda p: p[:2] == b'\x01\xda'),
+    ('SPIDER', _Opens('spider')),
     ('SUN', lambda p: _u32(p, True) == 0x59A66A95),
     ('TGA', None),
     ('WEBP', lambda p: p[:4] == b'RIFF' and p[8:12] == b'WEBP' and
@@ -146,26 +181,32 @@ _OPEN_ORDER = [
      p[:4] == b'\1\0\0\0'),
     ('XBM', lambda p: p.lstrip()[:7] == b'#define'),
     ('XPM', lambda p: p[:9] == b'/* XPM */'),
-    ('XVTHUMB', lambda p: p[:9] == b'P7 332'),
+    ('XVThumb', lambda p: p[:6] == b'P7 332'),
 ]
 
 
 def identify(path: str) -> str:
     """The format PIL's ``Image.open`` finds for the file, by content:
-    the first plugin in PIL's order whose test passes (for GBR, also the
-    header checks its open makes before PIL moves on). Raises ``OSError``
-    (PIL's ``UnidentifiedImageError`` is one) when none does. TGA, which
-    has no signature, is tried where PIL tries it, by its header checks.
-    PIL also tries a few formats by opening them (IM, IMT, PCD, SPIDER);
-    a file of those is unidentified here. The names are PIL's formats:
-    ``_READERS`` maps those the port decodes besides PNG (``JPEG2000``
-    for JP2 files and raw codestreams, ``ICO``, ``CUR``, ``ICNS`` among
-    them; ``PSD`` for Photoshop files)."""
+    the first plugin in PIL's order whose test passes (for GBR and MPEG,
+    also the header checks their opens make before PIL moves on). Raises
+    ``OSError`` (PIL's ``UnidentifiedImageError`` is one) when none does.
+    TGA, which has no signature, is tried where PIL tries it, by its
+    header checks; IM, IMT, IPTC, PCD and SPIDER, which PIL tries by
+    opening them, by their opens' checks (``utils/im.py``, ``imt.py``,
+    ``iptc.py``, ``pcd.py``, ``spider.py``; the first 4 KiB of the file,
+    all of it where an IM, IMT or IPTC header needs it). The names are
+    PIL's formats: ``_READERS`` maps those the port decodes besides PNG
+    (``JPEG2000`` for JP2 files and raw codestreams, ``ICO``, ``CUR``,
+    ``ICNS`` among them; ``PSD`` for Photoshop files, ``XVThumb`` for XV
+    thumbnails) and ``_STUBS`` the six PIL opens and cannot load."""
     from ..utils.tga import is_tga
     with open(path, 'rb') as f:
-        head = f.read(28)
+        head = f.read(4096)
     for name, accept in _OPEN_ORDER:
-        if accept(head) if accept else is_tga(head):
+        if isinstance(accept, _Opens):
+            if accept(path, head):
+                return name
+        elif accept(head) if accept else is_tga(head):
             return name
     raise OSError(f"cannot identify image file '{path}'")
 
@@ -180,7 +221,22 @@ _READERS = {'JPEG': ('jpeg', 'read_jpeg_mode'), 'BMP': ('bmp', 'read_bmp'),
             'SGI': ('sgi', 'read_sgi'), 'PCX': ('pcx', 'read_pcx'),
             'JPEG2000': ('jp2', 'read_jpeg2000'), 'ICO': ('ico', 'read_ico'),
             'CUR': ('ico', 'read_cur'), 'ICNS': ('icns', 'read_icns'),
-            'PSD': ('psd', 'read_psd')}
+            'PSD': ('psd', 'read_psd'), 'SUN': ('sun', 'read_sun'),
+            'BLP': ('blp', 'read_blp'), 'FTEX': ('ftex', 'read_ftex'),
+            'FITS': ('fits', 'read_fits'),
+            'SPIDER': ('spider', 'read_spider'), 'IM': ('im', 'read_im'),
+            'IMT': ('imt', 'read_imt'), 'MSP': ('msp', 'read_msp'),
+            'FLI': ('fli', 'read_fli'), 'XBM': ('xbm', 'read_xbm'),
+            'XPM': ('xpm', 'read_xpm'), 'GBR': ('gbr', 'read_gbr'),
+            'MCIDAS': ('mcidas', 'read_mcidas'),
+            'PIXAR': ('pixar', 'read_pixar'),
+            'XVThumb': ('xvthumb', 'read_xvthumb'),
+            'PCD': ('pcd', 'read_pcd'), 'DCX': ('dcx', 'read_dcx'),
+            'IPTC': ('iptc', 'read_iptc')}
+# the formats PIL opens and cannot load here: each raises PIL's error
+_STUBS = {'BUFR': ('stubs', 'read_bufr'), 'GRIB': ('stubs', 'read_grib'),
+          'HDF5': ('stubs', 'read_hdf5'), 'MPEG': ('stubs', 'read_mpeg'),
+          'EPS': ('stubs', 'read_eps'), 'WMF': ('stubs', 'read_wmf')}
 
 
 def _decode(path: str):
@@ -189,10 +245,11 @@ def _decode(path: str):
     if fmt == 'PNG':
         from ..utils.io import read_png
         return _png_mode(read_png(path)) + (None,)
-    if fmt not in _READERS:
+    reader = _READERS.get(fmt) or _STUBS.get(fmt)
+    if reader is None:
         raise not_in_slice(f"bitmap '{path}' ({fmt})",
                            "item 12.7 (other bitmap formats)")
-    module, fn = _READERS[fmt]
+    module, fn = reader
     return getattr(importlib.import_module(f'..utils.{module}',
                                            __package__), fn)(path)
 
@@ -216,12 +273,20 @@ def load_bitmap(path: str, gamma: bool = True) -> np.ndarray:
     (uncompressed, BC1-BC7), QOI, SGI, PCX, JPEG 2000 (JP2 and raw
     codestreams: both wavelets, layers, tiles, offsets, every
     progression, the colour transforms, 1 to 16 bits, palettes), ICO and
-    CUR (PNG and BMP icons), ICNS (PNG, JPEG 2000 and the RLE icons) and
-    PSD (the composite image of every mode PIL opens, raw and RLE)
-    decode here. Another format PIL opens (AVIF, ...), or a JPEG 2000
-    feature outside the port, raises ``NotImplementedError`` naming
-    ROADMAP 12.7; a file PIL does not open raises ``OSError``, and what
-    PIL refuses otherwise raises PIL's exception class."""
+    CUR (PNG and BMP icons), ICNS (PNG, JPEG 2000 and the RLE icons),
+    PSD (the composite image of every mode PIL opens, raw and RLE), Sun
+    raster (1 to 32 bits, raw and RLE, colour maps), BLP (BLP1 JPEG and
+    palettes, BLP2 palettes and DXT1/3/5), FTEX (DXT1 and RGB), FITS
+    (BITPIX 8 to -64, ``GZIP_1`` tiles), SPIDER (both byte orders,
+    stacks), IM (every image type of PIL's table, LUTs, planar RGB), IMT,
+    MSP (versions 1 and 2), FLI/FLC (the first frame's chunks), XBM, XPM,
+    GBR, McIDAS, PIXAR, XV thumbnails, Photo CD (the base image), DCX and
+    IPTC decode here; IM, IMT, IPTC, PCD and SPIDER, which PIL finds by
+    opening them, are identified by their opens' checks. BUFR, GRIB,
+    HDF5, MPEG, EPS and WMF raise ``OSError`` as PIL does. AVIF, or a
+    JPEG 2000 feature outside the port, raises ``NotImplementedError``
+    naming ROADMAP 12.7; a file PIL does not open raises ``OSError``, and
+    what PIL refuses otherwise raises PIL's exception class."""
     if path.lower().endswith('.exr'):
         from ..utils.io import read_exr
         img, names = read_exr(path)

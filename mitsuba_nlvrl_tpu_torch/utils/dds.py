@@ -144,9 +144,11 @@ def _masked(data, pos, w, h, bitcount, masks, path) -> np.ndarray:
 
 
 def _bcn(src: bytes, w: int, h: int, n: int, signed: bool,
-         path: str = '') -> np.ndarray:
+         path: str = '', blp: bool = False) -> np.ndarray:
     """The (h, w, 4) RGBA samples of the BCn blocks ``src`` (``n``
-    1-7), in ``native/bitmap_bcn.cpp``. Fails as ``_bcn_plain`` does."""
+    1-7), in ``native/bitmap_bcn.cpp``; ``blp``: BC1-BC3 colours
+    expanded as PIL's BLP plugin does (5 and 6 bits shifted up, without
+    replicating their high bits). Fails as ``_bcn_plain`` does."""
     from ..native import bitmap_library, ptr
     bw, bh = -(-w // 4), -(-h // 4)
     need = bw * bh * _BLOCK_BYTES[n]
@@ -155,25 +157,28 @@ def _bcn(src: bytes, w: int, h: int, n: int, signed: bool,
     buf = np.frombuffer(src, np.uint8, need)
     out = np.empty((h, w, 4), np.uint8)
     if bitmap_library().mnt_bcn_decode(ptr(buf), buf.size, w, h, n,
-                                       int(signed), ptr(out)):
+                                       int(signed) | 2 * int(blp),
+                                       ptr(out)):
         raise _truncated(path)
     return out
 
 
 # --- the plain version -------------------------------------------------------
 
-def _565(c):
+def _565(c, blp=False):
     r, g, b = (c >> 11) & 31, (c >> 5) & 63, c & 31
+    if blp:
+        return np.stack([r << 3, g << 2, b << 3], -1)
     return np.stack([(r << 3) | (r >> 2), (g << 2) | (g >> 4),
                      (b << 3) | (b >> 2)], -1)
 
 
-def _bc1_colour(blk, four):
+def _bc1_colour(blk, four, blp=False):
     """(N, 16, 4) RGBA of BC1 colour blocks (N, 8); ``four``: every
     block in four-colour mode (BC2, BC3), else where c0 > c1."""
     c0 = blk[:, 0].astype(np.int64) | (blk[:, 1].astype(np.int64) << 8)
     c1 = blk[:, 2].astype(np.int64) | (blk[:, 3].astype(np.int64) << 8)
-    p0, p1 = _565(c0), _565(c1)
+    p0, p1 = _565(c0, blp), _565(c1, blp)
     is4 = np.ones_like(c0, bool) if four else c0 > c1
     p2 = np.where(is4[:, None], (2 * p0 + p1) // 3, (p0 + p1) // 2)
     p3 = np.where(is4[:, None], (p0 + 2 * p1) // 3, 0)
@@ -209,7 +214,7 @@ def _bc3_alpha(blk, signed=False):
 
 
 def _bcn_plain(src: bytes, w: int, h: int, n: int, signed: bool,
-               path: str = '') -> np.ndarray:
+               path: str = '', blp: bool = False) -> np.ndarray:
     """``_bcn`` in numpy and Python: BC1-BC5 over all blocks at once,
     BC6H and BC7 block by block."""
     bw, bh = -(-w // 4), -(-h // 4)
@@ -221,9 +226,9 @@ def _bcn_plain(src: bytes, w: int, h: int, n: int, signed: bool,
     N = len(blk)
     out = np.zeros((N, 16, 4), np.int64)
     if n == 1:
-        out = _bc1_colour(blk, False)
+        out = _bc1_colour(blk, False, blp)
     elif n in (2, 3):
-        out = _bc1_colour(blk[:, 8:], True)
+        out = _bc1_colour(blk[:, 8:], True, blp)
         if n == 2:
             a = np.unpackbits(blk[:, :8, None], axis=2, bitorder='little')
             a = a.reshape(N, 8, 2, 4)

@@ -28,7 +28,13 @@ def read_pcx(path: str):
     ``P`` ((H, W) and an (N, 3) palette for ``P``) or ``RGB``
     ((H, W, 3)), uint8."""
     with open(path, 'rb') as f:
-        data = f.read()
+        return decode_pcx(f.read(), path)
+
+
+def decode_pcx(data: bytes, path: str = ''):
+    """``read_pcx`` of a PCX file held in memory (``data`` runs to the
+    file's end, where the 256-colour palette is looked for; ``path``
+    names it in errors)."""
     if len(data) < 68 or data[0] != 10 or data[1] not in (0, 2, 3, 5):
         raise OSError(f"{path}: not a PCX file")
     x0, y0, x1, y1 = struct.unpack_from('<4H', data, 4)

@@ -47,6 +47,15 @@ milliseconds.
 
 The JPEG 2000 files are decoded through the plain stages by ``--stages``
 alone: their plain tier 1 takes minutes at 2,048 x 2,048.
+
+With ``--slice20`` (alone: no other file or stage; no PIL needed) it
+prints one line a stage of slice 20 (``slice20_rows``): the Sun raster
+RLE, the MSP row RLE, the FLI frame's chunks and BLP's DXT5 blocks, each
+on the calls that a seeded 2,048 x 2,048 file of ``testing/raster_files``
+hands it (written here: the Sun raster and the FLC of ``bitmaps_large``'s
+seeded entries, an MSP version 2 file of the picture thresholded, a BLP2
+DXT5 file of random blocks): native median of ``--reps``, plain once,
+beside the whole decode's native milliseconds.
 """
 from __future__ import annotations
 
@@ -349,6 +358,48 @@ def slice19_rows(workdir: str, reps: int) -> None:
               pil_ms, 'native_over_pil': pil_ms and whole_ms / pil_ms})
 
 
+def slice20_rows(workdir: str, reps: int) -> None:
+    """Slice 20's stages at 2,048^2 (see the module's docstring)."""
+    from mitsuba_nlvrl_tpu_torch.testing import raster_files
+    from mitsuba_nlvrl_tpu_torch.utils import dds, fli, msp, sun
+    with open(os.path.join(DATA, 'bitmaps_large',
+                           'pil_rgb_sha256.json')) as f:
+        digests = json.load(f)
+    paths = {name: bitmap_stages.large_file(
+        os.path.join(DATA, 'bitmaps_large'), name, digests[name], workdir)
+        for name in ('sun_rle_2048.ras', 'flc_brun_lc_ss2_2048.flc')}
+    pic = bitmap_stages.picture(2048, 2048, 0.0)
+    paths['msp_v2_2048.msp'] = os.path.join(workdir, 'msp_v2_2048.msp')
+    with open(paths['msp_v2_2048.msp'], 'wb') as f:
+        f.write(raster_files.msp_file((pic[..., 1] >= 128).astype(np.uint8)))
+    paths['blp2_dxt5_2048.blp'] = os.path.join(workdir, 'blp2_dxt5_2048.blp')
+    with open(paths['blp2_dxt5_2048.blp'], 'wb') as f:
+        f.write(raster_files.blp_file(
+            2, 2048, 2048, np.random.default_rng(20).integers(
+                0, 256, 512 * 512 * 16, dtype=np.uint8).tobytes(),
+            encoding=2, alpha=8, alpha_encoding=7))
+    rows = [('sun_rle', sun, '_sun_rle', 'sun_rle_2048.ras'),
+            ('msp_rle', msp, '_msp_rle', 'msp_v2_2048.msp'),
+            ('fli_frame', fli, '_fli_frame', 'flc_brun_lc_ss2_2048.flc'),
+            ('bcn_blp_dxt5', dds, '_bcn', 'blp2_dxt5_2048.blp')]
+    for name, module, stage, file in rows:
+        path = paths[file]
+        whole_ms, _ = timed(lambda: texture.read_rgb8(path), reps)
+        calls = captured(module, stage, path)
+
+        def run(fn):
+            for args in calls:
+                fn(*args)
+        native_ms, _ = timed(lambda: run(getattr(module, stage)), reps)
+        plain_ms, _ = timed(lambda: run(getattr(module, stage + '_plain')),
+                            1)
+        emit({'stage': name, 'side': 2048, 'file': file,
+              'calls': len(calls), 'bytes_in': sum(len(a[0]) for a in calls),
+              'native_ms': native_ms, 'plain_ms': plain_ms,
+              'plain_over_native': plain_ms / native_ms,
+              'whole_decode_native_ms': whole_ms})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--reps', type=int, default=3)
@@ -357,11 +408,17 @@ def main() -> None:
     ap.add_argument('--stages', action='store_true',
                     help="also time slice 16's to 19's stages "
                     "(slice 16's and 17's need PIL)")
+    ap.add_argument('--slice20', action='store_true',
+                    help="time slice 20's stages alone")
     args = ap.parse_args()
     emit({'host_cpu': native._cpu_model(), 'cpus': os.cpu_count(),
           'pil': Image is not None,
           'library': native.build(native.BITMAP_SOURCES, 'bitmap',
                                   'the bitmap decoders')})
+    if args.slice20:
+        with tempfile.TemporaryDirectory() as workdir:
+            slice20_rows(workdir, args.reps)
+        return
     texture.read_rgb8(os.path.join(DATA, 'bitmaps', 'picture64.png'))
     with tempfile.TemporaryDirectory() as workdir:
         for path, check in files(workdir):

@@ -34,6 +34,13 @@ library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
   * in ``../webp_large``, a 512x512 lossless and a 512x512 lossy WebP and
     ``pil_rgb_sha256.json``, the SHA-256 digest of PIL's RGB bytes of
     each (the decoders at a texture's size);
+  * the rest of PIL's raster formats (``_rest_files``: Sun raster, BLP,
+    FTEX, FITS, SPIDER, IM, IMT, MSP, FLI/FLC, XBM, XPM, GBR, McIDAS,
+    PIXAR, XV thumbnails, DCX, IPTC; those PIL cannot write by
+    ``testing/raster_files``), with ``picture64.ras`` and ``picture64.im``;
+    the files of those formats PIL refuses and one of each format PIL
+    opens and cannot load (BUFR, GRIB, HDF5, MPEG, EPS, WMF) in
+    ``../bitmaps_refused``;
   * in ``../bitmaps_large``, with ``--large`` alone, the files at
     textures' sizes (``testing/bitmap_stages.picture``): baseline and
     progressive 4:2:0 JPEG and lossy and lossless WebP at 2,048x2,048,
@@ -48,6 +55,17 @@ library for the WebP layouts PIL's ``save`` cannot ask for. It writes:
     an LZW TIFF of the JPEG's pixels (``testing/bitmap_stages.tiff_lzw``).
 
     python scripts/port_make_bitmaps.py --large
+
+Its seeded entries (DDS of random BCn blocks; a 2,048x2,048 RLE Sun
+raster, a 2,048x2,048 FLC of BRUN, LC and SS2 chunks and a Photo CD file,
+``raster_files.large_raster``) are not committed: the digests name their
+seeds. ``--rest`` writes only the rest of PIL's raster formats, the
+refused files and ``pil_rgb.npz``; ``--colour-tables`` prints the Photo
+CD and YCbCr tables that ``utils/pcd.py`` and ``utils/ycbcr.py`` hold,
+recovered from PIL's output.
+
+    python scripts/port_make_bitmaps.py --rest
+    python scripts/port_make_bitmaps.py --colour-tables
 """
 from __future__ import annotations
 
@@ -64,7 +82,7 @@ import struct
 import numpy as np
 from PIL import Image
 
-from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
+from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages, raster_files
 from mitsuba_nlvrl_tpu_torch.testing.bitmap_stages import picture
 
 H, W = 23, 37
@@ -843,10 +861,20 @@ def _slice19_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
     libtiff_write(os.path.join(out, 'picture64.zstd.tif'),
                   np.asarray(pic.convert('RGB')), 2, 50000,
                   tags=((317, 2),))
+    return [*made, *coded, 'picture64.zstd.tif']
+
+
+def _write_refused(rgb: np.ndarray, out: str) -> None:
+    """The files PIL refuses, into ../bitmaps_refused, and
+    ``pil_errors.json``: each one's exception class, where PIL raised it
+    (``open`` or ``load``) and, for a class of PIL's own, the builtin
+    class it derives from (``base``)."""
+    import builtins
     refused = os.path.join(os.path.dirname(out), 'bitmaps_refused')
     os.makedirs(refused, exist_ok=True)
     errors = {}
-    for name, data in _refused_files(rgb).items():
+    for name, data in {**_refused_files(rgb),
+                       **_rest_refused_files(rgb)}.items():
         path = os.path.join(refused, name)
         with open(path, 'wb') as f:
             f.write(data)
@@ -857,11 +885,14 @@ def _slice19_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
             im.convert('RGB')
         except Exception as e:          # noqa: BLE001 - the class is kept
             errors[name] = {'error': type(e).__name__, 'at': at}
+            if not hasattr(builtins, type(e).__name__):
+                errors[name]['base'] = next(
+                    c.__name__ for c in type(e).__mro__
+                    if getattr(builtins, c.__name__, None) is c)
         assert name in errors, f"PIL opens {name}"
     with open(os.path.join(refused, 'pil_errors.json'), 'w') as f:
         json.dump(errors, f, indent=1, sort_keys=True)
         f.write('\n')
-    return [*made, *coded, 'picture64.zstd.tif']
 
 
 def _sgi_rle(img: np.ndarray, bpc: int) -> bytes:
@@ -1508,6 +1539,269 @@ def _icon_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
     return [*writes, *made]
 
 
+def _rest_files(rgb: np.ndarray, pic: Image.Image, out: str) -> list:
+    """The rest of PIL's raster formats (``testing/raster_files`` writes
+    those PIL cannot): Sun raster at every depth, raw and RLE, with a
+    colour map; BLP1 and BLP2 palettes (PIL's and at alpha depths 0, 1, 4
+    and 8), BLP1 JPEG and BLP2 DXT1, DXT3 and DXT5; FTEX; FITS at every
+    BITPIX and GZIP_1; SPIDER in both byte orders (PIL writes its host's)
+    and a stack; IM of
+    every mode PIL writes and the planar, 2- and 4-bit, LUT and bit-packed
+    types it reads; IMT; MSP versions 1 and 2; FLI and FLC chunks; XBM;
+    XPM; GBR; McIDAS; PIXAR; an XV thumbnail; DCX; IPTC; and the picture
+    as a 24-bit RLE Sun raster and an RGB IM file. Their names."""
+    R = raster_files
+    rng = np.random.default_rng(20)
+    H, W = rgb.shape[:2]
+    grey = rgb[..., 1]
+    idx = (rgb[..., 0] // 4).astype(np.uint8)            # 64 levels
+    bits = (grey >= 128).astype(np.uint8)
+    colours = rng.integers(0, 256, (256, 3))
+    rgba = np.concatenate([rgb, rgb[..., 2:]], -1)
+    f32 = rgb[..., 0].astype(np.float32) * 1.5 - 60.0
+    f32[0, :4] = (254.6, 0.6, np.nan, -3.0)
+    p64 = np.asarray(pic.convert('RGB'))
+    made = {
+        'sun_1.ras': R.sun_file(bits, 1),
+        'sun_1_rle.ras': R.sun_file(bits, 1, 2),
+        'sun_4.ras': R.sun_file(idx & 15, 4),
+        'sun_4_palette_rle.ras': R.sun_file(idx & 15, 4, 2,
+                                            colours=colours[:16]),
+        'sun_8.ras': R.sun_file(grey, 8),
+        'sun_8_rle.ras': R.sun_file(grey // 16 * 16, 8, 2),
+        'sun_8_palette.ras': R.sun_file(idx, 8, 1, colours=colours[:64]),
+        'sun_24_bgr.ras': R.sun_file(rgb, 24),
+        'sun_24_rgb_type3.ras': R.sun_file(rgb, 24, 3),
+        'sun_32_rle.ras': R.sun_file(rgba, 32, 2),
+        'sun_32_rgb_type3.ras': R.sun_file(rgba, 32, 3),
+        'picture64.ras': R.sun_file(p64, 24, 2),
+        'ftex_dxt1.ftc': R.ftex_file(W, H, 0, rng.integers(
+            0, 256, -(-W // 4) * -(-H // 4) * 8, dtype=np.uint8).tobytes()),
+        'ftex_rgb.ftu': R.ftex_file(W, H, 1, rgb.tobytes()),
+        'fits_8.fits': R.fits_file(grey, 8),
+        'fits_16.fits': R.fits_file(grey.astype(np.int64) * 3 - 100, 16),
+        'fits_32.fits': R.fits_file(grey.astype(np.int64) * 5 - 300, 32),
+        'fits_f32.fits': R.fits_file(f32, -32),
+        'fits_f64.fits': R.fits_file(f32.astype(np.float64), -64),
+        'fits_gzip_8.fits': R.fits_file(grey, 8, gzip_tile=True),
+        'fits_gzip_16.fits': R.fits_file(grey.astype(np.int64) * 2, 16,
+                                         gzip_tile=True),
+        'imt.imt': R.imt_file(grey),
+        'msp_v2.msp': R.msp_file(bits),
+        'xpm_palette.xpm': R.xpm_file(idx, [
+            '#%02x%02x%02x' % tuple(c) for c in colours[:64]]),
+        'xpm_rgb.xpm': R.xpm_file(
+            (rgb[..., 0].astype(np.int64) * 300) // 256, [
+                '#%06x' % v for v in rng.integers(0, 1 << 24, 300)],
+            pixels_comment=False),
+        'gbr_v1.gbr': R.gbr_file(grey, 1),
+        'gbr_v2_grey.gbr': R.gbr_file(grey, 2),
+        'gbr_v2_rgba.gbr': R.gbr_file(rgba, 2),
+        'mcidas_8.area': R.mcidas_file(grey, 1),
+        'mcidas_16.area': R.mcidas_file(grey.astype(np.int64) * 3, 2,
+                                        prefix=4),
+        'mcidas_32.area': R.mcidas_file(grey.astype(np.int64) * 7 - 500, 4,
+                                        prefix=8, bands=2),
+        'pixar.pxr': R.pixar_file(rgb),
+        'xvthumb.xv': R.xvthumb_file(idx * 4),
+        'iptc_grey.iim': R.iptc_file(grey.tobytes(), W, H),
+        'iptc_rgb_band.iim': R.iptc_file(grey.tobytes(), W, H, 3, 1,
+                                         band=2),
+    }
+    jpeg = io.BytesIO()
+    Image.fromarray(grey).save(jpeg, 'JPEG', quality=90)
+    made['iptc_jpeg.iim'] = R.iptc_file(jpeg.getvalue(), W, H,
+                                        compression=5)
+    # FLI/FLC: a 256-colour (FLC) and a 64-level (FLI) palette, each chunk
+    a, b = idx.copy(), idx.copy()
+    b[2:8, 4:30] = 63
+    b[15, :] = 7
+    c = b.copy()
+    c[10:13, 2:36] = 40
+    c[20, 36] = 5
+    F, C = R.fli_frame, R.fli_chunk
+    made.update({
+        'fli_brun_colour64.fli': R.fli_file(W, H, [F([
+            R.fli_colour(colours[:64] >> 2 << 2, 2), R.fli_brun(a)])],
+            0xAF11),
+        'flc_lc_ss2.flc': R.fli_file(W, H, [F([
+            R.fli_colour(colours), R.fli_brun(a), R.fli_lc(a, b),
+            R.fli_ss2(b, c)])]),
+        'flc_copy_black_pstamp.flc': R.fli_file(W - 1, H, [F([
+            C(18, bytes(40)), R.fli_colour(colours[:100], skip=30),
+            C(13, b''), C(16, c[:, :W - 1].tobytes())])]),
+        'flc_ss2_even_width.flc': R.fli_file(W - 1, H, [F([
+            R.fli_colour(colours), R.fli_brun(a[:, :W - 1]),
+            R.fli_ss2(a[:, :W - 1], c[:, :W - 1])])]),
+    })
+    # IM types PIL reads but does not write
+    lut = colours.T.astype(np.uint8).tobytes()
+    ramp = np.tile(np.arange(255, -1, -1, dtype=np.uint8), 3).tobytes()
+    planar = np.ascontiguousarray(np.moveaxis(rgb[::-1], -1, 0))
+    packed12 = np.zeros((H, (W * 12 + 7) // 8), np.uint8)
+    for y in range(H):                 # 12-bit samples, LSB first, rows up
+        acc = 0
+        for x in range(W):
+            acc |= (int(grey[H - 1 - y, x]) * 16 + (x & 15)) << (12 * x)
+        packed12[y] = np.frombuffer(acc.to_bytes(packed12.shape[1],
+                                                 'little'), np.uint8)
+    made.update({
+        'im_rgb3_planar.im': R.im_file('RGB3', W, H, planar.tobytes()),
+        'im_b2.im': R.im_file('B2', W, H, np.packbits(
+            np.unpackbits(idx[::-1, :, None] & 3, axis=2)[..., 6:].reshape(
+                H, -1), axis=1).tobytes()),
+        # a colour LUT makes PIL read a B4 image a byte a pixel
+        'im_b4_lut.im': R.im_file('B4', W, H, idx[::-1].tobytes(), lut=lut),
+        'im_grey_lut_palette.im': R.im_file('Greyscale', W, H,
+                                            idx[::-1].tobytes(), lut=lut),
+        'im_grey_lut_ramp.im': R.im_file('Greyscale', W, H,
+                                         grey[::-1].tobytes(), lut=ramp),
+        'im_la_lut.im': R.im_file('LA', W, H, np.concatenate(
+            [idx[::-1], grey[::-1]], 1).tobytes(), lut=lut),
+        'im_f8s.im': R.im_file('L 8S', W, H, rgb[::-1, :, 0].tobytes()),
+        'im_f16.im': R.im_file('L 16S', W, H, (grey[::-1].astype('<i2') *
+                                                3 - 200).tobytes()),
+        'im_l12_bits.im': R.im_file('L*12', W, H, packed12.tobytes()),
+        'im_ycc.im': R.im_file('YCC', W, H, np.moveaxis(np.asarray(
+            Image.fromarray(rgb).convert('YCbCr'))[::-1], -1, 1).tobytes()),
+        'im_comments.im': R.im_file('RGB', W, H, np.moveaxis(
+            rgb[::-1], -1, 1).tobytes(), extra=[
+            b'Comment: made by numpy', b'Name: layout', b'Comment: two',
+            b'File size (no of images): 1', b'Scale (x,y): 1*1']),
+        'dcx_rgb.dcx': None, 'dcx_palette.dcx': None,
+    })
+    pcx_rgb, pcx_pal = io.BytesIO(), io.BytesIO()
+    Image.fromarray(rgb).save(pcx_rgb, 'PCX')
+    Image.fromarray(rgb).quantize(64).save(pcx_pal, 'PCX')
+    made['dcx_rgb.dcx'] = R.dcx_file([pcx_rgb.getvalue(),
+                                      pcx_pal.getvalue()])
+    made['dcx_palette.dcx'] = R.dcx_file([pcx_pal.getvalue()])
+    palette = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    for depth in (0, 1, 4, 8):
+        made[f'blp2_palette_alpha{depth}.blp'] = R.blp_file(
+            2, W, H, idx.tobytes(), alpha=depth, palette=palette)
+        made[f'blp1_palette_alpha{depth}.blp'] = R.blp_file(
+            1, W, H, idx.tobytes(), alpha=depth, palette=palette, encoding=5)
+    for ae, size, name in ((0, 8, 'dxt1'), (1, 16, 'dxt3'), (7, 16, 'dxt5')):
+        for depth in ((0, 1) if ae == 0 else (8,)):
+            made[f'blp2_{name}_alpha{depth}.blp'] = R.blp_file(
+                2, W, H, rng.integers(0, 256, -(-W // 4) * -(-H // 4) * size,
+                                      dtype=np.uint8).tobytes(),
+                encoding=2, alpha=depth, alpha_encoding=ae)
+    jpeg = io.BytesIO()
+    Image.fromarray(rgb).save(jpeg, 'JPEG', quality=90)
+    sos = jpeg.getvalue().find(b'\xff\xda')
+    for depth in (0, 8):
+        made[f'blp1_jpeg_alpha{depth}.blp'] = R.blp_file(
+            1, W, H, jpeg.getvalue()[sos:], compression=0, alpha=depth,
+            jpeg_header=jpeg.getvalue()[:sos])
+    for name, data in made.items():
+        with open(os.path.join(out, name), 'wb') as f:
+            f.write(data)
+    colour = Image.fromarray(rgb)
+    writes = {
+        'blp1_pil.blp': (colour.quantize(60), 'BLP', {'blp_version': 'BLP1'}),
+        'blp2_pil.blp': (colour.quantize(60), 'BLP', {}),
+        'blp2_pil_rgba.blp': (Image.fromarray(rgba, 'RGBA').quantize(60),
+                              'BLP', {}),
+        'spider.spi': (Image.fromarray(f32), 'SPIDER', {}),
+        'msp_v1.msp': (Image.fromarray(bits.astype(bool)), 'MSP', {}),
+        'xbm.xbm': (Image.fromarray(bits.astype(bool)), 'XBM', {}),
+        'xbm_hotspot.xbm': (Image.fromarray(bits.astype(bool)), 'XBM',
+                            {'hotspot': (3, 4)}),
+        'picture64.im': (pic.convert('RGB'), 'IM', {}),
+    }
+    for mode in ('1', 'L', 'LA', 'P', 'PA', 'I', 'F', 'RGB', 'RGBA', 'RGBX',
+                 'CMYK', 'YCbCr', 'I;16', 'I;16B', 'I;16L'):
+        im = colour.quantize(50) if mode in ('P', 'PA') else None
+        if mode == 'PA':
+            im = im.convert('PA')
+        if im is None:
+            raw = rng.integers(0, 256, W * H * 8, dtype=np.uint8).tobytes()
+            im = Image.frombytes(mode, (W, H), raw)
+        tag = mode.lower().replace(';', '')
+        writes[f'im_pil_{tag}.im'] = (im, 'IM', {})
+    for name, (im, fmt, kw) in writes.items():
+        im.save(os.path.join(out, name), fmt, **kw)
+    # SPIDER big-endian and a two-image stack, from PIL's (native order)
+    with open(os.path.join(out, 'spider.spi'), 'rb') as f:
+        spi = f.read()
+    hdr = int(struct.unpack('<27f', spi[:108])[21])
+    t = list(struct.unpack(f'<{hdr // 4}f', spi[:hdr]))
+    body = np.frombuffer(spi, '<f4', offset=hdr)
+    with open(os.path.join(out, 'spider_be.spi'), 'wb') as f:
+        f.write(struct.pack(f'>{len(t)}f', *t) + body.astype('>f4').tobytes())
+    t[23], t[25] = 2.0, 2.0                    # istack, maxim
+    img = list(t)
+    img[23], img[26] = 0.0, 1.0                # each image's own header
+    with open(os.path.join(out, 'spider_stack.spi'), 'wb') as f:
+        f.write(struct.pack(f'<{len(t)}f', *t) +
+                struct.pack(f'<{len(img)}f', *img) + body.tobytes() +
+                struct.pack(f'<{len(img)}f', *img) +
+                (body[::-1] * 0.5).astype('<f4').tobytes())
+    return [*made, *writes, 'spider_be.spi', 'spider_stack.spi']
+
+
+# the files of the rest of PIL's raster formats PIL refuses, and the six it
+# opens and cannot load
+def _rest_refused_files(rgb: np.ndarray) -> dict:
+    R = raster_files
+    H, W = rgb.shape[:2]
+    grey = rgb[..., 1]
+    bits = (grey >= 128).astype(np.uint8)
+    sun8 = R.sun_file(grey, 8, 2)
+    rows = R.msp_rows(bits)
+    rows[3] = rows[3][:-1]
+    fli = R.fli_file(W, H, [R.fli_frame([R.fli_brun(grey)])])
+    xbm = io.BytesIO()
+    Image.fromarray(bits.astype(bool)).save(xbm, 'XBM')
+    xpm = R.xpm_file(grey // 64, ['#000000', '#555555', '#aaaaaa',
+                                  '#ffffff'])
+    return {
+        **{f'stub.{fmt.lower()}': R.stub_file(fmt) for fmt in (
+            'BUFR', 'GRIB', 'HDF5', 'MPEG', 'EPS', 'WMF')},
+        'sun_depth16.ras': sun8[:12] + struct.pack('>I', 16) + sun8[16:],
+        'sun_type7.ras': sun8[:20] + struct.pack('>I', 7) + sun8[24:],
+        'sun_rle_truncated.ras': sun8[:-20],
+        'sun_rgb_colour_map.ras': R.sun_file(rgb, 24, 1,
+                                             colours=rgb[0, :10]),
+        'blp2_encoding3.blp': R.blp_file(2, W, H, bytes(1000), encoding=3),
+        'blp2_alpha_encoding3.blp': R.blp_file(
+            2, W, H, bytes(1000), encoding=2, alpha_encoding=3),
+        'blp2_palette_truncated.blp': R.blp_file(
+            2, W, H, grey.tobytes())[:-30],
+        'ftex_two_formats.ftc': R.ftex_file(W, H, 1, rgb.tobytes(),
+                                            formats=2),
+        'ftex_format3.ftc': R.ftex_file(W, H, 3, rgb.tobytes()),
+        'fits_gzip_float.fits': R.fits_file(grey.astype(np.float32), -32,
+                                            gzip_tile=True),
+        'fits_truncated.fits': R.fits_file(grey, 8)[:2880 + 400],
+        'im_rlb.im': R.im_file('RLB', W, H, rgb.tobytes()),
+        'im_truncated.im': R.im_file('Greyscale', W, H, grey.tobytes()[:99]),
+        'imt_no_form_feed.imt': R.imt_file(grey).replace(b'\x0c', b'\n'),
+        'msp_v2_short_row.msp': R.msp_file(bits, rows),
+        'msp_bad_checksum.msp': R.msp_file(bits)[:24] + b'\1\0' +
+        R.msp_file(bits)[26:],
+        'flc_prefix_chunk.flc': R.fli_file(W, H, [
+            R.fli_frame([], 0xF100), R.fli_frame([R.fli_brun(grey)])]),
+        'flc_unknown_chunk.flc': R.fli_file(W, H, [R.fli_frame([
+            R.fli_chunk(99, bytes(10))])]),
+        'flc_truncated.flc': fli[:-50],
+        'xbm_truncated.xbm': xbm.getvalue()[:-40],
+        'xpm_colour_name.xpm': xpm.replace(b'#000000', b'black'),
+        'xpm_none_used.xpm': xpm.replace(b'#000000', b'None'),
+        'gbr_truncated.gbr': R.gbr_file(grey, 2)[:-9],
+        'mcidas_depth3.area': R.mcidas_file(grey, 1)[:40] +
+        struct.pack('>i', 3) + R.mcidas_file(grey, 1)[44:],
+        'pixar_truncated.pxr': R.pixar_file(rgb)[:-9],
+        'xvthumb_truncated.xv': R.xvthumb_file(grey)[:-9],
+        'dcx_no_pages.dcx': R.dcx_file([]),
+        'iptc_compression9.iim': R.iptc_file(grey.tobytes(), W, H,
+                                             compression=9),
+        'iptc_band5.iim': R.iptc_file(grey.tobytes(), W, H, 4, 1, band=5),
+    }
+
+
 def _lzw_tiff_large(path: str, n: int) -> None:
     """An n x n LZW TIFF, predictor 2, of the picture posterised to steps
     of 8 (``picture``'s waves and discs, no noise)."""
@@ -1572,6 +1866,13 @@ LARGE_SEEDED = {
     'dds_bc1_random_2048.dds': (71, 2048, 1),
     'dds_bc7_random_2048.dds': (98, 2048, 7),
 }
+# files of ``raster_files.large_raster``: name -> (kind, side, seed); not
+# committed either
+LARGE_RASTER = {
+    'sun_rle_2048.ras': ('sun_rle', 2048, 3),
+    'flc_brun_lc_ss2_2048.flc': ('flc', 2048, 5),
+    'pcd_random.pcd': ('pcd', 768, 9),
+}
 
 
 # the files at textures' sizes: name -> (side, PIL's save arguments, the
@@ -1604,6 +1905,13 @@ def _bitmaps_large(out: str) -> None:
         digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
                          'shape': list(rgb.shape), 'seeded': {
                              'dxgi': dxgi, 'side': n, 'seed': seed}}
+    large_raster = raster_files.large_raster
+    for name, (kind, n, seed) in LARGE_RASTER.items():
+        rgb = np.asarray(Image.open(io.BytesIO(large_raster(
+            kind, n, seed))).convert('RGB'))
+        digests[name] = {'sha256': hashlib.sha256(rgb.tobytes()).hexdigest(),
+                         'shape': list(rgb.shape), 'seeded': {
+                             'kind': kind, 'side': n, 'seed': seed}}
     for name in [*LARGE, *LARGE_MADE]:
         path = os.path.join(out, name)
         if os.path.exists(path):
@@ -1627,6 +1935,105 @@ def _bitmaps_large(out: str) -> None:
         f.write('\n')
 
 
+# --- the colour tables of PIL's converters ---------------------------------
+
+def _offsets():
+    cb, cr = np.meshgrid(np.arange(256), np.arange(256), indexing='ij')
+
+    def conv(y):
+        px = np.stack([np.full_like(cb, y), cb, cr], -1).astype(np.uint8)
+        return np.asarray(Image.fromarray(px, 'YCbCr').convert('RGB')
+                          ).astype(np.int64)
+    lo, hi = conv(0), conv(255)
+    k = np.where(lo > 0, lo, hi - 255)          # Y + k, unclipped at one end
+    return k[0, :, 0], k[:, 0, 2], k[..., 1], conv
+
+
+def _lsq(cols, target, mask, sizes):
+    off = np.cumsum([0, *sizes])
+    a = np.zeros((int(mask.sum()), off[-1]))
+    r = np.arange(len(a))
+    for c, o in zip(cols, off):
+        a[r, o + c[mask]] = 1
+    return np.linalg.lstsq(a, target[mask].astype(float), rcond=None)[0]
+
+
+def _pcd_tables():
+    rng = np.random.default_rng(5)
+    ys, cbs, crs, rgbs = [], [], [], []
+    for _ in range(4):
+        ch = rng.integers(0, 256, (256, 2304), dtype=np.uint8)
+        rgbs.append(np.asarray(Image.open(io.BytesIO(
+            raster_files.pcd_file(ch))).convert('RGB')).reshape(
+            -1, 3).astype(np.int64))
+        y = np.empty((512, 768), np.int64)
+        y[0::2], y[1::2] = ch[:, :768], ch[:, 768:1536]
+        ys.append(y.ravel())
+        for dst, part in ((cbs, ch[:, 1536:1920]), (crs, ch[:, 1920:])):
+            dst.append(np.repeat(np.repeat(part.astype(np.int64), 2, 1), 2,
+                                 0).ravel())
+    y, cb, cr, rgb = (np.concatenate(v) for v in (ys, cbs, crs, rgbs))
+    n = 300000
+    inside = (rgb > 0) & (rgb < 255)
+    s = _lsq([y[:n], cr[:n]], rgb[:n, 0], inside[:n, 0], [256, 256])
+    lum = np.round(s[:256] - s[0]).astype(np.int64)
+    cr_t = np.round(s[256:] + s[0]).astype(np.int64)
+    s = _lsq([cb[:n]], rgb[:n, 2] - lum[y[:n]], inside[:n, 2], [256])
+    cb_t = np.round(s).astype(np.int64)
+    s = _lsq([cr[:n], cb[:n]], rgb[:n, 1] - lum[y[:n]], inside[:n, 1],
+             [256, 256])
+    gr = np.round(s[:256] - s[137]).astype(np.int64)
+    gb = np.round(s[256:] + s[137]).astype(np.int64)
+    got = np.stack([lum[y] + cr_t[cr], lum[y] + gr[cr] + gb[cb],
+                    lum[y] + cb_t[cb]], -1)
+    assert (np.clip(got, 0, 255) == rgb).all()
+    return {'L': lum, 'CR': cr_t, 'CB': cb_t, 'GR': gr, 'GB': gb}
+
+
+def _colour_tables() -> None:
+    """Print PIL's Photo CD YCC and YCbCr conversion tables, recovered
+    from its output, as ``utils/pcd.py`` and ``utils/ycbcr.py`` hold them.
+
+    Photo CD: PIL's ``pcd`` decoder computes ``R = L[Y] + CR[Cr]``,
+    ``G = L[Y] + GR[Cr] + GB[Cb]`` and ``B = L[Y] + CB[Cb]``, each clipped
+    to 0..255. Four Photo CD files of seeded random samples (1.5 million
+    pixels) are decoded, the unclipped sums solved by least squares
+    (``L[0]`` and ``GR[137]`` set to 0: only the sums matter), and the
+    integer tables checked against every pixel.
+
+    YCbCr: PIL's ``convert('RGB')`` computes ``R = Y + R_CR[Cr]``,
+    ``B = Y + B_CB[Cb]`` and ``G = Y + ((G_CB[Cb] + G_CR[Cr]) >> 6)``,
+    each clipped. Every (Cb, Cr) pair is converted at Y = 0 and Y = 255,
+    the offsets read where they are not clipped, ``R_CR`` and ``B_CB``
+    taken as they are and the difference constraints
+    ``64 k <= G_CB[Cb] + G_CR[Cr] <= 64 k + 63`` solved (Bellman-Ford,
+    started from the BT.601 coefficients) for the green tables, which
+    are checked against every (Y, Cb, Cr) of a few luma levels."""
+    for name, t in _pcd_tables().items():
+        print(f'{name} = np.array({t.tolist()})')
+    r_cr, b_cb, kg, conv = _offsets()
+    i = np.arange(256) - 128
+    a = np.round(-0.344136 * i * 64).astype(np.int64) + 64
+    y = -np.round(-0.714136 * i * 64).astype(np.int64)
+    for _ in range(10000):                     # y = -G_CR, a = G_CB
+        ny = np.minimum(y, (a[:, None] - 64 * kg).min(0))
+        na = np.minimum(a, (ny[None, :] + 64 * kg + 63).min(1))
+        if (ny == y).all() and (na == a).all():
+            break
+        a, y = na, ny
+    g_cb, g_cr = a, -y
+    for lum in (1, 64, 128, 200, 254):
+        want = conv(lum)
+        g = lum + ((g_cb[:, None] + g_cr[None, :]) >> 6)
+        got = np.stack([np.broadcast_to(lum + r_cr[None, :], g.shape), g,
+                        np.broadcast_to(lum + b_cb[:, None], g.shape)], -1)
+        assert (np.clip(got, 0, 255) == want).all(), lum
+    for name, t in (('R_CR', r_cr), ('B_CB', b_cb), ('G_CB', g_cb),
+                    ('G_CR', g_cr)):
+        print(f'{name} = np.array({t.tolist()})')
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--out', default=os.path.join(
@@ -1634,14 +2041,27 @@ def main() -> None:
         'bitmaps'))
     ap.add_argument('--large', action='store_true',
                     help="write only ../bitmaps_large")
+    ap.add_argument('--colour-tables', action='store_true',
+                    help="print PIL's Photo CD and YCbCr tables")
+    ap.add_argument('--rest', action='store_true',
+                    help="write only the rest of PIL's raster formats and "
+                         "the refused files, then pil_rgb.npz")
     args = ap.parse_args()
     out = os.path.normpath(args.out)
+    if args.colour_tables:
+        _colour_tables()
+        return
     if args.large:
         _bitmaps_large(os.path.join(os.path.dirname(out), 'bitmaps_large'))
         return
     os.makedirs(out, exist_ok=True)
     pic = _picture64()
     rgb = _layout_picture()
+    if args.rest:
+        _rest_files(rgb, pic, out)
+        _write_refused(rgb, out)
+        _store_pil_rgb(out)
+        return
     grey = Image.fromarray(rgb[..., 1], 'L')
     cmyk = Image.fromarray(np.concatenate([rgb, rgb[..., :1]], -1), 'CMYK')
     rgba = Image.fromarray(np.concatenate([rgb, rgb[..., 2:]], -1), 'RGBA')
@@ -1700,10 +2120,18 @@ def main() -> None:
     _openjpeg_files(rgb, out)
     _icon_files(rgb, pic, out)
     _slice19_files(rgb, pic, out)
+    _rest_files(rgb, pic, out)
+    _write_refused(rgb, out)
     for name, data in _webp_layouts(rgb, pic).items():
         with open(os.path.join(out, name), 'wb') as f:
             f.write(data)
     _webp_large(os.path.join(os.path.dirname(out), 'webp_large'))
+    _store_pil_rgb(out)
+
+
+def _store_pil_rgb(out: str) -> None:
+    """``pil_rgb.npz``: PIL's RGB bytes of every file in ``out``, each
+    under 16 KiB and the lossless copies of the picture equal."""
     ref = {}
     for name in sorted(os.listdir(out)):
         if name.endswith('.npz'):
@@ -1714,12 +2142,12 @@ def main() -> None:
         ref[name] = np.asarray(Image.open(path).convert('RGB'))
     first = ref['picture64.png']
     for ext in ('bmp', 'tga', 'gif', 'ppm', 'tif', 'webp', 'qoi', 'sgi',
-                'pcx', 'dds', 'jp2', 'ico', 'psd', 'zstd.tif'):
+                'pcx', 'dds', 'jp2', 'ico', 'psd', 'zstd.tif', 'ras', 'im'):
         assert (ref[f'picture64.{ext}'] == first).all(), ext
     np.savez_compressed(os.path.join(out, 'pil_rgb.npz'), **ref)
     total = sum(os.path.getsize(os.path.join(out, n))
                 for n in os.listdir(out))
-    assert total <= 1536 * 1024, total
+    assert total <= 2048 * 1024, total
     print(f"{len(ref)} files and pil_rgb.npz in {out}: {total} bytes")
 
 

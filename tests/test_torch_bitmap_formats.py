@@ -874,7 +874,7 @@ def test_tiff_layouts_left_name_their_roadmap_entry(tmp_path, name):
 
 @pytest.mark.parametrize('mode', ['1', 'L', 'LA', 'P', 'PA', 'I', 'I;16',
                                   'I;16B', 'F', 'RGB', 'RGBA', 'RGBX',
-                                  'CMYK'])
+                                  'CMYK', 'YCbCr', 'I;16L'])
 def test_pil_rgb_equals_convert(mode):
     """``_pil_rgb`` against PIL's ``convert('RGB')`` on random samples of
     each mode (palettes of 40 entries: indices past them read PIL's grey
@@ -890,13 +890,14 @@ def test_pil_rgb_equals_convert(mode):
                              pal).tobytes() == want.tobytes()
         return
     dtype, bands = {'I': (np.int32, 1), 'I;16': ('<u2', 1),
-                    'I;16B': ('>u2', 1), 'F': (np.float32, 1),
+                    'I;16B': ('>u2', 1), 'I;16L': ('<u2', 1),
+                    'YCbCr': (np.uint8, 3), 'F': (np.float32, 1),
                     '1': (np.uint8, 1), 'L': (np.uint8, 1),
                     'LA': (np.uint8, 2)}.get(mode, (np.uint8, len(mode)))
     if mode == 'F':
         px = rng.uniform(-50, 400, (H, W)).astype(np.float32)
         px[0, :4] = (254.999, 0.5, -0.5, 255.5)
-    elif mode in ('I', 'I;16', 'I;16B'):
+    elif mode in ('I', 'I;16', 'I;16B', 'I;16L'):
         px = rng.integers(-300 if mode == 'I' else 0, 65536,
                           (H, W)).astype(dtype)
     else:

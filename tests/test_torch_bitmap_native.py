@@ -24,8 +24,10 @@ random inputs, the colour transforms and level shift on seeded planes
 with the float path's edges), and of the Zstandard frames, ThunderScan
 data and word-aligned CCITT RLE strips of slice 19 (each stage equal to
 its twin on seeded inputs: ``zstandard``'s frames, a test-only package,
-and the coders of ``testing/bitmap_stages``). A failed compile raises
-with the compiler's message: there is no fallback.
+and the coders of ``testing/bitmap_stages``), and of the Sun raster RLE,
+MSP rows, FLI frames and BLP's DXT blocks of slice 20 (each stage equal
+to its twin on seeded inputs coded by ``testing/raster_files``). A failed
+compile raises with the compiler's message: there is no fallback.
 """
 import hashlib
 import json
@@ -41,8 +43,10 @@ from PIL import Image
 from mitsuba_nlvrl_tpu import texture as jtex
 from mitsuba_nlvrl_tpu_torch import native, texture as ptex
 from mitsuba_nlvrl_tpu_torch.testing import bitmap_stages
-from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, gif, io as pio, j2k,
-                                           jpeg, tiff, vp8, vp8l, webp, zstd)
+from mitsuba_nlvrl_tpu_torch.testing import raster_files
+from mitsuba_nlvrl_tpu_torch.utils import (ccitt, dds, fli, gif, io as pio,
+                                           j2k, jpeg, msp, sun, tiff, vp8,
+                                           vp8l, webp, zstd)
 
 torch.set_num_threads(1)   # one intra-op thread a test worker
 
@@ -394,6 +398,118 @@ def test_bcn_matches_plain(n, signed, w, h):
             fn(src[:-1], w, h, n, bool(signed))
 
 
+@pytest.mark.parametrize('n', [1, 2, 3])
+@pytest.mark.parametrize('w,h', [(1, 1), (5, 3), (37, 23), (64, 64)])
+def test_bcn_blp_matches_plain(n, w, h):
+    """BLP's DXT1, DXT3 and DXT5 colours (5 and 6 bits shifted up, as
+    PIL's BLP plugin expands them) on seeded random blocks."""
+    rng = np.random.default_rng(n * 100 + w)
+    src = rng.integers(0, 256, -(-w // 4) * -(-h // 4) *
+                       dds._BLOCK_BYTES[n], dtype=np.uint8).tobytes()
+    got = dds._bcn(src, w, h, n, False, '', True)
+    assert got.tobytes() == dds._bcn_plain(src, w, h, n, False, '',
+                                           True).tobytes()
+    assert got.tobytes() != dds._bcn(src, w, h, n, False).tobytes() or \
+        w * h == 1
+
+
+def _both(fns, *args):
+    """Each function's result, or its exception's type and message."""
+    out = []
+    for fn in fns:
+        try:
+            r = fn(*args)
+            out.append(r.tobytes() if isinstance(r, np.ndarray) else r)
+        except (OSError, ValueError) as e:
+            out.append((type(e), str(e)))
+    return out
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_sun_rle_matches_plain(seed):
+    """Seeded pictures coded by ``raster_files.sun_rle`` (runs across
+    rows, lone and repeated 0x80): both give the rows; seeded random data
+    and cuts: both fail alike or give the same rows."""
+    rng = np.random.default_rng(seed)
+    w, h = 17 + 13 * seed, 11 + seed
+    img = bitmap_stages.picture(max(w, h), seed)[:h, :w, 1] // 32 * 32
+    img[2:4] = 0x80
+    src = raster_files.sun_rle(img.tobytes())
+    assert sun._sun_rle(src, w, h).tobytes() == img.tobytes()
+    assert sun._sun_rle_plain(src, w, h).tobytes() == img.tobytes()
+    for k in range(20):
+        junk = src[:int(rng.integers(0, len(src)))] if k % 2 else \
+            rng.integers(0, 256, int(rng.integers(1, 300)),
+                         dtype=np.uint8).tobytes()
+        a, b = _both((sun._sun_rle, sun._sun_rle_plain), junk, w, h)
+        assert a == b, k
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_msp_rle_matches_plain(seed):
+    """Seeded bilevel pictures coded by ``raster_files.msp_rows`` (some
+    rows all white, so empty): both give the packed rows; seeded rows of
+    random bytes and random row lengths: both fail alike or give the same
+    stream."""
+    rng = np.random.default_rng(seed)
+    w, h = 40 + 9 * seed, 12 + seed
+    bits = (bitmap_stages.picture(w, seed)[:h, :w, 0] > 100).astype(
+        np.uint8)
+    bits[3] = 1
+    rows = raster_files.msp_rows(bits)
+    rowmap = np.array([len(r) for r in rows], np.int64)
+    nbytes = (w + 7) // 8
+    want = np.packbits(bits, axis=1).tobytes()
+    for fn in (msp._msp_rle, msp._msp_rle_plain):
+        assert fn(b''.join(rows), rowmap, nbytes, h * nbytes).tobytes() == \
+            want
+    for k in range(20):
+        src = rng.integers(0, 256, int(rng.integers(1, 400)),
+                           dtype=np.uint8).tobytes()
+        rmap = rng.integers(0, 40, h).astype(np.int64)
+        a, b = _both((msp._msp_rle, msp._msp_rle_plain), src, rmap,
+                     nbytes, h * nbytes)
+        assert a == b, k
+
+
+@pytest.mark.parametrize('seed', range(4))
+@pytest.mark.parametrize('odd', [0, 1])
+def test_fli_frame_matches_plain(seed, odd):
+    """Seeded frames of BRUN (with and without copies), LC, SS2, COPY
+    and BLACK chunks at odd and even widths: both give the picture the
+    chunks make; seeded cuts and byte flips of the frame: both fail alike
+    or give the same pixels."""
+    rng = np.random.default_rng(seed)
+    w, h = 30 + 2 * seed + odd, 19
+    a = bitmap_stages.picture(w, seed)[:h, :w, 2] // 16
+    b, c = a.copy(), a.copy()
+    b[3:9, 2:w - 3] = 77
+    c[:] = b
+    c[12:15, 1:w - 1] = 201
+    c[17, w - 1] = 9
+    chunks = [raster_files.fli_colour(rng.integers(0, 256, (256, 3))),
+              raster_files.fli_brun(a, copies=bool(seed & 1)),
+              raster_files.fli_lc(a, b), raster_files.fli_ss2(b, c),
+              raster_files.fli_chunk(18, bytes(20))]
+    frame = raster_files.fli_frame(chunks)
+    for fn in (fli._fli_frame, fli._fli_frame_plain):
+        assert fn(frame, w, h).tobytes() == c.tobytes()
+    black = raster_files.fli_frame([raster_files.fli_chunk(16, a.tobytes()),
+                                    raster_files.fli_chunk(13, b''),
+                                    raster_files.fli_chunk(18, bytes(8))])
+    for fn in (fli._fli_frame, fli._fli_frame_plain):
+        assert fn(black, w, h).tobytes() == bytes(w * h)
+    for k in range(30):
+        d = bytearray(frame)
+        if k % 3 == 0:
+            d = d[:int(rng.integers(0, len(d)))]
+        else:
+            for _ in range(int(rng.integers(1, 4))):
+                d[int(rng.integers(0, len(d)))] = int(rng.integers(0, 256))
+        x, y = _both((fli._fli_frame, fli._fli_frame_plain), bytes(d), w, h)
+        assert x == y, k
+
+
 @pytest.mark.parametrize('shape', [(1, 1), (1, 9), (9, 1), (64, 48),
                                    (256, 256)])
 def test_alpha_gradient_matches_plain(shape):
@@ -674,12 +790,14 @@ def test_corrupt_input_fails_as_the_plain_path(group, tmp_path):
                                    'jpeg_lossless', 'ccitt', 'bcn', 'qoi',
                                    'sgi_rle', 'pcx_rle', 'j2k_t1',
                                    'j2k_idwt53', 'j2k_idwt97', 'zstd',
-                                   'thunderscan', 'ccitt_rlew'))
+                                   'thunderscan', 'ccitt_rlew', 'sun_rle',
+                                   'msp_rle', 'fli_frame', 'bcn_blp'))
 def test_corrupt_stage_input_fails_as_the_plain_path(group, tmp_path):
     """An LZW stream, an alpha plane, a lossless scan, a CCITT strip
-    (word-aligned RLE among them), BCn blocks, QOI, SGI or PCX RLE data,
-    JPEG 2000 code-block data, a tile-component's wavelet coefficients, a
-    Zstandard frame or ThunderScan data cut short or with bytes flipped:
+    (word-aligned RLE among them), BCn blocks (BLP's among them), QOI,
+    SGI, PCX, Sun or MSP RLE data, an FLI frame, JPEG 2000 code-block
+    data, a tile-component's wavelet coefficients, a Zstandard frame or
+    ThunderScan data cut short or with bytes flipped:
     the native stage raises the plain twin's exception type or returns
     its bytes."""
     cases = _corrupt_cases(group, tmp_path)

@@ -449,20 +449,24 @@ def test_cpu_parallel_and_jpeg_load_no_jax(steps):
 
 
 def test_cpu_bitmap_formats_load_no_pil(steps):
-    """Slices 13, 14 and 16-19 (the BMP, TGA, PNM, GIF, TIFF with
+    """Slices 13, 14 and 16-20 (the BMP, TGA, PNM, GIF, TIFF with
     JPEG-in-TIFF, YCbCr, CCITT, old-style JPEG, CIELab, LZMA, Zstandard
     and ThunderScan, progressive and CMYK JPEG, WebP, DDS, QOI, SGI, PCX,
-    JPEG 2000, ICO, CUR, ICNS and PSD decoders behind
-    ``texture.read_rgb8``) decode every committed fixture to PIL's stored
-    bytes without PIL, ``zstandard``, JAX or the reference package
-    loaded."""
+    JPEG 2000, ICO, CUR, ICNS, PSD decoders and the rest of PIL's raster
+    formats behind ``texture.read_rgb8``) decode every committed fixture
+    to PIL's stored bytes without PIL, ``zstandard``, JAX or the
+    reference package loaded."""
     rec = _step(steps, 'bitmap_formats', (
         'utils.bmp', 'utils.tga', 'utils.pnm', 'utils.gif', 'utils.tiff',
         'utils.jpeg', 'utils.webp', 'utils.vp8', 'utils.vp8l',
         'utils.ccitt', 'utils.lab', 'utils.dds', 'utils.qoi', 'utils.sgi',
         'utils.pcx', 'utils.j2k', 'utils.jp2', 'utils.ico', 'utils.icns',
-        'utils.zstd', 'utils.psd'))
-    assert rec['out']['files'] >= 298
+        'utils.zstd', 'utils.psd', 'utils.sun', 'utils.blp', 'utils.ftex',
+        'utils.fits', 'utils.spider', 'utils.im', 'utils.imt', 'utils.msp',
+        'utils.fli', 'utils.xbm', 'utils.xpm', 'utils.gbr', 'utils.mcidas',
+        'utils.pixar', 'utils.xvthumb', 'utils.dcx', 'utils.iptc',
+        'utils.raw', 'utils.ycbcr'))
+    assert rec['out']['files'] >= 390
 
 
 def test_bvh_builder_raises_with_the_compilers_message(monkeypatch,

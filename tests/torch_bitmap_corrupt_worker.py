@@ -86,6 +86,15 @@ STAGE_GROUPS = {
         'tiff_thunderscan.tif', 'tiff_thunderscan_min_is_white.tif')),
     'ccitt_rlew': ('ccitt', 'decode', 'tiff.read_tiff', (
         'tiff_rlew.tif', 'tiff_rlew_odd_offset.tif')),
+    'sun_rle': ('sun', '_sun_rle', 'read_sun', (
+        'sun_8_rle.ras', 'sun_32_rle.ras', 'picture64.ras')),
+    'msp_rle': ('msp', '_msp_rle', 'read_msp', ('msp_v2.msp',)),
+    'fli_frame': ('fli', '_fli_frame', 'read_fli', (
+        'flc_lc_ss2.flc', 'fli_brun_colour64.fli',
+        'flc_copy_black_pstamp.flc', 'flc_ss2_even_width.flc')),
+    'bcn_blp': ('dds', '_bcn', 'blp.read_blp', (
+        'blp2_dxt1_alpha1.blp', 'blp2_dxt3_alpha8.blp',
+        'blp2_dxt5_alpha8.blp')),
 }
 
 
@@ -156,9 +165,9 @@ def _stage_inputs(import_module, stages, group, workdir) -> tuple:
 
 
 def _corrupt(arg, case: int, rng):
-    """An LZW stream, scan, CCITT strip, BCn blocks, RLE, Zstandard or
-    ThunderScan data or JPEG 2000 code-block data cut short or with bytes
-    flipped; an alpha plane's
+    """An LZW stream, scan, CCITT strip, BCn blocks, RLE (Sun's, MSP's
+    rows among them), an FLI frame, Zstandard or ThunderScan data or JPEG
+    2000 code-block data cut short or with bytes flipped; an alpha plane's
     or a tile-component's wavelet coefficients' rows cut or their bytes
     flipped."""
     if isinstance(arg, np.ndarray):
